@@ -1,0 +1,88 @@
+"""Shared CLI driver of the port's diffusion apps — counterpart of
+apps/_common.py: init grid, IC, timed loop, T_eff/Gpts printout.
+
+Several GPUs run under torchrun, one rank per GPU:
+
+    torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.diffusion_2d_perf
+
+Every rate printed on a GPU carries the card's name and power limit;
+a CPU run says that it measured the plain versions on the host.
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import subprocess
+
+
+def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
+    p = argparse.ArgumentParser(description=f"2D heat diffusion — {variant} variant")
+    p.add_argument("--nx", type=int, default=nx, help="global grid points, x")
+    p.add_argument("--ny", type=int, default=ny, help="global grid points, y")
+    p.add_argument("--nt", type=int, default=nt, help="time steps")
+    p.add_argument("--warmup", type=int, default=10, help="untimed steps")
+    p.add_argument("--dtype", default=dtype, choices=["f32", "f64", "bf16"])
+    p.add_argument("--dims", default=None,
+                   help="process grid, e.g. 2,2 (default: auto near-square)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda runs the hand kernels; cpu their plain versions")
+    return p
+
+
+def card_line() -> str | None:
+    """`name, power.limit` of GPU 0 as nvidia-smi reports them, or None."""
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return None
+    out = subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False,
+    )
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else None
+
+
+def run_app(variant: str, args) -> int:
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    distributed.maybe_initialize_distributed(args.device)
+    device = distributed.local_device(args.device)
+    me = distributed.rank()
+
+    def log0(msg):
+        if me == 0:
+            print(msg, flush=True)
+
+    dims = tuple(int(d) for d in args.dims.split(",")) if args.dims else None
+    cfg = DiffusionConfig(
+        global_shape=(args.nx, args.ny), lengths=(10.0, 10.0), nt=args.nt,
+        warmup=args.warmup, dtype=args.dtype, dims=dims,
+    )
+    model = HeatDiffusion(cfg, device=device)
+    grid = model.grid
+    if device.type == "cuda":
+        where = f"{torch.cuda.get_device_name(device)} (nvidia-smi: {card_line()})"
+    else:
+        where = "the host CPU (plain PyTorch versions, not a GPU measurement)"
+    log0(f"grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
+         f"({grid.nprocs} rank(s)) on {where}")
+    result = model.run(variant)
+    log0(
+        f"Executed {result.nt} steps ({result.warmup} warmup) in = "
+        f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
+        f"{result.gpts:.4f} Gpts/s) on {where}"
+    )
+    peak = result.T.float().max().reshape(1)
+    if distributed.is_distributed():
+        if peak.is_cuda and distributed.backend() == "gloo":
+            peak = peak.cpu()  # gloo carries CPU tensors only
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    log0(f"maximum(T) = {float(peak)}")
+    distributed.finalize()
+    return 0

@@ -1,0 +1,97 @@
+"""Configuration of a diffusion run — counterpart of rocm_mpi_tpu/config.py.
+
+Same fields, same validation, same stable time step. Two knobs are not
+ported yet and raise NotImplementedError when set away from their
+defaults: `halo_transport="host"` (the host-staged oracle transport) and
+any on-wire precision other than "f32" (ROADMAP.md lists both).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+DTYPES = {
+    "f32": torch.float32,
+    "f64": torch.float64,
+    "bf16": torch.bfloat16,
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
+}
+
+# Halo transport selector: "ici" sends device-resident slabs straight to
+# the collective (the reference's IGG_ROCMAWARE_MPI=1); "host" stages the
+# exchange through host memory (=0).
+HALO_TRANSPORT_ENV = "RMT_HALO_TRANSPORT"
+
+# The JAX package's on-wire halo precisions (rocm_mpi_tpu/parallel/wire.py
+# WIRE_MODES), kept here so the port validates the same names.
+WIRE_MODES = ("f32", "bf16", "int8", "int8_delta")
+
+
+def validate_wire_mode(mode: str) -> str:
+    """Unknown modes raise ValueError, as the JAX package does; known
+    reduced-precision modes are not ported yet."""
+    if mode not in WIRE_MODES:
+        raise ValueError(f"unknown wire_mode {mode!r}; known: {WIRE_MODES}")
+    if mode != "f32":
+        raise NotImplementedError(
+            f"wire_mode {mode!r} is not ported yet; only 'f32' runs"
+        )
+    return mode
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    """All knobs of a diffusion run (2D or 3D)."""
+
+    global_shape: tuple[int, ...] = (128, 128)
+    lengths: tuple[float, ...] = (10.0, 10.0)  # lx, ly
+    lam: float = 1.0  # thermal conductivity λ
+    cp0: float = 1.0  # heat capacity
+    nt: int = 1000  # time steps
+    warmup: int = 10  # steps excluded from timing
+    dtype: str = "f64"
+    dims: tuple[int, ...] | None = None  # process grid; None = auto
+    b_width: tuple[int, ...] = (32, 4)  # boundary frame width (hide)
+    do_vis: bool = False
+    halo_transport: str = dataclasses.field(
+        default_factory=lambda: os.environ.get(HALO_TRANSPORT_ENV, "ici")
+    )
+    wire_mode: str = "f32"
+
+    def __post_init__(self):
+        if len(self.lengths) != len(self.global_shape):
+            raise ValueError("lengths rank must match global_shape rank")
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+        if self.halo_transport not in ("ici", "host"):
+            raise ValueError("halo_transport must be 'ici' or 'host'")
+        if self.halo_transport == "host":
+            raise NotImplementedError(
+                "halo_transport='host' (the host-staged oracle transport) "
+                "is not ported yet"
+            )
+        validate_wire_mode(self.wire_mode)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.global_shape)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @property
+    def spacing(self) -> tuple[float, ...]:
+        return tuple(l / n for l, n in zip(self.lengths, self.global_shape))
+
+    @property
+    def dt(self) -> float:
+        """Stable explicit time step: min(h²)·cp0/λ/(2·ndim + 0.1) — the
+        reference's 2D /4.1 generalised to N dimensions."""
+        h2 = min(d * d for d in self.spacing)
+        return h2 * self.cp0 / self.lam / (2 * self.ndim + 0.1)

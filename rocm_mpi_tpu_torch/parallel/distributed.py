@@ -1,0 +1,84 @@
+"""Process-group setup — counterpart of rocm_mpi_tpu/parallel/distributed.py.
+
+One process per GPU, as the reference runs one MPI rank per GPU. The
+halo exchange rides the default process group: NCCL for CUDA tensors
+(device to device, the CUDA-aware-MPI path) and gloo for CPU tensors.
+A gloo group that is handed CUDA tensors stages each slab through host
+memory (parallel/halo.py); that is how several ranks share one card.
+
+Ranks come either from `torchrun` (RANK, WORLD_SIZE, MASTER_ADDR,
+MASTER_PORT, LOCAL_RANK in the environment; `maybe_initialize_distributed`)
+or from an explicit address, world size and rank (`init_distributed`, used
+by parallel/launcher.spawn_ranks).
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+
+def default_backend(device_type: str) -> str:
+    return "nccl" if device_type == "cuda" else "gloo"
+
+
+def init_distributed(rank: int, world_size: int, init_method: str,
+                     backend: str) -> None:
+    """Join the default process group at `init_method` (e.g.
+    tcp://localhost:PORT)."""
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size)
+
+
+def maybe_initialize_distributed(device_type: str = "cuda") -> bool:
+    """Join the process group `torchrun` describes, when it describes one
+    with more than one rank; binds this rank's GPU first on CUDA. Returns
+    True when running distributed. Idempotent."""
+    if dist.is_available() and dist.is_initialized():
+        return True
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    if device_type == "cuda":
+        torch.cuda.set_device(local_device("cuda"))
+    dist.init_process_group(default_backend(device_type), init_method="env://")
+    # One collective over every rank first: NCCL then sets up its
+    # communicator before the halo exchange's point-to-point batches, in
+    # which ranks at the domain edge post fewer operations.
+    dist.barrier()
+    return True
+
+
+def is_distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_distributed() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_distributed() else 1
+
+
+def backend() -> str | None:
+    return dist.get_backend() if is_distributed() else None
+
+
+def local_device(device_type: str) -> torch.device:
+    """This rank's device: cuda:(LOCAL_RANK mod card count), or the CPU."""
+    if device_type != "cuda":
+        return torch.device("cpu")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def barrier() -> None:
+    if is_distributed():
+        dist.barrier()
+
+
+def finalize() -> None:
+    if is_distributed():
+        dist.destroy_process_group()

@@ -1,0 +1,217 @@
+"""Global grid and cartesian process grid — counterpart of
+rocm_mpi_tpu/parallel/mesh.py.
+
+One rank per GPU, as the reference binds one MPI rank per GPU. Rank r
+holds the shard at cartesian coordinates `np.unravel_index(r, dims)` —
+the position device r takes in the JAX package's mesh
+(`np.asarray(devices).reshape(dims)`), so dims, local shapes, coordinates
+and shard bounds agree rank for rank. Shards do not overlap; ghost cells
+live only in the padded buffer of each exchange (parallel/halo.py).
+Cell i along an axis of n cells and length l has its centre at
+(i + 0.5)·l/n.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Sequence
+
+import numpy as np
+import torch
+
+AXIS_NAMES = ("gx", "gy", "gz")
+
+
+def suggest_dims(nprocs: int, ndim: int) -> tuple[int, ...]:
+    """Factor `nprocs` into `ndim` near-equal factors, largest first
+    (the MPI_Dims_create analog)."""
+    if nprocs < 1:
+        raise ValueError(f"nprocs must be >= 1, got {nprocs}")
+    if ndim < 1:
+        raise ValueError(f"ndim must be >= 1, got {ndim}")
+    dims = [1] * ndim
+    remaining = nprocs
+    for i in range(ndim - 1):
+        ideal = round(remaining ** (1.0 / (ndim - i)))
+        f = 1
+        for cand in range(min(remaining, max(ideal, 1)), 0, -1):
+            if remaining % cand == 0:
+                f = cand
+                break
+        dims[i] = f
+        remaining //= f
+    dims[ndim - 1] = remaining
+    dims.sort(reverse=True)
+    return tuple(dims)
+
+
+def plan_dims(global_shape: Sequence[int], max_devices: int) -> tuple[int, ...]:
+    """The largest process grid over at most `max_devices` ranks whose
+    near-square factorisation divides every grid axis."""
+    if max_devices < 1:
+        raise ValueError(f"max_devices must be >= 1, got {max_devices}")
+    ndim = len(global_shape)
+    for p in range(int(max_devices), 0, -1):
+        dims = suggest_dims(p, ndim)
+        if all(n % d == 0 for n, d in zip(global_shape, dims)):
+            return dims
+    raise AssertionError("unreachable: p=1 divides every shape")
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalGrid:
+    """A global cartesian grid of cells split over a process grid, seen
+    from one rank (`rank`)."""
+
+    global_shape: tuple[int, ...]
+    lengths: tuple[float, ...]
+    dims: tuple[int, ...]
+    rank: int = 0
+
+    def __post_init__(self):
+        if len(self.dims) != len(self.global_shape):
+            raise ValueError(
+                f"global_shape {self.global_shape} rank != dims {self.dims}"
+            )
+        if len(self.lengths) != len(self.global_shape):
+            raise ValueError("lengths rank must match global_shape rank")
+        for n, d, name in zip(self.global_shape, self.dims, self.axis_names):
+            if n % d != 0:
+                raise ValueError(
+                    f"global size {n} along '{name}' not divisible by mesh dim {d}"
+                )
+        if not 0 <= self.rank < self.nprocs:
+            raise ValueError(f"rank {self.rank} outside a grid of {self.nprocs}")
+
+    # ---- topology -------------------------------------------------------
+
+    @property
+    def ndim(self) -> int:
+        return len(self.global_shape)
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return AXIS_NAMES[: self.ndim]
+
+    @property
+    def nprocs(self) -> int:
+        return math.prod(self.dims)
+
+    def rank_coords(self, rank: int) -> tuple[int, ...]:
+        """Cartesian coordinates of `rank` in the process grid."""
+        return tuple(int(c) for c in np.unravel_index(rank, self.dims))
+
+    def coords_rank(self, coords) -> int | None:
+        """Rank at `coords`, or None outside the process grid."""
+        if not all(0 <= c < d for c, d in zip(coords, self.dims)):
+            return None
+        return int(np.ravel_multi_index(tuple(coords), self.dims))
+
+    @property
+    def coords(self) -> tuple[int, ...]:
+        return self.rank_coords(self.rank)
+
+    def neighbor(self, axis: int, direction: int) -> int | None:
+        """Rank one step along `axis` (direction ±1), None at the domain
+        edge (non-periodic)."""
+        c = list(self.coords)
+        c[axis] += direction
+        return self.coords_rank(c)
+
+    # ---- shards ---------------------------------------------------------
+
+    @property
+    def local_shape(self) -> tuple[int, ...]:
+        return tuple(n // d for n, d in zip(self.global_shape, self.dims))
+
+    def shard_bounds(self, rank: int | None = None) -> tuple[tuple[int, int], ...]:
+        """(start, stop) of `rank`'s shard (default this rank) per axis."""
+        coords = self.rank_coords(self.rank if rank is None else rank)
+        return tuple(
+            (c * ln, (c + 1) * ln) for c, ln in zip(coords, self.local_shape)
+        )
+
+    def shard_slices(self, rank: int | None = None) -> tuple[slice, ...]:
+        return tuple(slice(a, b) for a, b in self.shard_bounds(rank))
+
+    # ---- geometry -------------------------------------------------------
+
+    @property
+    def spacing(self) -> tuple[float, ...]:
+        return tuple(l / n for l, n in zip(self.lengths, self.global_shape))
+
+    def cell_centers(self, axis: int, dtype=torch.float64, device=None) -> torch.Tensor:
+        """Global cell-centre coordinates along `axis`."""
+        n = self.global_shape[axis]
+        d = self.spacing[axis]
+        return (torch.arange(n, dtype=dtype, device=device) + 0.5) * d
+
+    def coord_mesh(self, dtype=torch.float64, device=None) -> tuple[torch.Tensor, ...]:
+        """Broadcastable global coordinate tensors, one per axis."""
+        out = []
+        for ax in range(self.ndim):
+            shape = [1] * self.ndim
+            shape[ax] = self.global_shape[ax]
+            out.append(self.cell_centers(ax, dtype, device).reshape(shape))
+        return tuple(out)
+
+    def local_coord_mesh(self, dtype=torch.float64, device=None) -> tuple[torch.Tensor, ...]:
+        """This rank's slice of `coord_mesh`: the global centres computed
+        in `dtype` and cut to the shard, so every rank's values equal the
+        corresponding entries of the global coordinates."""
+        out = []
+        for ax, (a, b) in enumerate(self.shard_bounds()):
+            shape = [1] * self.ndim
+            shape[ax] = b - a
+            out.append(self.cell_centers(ax, dtype, device)[a:b].reshape(shape))
+        return tuple(out)
+
+
+def init_global_grid(
+    *global_shape: int,
+    lengths: Sequence[float] | None = None,
+    dims: Sequence[int] | None = None,
+    nprocs: int | None = None,
+    rank: int | None = None,
+) -> GlobalGrid:
+    """Build this rank's view of a GlobalGrid.
+
+    `nprocs` and `rank` default to the process group's world size and
+    rank (1 and 0 without one). Trailing size-1 axes are dropped (the
+    reference's `nz=1` idiom). `dims=None` picks the near-square
+    factorisation of `nprocs`, shrunk to divide the grid (with a warning
+    when ranks are left out, as the JAX package warns about devices).
+    """
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    shape = tuple(int(n) for n in global_shape)
+    while len(shape) > 1 and shape[-1] == 1:
+        shape = shape[:-1]
+        if dims is not None and len(dims) == len(shape) + 1 and dims[-1] == 1:
+            dims = tuple(dims)[:-1]
+    ndim = len(shape)
+    if lengths is None:
+        lengths = (10.0,) * ndim
+    lengths = tuple(float(l) for l in lengths)
+    if nprocs is None:
+        nprocs = distributed.world_size()
+    if rank is None:
+        rank = distributed.rank()
+    if dims is None:
+        dims = suggest_dims(nprocs, ndim)
+        dims = tuple(d if n % d == 0 else math.gcd(n, d) for n, d in zip(shape, dims))
+        used = math.prod(dims)
+        if used < nprocs:
+            warnings.warn(
+                f"global shape {shape} is not divisible by the natural "
+                f"{suggest_dims(nprocs, ndim)} process grid; shrunk to dims "
+                f"{dims}, using {used} of {nprocs} ranks. Pass a divisible "
+                f"shape (or explicit dims=) to use every rank.",
+                stacklevel=2,
+            )
+    dims = tuple(int(d) for d in dims)
+    if math.prod(dims) > nprocs:
+        raise ValueError(f"dims {dims} need {math.prod(dims)} ranks, have {nprocs}")
+    return GlobalGrid(global_shape=shape, lengths=lengths, dims=dims, rank=rank)

@@ -1,0 +1,54 @@
+"""One rank of the port's multi-rank CPU checks (gloo), started by
+rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
+tests/test_torch_distributed.py; it holds no tests itself. Imports torch
+and the port only, so a spawned rank starts fast; the parent holds the
+results against the JAX package."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def global_field(shape, seed=0):
+    return np.random.default_rng(seed).random(shape)
+
+
+def run_rank(rank, spec):
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel import distributed
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+    from rocm_mpi_tpu_torch.state import state_from_numpy
+
+    torch.set_num_threads(1)
+    assert distributed.rank() == rank and distributed.world_size() == spec["nprocs"]
+    out = {"halo": {}, "runs": {}, "from_jax": {}, "launches": None}
+
+    for key, (shape, dims) in spec["halo_cases"].items():
+        grid = init_global_grid(*shape, dims=dims)
+        G = global_field(shape)
+        u = torch.from_numpy(np.ascontiguousarray(G[grid.shard_slices()]))
+        out["halo"][key] = exchange_halo(u, grid).numpy()
+
+    shape, dims = spec["shape"], spec["dims"]
+    kernels.reset_launches()
+    for dtype, variant in spec["runs"]:
+        cfg = DiffusionConfig(global_shape=shape, nt=spec["nt"], warmup=spec["warmup"],
+                              dtype=dtype, dims=dims)
+        model = HeatDiffusion(cfg, device="cpu")
+        res = model.run(variant)
+        out["runs"][(dtype, variant)] = gather_to_host0(res.T, model.grid)
+    out["launches"] = dict(kernels.LAUNCHES)
+
+    # Start from the JAX package's state, carried across as numpy.
+    for dtype, (T0, Cp) in spec["jax_states"].items():
+        cfg = DiffusionConfig(global_shape=shape, dtype=dtype, dims=dims)
+        model = HeatDiffusion(cfg, device="cpu")
+        T, C = state_from_numpy(T0, Cp, model.grid, device="cpu")
+        T = model.advance_fn("perf")(T, C, spec["nt"])
+        out["from_jax"][dtype] = gather_to_host0(T, model.grid)
+    return out
