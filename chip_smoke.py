@@ -2,28 +2,46 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 5 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2, 6 and 7 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
-the target). Phases, printed as they run:
+the target). Phases, printed as they run (about a minute on one H100
+80GB HBM3, the build included):
 
 1. environment — torch, CUDA and nvcc versions, the card's name and power
    limit (nvidia-smi);
-2. build — nvcc builds every kernel of the perf path from csrc/;
-3. kernels — each kernel at the perf path's shapes, in f32, f64 and bf16,
-   held bitwise against its plain PyTorch version on the card, and timed
-   with CUDA events (median) beside the plain version and its bound;
+2. build — nvcc builds every csrc/*.cu, one process per source, all
+   started together;
+3. kernels — each kernel at the main paths' shapes, in f32, f64 and bf16
+   (and multi_step_cm's other body forms in f32), and each on a small 3D
+   block, held bitwise against its plain PyTorch version on the card, and
+   timed with CUDA events (median) beside the plain version and its bound;
 4. main path, one GPU — HeatDiffusion.run("perf") at 12288² f32 for 1000
    steps and at 252² f32: every step one masked_step launch, the field
    bitwise equal to the plain versions' run of the same steps, and the
    252² field within the analytic Gaussian bound;
-5. main path, sharded — the 2×2 perf path (halo exchange + fused_step_cm)
+5. multi-step schedules, one GPU — run_vmem_resident at 252² (256 warmup
+   + 4096 timed steps, chunk 256), run_deep at 252² (32 + 1024, k = 32,
+   vmem route), run_hbm_blocked at 12288² (16 + 1000, k = 8) and run_deep
+   at 12288² (16 + 1000, k = 8, hbm-tb route), all f32: each asserts its
+   route, k and launch count, is bitwise equal to the same schedule run
+   through the plain versions on the card, and prints ms/step, effective
+   T_eff and Gpts/s; the 252² results stay within the analytic Gaussian
+   bound;
+6. main path, sharded — the 2×2 perf path (halo exchange + fused_step_cm)
    run by 4 ranks that share this one card over a gloo group (halo slabs
    staged through host memory): every step one fused_step_cm launch per
    rank, each shard bitwise equal to the plain versions' run, the gathered
    field bitwise equal to the same kernel run over the whole zero-padded
-   domain on one GPU. With `--gpus 4` the same phase runs one rank per
-   GPU over NCCL, for 1000 steps, and the other phases are skipped.
+   domain on one GPU;
+7. deep schedule, sharded — run_deep on the 2×2 grid of 12288² (k = 8,
+   hbm-tb route on 6160² padded shards) by the same 4 ranks over gloo,
+   16 + 32 steps: each shard bitwise equal to its plain-version run, the
+   gathered field bitwise equal to the one-GPU run_deep of the same k.
+
+With `--gpus 4` phases 6 and 7 run one rank per GPU over NCCL (phase 6
+for 1000 steps after 10 warmup, phase 7 for 1000 after 16), and phases
+3-5 are skipped.
 
 Then it prints the card line, one JSON line describing every kernel, and
 last `{"ok": true, "device": {...}}`. Any failed phase raises: the script
@@ -56,13 +74,61 @@ PEAKS = (
 
 BIG, SMALL = (12288, 12288), (252, 252)
 BLOCK = (6144, 6144)  # one rank's block of a 2×2 decomposition of 12288²
+DEEP_SMALL = (316, 316)  # 252² grown by the k = 32 deep ghosts
+TB_BIG = (12304, 12304)  # 12288² grown by the k = 8 deep ghosts
+TB_BLOCK = (6160, 6160)  # a 6144² shard grown by the k = 8 deep ghosts
+SMALL_3D = (96, 64, 48)
 KERNELS = {
-    # name: (source line of the TPU kernel it replaces, shapes it runs at)
-    "masked_step": ("rocm_mpi_tpu/ops/pallas_kernels.py:1191", (SMALL, BIG)),
-    "fused_step_cm": ("rocm_mpi_tpu/ops/pallas_kernels.py:290", (SMALL, BLOCK)),
+    # name: (source line of the TPU kernel it replaces, CUDA source)
+    "masked_step": ("rocm_mpi_tpu/ops/pallas_kernels.py:1191", "stencil.cu"),
+    "fused_step_cm": ("rocm_mpi_tpu/ops/pallas_kernels.py:290", "stencil.cu"),
+    "multi_step_cm": ("rocm_mpi_tpu/ops/pallas_kernels.py:566", "multistep.cu"),
+    "tb_sweep": ("rocm_mpi_tpu/ops/pallas_kernels.py:889", "multistep.cu"),
+}
+ALL_DTYPES = ("f32", "f64", "bf16")
+# Kernel cases: (kernel, block shape, steps per launch, body form, dtypes).
+KERNEL_CASES = [
+    ("masked_step", SMALL, 1, "direct", ALL_DTYPES),
+    ("masked_step", BIG, 1, "direct", ALL_DTYPES),
+    ("fused_step_cm", SMALL, 1, "direct", ALL_DTYPES),
+    ("fused_step_cm", BLOCK, 1, "direct", ALL_DTYPES),
+    ("multi_step_cm", DEEP_SMALL, 32, "eqc", ALL_DTYPES),
+    ("multi_step_cm", SMALL, 256, "eqc", ALL_DTYPES),
+    ("multi_step_cm", DEEP_SMALL, 32, "direct", ("f32",)),
+    ("multi_step_cm", DEEP_SMALL, 32, "ac", ("f32",)),
+    ("multi_step_cm", DEEP_SMALL, 32, "conly", ("f32",)),
+    ("tb_sweep", TB_BIG, 8, "direct", ALL_DTYPES),
+    ("tb_sweep", TB_BLOCK, 8, "direct", ALL_DTYPES),
+    # 3D, at small sizes: every kernel takes 3D blocks, which no main path
+    # drives on the card yet.
+    ("masked_step", SMALL_3D, 1, "direct", ALL_DTYPES),
+    ("fused_step_cm", SMALL_3D, 1, "direct", ALL_DTYPES),
+    ("multi_step_cm", SMALL_3D, 8, "eqc", ALL_DTYPES),
+    ("multi_step_cm", SMALL_3D, 8, "ac", ("f32",)),
+    ("tb_sweep", SMALL_3D, 8, "direct", ALL_DTYPES),
+]
+# The f32 case whose times stand for each kernel in the JSON line: the
+# launch its main path makes most.
+MAIN_CASE = {"masked_step": (BIG, "direct"), "fused_step_cm": (BLOCK, "direct"),
+             "multi_step_cm": (SMALL, "eqc"), "tb_sweep": (TB_BIG, "direct")}
+# Operations per cell and step of each body form (the per-launch A/c/eqc
+# prologue, a few operations per cell, is left out).
+FLOPS_PER_CELL_STEP = {
+    "direct": lambda nd: 5 * nd + 1,
+    "ac": lambda nd: 3 * nd + 1,
+    "eqc": lambda nd: 2 * nd + 2,
+    "conly": lambda nd: 2 * nd + 3,
 }
 MAIN_NT, MAIN_WARMUP = 1000, 10
 SHARD_NT, SHARD_WARMUP = 20, 2
+# Windows of the multi-step schedules: k divides both, so nothing degrades.
+VMEM_NT, VMEM_WARMUP = 4352, 256
+VMEM_CHECK_NT = 1024  # the analytic check's run: by 4352 steps the
+# Gaussian has reached the held walls and the free-space solution no
+# longer applies
+DEEP_SMALL_NT, DEEP_SMALL_WARMUP = 1056, 32
+TB_NT, TB_WARMUP = 1016, 16
+SHARD_DEEP_NT, SHARD_DEEP_WARMUP = 48, 16
 
 
 class PhaseError(RuntimeError):
@@ -74,12 +140,32 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
+def only(kernel: str, count: int) -> dict:
+    """The launch counts of a run that launched `kernel` `count` times and
+    no other kernel."""
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    return {name: count if name == kernel else 0 for name in kernels.LAUNCHES}
+
+
 def peaks(name: str):
     for frag, bw, f32, f64 in PEAKS:
         if frag in name:
             return {"bytes_per_s": bw, "f32": f32, "f64": f64, "assumed": False}
     return {"bytes_per_s": PEAKS[-1][1], "f32": PEAKS[-1][2], "f64": PEAKS[-1][3],
             "assumed": True}
+
+
+def bound_ms(pk, dtype: str, nbytes: int, cells: int, steps: int,
+             flops_per_cell_step: int):
+    """The least time the card could take: the larger of `nbytes` over the
+    memory rate and cells·steps·flops_per_cell_step over the f32 (f32 and
+    bf16, which computes in f32) or f64 peak. Returns (ms, "bytes" or
+    "operations", flops)."""
+    flops = cells * steps * flops_per_cell_step
+    t_bytes = nbytes / pk["bytes_per_s"] * 1e3
+    t_ops = flops / pk["f64" if dtype == "f64" else "f32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -119,7 +205,7 @@ def phase_build():
     from rocm_mpi_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    built = _build.build(["stencil"], verbose=True)
+    built = _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")), verbose=True)
     seconds = time.perf_counter() - t0
     for name, info in built.items():
         print(f"[build] {name}.cu -> {info['path'].name} in {info['seconds']:.1f} s "
@@ -132,18 +218,19 @@ def phase_build():
 
 
 def _kernel_inputs(torch, name, core, dtype, device):
-    """Inputs of one kernel call as the perf path makes them: the field in
-    [0, 1), Cm from the grid's dt (edge-masked for masked_step, whose
-    field is the whole domain)."""
+    """Inputs of one kernel call as its path makes them: the field in
+    [0, 1), Cm from the grid's dt — edge-masked where the block's edge is
+    the domain's (masked_step, and the multi-step kernels on the one-GPU
+    blocks and deep-padded blocks, whose rings are held)."""
     from rocm_mpi_tpu_torch.config import DiffusionConfig
     from rocm_mpi_tpu_torch.ops import kernels
 
-    domain = SMALL if core == SMALL else BIG
-    cfg = DiffusionConfig(global_shape=domain, dtype=dtype)
+    domain = SMALL if core in (SMALL, DEEP_SMALL) else core if len(core) == 3 else BIG
+    cfg = DiffusionConfig(global_shape=domain, lengths=(10.0,) * len(domain), dtype=dtype)
     tdt = cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(SEED)
     dt = torch.tensor(cfg.dt, dtype=tdt, device=device)
-    if name == "masked_step":
+    if name != "fused_step_cm":
         T = torch.rand(core, generator=gen, device=device, dtype=torch.float64).to(tdt)
         Cm = kernels.edge_masked_cm(T, torch.ones_like(T), cfg.lam, dt)
         return T, Cm, cfg.spacing
@@ -153,49 +240,59 @@ def _kernel_inputs(torch, name, core, dtype, device):
     return Tp, Cm, cfg.spacing
 
 
-def phase_kernels(torch, card, pk):
-    """Every kernel at every main-path shape and dtype: bitwise against
-    its plain version on the card, then timed beside it and its bound."""
-    from rocm_mpi_tpu_torch.ops import kernels
+def _kernel_calls(name, field, Cm, spacing, steps, form, out):
+    """(kernel launch, plain version) of one case, as zero-argument calls."""
+    from rocm_mpi_tpu_torch.ops import kernels, multistep
 
-    device = torch.device("cuda", 0)
-    rows = []
-    for name, (_, shapes) in KERNELS.items():
+    inv_d2 = kernels.inv_d2_of(spacing)
+    if name in ("masked_step", "fused_step_cm"):
         wrapper = getattr(kernels, name)
         plain = getattr(kernels, f"{name}_plain")
-        for core in shapes:
-            for dtype in ("f32", "f64", "bf16"):
-                field, Cm, spacing = _kernel_inputs(torch, name, core, dtype, device)
-                inv_d2 = kernels.inv_d2_of(spacing)
-                out = torch.empty(core, dtype=field.dtype, device=device)
-                got = wrapper(field, Cm, spacing, out=out)
-                want = plain(field, Cm, inv_d2)
-                torch.cuda.synchronize()
-                err = float((got.double() - want.double()).abs().max())
-                check(torch.equal(got, want),
-                      f"{name} {core} {dtype}: kernel != plain version (max |diff| {err})")
-                cells = field.numel() if name == "masked_step" else Cm.numel()
-                reps = 200 if core == SMALL else 30
-                ms = time_ms(lambda: wrapper(field, Cm, spacing, out=out), reps)
-                plain_ms = time_ms(lambda: plain(field, Cm, inv_d2), max(reps // 4, 5))
-                # Each input read once, the output written once.
-                nbytes = (field.numel() + 2 * Cm.numel()) * field.element_size()
-                flops = cells * (5 * len(core) + 1)
-                t_bytes = nbytes / pk["bytes_per_s"] * 1e3
-                t_ops = flops / pk["f64" if dtype == "f64" else "f32"] * 1e3
-                bound_ms = max(t_bytes, t_ops)
-                row = dict(kernel=name, shape=list(core), dtype=dtype, bitwise=True,
-                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by="bytes" if t_bytes >= t_ops else "operations",
-                           bytes=nbytes, flops=flops, fraction_of_bound=bound_ms / ms)
-                rows.append(row)
-                print(f"[kernel] {name} {core[0]}x{core[1]} {dtype}: bitwise == plain; "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                      f"({row['bound_by']}; {row['fraction_of_bound']:.2f} of bound) "
-                      f"on {card}; no single PyTorch call computes this step, "
-                      "library_ms null", flush=True)
-                del field, Cm, out, got, want
-            torch.cuda.empty_cache()
+        return (lambda: wrapper(field, Cm, spacing, out=out),
+                lambda: plain(field, Cm, inv_d2))
+    if name == "multi_step_cm":
+        return (lambda: multistep.multi_step(field, Cm, inv_d2, steps, form, out=out),
+                lambda: multistep.multi_step_cm_plain(field, Cm, inv_d2, steps, form))
+    return (lambda: multistep.tb_sweep(field, Cm, inv_d2, steps, out=out),
+            lambda: multistep.tb_sweep_plain(field, Cm, inv_d2, steps))
+
+
+def phase_kernels(torch, card, pk):
+    """Every kernel case: bitwise against its plain version on the card,
+    then timed beside it and its bound."""
+    device = torch.device("cuda", 0)
+    rows = []
+    for name, core, steps, form, dtypes in KERNEL_CASES:
+        for dtype in dtypes:
+            field, Cm, spacing = _kernel_inputs(torch, name, core, dtype, device)
+            out = torch.empty(Cm.shape, dtype=field.dtype, device=device)
+            run, plain = _kernel_calls(name, field, Cm, spacing, steps, form, out)
+            got = run()
+            want = plain()
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            label = f"{name} {'x'.join(map(str, core))} {dtype}" + (
+                f" n={steps} {form}" if steps > 1 else "")
+            check(torch.equal(got, want), f"{label}: kernel != plain version (max |diff| {err})")
+            small = core in (SMALL, DEEP_SMALL, SMALL_3D)
+            reps = (200 if steps == 1 else 50) if small else (30 if steps == 1 else 20)
+            ms = time_ms(run, reps)
+            plain_ms = time_ms(plain, max(reps // 4, 5) if steps == 1 else 5)
+            # Each input read once, the output written once.
+            nbytes = (field.numel() + 2 * Cm.numel()) * field.element_size()
+            b_ms, by, flops = bound_ms(pk, dtype, nbytes, Cm.numel(), steps,
+                                       FLOPS_PER_CELL_STEP[form](len(core)))
+            row = dict(kernel=name, shape=list(core), dtype=dtype, steps=steps, form=form,
+                       bitwise=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=by, bytes=nbytes, flops=flops,
+                       fraction_of_bound=b_ms / ms)
+            rows.append(row)
+            print(f"[kernel] {label}: bitwise == plain; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
+                  f"{row['fraction_of_bound']:.3f} of bound) on {card}; no single PyTorch "
+                  "call computes this step, library_ms null", flush=True)
+            del field, Cm, out, got, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -215,7 +312,7 @@ def _single_gpu_run(torch, shape, card):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
 
-    check(launches == {"masked_step": cfg.nt, "fused_step_cm": 0},
+    check(launches == only("masked_step", cfg.nt),
           f"perf {shape}: launches {launches}, expected {cfg.nt} masked_step")
     check(tuple(res.T.shape) == shape and bool(torch.isfinite(res.T).all()),
           f"perf {shape}: result not finite or misshapen")
@@ -324,7 +421,7 @@ def phase_sharded(card, gpus: int):
     backend = "gloo" if gpus == 1 else "nccl"
     ranks = spawn_ranks(4, sharded_rank, (spec,), backend=backend, timeout=600)
     for r in ranks:
-        check(r["launches"] == {"masked_step": 0, "fused_step_cm": nt},
+        check(r["launches"] == only("fused_step_cm", nt),
               f"sharded rank {r['rank']}: launches {r['launches']}, expected "
               f"{nt} fused_step_cm")
         check(r["bitwise"] and r["finite"],
@@ -346,13 +443,230 @@ def phase_sharded(card, gpus: int):
     return ranks, total
 
 
+def plain_deep(model, T, Cp, n: int, k: int, route: str):
+    """`n` steps of the deep schedule through the plain versions: the same
+    prepare, width-k exchange and crop as parallel.deep_halo, the local k
+    steps by multi_step_cm_plain ("vmem") or tb_sweep_plain ("hbm-tb")."""
+    from rocm_mpi_tpu_torch.ops import kernels, multistep
+    from rocm_mpi_tpu_torch.parallel.deep_halo import make_deep_sweep
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+
+    cfg = model.config
+    Cm = make_deep_sweep(model.grid, k, cfg.lam, model.dt, cfg.spacing).prepare(Cp)
+    inv_d2 = kernels.inv_d2_of(cfg.spacing)
+    core = tuple(slice(k, -k) for _ in range(T.ndim))
+    for _ in range(n // k):
+        Tp = exchange_halo(T, model.grid, width=k)
+        if route == "vmem":
+            form = multistep.multi_step_form(Tp.shape, Tp.dtype, k, inv_d2)
+            Tp = multistep.multi_step_cm_plain(Tp, Cm, inv_d2, k, form)
+        else:
+            Tp = multistep.tb_sweep_plain(Tp, Cm, inv_d2, k)
+        T = Tp[core]
+    return T.contiguous()
+
+
+def plain_schedule(model, meth: str, route: str, k: int, nt: int):
+    """The same `nt` steps of a one-GPU schedule through the plain versions."""
+    from rocm_mpi_tpu_torch.ops import kernels, multistep
+
+    cfg = model.config
+    T, Cp = model.init_state()
+    if meth == "run_deep":
+        return plain_deep(model, T, Cp, nt, k, route)
+    Cm = kernels.edge_masked_cm(T, Cp, cfg.lam, float(model.dt))
+    inv_d2 = kernels.inv_d2_of(cfg.spacing)
+    for _ in range(nt // k):
+        if meth == "run_vmem_resident":
+            T = multistep.multi_step_cm_plain(
+                T, Cm, inv_d2, k, multistep.multi_step_form(T.shape, T.dtype, k, inv_d2))
+        else:
+            T = multistep.tb_sweep_plain(T, Cm, inv_d2, k)
+    return T
+
+
+# (method, shape, nt, warmup, expected route, expected k, kernel)
+SCHEDULES = [
+    ("run_vmem_resident", SMALL, VMEM_NT, VMEM_WARMUP, "vmem-loop", 256, "multi_step_cm"),
+    ("run_deep", SMALL, DEEP_SMALL_NT, DEEP_SMALL_WARMUP, "vmem", 32, "multi_step_cm"),
+    ("run_hbm_blocked", BIG, TB_NT, TB_WARMUP, "hbm-tb", 8, "tb_sweep"),
+    ("run_deep", BIG, TB_NT, TB_WARMUP, "hbm-tb", 8, "tb_sweep"),
+]
+
+
+def _analytic_rel(torch, model, T):
+    from rocm_mpi_tpu_torch.ops.diffusion import analytic_solution
+
+    cfg = model.config
+    coords = model.grid.coord_mesh(dtype=torch.float64, device=T.device)
+    exact = analytic_solution(coords, cfg.lengths, cfg.lam / cfg.cp0, cfg.nt * cfg.dt)
+    return float((T.double() - exact).abs().max() / exact.max())
+
+
+def phase_schedules(torch, card):
+    """The three multi-step schedules on one GPU, through their entry
+    points: route, k and launches asserted, bitwise against the plain
+    versions' run of the same schedule, timed."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+
+    rows = []
+    for meth, shape, nt, warmup, route, k, kernel in SCHEDULES:
+        cfg = DiffusionConfig(global_shape=shape, nt=nt, warmup=warmup, dtype="f32",
+                              dims=(1, 1))
+        model = HeatDiffusion(cfg, grid=init_global_grid(*shape, dims=(1, 1), nprocs=1,
+                                                         rank=0), device="cuda")
+        kernels.reset_launches()
+        res = getattr(model, meth)()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        label = f"{meth} {shape[0]}x{shape[1]} f32"
+        check((res.route, res.k) == (route, k),
+              f"{label}: route {res.route} k {res.k}, expected {route} k {k}")
+        check(launches == only(kernel, nt // k),
+              f"{label}: launches {launches}, expected {nt // k} {kernel}")
+        check(tuple(res.T.shape) == shape and bool(torch.isfinite(res.T).all()),
+              f"{label}: result not finite or misshapen")
+        ref = plain_schedule(model, meth, route, k, nt)
+        check(torch.equal(res.T, ref), f"{label}: kernel run != plain-version run "
+              f"(max |diff| {float((res.T.double() - ref.double()).abs().max())})")
+        item = res.T.element_size()
+        cells = res.T.numel()
+        if meth == "run_deep":
+            padded = (shape[0] + 2 * k) * (shape[1] + 2 * k)
+            # kernel I/O on the padded block + the core's copy into it
+            per_sweep = 3 * padded * item + 2 * cells * item
+        else:
+            per_sweep = 3 * cells * item
+        row = dict(method=meth, shape=list(shape), nt=nt, warmup=warmup, route=res.route,
+                   k=res.k, launches=launches, wtime_s=res.wtime,
+                   ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts,
+                   bytes_per_sweep=per_sweep, bytes_per_step=per_sweep / k)
+        if shape == SMALL:
+            check_model = model
+            T = res.T
+            if meth == "run_vmem_resident":
+                check_cfg = DiffusionConfig(global_shape=shape, nt=VMEM_CHECK_NT,
+                                            warmup=VMEM_WARMUP, dtype="f32", dims=(1, 1))
+                check_model = HeatDiffusion(check_cfg, grid=model.grid, device="cuda")
+                T = check_model.run_vmem_resident().T
+            row["analytic_rel_err"] = rel = _analytic_rel(torch, check_model, T)
+            row["analytic_nt"] = check_model.config.nt
+            check(rel < 2e-3, f"{label}: relative error vs analytic Gaussian {rel} "
+                  f"after {check_model.config.nt} steps")
+        rows.append(row)
+        print(f"[schedule] {label}, {nt} steps ({warmup} warmup): route {res.route}, "
+              f"k {res.k}, {kernel} launches {launches[kernel]}; bitwise == plain-version "
+              f"run; {res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step, effective T_eff "
+              f"{res.t_eff:.1f} GB/s (3 passes per step counted; device memory moved: "
+              f"{per_sweep / 1e6:.1f} MB per sweep, {per_sweep / k / 1e6:.2f} MB per step), "
+              f"{res.gpts:.3f} Gpts/s on {card}"
+              + (f"; vs analytic Gaussian after {row['analytic_nt']} steps: "
+                 f"{row['analytic_rel_err']:.3e} (bound 2e-3)" if "analytic_rel_err" in row
+                 else ""), flush=True)
+        del model, res, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sharded_deep_rank(rank, spec):
+    """One rank of the sharded deep schedule (started by spawn_ranks)."""
+    import numpy as np
+    import torch
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+    from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
+
+    import torch.distributed as dist
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    dist.barrier()
+    shape = tuple(spec["shape"])
+    cfg = DiffusionConfig(global_shape=shape, nt=spec["nt"], warmup=spec["warmup"],
+                          dtype="f32", dims=(2, 2))
+    model = HeatDiffusion(cfg, device=device)
+
+    kernels.reset_launches()
+    res = model.run_deep()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+
+    T, Cp = model.init_state()
+    ref = plain_deep(model, T, Cp, cfg.nt, res.k, res.route)
+    out = dict(rank=rank, launches=launches, route=res.route, k=res.k,
+               bitwise=bool(torch.equal(res.T, ref)),
+               finite=bool(torch.isfinite(res.T).all()), wtime_s=res.wtime,
+               ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts)
+    full = gather_to_host0(res.T, model.grid)
+    if rank == 0:
+        # The same schedule over the whole domain on one GPU, at the same k:
+        # every core cell takes its k direct-form steps from the same
+        # neighbours, so the gathered field must match bit for bit — a check
+        # of the width-k exchange.
+        one_cfg = DiffusionConfig(global_shape=shape, nt=cfg.nt, warmup=cfg.warmup,
+                                  dtype="f32", dims=(1, 1))
+        one = HeatDiffusion(one_cfg, grid=GlobalGrid(shape, one_cfg.lengths, (1, 1)),
+                            device=device)
+        advance, k1 = one.deep_advance_fn(block_steps=res.k, nt=cfg.nt, warmup=cfg.warmup)
+        T1, Cp1 = one.init_state()
+        T1 = advance(T1, Cp1, cfg.nt).cpu().numpy()
+        out["one_gpu"] = dict(route=advance.schedule.route, k=k1)
+        out["max_abs_vs_one_gpu"] = float(np.abs(full - T1).max())
+        out["bitwise_vs_one_gpu"] = bool(np.array_equal(full, T1))
+    return out
+
+
+def phase_sharded_deep(card, gpus: int):
+    """run_deep on the 2×2 grid of 12288² by 4 ranks: sharing one card over
+    gloo, or one rank per card over NCCL when `gpus` is 4."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    nt, warmup = ((SHARD_DEEP_NT, SHARD_DEEP_WARMUP) if gpus == 1
+                  else (TB_WARMUP + MAIN_NT, TB_WARMUP))
+    spec = dict(shape=BIG, nt=nt, warmup=warmup, gpus=gpus)
+    backend = "gloo" if gpus == 1 else "nccl"
+    ranks = spawn_ranks(4, sharded_deep_rank, (spec,), backend=backend, timeout=900)
+    for r in ranks:
+        check((r["route"], r["k"]) == ("hbm-tb", 8),
+              f"sharded deep rank {r['rank']}: route {r['route']} k {r['k']}, "
+              "expected hbm-tb k 8")
+        check(r["launches"] == only("tb_sweep", nt // 8),
+              f"sharded deep rank {r['rank']}: launches {r['launches']}, expected "
+              f"{nt // 8} tb_sweep")
+        check(r["bitwise"] and r["finite"],
+              f"sharded deep rank {r['rank']}: kernel run != plain-version run or not finite")
+    r0 = ranks[0]
+    check(r0["one_gpu"] == {"route": "hbm-tb", "k": 8},
+          f"one-GPU deep reference took {r0['one_gpu']}")
+    check(r0["bitwise_vs_one_gpu"],
+          f"sharded 2x2 deep field differs from the one-GPU run_deep by "
+          f"{r0['max_abs_vs_one_gpu']}")
+    total = sum(r["launches"]["tb_sweep"] for r in ranks)
+    where = (f"4 ranks sharing {card} (gloo, halo slabs staged through host memory: "
+             "not a multi-GPU measurement)" if gpus == 1
+             else f"4 GPUs, one rank each, NCCL ({card} each)")
+    print(f"[sharded-deep] run_deep 12288x12288 f32 on a 2x2 grid, {where}, {nt} steps "
+          f"({warmup} warmup): route hbm-tb, k 8, tb_sweep launches {total} ({nt // 8} per "
+          "rank); each shard bitwise == plain-version run; gathered field bitwise == the "
+          f"one-GPU run_deep (max |diff| {r0['max_abs_vs_one_gpu']}); rank 0: "
+          f"{r0['wtime_s']:.4f} s, {r0['ms_per_step']:.5f} ms/step, aggregate effective "
+          f"T_eff {r0['t_eff_gbs']:.1f} GB/s, {r0['gpts']:.3f} Gpts/s", flush=True)
+    return ranks, total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write every measurement to PATH")
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
-                        help="4: run only the sharded perf path, one rank per GPU "
-                        "over NCCL (1000 steps), on a host with 4 GPUs")
+                        help="4: run only the sharded perf and deep paths, one rank "
+                        "per GPU over NCCL (1000 timed steps each), on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
     import torch
@@ -388,12 +702,15 @@ def main(argv=None) -> int:
               f"--gpus {args.gpus} needs {args.gpus} GPUs, "
               f"{torch.cuda.device_count()} visible")
         ranks, _ = phase_sharded(card, args.gpus)
+        deep_ranks, _ = phase_sharded_deep(card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(dict(card=card, kind=kind, build_s=build_s,
-                                            sharded_ranks=ranks), indent=1))
-        print(f"[done] sharded phase passed in {time.perf_counter() - t0:.1f} s", flush=True)
+                                            sharded_ranks=ranks,
+                                            sharded_deep_ranks=deep_ranks), indent=1))
+        print(f"[done] sharded phases passed in {time.perf_counter() - t0:.1f} s",
+              flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}),
@@ -401,17 +718,25 @@ def main(argv=None) -> int:
         return 0
     rows = phase_kernels(torch, card, pk)
     big_row, small_row = phase_main(torch, card)
+    schedule_rows = phase_schedules(torch, card)
     ranks, fused_launches = phase_sharded(card, 1)
+    deep_ranks, deep_launches = phase_sharded_deep(card, 1)
 
+    # Launches on the main paths: each path ran with the counts set to 0
+    # just before it and read just after.
     launches = {"masked_step": big_row["launches"]["masked_step"],
-                "fused_step_cm": fused_launches}
-    main_shape = {"masked_step": list(BIG), "fused_step_cm": list(BLOCK)}
+                "fused_step_cm": fused_launches,
+                "multi_step_cm": 0, "tb_sweep": deep_launches}
+    for row in schedule_rows:
+        for name in ("multi_step_cm", "tb_sweep"):
+            launches[name] += row["launches"][name]
     line = []
-    for name, (replaces, _) in KERNELS.items():
+    for name, (replaces, source) in KERNELS.items():
+        shape, form = MAIN_CASE[name]
         main = next(r for r in rows if r["kernel"] == name and r["dtype"] == "f32"
-                    and r["shape"] == main_shape[name])
+                    and r["shape"] == list(shape) and r["form"] == form)
         line.append(dict(
-            name=name, route="cuda", source="rocm_mpi_tpu_torch/csrc/stencil.cu",
+            name=name, route="cuda", source=f"rocm_mpi_tpu_torch/csrc/{source}",
             replaces=replaces, launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
@@ -422,7 +747,8 @@ def main(argv=None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(dict(
             card=card, kind=kind, peaks=pk, build_s=build_s, kernel_phases=rows,
-            main_12288=big_row, main_252=small_row, sharded_ranks=ranks, kernels=line,
+            main_12288=big_row, main_252=small_row, schedules=schedule_rows,
+            sharded_ranks=ranks, sharded_deep_ranks=deep_ranks, kernels=line,
             seconds=time.perf_counter() - t0,
         ), indent=1))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

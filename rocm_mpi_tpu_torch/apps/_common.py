@@ -27,6 +27,10 @@ def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
                    help="process grid, e.g. 2,2 (default: auto near-square)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the hand kernels; cpu their plain versions")
+    p.add_argument("--deep", type=int, default=0, metavar="K",
+                   help="use deep-halo sweeps: exchange width-K ghosts every K steps "
+                   "instead of width-1 every step (parallel.deep_halo); K must divide "
+                   "both --warmup and nt - warmup, or it degrades to their gcd")
     return p
 
 
@@ -72,7 +76,20 @@ def run_app(variant: str, args) -> int:
         where = "the host CPU (plain PyTorch versions, not a GPU measurement)"
     log0(f"grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
          f"({grid.nprocs} rank(s)) on {where}")
-    result = model.run(variant)
+    if args.deep:
+        # Label the run with the depth that will execute (run_deep degrades
+        # k to gcd(warmup, nt - warmup, K)).
+        k_eff = model.effective_deep_depth(block_steps=args.deep, warn=False)
+        variant = f"deep{k_eff}"
+        log0(f"--deep: running deep-halo sweeps (k={k_eff}"
+             + (f", degraded from {args.deep}" if k_eff != args.deep else "")
+             + ") instead of the per-step variant")
+        result = model.run_deep(block_steps=args.deep)
+        log0(f"{variant}: local route {result.route}, one width-{k_eff} exchange per "
+             f"{k_eff} steps; T_eff counts 3 passes per step, so it is an effective "
+             "rate and may exceed the card's memory rate")
+    else:
+        result = model.run(variant)
     log0(
         f"Executed {result.nt} steps ({result.warmup} warmup) in = "
         f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "

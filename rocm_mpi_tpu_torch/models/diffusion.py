@@ -11,6 +11,16 @@ One physics model at several performance levels, chosen by variant:
             step is ONE hand kernel — masked_step on one rank,
             exchange_halo + fused_step_cm when sharded.
 
+and three multi-step schedules beside the per-step variants:
+
+  run_vmem_resident — one rank: `chunk` steps per launch of the
+                      multi_step_cm kernel (ops.multistep.fused_multi_step);
+  run_hbm_blocked   — one rank: k steps per pass over device memory, the
+                      tb_sweep kernel (ops.multistep.fused_multi_step_hbm);
+  run_deep          — any process grid: one width-k exchange per k steps,
+                      the local k steps on multi_step_cm or tb_sweep by
+                      block size (parallel.deep_halo).
+
 Every variant runs on this rank's shard. "ap" and "fused" are written for
 the whole domain; on a shard they run on the halo-padded block and keep
 its core, which gives each cell the arithmetic of the global form.
@@ -23,19 +33,21 @@ steps also reuse one padded buffer for the exchange.
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Callable
 
 import torch
 
-from rocm_mpi_tpu_torch.config import DiffusionConfig
-from rocm_mpi_tpu_torch.ops import kernels
+from rocm_mpi_tpu_torch.config import DiffusionConfig, validate_wire_mode
+from rocm_mpi_tpu_torch.ops import kernels, multistep
 from rocm_mpi_tpu_torch.ops.diffusion import (
     gaussian_ic,
     step_flux_form,
     step_fused,
     step_fused_padded,
 )
-from rocm_mpi_tpu_torch.parallel import distributed
+from rocm_mpi_tpu_torch.parallel import deep_halo, distributed
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
 from rocm_mpi_tpu_torch.utils import metrics
@@ -49,6 +61,11 @@ class RunResult:
     nt: int
     warmup: int
     config: DiffusionConfig
+    # The multi-step schedules' record of what ran: the local route
+    # ("vmem-loop", "hbm-tb"; for run_deep "vmem", "hbm-tb" or "jnp") and
+    # the steps per launch or sweep. None for the per-step variants.
+    route: str | None = None
+    k: int | None = None
 
     @property
     def wtime_it(self) -> float:
@@ -64,6 +81,45 @@ class RunResult:
     @property
     def gpts(self) -> float:
         return metrics.gpts_per_s(self.config.global_shape, self.wtime_it)
+
+
+def effective_block_steps(nt: int, warmup: int, k: int, *, label: str = "block_steps",
+                          warn: bool = True, stacklevel: int = 3) -> int:
+    """The sweep/chunk depth usable for the given step counts:
+    gcd(warmup, nt - warmup, k), so that k divides both windows. Warns
+    when that degrades the requested k."""
+    if k < 1:
+        raise ValueError(f"{label} must be >= 1, got {k}")
+    eff = math.gcd(math.gcd(warmup, nt - warmup), k) or 1
+    if warn and eff != k:
+        warnings.warn(
+            f"{label} degraded: {k} requested but warmup={warmup} / "
+            f"timed={nt - warmup} force k={eff}; pick step counts "
+            f"divisible by {k} to keep the full k-steps-per-sweep saving.",
+            stacklevel=stacklevel,
+        )
+    return eff
+
+
+def default_deep_depth(local_shape, itemsize: int) -> int:
+    """run_deep's automatic depth for a shard: DEFAULT_DEEP_STEPS clamped
+    to the shard extent, halved while the k-padded shard exceeds the VMEM
+    budget but a shallower sweep would fit; shards that fit at no depth
+    take the temporal-blocked sweep's DEFAULT_TB_STEPS."""
+    budget = multistep._VMEM_BLOCK_BUDGET_BYTES
+
+    def padded_bytes(kk):
+        b = itemsize
+        for ln in local_shape:
+            b *= ln + 2 * kk
+        return b
+
+    k = min(multistep.DEFAULT_DEEP_STEPS, min(local_shape))
+    while k > multistep.DEFAULT_TB_STEPS and padded_bytes(k) > budget:
+        k //= 2
+    if padded_bytes(k) > budget:
+        k = min(k, multistep.DEFAULT_TB_STEPS)
+    return max(1, k)
 
 
 # A step is step(T, C, out, pad) -> new T. `out` is a field-shaped buffer
@@ -249,21 +305,185 @@ class HeatDiffusion:
             warmup: int | None = None) -> RunResult:
         """Run `nt` steps from the initial condition; time all but the
         first `warmup`."""
-        cfg = self.config
-        nt = cfg.nt if nt is None else nt
-        warmup = cfg.warmup if warmup is None else warmup
-        if not 0 <= warmup < nt:
-            raise ValueError(f"need 0 <= warmup < nt, got {warmup}, {nt}")
+        nt, warmup = self._windows(nt, warmup)
         T, Cp = self.init_state()
         advance = self.advance_fn(variant)
+        T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
+        return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=self.config)
+
+    # ---- multi-step schedules -------------------------------------------
+
+    def _windows(self, nt, warmup) -> tuple[int, int]:
+        cfg = self.config
+        nt = cfg.nt if nt is None else int(nt)
+        warmup = cfg.warmup if warmup is None else int(warmup)
+        if not 0 <= warmup < nt:
+            raise ValueError(f"need 0 <= warmup < nt, got {warmup}, {nt}")
+        return nt, warmup
+
+    def _timed(self, advance, T, nt, warmup):
+        """Run `advance(T, n)` over the warmup window, then time it over
+        the rest: the device synchronised, and the grid's ranks barriered,
+        on each side of the timed window."""
         if warmup:
-            T = advance(T, Cp, warmup)
+            T = advance(T, warmup)
         timer = metrics.Timer()
-        metrics.force(T)
-        distributed.barrier()
+        self._sync(T)
         timer.tic()
-        T = advance(T, Cp, nt - warmup)
+        T = advance(T, nt - warmup)
+        self._sync(T)
+        return T, timer.toc()
+
+    def _sync(self, T):
         metrics.force(T)
-        distributed.barrier()
-        wtime = timer.toc()
-        return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=cfg)
+        if self.grid.nprocs > 1:
+            distributed.barrier()
+
+    def _run_single_shard(self, nt, warmup, multi_step_fn, granularity: int,
+                          granularity_kw: str, explicit: bool = False,
+                          extra_kw=None) -> RunResult:
+        """Shared scaffold of the one-rank multi-step paths: pick a
+        granularity dividing both the warmup and timed windows
+        (effective_block_steps), then run and time
+        `multi_step_fn(T, Cp, lam, dt, spacing, n, <granularity_kw>=g)`.
+        `explicit` marks a caller-requested granularity, whose degradation
+        warns."""
+        cfg = self.config
+        nt, warmup = self._windows(nt, warmup)
+        if self.grid.nprocs != 1:
+            raise ValueError("single-shard fast paths require an unsharded grid")
+        key = granularity_kw
+        gran = effective_block_steps(nt, warmup, granularity, warn=explicit, label=key,
+                                     stacklevel=4)
+        kw = {key: gran}
+        if key == "chunk":
+            kw["warn_on_cap"] = explicit
+        if extra_kw:
+            kw.update(extra_kw)
+        T, Cp = self.init_state()
+        dt = float(self.dt)  # the field-dtype step, as a Python double
+
+        def advance(T, n):
+            return multi_step_fn(T, Cp, cfg.lam, dt, cfg.spacing, n, **kw)
+
+        T, wtime = self._timed(advance, T, nt, warmup)
+        if key == "chunk":
+            plan = multistep.plan_vmem_loop(
+                cfg.global_shape, cfg.torch_dtype, 0, chunk=gran,
+                body_form=kw.get("body_form"), pad_pow2=kw.get("pad_pow2"))
+            route, k = "vmem-loop", plan.chunk
+        else:
+            route, k = "hbm-tb", gran
+        return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=cfg,
+                         route=route, k=k)
+
+    def run_vmem_resident(self, nt: int | None = None, warmup: int | None = None,
+                          chunk: int | None = None, body_form: str | None = None,
+                          pad_pow2: bool | None = None, config: str | None = None,
+                          program_cache: dict | None = None) -> RunResult:
+        """One-rank loop of `chunk` steps per launch of the multi_step_cm
+        kernel (ops.multistep.fused_multi_step); the field must fit the
+        VMEM budget the JAX package routes by. `chunk` defaults to
+        DEFAULT_STEP_CHUNK, gcd'd against both windows; `body_form` and
+        `pad_pow2` select the kernel form. `config="auto"` needs the
+        tuning cache and raises NotImplementedError. `program_cache` is
+        accepted so callers written for the JAX package run unchanged;
+        eager PyTorch has no compiled program to cache, and it is unused."""
+        multistep._check_config(config)
+        if body_form is None:
+            body_form = multistep.EQC_BODY_FORM
+        if pad_pow2 is None:
+            pad_pow2 = multistep.VMEM_PAD_POW2
+        return self._run_single_shard(
+            nt, warmup, multistep.fused_multi_step,
+            multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk, "chunk",
+            explicit=chunk is not None,
+            extra_kw={"body_form": body_form, "pad_pow2": pad_pow2},
+        )
+
+    def run_hbm_blocked(self, nt: int | None = None, warmup: int | None = None,
+                        block_steps: int | None = None) -> RunResult:
+        """One-rank temporal blocking: each launch of the tb_sweep kernel
+        advances the field `block_steps` steps (default DEFAULT_TB_STEPS)
+        in one pass over device memory (ops.multistep.fused_multi_step_hbm)."""
+        cfg = self.config
+        k = multistep.DEFAULT_TB_STEPS if block_steps is None else block_steps
+        effective_block_steps(cfg.nt if nt is None else nt,
+                              cfg.warmup if warmup is None else warmup, k,
+                              label="temporal blocking block_steps", stacklevel=2)
+        return self._run_single_shard(nt, warmup, multistep.fused_multi_step_hbm, k,
+                                      "block_steps")
+
+    def effective_deep_depth(self, nt: int | None = None, warmup: int | None = None,
+                             block_steps: int | None = None, warn: bool = True,
+                             config: str | None = None) -> int:
+        """The sweep depth run_deep executes for these arguments: an
+        explicit `block_steps`, else default_deep_depth for this shard at
+        the compute width, then gcd'd against both windows."""
+        cfg = self.config
+        if block_steps is None:
+            k = deep_halo.resolve_deep_k(self.grid, cfg.torch_dtype, config)
+            if k is None:
+                k = default_deep_depth(self.grid.local_shape,
+                                       multistep._compute_itemsize(cfg.torch_dtype))
+        else:
+            k = block_steps
+        return effective_block_steps(
+            cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup, k,
+            label="deep-halo sweep depth", warn=warn, stacklevel=3,
+        )
+
+    def effective_wire_mode(self, wire_mode: str | None = None,
+                            config: str | None = None) -> str:
+        """The state exchange's on-wire precision of a deep run: an explicit
+        `wire_mode`, else the config's. Only "f32" is ported."""
+        if wire_mode is not None:
+            return validate_wire_mode(wire_mode)
+        tuned = deep_halo.resolve_deep_config(self.grid, self.config.torch_dtype,
+                                              config)["wire_mode"]
+        return tuned if tuned is not None else self.config.wire_mode
+
+    def deep_advance_fn(self, block_steps: int | None = None, nt: int | None = None,
+                        warmup: int | None = None, config: str | None = None,
+                        wire_mode: str | None = None):
+        """(advance(T, Cp, n_steps) -> T, executed depth k) of the deep
+        schedule. The coefficient is exchanged and masked once per call,
+        then n_steps/k sweeps run; `n_steps` must be a multiple of k.
+        `advance.schedule` is the DeepSchedule (its `route` says which
+        local route the last sweep took)."""
+        cfg = self.config
+        k = self.effective_deep_depth(nt, warmup, block_steps, config=config)
+        wm = self.effective_wire_mode(wire_mode, config)
+        sched = deep_halo.make_deep_sweep(self.grid, k, cfg.lam, self.dt, cfg.spacing,
+                                          wire_mode=wm)
+
+        def advance(T, Cp, n_steps):
+            n_steps = int(n_steps)
+            if n_steps % k != 0:
+                raise ValueError(f"n_steps {n_steps} must be a multiple of the depth {k}")
+            if n_steps == 0:
+                return T
+            Cm = sched.prepare(Cp)
+            for _ in range(n_steps // k):
+                T = sched.sweep(T, Cm)
+            return T.contiguous()
+
+        advance.schedule = sched
+        return advance, k
+
+    def run_deep(self, nt: int | None = None, warmup: int | None = None,
+                 block_steps: int | None = None, config: str | None = None,
+                 wire_mode: str | None = None) -> RunResult:
+        """Deep-halo sweeps on any process grid: one width-k exchange per k
+        steps (parallel.deep_halo). The default depth is
+        default_deep_depth's (32 where the padded shard fits the VMEM
+        budget, 8 on the temporal-blocked route), gcd'd against both
+        windows."""
+        cfg = self.config
+        nt, warmup = self._windows(nt, warmup)
+        advance, k = self.deep_advance_fn(block_steps=block_steps, nt=nt, warmup=warmup,
+                                          config=config, wire_mode=wire_mode)
+        T, Cp = self.init_state()
+        T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
+        return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=cfg,
+                         route=advance.schedule.route, k=k)

@@ -29,8 +29,9 @@ from rocm_mpi_tpu_torch.ops import _build
 from rocm_mpi_tpu_torch.utils.backend import use_kernel
 
 # Launches of each hand kernel since the last reset_launches(). Only a
-# kernel launch counts; the plain versions never do.
-LAUNCHES = {"masked_step": 0, "fused_step_cm": 0}
+# kernel launch counts; the plain versions never do. The multi-step
+# kernels' wrappers (ops/multistep.py) count here too.
+LAUNCHES = {"masked_step": 0, "fused_step_cm": 0, "multi_step_cm": 0, "tb_sweep": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 

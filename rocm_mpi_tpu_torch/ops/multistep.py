@@ -1,0 +1,533 @@
+"""The multi-step schedules' kernels — counterpart of the VMEM-resident
+loop and the temporal-blocked sweep of rocm_mpi_tpu/ops/pallas_kernels.py
+(`fused_multi_step`, `multi_step_cm`, `fused_multi_step_hbm`,
+`multi_step_cm_hbm`, and the planners that route them).
+
+Two CUDA kernels (csrc/multistep.cu, built by _build.py) sit behind the
+wrappers, with the same dispatch rule as ops/kernels.py: a CPU tensor
+takes the plain PyTorch version, a CUDA tensor launches the kernel, and
+anything else raises. Launches count in kernels.LAUNCHES under
+"multi_step_cm" and "tb_sweep".
+
+The constants below are the JAX package's TPU budgets (VMEM, Mosaic's
+compile envelope, the sublane-tiled stripe geometry). They mean nothing
+to an H100; they are kept, with the planners, so the port takes the same
+route and the same floating-point body form at every shape as the JAX
+package does, which is what makes the two comparable.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import warnings
+from typing import NamedTuple
+
+import torch
+
+from rocm_mpi_tpu_torch.ops import _build
+from rocm_mpi_tpu_torch.ops.kernels import (
+    _DTYPE_CODE,
+    LAUNCHES,
+    _compute_dtype,
+    _overlaps,
+    edge_masked_cm,
+    inv_d2_of,
+)
+from rocm_mpi_tpu_torch.utils.backend import use_kernel
+
+# pallas_kernels.py:40 — whole-block (VMEM-resident) admission budget.
+_VMEM_BLOCK_BUDGET_BYTES = 2 * 1024 * 1024
+# :44 — the striped kernels' slab budget (Mosaic compile envelope).
+_PS_SLAB_BUDGET_BYTES = 2_500_000
+# :423, :433 — the equal-spacing body form and the pow2 pad default.
+EQC_BODY_FORM = "eqc"
+VMEM_PAD_POW2 = False
+# :672, :676 — default chunk, and the largest field the A/c forms take.
+DEFAULT_STEP_CHUNK = 256
+_AC_FORM_MAX_BYTES = 512 * 1024
+# :949-958 — temporal blocking and deep-sweep depths, stripe geometry.
+DEFAULT_TB_STEPS = 8
+DEFAULT_DEEP_STEPS = 32
+_TB_G = 8
+_TB_TM = 16
+_TB_MAX_STEPS = 16
+
+# Body forms of _multi_step_kernel, by the code the CUDA kernel takes.
+FORMS = {"direct": 0, "ac": 1, "eqc": 2, "conly": 3}
+
+_SIGNATURES = {
+    "rmt_multi_step_cm": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,   # dtype, ndim, form, n
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,        # T, Cm, out
+        ctypes.c_void_p,                                          # scratch
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,           # extents
+        ctypes.c_double, ctypes.c_double, ctypes.c_double,        # inv_d2
+        ctypes.c_void_p,                                          # cudaStream_t
+    ]),
+    "rmt_tb_sweep": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,                 # dtype, ndim, k
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,        # T, Cm, out
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,           # extents
+        ctypes.c_double, ctypes.c_double, ctypes.c_double,        # inv_d2
+        ctypes.c_void_p,                                          # cudaStream_t
+    ]),
+}
+
+
+def _compute_itemsize(dtype: torch.dtype) -> int:
+    """In-kernel bytes per element: bf16 is computed at f32 width, so
+    every budget is taken at >= 4 bytes (pallas_kernels._compute_itemsize)."""
+    return max(torch.empty((), dtype=dtype).element_size(), 4)
+
+
+def _compute_nbytes(shape, dtype) -> int:
+    return math.prod(shape) * _compute_itemsize(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Planners (pallas_kernels.py:435-711, :961-1016)
+# ---------------------------------------------------------------------------
+
+
+class KernelChoice(NamedTuple):
+    """What the VMEM loop decided for a call: route, effective chunk and
+    body form, and the pad outcome (True applied, False requested but
+    skipped for the budget, None not requested or nothing to pad)."""
+
+    op: str
+    dispatch: str
+    chunk: int | None = None
+    body_form: str | None = None
+    pad_requested: bool = False
+    pad_applied: bool | None = None
+    padded_shape: tuple | None = None
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def adoptable_vmem_chunk(v) -> bool:
+    """May a tuned chunk steer the VMEM loop? Only a power of two >= 4, so
+    gcd(n, v) stays in the default chunk's body-form class."""
+    return (
+        isinstance(v, int) and not isinstance(v, bool)
+        and v >= 4 and (v & (v - 1)) == 0
+    )
+
+
+def _check_config(config) -> None:
+    if config == "auto":
+        raise NotImplementedError(
+            "config='auto' needs the tuning cache, which is not ported yet"
+        )
+    if config not in (None, "default"):
+        raise ValueError(f"config must be None, 'default' or 'auto', got {config!r}")
+
+
+def plan_vmem_loop(shape, dtype, n_steps, chunk=None, body_form=None,
+                   pad_pow2=None, config=None, warn_on_cap=False) -> KernelChoice:
+    """The VMEM loop's decisions as a pure function of its inputs: body
+    form, pow2 pad, and the chunk that resolve_step_chunk allows."""
+    shape = tuple(int(d) for d in shape)
+    _check_config(config)
+    if body_form is None:
+        body_form = EQC_BODY_FORM
+    if body_form not in ("eqc", "conly"):
+        raise ValueError(f"body_form must be 'eqc' or 'conly', got {body_form!r}")
+    if pad_pow2 is None:
+        pad_pow2 = VMEM_PAD_POW2
+    nbytes = _compute_nbytes(shape, dtype)
+    pad_applied: bool | None = None
+    padded_shape = None
+    if pad_pow2:
+        padded = tuple(_next_pow2(d) for d in shape)
+        pad_bytes = _compute_nbytes(padded, dtype)
+        if padded == shape:
+            pad_applied = None
+        elif pad_bytes <= _VMEM_BLOCK_BUDGET_BYTES:
+            pad_applied = True
+            padded_shape = padded
+            nbytes = pad_bytes  # the unroll cap must see the padded size
+        else:
+            pad_applied = False
+    eff_chunk = resolve_step_chunk(n_steps, chunk, nbytes, warn_on_cap)
+    return KernelChoice(
+        op="diffusion.vmem_loop", dispatch="vmem-loop", chunk=eff_chunk,
+        body_form=body_form, pad_requested=bool(pad_pow2),
+        pad_applied=pad_applied, padded_shape=padded_shape,
+    )
+
+
+def resolve_step_chunk(n_steps: int, chunk, nbytes: int, warn_on_cap=True) -> int:
+    """The chunk policy of the VMEM loop: default gcd(n_steps, 256); an
+    explicit chunk must divide n_steps; fields beyond 256 KB cap the chunk
+    at gcd(chunk, 16), warning when that degrades an explicit request."""
+    n_steps = int(n_steps)
+    explicit = chunk is not None
+    if chunk is None:
+        chunk = math.gcd(n_steps, DEFAULT_STEP_CHUNK)
+    if n_steps % chunk != 0:
+        raise ValueError(f"chunk {chunk} must divide n_steps {n_steps}")
+    if nbytes > 256 * 1024:
+        capped = math.gcd(chunk, 16) or 1
+        if explicit and warn_on_cap and capped != chunk:
+            warnings.warn(
+                f"chunk degraded: {chunk} requested but the {nbytes}-byte "
+                f"field exceeds the 256 KB unroll-friendly class; running "
+                f"chunk={capped}.",
+                stacklevel=3,
+            )
+        chunk = capped
+    return chunk
+
+
+def multi_step_form(shape, dtype, chunk: int, inv_d2, body_form=None) -> str:
+    """The body form _multi_step_kernel computes for this launch:
+    "direct" for chunks under 4 or fields over 512 KB, else "ac" for
+    unequal spacing, else the equal-spacing form `body_form` (default
+    EQC_BODY_FORM)."""
+    if chunk >= 4 and _compute_nbytes(shape, dtype) <= _AC_FORM_MAX_BYTES:
+        if all(inv == inv_d2[0] for inv in inv_d2):
+            form = EQC_BODY_FORM if body_form is None else body_form
+            if form not in ("eqc", "conly"):
+                raise ValueError(f"body_form must be 'eqc' or 'conly', got {form!r}")
+            return form
+        return "ac"
+    return "direct"
+
+
+def tb_geometry(k: int) -> tuple[int, int]:
+    """(ghost rows g, stripe height tm) of a k-step sweep in the JAX
+    package: (8, 16) for k <= 8, (16, 32) for k <= 16. The port keeps it
+    for the same shape checks and routing; its kernel tiles otherwise."""
+    if 1 <= k <= _TB_G:
+        return _TB_G, _TB_TM
+    if _TB_G < k <= _TB_MAX_STEPS:
+        return 16, 32
+    raise ValueError(
+        f"temporal-blocked sweeps support 1 <= k <= {_TB_MAX_STEPS}, got {k}"
+    )
+
+
+def tb_slab_fits(k: int, shape, dtype) -> bool:
+    """True when a k-deep sweep's (tm+2g)-row slab at f32 compute width
+    fits the JAX package's slab budget (_PS_SLAB_BUDGET_BYTES)."""
+    g, tm = tb_geometry(k)
+    row = _compute_itemsize(dtype)
+    for n in shape[1:]:
+        row *= n
+    return (tm + 2 * g) * row <= _PS_SLAB_BUDGET_BYTES
+
+
+def hbm_class_edge(itemsize: int = 4, k: int = DEFAULT_TB_STEPS) -> int:
+    """Smallest square-shard edge whose k-padded block exceeds the VMEM
+    budget, in stripe-height steps (so the padded rows stay divisible)."""
+    g, tm = tb_geometry(k)
+    if (2 * k) % tm != 0:
+        raise ValueError(
+            f"hbm_class_edge needs 2k divisible by the stripe height "
+            f"(k={k}, tm={tm}) so the padded row count stays "
+            "stripe-divisible; pass k=8 or k=16"
+        )
+    n = tm
+    while (n + 2 * k) ** 2 * itemsize <= _VMEM_BLOCK_BUDGET_BYTES:
+        n += tm
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _neighbour_pairs(P: torch.Tensor, ndim: int):
+    """p_ax = (cell at +1) + (cell at -1) along each axis, for every core
+    cell of the zero-ringed buffer P."""
+    pairs = []
+    for ax in range(ndim):
+        hi = tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
+        lo = tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
+        pairs.append(P[hi] + P[lo])
+    return pairs
+
+
+def multi_step_cm_plain(T, Cm, inv_d2, n: int, body_form: str, out=None):
+    """Plain version of the multi_step_cm kernel: `n` steps of body form
+    `body_form` ("direct", "ac", "eqc", "conly") in _multi_step_kernel's
+    operation order, with neighbours outside the block read as 0. bf16 is
+    widened once and the result rounded once."""
+    if body_form not in FORMS:
+        raise ValueError(f"unknown body form {body_form!r}; known: {tuple(FORMS)}")
+    cdt = _compute_dtype(T.dtype)
+    Tc, Cmc = T.to(cdt), Cm.to(cdt)
+    ndim = T.ndim
+    core = tuple(slice(1, -1) for _ in range(ndim))
+    P = torch.zeros(tuple(s + 2 for s in T.shape), dtype=cdt, device=T.device)
+    if body_form == "ac":
+        cs = [Cmc * inv for inv in inv_d2]
+        A = 1.0 - 2.0 * functools.reduce(lambda a, b: a + b, cs)
+    elif body_form in ("eqc", "conly"):
+        c = Cmc * inv_d2[0]
+        coef = 1.0 - (2.0 * ndim) * c if body_form == "eqc" else 2.0 * ndim
+    for _ in range(int(n)):
+        P[core] = Tc
+        pairs = _neighbour_pairs(P, ndim)
+        if body_form == "direct":
+            lap = None
+            for ax in range(ndim):
+                term = (pairs[ax] - 2.0 * Tc) * inv_d2[ax]
+                lap = term if lap is None else lap + term
+            Tc = Tc + Cmc * lap
+        elif body_form == "ac":
+            acc = A * Tc
+            for ax in range(ndim):
+                acc = acc + cs[ax] * pairs[ax]
+            Tc = acc
+        else:
+            s = functools.reduce(lambda a, b: a + b, pairs)
+            Tc = coef * Tc + c * s if body_form == "eqc" else Tc + c * (s - coef * Tc)
+    if out is None:
+        return Tc.to(T.dtype)
+    return out.copy_(Tc)
+
+
+def tb_sweep_plain(T, Cm, inv_d2, k: int, out=None):
+    """Plain version of the tb_sweep kernel: `k` direct-form steps
+    (_tb_kernel's body) with neighbours outside the block read as 0 — on
+    the whole block, which the light-cone tiling reproduces exactly."""
+    return multi_step_cm_plain(T, Cm, inv_d2, k, "direct", out=out)
+
+
+# ---------------------------------------------------------------------------
+# Launches
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(name: str, T, Cm, out) -> None:
+    if T.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {T.dtype} not supported "
+                        "(float32, float64, bfloat16)")
+    if Cm.dtype != T.dtype:
+        raise TypeError(f"{name}: Cm dtype {Cm.dtype} != field dtype {T.dtype}")
+    if T.ndim not in (2, 3):
+        raise ValueError(f"{name}: only 2D and 3D fields, got {T.ndim}D")
+    if tuple(T.shape) != tuple(Cm.shape):
+        raise ValueError(f"shape mismatch: T {tuple(T.shape)} vs Cm {tuple(Cm.shape)}")
+    for label, t in (("field", T), ("Cm", Cm)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if out is not None:
+        if tuple(out.shape) != tuple(T.shape) or out.dtype != T.dtype:
+            raise ValueError(f"{name}: out must be {tuple(T.shape)} {T.dtype}, got "
+                             f"{tuple(out.shape)} {out.dtype}")
+        if not out.is_contiguous():
+            raise ValueError(f"{name}: out must be contiguous")
+        if _overlaps(out, T) or _overlaps(out, Cm):
+            raise ValueError(f"{name}: out must not alias an input")
+
+
+def _call(symbol: str, T, *args) -> None:
+    lib = _build.load("multistep", _SIGNATURES)
+    with torch.cuda.device(T.device):
+        stream = torch.cuda.current_stream(T.device).cuda_stream
+        rc = getattr(lib, symbol)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{symbol} launch failed with code {rc} (-1: bad dtype/rank/form/"
+            "steps, -2: grid overflow, -3: does not fit the card, >0: CUDA error)"
+        )
+
+
+def _extents(T):
+    return tuple(int(s) for s in T.shape) + (1,) * (3 - T.ndim)
+
+
+def _inv3(inv_d2):
+    return tuple(inv_d2) + (0.0,) * (3 - len(inv_d2))
+
+
+def multi_step(T, Cm, inv_d2, n: int, form: str, out=None):
+    """The multi_step_cm kernel's wrapper: `n` steps of body form `form`
+    in one launch for CUDA tensors, multi_step_cm_plain for CPU ones."""
+    _check_operands("multi_step_cm", T, Cm, out)
+    if form not in FORMS:
+        raise ValueError(f"unknown body form {form!r}; known: {tuple(FORMS)}")
+    operands = (T, Cm) if out is None else (T, Cm, out)
+    if not use_kernel(*operands):
+        return multi_step_cm_plain(T, Cm, inv_d2, n, form, out=out)
+    if out is None:
+        out = torch.empty_like(T)
+    scratch = torch.empty((2,) + tuple(T.shape), dtype=_compute_dtype(T.dtype),
+                          device=T.device)
+    _call("rmt_multi_step_cm", T, _DTYPE_CODE[T.dtype], T.ndim, FORMS[form], int(n),
+          T.data_ptr(), Cm.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+          *_extents(T), *_inv3(inv_d2))
+    LAUNCHES["multi_step_cm"] += 1
+    return out
+
+
+def tb_sweep(T, Cm, inv_d2, k: int, out=None):
+    """The tb_sweep kernel's wrapper: `k` direct-form steps by temporal
+    blocking in one launch for CUDA tensors, tb_sweep_plain for CPU ones."""
+    _check_operands("tb_sweep", T, Cm, out)
+    operands = (T, Cm) if out is None else (T, Cm, out)
+    if not use_kernel(*operands):
+        return tb_sweep_plain(T, Cm, inv_d2, k, out=out)
+    if out is None:
+        out = torch.empty_like(T)
+    _call("rmt_tb_sweep", T, _DTYPE_CODE[T.dtype], T.ndim, int(k),
+          T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *_extents(T), *_inv3(inv_d2))
+    LAUNCHES["tb_sweep"] += 1
+    return out
+
+
+def _repeat(launch, T, count: int):
+    """Apply `launch(field, out)` `count` times, ping-ponging between two
+    buffers of its own (the caller's T is read, never written)."""
+    cur, spare = T, None
+    for _ in range(count):
+        nxt = launch(cur, spare)
+        spare = None if cur is T else cur
+        cur = nxt
+    return cur
+
+
+# ---------------------------------------------------------------------------
+# Entry points (pallas_kernels.py:714-852, :1019-1137)
+# ---------------------------------------------------------------------------
+
+
+def _check_vmem(T, what: str, hint: str) -> None:
+    if T.dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {T.dtype} not supported (float32, float64, bfloat16)")
+    nbytes = _compute_nbytes(T.shape, T.dtype)
+    if nbytes > _VMEM_BLOCK_BUDGET_BYTES:
+        raise ValueError(
+            f"{what} of {nbytes} bytes (f32 compute width) exceeds the "
+            f"VMEM-resident budget ({_VMEM_BLOCK_BUDGET_BYTES}); {hint}"
+        )
+
+
+def fused_multi_step(T, Cp, lam, dt, spacing, n_steps: int, chunk=None,
+                     warn_on_cap=True, body_form=None, pad_pow2=None, config=None):
+    """Advance a single-shard field `n_steps`, `chunk` steps per launch of
+    the multi_step_cm kernel, with the Dirichlet edge held by an
+    edge-masked coefficient computed once per call.
+
+    Replaces pallas_kernels.fused_multi_step (file:714). The chunk,
+    body form and pad follow plan_vmem_loop; the outer loop is a Python
+    loop over launches, and a chunk that does not divide `n_steps`
+    raises. Returns a new tensor; `T` is not written.
+    """
+    _check_vmem(T, "field", "use the per-step path")
+    n_steps = int(n_steps)
+    lam, dt = float(lam), float(dt)
+    inv_d2 = inv_d2_of(spacing)
+    Cm = edge_masked_cm(T, Cp, lam, dt)
+    orig_shape = tuple(T.shape)
+    choice = plan_vmem_loop(T.shape, T.dtype, n_steps, chunk=chunk, body_form=body_form,
+                            pad_pow2=pad_pow2, config=config, warn_on_cap=warn_on_cap)
+    if choice.pad_applied:
+        widths = []
+        for p, d in reversed(list(zip(choice.padded_shape, T.shape))):
+            widths += [0, p - d]
+        T = torch.nn.functional.pad(T, widths)  # pad cells are frozen: Cm pads to 0
+        Cm = torch.nn.functional.pad(Cm, widths)
+    elif choice.pad_applied is False:
+        warnings.warn(
+            f"pad_pow2 requested but SKIPPED: the padded field would exceed "
+            f"the VMEM budget ({_VMEM_BLOCK_BUDGET_BYTES}); the program runs "
+            "unpadded — do not label this measurement 'pad'",
+            stacklevel=2,
+        )
+    form = multi_step_form(T.shape, T.dtype, choice.chunk, inv_d2, choice.body_form)
+    out = _repeat(lambda x, o: multi_step(x, Cm, inv_d2, choice.chunk, form, out=o),
+                  T, n_steps // choice.chunk)
+    if tuple(out.shape) != orig_shape:
+        out = out[tuple(slice(0, d) for d in orig_shape)].contiguous()
+    return out
+
+
+def multi_step_cm(T, Cm, spacing, n_steps: int, out=None):
+    """`n_steps` steps on a block with a caller-supplied masked coefficient
+    `Cm` (dt·λ/Cp where the cell updates, exactly 0.0 where it is held), in
+    one launch of the multi_step_cm kernel.
+
+    Replaces pallas_kernels.multi_step_cm (file:815): the deep-halo
+    sweep's local compute on blocks within the VMEM budget. The body form
+    is _multi_step_kernel's choice for this chunk and block.
+    """
+    if tuple(T.shape) != tuple(Cm.shape):
+        raise ValueError(f"shape mismatch: T {tuple(T.shape)} vs Cm {tuple(Cm.shape)}")
+    _check_vmem(T, "padded block",
+                "for HBM-resident blocks use multi_step_cm_hbm (the deep-halo "
+                "sweep routes there automatically) or the per-step variants")
+    inv_d2 = inv_d2_of(spacing)
+    n = int(n_steps)
+    if n == 0:
+        return T.clone()
+    return multi_step(T, Cm, inv_d2, n, multi_step_form(T.shape, T.dtype, n, inv_d2),
+                       out=out)
+
+
+def _check_tb(T, k: int) -> tuple[int, int]:
+    """JAX's shape checks of a k-step sweep; returns (g, tm)."""
+    g, tm = tb_geometry(k)
+    if not tb_slab_fits(k, T.shape, T.dtype):
+        raise ValueError(
+            f"a k={k} sweep's (tm+2g)={tm + 2 * g}-row slab exceeds the "
+            f"compile envelope ({_PS_SLAB_BUDGET_BYTES} B at f32 compute "
+            f"width) for rows this wide; use k <= {_TB_G} or a narrower "
+            "block (the deep-halo router falls back to the plain path)"
+        )
+    n0 = T.shape[0]
+    if n0 % tm != 0 or (n0 // tm) < 2:
+        raise ValueError(f"axis-0 length {n0} must be a multiple of {tm} (>= 2 stripes)")
+    return g, tm
+
+
+def fused_multi_step_hbm(T, Cp, lam, dt, spacing, n_steps: int, block_steps=None):
+    """Advance a single-shard field `n_steps` by temporal blocking: each
+    launch of the tb_sweep kernel advances the whole field `block_steps`
+    steps in one pass over device memory.
+
+    Replaces pallas_kernels.fused_multi_step_hbm (file:1019). Same
+    checks: 1 <= block_steps <= 16, the stripe divisibility and slab
+    envelope of tb_geometry/tb_slab_fits, and `n_steps` a multiple of
+    `block_steps`. Returns a new tensor; `T` is not written.
+    """
+    if T.dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {T.dtype} not supported (float32, float64, bfloat16)")
+    k = DEFAULT_TB_STEPS if block_steps is None else int(block_steps)
+    if not 1 <= k <= _TB_MAX_STEPS:
+        raise ValueError(f"block_steps must be in [1, {_TB_MAX_STEPS}], got {k}")
+    _check_tb(T, k)
+    n_steps = int(n_steps)
+    if n_steps % k != 0:
+        raise ValueError(f"n_steps {n_steps} must be a multiple of {k}")
+    inv_d2 = inv_d2_of(spacing)
+    Cm = edge_masked_cm(T, Cp, float(lam), float(dt))
+    return _repeat(lambda x, o: tb_sweep(x, Cm, inv_d2, k, out=o), T, n_steps // k)
+
+
+def multi_step_cm_hbm(T, Cm, spacing, n_steps: int, out=None):
+    """One temporal-blocked sweep of `n_steps` (<= 16) steps on a block
+    with a caller-supplied masked coefficient — the large-block form of
+    multi_step_cm, one launch of the tb_sweep kernel.
+
+    Replaces pallas_kernels.multi_step_cm_hbm (file:1095): the deep-halo
+    sweep's local compute on blocks beyond the VMEM budget.
+    """
+    if tuple(T.shape) != tuple(Cm.shape):
+        raise ValueError(f"shape mismatch: T {tuple(T.shape)} vs Cm {tuple(Cm.shape)}")
+    n = int(n_steps)
+    if not 1 <= n <= _TB_MAX_STEPS:
+        raise ValueError(
+            f"n_steps must be in [1, {_TB_MAX_STEPS}] per HBM sweep, got {n} "
+            "(the stripe ghosts bound the in-sweep light cone)"
+        )
+    _check_tb(T, n)
+    return tb_sweep(T, Cm, inv_d2_of(spacing), n, out=out)

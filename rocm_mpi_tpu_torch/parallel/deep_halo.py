@@ -1,0 +1,170 @@
+"""Deep-halo sweeps: width-k ghost exchange every k steps — counterpart of
+rocm_mpi_tpu/parallel/deep_halo.py (the diffusion schedule).
+
+Each rank receives a k-wide ghost region once, then advances its padded
+block k steps locally and keeps the core: after s local steps only ghost
+cells at depth >= s+1 from the core can be stale (the outermost layer
+sees zeros, or a held value, and the error moves inward one cell per
+step), so for s <= k the core is exact. Global Dirichlet boundary cells
+and off-domain ghost cells are held by a zero coefficient.
+
+The loop-invariant coefficient is exchanged once per advance
+(`prepare`), the field once per sweep (`sweep`). The local k steps take
+the JAX package's route for the padded block's shape:
+
+* "vmem"   — within the VMEM budget: ops.multistep.multi_step_cm;
+* "hbm-tb" — beyond it, where the temporal-blocked sweep's shape checks
+  pass: ops.multistep.multi_step_cm_hbm;
+* "jnp"    — otherwise, or with local_form="jnp": k steps of plain
+  PyTorch slicing (the JAX package's XLA route, taken by shape alone).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from rocm_mpi_tpu_torch.config import validate_wire_mode
+from rocm_mpi_tpu_torch.ops import multistep
+from rocm_mpi_tpu_torch.ops.kernels import inv_d2_of
+from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
+
+
+@dataclasses.dataclass
+class DeepSchedule:
+    """A deep-halo schedule: `prepare(Cp)` exchanges and masks the
+    coefficient once, returning this rank's k-padded Cm; `sweep(T, Cm)`
+    advances this rank's shard k steps with one exchange of T. `route` is
+    the local route the last sweep took ("vmem", "hbm-tb" or "jnp")."""
+
+    prepare: Callable
+    sweep: Callable
+    k: int
+    wire_mode: str = "f32"
+    route: str | None = None
+
+
+def _validate_depth(grid: GlobalGrid, k: int, label: str = "sweep depth"):
+    if k < 1:
+        raise ValueError(f"{label} k must be >= 1, got {k}")
+    if any(k > ln for ln in grid.local_shape):
+        raise ValueError(
+            f"{label} {k} exceeds a local shard extent "
+            f"{grid.local_shape}; ghost slices need width <= shard"
+        )
+
+
+def padded_hold_mask(shape, grid: GlobalGrid, width: int, device=None) -> torch.Tensor:
+    """True over a width-`width` padded block where the cell must NOT
+    update: global Dirichlet boundary cells and off-domain ghost cells,
+    located by global index from this rank's shard bounds."""
+    mask = torch.zeros(tuple(shape), dtype=torch.bool, device=device)
+    for ax, (start, _) in enumerate(grid.shard_bounds()):
+        gidx = start + torch.arange(shape[ax], device=device) - width
+        m = (gidx <= 0) | (gidx >= grid.global_shape[ax] - 1)
+        view = [1] * len(shape)
+        view[ax] = shape[ax]
+        mask = mask | m.reshape(view)
+    return mask
+
+
+def padded_update_coefficient(Cp_padded, grid: GlobalGrid, width: int, lam, dt):
+    """Masked dt·λ/Cp over a width-`width` padded block: zero where the
+    cell must not update; off-domain ghosts, where the exchanged Cp is 0,
+    are guarded so the division cannot produce inf."""
+    mask = padded_hold_mask(Cp_padded.shape, grid, width, device=Cp_padded.device)
+    safe = torch.where(Cp_padded == 0, torch.ones_like(Cp_padded), Cp_padded)
+    return torch.where(mask, torch.zeros_like(Cp_padded), (dt * lam) / safe)
+
+
+def resolve_deep_config(grid: GlobalGrid, dtype, config: str | None) -> dict:
+    """The tuned deep configuration ({"k", "wire_mode"}, None = default
+    policy). Only the default policy is ported: config="auto" needs the
+    tuning cache and raises NotImplementedError."""
+    multistep._check_config(config)
+    return {"k": None, "wire_mode": None}
+
+
+def resolve_deep_k(grid: GlobalGrid, dtype, config: str | None) -> int | None:
+    return resolve_deep_config(grid, dtype, config)["k"]
+
+
+def local_route(padded_shape, dtype, k: int, local_form: str = "auto") -> str:
+    """The local route of a k-step sweep on a block of `padded_shape`:
+    deep_halo.py:315-326's rule, a function of the shape alone."""
+    if local_form == "jnp":
+        return "jnp"
+    if multistep._compute_nbytes(padded_shape, dtype) <= multistep._VMEM_BLOCK_BUDGET_BYTES:
+        return "vmem"
+    n0p = padded_shape[0]
+    if (
+        k <= multistep._TB_MAX_STEPS
+        and len(padded_shape) in (2, 3)
+        and multistep.tb_slab_fits(k, padded_shape, dtype)
+        and n0p % multistep.tb_geometry(k)[1] == 0
+        and (n0p // multistep.tb_geometry(k)[1]) >= 2
+    ):
+        return "hbm-tb"
+    return "jnp"
+
+
+def jnp_k_steps(Tp, Cm, inv_d2, k: int):
+    """k steps of the padded-slice stencil on the inner box (the outermost
+    ghost layer is held) — deep_halo.py's any-shape XLA route, in plain
+    PyTorch and its operation order: ((hi - 2c) + lo)·inv per axis."""
+    ndim = Tp.ndim
+    inner = tuple(slice(1, -1) for _ in range(ndim))
+    Tp = Tp.clone()
+    for _ in range(k):
+        lap = None
+        for ax in range(ndim):
+            hi = tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
+            lo = tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
+            term = (Tp[hi] - 2.0 * Tp[inner] + Tp[lo]) * inv_d2[ax]
+            lap = term if lap is None else lap + term
+        Tp[inner] = Tp[inner] + Cm[inner] * lap
+    return Tp
+
+
+def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
+                    local_form: str = "auto", wire_mode: str = "f32") -> DeepSchedule:
+    """Build the diffusion DeepSchedule on this rank's shard of `grid`.
+
+    `prepare(Cp)` -> k-padded Cm (one width-k exchange of Cp, once per
+    advance); `sweep(T, Cm)` -> T advanced k steps (one width-k exchange
+    of T into a padded buffer the schedule reuses, the local k steps on
+    the route `local_route` picks, the core kept). `dt` may be a Python
+    float or a 0-dim tensor in the field dtype, as the model passes it.
+    """
+    _validate_depth(grid, k, "sweep depth")
+    validate_wire_mode(wire_mode)
+    if local_form not in ("auto", "jnp"):
+        raise ValueError(f"local_form must be 'auto' or 'jnp', got {local_form!r}")
+    core = tuple(slice(k, -k) for _ in range(grid.ndim))
+    inv_d2 = inv_d2_of(spacing)
+    padded_shape = tuple(n + 2 * k for n in grid.local_shape)
+    pad: dict[str, torch.Tensor] = {}
+
+    def prepare(Cp):
+        return padded_update_coefficient(exchange_halo(Cp, grid, width=k), grid, k, lam, dt)
+
+    def sweep(T, Cm):
+        buf = pad.get("T")
+        if buf is None or buf.dtype != T.dtype or buf.device != T.device:
+            buf = pad["T"] = torch.zeros(padded_shape, dtype=T.dtype, device=T.device)
+        Tp = exchange_halo(T, grid, width=k, wire_mode=wire_mode, out=buf)
+        route = local_route(padded_shape, T.dtype, k, local_form)
+        if route == "vmem":
+            Tp = multistep.multi_step_cm(Tp, Cm, spacing, k)
+        elif route == "hbm-tb":
+            Tp = multistep.multi_step_cm_hbm(Tp, Cm, spacing, k)
+        else:
+            Tp = jnp_k_steps(Tp, Cm, inv_d2, k)
+        sched.route = route
+        return Tp[core]
+
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode)
+    return sched

@@ -1,7 +1,8 @@
 """The port across 4 gloo ranks (2×2 process grid) against the JAX
 package's 4-device mesh: halo exchange, the sharded perf path (exchange +
-fused_step_cm's plain version), the ap/fused/shard variants, gather, and
-a run started from the JAX package's own state. One launch of 4 ranks
+fused_step_cm's plain version), the ap/fused/shard variants, gather, a
+run started from the JAX package's own state, and the deep-halo schedule
+on its VMEM and temporal-blocked routes. One launch of 4 ranks
 serves every test here (tests/test_torch_rank_worker.py)."""
 
 import jax
@@ -29,6 +30,11 @@ HALO_CASES = {
 }
 RUNS = [("f64", "perf"), ("f32", "perf"), ("f64", "ap"), ("f64", "fused"),
         ("f64", "shard"), ("f32", "shard")]
+# The deep schedule on a 2x2 grid of 48x24: shards of 24x12, k = 4, so the
+# k-padded block (32, 20) passes the temporal-blocked route's stripe rule
+# when the VMEM budget is shrunk below it.
+DEEP = dict(shape=(48, 24), dims=(2, 2), nt=16, warmup=8, k=4, hbm_budget=1024)
+DEEP_RUNS = [("f64", "vmem"), ("f32", "vmem"), ("f64", "hbm-tb"), ("f32", "hbm-tb")]
 TOL = {"f64": dict(rtol=1e-12, atol=1e-14), "f32": dict(rtol=2e-5, atol=2e-6)}
 
 
@@ -44,7 +50,8 @@ def ranks():
         T0, Cp = _jax_model(dtype).init_state()
         jax_states[dtype] = (np.asarray(T0), np.asarray(Cp))
     spec = dict(nprocs=NPROCS, halo_cases=HALO_CASES, shape=SHAPE, dims=DIMS,
-                nt=NT, warmup=WARMUP, runs=RUNS, jax_states=jax_states)
+                nt=NT, warmup=WARMUP, runs=RUNS, jax_states=jax_states,
+                deep=DEEP, deep_runs=DEEP_RUNS)
     return spawn_ranks(NPROCS, worker.run_rank, (spec,), backend="gloo", timeout=240)
 
 
@@ -104,7 +111,8 @@ def test_sharded_perf_matches_host_staged_oracle(ranks, dtype):
 
 def test_sharded_perf_launches_no_kernel_on_cpu(ranks):
     for out in ranks:
-        assert out["launches"] == {"masked_step": 0, "fused_step_cm": 0}
+        assert out["launches"] == {"masked_step": 0, "fused_step_cm": 0,
+                                   "multi_step_cm": 0, "tb_sweep": 0}
 
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
@@ -113,3 +121,21 @@ def test_run_from_jax_state_matches_jax_advance(ranks, dtype):
     T0, Cp = model.init_state()
     ref = np.asarray(model.advance_fn("perf")(T0, Cp, NT))
     np.testing.assert_allclose(ranks[0]["from_jax"][dtype], ref, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,route", DEEP_RUNS)
+def test_sharded_deep_matches_jax_4_device(ranks, dtype, route, monkeypatch):
+    import rocm_mpi_tpu.ops.pallas_kernels as pk
+
+    for out in ranks:
+        got_route, k, _ = out["deep"][(dtype, route)]
+        assert (got_route, k) == (route, DEEP["k"])
+    got = ranks[0]["deep"][(dtype, route)][2]
+    if route == "hbm-tb":
+        monkeypatch.setattr(pk, "_VMEM_BLOCK_BUDGET_BYTES", DEEP["hbm_budget"])
+    cfg = JaxConfig(global_shape=DEEP["shape"], nt=DEEP["nt"], warmup=DEEP["warmup"],
+                    dtype=dtype, dims=DEEP["dims"])
+    ref = np.asarray(JaxHeatDiffusion(cfg, devices=jax.devices()[:NPROCS])
+                     .run_deep(block_steps=DEEP["k"]).T)
+    assert got.shape == DEEP["shape"]
+    np.testing.assert_allclose(got, ref, **TOL[dtype])

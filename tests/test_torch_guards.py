@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
-    assert {"kernels.py", "halo.py", "diffusion.py", "chip_smoke.py"} <= names
+    assert {"kernels.py", "multistep.py", "halo.py", "deep_halo.py", "diffusion.py",
+            "chip_smoke.py"} <= names
 
 
 def test_scan_would_catch_a_jax_import(tmp_path):

@@ -26,7 +26,7 @@ def run_rank(rank, spec):
 
     torch.set_num_threads(1)
     assert distributed.rank() == rank and distributed.world_size() == spec["nprocs"]
-    out = {"halo": {}, "runs": {}, "from_jax": {}, "launches": None}
+    out = {"halo": {}, "runs": {}, "from_jax": {}, "launches": None, "deep": {}}
 
     for key, (shape, dims) in spec["halo_cases"].items():
         grid = init_global_grid(*shape, dims=dims)
@@ -43,6 +43,23 @@ def run_rank(rank, spec):
         res = model.run(variant)
         out["runs"][(dtype, variant)] = gather_to_host0(res.T, model.grid)
     out["launches"] = dict(kernels.LAUNCHES)
+
+    # The deep schedule on its VMEM route, and on the temporal-blocked
+    # route with the VMEM budget shrunk as the parent shrinks JAX's.
+    from rocm_mpi_tpu_torch.ops import multistep
+
+    deep = spec["deep"]
+    budget = multistep._VMEM_BLOCK_BUDGET_BYTES
+    for dtype, route in spec["deep_runs"]:
+        cfg = DiffusionConfig(global_shape=deep["shape"], nt=deep["nt"],
+                              warmup=deep["warmup"], dtype=dtype, dims=deep["dims"])
+        model = HeatDiffusion(cfg, device="cpu")
+        multistep._VMEM_BLOCK_BUDGET_BYTES = deep["hbm_budget"] if route == "hbm-tb" else budget
+        try:
+            res = model.run_deep(block_steps=deep["k"])
+        finally:
+            multistep._VMEM_BLOCK_BUDGET_BYTES = budget
+        out["deep"][(dtype, route)] = (res.route, res.k, gather_to_host0(res.T, model.grid))
 
     # Start from the JAX package's state, carried across as numpy.
     for dtype, (T0, Cp) in spec["jax_states"].items():
