@@ -2,10 +2,10 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2, 6 and 7 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-9 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
-the target). Phases, printed as they run (about a minute on one H100
+the target). Phases, printed as they run (about two minutes on one H100
 80GB HBM3, the build included):
 
 1. environment — torch, CUDA and nvcc versions, the card's name and power
@@ -13,9 +13,11 @@ the target). Phases, printed as they run (about a minute on one H100
 2. build — nvcc builds every csrc/*.cu, one process per source, all
    started together;
 3. kernels — each kernel at the main paths' shapes, in f32, f64 and bf16
-   (and multi_step_cm's other body forms in f32), and each on a small 3D
-   block, held bitwise against its plain PyTorch version on the card, and
-   timed with CUDA events (median) beside the plain version and its bound;
+   (and the multi-step kernels' other body forms in f32), and each on a
+   small 3D block, held bitwise against its plain PyTorch version on the
+   card, and timed with CUDA events (median) beside the plain version and
+   its bound; the region kernels also as the five boxes of the `hide`
+   decomposition of a 6144² shard;
 4. main path, one GPU — HeatDiffusion.run("perf") at 12288² f32 for 1000
    steps and at 252² f32: every step one masked_step launch, the field
    bitwise equal to the plain versions' run of the same steps, and the
@@ -28,6 +30,10 @@ the target). Phases, printed as they run (about a minute on one H100
    through the plain versions on the card, and prints ms/step, effective
    T_eff and Gpts/s; the 252² results stay within the analytic Gaussian
    bound;
+   [wave] the same for the acoustic wave: AcousticWave.run("perf") at
+   12288² (one wave_step launch per step; the copy, kernel and select of
+   a step timed alone), run_vmem_resident at 252² (256 + 4096, chunk 256)
+   and run_deep at 252² (8 + 1024, k = 8), and time reversal at 252² f64;
 6. main path, sharded — the 2×2 perf path (halo exchange + fused_step_cm)
    run by 4 ranks that share this one card over a gloo group (halo slabs
    staged through host memory): every step one fused_step_cm launch per
@@ -37,11 +43,21 @@ the target). Phases, printed as they run (about a minute on one H100
 7. deep schedule, sharded — run_deep on the 2×2 grid of 12288² (k = 8,
    hbm-tb route on 6160² padded shards) by the same 4 ranks over gloo,
    16 + 32 steps: each shard bitwise equal to its plain-version run, the
-   gathered field bitwise equal to the one-GPU run_deep of the same k.
+   gathered field bitwise equal to the one-GPU run_deep of the same k;
+8. hide, sharded — diffusion and wave `perf` and `hide` on the 2×2 grid of
+   12288² (b_width (32, 4), five region launches per rank and step), 20
+   steps: each shard bitwise equal to its plain-version run, the diffusion
+   hide field bitwise equal to perf's, hide's ms/step beside perf's;
+9. wave deep schedule, sharded — run_deep on the 2×2 grid of 480² (k = 8,
+   256² padded shards, vmem route), 16 + 32 steps: each shard bitwise equal
+   to its plain-version run, the gathered field bitwise equal to the
+   one-GPU run_deep.
 
-With `--gpus 4` phases 6 and 7 run one rank per GPU over NCCL (phase 6
-for 1000 steps after 10 warmup, phase 7 for 1000 after 16), and phases
-3-5 are skipped.
+With `--gpus 4` phases 6-9 run one rank per GPU over NCCL (6 and 8 for
+1000 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
+exchange, the interior and the slabs timed alone), and phases 3-5 are
+skipped. `chip_trace_hide.py` traces the phase-8 steps under
+torch.profiler.
 
 Then it prints the card line, one JSON line describing every kernel, and
 last `{"ok": true, "device": {...}}`. Any failed phase raises: the script
@@ -75,23 +91,32 @@ PEAKS = (
 BIG, SMALL = (12288, 12288), (252, 252)
 BLOCK = (6144, 6144)  # one rank's block of a 2×2 decomposition of 12288²
 DEEP_SMALL = (316, 316)  # 252² grown by the k = 32 deep ghosts
+WAVE_DEEP_SMALL = (268, 268)  # 252² grown by the wave's k = 8 deep ghosts
 TB_BIG = (12304, 12304)  # 12288² grown by the k = 8 deep ghosts
 TB_BLOCK = (6160, 6160)  # a 6144² shard grown by the k = 8 deep ghosts
 SMALL_3D = (96, 64, 48)
+HIDE_B_WIDTH = (32, 4)  # the reference's boundary frame (hide.jl:42)
 KERNELS = {
     # name: (source line of the TPU kernel it replaces, CUDA source)
     "masked_step": ("rocm_mpi_tpu/ops/pallas_kernels.py:1191", "stencil.cu"),
     "fused_step_cm": ("rocm_mpi_tpu/ops/pallas_kernels.py:290", "stencil.cu"),
     "multi_step_cm": ("rocm_mpi_tpu/ops/pallas_kernels.py:566", "multistep.cu"),
     "tb_sweep": ("rocm_mpi_tpu/ops/pallas_kernels.py:889", "multistep.cu"),
+    "wave_step": ("rocm_mpi_tpu/ops/wave_kernels.py:76", "wave.cu"),
+    "wave_step_masked": ("rocm_mpi_tpu/ops/wave_kernels.py:140", "wave.cu"),
+    "wave_multi_step": ("rocm_mpi_tpu/ops/wave_kernels.py:244", "wave.cu"),
 }
 ALL_DTYPES = ("f32", "f64", "bf16")
 # Kernel cases: (kernel, block shape, steps per launch, body form, dtypes).
+# The block shape is the core; the padded kernels read it grown by one.
+# "regions" launches one box per region of the hide decomposition of
+# HIDE_B_WIDTH into one output (the interior from the raw block).
 KERNEL_CASES = [
     ("masked_step", SMALL, 1, "direct", ALL_DTYPES),
     ("masked_step", BIG, 1, "direct", ALL_DTYPES),
     ("fused_step_cm", SMALL, 1, "direct", ALL_DTYPES),
     ("fused_step_cm", BLOCK, 1, "direct", ALL_DTYPES),
+    ("fused_step_cm", BLOCK, 1, "regions", ALL_DTYPES),
     ("multi_step_cm", DEEP_SMALL, 32, "eqc", ALL_DTYPES),
     ("multi_step_cm", SMALL, 256, "eqc", ALL_DTYPES),
     ("multi_step_cm", DEEP_SMALL, 32, "direct", ("f32",)),
@@ -99,6 +124,14 @@ KERNEL_CASES = [
     ("multi_step_cm", DEEP_SMALL, 32, "conly", ("f32",)),
     ("tb_sweep", TB_BIG, 8, "direct", ALL_DTYPES),
     ("tb_sweep", TB_BLOCK, 8, "direct", ALL_DTYPES),
+    ("wave_step", BIG, 1, "direct", ALL_DTYPES),
+    ("wave_step", SMALL, 1, "direct", ALL_DTYPES),
+    ("wave_step_masked", BLOCK, 1, "whole", ALL_DTYPES),
+    ("wave_step_masked", BLOCK, 1, "regions", ALL_DTYPES),
+    ("wave_step_masked", SMALL, 1, "whole", ALL_DTYPES),
+    ("wave_multi_step", SMALL, 256, "aform", ALL_DTYPES),
+    ("wave_multi_step", WAVE_DEEP_SMALL, 8, "aform", ALL_DTYPES),
+    ("wave_multi_step", WAVE_DEEP_SMALL, 2, "direct", ("f32",)),
     # 3D, at small sizes: every kernel takes 3D blocks, which no main path
     # drives on the card yet.
     ("masked_step", SMALL_3D, 1, "direct", ALL_DTYPES),
@@ -106,18 +139,32 @@ KERNEL_CASES = [
     ("multi_step_cm", SMALL_3D, 8, "eqc", ALL_DTYPES),
     ("multi_step_cm", SMALL_3D, 8, "ac", ("f32",)),
     ("tb_sweep", SMALL_3D, 8, "direct", ALL_DTYPES),
+    ("wave_step", SMALL_3D, 1, "direct", ALL_DTYPES),
+    ("wave_step_masked", SMALL_3D, 1, "regions", ALL_DTYPES),
+    ("wave_multi_step", SMALL_3D, 8, "direct", ALL_DTYPES),  # unequal spacing
 ]
 # The f32 case whose times stand for each kernel in the JSON line: the
 # launch its main path makes most.
 MAIN_CASE = {"masked_step": (BIG, "direct"), "fused_step_cm": (BLOCK, "direct"),
-             "multi_step_cm": (SMALL, "eqc"), "tb_sweep": (TB_BIG, "direct")}
-# Operations per cell and step of each body form (the per-launch A/c/eqc
-# prologue, a few operations per cell, is left out).
+             "multi_step_cm": (SMALL, "eqc"), "tb_sweep": (TB_BIG, "direct"),
+             "wave_step": (BIG, "direct"), "wave_step_masked": (BLOCK, "regions"),
+             "wave_multi_step": (SMALL, "aform")}
+# Operations per cell and step of each kernel and body form (the
+# per-launch A/c/eqc prologue, a few operations per cell, is left out).
 FLOPS_PER_CELL_STEP = {
-    "direct": lambda nd: 5 * nd + 1,
-    "ac": lambda nd: 3 * nd + 1,
-    "eqc": lambda nd: 2 * nd + 2,
-    "conly": lambda nd: 2 * nd + 3,
+    ("masked_step", "direct"): lambda nd: 5 * nd + 1,
+    ("fused_step_cm", "direct"): lambda nd: 5 * nd + 1,
+    ("fused_step_cm", "regions"): lambda nd: 5 * nd + 1,
+    ("multi_step_cm", "direct"): lambda nd: 5 * nd + 1,
+    ("tb_sweep", "direct"): lambda nd: 5 * nd + 1,
+    ("multi_step_cm", "ac"): lambda nd: 3 * nd + 1,
+    ("multi_step_cm", "eqc"): lambda nd: 2 * nd + 2,
+    ("multi_step_cm", "conly"): lambda nd: 2 * nd + 3,
+    ("wave_step", "direct"): lambda nd: 5 * nd + 4,
+    ("wave_step_masked", "whole"): lambda nd: 5 * nd + 7,
+    ("wave_step_masked", "regions"): lambda nd: 5 * nd + 7,
+    ("wave_multi_step", "aform"): lambda nd: 2 * nd + 8,
+    ("wave_multi_step", "direct"): lambda nd: 5 * nd + 4,
 }
 MAIN_NT, MAIN_WARMUP = 1000, 10
 SHARD_NT, SHARD_WARMUP = 20, 2
@@ -129,6 +176,9 @@ VMEM_CHECK_NT = 1024  # the analytic check's run: by 4352 steps the
 DEEP_SMALL_NT, DEEP_SMALL_WARMUP = 1056, 32
 TB_NT, TB_WARMUP = 1016, 16
 SHARD_DEEP_NT, SHARD_DEEP_WARMUP = 48, 16
+WAVE_DEEP_NT, WAVE_DEEP_WARMUP, WAVE_DEEP_K = 1032, 8, 8
+REVERSAL_STEPS = 500
+WAVE_DEEP_SHARDED = (480, 480)  # 2×2 shards of 240², 256² with the k = 8 ghosts
 
 
 class PhaseError(RuntimeError):
@@ -217,44 +267,139 @@ def phase_build():
     return seconds
 
 
-def _kernel_inputs(torch, name, core, dtype, device):
-    """Inputs of one kernel call as its path makes them: the field in
-    [0, 1), Cm from the grid's dt — edge-masked where the block's edge is
-    the domain's (masked_step, and the multi-step kernels on the one-GPU
-    blocks and deep-padded blocks, whose rings are held)."""
-    from rocm_mpi_tpu_torch.config import DiffusionConfig
-    from rocm_mpi_tpu_torch.ops import kernels
+def _kernel_case(torch, name, core, steps, form, dtype, device):
+    """(kernel launch, plain version, bytes moved) of one kernel case, its
+    inputs made as its path makes them: fields in [0, 1), coefficients from
+    the grid's dt — edge-masked where the block's edge is the domain's
+    (masked_step, and the multi-step kernels on one-GPU and deep-padded
+    blocks, whose rings are held). The launches write a preallocated
+    output; the bytes count each input read once and each output written
+    once (the region case as the whole block it covers)."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, WaveConfig
+    from rocm_mpi_tpu_torch.ops import kernels, multistep, wave
+    from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, ghost_free, region_boxes
 
-    domain = SMALL if core in (SMALL, DEEP_SMALL) else core if len(core) == 3 else BIG
-    cfg = DiffusionConfig(global_shape=domain, lengths=(10.0,) * len(domain), dtype=dtype)
+    domain = (SMALL if core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL)
+              else core if len(core) == 3 else BIG)
+    lengths = (10.0,) * len(domain)
+    cfg = DiffusionConfig(global_shape=domain, lengths=lengths, dtype=dtype)
     tdt = cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(SEED)
-    dt = torch.tensor(cfg.dt, dtype=tdt, device=device)
-    if name != "fused_step_cm":
-        T = torch.rand(core, generator=gen, device=device, dtype=torch.float64).to(tdt)
-        Cm = kernels.edge_masked_cm(T, torch.ones_like(T), cfg.lam, dt)
-        return T, Cm, cfg.spacing
-    padded = tuple(n + 2 for n in core)
-    Tp = torch.rand(padded, generator=gen, device=device, dtype=torch.float64).to(tdt)
-    Cm = (torch.rand(core, generator=gen, device=device, dtype=torch.float64) * cfg.dt).to(tdt)
-    return Tp, Cm, cfg.spacing
-
-
-def _kernel_calls(name, field, Cm, spacing, steps, form, out):
-    """(kernel launch, plain version) of one case, as zero-argument calls."""
-    from rocm_mpi_tpu_torch.ops import kernels, multistep
-
+    spacing = cfg.spacing
     inv_d2 = kernels.inv_d2_of(spacing)
-    if name in ("masked_step", "fused_step_cm"):
-        wrapper = getattr(kernels, name)
-        plain = getattr(kernels, f"{name}_plain")
-        return (lambda: wrapper(field, Cm, spacing, out=out),
-                lambda: plain(field, Cm, inv_d2))
-    if name == "multi_step_cm":
-        return (lambda: multistep.multi_step(field, Cm, inv_d2, steps, form, out=out),
-                lambda: multistep.multi_step_cm_plain(field, Cm, inv_d2, steps, form))
-    return (lambda: multistep.tb_sweep(field, Cm, inv_d2, steps, out=out),
-            lambda: multistep.tb_sweep_plain(field, Cm, inv_d2, steps))
+    padded = tuple(n + 2 for n in core)
+
+    def rand(shape, scale=1.0, offset=0.0):
+        return (torch.rand(shape, generator=gen, device=device, dtype=torch.float64) * scale
+                + offset).to(tdt)
+
+    def regions(launch, plain, src, out):
+        """The hide decomposition's boxes: the interior from the raw block
+        (offset 0), the slabs from the padded one (offset 1)."""
+        raw = src[tuple(slice(1, -1) for _ in core)].contiguous()
+        boxes = region_boxes(core, effective_b_width(core, HIDE_B_WIDTH))
+
+        def run():
+            for box in boxes:
+                inner = ghost_free(box, core)
+                launch(raw if inner else src, 0 if inner else 1, box, out)
+            return out
+
+        def ref():
+            res = torch.empty_like(out)
+            for box in boxes:
+                window, sl = kernels.region_slices(box, 1)
+                plain(src[window], sl, res[sl])
+            return res
+
+        return run, ref
+
+    item = torch.empty((), dtype=tdt).element_size()
+    cells = 1
+    for n in core:
+        cells *= n
+    if name in ("masked_step", "multi_step_cm", "tb_sweep"):
+        T = rand(core)
+        Cm = kernels.edge_masked_cm(T, torch.ones_like(T), cfg.lam,
+                                    torch.tensor(cfg.dt, dtype=tdt, device=device))
+        out = torch.empty_like(T)
+        if name == "masked_step":
+            calls = (lambda: kernels.masked_step(T, Cm, spacing, out=out),
+                     lambda: kernels.masked_step_plain(T, Cm, inv_d2))
+        elif name == "multi_step_cm":
+            calls = (lambda: multistep.multi_step(T, Cm, inv_d2, steps, form, out=out),
+                     lambda: multistep.multi_step_cm_plain(T, Cm, inv_d2, steps, form))
+        else:
+            calls = (lambda: multistep.tb_sweep(T, Cm, inv_d2, steps, out=out),
+                     lambda: multistep.tb_sweep_plain(T, Cm, inv_d2, steps))
+        return (*calls, 3 * cells * item)
+    if name == "fused_step_cm":
+        Tp = rand(padded)
+        Cm = rand(core, cfg.dt)
+        out = torch.empty(core, dtype=tdt, device=device)
+        nbytes = (Tp.numel() + 2 * cells) * item
+        if form == "regions":
+            run, ref = regions(
+                lambda src, off, box, o: kernels.fused_step_cm_region(src, off, Cm, spacing, box, o),
+                lambda win, sl, o: kernels.fused_step_cm_plain(win, Cm[sl], inv_d2, out=o),
+                Tp, out)
+            return run, ref, nbytes
+        return (lambda: kernels.fused_step_cm(Tp, Cm, spacing, out=out),
+                lambda: kernels.fused_step_cm_plain(Tp, Cm, inv_d2), nbytes)
+    wcfg = WaveConfig(global_shape=domain, lengths=lengths, dtype=dtype)
+    dt = float(torch.tensor(wcfg.dt, dtype=tdt))
+    dt2 = dt * dt
+    if name == "wave_step":
+        Up, Uprev, C2 = rand(padded), rand(core), rand(core, 1.0, 0.5)
+        out = torch.empty(core, dtype=tdt, device=device)
+        return (lambda: wave.wave_step(Up, Uprev, C2, dt, spacing, out=out),
+                lambda: wave.wave_step_plain(Up, Uprev, C2, dt2, inv_d2),
+                (Up.numel() + 3 * cells) * item)
+    M = wave.interior_mask(core, tdt, device)
+    if name == "wave_step_masked":
+        Up, Uprev = rand(padded), rand(core)
+        Cw = (dt2 * rand(core, 1.0, 0.5)) * M
+        out = torch.empty(core, dtype=tdt, device=device)
+        nbytes = (Up.numel() + 4 * cells) * item
+        if form == "regions":
+            run, ref = regions(
+                lambda src, off, box, o: wave.wave_step_masked_region(src, off, Uprev, M, Cw,
+                                                                      spacing, box, o),
+                lambda win, sl, o: wave.wave_step_masked_plain(win, Uprev[sl], M[sl], Cw[sl],
+                                                               inv_d2, out=o),
+                Up, out)
+            return run, ref, nbytes
+        return (lambda: wave.wave_step_masked(Up, Uprev, M, Cw, spacing, out=out),
+                lambda: wave.wave_step_masked_plain(Up, Uprev, M, Cw, inv_d2), nbytes)
+    # wave_multi_step: on the deep block the off-domain ring is held
+    # (padded_hold_mask of a one-rank grid), on the field its edge.
+    if core == WAVE_DEEP_SMALL:
+        from rocm_mpi_tpu_torch.parallel.deep_halo import padded_hold_mask
+        from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
+
+        k = (core[0] - SMALL[0]) // 2
+        hold = padded_hold_mask(core, GlobalGrid(SMALL, lengths, (1, 1)), k, device=device)
+        M = torch.where(hold, torch.zeros_like(M), torch.ones_like(M))
+    U, Uprev = rand(core), rand(core)
+    Cw = (dt2 * rand(core, 1.0, 0.5)) * M
+    outs = (torch.empty_like(U), torch.empty_like(U))
+    check(wave.wave_multi_step_form(steps, inv_d2) == form,
+          f"{name} {core}: the JAX rule picks {wave.wave_multi_step_form(steps, inv_d2)}, "
+          f"not {form}")
+    return (lambda: wave.leapfrog_multi_step(U, Uprev, M, Cw, inv_d2, steps, form, out=outs),
+            lambda: wave.wave_multi_step_plain(U, Uprev, M, Cw, inv_d2, steps, form),
+            6 * cells * item)
+
+
+def _same(got, want) -> tuple[bool, float]:
+    """(bitwise equal, max |difference|) of two tensors or two pairs."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    return equal, err
 
 
 def phase_kernels(torch, card, pk):
@@ -264,24 +409,23 @@ def phase_kernels(torch, card, pk):
     rows = []
     for name, core, steps, form, dtypes in KERNEL_CASES:
         for dtype in dtypes:
-            field, Cm, spacing = _kernel_inputs(torch, name, core, dtype, device)
-            out = torch.empty(Cm.shape, dtype=field.dtype, device=device)
-            run, plain = _kernel_calls(name, field, Cm, spacing, steps, form, out)
+            run, plain, nbytes = _kernel_case(torch, name, core, steps, form, dtype, device)
             got = run()
             want = plain()
             torch.cuda.synchronize()
-            err = float((got.double() - want.double()).abs().max())
+            equal, err = _same(got, want)
             label = f"{name} {'x'.join(map(str, core))} {dtype}" + (
-                f" n={steps} {form}" if steps > 1 else "")
-            check(torch.equal(got, want), f"{label}: kernel != plain version (max |diff| {err})")
-            small = core in (SMALL, DEEP_SMALL, SMALL_3D)
+                f" n={steps} {form}" if steps > 1 else f" {form}" if form != "direct" else "")
+            check(equal, f"{label}: kernel != plain version (max |diff| {err})")
+            small = core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL, SMALL_3D)
             reps = (200 if steps == 1 else 50) if small else (30 if steps == 1 else 20)
             ms = time_ms(run, reps)
             plain_ms = time_ms(plain, max(reps // 4, 5) if steps == 1 else 5)
-            # Each input read once, the output written once.
-            nbytes = (field.numel() + 2 * Cm.numel()) * field.element_size()
-            b_ms, by, flops = bound_ms(pk, dtype, nbytes, Cm.numel(), steps,
-                                       FLOPS_PER_CELL_STEP[form](len(core)))
+            cells = 1
+            for n in core:
+                cells *= n
+            b_ms, by, flops = bound_ms(pk, dtype, nbytes, cells, steps,
+                                       FLOPS_PER_CELL_STEP[(name, form)](len(core)))
             row = dict(kernel=name, shape=list(core), dtype=dtype, steps=steps, form=form,
                        bitwise=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=by, bytes=nbytes, flops=flops,
@@ -291,7 +435,7 @@ def phase_kernels(torch, card, pk):
                   f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
                   f"{row['fraction_of_bound']:.3f} of bound) on {card}; no single PyTorch "
                   "call computes this step, library_ms null", flush=True)
-            del field, Cm, out, got, want
+            del run, plain, got, want
         torch.cuda.empty_cache()
     return rows
 
@@ -660,13 +804,415 @@ def phase_sharded_deep(card, gpus: int):
     return ranks, total
 
 
+# ---------------------------------------------------------------------------
+# The acoustic wave
+# ---------------------------------------------------------------------------
+
+
+def _wave_model(shape, nt, warmup, dtype="f32", device="cuda"):
+    from rocm_mpi_tpu_torch.config import WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+
+    cfg = WaveConfig(global_shape=shape, nt=nt, warmup=warmup, dtype=dtype, dims=(1, 1))
+    return AcousticWave(cfg, grid=init_global_grid(*shape, dims=(1, 1), nprocs=1, rank=0),
+                        device=device)
+
+
+def plain_wave_steps(model, U, Uprev, C2, n: int, variant: str = "perf"):
+    """`n` wave steps through the plain versions on the card: the same
+    exchange, then perf's plain wave_step and Dirichlet select, or hide's
+    plain wave_step_masked over the whole block (per cell the arithmetic
+    of its region launches)."""
+    import torch
+
+    from rocm_mpi_tpu_torch.ops import kernels, wave
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask
+
+    cfg, grid = model.config, model.grid
+    inv_d2 = kernels.inv_d2_of(cfg.spacing)
+    mask = global_boundary_mask(grid, device=U.device)
+    M = torch.where(mask, torch.zeros_like(C2), torch.ones_like(C2))
+    Cw = ((model.dt * model.dt) * C2) * M
+    pad = torch.zeros(tuple(s + 2 for s in U.shape), dtype=U.dtype, device=U.device)
+    for _ in range(n):
+        Up = exchange_halo(U, grid, out=pad)
+        if variant == "hide":
+            new = wave.wave_step_masked_plain(Up, Uprev, M, Cw, inv_d2)
+        else:
+            new = torch.where(mask, U, wave.wave_step_plain(Up, Uprev, C2, model.dt_value ** 2,
+                                                           inv_d2))
+        U, Uprev = new, U
+    return U, Uprev
+
+
+def plain_wave_schedule(model, meth: str, k: int, nt: int):
+    """The same `nt` steps of a wave schedule through the plain versions:
+    run_vmem_resident's chunks, or run_deep's prepare, width-k exchanges,
+    local k steps and crops."""
+    from rocm_mpi_tpu_torch.ops import kernels, wave
+    from rocm_mpi_tpu_torch.parallel.deep_halo import make_wave_deep_sweep
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+
+    cfg, grid = model.config, model.grid
+    inv_d2 = kernels.inv_d2_of(cfg.spacing)
+    form = wave.wave_multi_step_form(k, inv_d2)
+    U, Uprev, C2 = model.init_state()
+    if meth == "run_vmem_resident":
+        M = wave.interior_mask(U.shape, U.dtype, U.device)
+        Cw = ((model.dt_value * model.dt_value) * C2) * M
+        for _ in range(nt // k):
+            U, Uprev = wave.wave_multi_step_plain(U, Uprev, M, Cw, inv_d2, k, form)
+        return U
+    M, Cw = make_wave_deep_sweep(grid, k, model.dt_value, cfg.spacing).prepare(C2)
+    core = tuple(slice(k, -k) for _ in range(U.ndim))
+    for _ in range(nt // k):
+        Up, Upp = (exchange_halo(t, grid, width=k) for t in (U, Uprev))
+        U, Uprev = (t[core] for t in wave.wave_multi_step_plain(Up, Upp, M, Cw, inv_d2, k, form))
+    return U.contiguous()
+
+
+# (method, shape, nt, warmup, expected route, expected k, kernel, launches)
+WAVE_RUNS = [
+    ("run", BIG, MAIN_NT, MAIN_WARMUP, None, None, "wave_step", MAIN_NT),
+    ("run_vmem_resident", SMALL, VMEM_NT, VMEM_WARMUP, "vmem-loop", 256, "wave_multi_step",
+     VMEM_NT // 256),
+    ("run_deep", SMALL, WAVE_DEEP_NT, WAVE_DEEP_WARMUP, "vmem", WAVE_DEEP_K, "wave_multi_step",
+     WAVE_DEEP_NT // WAVE_DEEP_K),
+]
+
+
+def _wave_perf_parts(torch, model, U):
+    """The one-GPU perf step's three device passes timed alone: the copy of
+    the field into the padded buffer, the wave_step kernel, the Dirichlet
+    select (XLA fuses the first and last into neighbours on a TPU)."""
+    from rocm_mpi_tpu_torch.ops import wave
+    from rocm_mpi_tpu_torch.parallel.halo import global_boundary_mask, place_core
+
+    cfg = model.config
+    pad = place_core(U)
+    Uprev, C2 = U.clone(), torch.ones_like(U)
+    mask = global_boundary_mask(model.grid, device=U.device)
+    out = torch.empty_like(U)
+    parts = dict(
+        place_core=time_ms(lambda: place_core(U, out=pad), 30),
+        wave_step=time_ms(lambda: wave.wave_step(pad, Uprev, C2, model.dt_value, cfg.spacing,
+                                                 out=out), 30),
+        where=time_ms(lambda: torch.where(mask, U, out, out=out), 30),
+    )
+    del pad, Uprev, C2, mask, out
+    return parts
+
+
+def phase_wave(torch, card):
+    """The acoustic wave on one GPU, f32, through its entry points: perf at
+    12288², the VMEM-resident loop and the deep schedule at 252². Each
+    asserts route, k and launches, is bitwise equal to the plain versions'
+    run of the same steps, and is timed."""
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    rows = []
+    for meth, shape, nt, warmup, route, k, kernel, count in WAVE_RUNS:
+        model = _wave_model(shape, nt, warmup)
+        kernels.reset_launches()
+        if meth == "run":
+            res = model.run("perf")
+        elif meth == "run_deep":
+            res = model.run_deep(block_steps=k)
+        else:
+            res = model.run_vmem_resident()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        label = f"wave {meth} {shape[0]}x{shape[1]} f32"
+        check((res.route, res.k) == (route, k),
+              f"{label}: route {res.route} k {res.k}, expected {route} k {k}")
+        check(launches == only(kernel, count),
+              f"{label}: launches {launches}, expected {count} {kernel}")
+        check(tuple(res.U.shape) == shape and bool(torch.isfinite(res.U).all()),
+              f"{label}: result not finite or misshapen")
+        if meth == "run":
+            U, Uprev, C2 = model.init_state()
+            ref = plain_wave_steps(model, U, Uprev, C2, nt)[0]
+        else:
+            ref = plain_wave_schedule(model, meth, k, nt)
+        check(torch.equal(res.U, ref), f"{label}: kernel run != plain-version run "
+              f"(max |diff| {float((res.U.double() - ref.double()).abs().max())})")
+        row = dict(method=meth, shape=list(shape), nt=nt, warmup=warmup, route=res.route,
+                   k=res.k, launches=launches, wtime_s=res.wtime,
+                   ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts,
+                   max_abs_u=float(res.U.abs().max()))
+        if meth == "run":
+            row["parts_ms"] = _wave_perf_parts(torch, model, res.U)
+            print("[wave] perf step's parts alone at "
+                  f"{shape[0]}x{shape[1]} f32 (ms): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in row["parts_ms"].items()) + f" on {card}",
+                  flush=True)
+        rows.append(row)
+        print(f"[wave] {label}, {nt} steps ({warmup} warmup): route {res.route}, k {res.k}, "
+              f"{kernel} launches {launches[kernel]}; bitwise == plain-version run; "
+              f"{res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step, T_eff {res.t_eff:.1f} "
+              f"GB/s (4 passes per step counted), {res.gpts:.3f} Gpts/s on {card}", flush=True)
+        del model, res, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_reversal(torch, card):
+    """Time reversal on the card: 252² f64 perf, n steps forward, the pair
+    swapped, n − 1 steps back, lands on the initial field."""
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    n = REVERSAL_STEPS
+    model = _wave_model(SMALL, 2 * n, 0, dtype="f64")
+    U0, Uprev0, C2 = model.init_state()
+    advance = model.advance_fn("perf")
+    kernels.reset_launches()
+    U, Uprev = advance(U0.clone(), Uprev0.clone(), C2, n)
+    Ub, _ = advance(Uprev, U, C2, n - 1)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    err = float((Ub - U0).abs().max())
+    check(launches == only("wave_step", 2 * n - 1), f"reversal: launches {launches}")
+    check(err < 1e-10, f"reversal: max |U_back - U_0| = {err} (bound 1e-10)")
+    print(f"[wave] time reversal 252x252 f64 perf: {n} steps forward, {n - 1} back, "
+          f"{2 * n - 1} wave_step launches; max |U_back - U_0| = {err:.3e} (bound 1e-10) "
+          f"on {card}", flush=True)
+    return dict(steps=n, max_abs_err=err, launches=launches)
+
+
+def _timed_loop(torch, fn, reps: int) -> float:
+    """ms per call of `fn` over `reps` calls, host clock around
+    synchronised work, every rank barriered on both sides."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    fn()
+    torch.cuda.synchronize()
+    distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    distributed.barrier()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def hide_rank(rank, spec):
+    """One rank of the sharded hide phase (started by spawn_ranks):
+    diffusion and wave `perf` and `hide` on the 2×2 grid, each against the
+    plain versions' run of the same steps on this shard."""
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels, wave
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+    from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, ghost_free, region_boxes
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    dist.barrier()
+    shape, nt, warmup = tuple(spec["shape"]), spec["nt"], spec["warmup"]
+    out = dict(rank=rank)
+
+    def runs(model):
+        got = {}
+        for variant in ("perf", "hide"):
+            kernels.reset_launches()
+            res = model.run(variant)
+            torch.cuda.synchronize()
+            got[variant] = (res, dict(kernels.LAUNCHES))
+        return got
+
+    cfg = DiffusionConfig(global_shape=shape, nt=nt, warmup=warmup, dtype="f32", dims=(2, 2),
+                          b_width=HIDE_B_WIDTH)
+    model = HeatDiffusion(cfg, device=device)
+    got = runs(model)
+    T, Cp = model.init_state()
+    Cm = model.prepare_fn("hide")(Cp)
+    inv_d2 = kernels.inv_d2_of(cfg.spacing)
+    pad = torch.zeros(tuple(n + 2 for n in T.shape), dtype=T.dtype, device=device)
+    for _ in range(nt):
+        T = kernels.fused_step_cm_plain(exchange_halo(T, model.grid, out=pad), Cm, inv_d2)
+    out["diffusion"] = {v: dict(launches=l, wtime_s=r.wtime, ms_per_step=r.wtime_it * 1e3,
+                                bitwise=bool(torch.equal(r.T, T)),
+                                finite=bool(torch.isfinite(r.T).all()))
+                        for v, (r, l) in got.items()}
+    out["diffusion"]["hide_eq_perf"] = bool(torch.equal(got["hide"][0].T, got["perf"][0].T))
+
+    wcfg = WaveConfig(global_shape=shape, nt=nt, warmup=warmup, dtype="f32", dims=(2, 2),
+                      b_width=HIDE_B_WIDTH)
+    wmodel = AcousticWave(wcfg, device=device)
+    wgot = runs(wmodel)
+    refs = {v: plain_wave_steps(wmodel, *wmodel.init_state(), nt, v)[0] for v in wgot}
+    out["wave"] = {v: dict(launches=l, wtime_s=r.wtime, ms_per_step=r.wtime_it * 1e3,
+                           bitwise=bool(torch.equal(r.U, refs[v])),
+                           finite=bool(torch.isfinite(r.U).all()))
+                   for v, (r, l) in wgot.items()}
+    out["wave"]["hide_minus_perf"] = float(
+        (wgot["hide"][0].U.double() - wgot["perf"][0].U.double()).abs().max())
+
+    if spec["gpus"] > 1:
+        # The overlap's parts alone: the exchange, the interior box from
+        # the raw shard, the slab boxes from the padded buffer.
+        local = model.grid.local_shape
+        boxes = region_boxes(local, effective_b_width(local, HIDE_B_WIDTH))
+        inner = [b for b in boxes if ghost_free(b, local)]
+        slabs = [b for b in boxes if not ghost_free(b, local)]
+        T = got["perf"][0].T
+        res_out = torch.empty_like(T)
+        U, Uprev, C2 = wmodel.init_state()
+        M, Cw = wmodel.prepare_fn("hide")(C2)
+        sp = cfg.spacing
+        parts = dict(
+            exchange=_timed_loop(torch, lambda: exchange_halo(T, model.grid, out=pad), 100),
+            diffusion_interior=time_ms(lambda: [kernels.fused_step_cm_region(
+                T, 0, Cm, sp, b, res_out) for b in inner], 100),
+            diffusion_slabs=time_ms(lambda: [kernels.fused_step_cm_region(
+                pad, 1, Cm, sp, b, res_out) for b in slabs], 100),
+            wave_interior=time_ms(lambda: [wave.wave_step_masked_region(
+                U, 0, Uprev, M, Cw, sp, b, res_out) for b in inner], 100),
+            wave_slabs=time_ms(lambda: [wave.wave_step_masked_region(
+                pad, 1, Uprev, M, Cw, sp, b, res_out) for b in slabs], 100),
+        )
+        out["parts_ms"] = parts
+    return out
+
+
+def phase_hide(card, gpus: int):
+    """Diffusion and wave `hide` beside `perf` on the 2×2 grid of 12288²:
+    4 ranks sharing one card over gloo, or one per card over NCCL."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+    from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, region_boxes
+
+    nt, warmup = (SHARD_NT, SHARD_WARMUP) if gpus == 1 else (MAIN_NT, MAIN_WARMUP)
+    spec = dict(shape=BIG, nt=nt, warmup=warmup, gpus=gpus)
+    backend = "gloo" if gpus == 1 else "nccl"
+    ranks = spawn_ranks(4, hide_rank, (spec,), backend=backend, timeout=420)
+    local = BLOCK
+    n_boxes = len(region_boxes(local, effective_b_width(local, HIDE_B_WIDTH)))
+    expect = {("diffusion", "perf"): only("fused_step_cm", nt),
+              ("diffusion", "hide"): only("fused_step_cm", n_boxes * nt),
+              ("wave", "perf"): only("wave_step", nt),
+              ("wave", "hide"): only("wave_step_masked", n_boxes * nt)}
+    for r in ranks:
+        for (model, variant), launches in expect.items():
+            got = r[model][variant]
+            check(got["launches"] == launches,
+                  f"hide phase rank {r['rank']} {model} {variant}: launches "
+                  f"{got['launches']}, expected {launches}")
+            check(got["bitwise"] and got["finite"],
+                  f"hide phase rank {r['rank']} {model} {variant}: kernel run != "
+                  "plain-version run or not finite")
+        check(r["diffusion"]["hide_eq_perf"],
+              f"hide phase rank {r['rank']}: diffusion hide != perf")
+    where = (f"4 ranks sharing {card} (gloo, halo slabs staged through host memory: "
+             "correctness only, the times are not a multi-GPU measurement)" if gpus == 1
+             else f"4 GPUs, one rank each, NCCL ({card} each)")
+    r0 = ranks[0]
+    for model in ("diffusion", "wave"):
+        h, p = r0[model]["hide"], r0[model]["perf"]
+        extra = (f"; hide - perf max |diff| {r0['wave']['hide_minus_perf']:.3e}"
+                 if model == "wave" else "; hide field bitwise == perf field")
+        print(f"[hide] {model} {BIG[0]}x{BIG[1]} f32 on a 2x2 grid, b_width {HIDE_B_WIDTH}, "
+              f"{n_boxes} region launches per step per rank, {where}, {nt} steps ({warmup} "
+              f"warmup): each shard bitwise == plain-version run (hide and perf){extra}; "
+              f"rank 0 hide {h['ms_per_step']:.5f} ms/step, perf {p['ms_per_step']:.5f} "
+              "ms/step", flush=True)
+    if gpus > 1:
+        for r in ranks:
+            print(f"[hide] rank {r['rank']} parts alone (ms): " + ", ".join(
+                f"{k} {v:.5f}" for k, v in r["parts_ms"].items())
+                + f"; diffusion hide {r['diffusion']['hide']['ms_per_step']:.5f}, perf "
+                f"{r['diffusion']['perf']['ms_per_step']:.5f}; wave hide "
+                f"{r['wave']['hide']['ms_per_step']:.5f}, perf "
+                f"{r['wave']['perf']['ms_per_step']:.5f} ms/step on {card}", flush=True)
+    totals = {"fused_step_cm": sum(r["diffusion"]["hide"]["launches"]["fused_step_cm"]
+                                   for r in ranks),
+              "wave_step": sum(r["wave"]["perf"]["launches"]["wave_step"] for r in ranks),
+              "wave_step_masked": sum(r["wave"]["hide"]["launches"]["wave_step_masked"]
+                                      for r in ranks)}
+    return ranks, totals
+
+
+def wave_deep_rank(rank, spec):
+    """One rank of the sharded wave deep phase (started by spawn_ranks)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.config import WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    dist.barrier()
+    shape, k = tuple(spec["shape"]), spec["k"]
+    cfg = WaveConfig(global_shape=shape, nt=spec["nt"], warmup=spec["warmup"], dtype="f32",
+                     dims=(2, 2))
+    model = AcousticWave(cfg, device=device)
+    kernels.reset_launches()
+    res = model.run_deep(block_steps=k)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ref = plain_wave_schedule(model, "run_deep", k, cfg.nt)
+    out = dict(rank=rank, launches=launches, route=res.route, k=res.k,
+               bitwise=bool(torch.equal(res.U, ref)), finite=bool(torch.isfinite(res.U).all()),
+               ms_per_step=res.wtime_it * 1e3, gpts=res.gpts)
+    full = gather_to_host0(res.U, model.grid)
+    if rank == 0:
+        # The same schedule over the whole domain on one GPU at the same k:
+        # every core cell takes the same k steps from the same neighbours.
+        one = _wave_model(shape, cfg.nt, cfg.warmup, device=device)
+        advance, k1 = one.deep_advance_fn(block_steps=k)
+        U1 = advance(*one.init_state(), cfg.nt)[0].cpu().numpy()
+        out["one_gpu"] = dict(route=advance.schedule.route, k=k1)
+        out["max_abs_vs_one_gpu"] = float(np.abs(full - U1).max())
+        out["bitwise_vs_one_gpu"] = bool(np.array_equal(full, U1))
+    return out
+
+
+def phase_wave_deep(card, gpus: int):
+    """The wave's run_deep on the 2×2 grid of 480² (k = 8, 256² padded
+    shards on the vmem route): each shard bitwise against its plain
+    version, the gathered field bitwise against the one-GPU run_deep."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    nt, warmup, k = SHARD_DEEP_NT, SHARD_DEEP_WARMUP, WAVE_DEEP_K
+    spec = dict(shape=WAVE_DEEP_SHARDED, nt=nt, warmup=warmup, k=k, gpus=gpus)
+    ranks = spawn_ranks(4, wave_deep_rank, (spec,), backend="gloo" if gpus == 1 else "nccl",
+                        timeout=600)
+    for r in ranks:
+        check((r["route"], r["k"]) == ("vmem", k),
+              f"wave deep rank {r['rank']}: route {r['route']} k {r['k']}")
+        check(r["launches"] == only("wave_multi_step", nt // k),
+              f"wave deep rank {r['rank']}: launches {r['launches']}")
+        check(r["bitwise"] and r["finite"],
+              f"wave deep rank {r['rank']}: kernel run != plain-version run or not finite")
+    r0 = ranks[0]
+    check(r0["one_gpu"] == {"route": "vmem", "k": k}, f"one-GPU wave deep took {r0['one_gpu']}")
+    check(r0["bitwise_vs_one_gpu"], "sharded 2x2 wave deep field differs from the one-GPU "
+          f"run_deep by {r0['max_abs_vs_one_gpu']}")
+    total = sum(r["launches"]["wave_multi_step"] for r in ranks)
+    n = WAVE_DEEP_SHARDED[0]
+    where = "gloo, one shared card" if gpus == 1 else "NCCL, 4 GPUs"
+    print(f"[wave-deep] run_deep {n}x{n} f32 on a 2x2 grid ({where}), {nt} steps ({warmup} "
+          f"warmup): route vmem, k {k}, wave_multi_step launches {total} ({nt // k} per "
+          "rank); each shard bitwise == plain-version run; gathered field bitwise == the "
+          f"one-GPU run_deep ({n + 2 * k}x{n + 2 * k} padded, vmem); rank 0 "
+          f"{r0['ms_per_step']:.5f} ms/step on {card}", flush=True)
+    return ranks, total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write every measurement to PATH")
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
-                        help="4: run only the sharded perf and deep paths, one rank "
-                        "per GPU over NCCL (1000 timed steps each), on a host with 4 GPUs")
+                        help="4: run only the sharded phases (perf, deep, hide, wave deep), "
+                        "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
     import torch
@@ -703,12 +1249,16 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} visible")
         ranks, _ = phase_sharded(card, args.gpus)
         deep_ranks, _ = phase_sharded_deep(card, args.gpus)
+        hide_ranks, _ = phase_hide(card, args.gpus)
+        wave_deep_ranks, _ = phase_wave_deep(card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(dict(card=card, kind=kind, build_s=build_s,
                                             sharded_ranks=ranks,
-                                            sharded_deep_ranks=deep_ranks), indent=1))
+                                            sharded_deep_ranks=deep_ranks,
+                                            hide_ranks=hide_ranks,
+                                            wave_deep_ranks=wave_deep_ranks), indent=1))
         print(f"[done] sharded phases passed in {time.perf_counter() - t0:.1f} s",
               flush=True)
         print(card, flush=True)
@@ -719,16 +1269,23 @@ def main(argv=None) -> int:
     rows = phase_kernels(torch, card, pk)
     big_row, small_row = phase_main(torch, card)
     schedule_rows = phase_schedules(torch, card)
+    wave_rows = phase_wave(torch, card)
+    reversal = phase_reversal(torch, card)
     ranks, fused_launches = phase_sharded(card, 1)
     deep_ranks, deep_launches = phase_sharded_deep(card, 1)
+    hide_ranks, hide_launches = phase_hide(card, 1)
+    wave_deep_ranks, wave_deep_launches = phase_wave_deep(card, 1)
 
     # Launches on the main paths: each path ran with the counts set to 0
     # just before it and read just after.
     launches = {"masked_step": big_row["launches"]["masked_step"],
-                "fused_step_cm": fused_launches,
-                "multi_step_cm": 0, "tb_sweep": deep_launches}
-    for row in schedule_rows:
-        for name in ("multi_step_cm", "tb_sweep"):
+                "fused_step_cm": fused_launches + hide_launches["fused_step_cm"],
+                "multi_step_cm": 0, "tb_sweep": deep_launches,
+                "wave_step": hide_launches["wave_step"],
+                "wave_step_masked": hide_launches["wave_step_masked"],
+                "wave_multi_step": wave_deep_launches}
+    for row in schedule_rows + wave_rows:
+        for name in ("multi_step_cm", "tb_sweep", "wave_step", "wave_multi_step"):
             launches[name] += row["launches"][name]
     line = []
     for name, (replaces, source) in KERNELS.items():
@@ -748,7 +1305,9 @@ def main(argv=None) -> int:
         path.write_text(json.dumps(dict(
             card=card, kind=kind, peaks=pk, build_s=build_s, kernel_phases=rows,
             main_12288=big_row, main_252=small_row, schedules=schedule_rows,
-            sharded_ranks=ranks, sharded_deep_ranks=deep_ranks, kernels=line,
+            wave=wave_rows, reversal=reversal, sharded_ranks=ranks,
+            sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
+            wave_deep_ranks=wave_deep_ranks, kernels=line,
             seconds=time.perf_counter() - t0,
         ), indent=1))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,5 +1,5 @@
-"""Shared CLI driver of the port's diffusion apps — counterpart of
-apps/_common.py: init grid, IC, timed loop, T_eff/Gpts printout.
+"""Shared CLI driver of the port's apps — counterpart of apps/_common.py:
+init grid, IC, timed loop, T_eff/Gpts printout.
 
 Several GPUs run under torchrun, one rank per GPU:
 
@@ -16,8 +16,10 @@ import shutil
 import subprocess
 
 
-def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
-    p = argparse.ArgumentParser(description=f"2D heat diffusion — {variant} variant")
+def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
+    """The options every app of the port shares: grid, steps, dtype,
+    process grid and device."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("--nx", type=int, default=nx, help="global grid points, x")
     p.add_argument("--ny", type=int, default=ny, help="global grid points, y")
     p.add_argument("--nt", type=int, default=nt, help="time steps")
@@ -27,11 +29,50 @@ def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
                    help="process grid, e.g. 2,2 (default: auto near-square)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the hand kernels; cpu their plain versions")
+    return p
+
+
+def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
+    p = base_parser(f"2D heat diffusion — {variant} variant", nx=nx, ny=ny, nt=nt,
+                    dtype=dtype)
     p.add_argument("--deep", type=int, default=0, metavar="K",
                    help="use deep-halo sweeps: exchange width-K ghosts every K steps "
                    "instead of width-1 every step (parallel.deep_halo); K must divide "
                    "both --warmup and nt - warmup, or it degrades to their gcd")
+    if variant == "hide":
+        p.add_argument("--b-width", default="32,4",
+                       help="boundary frame width, e.g. 32,4 (hide.jl:42; clamped to "
+                       "half the shard)")
     return p
+
+
+def parse_ints(text: str | None) -> tuple[int, ...] | None:
+    """"2,2" -> (2, 2); None stays None."""
+    return tuple(int(d) for d in text.split(",")) if text else None
+
+
+def where_line(device) -> str:
+    """The device a run measured: the card with nvidia-smi's name and power
+    limit, or the host CPU (plain versions, never a GPU measurement)."""
+    import torch
+
+    if device.type == "cuda":
+        return f"{torch.cuda.get_device_name(device)} (nvidia-smi: {card_line()})"
+    return "the host CPU (plain PyTorch versions, not a GPU measurement)"
+
+
+def global_max(x) -> float:
+    """max over every rank's shard of `x`, on every rank."""
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    peak = x.float().max().reshape(1)
+    if distributed.is_distributed():
+        if peak.is_cuda and distributed.backend() == "gloo":
+            peak = peak.cpu()  # gloo carries CPU tensors only
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    return float(peak)
 
 
 def card_line() -> str | None:
@@ -48,9 +89,6 @@ def card_line() -> str | None:
 
 
 def run_app(variant: str, args) -> int:
-    import torch
-    import torch.distributed as dist
-
     from rocm_mpi_tpu_torch.config import DiffusionConfig
     from rocm_mpi_tpu_torch.models import HeatDiffusion
     from rocm_mpi_tpu_torch.parallel import distributed
@@ -63,17 +101,14 @@ def run_app(variant: str, args) -> int:
         if me == 0:
             print(msg, flush=True)
 
-    dims = tuple(int(d) for d in args.dims.split(",")) if args.dims else None
+    hide = {"b_width": parse_ints(args.b_width)} if variant == "hide" else {}
     cfg = DiffusionConfig(
         global_shape=(args.nx, args.ny), lengths=(10.0, 10.0), nt=args.nt,
-        warmup=args.warmup, dtype=args.dtype, dims=dims,
+        warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims), **hide,
     )
     model = HeatDiffusion(cfg, device=device)
     grid = model.grid
-    if device.type == "cuda":
-        where = f"{torch.cuda.get_device_name(device)} (nvidia-smi: {card_line()})"
-    else:
-        where = "the host CPU (plain PyTorch versions, not a GPU measurement)"
+    where = where_line(device)
     log0(f"grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
          f"({grid.nprocs} rank(s)) on {where}")
     if args.deep:
@@ -95,11 +130,6 @@ def run_app(variant: str, args) -> int:
         f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
         f"{result.gpts:.4f} Gpts/s) on {where}"
     )
-    peak = result.T.float().max().reshape(1)
-    if distributed.is_distributed():
-        if peak.is_cuda and distributed.backend() == "gloo":
-            peak = peak.cpu()  # gloo carries CPU tensors only
-        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
-    log0(f"maximum(T) = {float(peak)}")
+    log0(f"maximum(T) = {global_max(result.T)}")
     distributed.finalize()
     return 0

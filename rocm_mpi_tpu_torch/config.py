@@ -1,4 +1,5 @@
-"""Configuration of a diffusion run — counterpart of rocm_mpi_tpu/config.py.
+"""Configuration of a diffusion run — counterpart of rocm_mpi_tpu/config.py
+— and of an acoustic-wave run (`WaveConfig`, rocm_mpi_tpu/models/wave.py).
 
 Same fields, same validation, same stable time step. Two knobs are not
 ported yet and raise NotImplementedError when set away from their
@@ -9,6 +10,7 @@ any on-wire precision other than "f32" (ROADMAP.md lists both).
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import torch
@@ -95,3 +97,44 @@ class DiffusionConfig:
         reference's 2D /4.1 generalised to N dimensions."""
         h2 = min(d * d for d in self.spacing)
         return h2 * self.cp0 / self.lam / (2 * self.ndim + 0.1)
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveConfig:
+    """All knobs of an acoustic-wave run (2D or 3D); the vocabulary of
+    DiffusionConfig plus the wave speed and the Courant number."""
+
+    global_shape: tuple[int, ...] = (128, 128)
+    lengths: tuple[float, ...] = (10.0, 10.0)
+    c0: float = 1.0  # wave speed
+    cfl: float = 0.5  # Courant number, < 1 (dt already has the 1/√ndim factor)
+    nt: int = 1000
+    warmup: int = 10
+    dtype: str = "f64"
+    dims: tuple[int, ...] | None = None
+    b_width: tuple[int, ...] = (32, 4)  # boundary frame width (hide)
+    wire_mode: str = "f32"
+
+    def __post_init__(self):
+        if len(self.lengths) != len(self.global_shape):
+            raise ValueError("lengths rank must match global_shape rank")
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+        validate_wire_mode(self.wire_mode)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.global_shape)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @property
+    def spacing(self) -> tuple[float, ...]:
+        return tuple(l / n for l, n in zip(self.lengths, self.global_shape))
+
+    @property
+    def dt(self) -> float:
+        """CFL-stable leapfrog step: cfl·min(h)/(c0·√ndim)."""
+        return self.cfl * min(self.spacing) / (self.c0 * math.sqrt(self.ndim))

@@ -60,13 +60,19 @@
 // shared-memory traffic are what this simple design pays on top.
 
 #include <cooperative_groups.h>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "stencil_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using rmt::Compute;
+using rmt::kBF16;
+using rmt::kF32;
+using rmt::kF64;
+using rmt::narrow;
+using rmt::widen;
 
 constexpr int kThreads = 256;
 // Shared memory a tb_sweep block aims to stay under, so that two blocks
@@ -76,24 +82,7 @@ constexpr int kTileSmemTarget = 112 * 1024;
 // Columns of a 2D tb_sweep tile: four warps wide.
 constexpr int kTileCols = 128;
 
-enum DType : int { kF32 = 0, kF64 = 1, kBF16 = 2 };
 enum Form : int { kDirect = 0, kAC = 1, kEQC = 2, kCOnly = 3 };
-
-template <typename S> struct Compute { using type = S; };
-template <> struct Compute<__nv_bfloat16> { using type = float; };
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ double widen(double v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename S> __device__ __forceinline__ S narrow(typename Compute<S>::type v);
-template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <> __device__ __forceinline__ double narrow<double>(double v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // One step of one cell in body form FORM. `t` is the cell, `cm` its
 // coefficient, p_ax = (neighbour at +1) + (neighbour at -1) along axis ax

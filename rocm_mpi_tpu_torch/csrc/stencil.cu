@@ -8,11 +8,19 @@
 //                       Replaces rocm_mpi_tpu/ops/pallas_kernels.py
 //                       masked_step (_per_step_kernel, and at small sizes
 //                       the one-step form of _multi_step_kernel).
-//   rmt_fused_step_cm — out = c + Cm * lap from a width-1-PADDED block Tp,
-//                       where c = Tp[core] and
+//   rmt_fused_step_cm — out = c + Cm * lap over a BOX of the core, read
+//                       from a source grown by `off` cells per axis: the
+//                       width-1-padded block (off = 1) or the raw shard
+//                       (off = 0, for boxes whose stencil stays inside it),
+//                       where c = src[i + off] and
 //                       lap = sum_ax ((hi - 2 c) + lo) * inv_d2[ax].
 //                       Replaces pallas_kernels.py fused_step_cm
-//                       (_fused_kernel_whole_cm / _fused_kernel_striped_cm).
+//                       (_fused_kernel_whole_cm / _fused_kernel_striped_cm):
+//                       the whole block is box = core, off = 1; the `hide`
+//                       variant launches one box per region of the overlap
+//                       decomposition (parallel/overlap.py), writing each
+//                       into the shared output in place — the
+//                       dynamic_update_slice splice without a copy.
 //
 // The two sum in different orders, each exactly as its TPU kernel does, so
 // each stays bitwise-comparable with its plain PyTorch version
@@ -31,51 +39,20 @@
 // bf16 is storage-only: loads are widened to f32, the step is computed in
 // f32 and rounded to bf16 once on store (pallas_kernels._upcast_for_compute).
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "stencil_common.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;  // along the last, contiguous axis
-constexpr int kBlockY = 8;   // along the second-to-last axis
-
-enum DType : int { kF32 = 0, kF64 = 1, kBF16 = 2 };
-
-template <typename S> struct Compute { using type = S; };
-template <> struct Compute<__nv_bfloat16> { using type = float; };
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ double widen(double v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename S> __device__ __forceinline__ S narrow(typename Compute<S>::type v);
-template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <> __device__ __forceinline__ double narrow<double>(double v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Cell index of this thread: (i0, i1, i2) over an (n0, n1, n2) field, with
-// n2 == 1 in 2D. Returns false for threads past the ragged edge.
-template <int NDIM>
-__device__ __forceinline__ bool cell(int64_t n0, int64_t n1, int64_t n2,
-                                     int64_t* i0, int64_t* i1, int64_t* i2) {
-  const int64_t x = static_cast<int64_t>(blockIdx.x) * kBlockX + threadIdx.x;
-  const int64_t y = static_cast<int64_t>(blockIdx.y) * kBlockY + threadIdx.y;
-  if (NDIM == 2) {
-    *i0 = y;
-    *i1 = x;
-    *i2 = 0;
-  } else {
-    *i0 = blockIdx.z;
-    *i1 = y;
-    *i2 = x;
-  }
-  return *i0 < n0 && *i1 < n1 && *i2 < n2;
-}
+using rmt::Box;
+using rmt::Compute;
+using rmt::kBF16;
+using rmt::kBlockX;
+using rmt::kBlockY;
+using rmt::kF32;
+using rmt::kF64;
+using rmt::narrow;
+using rmt::Region;
+using rmt::widen;
 
 template <typename S, int NDIM>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
@@ -86,7 +63,7 @@ masked_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
                    typename Compute<S>::type inv2) {
   using C = typename Compute<S>::type;
   int64_t i0, i1, i2;
-  if (!cell<NDIM>(n0, n1, n2, &i0, &i1, &i2)) return;
+  if (!rmt::box_cell<NDIM>(Box{0, 0, 0, n0, n1, n2}, &i0, &i1, &i2)) return;
   const int64_t s1 = n2;       // stride of axis 1 (1 in 2D)
   const int64_t s0 = n1 * n2;  // stride of axis 0
   const int64_t idx = i0 * s0 + i1 * s1 + i2;
@@ -115,42 +92,20 @@ masked_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
 
 template <typename S, int NDIM>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-fused_step_cm_kernel(const S* __restrict__ Tp, const S* __restrict__ Cm,
-                     S* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
+fused_step_cm_kernel(const S* __restrict__ src, const S* __restrict__ Cm,
+                     S* __restrict__ out, int64_t n1, int64_t n2, Box box, int off,
                      typename Compute<S>::type inv0,
                      typename Compute<S>::type inv1,
                      typename Compute<S>::type inv2) {
   using C = typename Compute<S>::type;
   int64_t i0, i1, i2;
-  if (!cell<NDIM>(n0, n1, n2, &i0, &i1, &i2)) return;
-  // (n0, n1[, n2]) is the core; Tp is the core grown by 2 on every axis.
-  const int64_t ps1 = NDIM == 3 ? n2 + 2 : 1;  // padded stride of axis 1
-  const int64_t ps0 = (n1 + 2) * ps1;          // padded stride of axis 0
-  const int64_t pidx = (i0 + 1) * ps0 + (i1 + 1) * ps1 + (NDIM == 3 ? i2 + 1 : 0);
-  const int64_t idx = (i0 * n1 + i1) * n2 + i2;
-  const C two = C(2);
-  const C c = widen(Tp[pidx]);
-
-  C lap = ((widen(Tp[pidx + ps0]) - two * c) + widen(Tp[pidx - ps0])) * inv0;
-  lap = lap + ((widen(Tp[pidx + ps1]) - two * c) + widen(Tp[pidx - ps1])) * inv1;
-  if (NDIM == 3) {
-    lap = lap + ((widen(Tp[pidx + 1]) - two * c) + widen(Tp[pidx - 1])) * inv2;
-  }
+  if (!rmt::box_cell<NDIM>(box, &i0, &i1, &i2)) return;
+  const Region<NDIM> r(n1, n2, off);
+  const int64_t p = r.src(i0, i1, i2);
+  const int64_t idx = r.core(i0, i1, i2);
+  const C c = widen(src[p]);
+  const C lap = rmt::lap_at<S, NDIM>(src, r, p, c, inv0, inv1, inv2);
   out[idx] = narrow<S>(c + widen(Cm[idx]) * lap);
-}
-
-// Grid of one launch: x over the last axis, y over the second-to-last,
-// z over the leading axis in 3D. Returns false if a dimension overflows.
-bool launch_grid(int ndim, int64_t n0, int64_t n1, int64_t n2, dim3* grid) {
-  const int64_t last = ndim == 2 ? n1 : n2;
-  const int64_t second = ndim == 2 ? n0 : n1;
-  const int64_t gx = (last + kBlockX - 1) / kBlockX;
-  const int64_t gy = (second + kBlockY - 1) / kBlockY;
-  const int64_t gz = ndim == 2 ? 1 : n0;
-  if (gx > 2147483647LL || gy > 65535 || gz > 65535) return false;
-  *grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
-               static_cast<unsigned>(gz));
-  return true;
 }
 
 template <typename S>
@@ -159,7 +114,7 @@ int launch_masked(int ndim, const void* T, const void* Cm, void* out,
                   double inv1, double inv2, cudaStream_t stream) {
   using C = typename Compute<S>::type;
   dim3 grid;
-  if (!launch_grid(ndim, n0, n1, n2, &grid)) return -2;
+  if (!rmt::box_grid(ndim, Box{0, 0, 0, n0, n1, ndim == 2 ? 1 : n2}, &grid)) return -2;
   const dim3 block(kBlockX, kBlockY);
   const auto* t = static_cast<const S*>(T);
   const auto* cm = static_cast<const S*>(Cm);
@@ -175,22 +130,22 @@ int launch_masked(int ndim, const void* T, const void* Cm, void* out,
 }
 
 template <typename S>
-int launch_fused_cm(int ndim, const void* Tp, const void* Cm, void* out,
-                    int64_t n0, int64_t n1, int64_t n2, double inv0,
+int launch_fused_cm(int ndim, const void* src, const void* Cm, void* out,
+                    int64_t n1, int64_t n2, Box box, int off, double inv0,
                     double inv1, double inv2, cudaStream_t stream) {
   using C = typename Compute<S>::type;
   dim3 grid;
-  if (!launch_grid(ndim, n0, n1, n2, &grid)) return -2;
+  if (!rmt::box_grid(ndim, box, &grid)) return -2;
   const dim3 block(kBlockX, kBlockY);
-  const auto* tp = static_cast<const S*>(Tp);
+  const auto* s = static_cast<const S*>(src);
   const auto* cm = static_cast<const S*>(Cm);
   auto* o = static_cast<S*>(out);
   if (ndim == 2) {
     fused_step_cm_kernel<S, 2><<<grid, block, 0, stream>>>(
-        tp, cm, o, n0, n1, 1, C(inv0), C(inv1), C(0));
+        s, cm, o, n1, 1, box, off, C(inv0), C(inv1), C(0));
   } else {
     fused_step_cm_kernel<S, 3><<<grid, block, 0, stream>>>(
-        tp, cm, o, n0, n1, n2, C(inv0), C(inv1), C(inv2));
+        s, cm, o, n1, n2, box, off, C(inv0), C(inv1), C(inv2));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -200,9 +155,9 @@ int launch_fused_cm(int ndim, const void* Tp, const void* Cm, void* out,
 // C interface, bound with ctypes. `dtype` is 0 f32, 1 f64, 2 bf16; shapes
 // are the unpadded (core) extents, n2 = 1 in 2D; `stream` is a
 // cudaStream_t. Returns cudaGetLastError() after the launch, -1 for an
-// unsupported dtype or rank, -2 for a grid that overflows a launch
-// dimension. The launch is asynchronous on `stream`; nothing here
-// synchronises or allocates.
+// unsupported dtype or rank (or a box outside the core), -2 for a grid
+// that overflows a launch dimension. The launch is asynchronous on `stream`;
+// nothing here synchronises or allocates.
 extern "C" int rmt_masked_step(int dtype, int ndim, const void* T,
                                const void* Cm, void* out, int64_t n0,
                                int64_t n1, int64_t n2, double inv0,
@@ -221,19 +176,26 @@ extern "C" int rmt_masked_step(int dtype, int ndim, const void* T,
   }
 }
 
-extern "C" int rmt_fused_step_cm(int dtype, int ndim, const void* Tp,
+// The box is [lo, lo + e) per axis of the core (n0, n1, n2); `src` is the
+// core grown by `off` (0 or 1) cells on every axis; Cm and out have the
+// core's extents and out is written only inside the box.
+extern "C" int rmt_fused_step_cm(int dtype, int ndim, const void* src,
                                  const void* Cm, void* out, int64_t n0,
-                                 int64_t n1, int64_t n2, double inv0,
-                                 double inv1, double inv2, void* stream) {
-  if (ndim != 2 && ndim != 3) return -1;
+                                 int64_t n1, int64_t n2, int64_t lo0, int64_t lo1,
+                                 int64_t lo2, int64_t e0, int64_t e1, int64_t e2,
+                                 int off, double inv0, double inv1, double inv2,
+                                 void* stream) {
+  const Box box{lo0, lo1, ndim == 2 ? 0 : lo2, e0, e1, ndim == 2 ? 1 : e2};
+  if (!rmt::box_fits(box, off, ndim, n0, n1, n2)) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_fused_cm<float>(ndim, Tp, Cm, out, n0, n1, n2, inv0, inv1, inv2, s);
+      return launch_fused_cm<float>(ndim, src, Cm, out, n1, n2, box, off, inv0, inv1, inv2, s);
     case kF64:
-      return launch_fused_cm<double>(ndim, Tp, Cm, out, n0, n1, n2, inv0, inv1, inv2, s);
+      return launch_fused_cm<double>(ndim, src, Cm, out, n1, n2, box, off, inv0, inv1, inv2, s);
     case kBF16:
-      return launch_fused_cm<__nv_bfloat16>(ndim, Tp, Cm, out, n0, n1, n2, inv0, inv1, inv2, s);
+      return launch_fused_cm<__nv_bfloat16>(ndim, src, Cm, out, n1, n2, box, off, inv0, inv1,
+                                            inv2, s);
     default:
       return -1;
   }

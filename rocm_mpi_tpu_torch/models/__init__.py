@@ -1,5 +1,6 @@
 """Workload models."""
 
 from rocm_mpi_tpu_torch.models.diffusion import HeatDiffusion, RunResult
+from rocm_mpi_tpu_torch.models.wave import AcousticWave, WaveRunResult
 
-__all__ = ["HeatDiffusion", "RunResult"]
+__all__ = ["AcousticWave", "HeatDiffusion", "RunResult", "WaveRunResult"]

@@ -10,6 +10,11 @@ One physics model at several performance levels, chosen by variant:
             are folded into a coefficient prepared once per advance, so a
             step is ONE hand kernel — masked_step on one rank,
             exchange_halo + fused_step_cm when sharded.
+  "hide"  — the Cm contract on the overlap decomposition
+            (parallel/overlap.py): the interior box on one CUDA stream
+            while the exchange and then the boundary slabs run on
+            another, every box one fused_step_cm region launch, in every
+            dtype. One rank has nothing to hide and runs "perf".
 
 and three multi-step schedules beside the per-step variants:
 
@@ -47,9 +52,10 @@ from rocm_mpi_tpu_torch.ops.diffusion import (
     step_fused,
     step_fused_padded,
 )
-from rocm_mpi_tpu_torch.parallel import deep_halo, distributed
+from rocm_mpi_tpu_torch.parallel import deep_halo
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
+from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
 from rocm_mpi_tpu_torch.utils import metrics
 from rocm_mpi_tpu_torch.utils.backend import resolve_device
 
@@ -155,6 +161,7 @@ class HeatDiffusion:
         self.register_variant("fused", *self._make_global_step(step_fused))
         self.register_variant("shard", self._make_shard_step())
         self.register_variant("perf", *self._make_masked_step())
+        self.register_variant("hide", *self._make_hide_step())
 
     # ---- state ----------------------------------------------------------
 
@@ -257,6 +264,26 @@ class HeatDiffusion:
 
         return step, prepare
 
+    def _make_hide_step(self):
+        """hide rung: the Cm contract on the overlap decomposition, every
+        region one fused_step_cm launch in every dtype (the JAX package's
+        f64 jnp strips exist only because Mosaic has no f64). One rank
+        routes to the perf step, bitwise. Returns (step, prepare)."""
+        cfg, grid = self.config, self.grid
+        if grid.nprocs == 1:
+            return self._make_masked_step()
+
+        def region_update(src, offset, box, Cm, out):
+            kernels.fused_step_cm_region(src, offset, Cm, cfg.spacing, box, out)
+
+        local = make_overlap_step(grid, region_update, cfg.b_width, mask_boundary=False,
+                                  wire_mode=cfg.wire_mode)
+
+        def step(T, Cm, out=None, pad=None):
+            return local(T, Cm, out=out, pad=pad)
+
+        return step, self._cm_prepare()
+
     # ---- drivers --------------------------------------------------------
 
     def prepare_fn(self, variant: str):
@@ -286,8 +313,9 @@ class HeatDiffusion:
         JAX argument, the caller must not use it afterwards.
         """
         step, prep = self._get_step(variant), self.prepare_fn(variant)
-        # Every step exchanges except the unsharded perf step.
-        exchanges = not (variant == "perf" and self.grid.nprocs == 1)
+        # Every step exchanges except the unsharded perf step (and hide,
+        # which is perf on one rank).
+        exchanges = not (variant in ("perf", "hide") and self.grid.nprocs == 1)
 
         def advance(T, Cp, n):
             C = prep(Cp)
@@ -305,7 +333,7 @@ class HeatDiffusion:
             warmup: int | None = None) -> RunResult:
         """Run `nt` steps from the initial condition; time all but the
         first `warmup`."""
-        nt, warmup = self._windows(nt, warmup)
+        nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
         T, Cp = self.init_state()
         advance = self.advance_fn(variant)
         T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
@@ -313,31 +341,9 @@ class HeatDiffusion:
 
     # ---- multi-step schedules -------------------------------------------
 
-    def _windows(self, nt, warmup) -> tuple[int, int]:
-        cfg = self.config
-        nt = cfg.nt if nt is None else int(nt)
-        warmup = cfg.warmup if warmup is None else int(warmup)
-        if not 0 <= warmup < nt:
-            raise ValueError(f"need 0 <= warmup < nt, got {warmup}, {nt}")
-        return nt, warmup
-
     def _timed(self, advance, T, nt, warmup):
-        """Run `advance(T, n)` over the warmup window, then time it over
-        the rest: the device synchronised, and the grid's ranks barriered,
-        on each side of the timed window."""
-        if warmup:
-            T = advance(T, warmup)
-        timer = metrics.Timer()
-        self._sync(T)
-        timer.tic()
-        T = advance(T, nt - warmup)
-        self._sync(T)
-        return T, timer.toc()
-
-    def _sync(self, T):
-        metrics.force(T)
-        if self.grid.nprocs > 1:
-            distributed.barrier()
+        """metrics.timed_window of `advance(T, n)` on this model's grid."""
+        return metrics.timed_window(advance, T, nt, warmup, sharded=self.grid.nprocs > 1)
 
     def _run_single_shard(self, nt, warmup, multi_step_fn, granularity: int,
                           granularity_kw: str, explicit: bool = False,
@@ -349,7 +355,7 @@ class HeatDiffusion:
         `explicit` marks a caller-requested granularity, whose degradation
         warns."""
         cfg = self.config
-        nt, warmup = self._windows(nt, warmup)
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
         if self.grid.nprocs != 1:
             raise ValueError("single-shard fast paths require an unsharded grid")
         key = granularity_kw
@@ -480,7 +486,7 @@ class HeatDiffusion:
         budget, 8 on the temporal-blocked route), gcd'd against both
         windows."""
         cfg = self.config
-        nt, warmup = self._windows(nt, warmup)
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
         advance, k = self.deep_advance_fn(block_steps=block_steps, nt=nt, warmup=warmup,
                                           config=config, wire_mode=wire_mode)
         T, Cp = self.init_state()

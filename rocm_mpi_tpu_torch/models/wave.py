@@ -1,0 +1,323 @@
+"""The acoustic-wave model — counterpart of rocm_mpi_tpu/models/wave.py (the
+per-step variants, the VMEM-resident loop and the deep-halo schedule).
+
+Physics: u_tt = c²∇²u with Dirichlet edges held at their initial values,
+leapfrog time stepping over the state pair (U, U⁻):
+
+    U⁺ = 2U − U⁻ + dt²·c²·∇²U
+
+which is second-order accurate and exactly time-reversible: swapping the
+pair runs the trajectory backward.
+
+Variants, each on this rank's shard:
+
+  "ap"    — the global-array step (ops.wave.wave_step_fused) on the
+            halo-padded shard, keeping its core;
+  "shard" — exchange_halo + the field-dtype padded step + Dirichlet select;
+  "perf"  — exchange_halo + the wave_step kernel + Dirichlet select, on any
+            process grid;
+  "hide"  — the masked leapfrog (M, Cw prepared once per advance) on the
+            overlap decomposition (parallel/overlap.py): the interior box
+            on one CUDA stream while the exchange and then the boundary
+            slabs run on another, each box one wave_step_masked region
+            launch. One rank has nothing to hide and runs "perf".
+
+and two schedules: run_vmem_resident (one rank, `chunk` steps per launch
+of the wave_multi_step kernel) and run_deep (any grid, one width-k
+exchange of the pair per k steps, parallel/deep_halo.make_wave_deep_sweep).
+
+In place of JAX buffer donation the advance keeps three field buffers,
+the pair and a spare the step writes into, and rotates them each step;
+the exchange reuses one padded buffer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from rocm_mpi_tpu_torch.config import WaveConfig, validate_wire_mode
+from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
+from rocm_mpi_tpu_torch.ops import multistep, wave
+from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
+from rocm_mpi_tpu_torch.parallel import deep_halo
+from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
+from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
+from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
+from rocm_mpi_tpu_torch.utils import metrics
+from rocm_mpi_tpu_torch.utils.backend import resolve_device
+
+
+@dataclasses.dataclass
+class WaveRunResult:
+    U: torch.Tensor  # this rank's shard of the final displacement
+    wtime: float  # seconds over the timed steps
+    nt: int
+    warmup: int
+    config: WaveConfig
+    # The schedules' record of what ran: the local route ("vmem-loop"; for
+    # run_deep "vmem" or "jnp") and the steps per launch or sweep. None for
+    # the per-step variants.
+    route: str | None = None
+    k: int | None = None
+
+    @property
+    def wtime_it(self) -> float:
+        return metrics.wtime_per_it(self.wtime, self.nt, self.warmup)
+
+    @property
+    def t_eff(self) -> float:
+        """Aggregate T_eff over the global field [GB/s]: 4 passes per step
+        (read U, U⁻ and C2; write U⁺)."""
+        return metrics.t_eff_gbs(self.config.global_shape, self.U.element_size(),
+                                 self.wtime_it, n_passes=4)
+
+    @property
+    def gpts(self) -> float:
+        return metrics.gpts_per_s(self.config.global_shape, self.wtime_it)
+
+
+# A step is step(U, Uprev, C2, P, out, pad) -> U⁺, with P what the
+# variant's prepare(C2) built once per advance (None if it prepares
+# nothing), `out` a field buffer for U⁺ (never U or Uprev) and `pad` the
+# exchange's padded buffer; either may be None, and the step allocates.
+Step = Callable[..., torch.Tensor]
+
+
+class AcousticWave:
+    """Leapfrog acoustic wave on this rank's shard of a global grid."""
+
+    DEFAULT_DEEP_STEPS = 8
+    VARIANTS = ("ap", "shard", "perf", "hide")
+
+    def __init__(self, config: WaveConfig, grid: GlobalGrid | None = None, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        if grid is None:
+            grid = init_global_grid(*config.global_shape, lengths=config.lengths,
+                                    dims=config.dims)
+        if grid.global_shape != config.global_shape:
+            raise ValueError(f"grid shape {grid.global_shape} != config {config.global_shape}")
+        if grid.lengths != config.lengths:
+            raise ValueError(f"grid lengths {grid.lengths} != config {config.lengths}")
+        self.grid = grid
+        # The time step in the field dtype, as JAX rounds it
+        # (cfg.jax_dtype(cfg.dt)), and the same value as a Python double:
+        # the kernels take dt² as the double product of it.
+        self.dt = torch.tensor(config.dt, dtype=config.torch_dtype, device=self.device)
+        self.dt_value = float(self.dt)
+        self._mask = global_boundary_mask(grid, device=self.device)
+
+    # ---- state ----------------------------------------------------------
+
+    def init_state(self):
+        """(U, U⁻, C2): this rank's shard of the Gaussian displacement at
+        rest (U⁻ = U) and of the uniform squared wave speed c0²."""
+        cfg, grid = self.config, self.grid
+        dtype = cfg.torch_dtype
+        U = gaussian_ic(grid.local_coord_mesh(dtype=dtype, device=self.device), cfg.lengths,
+                        dtype=dtype)
+        C2 = torch.full(grid.local_shape, cfg.c0 * cfg.c0, dtype=dtype, device=self.device)
+        return U, U.clone(), C2
+
+    def _mask_prepare(self):
+        """prepare(C2) -> (M, Cw): the interior mask (1.0 on updating cells,
+        exactly 0.0 on the global Dirichlet edge) and Cw = dt²·C2·M, with
+        dt² the field-dtype product, as JAX's `_mask_prepare` forms it."""
+        dt2 = self.dt * self.dt
+
+        def prepare(C2):
+            M = torch.where(self._mask, torch.zeros_like(C2), torch.ones_like(C2))
+            return M, (dt2 * C2) * M
+
+        return prepare
+
+    # ---- variants -------------------------------------------------------
+
+    def _step(self, variant: str):
+        """(step, prepare) of `variant`; prepare is None when the variant
+        prepares nothing."""
+        cfg, grid = self.config, self.grid
+        sp, wm = cfg.spacing, cfg.wire_mode
+        core = tuple(slice(1, -1) for _ in range(grid.ndim))
+
+        if variant == "ap":
+            def step(U, Uprev, C2, C2p, out=None, pad=None):
+                Up = exchange_halo(U, grid, out=pad, wire_mode=wm)
+                new = wave.wave_step_fused(Up, place_core(Uprev), C2p, self.dt, sp)[core]
+                return torch.where(self._mask, U, new, out=out)
+
+            return step, place_core
+        if variant == "shard":
+            def step(U, Uprev, C2, P, out=None, pad=None):
+                Up = exchange_halo(U, grid, out=pad, wire_mode=wm)
+                new = wave.wave_step_padded(Up, Uprev, C2, self.dt, sp)
+                return torch.where(self._mask, U, new, out=out)
+
+            return step, None
+        if variant == "perf":
+            def step(U, Uprev, C2, P, out=None, pad=None):
+                Up = exchange_halo(U, grid, out=pad, wire_mode=wm)
+                new = wave.wave_step(Up, Uprev, C2, self.dt_value, sp, out=out)
+                return torch.where(self._mask, U, new, out=new)
+
+            return step, None
+        if variant == "hide":
+            if grid.nprocs == 1:
+                # No neighbours, nothing to hide: the perf step, bitwise.
+                return self._step("perf")
+
+            def region_update(src, offset, box, aux, out):
+                Uprev, M, Cw = aux
+                wave.wave_step_masked_region(src, offset, Uprev, M, Cw, sp, box, out)
+
+            local = make_overlap_step(grid, region_update, cfg.b_width, mask_boundary=False,
+                                      wire_mode=wm)
+
+            def step(U, Uprev, C2, P, out=None, pad=None):
+                M, Cw = P
+                return local(U, (Uprev, M, Cw), out=out, pad=pad)
+
+            return step, self._mask_prepare()
+        raise ValueError(f"unknown wave variant {variant!r} ({', '.join(self.VARIANTS)})")
+
+    # ---- drivers --------------------------------------------------------
+
+    def prepare_fn(self, variant: str):
+        """C2 -> what `variant`'s steps receive besides the state (None when
+        the variant prepares nothing)."""
+        _, prep = self._step(variant)
+        return prep if prep is not None else (lambda C2: None)
+
+    def advance_fn(self, variant: str = "perf"):
+        """(U, U⁻, C2, n) -> (U after n steps, U after n − 1).
+
+        The variant's loop-invariant operands are prepared once per call.
+        The loop keeps three field buffers — the pair and a spare the step
+        writes U⁺ into — and rotates them, and exchanges into one reused
+        padded buffer, so steady-state stepping allocates no field. The
+        passed-in U and U⁻ become buffers of the loop: like donated JAX
+        arguments, the caller must not use them afterwards."""
+        step, _ = self._step(variant)
+        prep = self.prepare_fn(variant)
+        padded_shape = tuple(n + 2 for n in self.grid.local_shape)
+
+        def advance(U, Uprev, C2, n):
+            P = prep(C2)
+            pad = torch.zeros(padded_shape, dtype=U.dtype, device=U.device)
+            spare = torch.empty_like(U)
+            for _ in range(int(n)):
+                U, Uprev, spare = step(U, Uprev, C2, P, out=spare, pad=pad), U, Uprev
+            return U, Uprev
+
+        return advance
+
+    def _run_timed(self, advance, nt, warmup) -> WaveRunResult:
+        """Run `advance(U, U⁻, C2, n) -> (U, U⁻)` from the initial state
+        through metrics.timed_window."""
+        nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
+        U, Uprev, C2 = self.init_state()
+        (U, _), wtime = metrics.timed_window(lambda s, n: advance(*s, C2, n), (U, Uprev),
+                                             nt, warmup, sharded=self.grid.nprocs > 1)
+        return WaveRunResult(U=U, wtime=wtime, nt=nt, warmup=warmup, config=self.config)
+
+    def run(self, variant: str = "perf", nt: int | None = None, warmup: int | None = None,
+            driver: str = "step") -> WaveRunResult:
+        """Run `nt` steps of `variant` from the initial condition, timing all
+        but the first `warmup`. Only the per-step driver is ported:
+        driver="scan" raises NotImplementedError."""
+        if driver not in ("step", "scan"):
+            raise ValueError(f"driver must be 'step' or 'scan', got {driver!r}")
+        if driver == "scan":
+            raise NotImplementedError(
+                "the scan driver is not ported yet; driver='step' runs the same steps"
+            )
+        return self._run_timed(self.advance_fn(variant), nt, warmup)
+
+    # ---- schedules ------------------------------------------------------
+
+    def run_vmem_resident(self, nt: int | None = None, warmup: int | None = None,
+                          chunk: int | None = None, config: str | None = None) -> WaveRunResult:
+        """One-rank loop of `chunk` steps per launch of the wave_multi_step
+        kernel (ops.wave.wave_multi_step); the field must fit half the VMEM
+        budget the JAX package routes by. `chunk` defaults to
+        DEFAULT_STEP_CHUNK, gcd'd against both windows (a warning when an
+        explicit chunk degrades); `config="auto"` needs the tuning cache
+        and raises NotImplementedError."""
+        if self.grid.nprocs != 1:
+            raise ValueError("the VMEM-resident path requires an unsharded grid")
+        multistep._check_config(config)
+        cfg = self.config
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
+        explicit = chunk is not None
+        chunk = effective_block_steps(
+            nt, warmup, multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk,
+            warn=explicit, label="wave VMEM chunk")
+        nbytes = multistep._compute_nbytes(self.grid.local_shape, cfg.torch_dtype)
+        dt, sp = self.dt_value, cfg.spacing
+
+        def advance(U, Uprev, C2, n):
+            return wave.wave_multi_step(U, Uprev, C2, dt, sp, n, chunk=chunk, warn_on_cap=False)
+
+        res = self._run_timed(advance, nt, warmup)
+        res.route = "vmem-loop"
+        res.k = multistep.resolve_step_chunk(chunk, chunk, nbytes, warn_on_cap=False)
+        return res
+
+    def effective_deep_depth(self, nt: int | None = None, warmup: int | None = None,
+                             block_steps: int | None = None, warn: bool = True) -> int:
+        """The sweep depth run_deep executes for these arguments: the
+        default (DEFAULT_DEEP_STEPS) clamps to the smallest shard extent; a
+        depth is gcd'd against both windows, and an explicit one that still
+        exceeds the shard raises."""
+        cfg = self.config
+        explicit = block_steps is not None
+        if block_steps is None:
+            block_steps = min(self.DEFAULT_DEEP_STEPS, min(self.grid.local_shape))
+        eff = effective_block_steps(
+            cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
+            block_steps, label="wave deep-halo sweep depth", warn=warn, stacklevel=3)
+        if explicit and eff > min(self.grid.local_shape):
+            raise ValueError(
+                f"wave deep-halo sweep depth {eff} exceeds a local shard extent "
+                f"{self.grid.local_shape}; ghost slices need width <= shard"
+            )
+        return eff
+
+    def deep_advance_fn(self, block_steps: int | None = None, nt: int | None = None,
+                        warmup: int | None = None, wire_mode: str | None = None):
+        """(advance(U, U⁻, C2, n_steps) -> (U, U⁻), executed depth k) of the
+        deep schedule: c² is exchanged and masked once per call, then
+        n_steps/k sweeps run; `n_steps` must be a multiple of k.
+        `advance.schedule` is the DeepSchedule (its `route` says which local
+        route the last sweep took)."""
+        cfg = self.config
+        k = self.effective_deep_depth(nt, warmup, block_steps)
+        wm = cfg.wire_mode if wire_mode is None else validate_wire_mode(wire_mode)
+        sched = deep_halo.make_wave_deep_sweep(self.grid, k, self.dt_value, cfg.spacing,
+                                               wire_mode=wm)
+
+        def advance(U, Uprev, C2, n_steps):
+            n_steps = int(n_steps)
+            if n_steps % k != 0:
+                raise ValueError(f"n_steps {n_steps} must be a multiple of the depth {k}")
+            if n_steps == 0:
+                return U, Uprev
+            P = sched.prepare(C2)
+            for _ in range(n_steps // k):
+                U, Uprev = sched.sweep(U, Uprev, P)
+            return U.contiguous(), Uprev.contiguous()
+
+        advance.schedule = sched
+        return advance, k
+
+    def run_deep(self, nt: int | None = None, warmup: int | None = None,
+                 block_steps: int | None = None, wire_mode: str | None = None) -> WaveRunResult:
+        """Deep-halo sweeps on any process grid: one width-k exchange of the
+        leapfrog pair per k steps (parallel.deep_halo.make_wave_deep_sweep)."""
+        advance, k = self.deep_advance_fn(block_steps, nt, warmup, wire_mode=wire_mode)
+        res = self._run_timed(advance, nt, warmup)
+        res.route, res.k = advance.schedule.route, k
+        return res

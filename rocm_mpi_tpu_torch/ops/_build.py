@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc, at first use, into a shared
 library with a plain C interface under `rocm_mpi_tpu_torch/_build/`
-(git-ignored), named by a hash of its source and flags so an edited
-source rebuilds. The library is loaded with ctypes. Nothing here runs at
+(git-ignored), named by a hash of its source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source rebuilds. The library is loaded with ctypes. Nothing here runs at
 import time: the CPU tests import every module on a machine without nvcc.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -53,8 +53,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where library `name` is built: named by a hash of its source, the
+    shared headers (csrc/*.cuh) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

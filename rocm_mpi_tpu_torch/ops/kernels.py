@@ -1,6 +1,8 @@
 """The perf path's stencil kernels — counterpart of the Cm-contract kernels
 of rocm_mpi_tpu/ops/pallas_kernels.py (`masked_step`, `fused_step_cm`,
-`edge_mask`, `edge_masked_cm`).
+`edge_mask`, `edge_masked_cm`) — and what every kernel wrapper of the
+port shares: the launch counts, the ctypes launch, the operand checks and
+the region form.
 
 Each kernel is CUDA C++ for Hopper (csrc/stencil.cu, built by _build.py)
 behind a wrapper that:
@@ -12,6 +14,16 @@ behind a wrapper that:
   overlaps an input (the advance loop reuses two buffers);
 * counts its launches in LAUNCHES, so a run can show that it went
   through the kernel.
+
+A region launch (`fused_step_cm_region`, and ops/wave.py's
+`wave_step_masked_region`) updates one box of the core, `[lo, hi)` per
+axis, reading its stencil from a source grown by `offset` cells per axis
+— the padded buffer of the exchange (1) or the raw shard (0, for boxes
+whose stencil stays inside it) — and writes that box of `out` in place.
+The whole-block call is the box of the whole core with offset 1. This is
+the overlap decomposition's splice (parallel/overlap.py) without a copy
+per region: operands stay whole and contiguous, the box goes to the
+kernel as numbers.
 
 Numerics shared by both kernels: `inv_d2[ax] = 1/(h·h)` is a Python double
 applied in the compute dtype (f32 for f32 and bf16, as JAX applies a
@@ -30,21 +42,22 @@ from rocm_mpi_tpu_torch.utils.backend import use_kernel
 
 # Launches of each hand kernel since the last reset_launches(). Only a
 # kernel launch counts; the plain versions never do. The multi-step
-# kernels' wrappers (ops/multistep.py) count here too.
-LAUNCHES = {"masked_step": 0, "fused_step_cm": 0, "multi_step_cm": 0, "tb_sweep": 0}
+# kernels' wrappers (ops/multistep.py) and the wave kernels' (ops/wave.py)
+# count here too.
+LAUNCHES = {"masked_step": 0, "fused_step_cm": 0, "multi_step_cm": 0, "tb_sweep": 0,
+            "wave_step": 0, "wave_step_masked": 0, "wave_multi_step": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
-_C_ARGS = [
-    ctypes.c_int, ctypes.c_int,                       # dtype code, ndim
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # in, Cm, out
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,   # core extents
-    ctypes.c_double, ctypes.c_double, ctypes.c_double,  # inv_d2
-    ctypes.c_void_p,                                  # cudaStream_t
-]
+# ctypes argument lists of the C interfaces (csrc/*.cu).
+C_INT, C_I64, C_DBL, C_PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_double, ctypes.c_void_p
+EXTENTS = [C_I64] * 3                  # core extents (n2 = 1 in 2D)
+BOX = [C_I64] * 6 + [C_INT]            # lo0..lo2, e0..e2, source offset
+INV_D2 = [C_DBL] * 3
 _SIGNATURES = {
-    "rmt_masked_step": (ctypes.c_int, _C_ARGS),
-    "rmt_fused_step_cm": (ctypes.c_int, _C_ARGS),
+    "rmt_masked_step": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *INV_D2, C_PTR]),
+    "rmt_fused_step_cm": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *BOX,
+                                  *INV_D2, C_PTR]),
 }
 
 
@@ -82,49 +95,110 @@ def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a0 < b1 and b0 < a1
 
 
-def _check(name: str, field: torch.Tensor, Cm: torch.Tensor, core_shape,
-           spacing, out) -> None:
-    if field.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: dtype {field.dtype} not supported "
+def _check_dtypes(name: str, operands: dict) -> None:
+    first = next(iter(operands.values()))
+    if first.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {first.dtype} not supported "
                         "(float32, float64, bfloat16)")
-    if Cm.dtype != field.dtype:
-        raise TypeError(f"{name}: Cm dtype {Cm.dtype} != field dtype {field.dtype}")
-    if field.ndim not in (2, 3):
-        raise ValueError(f"{name}: only 2D and 3D fields, got {field.ndim}D")
-    if tuple(Cm.shape) != tuple(core_shape):
-        raise ValueError(f"{name}: Cm shape {tuple(Cm.shape)} != {tuple(core_shape)}")
-    if len(spacing) != field.ndim:
-        raise ValueError(f"{name}: {len(spacing)} spacings for a {field.ndim}D field")
-    for label, t in (("field", field), ("Cm", Cm)):
+    for label, t in operands.items():
+        if t.dtype != first.dtype:
+            raise TypeError(f"{name}: {label} dtype {t.dtype} != field dtype {first.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def _check_out(name: str, out, core_shape, dtype, inputs) -> None:
+    if tuple(out.shape) != tuple(core_shape) or out.dtype != dtype:
+        raise ValueError(f"{name}: out must be {tuple(core_shape)} {dtype}, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if not out.is_contiguous():
+        raise ValueError(f"{name}: out must be contiguous")
+    if any(_overlaps(out, t) for t in inputs):
+        raise ValueError(f"{name}: out must not alias an input")
+
+
+def check_operands(name: str, field: torch.Tensor, core: dict, core_shape, spacing,
+                   out) -> None:
+    """Checks of a whole-block launch: `field` (unpadded or padded) and the
+    core-shaped operands `core` ({label: tensor}) share a supported dtype
+    and are contiguous, `core` has `core_shape`, one spacing per axis
+    (unless `spacing` is None), and `out` (if given) is a core-shaped buffer
+    aliasing no input."""
+    _check_dtypes(name, {"field": field, **core})
+    if field.ndim not in (2, 3):
+        raise ValueError(f"{name}: only 2D and 3D fields, got {field.ndim}D")
+    for label, t in core.items():
+        if tuple(t.shape) != tuple(core_shape):
+            raise ValueError(f"{name}: {label} shape {tuple(t.shape)} != {tuple(core_shape)}")
+    if spacing is not None and len(spacing) != field.ndim:
+        raise ValueError(f"{name}: {len(spacing)} spacings for a {field.ndim}D field")
     if out is not None:
-        if tuple(out.shape) != tuple(core_shape) or out.dtype != field.dtype:
-            raise ValueError(
-                f"{name}: out must be {tuple(core_shape)} {field.dtype}, got "
-                f"{tuple(out.shape)} {out.dtype}"
-            )
-        if not out.is_contiguous():
-            raise ValueError(f"{name}: out must be contiguous")
-        if _overlaps(out, field) or _overlaps(out, Cm):
-            raise ValueError(f"{name}: out must not alias an input")
+        _check_out(name, out, core_shape, field.dtype, (field, *core.values()))
 
 
-def _launch(symbol: str, field, Cm, out, core_shape, inv_d2) -> None:
-    lib = _build.load("stencil", _SIGNATURES)
-    ndim = len(core_shape)
-    n = tuple(int(s) for s in core_shape) + (1,) * (3 - ndim)
-    inv = tuple(inv_d2) + (0.0,) * (3 - ndim)
-    with torch.cuda.device(field.device):
-        stream = torch.cuda.current_stream(field.device).cuda_stream
-        rc = getattr(lib, symbol)(
-            _DTYPE_CODE[field.dtype], ndim, field.data_ptr(), Cm.data_ptr(),
-            out.data_ptr(), *n, *inv, stream,
-        )
+def core_box(shape) -> tuple[tuple[int, int], ...]:
+    """The box of a whole core: [0, n) on every axis."""
+    return tuple((0, int(n)) for n in shape)
+
+
+def check_region(name: str, src: torch.Tensor, offset: int, core: dict, box, spacing,
+                 out: torch.Tensor) -> None:
+    """Checks of a region launch: `out` is the whole core buffer the box
+    is written into; `src` is the core grown by `offset` (0 or 1) cells per
+    axis; the box lies in the core, and with offset 0 its stencil must not
+    leave the raw shard."""
+    if offset not in (0, 1):
+        raise ValueError(f"{name}: source offset must be 0 or 1, got {offset}")
+    if out is None:
+        raise ValueError(f"{name}: a region launch writes into `out`, which must be given")
+    core_shape = tuple(out.shape)
+    check_operands(name, src, core, core_shape, spacing, out)
+    if tuple(src.shape) != tuple(n + 2 * offset for n in core_shape):
+        raise ValueError(f"{name}: source shape {tuple(src.shape)} is not the core "
+                         f"{core_shape} grown by {offset} per axis")
+    if len(box) != len(core_shape):
+        raise ValueError(f"{name}: a {len(box)}-axis box for a {len(core_shape)}D core")
+    for (lo, hi), n in zip(box, core_shape):
+        if not 0 <= lo < hi <= n:
+            raise ValueError(f"{name}: box {tuple(box)} is empty or outside the core "
+                             f"{core_shape}")
+        if offset == 0 and (lo < 1 or hi > n - 1):
+            raise ValueError(f"{name}: box {tuple(box)} reads ghost cells; read it from "
+                             "the padded source (offset 1)")
+
+
+def region_slices(box, offset: int):
+    """(the source window of the box's stencil, the box in the core)."""
+    window = tuple(slice(lo + offset - 1, hi + offset + 1) for lo, hi in box)
+    return window, tuple(slice(lo, hi) for lo, hi in box)
+
+
+def box_args(box) -> tuple[int, ...]:
+    """lo0, lo1, lo2, e0, e1, e2 of a 2D or 3D box (2D: lo2 = 0, e2 = 1)."""
+    lo = [int(a) for a, _ in box] + [0] * (3 - len(box))
+    ext = [int(b) - int(a) for a, b in box] + [1] * (3 - len(box))
+    return (*lo, *ext)
+
+
+def extents(shape) -> tuple[int, ...]:
+    return tuple(int(s) for s in shape) + (1,) * (3 - len(shape))
+
+
+def inv3(inv_d2) -> tuple[float, ...]:
+    return tuple(inv_d2) + (0.0,) * (3 - len(inv_d2))
+
+
+def launch(lib_name: str, signatures: dict, symbol: str, device, *args) -> None:
+    """Call `symbol` of library `lib_name` (built at first use) with `args`
+    and this device's current stream; raise if it reports a failure."""
+    lib = _build.load(lib_name, signatures)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, symbol)(*args, stream)
     if rc != 0:
         raise RuntimeError(
-            f"{symbol} launch failed with code {rc} "
-            "(-1: bad dtype/rank, -2: grid overflow, >0: CUDA error)"
+            f"{symbol} launch failed with code {rc} (-1: bad dtype/rank/form/steps/box, "
+            "-2: grid overflow, -3: does not fit the card, >0: CUDA error)"
         )
 
 
@@ -169,14 +243,15 @@ def masked_step(T, Cm, spacing, out=None):
     about one pass per operand. At 252² the step is launch-bound instead
     (762 KB in f32).
     """
-    _check("masked_step", T, Cm, T.shape, spacing, out)
+    check_operands("masked_step", T, {"Cm": Cm}, T.shape, spacing, out)
     inv_d2 = inv_d2_of(spacing)
     operands = (T, Cm) if out is None else (T, Cm, out)
     if not use_kernel(*operands):
         return masked_step_plain(T, Cm, inv_d2, out=out)
     if out is None:
         out = torch.empty_like(T)
-    _launch("rmt_masked_step", T, Cm, out, T.shape, inv_d2)
+    launch("stencil", _SIGNATURES, "rmt_masked_step", T.device, _DTYPE_CODE[T.dtype], T.ndim,
+           T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(T.shape), *inv3(inv_d2))
     LAUNCHES["masked_step"] += 1
     return out
 
@@ -211,7 +286,8 @@ def fused_step_cm(Tp, Cm, spacing, out=None):
     Replaces pallas_kernels.fused_step_cm (file:290: whole-block
     `_fused_kernel_whole_cm`, striped `_fused_kernel_striped_cm`). `Tp` is
     the shard grown by one ghost layer per side (halo.exchange_halo);
-    `Cm` the core-shaped masked coefficient.
+    `Cm` the core-shaped masked coefficient. On the card this is the
+    region kernel over the whole core, read from the padded block.
 
     Bound on the H100: memory — (n+2)^d reads of Tp, n^d of Cm, n^d writes
     per step. Design: as masked_step, one thread per core cell in 32x8
@@ -220,14 +296,28 @@ def fused_step_cm(Tp, Cm, spacing, out=None):
     if Tp.ndim != Cm.ndim:
         raise ValueError(f"fused_step_cm: Tp is {Tp.ndim}D, Cm {Cm.ndim}D")
     core_shape = tuple(n - 2 for n in Tp.shape)
-    _check("fused_step_cm", Tp, Cm, core_shape, spacing, out)
-    inv_d2 = inv_d2_of(spacing)
+    check_operands("fused_step_cm", Tp, {"Cm": Cm}, core_shape, spacing, out)
     operands = (Tp, Cm) if out is None else (Tp, Cm, out)
     if not use_kernel(*operands):
-        return fused_step_cm_plain(Tp, Cm, inv_d2, out=out)
+        return fused_step_cm_plain(Tp, Cm, inv_d2_of(spacing), out=out)
     if out is None:
         out = torch.empty(core_shape, dtype=Tp.dtype, device=Tp.device)
-    _launch("rmt_fused_step_cm", Tp, Cm, out, core_shape, inv_d2)
+    return fused_step_cm_region(Tp, 1, Cm, spacing, core_box(core_shape), out)
+
+
+def fused_step_cm_region(src, offset: int, Cm, spacing, box, out):
+    """fused_step_cm on one box of the core, written into `out` in place
+    (module docstring: the region form). `src` is the padded block
+    (offset 1) or the raw shard (offset 0); returns `out`."""
+    check_region("fused_step_cm", src, offset, {"Cm": Cm}, box, spacing, out)
+    inv_d2 = inv_d2_of(spacing)
+    if not use_kernel(src, Cm, out):
+        window, sl = region_slices(box, offset)
+        fused_step_cm_plain(src[window], Cm[sl], inv_d2, out=out[sl])
+        return out
+    launch("stencil", _SIGNATURES, "rmt_fused_step_cm", src.device, _DTYPE_CODE[src.dtype],
+           src.ndim, src.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(out.shape),
+           *box_args(box), offset, *inv3(inv_d2))
     LAUNCHES["fused_step_cm"] += 1
     return out
 

@@ -26,14 +26,16 @@ from typing import NamedTuple
 
 import torch
 
-from rocm_mpi_tpu_torch.ops import _build
 from rocm_mpi_tpu_torch.ops.kernels import (
     _DTYPE_CODE,
     LAUNCHES,
     _compute_dtype,
     _overlaps,
     edge_masked_cm,
+    extents,
+    inv3,
     inv_d2_of,
+    launch,
 )
 from rocm_mpi_tpu_torch.utils.backend import use_kernel
 
@@ -329,26 +331,6 @@ def _check_operands(name: str, T, Cm, out) -> None:
             raise ValueError(f"{name}: out must not alias an input")
 
 
-def _call(symbol: str, T, *args) -> None:
-    lib = _build.load("multistep", _SIGNATURES)
-    with torch.cuda.device(T.device):
-        stream = torch.cuda.current_stream(T.device).cuda_stream
-        rc = getattr(lib, symbol)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"{symbol} launch failed with code {rc} (-1: bad dtype/rank/form/"
-            "steps, -2: grid overflow, -3: does not fit the card, >0: CUDA error)"
-        )
-
-
-def _extents(T):
-    return tuple(int(s) for s in T.shape) + (1,) * (3 - T.ndim)
-
-
-def _inv3(inv_d2):
-    return tuple(inv_d2) + (0.0,) * (3 - len(inv_d2))
-
-
 def multi_step(T, Cm, inv_d2, n: int, form: str, out=None):
     """The multi_step_cm kernel's wrapper: `n` steps of body form `form`
     in one launch for CUDA tensors, multi_step_cm_plain for CPU ones."""
@@ -362,9 +344,9 @@ def multi_step(T, Cm, inv_d2, n: int, form: str, out=None):
         out = torch.empty_like(T)
     scratch = torch.empty((2,) + tuple(T.shape), dtype=_compute_dtype(T.dtype),
                           device=T.device)
-    _call("rmt_multi_step_cm", T, _DTYPE_CODE[T.dtype], T.ndim, FORMS[form], int(n),
-          T.data_ptr(), Cm.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-          *_extents(T), *_inv3(inv_d2))
+    launch("multistep", _SIGNATURES, "rmt_multi_step_cm", T.device, _DTYPE_CODE[T.dtype],
+           T.ndim, FORMS[form], int(n), T.data_ptr(), Cm.data_ptr(), out.data_ptr(),
+           scratch.data_ptr(), *extents(T.shape), *inv3(inv_d2))
     LAUNCHES["multi_step_cm"] += 1
     return out
 
@@ -378,8 +360,9 @@ def tb_sweep(T, Cm, inv_d2, k: int, out=None):
         return tb_sweep_plain(T, Cm, inv_d2, k, out=out)
     if out is None:
         out = torch.empty_like(T)
-    _call("rmt_tb_sweep", T, _DTYPE_CODE[T.dtype], T.ndim, int(k),
-          T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *_extents(T), *_inv3(inv_d2))
+    launch("multistep", _SIGNATURES, "rmt_tb_sweep", T.device, _DTYPE_CODE[T.dtype], T.ndim,
+           int(k), T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(T.shape),
+           *inv3(inv_d2))
     LAUNCHES["tb_sweep"] += 1
     return out
 

@@ -1,5 +1,5 @@
 """Deep-halo sweeps: width-k ghost exchange every k steps — counterpart of
-rocm_mpi_tpu/parallel/deep_halo.py (the diffusion schedule).
+rocm_mpi_tpu/parallel/deep_halo.py (the diffusion and wave schedules).
 
 Each rank receives a k-wide ghost region once, then advances its padded
 block k steps locally and keeps the core: after s local steps only ghost
@@ -17,6 +17,11 @@ the JAX package's route for the padded block's shape:
   pass: ops.multistep.multi_step_cm_hbm;
 * "jnp"    — otherwise, or with local_form="jnp": k steps of plain
   PyTorch slicing (the JAX package's XLA route, taken by shape alone).
+
+The wave schedule (`make_wave_deep_sweep`) exchanges the time-invariant
+c² once per advance and the leapfrog pair once per sweep; its local k
+steps take ops.wave.wave_multi_step_masked ("vmem") when twice the padded
+block fits the VMEM budget, else k plain masked_leapfrog_steps ("jnp").
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Callable
 import torch
 
 from rocm_mpi_tpu_torch.config import validate_wire_mode
-from rocm_mpi_tpu_torch.ops import multistep
+from rocm_mpi_tpu_torch.ops import multistep, wave
 from rocm_mpi_tpu_torch.ops.kernels import inv_d2_of
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
@@ -165,6 +170,65 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
             Tp = jnp_k_steps(Tp, Cm, inv_d2, k)
         sched.route = route
         return Tp[core]
+
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode)
+    return sched
+
+
+def wave_local_route(padded_shape, dtype) -> str:
+    """The local route of a wave sweep on a block of `padded_shape`:
+    deep_halo.py:616's rule — the multi-step kernel when twice the block
+    (the state pair) fits the VMEM budget, else the jnp steps."""
+    if 2 * multistep._compute_nbytes(padded_shape, dtype) <= multistep._VMEM_BLOCK_BUDGET_BYTES:
+        return "vmem"
+    return "jnp"
+
+
+def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
+                         wire_mode: str = "f32") -> DeepSchedule:
+    """Build the acoustic-wave DeepSchedule on this rank's shard of `grid`.
+
+    `prepare(C2)` -> (M, Cw) over the k-padded block: one width-k exchange
+    of c², the hold mask M (0.0 on global Dirichlet and off-domain ghost
+    cells, else 1.0) and Cw = dt²·C2·M with dt² the double product of `dt`
+    (a float or the field-dtype step), as the JAX schedule forms it.
+    `sweep(U, Uprev, (M, Cw))` -> (U, Uprev) advanced k steps: one width-k
+    exchange of each leaf of the pair into buffers the schedule reuses,
+    the local k steps on `wave_local_route`'s route, both leaves cropped to
+    the core.
+    """
+    _validate_depth(grid, k, "sweep depth")
+    validate_wire_mode(wire_mode)
+    core = tuple(slice(k, -k) for _ in range(grid.ndim))
+    inv_d2 = inv_d2_of(spacing)
+    dt2 = float(dt) * float(dt)
+    padded_shape = tuple(n + 2 * k for n in grid.local_shape)
+    pads: dict[str, torch.Tensor] = {}
+
+    def prepare(C2):
+        C2p = exchange_halo(C2, grid, width=k)
+        hold = padded_hold_mask(C2p.shape, grid, k, device=C2p.device)
+        M = torch.where(hold, torch.zeros_like(C2p), torch.ones_like(C2p))
+        return M, (dt2 * C2p) * M
+
+    def padded(name, t):
+        buf = pads.get(name)
+        if buf is None or buf.dtype != t.dtype or buf.device != t.device:
+            buf = pads[name] = torch.zeros(padded_shape, dtype=t.dtype, device=t.device)
+        return exchange_halo(t, grid, width=k, wire_mode=wire_mode, out=buf)
+
+    def sweep(U, Uprev, prepared):
+        M, Cw = prepared
+        Up, Upp = padded("U", U), padded("Uprev", Uprev)
+        route = wave_local_route(padded_shape, U.dtype)
+        if route == "vmem":
+            U2, Up2 = wave.wave_multi_step_masked(Up, Upp, M, Cw, spacing, k)
+        else:
+            U2, Up2 = Up, Upp
+            for _ in range(k):
+                U2, Up2 = wave.masked_leapfrog_step(U2, Up2, M, Cw, inv_d2)
+        sched.route = route
+        return U2[core], Up2[core]
 
     sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode)
     return sched

@@ -1,0 +1,173 @@
+"""Communication/computation overlap — the `hide` variant; counterpart of
+rocm_mpi_tpu/parallel/overlap.py.
+
+The reference (`diffusion_2D_perf_hide.jl`, its intended variant (3))
+computes a boundary frame of width `b_width` on a high-priority queue
+and the interior on a low-priority one, with `update_halo!` issued in
+between so the exchange hides behind the interior. The JAX package gets
+the overlap from dataflow: the interior reads the unpadded block, so XLA
+may run it beside the collective. On the card the port makes the
+schedule explicit, per step, on CUDA streams of two priorities:
+
+  1. an event on the current stream marks the state ready;
+  2. the interior stream (normal priority) waits for it and launches the
+     ghost-free interior box from the RAW shard (source offset 0): its
+     width-1 stencil never leaves the shard, so it reads no ghost;
+  3. the current stream runs the halo exchange into the padded buffer
+     (`place_core`, then NCCL point-to-point);
+  4. the boundary stream (high priority, `torch.cuda.Stream(priority=-1)`)
+     waits for the exchange and launches the slab boxes from the padded
+     buffer (offset 1);
+  5. the current stream waits for both.
+
+Every box writes its own cells of one output buffer in place (the region
+form of ops/kernels.py), so there is no splice copy and, with the
+masked-coefficient contracts, no trailing Dirichlet select. Tensors the
+side streams touch are allocated on the current stream before step 1 and
+only reused by it after step 5, so the caching allocator never hands
+their memory to another user while a side stream still reads it. On the
+CPU the same code runs the boxes one after another through the plain
+versions.
+
+The shard is decomposed axis by axis: axis 0 gives its first and last
+`b` rows (full extent elsewhere), axis 1 the first and last `b` columns of
+the remaining middle, and so on; the innermost box is the interior. Only
+`mask_boundary=False` is ported — every caller in the repository holds
+its boundary by data (Cm == 0, M == 0).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable
+
+import torch
+
+from rocm_mpi_tpu_torch.config import validate_wire_mode
+from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
+
+# Stream priorities: lower is more urgent. The boundary slabs gate the
+# next step's exchange, so they go first when both streams have work.
+INTERIOR_PRIORITY = 0
+BOUNDARY_PRIORITY = -1
+
+
+def effective_b_width(local_shape, b_width) -> tuple[int, ...]:
+    """Clamp the boundary-frame width per axis to at most half the shard
+    (the reference's b_width=(32,4) knob, hide.jl:42). A short b_width is
+    extended by repeating its last entry, so the 2D default applies to 3D."""
+    b_width = tuple(b_width)
+    if len(b_width) < len(local_shape):
+        b_width = b_width + (b_width[-1],) * (len(local_shape) - len(b_width))
+    for ln in local_shape:
+        if ln < 2:
+            raise ValueError(
+                f"hide variant needs every shard axis >= 2 cells (local shape "
+                f"{tuple(local_shape)}); use variant 'shard' for degenerate decompositions"
+            )
+    return tuple(max(1, min(int(b), ln // 2)) for b, ln in zip(b_width, local_shape))
+
+
+def region_boxes(local_shape, bw) -> list[tuple[tuple[int, int], ...]]:
+    """The boxes of the decomposition, in _make_region_splice's order: per
+    axis the lo slab, the boxes of the middle, the hi slab. Each box is a
+    tuple of (lo, hi) core ranges; together they cover the shard once."""
+    local = tuple(int(n) for n in local_shape)
+    ndim = len(local)
+
+    def boxes(axis, prefix):
+        if axis == ndim:
+            return [tuple(prefix)]
+        n, b = local[axis], bw[axis]
+        rest = [(0, local[a]) for a in range(axis + 1, ndim)]
+        out = [tuple(prefix + [(0, b)] + rest), tuple(prefix + [(n - b, n)] + rest)]
+        if n - 2 * b > 0:
+            out[1:1] = boxes(axis + 1, prefix + [(b, n - b)])
+        return out
+
+    return boxes(0, [])
+
+
+def ghost_free(box, local_shape) -> bool:
+    """True when the box's width-1 stencil never leaves the unpadded shard."""
+    return all(lo >= 1 and hi <= n - 1 for (lo, hi), n in zip(box, local_shape))
+
+
+def _leaves(x) -> tuple[torch.Tensor, ...]:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
+                      mask_boundary: bool = False, wire_mode: str = "f32"):
+    """Build the shard-local overlap step (any ndim).
+
+    `region_update(src, offset, box, C, out)` updates core box `box` of
+    `out` in place from `src`, the state grown by `offset` cells per axis
+    (a region-form kernel wrapper, e.g. kernels.fused_step_cm_region).
+    Returns `local_step(T, C, out=None, pad=None) -> out`.
+
+    `T`, the exchanged state, is a tensor or a tuple of same-shaped leaves
+    (each exchanged; `src` and `out` then have the same structure, for a
+    coupled update such as the shallow-water one). `C` is whatever the
+    update reads core-only (a coefficient, or a tuple such as the wave's
+    (U⁻, M, Cw)); it is never exchanged. `out` and `pad` (same structure
+    as `T`) are buffers the caller reuses across steps; absent, they are
+    allocated.
+    """
+    validate_wire_mode(wire_mode)
+    if mask_boundary:
+        raise NotImplementedError(
+            "mask_boundary=True (a Dirichlet hold after the region updates) is not "
+            "ported; every caller holds its boundary by data (mask_boundary=False)"
+        )
+    local = grid.local_shape
+    bw = effective_b_width(local, b_width)
+    boxes = region_boxes(local, bw)
+    interior = [b for b in boxes if ghost_free(b, local)]
+    slabs = [b for b in boxes if not ghost_free(b, local)]
+    streams: dict[torch.device, tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
+
+    def side_streams(device):
+        """(interior, boundary) streams of `device`, made at first use."""
+        if device not in streams:
+            streams[device] = (torch.cuda.Stream(device, priority=INTERIOR_PRIORITY),
+                               torch.cuda.Stream(device, priority=BOUNDARY_PRIORITY))
+        return streams[device]
+
+    def local_step(T, C, out=None, pad=None):
+        tupled = isinstance(T, (tuple, list))
+
+        def run(boxes_, src, offset):
+            for box in boxes_:
+                region_update(src if tupled else src[0], offset, box, C,
+                              outs if tupled else outs[0])
+
+        Ts = _leaves(T)
+        outs = _leaves(out) if out is not None else tuple(torch.empty_like(t) for t in Ts)
+        pads = _leaves(pad) if pad is not None else (None,) * len(Ts)
+        if Ts[0].is_cuda:
+            current = torch.cuda.current_stream(Ts[0].device)
+            inner_s, bound_s = side_streams(Ts[0].device)
+            inner_ctx, bound_ctx = torch.cuda.stream(inner_s), torch.cuda.stream(bound_s)
+            inner_s.wait_stream(current)  # (1) the state and `out` are ready
+        else:
+            current = None
+            inner_ctx = bound_ctx = contextlib.nullcontext()
+        with inner_ctx:  # (2) the interior, from the raw shard
+            run(interior, Ts, 0)
+        # (3) the exchange, on the current stream
+        Tps = tuple(exchange_halo(t, grid, wire_mode=wire_mode, out=p)
+                    for t, p in zip(Ts, pads))
+        if current is not None:
+            bound_s.wait_stream(current)
+        with bound_ctx:  # (4) the slabs, from the padded buffer
+            run(slabs, Tps, 1)
+        if current is not None:  # (5) join
+            current.wait_stream(inner_s)
+            current.wait_stream(bound_s)
+        return outs if tupled else outs[0]
+
+    local_step.b_width = bw
+    local_step.boxes = boxes
+    return local_step

@@ -1,8 +1,9 @@
 """Carry a state across from the JAX package.
 
-The JAX package's state is a pair of global fields (T, Cp); its numpy
-image (`np.asarray`) is the hand-over format. `state_from_numpy` cuts
-this rank's shard out of each and puts it on the device, so both
+The JAX package's state is a tuple of global fields — (T, Cp) for
+diffusion, (U, U⁻, C2) for the wave; their numpy images (`np.asarray`)
+are the hand-over format. `state_from_numpy` and `wave_state_from_numpy`
+cut this rank's shard out of each and put it on the device, so both
 packages can start from the same numbers.
 """
 
@@ -28,14 +29,24 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
     return t.to(device)
 
 
-def state_from_numpy(T_np: np.ndarray, Cp_np: np.ndarray, grid: GlobalGrid,
-                     device=None):
-    """This rank's shard of the global fields (T, Cp), on `device`."""
-    for name, a in (("T", T_np), ("Cp", Cp_np)):
+def shards_from_numpy(fields: dict, grid: GlobalGrid, device=None) -> tuple:
+    """This rank's shard of each global field of `fields` ({name: array}),
+    contiguous, on `device`, in the dict's order."""
+    for name, a in fields.items():
         if tuple(a.shape) != grid.global_shape:
             raise ValueError(f"{name} shape {a.shape} != grid {grid.global_shape}")
     sl = grid.shard_slices()
-    return (
-        tensor_from_numpy(T_np[sl], device).contiguous(),
-        tensor_from_numpy(Cp_np[sl], device).contiguous(),
-    )
+    return tuple(tensor_from_numpy(a[sl], device).contiguous() for a in fields.values())
+
+
+def state_from_numpy(T_np: np.ndarray, Cp_np: np.ndarray, grid: GlobalGrid,
+                     device=None):
+    """This rank's shard of the global diffusion fields (T, Cp), on `device`."""
+    return shards_from_numpy({"T": T_np, "Cp": Cp_np}, grid, device)
+
+
+def wave_state_from_numpy(U_np: np.ndarray, Uprev_np: np.ndarray, C2_np: np.ndarray,
+                          grid: GlobalGrid, device=None):
+    """This rank's shard of the global wave fields (U, U⁻, C2), on `device`
+    — the JAX AcousticWave.init_state's images."""
+    return shards_from_numpy({"U": U_np, "Uprev": Uprev_np, "C2": C2_np}, grid, device)

@@ -16,6 +16,8 @@ import time
 
 import torch
 
+from rocm_mpi_tpu_torch.parallel import distributed
+
 
 def force(x):
     """Wait until the device work producing `x` is done (a no-op for CPU
@@ -52,6 +54,38 @@ class Timer:
             raise RuntimeError("toc() before tic()")
         self.elapsed = time.perf_counter() - self._t0
         return self.elapsed
+
+
+def resolve_windows(config, nt: int | None = None,
+                    warmup: int | None = None) -> tuple[int, int]:
+    """(nt, warmup), each defaulting to the config's; a run needs
+    0 <= warmup < nt."""
+    nt = config.nt if nt is None else int(nt)
+    warmup = config.warmup if warmup is None else int(warmup)
+    if not 0 <= warmup < nt:
+        raise ValueError(f"need 0 <= warmup < nt, got {warmup}, {nt}")
+    return nt, warmup
+
+
+def timed_window(advance, state, nt: int, warmup: int, sharded: bool = False):
+    """Run `advance(state, n) -> state` over the first `warmup` steps, then
+    time it over the other nt - warmup: the device synchronised, and on a
+    sharded grid every rank barriered, on each side of the timed window.
+    `state` is a tensor or a tuple led by one. Returns (state, seconds)."""
+
+    def settle(state):
+        force(state[0] if isinstance(state, tuple) else state)
+        if sharded:
+            distributed.barrier()
+
+    if warmup:
+        state = advance(state, warmup)
+    timer = Timer()
+    settle(state)
+    timer.tic()
+    state = advance(state, nt - warmup)
+    settle(state)
+    return state, timer.toc()
 
 
 def wtime_per_it(wtime: float, nt: int, warmup: int = 10) -> float:

@@ -12,7 +12,8 @@ from rocm_mpi_tpu_torch.config import DiffusionConfig
 from rocm_mpi_tpu_torch.utils.backend import resolve_device, use_kernel
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "rocm_mpi_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "rocm_mpi_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "chip_trace_hide.py"]
 FORBIDDEN = ("jax", "jaxlib", "rocm_mpi_tpu", "__graft_entry__")
 
 
@@ -36,9 +37,55 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_scan_sees_the_whole_port():
-    names = {p.name for p in PORT_FILES}
-    assert {"kernels.py", "multistep.py", "halo.py", "deep_halo.py", "diffusion.py",
-            "chip_smoke.py"} <= names
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    pkg = "rocm_mpi_tpu_torch/"
+    assert {pkg + f for f in ("ops/kernels.py", "ops/multistep.py", "ops/wave.py",
+                              "parallel/halo.py", "parallel/deep_halo.py",
+                              "parallel/overlap.py", "models/diffusion.py", "models/wave.py",
+                              "apps/wave_2d.py", "apps/diffusion_2d_perf_hide.py")} <= names
+    assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
+
+
+def _counted_launches():
+    """Names counted by `LAUNCHES["name"] += 1` anywhere in the port."""
+    found = set()
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.AugAssign) and isinstance(node.target, ast.Subscript)
+                    and getattr(node.target.value, "id", None) == "LAUNCHES"
+                    and isinstance(node.target.slice, ast.Constant)):
+                found.add(node.target.slice.value)
+    return found
+
+
+def test_every_kernel_counts_its_launches():
+    # Each key of LAUNCHES is counted by a wrapper, and every count names a key.
+    from rocm_mpi_tpu_torch.ops.kernels import LAUNCHES
+
+    assert _counted_launches() == set(LAUNCHES)
+    assert {"wave_step", "wave_step_masked", "wave_multi_step"} <= set(LAUNCHES)
+
+
+def test_cpu_entry_points_launch_no_kernel():
+    # A CPU run of every entry point takes the plain versions: no count moves.
+    from rocm_mpi_tpu_torch.config import WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
+    from rocm_mpi_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    heat = HeatDiffusion(DiffusionConfig(global_shape=(16, 16), nt=8, warmup=0, dims=(1, 1)),
+                         device="cpu")
+    for variant in heat.variants:
+        heat.run(variant)
+    heat.run_vmem_resident()
+    heat.run_deep(block_steps=4)
+    wave = AcousticWave(WaveConfig(global_shape=(16, 16), nt=8, warmup=0, dims=(1, 1)),
+                        device="cpu")
+    for variant in AcousticWave.VARIANTS:
+        wave.run(variant)
+    wave.run_vmem_resident()
+    wave.run_deep(block_steps=4)
+    assert set(LAUNCHES.values()) == {0}
 
 
 def test_scan_would_catch_a_jax_import(tmp_path):
@@ -64,15 +111,20 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
     _no_cuda(monkeypatch)
+    from rocm_mpi_tpu_torch.config import WaveConfig
     from rocm_mpi_tpu_torch.entry import entry
-    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
 
     cfg = DiffusionConfig(global_shape=(16, 16), dims=(1, 1))
+    wcfg = WaveConfig(global_shape=(16, 16), dims=(1, 1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         HeatDiffusion(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        AcousticWave(wcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
     HeatDiffusion(cfg, device="cpu")  # the explicit ask is honoured
+    AcousticWave(wcfg, device="cpu")
 
 
 def test_dispatch_rules():

@@ -84,7 +84,7 @@ def test_run_validates_windows():
     with pytest.raises(ValueError, match="warmup"):
         ours.run("perf", nt=4, warmup=4)
     with pytest.raises(ValueError, match="unknown variant"):
-        ours.run("hide")
+        ours.run("kp")
 
 
 def test_advance_equals_repeated_steps_and_reuses_buffers():

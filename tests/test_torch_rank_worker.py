@@ -1,8 +1,9 @@
-"""One rank of the port's multi-rank CPU checks (gloo), started by
+"""Ranks of the port's multi-rank CPU checks (gloo), started by
 rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
-tests/test_torch_distributed.py; it holds no tests itself. Imports torch
-and the port only, so a spawned rank starts fast; the parent holds the
-results against the JAX package."""
+tests/test_torch_distributed.py (`run_rank`) and tests/test_torch_overlap.py
+(`run_overlap_rank`); it holds no tests itself. Imports torch and the port
+only, so a spawned rank starts fast; the parent holds the results against
+the JAX package."""
 
 from __future__ import annotations
 
@@ -68,4 +69,38 @@ def run_rank(rank, spec):
         T, C = state_from_numpy(T0, Cp, model.grid, device="cpu")
         T = model.advance_fn("perf")(T, C, spec["nt"])
         out["from_jax"][dtype] = gather_to_host0(T, model.grid)
+    return out
+
+
+def run_overlap_rank(rank, spec):
+    """One rank of tests/test_torch_overlap.py: the diffusion and wave
+    `hide` variants, the wave `perf` variant and the wave deep schedule on
+    small sharded grids, each shard gathered to rank 0."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+    from rocm_mpi_tpu_torch.state import wave_state_from_numpy
+
+    torch.set_num_threads(1)
+    kernels.reset_launches()
+    out = {"diffusion": {}, "wave": {}, "wave_deep": {}}
+    for dtype, variant, b_width in spec["diffusion_runs"]:
+        cfg = DiffusionConfig(**spec["diffusion"], dtype=dtype, b_width=b_width)
+        model = HeatDiffusion(cfg, device="cpu")
+        out["diffusion"][(dtype, variant, b_width)] = gather_to_host0(model.run(variant).T,
+                                                                      model.grid)
+    for key, case in spec["wave_runs"].items():
+        cfg = WaveConfig(**case["cfg"])
+        model = AcousticWave(cfg, device="cpu")
+        U, Uprev, C2 = wave_state_from_numpy(*spec["wave_states"][case["state"]], model.grid,
+                                             device="cpu")
+        U, Uprev = model.advance_fn(case["variant"])(U, Uprev, C2, case["n"])
+        out["wave"][key] = (gather_to_host0(U, model.grid), gather_to_host0(Uprev, model.grid))
+    for dtype in spec["wave_deep_dtypes"]:
+        cfg = WaveConfig(**spec["wave_deep"], dtype=dtype)
+        model = AcousticWave(cfg, device="cpu")
+        res = model.run_deep(block_steps=spec["wave_deep_k"])
+        out["wave_deep"][dtype] = (res.route, res.k, gather_to_host0(res.U, model.grid))
+    out["launches"] = dict(kernels.LAUNCHES)
     return out
