@@ -2,7 +2,7 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-9 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-10 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
 the target). Phases, printed as they run (about two minutes on one H100
@@ -34,6 +34,13 @@ the target). Phases, printed as they run (about two minutes on one H100
    12288² (one wave_step launch per step; the copy, kernel and select of
    a step timed alone), run_vmem_resident at 252² (256 + 4096, chunk 256)
    and run_deep at 252² (8 + 1024, k = 8), and time reversal at 252² f64;
+   [swe] the same for the shallow water: ShallowWater.run("perf") at
+   12288² f32 (one swe_step launch per step; the three copies into the
+   padded buffers and the kernel of a step timed alone) and at 252² f64
+   (the app's default), run_vmem_resident at 252² (256 + 4096, chunk 256),
+   run_deep at 240² (8 + 1024, k = 8, vmem route on 256²) and at 252² (the
+   jnp route: no kernel), each with its mass drift |Σh − Σh₀|/|Σh₀|
+   printed and held under 1e-13 (f64) or 1e-6 (f32);
 6. main path, sharded — the 2×2 perf path (halo exchange + fused_step_cm)
    run by 4 ranks that share this one card over a gloo group (halo slabs
    staged through host memory): every step one fused_step_cm launch per
@@ -44,18 +51,23 @@ the target). Phases, printed as they run (about two minutes on one H100
    hbm-tb route on 6160² padded shards) by the same 4 ranks over gloo,
    16 + 32 steps: each shard bitwise equal to its plain-version run, the
    gathered field bitwise equal to the one-GPU run_deep of the same k;
-8. hide, sharded — diffusion and wave `perf` and `hide` on the 2×2 grid of
-   12288² (b_width (32, 4), five region launches per rank and step), 20
-   steps: each shard bitwise equal to its plain-version run, the diffusion
-   hide field bitwise equal to perf's, hide's ms/step beside perf's;
+8. hide, sharded — diffusion, wave and shallow-water `perf` and `hide` on
+   the 2×2 grid of 12288² (b_width (32, 4), five region launches per rank
+   and step), 20 steps: each shard bitwise equal to its plain-version run,
+   the diffusion and shallow-water hide fields bitwise equal to perf's,
+   hide's ms/step beside perf's;
 9. wave deep schedule, sharded — run_deep on the 2×2 grid of 480² (k = 8,
    256² padded shards, vmem route), 16 + 32 steps: each shard bitwise equal
    to its plain-version run, the gathered field bitwise equal to the
-   one-GPU run_deep.
+   one-GPU run_deep;
+10. shallow-water deep schedule, sharded — the same for ShallowWater on
+   the 2×2 grid of 480² (k = 8, 256² padded shards, vmem route): the
+   gathered state bitwise equal to the one-GPU run_deep, whose 496² block
+   takes the jnp route (the same arithmetic).
 
-With `--gpus 4` phases 6-9 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-10 run one rank per GPU over NCCL (6 and 8 for
 1000 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
-exchange, the interior and the slabs timed alone), and phases 3-5 are
+exchange, the interiors and the slabs timed alone), and phases 3-5 are
 skipped. `chip_trace_hide.py` traces the phase-8 steps under
 torch.profiler.
 
@@ -95,6 +107,10 @@ WAVE_DEEP_SMALL = (268, 268)  # 252² grown by the wave's k = 8 deep ghosts
 TB_BIG = (12304, 12304)  # 12288² grown by the k = 8 deep ghosts
 TB_BLOCK = (6160, 6160)  # a 6144² shard grown by the k = 8 deep ghosts
 SMALL_3D = (96, 64, 48)
+SWE_DEEP_SMALL = (240, 240)  # run_deep's k = 8 sweep: 256² padded, the admission's edge
+SWE_DEEP_PADDED = (256, 256)
+SWE_F64 = (180, 180)  # the f64 multi-step admission takes at most 181²
+SWE_3D = (32, 24, 24)  # a 3D block within the multi-step admission
 HIDE_B_WIDTH = (32, 4)  # the reference's boundary frame (hide.jl:42)
 KERNELS = {
     # name: (source line of the TPU kernel it replaces, CUDA source)
@@ -105,6 +121,8 @@ KERNELS = {
     "wave_step": ("rocm_mpi_tpu/ops/wave_kernels.py:76", "wave.cu"),
     "wave_step_masked": ("rocm_mpi_tpu/ops/wave_kernels.py:140", "wave.cu"),
     "wave_multi_step": ("rocm_mpi_tpu/ops/wave_kernels.py:244", "wave.cu"),
+    "swe_step": ("rocm_mpi_tpu/ops/swe_kernels.py:142", "swe.cu"),
+    "swe_multi_step": ("rocm_mpi_tpu/ops/swe_kernels.py:197", "swe.cu"),
 }
 ALL_DTYPES = ("f32", "f64", "bf16")
 # Kernel cases: (kernel, block shape, steps per launch, body form, dtypes).
@@ -132,6 +150,12 @@ KERNEL_CASES = [
     ("wave_multi_step", SMALL, 256, "aform", ALL_DTYPES),
     ("wave_multi_step", WAVE_DEEP_SMALL, 8, "aform", ALL_DTYPES),
     ("wave_multi_step", WAVE_DEEP_SMALL, 2, "direct", ("f32",)),
+    ("swe_step", BIG, 1, "whole", ALL_DTYPES),
+    ("swe_step", SMALL, 1, "whole", ALL_DTYPES),
+    ("swe_step", BLOCK, 1, "regions", ALL_DTYPES),
+    ("swe_multi_step", SMALL, 256, "direct", ("f32", "bf16")),
+    ("swe_multi_step", SWE_DEEP_PADDED, 8, "direct", ("f32", "bf16")),
+    ("swe_multi_step", SWE_F64, 256, "direct", ("f64",)),
     # 3D, at small sizes: every kernel takes 3D blocks, which no main path
     # drives on the card yet.
     ("masked_step", SMALL_3D, 1, "direct", ALL_DTYPES),
@@ -142,13 +166,16 @@ KERNEL_CASES = [
     ("wave_step", SMALL_3D, 1, "direct", ALL_DTYPES),
     ("wave_step_masked", SMALL_3D, 1, "regions", ALL_DTYPES),
     ("wave_multi_step", SMALL_3D, 8, "direct", ALL_DTYPES),  # unequal spacing
+    ("swe_step", SWE_3D, 1, "regions", ALL_DTYPES),
+    ("swe_multi_step", SWE_3D, 8, "direct", ALL_DTYPES),
 ]
 # The f32 case whose times stand for each kernel in the JSON line: the
 # launch its main path makes most.
 MAIN_CASE = {"masked_step": (BIG, "direct"), "fused_step_cm": (BLOCK, "direct"),
              "multi_step_cm": (SMALL, "eqc"), "tb_sweep": (TB_BIG, "direct"),
              "wave_step": (BIG, "direct"), "wave_step_masked": (BLOCK, "regions"),
-             "wave_multi_step": (SMALL, "aform")}
+             "wave_multi_step": (SMALL, "aform"), "swe_step": (BIG, "whole"),
+             "swe_multi_step": (SMALL, "direct")}
 # Operations per cell and step of each kernel and body form (the
 # per-launch A/c/eqc prologue, a few operations per cell, is left out).
 FLOPS_PER_CELL_STEP = {
@@ -165,6 +192,11 @@ FLOPS_PER_CELL_STEP = {
     ("wave_step_masked", "regions"): lambda nd: 5 * nd + 7,
     ("wave_multi_step", "aform"): lambda nd: 2 * nd + 8,
     ("wave_multi_step", "direct"): lambda nd: 5 * nd + 4,
+    # JAX's order: 3·ndim for h' (difference, product, sum per axis), 4 per
+    # velocity (difference, product, difference, mask product).
+    ("swe_step", "whole"): lambda nd: 7 * nd,
+    ("swe_step", "regions"): lambda nd: 7 * nd,
+    ("swe_multi_step", "direct"): lambda nd: 7 * nd,
 }
 MAIN_NT, MAIN_WARMUP = 1000, 10
 SHARD_NT, SHARD_WARMUP = 20, 2
@@ -179,6 +211,7 @@ SHARD_DEEP_NT, SHARD_DEEP_WARMUP = 48, 16
 WAVE_DEEP_NT, WAVE_DEEP_WARMUP, WAVE_DEEP_K = 1032, 8, 8
 REVERSAL_STEPS = 500
 WAVE_DEEP_SHARDED = (480, 480)  # 2×2 shards of 240², 256² with the k = 8 ghosts
+SWE_MASS_BOUND = {"f64": 1e-13, "f32": 1e-6}
 
 
 class PhaseError(RuntimeError):
@@ -279,6 +312,8 @@ def _kernel_case(torch, name, core, steps, form, dtype, device):
     from rocm_mpi_tpu_torch.ops import kernels, multistep, wave
     from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, ghost_free, region_boxes
 
+    if name.startswith("swe_"):
+        return _swe_kernel_case(torch, name, core, steps, form, dtype, device)
     domain = (SMALL if core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL)
               else core if len(core) == 3 else BIG)
     lengths = (10.0,) * len(domain)
@@ -391,8 +426,84 @@ def _kernel_case(torch, name, core, steps, form, dtype, device):
             6 * cells * item)
 
 
+def _swe_kernel_case(torch, name, core, steps, form, dtype, device):
+    """_kernel_case for the shallow-water kernels: random state leaves (h
+    in [0, 1), velocities in [-0.5, 0.5)), the face masks the path gives
+    the block — the domain's walls for a one-GPU field, the padded face
+    masks of a one-rank grid for the deep block — and cH, cg from the
+    domain's dt. Results are flat tuples (h, u0, …)."""
+    from rocm_mpi_tpu_torch.config import SWEConfig
+    from rocm_mpi_tpu_torch.ops import kernels, swe
+    from rocm_mpi_tpu_torch.parallel.deep_halo import padded_face_mask
+    from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
+    from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, ghost_free, region_boxes
+
+    nd = len(core)
+    deep = core == SWE_DEEP_PADDED
+    domain = SWE_DEEP_SMALL if deep else BIG if core == BLOCK else core
+    lengths = (10.0,) * nd
+    cfg = SWEConfig(global_shape=domain, lengths=lengths, dtype=dtype)
+    tdt = cfg.torch_dtype
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cH, cg = swe.swe_coeffs(cfg.dt, cfg.spacing, cfg.H0, cfg.g)
+
+    def rand(shape, lo=0.0):
+        return (torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
+                + lo).to(tdt)
+
+    # The masks' grid: the deep block's one-rank domain, else the block
+    # itself (for the 6144² block, a rank at the domain's high corner).
+    grid = GlobalGrid(domain if deep else core, lengths, (1,) * nd)
+    width = (core[0] - domain[0]) // 2 if deep else 0
+    Mus = tuple(padded_face_mask(core, grid, a, width, tdt, device=device) for a in range(nd))
+    item = torch.empty((), dtype=tdt).element_size()
+    cells = 1
+    for n in core:
+        cells *= n
+    if name == "swe_multi_step":
+        h = rand(core)
+        us = tuple(rand(core, -0.5) * M for M in Mus)
+        outs = tuple(torch.empty_like(h) for _ in range(nd + 1))
+
+        def run():
+            got = swe.fb_multi_step(h, us, Mus, cH, cg, steps, out=outs)
+            return (got[0], *got[1])
+
+        def plain():
+            got = swe.swe_multi_step_plain(h, us, Mus, cH, cg, steps)
+            return (got[0], *got[1])
+
+        return run, plain, (3 * nd + 2) * cells * item
+    padded = tuple(n + 2 for n in core)
+    Sp = (rand(padded),) + tuple(rand(padded, -0.5) for _ in range(nd))
+    out = tuple(torch.empty(core, dtype=tdt, device=device) for _ in Sp)
+    nbytes = ((nd + 1) * Sp[0].numel() + (2 * nd + 1) * cells) * item
+    if form == "regions":
+        raw = tuple(t[tuple(slice(1, -1) for _ in core)].contiguous() for t in Sp)
+        boxes = region_boxes(core, effective_b_width(core, HIDE_B_WIDTH))
+
+        def run():
+            for box in boxes:
+                inner = ghost_free(box, core)
+                swe.swe_step_region(raw if inner else Sp, 0 if inner else 1, box, Mus,
+                                    (cH, cg), out)
+            return out
+
+        def plain():
+            res = tuple(torch.empty_like(o) for o in out)
+            for box in boxes:
+                window, sl = kernels.region_slices(box, 1)
+                swe.swe_step_plain(tuple(t[window] for t in Sp), tuple(M[sl] for M in Mus),
+                                   cH, cg, out=tuple(r[sl] for r in res))
+            return res
+
+        return run, plain, nbytes
+    return (lambda: swe.swe_step(Sp, Mus, (cfg.H0, cfg.g), cfg.dt, cfg.spacing, out=out),
+            lambda: swe.swe_step_plain(Sp, Mus, cH, cg), nbytes)
+
+
 def _same(got, want) -> tuple[bool, float]:
-    """(bitwise equal, max |difference|) of two tensors or two pairs."""
+    """(bitwise equal, max |difference|) of two tensors or two tuples of them."""
     import torch
 
     if isinstance(got, torch.Tensor):
@@ -417,7 +528,8 @@ def phase_kernels(torch, card, pk):
             label = f"{name} {'x'.join(map(str, core))} {dtype}" + (
                 f" n={steps} {form}" if steps > 1 else f" {form}" if form != "direct" else "")
             check(equal, f"{label}: kernel != plain version (max |diff| {err})")
-            small = core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL, SMALL_3D)
+            small = core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL, SMALL_3D, SWE_DEEP_PADDED,
+                             SWE_F64, SWE_3D)
             reps = (200 if steps == 1 else 50) if small else (30 if steps == 1 else 20)
             ms = time_ms(run, reps)
             plain_ms = time_ms(plain, max(reps // 4, 5) if steps == 1 else 5)
@@ -980,6 +1092,166 @@ def phase_reversal(torch, card):
     return dict(steps=n, max_abs_err=err, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# The shallow water
+# ---------------------------------------------------------------------------
+
+
+def _swe_model(shape, nt, warmup, dtype="f32", device="cuda"):
+    from rocm_mpi_tpu_torch.config import SWEConfig
+    from rocm_mpi_tpu_torch.models import ShallowWater
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+
+    cfg = SWEConfig(global_shape=shape, nt=nt, warmup=warmup, dtype=dtype, dims=(1, 1))
+    return ShallowWater(cfg, grid=init_global_grid(*shape, dims=(1, 1), nprocs=1, rank=0),
+                        device=device)
+
+
+def _leaves(h, us) -> tuple:
+    return (h, *us)
+
+
+def plain_swe_steps(model, h, us, n: int):
+    """`n` shallow-water steps through the plain versions on the card: the
+    same exchange of every leaf, then swe_step's plain version over the
+    whole block (per cell also the arithmetic of hide's region launches)."""
+    import torch
+
+    from rocm_mpi_tpu_torch.ops import swe
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+
+    cH, cg = model.coeffs
+    Mus = model.face_masks()
+    pads = tuple(torch.zeros(tuple(s + 2 for s in h.shape), dtype=h.dtype, device=h.device)
+                 for _ in range(len(us) + 1))
+    for _ in range(n):
+        Sp = tuple(exchange_halo(t, model.grid, out=p) for t, p in zip(_leaves(h, us), pads))
+        h, *us = swe.swe_step_plain(Sp, Mus, cH, cg)
+    return h, tuple(us)
+
+
+def plain_swe_schedule(model, meth: str, k: int, nt: int):
+    """The same `nt` steps of a shallow-water schedule through the plain
+    versions: run_vmem_resident's chunks, or run_deep's padded masks,
+    width-k exchanges of every leaf, local k steps and crops."""
+    from rocm_mpi_tpu_torch.ops import swe
+    from rocm_mpi_tpu_torch.parallel.deep_halo import make_swe_deep_sweep, swe_local_route
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+
+    cfg, grid = model.config, model.grid
+    cH, cg = model.coeffs
+    h, us = model.init_state()
+    if meth == "run_vmem_resident":
+        Mus = model.face_masks()
+        for _ in range(nt // k):
+            h, us = swe.swe_multi_step_plain(h, us, Mus, cH, cg, k)
+        return h, us
+    Mp = make_swe_deep_sweep(grid, k, cfg.dt, cfg.spacing, cfg.H0, cfg.g).prepare(h)
+    route = swe_local_route(Mp[0].shape, h.dtype)
+    core = tuple(slice(k, -k) for _ in range(h.ndim))
+    for _ in range(nt // k):
+        hp, *ups = (exchange_halo(t, grid, width=k) for t in _leaves(h, us))
+        if route == "vmem":
+            hp, ups = swe.swe_multi_step_plain(hp, ups, Mp, cH, cg, k)
+        else:
+            for _ in range(k):
+                hp, ups = swe.masked_swe_step(hp, ups, Mp, cH, cg)
+        h, us = hp[core], tuple(u[core] for u in ups)
+    return h.contiguous(), tuple(u.contiguous() for u in us)
+
+
+# (method, shape, dtype, nt, warmup, expected route, expected k, kernel, launches)
+SWE_RUNS = [
+    ("run", BIG, "f32", MAIN_NT, MAIN_WARMUP, None, None, "swe_step", MAIN_NT),
+    ("run", SMALL, "f64", MAIN_NT, MAIN_WARMUP, None, None, "swe_step", MAIN_NT),
+    ("run_vmem_resident", SMALL, "f32", VMEM_NT, VMEM_WARMUP, "vmem-loop", 256,
+     "swe_multi_step", VMEM_NT // 256),
+    ("run_deep", SWE_DEEP_SMALL, "f32", WAVE_DEEP_NT, WAVE_DEEP_WARMUP, "vmem", WAVE_DEEP_K,
+     "swe_multi_step", WAVE_DEEP_NT // WAVE_DEEP_K),
+    # 268² padded: over the admission, so the jnp route and no kernel.
+    ("run_deep", SMALL, "f32", WAVE_DEEP_NT, WAVE_DEEP_WARMUP, "jnp", WAVE_DEEP_K, None, 0),
+]
+
+
+def _swe_perf_parts(torch, model, h):
+    """The one-GPU perf step's device passes timed alone: the three copies
+    of the state into the padded buffers, and the swe_step kernel."""
+    from rocm_mpi_tpu_torch.ops import swe
+    from rocm_mpi_tpu_torch.parallel.halo import place_core
+
+    cfg = model.config
+    state = (h,) + tuple(h.clone() for _ in range(cfg.ndim))
+    pads = tuple(place_core(t) for t in state)
+    Mus = model.face_masks()
+    out = tuple(torch.empty_like(h) for _ in state)
+    parts = dict(
+        place_core_x3=time_ms(lambda: [place_core(t, out=p) for t, p in zip(state, pads)], 30),
+        swe_step=time_ms(lambda: swe.swe_step(pads, Mus, (cfg.H0, cfg.g), cfg.dt, cfg.spacing,
+                                              out=out), 30),
+    )
+    del state, pads, Mus, out
+    return parts
+
+
+def phase_swe(torch, card):
+    """The shallow water on one GPU through its entry points: perf at 12288²
+    f32 and at the app's default 252² f64, the VMEM-resident loop and the
+    deep schedule at 252² and 240². Each asserts route, k and launches, is
+    bitwise equal to the plain versions' run of the same steps, holds its
+    mass drift under its bound, and is timed."""
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    rows = []
+    for meth, shape, dtype, nt, warmup, route, k, kernel, count in SWE_RUNS:
+        model = _swe_model(shape, nt, warmup, dtype)
+        mass0 = float(model.init_state()[0].sum(dtype=torch.float64))
+        kernels.reset_launches()
+        if meth == "run":
+            res = model.run("perf")
+        elif meth == "run_deep":
+            res = model.run_deep(block_steps=k)
+        else:
+            res = model.run_vmem_resident()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        label = f"swe {meth} {shape[0]}x{shape[1]} {dtype}"
+        check((res.route, res.k) == (route, k),
+              f"{label}: route {res.route} k {res.k}, expected {route} k {k}")
+        check(launches == only(kernel or "swe_step", count),
+              f"{label}: launches {launches}, expected {count} {kernel}")
+        got = _leaves(res.h, res.us)
+        check(all(tuple(t.shape) == shape and bool(torch.isfinite(t).all()) for t in got),
+              f"{label}: result not finite or misshapen")
+        ref = (plain_swe_steps(model, *model.init_state(), nt) if meth == "run"
+               else plain_swe_schedule(model, meth, k, nt))
+        equal, err = _same(got, _leaves(*ref))
+        check(equal, f"{label}: kernel run != plain-version run (max |diff| {err})")
+        drift = abs(float(res.h.sum(dtype=torch.float64)) - mass0) / abs(mass0)
+        check(drift <= SWE_MASS_BOUND[dtype],
+              f"{label}: mass drift {drift} over the bound {SWE_MASS_BOUND[dtype]}")
+        row = dict(method=meth, shape=list(shape), dtype=dtype, nt=nt, warmup=warmup,
+                   route=res.route, k=res.k, launches=launches, wtime_s=res.wtime,
+                   ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts,
+                   mass_drift=drift, max_abs_h=float(res.h.abs().max()))
+        if meth == "run" and shape == BIG:
+            row["parts_ms"] = _swe_perf_parts(torch, model, res.h)
+            print("[swe] perf step's parts alone at "
+                  f"{shape[0]}x{shape[1]} f32 (ms): " + ", ".join(
+                      f"{name} {v:.4f}" for name, v in row["parts_ms"].items()) + f" on {card}",
+                  flush=True)
+        rows.append(row)
+        print(f"[swe] {label}, {nt} steps ({warmup} warmup): route {res.route}, k {res.k}, "
+              f"{kernel or 'no kernel'} launches {launches[kernel] if kernel else 0}; bitwise "
+              f"== plain-version run; {res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step, "
+              f"T_eff {res.t_eff:.1f} GB/s ({2 * (len(shape) + 1)} passes per step counted), "
+              f"{res.gpts:.3f} Gpts/s; mass drift {drift:.3e} (bound "
+              f"{SWE_MASS_BOUND[dtype]:.0e}), max |h| {row['max_abs_h']:.6f} on {card}",
+              flush=True)
+        del model, res, ref, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _timed_loop(torch, fn, reps: int) -> float:
     """ms per call of `fn` over `reps` calls, host clock around
     synchronised work, every rank barriered on both sides."""
@@ -1003,9 +1275,9 @@ def hide_rank(rank, spec):
     import torch
     import torch.distributed as dist
 
-    from rocm_mpi_tpu_torch.config import DiffusionConfig, WaveConfig
-    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
-    from rocm_mpi_tpu_torch.ops import kernels, wave
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+    from rocm_mpi_tpu_torch.ops import kernels, swe, wave
     from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
     from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, ghost_free, region_boxes
 
@@ -1052,6 +1324,19 @@ def hide_rank(rank, spec):
     out["wave"]["hide_minus_perf"] = float(
         (wgot["hide"][0].U.double() - wgot["perf"][0].U.double()).abs().max())
 
+    scfg = SWEConfig(global_shape=shape, nt=nt, warmup=warmup, dtype="f32", dims=(2, 2),
+                     b_width=HIDE_B_WIDTH)
+    smodel = ShallowWater(scfg, device=device)
+    sgot = runs(smodel)
+    sref = _leaves(*plain_swe_steps(smodel, *smodel.init_state(), nt))
+    out["swe"] = {v: dict(launches=l, wtime_s=r.wtime, ms_per_step=r.wtime_it * 1e3,
+                          bitwise=_same(_leaves(r.h, r.us), sref)[0],
+                          finite=all(bool(torch.isfinite(t).all()) for t in _leaves(r.h, r.us)))
+                  for v, (r, l) in sgot.items()}
+    out["swe"]["hide_eq_perf"] = _same(_leaves(sgot["hide"][0].h, sgot["hide"][0].us),
+                                       _leaves(sgot["perf"][0].h, sgot["perf"][0].us))[0]
+    del sref
+
     if spec["gpus"] > 1:
         # The overlap's parts alone: the exchange, the interior box from
         # the raw shard, the slab boxes from the padded buffer.
@@ -1075,13 +1360,26 @@ def hide_rank(rank, spec):
             wave_slabs=time_ms(lambda: [wave.wave_step_masked_region(
                 pad, 1, Uprev, M, Cw, sp, b, res_out) for b in slabs], 100),
         )
+        # The shallow water exchanges three leaves and launches each box once
+        # for all of them.
+        sstate = _leaves(sgot["perf"][0].h, sgot["perf"][0].us)
+        spads = tuple(torch.zeros_like(pad) for _ in sstate)
+        souts = tuple(torch.empty_like(t) for t in sstate)
+        Mus = smodel.face_masks()
+        parts["swe_exchange"] = _timed_loop(torch, lambda: [
+            exchange_halo(t, smodel.grid, out=p) for t, p in zip(sstate, spads)], 100)
+        parts["swe_interior"] = time_ms(lambda: [swe.swe_step_region(
+            sstate, 0, b, Mus, smodel.coeffs, souts) for b in inner], 100)
+        parts["swe_slabs"] = time_ms(lambda: [swe.swe_step_region(
+            spads, 1, b, Mus, smodel.coeffs, souts) for b in slabs], 100)
         out["parts_ms"] = parts
     return out
 
 
 def phase_hide(card, gpus: int):
-    """Diffusion and wave `hide` beside `perf` on the 2×2 grid of 12288²:
-    4 ranks sharing one card over gloo, or one per card over NCCL."""
+    """Diffusion, wave and shallow-water `hide` beside `perf` on the 2×2
+    grid of 12288²: 4 ranks sharing one card over gloo, or one per card
+    over NCCL."""
     from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
     from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, region_boxes
 
@@ -1094,7 +1392,9 @@ def phase_hide(card, gpus: int):
     expect = {("diffusion", "perf"): only("fused_step_cm", nt),
               ("diffusion", "hide"): only("fused_step_cm", n_boxes * nt),
               ("wave", "perf"): only("wave_step", nt),
-              ("wave", "hide"): only("wave_step_masked", n_boxes * nt)}
+              ("wave", "hide"): only("wave_step_masked", n_boxes * nt),
+              ("swe", "perf"): only("swe_step", nt),
+              ("swe", "hide"): only("swe_step", n_boxes * nt)}
     for r in ranks:
         for (model, variant), launches in expect.items():
             got = r[model][variant]
@@ -1106,11 +1406,13 @@ def phase_hide(card, gpus: int):
                   "plain-version run or not finite")
         check(r["diffusion"]["hide_eq_perf"],
               f"hide phase rank {r['rank']}: diffusion hide != perf")
+        check(r["swe"]["hide_eq_perf"],
+              f"hide phase rank {r['rank']}: shallow-water hide != perf")
     where = (f"4 ranks sharing {card} (gloo, halo slabs staged through host memory: "
              "correctness only, the times are not a multi-GPU measurement)" if gpus == 1
              else f"4 GPUs, one rank each, NCCL ({card} each)")
     r0 = ranks[0]
-    for model in ("diffusion", "wave"):
+    for model in ("diffusion", "wave", "swe"):
         h, p = r0[model]["hide"], r0[model]["perf"]
         extra = (f"; hide - perf max |diff| {r0['wave']['hide_minus_perf']:.3e}"
                  if model == "wave" else "; hide field bitwise == perf field")
@@ -1126,12 +1428,16 @@ def phase_hide(card, gpus: int):
                 + f"; diffusion hide {r['diffusion']['hide']['ms_per_step']:.5f}, perf "
                 f"{r['diffusion']['perf']['ms_per_step']:.5f}; wave hide "
                 f"{r['wave']['hide']['ms_per_step']:.5f}, perf "
-                f"{r['wave']['perf']['ms_per_step']:.5f} ms/step on {card}", flush=True)
+                f"{r['wave']['perf']['ms_per_step']:.5f}; swe hide "
+                f"{r['swe']['hide']['ms_per_step']:.5f}, perf "
+                f"{r['swe']['perf']['ms_per_step']:.5f} ms/step on {card}", flush=True)
     totals = {"fused_step_cm": sum(r["diffusion"]["hide"]["launches"]["fused_step_cm"]
                                    for r in ranks),
               "wave_step": sum(r["wave"]["perf"]["launches"]["wave_step"] for r in ranks),
               "wave_step_masked": sum(r["wave"]["hide"]["launches"]["wave_step_masked"]
-                                      for r in ranks)}
+                                      for r in ranks),
+              "swe_step": sum(r["swe"][v]["launches"]["swe_step"] for r in ranks
+                              for v in ("perf", "hide"))}
     return ranks, totals
 
 
@@ -1206,12 +1512,94 @@ def phase_wave_deep(card, gpus: int):
     return ranks, total
 
 
+def swe_deep_rank(rank, spec):
+    """One rank of the sharded shallow-water deep phase (started by
+    spawn_ranks)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.config import SWEConfig
+    from rocm_mpi_tpu_torch.models import ShallowWater
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    dist.barrier()
+    shape, k = tuple(spec["shape"]), spec["k"]
+    cfg = SWEConfig(global_shape=shape, nt=spec["nt"], warmup=spec["warmup"], dtype="f32",
+                    dims=(2, 2))
+    model = ShallowWater(cfg, device=device)
+    kernels.reset_launches()
+    res = model.run_deep(block_steps=k)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    got = _leaves(res.h, res.us)
+    ref = _leaves(*plain_swe_schedule(model, "run_deep", k, cfg.nt))
+    out = dict(rank=rank, launches=launches, route=res.route, k=res.k,
+               bitwise=_same(got, ref)[0],
+               finite=all(bool(torch.isfinite(t).all()) for t in got),
+               ms_per_step=res.wtime_it * 1e3, gpts=res.gpts)
+    full = [gather_to_host0(t, model.grid) for t in got]
+    if rank == 0:
+        # The same schedule over the whole domain on one GPU at the same k:
+        # its 496² block is over the admission, so the jnp route computes
+        # the same operations in the same order as the kernel.
+        one = _swe_model(shape, cfg.nt, cfg.warmup, device=device)
+        advance, k1 = one.deep_advance_fn(block_steps=k)
+        h0, us0 = one.init_state()
+        mass0 = float(h0.sum(dtype=torch.float64))
+        ones = [t.cpu().numpy() for t in _leaves(*advance(h0, us0, None, cfg.nt))]
+        out["one_gpu"] = dict(route=advance.schedule.route, k=k1)
+        out["max_abs_vs_one_gpu"] = max(float(np.abs(a - b).max()) for a, b in zip(full, ones))
+        out["bitwise_vs_one_gpu"] = all(np.array_equal(a, b) for a, b in zip(full, ones))
+        out["mass_drift"] = abs(float(full[0].astype(np.float64).sum()) - mass0) / abs(mass0)
+    return out
+
+
+def phase_swe_deep(card, gpus: int):
+    """The shallow water's run_deep on the 2×2 grid of 480² (k = 8, 256²
+    padded shards on the vmem route): each shard bitwise against its plain
+    version, the gathered state bitwise against the one-GPU run_deep."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    nt, warmup, k = SHARD_DEEP_NT, SHARD_DEEP_WARMUP, WAVE_DEEP_K
+    spec = dict(shape=WAVE_DEEP_SHARDED, nt=nt, warmup=warmup, k=k, gpus=gpus)
+    ranks = spawn_ranks(4, swe_deep_rank, (spec,), backend="gloo" if gpus == 1 else "nccl",
+                        timeout=600)
+    for r in ranks:
+        check((r["route"], r["k"]) == ("vmem", k),
+              f"swe deep rank {r['rank']}: route {r['route']} k {r['k']}")
+        check(r["launches"] == only("swe_multi_step", nt // k),
+              f"swe deep rank {r['rank']}: launches {r['launches']}")
+        check(r["bitwise"] and r["finite"],
+              f"swe deep rank {r['rank']}: kernel run != plain-version run or not finite")
+    r0 = ranks[0]
+    check(r0["one_gpu"] == {"route": "jnp", "k": k}, f"one-GPU swe deep took {r0['one_gpu']}")
+    check(r0["bitwise_vs_one_gpu"], "sharded 2x2 swe deep state differs from the one-GPU "
+          f"run_deep by {r0['max_abs_vs_one_gpu']}")
+    check(r0["mass_drift"] <= SWE_MASS_BOUND["f32"],
+          f"sharded 2x2 swe deep: mass drift {r0['mass_drift']}")
+    total = sum(r["launches"]["swe_multi_step"] for r in ranks)
+    n = WAVE_DEEP_SHARDED[0]
+    where = "gloo, one shared card" if gpus == 1 else "NCCL, 4 GPUs"
+    print(f"[swe-deep] run_deep {n}x{n} f32 on a 2x2 grid ({where}), {nt} steps ({warmup} "
+          f"warmup): route vmem, k {k}, swe_multi_step launches {total} ({nt // k} per "
+          "rank); each shard bitwise == plain-version run; gathered state bitwise == the "
+          f"one-GPU run_deep ({n + 2 * k}x{n + 2 * k} padded, jnp route); mass drift "
+          f"{r0['mass_drift']:.3e}; rank 0 {r0['ms_per_step']:.5f} ms/step on {card}",
+          flush=True)
+    return ranks, total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write every measurement to PATH")
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
-                        help="4: run only the sharded phases (perf, deep, hide, wave deep), "
+                        help="4: run only the sharded phases (perf, deep, hide, wave and "
+                        "shallow-water deep), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -1251,6 +1639,7 @@ def main(argv=None) -> int:
         deep_ranks, _ = phase_sharded_deep(card, args.gpus)
         hide_ranks, _ = phase_hide(card, args.gpus)
         wave_deep_ranks, _ = phase_wave_deep(card, args.gpus)
+        swe_deep_ranks, _ = phase_swe_deep(card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -1258,7 +1647,8 @@ def main(argv=None) -> int:
                                             sharded_ranks=ranks,
                                             sharded_deep_ranks=deep_ranks,
                                             hide_ranks=hide_ranks,
-                                            wave_deep_ranks=wave_deep_ranks), indent=1))
+                                            wave_deep_ranks=wave_deep_ranks,
+                                            swe_deep_ranks=swe_deep_ranks), indent=1))
         print(f"[done] sharded phases passed in {time.perf_counter() - t0:.1f} s",
               flush=True)
         print(card, flush=True)
@@ -1271,10 +1661,12 @@ def main(argv=None) -> int:
     schedule_rows = phase_schedules(torch, card)
     wave_rows = phase_wave(torch, card)
     reversal = phase_reversal(torch, card)
+    swe_rows = phase_swe(torch, card)
     ranks, fused_launches = phase_sharded(card, 1)
     deep_ranks, deep_launches = phase_sharded_deep(card, 1)
     hide_ranks, hide_launches = phase_hide(card, 1)
     wave_deep_ranks, wave_deep_launches = phase_wave_deep(card, 1)
+    swe_deep_ranks, swe_deep_launches = phase_swe_deep(card, 1)
 
     # Launches on the main paths: each path ran with the counts set to 0
     # just before it and read just after.
@@ -1283,9 +1675,11 @@ def main(argv=None) -> int:
                 "multi_step_cm": 0, "tb_sweep": deep_launches,
                 "wave_step": hide_launches["wave_step"],
                 "wave_step_masked": hide_launches["wave_step_masked"],
-                "wave_multi_step": wave_deep_launches}
-    for row in schedule_rows + wave_rows:
-        for name in ("multi_step_cm", "tb_sweep", "wave_step", "wave_multi_step"):
+                "wave_multi_step": wave_deep_launches,
+                "swe_step": hide_launches["swe_step"], "swe_multi_step": swe_deep_launches}
+    for row in schedule_rows + wave_rows + swe_rows:
+        for name in ("multi_step_cm", "tb_sweep", "wave_step", "wave_multi_step", "swe_step",
+                     "swe_multi_step"):
             launches[name] += row["launches"][name]
     line = []
     for name, (replaces, source) in KERNELS.items():
@@ -1305,9 +1699,9 @@ def main(argv=None) -> int:
         path.write_text(json.dumps(dict(
             card=card, kind=kind, peaks=pk, build_s=build_s, kernel_phases=rows,
             main_12288=big_row, main_252=small_row, schedules=schedule_rows,
-            wave=wave_rows, reversal=reversal, sharded_ranks=ranks,
+            wave=wave_rows, reversal=reversal, swe=swe_rows, sharded_ranks=ranks,
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
-            wave_deep_ranks=wave_deep_ranks, kernels=line,
+            wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks, kernels=line,
             seconds=time.perf_counter() - t0,
         ), indent=1))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -75,6 +75,21 @@ def global_max(x) -> float:
     return float(peak)
 
 
+def global_sum(x) -> float:
+    """Σ over every rank's shard of `x`, taken in f64, on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    total = x.sum(dtype=torch.float64).reshape(1)
+    if distributed.is_distributed():
+        if total.is_cuda and distributed.backend() == "gloo":
+            total = total.cpu()  # gloo carries CPU tensors only
+        dist.all_reduce(total, op=dist.ReduceOp.SUM)
+    return float(total)
+
+
 def card_line() -> str | None:
     """`name, power.limit` of GPU 0 as nvidia-smi reports them, or None."""
     smi = shutil.which("nvidia-smi")

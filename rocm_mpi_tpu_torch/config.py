@@ -1,5 +1,6 @@
 """Configuration of a diffusion run — counterpart of rocm_mpi_tpu/config.py
-— and of an acoustic-wave run (`WaveConfig`, rocm_mpi_tpu/models/wave.py).
+— of an acoustic-wave run (`WaveConfig`, rocm_mpi_tpu/models/wave.py) and
+of a shallow-water run (`SWEConfig`, rocm_mpi_tpu/models/swe.py).
 
 Same fields, same validation, same stable time step. Two knobs are not
 ported yet and raise NotImplementedError when set away from their
@@ -138,3 +139,50 @@ class WaveConfig:
     def dt(self) -> float:
         """CFL-stable leapfrog step: cfl·min(h)/(c0·√ndim)."""
         return self.cfl * min(self.spacing) / (self.c0 * math.sqrt(self.ndim))
+
+
+@dataclasses.dataclass(frozen=True)
+class SWEConfig:
+    """All knobs of a shallow-water run (2D or 3D) — counterpart of
+    rocm_mpi_tpu/models/swe.py SWEConfig: the vocabulary of WaveConfig
+    with the resting depth H0 and gravity g in place of the wave speed."""
+
+    global_shape: tuple[int, ...] = (128, 128)
+    lengths: tuple[float, ...] = (10.0, 10.0)
+    H0: float = 1.0  # resting depth
+    g: float = 1.0  # gravity
+    cfl: float = 0.5  # Courant number vs c = √(g·H0), < 1
+    nt: int = 1000
+    warmup: int = 10
+    dtype: str = "f64"
+    dims: tuple[int, ...] | None = None
+    b_width: tuple[int, ...] = (32, 4)  # boundary frame width (hide)
+    wire_mode: str = "f32"
+
+    def __post_init__(self):
+        if len(self.lengths) != len(self.global_shape):
+            raise ValueError("lengths rank must match global_shape rank")
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+        validate_wire_mode(self.wire_mode)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.global_shape)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @property
+    def spacing(self) -> tuple[float, ...]:
+        return tuple(l / n for l, n in zip(self.lengths, self.global_shape))
+
+    @property
+    def wave_speed(self) -> float:
+        return math.sqrt(self.g * self.H0)
+
+    @property
+    def dt(self) -> float:
+        """CFL-stable forward-backward step: cfl·min(d)/(c·√ndim)."""
+        return self.cfl * min(self.spacing) / (self.wave_speed * math.sqrt(self.ndim))

@@ -1,0 +1,330 @@
+"""The shallow-water model — counterpart of rocm_mpi_tpu/models/swe.py (the
+per-step variants, the VMEM-resident loop and the deep-halo schedule).
+
+Physics and scheme: ops/swe.py — forward-backward stepping of the
+linearised shallow-water equations on a C-grid in a closed basin,
+
+    h' = h − dt·H·∇⁻·u,    u_a' = M_a ∘ (u_a − dt·g·∂a⁺ h'),
+
+with the wall faces masked to exactly 0.0. The state is ndim+1 coupled
+fields (h and one face velocity per axis), every one exchanged. Two
+invariants hold exactly: Σh is conserved (the divergence telescopes to
+wall − wall) and the update has a closed-form inverse.
+
+Variants, each on this rank's shard:
+
+  "ap"    — the roll form (ops.swe.masked_swe_step): on one rank on the
+            global field; on a shard on the halo-padded block with width-1
+            padded face masks, keeping the core (a k = 1 deep sweep);
+  "shard" — exchange of every leaf + the field-dtype padded step;
+  "perf"  — exchange of every leaf + the swe_step kernel, on any grid;
+  "hide"  — the swe_step region kernel on the overlap decomposition
+            (parallel/overlap.py) with the whole state as a tuple of
+            leaves: the interior box from the raw shard during the
+            exchange, then the boundary slabs. One rank runs "perf".
+
+and two schedules: run_vmem_resident (one rank, `chunk` steps per launch
+of the swe_multi_step kernel) and run_deep (any grid, one width-k
+exchange of the whole state per k steps,
+parallel/deep_halo.make_swe_deep_sweep).
+
+In place of JAX buffer donation the advance keeps two state tuples, the
+state and a spare the step writes into, and rotates them each step; the
+exchange reuses one padded buffer per leaf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from rocm_mpi_tpu_torch.config import SWEConfig, validate_wire_mode
+from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
+from rocm_mpi_tpu_torch.ops import multistep, swe
+from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
+from rocm_mpi_tpu_torch.parallel import deep_halo
+from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
+from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
+from rocm_mpi_tpu_torch.utils import metrics
+from rocm_mpi_tpu_torch.utils.backend import resolve_device
+
+
+@dataclasses.dataclass
+class SWERunResult:
+    h: torch.Tensor  # this rank's shard of the final surface height
+    us: tuple  # this rank's shards of the final face velocities
+    wtime: float  # seconds over the timed steps
+    nt: int
+    warmup: int
+    config: SWEConfig
+    # The schedules' record of what ran: the local route ("vmem-loop"; for
+    # run_deep "vmem" or "jnp") and the steps per launch or sweep. None for
+    # the per-step variants.
+    route: str | None = None
+    k: int | None = None
+
+    @property
+    def wtime_it(self) -> float:
+        return metrics.wtime_per_it(self.wtime, self.nt, self.warmup)
+
+    @property
+    def t_eff(self) -> float:
+        """Aggregate T_eff over the global field [GB/s]: 2·(ndim+1) passes
+        per step (read and write h and each u_a; the masks are coefficient
+        traffic and not counted), as JAX's SWERunResult counts."""
+        return metrics.t_eff_gbs(self.config.global_shape, self.h.element_size(),
+                                 self.wtime_it, n_passes=2 * (len(self.us) + 1))
+
+    @property
+    def gpts(self) -> float:
+        return metrics.gpts_per_s(self.config.global_shape, self.wtime_it)
+
+
+class ShallowWater:
+    """Forward-backward linear shallow water on this rank's shard of a
+    global grid."""
+
+    DEFAULT_DEEP_STEPS = 8
+    VARIANTS = ("ap", "shard", "perf", "hide")
+
+    def __init__(self, config: SWEConfig, grid: GlobalGrid | None = None, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        if grid is None:
+            grid = init_global_grid(*config.global_shape, lengths=config.lengths,
+                                    dims=config.dims)
+        if grid.global_shape != config.global_shape:
+            raise ValueError(f"grid shape {grid.global_shape} != config {config.global_shape}")
+        if grid.lengths != config.lengths:
+            raise ValueError(f"grid lengths {grid.lengths} != config {config.lengths}")
+        self.grid = grid
+        self.coeffs = swe.swe_coeffs(config.dt, config.spacing, config.H0, config.g)
+
+    # ---- state ----------------------------------------------------------
+
+    def face_masks(self) -> tuple[torch.Tensor, ...]:
+        """This rank's shard of each axis's face mask: exactly 0.0 on the
+        global high wall face (index n_a − 1 along axis a), 1.0 elsewhere.
+        The low wall is the zero-ghost convention of the exchange."""
+        cfg, grid = self.config, self.grid
+        return tuple(deep_halo.padded_face_mask(grid.local_shape, grid, a, 0, cfg.torch_dtype,
+                                                device=self.device)
+                     for a in range(cfg.ndim))
+
+    def init_state(self):
+        """(h, us): this rank's shard of a Gaussian surface bump at rest (every
+        velocity zero, so the wall faces start at 0 and the masks keep
+        them there)."""
+        cfg, grid = self.config, self.grid
+        dtype = cfg.torch_dtype
+        h = gaussian_ic(grid.local_coord_mesh(dtype=dtype, device=self.device), cfg.lengths,
+                        dtype=dtype)
+        us = tuple(torch.zeros(grid.local_shape, dtype=dtype, device=self.device)
+                   for _ in range(cfg.ndim))
+        return h, us
+
+    # ---- variants -------------------------------------------------------
+
+    def _step(self, variant: str):
+        """step(h, us, Mus, out=None, pads=None) -> (h', us') of `variant`:
+        `out` is a state tuple (h, u0, …) the step may write into (never the
+        input state), `pads` one padded buffer per leaf for the exchange;
+        either may be None, and the step allocates."""
+        cfg, grid = self.config, self.grid
+        sp, wm, ndim = cfg.spacing, cfg.wire_mode, cfg.ndim
+        cH, cg = self.coeffs
+        core = tuple(slice(1, -1) for _ in range(ndim))
+
+        def exchange(h, us, pads):
+            pads = pads if pads is not None else (None,) * (ndim + 1)
+            return tuple(exchange_halo(t, grid, out=p, wire_mode=wm)
+                         for t, p in zip((h, *us), pads))
+
+        def split(leaves):
+            return leaves[0], tuple(leaves[1:])
+
+        if variant == "ap":
+            if grid.nprocs == 1:
+                def step(h, us, Mus, out=None, pads=None):
+                    return swe.masked_swe_step(h, us, Mus, cH, cg)
+
+                return step
+            padded_shape = tuple(n + 2 for n in grid.local_shape)
+            Mp = tuple(deep_halo.padded_face_mask(padded_shape, grid, a, 1, cfg.torch_dtype,
+                                                  device=self.device) for a in range(ndim))
+
+            def step(h, us, Mus, out=None, pads=None):
+                hp, *ups = exchange(h, us, pads)
+                h2, us2 = swe.masked_swe_step(hp, ups, Mp, cH, cg)
+                return h2[core], tuple(u[core] for u in us2)
+
+            return step
+        if variant == "shard":
+            def step(h, us, Mus, out=None, pads=None):
+                return split(swe.swe_step_padded(exchange(h, us, pads), Mus, (cfg.H0, cfg.g),
+                                                 cfg.dt, sp))
+
+            return step
+        if variant == "perf":
+            def step(h, us, Mus, out=None, pads=None):
+                return split(swe.swe_step(exchange(h, us, pads), Mus, (cfg.H0, cfg.g), cfg.dt,
+                                          sp, out=out))
+
+            return step
+        if variant == "hide":
+            if grid.nprocs == 1:
+                # No neighbours, nothing to hide: the perf step, bitwise.
+                return self._step("perf")
+
+            def region_update(src, offset, box, Mus, out):
+                swe.swe_step_region(src, offset, box, Mus, self.coeffs, out)
+
+            local = make_overlap_step(grid, region_update, cfg.b_width, mask_boundary=False,
+                                      wire_mode=wm)
+
+            def step(h, us, Mus, out=None, pads=None):
+                return split(local((h, *us), tuple(Mus), out=out, pad=pads))
+
+            return step
+        raise ValueError(f"unknown SWE variant {variant!r} ({', '.join(self.VARIANTS)})")
+
+    # ---- drivers --------------------------------------------------------
+
+    def advance_fn(self, variant: str = "perf"):
+        """(h, us, Mus, n) -> (h, us) after n steps of `variant`.
+
+        The loop keeps two state tuples — the state and a spare the step
+        writes into — and rotates them, and exchanges into one reused
+        padded buffer per leaf, so steady-state stepping of `perf` and
+        `hide` allocates no field. The passed-in state becomes a buffer of
+        the loop: like donated JAX arguments, the caller must not use it
+        afterwards."""
+        step = self._step(variant)
+        padded_shape = tuple(n + 2 for n in self.grid.local_shape)
+
+        def advance(h, us, Mus, n):
+            us = tuple(us)
+            pads = tuple(torch.zeros(padded_shape, dtype=h.dtype, device=h.device)
+                         for _ in range(len(us) + 1))
+            spare = tuple(torch.empty_like(h) for _ in range(len(us) + 1))
+            for _ in range(int(n)):
+                h2, us2 = step(h, us, Mus, out=spare, pads=pads)
+                h, us, spare = h2, us2, (h, *us)
+            return h, us
+
+        return advance
+
+    def _run_timed(self, advance, nt, warmup) -> SWERunResult:
+        """Run `advance(h, us, Mus, n) -> (h, us)` from the initial state
+        through metrics.timed_window."""
+        nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
+        h, us = self.init_state()
+        Mus = self.face_masks()
+        (h, us), wtime = metrics.timed_window(lambda s, n: advance(*s, Mus, n), (h, us),
+                                              nt, warmup, sharded=self.grid.nprocs > 1)
+        return SWERunResult(h=h, us=tuple(us), wtime=wtime, nt=nt, warmup=warmup,
+                            config=self.config)
+
+    def run(self, variant: str = "perf", nt: int | None = None, warmup: int | None = None,
+            driver: str = "step") -> SWERunResult:
+        """Run `nt` steps of `variant` from the initial condition, timing all
+        but the first `warmup`. Only the per-step driver is ported:
+        driver="scan" raises NotImplementedError."""
+        if driver not in ("step", "scan"):
+            raise ValueError(f"driver must be 'step' or 'scan', got {driver!r}")
+        if driver == "scan":
+            raise NotImplementedError(
+                "the scan driver is not ported yet; driver='step' runs the same steps"
+            )
+        return self._run_timed(self.advance_fn(variant), nt, warmup)
+
+    # ---- schedules ------------------------------------------------------
+
+    def run_vmem_resident(self, nt: int | None = None, warmup: int | None = None,
+                          chunk: int | None = None, config: str | None = None) -> SWERunResult:
+        """One-rank loop of `chunk` steps per launch of the swe_multi_step
+        kernel (ops.swe.swe_multi_step); the state must pass the JAX
+        admission. `chunk` defaults to DEFAULT_STEP_CHUNK, gcd'd against
+        both windows (a warning when an explicit chunk degrades);
+        `config="auto"` needs the tuning cache and raises
+        NotImplementedError."""
+        if self.grid.nprocs != 1:
+            raise ValueError("the VMEM-resident path requires an unsharded grid")
+        multistep._check_config(config)
+        cfg = self.config
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
+        explicit = chunk is not None
+        chunk = effective_block_steps(
+            nt, warmup, multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk,
+            warn=explicit, label="SWE VMEM chunk")
+        nbytes = multistep._compute_nbytes(self.grid.local_shape, cfg.torch_dtype)
+
+        def advance(h, us, Mus, n):
+            return swe.swe_multi_step(h, us, Mus, cfg.dt, cfg.spacing, cfg.H0, cfg.g, n,
+                                      chunk=chunk, warn_on_cap=False)
+
+        res = self._run_timed(advance, nt, warmup)
+        res.route = "vmem-loop"
+        res.k = multistep.resolve_step_chunk(chunk, chunk, nbytes, warn_on_cap=False)
+        return res
+
+    def effective_deep_depth(self, nt: int | None = None, warmup: int | None = None,
+                             block_steps: int | None = None, warn: bool = True) -> int:
+        """The sweep depth run_deep executes for these arguments: the
+        default (DEFAULT_DEEP_STEPS) clamps to the smallest shard extent; a
+        depth is gcd'd against both windows, and an explicit one that still
+        exceeds the shard raises."""
+        cfg = self.config
+        explicit = block_steps is not None
+        if block_steps is None:
+            block_steps = min(self.DEFAULT_DEEP_STEPS, min(self.grid.local_shape))
+        eff = effective_block_steps(
+            cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
+            block_steps, label="SWE deep-halo sweep depth", warn=warn, stacklevel=3)
+        if explicit and eff > min(self.grid.local_shape):
+            raise ValueError(
+                f"SWE deep-halo sweep depth {eff} exceeds a local shard extent "
+                f"{self.grid.local_shape}; ghost slices need width <= shard"
+            )
+        return eff
+
+    def deep_advance_fn(self, block_steps: int | None = None, nt: int | None = None,
+                        warmup: int | None = None, wire_mode: str | None = None):
+        """(advance(h, us, Mus, n_steps) -> (h, us), executed depth k) of the
+        deep schedule: the padded face masks are built once per call (`Mus`
+        is accepted and ignored, so the signature matches advance_fn's),
+        then n_steps/k sweeps run; `n_steps` must be a multiple of k.
+        `advance.schedule` is the DeepSchedule (its `route` says which local
+        route the last sweep took)."""
+        cfg = self.config
+        k = self.effective_deep_depth(nt, warmup, block_steps)
+        wm = cfg.wire_mode if wire_mode is None else validate_wire_mode(wire_mode)
+        sched = deep_halo.make_swe_deep_sweep(self.grid, k, cfg.dt, cfg.spacing, cfg.H0, cfg.g,
+                                              wire_mode=wm)
+
+        def advance(h, us, Mus, n_steps):
+            del Mus
+            n_steps = int(n_steps)
+            if n_steps % k != 0:
+                raise ValueError(f"n_steps {n_steps} must be a multiple of the depth {k}")
+            us = tuple(us)
+            if n_steps == 0:
+                return h, us
+            Mp = sched.prepare(h)
+            for _ in range(n_steps // k):
+                h, us = sched.sweep(h, us, Mp)
+            return h.contiguous(), tuple(u.contiguous() for u in us)
+
+        advance.schedule = sched
+        return advance, k
+
+    def run_deep(self, nt: int | None = None, warmup: int | None = None,
+                 block_steps: int | None = None, wire_mode: str | None = None) -> SWERunResult:
+        """Deep-halo sweeps on any process grid: one width-k exchange of the
+        whole coupled state per k steps (parallel.deep_halo.make_swe_deep_sweep)."""
+        advance, k = self.deep_advance_fn(block_steps, nt, warmup, wire_mode=wire_mode)
+        res = self._run_timed(advance, nt, warmup)
+        res.route, res.k = advance.schedule.route, k
+        return res

@@ -42,10 +42,11 @@ from rocm_mpi_tpu_torch.utils.backend import use_kernel
 
 # Launches of each hand kernel since the last reset_launches(). Only a
 # kernel launch counts; the plain versions never do. The multi-step
-# kernels' wrappers (ops/multistep.py) and the wave kernels' (ops/wave.py)
-# count here too.
+# kernels' wrappers (ops/multistep.py), the wave kernels' (ops/wave.py) and
+# the shallow-water kernels' (ops/swe.py) count here too.
 LAUNCHES = {"masked_step": 0, "fused_step_cm": 0, "multi_step_cm": 0, "tb_sweep": 0,
-            "wave_step": 0, "wave_step_masked": 0, "wave_multi_step": 0}
+            "wave_step": 0, "wave_step_masked": 0, "wave_multi_step": 0,
+            "swe_step": 0, "swe_multi_step": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 

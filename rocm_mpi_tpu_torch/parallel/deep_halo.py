@@ -22,6 +22,12 @@ The wave schedule (`make_wave_deep_sweep`) exchanges the time-invariant
 c² once per advance and the leapfrog pair once per sweep; its local k
 steps take ops.wave.wave_multi_step_masked ("vmem") when twice the padded
 block fits the VMEM budget, else k plain masked_leapfrog_steps ("jnp").
+
+The shallow-water schedule (`make_swe_deep_sweep`) builds its padded face
+masks once per advance and exchanges all ndim+1 coupled fields once per
+sweep; its local k steps take ops.swe.swe_multi_step_masked ("vmem") when
+the padded state passes the JAX admission, (3·ndim + 2)·compute_nbytes <=
+2 MiB, else k plain roll-form masked_swe_steps ("jnp").
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from typing import Callable
 import torch
 
 from rocm_mpi_tpu_torch.config import validate_wire_mode
-from rocm_mpi_tpu_torch.ops import multistep, wave
+from rocm_mpi_tpu_torch.ops import multistep, swe, wave
 from rocm_mpi_tpu_torch.ops.kernels import inv_d2_of
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
@@ -229,6 +235,80 @@ def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
                 U2, Up2 = wave.masked_leapfrog_step(U2, Up2, M, Cw, inv_d2)
         sched.route = route
         return U2[core], Up2[core]
+
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode)
+    return sched
+
+
+def padded_face_mask(shape, grid: GlobalGrid, axis: int, width: int, dtype,
+                     device=None) -> torch.Tensor:
+    """Face mask of u_axis over a width-`width` padded block: exactly 0.0 on
+    the global high wall face (global index n_g − 1 along `axis`) and on
+    off-domain ghost faces along `axis`, 1.0 elsewhere — deep_halo.py's
+    `padded_face_mask`. Sealed walls keep off-domain ghost values from
+    reaching any in-domain cell however many local steps a sweep takes;
+    off-domain faces along other axes would have to cross that axis's wall
+    first, so they need no zero."""
+    start = grid.shard_bounds()[axis][0]
+    gidx = start + torch.arange(shape[axis], device=device) - width
+    invalid = (gidx >= grid.global_shape[axis] - 1) | (gidx < 0)
+    view = [1] * len(shape)
+    view[axis] = shape[axis]
+    invalid = invalid.reshape(view).expand(tuple(shape))
+    return torch.where(invalid, torch.zeros(tuple(shape), dtype=dtype, device=device),
+                       torch.ones(tuple(shape), dtype=dtype, device=device))
+
+
+def swe_local_route(padded_shape, dtype) -> str:
+    """The local route of an SWE sweep on a block of `padded_shape`:
+    deep_halo.py:501's rule — the multi-step kernel when the padded state
+    passes the admission, else the jnp steps."""
+    return "vmem" if swe.swe_admitted(padded_shape, dtype) else "jnp"
+
+
+def make_swe_deep_sweep(grid: GlobalGrid, k: int, dt, spacing, H, g,
+                        wire_mode: str = "f32") -> DeepSchedule:
+    """Build the shallow-water DeepSchedule on this rank's shard of `grid`.
+
+    `prepare(h)` -> the ndim padded face masks (geometry only: `h` gives
+    the dtype and device; once per advance). `sweep(h, us, Mp)` -> (h, us)
+    advanced k steps: one width-k exchange of each of the ndim+1 coupled
+    fields into buffers the schedule reuses, the local k steps on
+    `swe_local_route`'s route, every leaf cropped to the core. The light
+    cone is the diffusion one: a step moves information one cell (a
+    diagonal counts as one), so width-k ghosts keep the core exact for k
+    steps.
+    """
+    _validate_depth(grid, k, "sweep depth")
+    validate_wire_mode(wire_mode)
+    ndim = grid.ndim
+    core = tuple(slice(k, -k) for _ in range(ndim))
+    cH, cg = swe.swe_coeffs(dt, spacing, H, g)
+    padded_shape = tuple(n + 2 * k for n in grid.local_shape)
+    pads: dict[int, torch.Tensor] = {}
+
+    def prepare(h):
+        return tuple(padded_face_mask(padded_shape, grid, a, k, h.dtype, device=h.device)
+                     for a in range(ndim))
+
+    def padded(i, t):
+        buf = pads.get(i)
+        if buf is None or buf.dtype != t.dtype or buf.device != t.device:
+            buf = pads[i] = torch.zeros(padded_shape, dtype=t.dtype, device=t.device)
+        return exchange_halo(t, grid, width=k, wire_mode=wire_mode, out=buf)
+
+    def sweep(h, us, Mp):
+        hp = padded(0, h)
+        ups = tuple(padded(1 + a, u) for a, u in enumerate(us))
+        route = swe_local_route(padded_shape, h.dtype)
+        if route == "vmem":
+            h2, us2 = swe.swe_multi_step_masked(hp, ups, Mp, cH, cg, k)
+        else:
+            h2, us2 = hp, ups
+            for _ in range(k):
+                h2, us2 = swe.masked_swe_step(h2, us2, Mp, cH, cg)
+        sched.route = route
+        return h2[core], tuple(u[core] for u in us2)
 
     sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode)
     return sched

@@ -19,6 +19,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from rocm_mpi_tpu_torch.utils.backend import resolve_device
+
 
 def default_backend(device_type: str) -> str:
     return "nccl" if device_type == "cuda" else "gloo"
@@ -67,9 +69,11 @@ def backend() -> str | None:
 
 
 def local_device(device_type: str) -> torch.device:
-    """This rank's device: cuda:(LOCAL_RANK mod card count), or the CPU."""
+    """This rank's device: cuda:(LOCAL_RANK mod card count), or the CPU.
+    Raises when CUDA is asked for and absent."""
     if device_type != "cuda":
         return torch.device("cpu")
+    resolve_device("cuda")  # raises without a card
     local = int(os.environ.get("LOCAL_RANK", "0"))
     return torch.device("cuda", local % torch.cuda.device_count())
 

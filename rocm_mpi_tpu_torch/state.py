@@ -1,8 +1,9 @@
 """Carry a state across from the JAX package.
 
 The JAX package's state is a tuple of global fields — (T, Cp) for
-diffusion, (U, U⁻, C2) for the wave; their numpy images (`np.asarray`)
-are the hand-over format. `state_from_numpy` and `wave_state_from_numpy`
+diffusion, (U, U⁻, C2) for the wave, (h, (u0, …)) for the shallow water;
+their numpy images (`np.asarray`) are the hand-over format.
+`state_from_numpy`, `wave_state_from_numpy` and `swe_state_from_numpy`
 cut this rank's shard out of each and put it on the device, so both
 packages can start from the same numbers.
 """
@@ -50,3 +51,11 @@ def wave_state_from_numpy(U_np: np.ndarray, Uprev_np: np.ndarray, C2_np: np.ndar
     """This rank's shard of the global wave fields (U, U⁻, C2), on `device`
     — the JAX AcousticWave.init_state's images."""
     return shards_from_numpy({"U": U_np, "Uprev": Uprev_np, "C2": C2_np}, grid, device)
+
+
+def swe_state_from_numpy(h_np: np.ndarray, us_np, grid: GlobalGrid, device=None):
+    """This rank's shard of the global shallow-water state (h, (u0, …)), on
+    `device` — the JAX ShallowWater.init_state's images."""
+    fields = {"h": h_np, **{f"u{a}": u for a, u in enumerate(us_np)}}
+    h, *us = shards_from_numpy(fields, grid, device)
+    return h, tuple(us)

@@ -113,7 +113,8 @@ def test_sharded_perf_launches_no_kernel_on_cpu(ranks):
     for out in ranks:
         assert out["launches"] == {"masked_step": 0, "fused_step_cm": 0,
                                    "multi_step_cm": 0, "tb_sweep": 0, "wave_step": 0,
-                                   "wave_step_masked": 0, "wave_multi_step": 0}
+                                   "wave_step_masked": 0, "wave_multi_step": 0,
+                                   "swe_step": 0, "swe_multi_step": 0}
 
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])

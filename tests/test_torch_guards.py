@@ -40,9 +40,10 @@ def test_scan_sees_the_whole_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     pkg = "rocm_mpi_tpu_torch/"
     assert {pkg + f for f in ("ops/kernels.py", "ops/multistep.py", "ops/wave.py",
-                              "parallel/halo.py", "parallel/deep_halo.py",
+                              "ops/swe.py", "parallel/halo.py", "parallel/deep_halo.py",
                               "parallel/overlap.py", "models/diffusion.py", "models/wave.py",
-                              "apps/wave_2d.py", "apps/diffusion_2d_perf_hide.py")} <= names
+                              "models/swe.py", "apps/wave_2d.py", "apps/swe_2d.py",
+                              "apps/diffusion_2d_perf_hide.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
 
 
@@ -63,13 +64,15 @@ def test_every_kernel_counts_its_launches():
     from rocm_mpi_tpu_torch.ops.kernels import LAUNCHES
 
     assert _counted_launches() == set(LAUNCHES)
-    assert {"wave_step", "wave_step_masked", "wave_multi_step"} <= set(LAUNCHES)
+    assert {"wave_step", "wave_step_masked", "wave_multi_step", "swe_step",
+            "swe_multi_step"} <= set(LAUNCHES)
 
 
 def test_cpu_entry_points_launch_no_kernel():
     # A CPU run of every entry point takes the plain versions: no count moves.
-    from rocm_mpi_tpu_torch.config import WaveConfig
-    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
+    from rocm_mpi_tpu_torch.apps import swe_2d
+    from rocm_mpi_tpu_torch.config import SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
     from rocm_mpi_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     reset_launches()
@@ -85,6 +88,14 @@ def test_cpu_entry_points_launch_no_kernel():
         wave.run(variant)
     wave.run_vmem_resident()
     wave.run_deep(block_steps=4)
+    swe = ShallowWater(SWEConfig(global_shape=(16, 16), nt=8, warmup=0, dims=(1, 1)),
+                       device="cpu")
+    for variant in ShallowWater.VARIANTS:
+        swe.run(variant)
+    swe.run_vmem_resident()
+    swe.run_deep(block_steps=4)
+    assert swe_2d.main(["--device", "cpu", "--nx", "16", "--ny", "16", "--nt", "8",
+                        "--warmup", "0", "--deep", "4"]) == 0
     assert set(LAUNCHES.values()) == {0}
 
 
@@ -111,20 +122,29 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
     _no_cuda(monkeypatch)
-    from rocm_mpi_tpu_torch.config import WaveConfig
+    from rocm_mpi_tpu_torch.apps import swe_2d
+    from rocm_mpi_tpu_torch.config import SWEConfig, WaveConfig
     from rocm_mpi_tpu_torch.entry import entry
-    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
 
     cfg = DiffusionConfig(global_shape=(16, 16), dims=(1, 1))
     wcfg = WaveConfig(global_shape=(16, 16), dims=(1, 1))
+    scfg = SWEConfig(global_shape=(16, 16), dims=(1, 1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         HeatDiffusion(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AcousticWave(wcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShallowWater(scfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+    # The app's default device is the card: without one it refuses.
+    assert swe_2d.make_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        swe_2d.main(["--nx", "16", "--ny", "16", "--nt", "4", "--warmup", "0"])
     HeatDiffusion(cfg, device="cpu")  # the explicit ask is honoured
     AcousticWave(wcfg, device="cpu")
+    ShallowWater(scfg, device="cpu")
 
 
 def test_dispatch_rules():
@@ -133,3 +153,17 @@ def test_dispatch_rules():
         use_kernel(torch.zeros(2, device="meta"))
     with pytest.raises(ValueError, match="different devices"):
         use_kernel(torch.zeros(2), torch.zeros(2, device="meta"))
+
+
+@pytest.mark.parametrize("extra", [[], ["--deep", "8", "--nt", "40"]], ids=["perf", "deep8"])
+def test_swe_app_module_runs_on_cpu_and_reports_mass_drift(extra):
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "rocm_mpi_tpu_torch.apps.swe_2d", "--device", "cpu",
+           "--nx", "48", "--ny", "40", "--nt", "24", "--warmup", "8", *extra]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "mass drift" in proc.stdout and "not a GPU measurement" in proc.stdout
+    drift = float(proc.stdout.split("mass drift = ")[1].split()[0])
+    assert drift <= 1e-13

@@ -129,7 +129,7 @@ def test_cpu_calls_do_not_count_launches():
     K.fused_step_cm(torch.from_numpy(Tp), torch.from_numpy(Cm2), SPACING[2])
     assert K.LAUNCHES == {"masked_step": 0, "fused_step_cm": 0, "multi_step_cm": 0,
                           "tb_sweep": 0, "wave_step": 0, "wave_step_masked": 0,
-                          "wave_multi_step": 0}
+                          "wave_multi_step": 0, "swe_step": 0, "swe_multi_step": 0}
 
 
 @pytest.mark.parametrize("kernel", ["masked_step", "fused_step_cm"])

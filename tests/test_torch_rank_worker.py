@@ -74,17 +74,18 @@ def run_rank(rank, spec):
 
 def run_overlap_rank(rank, spec):
     """One rank of tests/test_torch_overlap.py: the diffusion and wave
-    `hide` variants, the wave `perf` variant and the wave deep schedule on
-    small sharded grids, each shard gathered to rank 0."""
-    from rocm_mpi_tpu_torch.config import DiffusionConfig, WaveConfig
-    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
+    `hide` variants, the wave `perf` variant, the wave deep schedule, and
+    the shallow-water variants and deep schedule on small sharded grids,
+    each shard gathered to rank 0."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
     from rocm_mpi_tpu_torch.ops import kernels
     from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
-    from rocm_mpi_tpu_torch.state import wave_state_from_numpy
+    from rocm_mpi_tpu_torch.state import swe_state_from_numpy, wave_state_from_numpy
 
     torch.set_num_threads(1)
     kernels.reset_launches()
-    out = {"diffusion": {}, "wave": {}, "wave_deep": {}}
+    out = {"diffusion": {}, "wave": {}, "wave_deep": {}, "swe": {}, "swe_deep": {}}
     for dtype, variant, b_width in spec["diffusion_runs"]:
         cfg = DiffusionConfig(**spec["diffusion"], dtype=dtype, b_width=b_width)
         model = HeatDiffusion(cfg, device="cpu")
@@ -102,5 +103,19 @@ def run_overlap_rank(rank, spec):
         model = AcousticWave(cfg, device="cpu")
         res = model.run_deep(block_steps=spec["wave_deep_k"])
         out["wave_deep"][dtype] = (res.route, res.k, gather_to_host0(res.U, model.grid))
+
+    def gathered(h, us, grid):
+        return (gather_to_host0(h, grid), tuple(gather_to_host0(u, grid) for u in us))
+
+    for key, case in spec["swe_runs"].items():
+        model = ShallowWater(SWEConfig(**case["cfg"]), device="cpu")
+        h0, us0 = spec["swe_states"][case["state"]]
+        h, us = swe_state_from_numpy(h0, us0, model.grid, device="cpu")
+        h, us = model.advance_fn(case["variant"])(h, us, model.face_masks(), case["n"])
+        out["swe"][key] = gathered(h, us, model.grid)
+    for dtype in spec["swe_deep_dtypes"]:
+        model = ShallowWater(SWEConfig(**spec["swe_deep"], dtype=dtype), device="cpu")
+        res = model.run_deep(block_steps=spec["swe_deep_k"])
+        out["swe_deep"][dtype] = (res.route, res.k, *gathered(res.h, res.us, model.grid))
     out["launches"] = dict(kernels.LAUNCHES)
     return out
