@@ -5,7 +5,7 @@
     python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-10 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
-the target). Phases, printed as they run (about two minutes on one H100
+the target). Phases, printed as they run (about three minutes on one H100
 80GB HBM3, the build included):
 
 1. environment — torch, CUDA and nvcc versions, the card's name and power
@@ -17,11 +17,18 @@ the target). Phases, printed as they run (about two minutes on one H100
    small 3D block, held bitwise against its plain PyTorch version on the
    card, and timed with CUDA events (median) beside the plain version and
    its bound; the region kernels also as the five boxes of the `hide`
-   decomposition of a 6144² shard;
+   decomposition of a 6144² shard; the three kp kernels at 12288² and
+   128², fused_step_padded at 12288², 6144², 252² and on the 3D block;
 4. main path, one GPU — HeatDiffusion.run("perf") at 12288² f32 for 1000
    steps and at 252² f32: every step one masked_step launch, the field
    bitwise equal to the plain versions' run of the same steps, and the
    252² field within the analytic Gaussian bound;
+   [kp] HeatDiffusion.run("kp") at 12288² f32 for 1000 steps (one launch
+   of each kp kernel a step, no other kernel, the field bitwise equal to
+   the plain versions' run; the copy into the padded buffer, the three
+   kernels and the select of a step timed alone) and at the kp app's
+   default, 128² f64, also held against run("ap") within rtol 1e-13,
+   atol 1e-15;
 5. multi-step schedules, one GPU — run_vmem_resident at 252² (256 warmup
    + 4096 timed steps, chunk 256), run_deep at 252² (32 + 1024, k = 32,
    vmem route), run_hbm_blocked at 12288² (16 + 1000, k = 8) and run_deep
@@ -46,7 +53,9 @@ the target). Phases, printed as they run (about two minutes on one H100
    staged through host memory): every step one fused_step_cm launch per
    rank, each shard bitwise equal to the plain versions' run, the gathered
    field bitwise equal to the same kernel run over the whole zero-padded
-   domain on one GPU;
+   domain on one GPU; then `kp` on the same grid, each shard bitwise equal
+   to its plain-version run and the gathered field bitwise equal to the
+   one-GPU kp run;
 7. deep schedule, sharded — run_deep on the 2×2 grid of 12288² (k = 8,
    hbm-tb route on 6160² padded shards) by the same 4 ranks over gloo,
    16 + 32 steps: each shard bitwise equal to its plain-version run, the
@@ -73,15 +82,21 @@ torch.profiler.
 
 Then it prints the card line, one JSON line describing every kernel, and
 last `{"ok": true, "device": {...}}`. Any failed phase raises: the script
-exits non-zero and prints no result line. It exits 1 without CUDA and 2
+exits non-zero and prints no result line. Whether it passes or fails, it
+stops every process it started before it exits: the rank processes,
+multiprocessing's resource tracker and anything orphaned under it (the
+script is their subreaper). It exits 1 without CUDA and 2
 when the port's package is not beside this script.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import os
 import pathlib
+import signal
 import statistics
 import subprocess
 import sys
@@ -107,6 +122,8 @@ WAVE_DEEP_SMALL = (268, 268)  # 252² grown by the wave's k = 8 deep ghosts
 TB_BIG = (12304, 12304)  # 12288² grown by the k = 8 deep ghosts
 TB_BLOCK = (6160, 6160)  # a 6144² shard grown by the k = 8 deep ghosts
 SMALL_3D = (96, 64, 48)
+KP_SMALL = (128, 128)  # the kp app's default grid
+KP = ("kp_flux", "kp_residual", "kp_update")
 SWE_DEEP_SMALL = (240, 240)  # run_deep's k = 8 sweep: 256² padded, the admission's edge
 SWE_DEEP_PADDED = (256, 256)
 SWE_F64 = (180, 180)  # the f64 multi-step admission takes at most 181²
@@ -123,6 +140,10 @@ KERNELS = {
     "wave_multi_step": ("rocm_mpi_tpu/ops/wave_kernels.py:244", "wave.cu"),
     "swe_step": ("rocm_mpi_tpu/ops/swe_kernels.py:142", "swe.cu"),
     "swe_multi_step": ("rocm_mpi_tpu/ops/swe_kernels.py:197", "swe.cu"),
+    "kp_flux": ("rocm_mpi_tpu/ops/pallas_kernels.py:339", "kp.cu"),
+    "kp_residual": ("rocm_mpi_tpu/ops/pallas_kernels.py:350", "kp.cu"),
+    "kp_update": ("rocm_mpi_tpu/ops/pallas_kernels.py:359", "kp.cu"),
+    "fused_step_padded": ("rocm_mpi_tpu/ops/pallas_kernels.py:136", "stencil.cu"),
 }
 ALL_DTYPES = ("f32", "f64", "bf16")
 # Kernel cases: (kernel, block shape, steps per launch, body form, dtypes).
@@ -156,6 +177,15 @@ KERNEL_CASES = [
     ("swe_multi_step", SMALL, 256, "direct", ("f32", "bf16")),
     ("swe_multi_step", SWE_DEEP_PADDED, 8, "direct", ("f32", "bf16")),
     ("swe_multi_step", SWE_F64, 256, "direct", ("f64",)),
+    ("kp_flux", BIG, 1, "direct", ALL_DTYPES),
+    ("kp_residual", BIG, 1, "direct", ALL_DTYPES),
+    ("kp_update", BIG, 1, "direct", ALL_DTYPES),
+    ("kp_flux", KP_SMALL, 1, "direct", ALL_DTYPES),
+    ("kp_residual", KP_SMALL, 1, "direct", ALL_DTYPES),
+    ("kp_update", KP_SMALL, 1, "direct", ALL_DTYPES),
+    ("fused_step_padded", BIG, 1, "direct", ALL_DTYPES),
+    ("fused_step_padded", BLOCK, 1, "direct", ALL_DTYPES),
+    ("fused_step_padded", SMALL, 1, "direct", ALL_DTYPES),
     # 3D, at small sizes: every kernel takes 3D blocks, which no main path
     # drives on the card yet.
     ("masked_step", SMALL_3D, 1, "direct", ALL_DTYPES),
@@ -168,6 +198,7 @@ KERNEL_CASES = [
     ("wave_multi_step", SMALL_3D, 8, "direct", ALL_DTYPES),  # unequal spacing
     ("swe_step", SWE_3D, 1, "regions", ALL_DTYPES),
     ("swe_multi_step", SWE_3D, 8, "direct", ALL_DTYPES),
+    ("fused_step_padded", SMALL_3D, 1, "direct", ALL_DTYPES),
 ]
 # The f32 case whose times stand for each kernel in the JSON line: the
 # launch its main path makes most.
@@ -175,7 +206,9 @@ MAIN_CASE = {"masked_step": (BIG, "direct"), "fused_step_cm": (BLOCK, "direct"),
              "multi_step_cm": (SMALL, "eqc"), "tb_sweep": (TB_BIG, "direct"),
              "wave_step": (BIG, "direct"), "wave_step_masked": (BLOCK, "regions"),
              "wave_multi_step": (SMALL, "aform"), "swe_step": (BIG, "whole"),
-             "swe_multi_step": (SMALL, "direct")}
+             "swe_multi_step": (SMALL, "direct"), "kp_flux": (BIG, "direct"),
+             "kp_residual": (BIG, "direct"), "kp_update": (BIG, "direct"),
+             "fused_step_padded": (BIG, "direct")}
 # Operations per cell and step of each kernel and body form (the
 # per-launch A/c/eqc prologue, a few operations per cell, is left out).
 FLOPS_PER_CELL_STEP = {
@@ -197,6 +230,13 @@ FLOPS_PER_CELL_STEP = {
     ("swe_step", "whole"): lambda nd: 7 * nd,
     ("swe_step", "regions"): lambda nd: 7 * nd,
     ("swe_multi_step", "direct"): lambda nd: 7 * nd,
+    # kp, per core cell: flux a difference and two products on each of its
+    # two faces; the residual two differences, two products, a sum, a
+    # negation and a division; the update a product and a sum.
+    ("kp_flux", "direct"): lambda nd: 6,
+    ("kp_residual", "direct"): lambda nd: 7,
+    ("kp_update", "direct"): lambda nd: 2,
+    ("fused_step_padded", "direct"): lambda nd: 5 * nd + 2,
 }
 MAIN_NT, MAIN_WARMUP = 1000, 10
 SHARD_NT, SHARD_WARMUP = 20, 2
@@ -221,6 +261,79 @@ class PhaseError(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise PhaseError(msg)
+
+
+def adopt_orphans():
+    """Make this process the subreaper of every process it starts
+    (PR_SET_CHILD_SUBREAPER), so that a process orphaned by a rank's exit
+    is reparented here and stopped by stop_children."""
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def children() -> list[int]:
+    """The pids of this process's live children (zombies included)."""
+    me, pids = os.getpid(), []
+    for entry in pathlib.Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+        except OSError:
+            continue
+        if int(stat[stat.rindex(")") + 2:].split()[1]) == me:
+            pids.append(int(entry.name))
+    return pids
+
+
+def stop_children(grace: float = 10.0):
+    """Stop every process this script started before it exits: join the
+    rank processes, stop multiprocessing's resource tracker (which the
+    spawned ranks start and which would otherwise outlive the script until
+    it notices the closed pipe), then terminate and reap anything left,
+    naming it on stderr."""
+    import multiprocessing
+    from multiprocessing import resource_tracker
+
+    for p in multiprocessing.active_children():
+        p.join(timeout=grace)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    left = children()
+    for pid in left:
+        try:
+            cmd = pathlib.Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ")
+        except OSError:
+            cmd = b"?"
+        print(f"chip_smoke: stopping leftover process {pid}: {cmd.decode(errors='replace')}",
+              file=sys.stderr, flush=True)
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    def running(pid):
+        try:
+            return os.waitpid(pid, os.WNOHANG) == (0, 0)
+        except ChildProcessError:
+            return False
+
+    deadline = time.monotonic() + grace
+    while left and time.monotonic() < deadline:
+        left = [pid for pid in left if running(pid)]
+        if left:
+            time.sleep(0.1)
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
 
 
 def only(kernel: str, count: int) -> dict:
@@ -314,6 +427,8 @@ def _kernel_case(torch, name, core, steps, form, dtype, device):
 
     if name.startswith("swe_"):
         return _swe_kernel_case(torch, name, core, steps, form, dtype, device)
+    if name in KP or name == "fused_step_padded":
+        return _kp_kernel_case(torch, name, core, dtype, device)
     domain = (SMALL if core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL)
               else core if len(core) == 3 else BIG)
     lengths = (10.0,) * len(domain)
@@ -502,6 +617,58 @@ def _swe_kernel_case(torch, name, core, steps, form, dtype, device):
             lambda: swe.swe_step_plain(Sp, Mus, cH, cg), nbytes)
 
 
+def _kp_kernel_case(torch, name, core, dtype, device):
+    """_kernel_case for the kp kernels and fused_step_padded: Tp in [0, 1),
+    Cp in [1, 2), the residual's fluxes those the plain flux makes of Tp,
+    the update's dTdt in [-0.5, 0.5), λ and the field-dtype dt of the
+    domain's config (the 6144² block's domain is 12288²). The update also
+    returns its one-call PyTorch form, `torch.add(core, dTdt, alpha=dt)`."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.ops import kernels, kp
+
+    domain = BIG if core == BLOCK else core
+    cfg = DiffusionConfig(global_shape=domain, lengths=(10.0,) * len(core), dtype=dtype)
+    tdt = cfg.torch_dtype
+    lam, dt, spacing = cfg.lam, float(torch.tensor(cfg.dt, dtype=tdt)), cfg.spacing
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def rand(shape, lo=0.0):
+        return (torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
+                + lo).to(tdt)
+
+    item = torch.empty((), dtype=tdt).element_size()
+    cells = 1
+    for n in core:
+        cells *= n
+    Tp = rand(tuple(n + 2 for n in core))
+    out = torch.empty(core, dtype=tdt, device=device)
+    if name == "fused_step_padded":
+        Cp = rand(core, 1.0)
+        return (lambda: kernels.fused_step_padded(Tp, Cp, lam, dt, spacing, out=out),
+                lambda: kernels.fused_step_padded_plain(Tp, Cp, lam, dt,
+                                                        kernels.inv_d2_of(spacing)),
+                (Tp.numel() + 2 * cells) * item)
+    inv_d = kp.inv_d_of(spacing)
+    lx, ly = core
+    if name == "kp_flux":
+        outs = (torch.empty((lx + 1, ly), dtype=tdt, device=device),
+                torch.empty((lx, ly + 1), dtype=tdt, device=device))
+        return (lambda: kp.kp_flux(Tp, lam, spacing, out=outs),
+                lambda: kp.kp_flux_plain(Tp, lam, inv_d),
+                (Tp.numel() + outs[0].numel() + outs[1].numel()) * item)
+    if name == "kp_residual":
+        qx, qy = kp.kp_flux_plain(Tp, lam, inv_d)
+        Cp = rand(core, 1.0)
+        return (lambda: kp.kp_residual(qx, qy, Cp, spacing, out=out),
+                lambda: kp.kp_residual_plain(qx, qy, Cp, inv_d),
+                (qx.numel() + qy.numel() + 2 * cells) * item)
+    dTdt = rand(core, -0.5)
+    core_view = Tp[1:-1, 1:-1]
+    return (lambda: kp.kp_update(Tp, dTdt, dt, out=out),
+            lambda: kp.kp_update_plain(Tp, dTdt, dt), (Tp.numel() + 2 * cells) * item,
+            lambda: torch.add(core_view, dTdt, alpha=dt, out=out))
+
+
 def _same(got, want) -> tuple[bool, float]:
     """(bitwise equal, max |difference|) of two tensors or two tuples of them."""
     import torch
@@ -520,7 +687,8 @@ def phase_kernels(torch, card, pk):
     rows = []
     for name, core, steps, form, dtypes in KERNEL_CASES:
         for dtype in dtypes:
-            run, plain, nbytes = _kernel_case(torch, name, core, steps, form, dtype, device)
+            run, plain, nbytes, *library = _kernel_case(torch, name, core, steps, form, dtype,
+                                                        device)
             got = run()
             want = plain()
             torch.cuda.synchronize()
@@ -529,7 +697,7 @@ def phase_kernels(torch, card, pk):
                 f" n={steps} {form}" if steps > 1 else f" {form}" if form != "direct" else "")
             check(equal, f"{label}: kernel != plain version (max |diff| {err})")
             small = core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL, SMALL_3D, SWE_DEEP_PADDED,
-                             SWE_F64, SWE_3D)
+                             SWE_F64, SWE_3D, KP_SMALL)
             reps = (200 if steps == 1 else 50) if small else (30 if steps == 1 else 20)
             ms = time_ms(run, reps)
             plain_ms = time_ms(plain, max(reps // 4, 5) if steps == 1 else 5)
@@ -541,13 +709,26 @@ def phase_kernels(torch, card, pk):
             row = dict(kernel=name, shape=list(core), dtype=dtype, steps=steps, form=form,
                        bitwise=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=by, bytes=nbytes, flops=flops,
-                       fraction_of_bound=b_ms / ms)
+                       fraction_of_bound=b_ms / ms, library_ms=None)
+            if library:
+                # One PyTorch call for the same function: timed as a yardstick,
+                # held close to the plain version (it may contract a
+                # multiply-add), never called by the port.
+                lib_err = _same(library[0](), want)[1]
+                scale = float(want.double().abs().max())
+                check(lib_err <= 4 * torch.finfo(want.dtype).eps * max(1.0, scale),
+                      f"{label}: the library call differs from the plain version by {lib_err}")
+                row["library_ms"] = time_ms(library[0], reps)
+                row["library_max_abs_err"] = lib_err
+                lib = (f"library call {row['library_ms']:.4f} ms (max |diff| vs plain "
+                       f"{lib_err:.3e})")
+            else:
+                lib = "no single PyTorch call computes this step, library_ms null"
             rows.append(row)
             print(f"[kernel] {label}: bitwise == plain; kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
-                  f"{row['fraction_of_bound']:.3f} of bound) on {card}; no single PyTorch "
-                  "call computes this step, library_ms null", flush=True)
-            del run, plain, got, want
+                  f"{row['fraction_of_bound']:.3f} of bound) on {card}; {lib}", flush=True)
+            del run, plain, got, want, library
         torch.cuda.empty_cache()
     return rows
 
@@ -608,6 +789,122 @@ def phase_main(torch, card):
     return big_row, small_row
 
 
+# ---------------------------------------------------------------------------
+# The kp rung
+# ---------------------------------------------------------------------------
+
+
+def kp_only(count: int) -> dict:
+    """The launch counts of a run of `count` kp steps: one launch of each kp
+    kernel a step, no other kernel."""
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    return {name: count if name in KP else 0 for name in kernels.LAUNCHES}
+
+
+def _kp_model(shape, nt, warmup, dtype):
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+
+    cfg = DiffusionConfig(global_shape=shape, nt=nt, warmup=warmup, dtype=dtype, dims=(1, 1))
+    return HeatDiffusion(cfg, grid=init_global_grid(*shape, dims=(1, 1), nprocs=1, rank=0),
+                         device="cuda")
+
+
+def plain_kp_steps(model, T, Cp, n: int):
+    """`n` kp steps through the plain versions on the card: the same
+    exchange, the three plain stages, the same Dirichlet select."""
+    import torch
+
+    from rocm_mpi_tpu_torch.ops import kp
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask
+
+    cfg, grid = model.config, model.grid
+    inv_d = kp.inv_d_of(cfg.spacing)
+    mask = global_boundary_mask(grid, device=T.device)
+    pad = torch.zeros(tuple(s + 2 for s in T.shape), dtype=T.dtype, device=T.device)
+    for _ in range(n):
+        Tp = exchange_halo(T, grid, out=pad)
+        qx, qy = kp.kp_flux_plain(Tp, cfg.lam, inv_d)
+        new = kp.kp_update_plain(Tp, kp.kp_residual_plain(qx, qy, Cp, inv_d), model.dt_value)
+        T = torch.where(mask, T, new)
+    return T
+
+
+def _kp_parts(torch, model, T, Cp):
+    """One kp step's device passes timed alone: the copy into the padded
+    buffer, the three kernels and the Dirichlet select."""
+    from rocm_mpi_tpu_torch.ops import kp
+    from rocm_mpi_tpu_torch.parallel.halo import global_boundary_mask, place_core
+
+    cfg = model.config
+    sp, lam, dt = cfg.spacing, cfg.lam, model.dt_value
+    pad = place_core(T)
+    qx, qy = kp.kp_flux(pad, lam, sp)
+    dTdt = kp.kp_residual(qx, qy, Cp, sp)
+    new = kp.kp_update(pad, dTdt, dt)
+    mask = global_boundary_mask(model.grid, device=T.device)
+    out = torch.empty_like(T)
+    return dict(
+        place_core=time_ms(lambda: place_core(T, out=pad), 30),
+        kp_flux=time_ms(lambda: kp.kp_flux(pad, lam, sp, out=(qx, qy)), 30),
+        kp_residual=time_ms(lambda: kp.kp_residual(qx, qy, Cp, sp, out=dTdt), 30),
+        kp_update=time_ms(lambda: kp.kp_update(pad, dTdt, dt, out=new), 30),
+        where=time_ms(lambda: torch.where(mask, T, new, out=out), 30),
+    )
+
+
+def phase_kp(torch, card):
+    """The kp variant on one GPU through HeatDiffusion.run: 12288² f32 (one
+    launch of each kp kernel a step, the field bitwise equal to the plain
+    versions' run, the step's parts timed alone) and the app's default,
+    128² f64, held against run("ap") within the JAX package's kp-vs-ap
+    bound."""
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    rows = []
+    for shape, dtype in ((BIG, "f32"), (KP_SMALL, "f64")):
+        model = _kp_model(shape, MAIN_NT, MAIN_WARMUP, dtype)
+        kernels.reset_launches()
+        res = model.run("kp")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        label = f"kp {shape[0]}x{shape[1]} {dtype}"
+        check(launches == kp_only(MAIN_NT),
+              f"{label}: launches {launches}, expected {MAIN_NT} of each kp kernel")
+        check(tuple(res.T.shape) == shape and bool(torch.isfinite(res.T).all()),
+              f"{label}: result not finite or misshapen")
+        T, Cp = model.init_state()
+        ref = plain_kp_steps(model, T, Cp, MAIN_NT)
+        check(torch.equal(res.T, ref), f"{label}: kernel run != plain-version run "
+              f"(max |diff| {float((res.T.double() - ref.double()).abs().max())})")
+        row = dict(shape=list(shape), dtype=dtype, nt=MAIN_NT, warmup=MAIN_WARMUP,
+                   launches=launches, wtime_s=res.wtime, ms_per_step=res.wtime_it * 1e3,
+                   t_eff_gbs=res.t_eff, gpts=res.gpts)
+        extra = ""
+        if shape == BIG:
+            row["parts_ms"] = _kp_parts(torch, model, T, Cp)
+            extra = "; alone (ms): " + ", ".join(f"{k} {v:.4f}"
+                                                for k, v in row["parts_ms"].items())
+        else:
+            ap = model.run("ap").T
+            err = float((res.T - ap).abs().max())
+            check(torch.allclose(res.T, ap, rtol=1e-13, atol=1e-15),
+                  f"{label}: kp differs from ap by {err} (bound rtol 1e-13, atol 1e-15)")
+            row["max_abs_vs_ap"] = err
+            extra = f"; max |kp - ap| {err:.3e} (bound rtol 1e-13, atol 1e-15)"
+        rows.append(row)
+        print(f"[kp] {label}, {MAIN_NT} steps ({MAIN_WARMUP} warmup): launches "
+              f"{', '.join(f'{k} {launches[k]}' for k in KP)}; bitwise == plain-version run; "
+              f"{res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step, T_eff {res.t_eff:.1f} "
+              f"GB/s (3 passes per step counted), {res.gpts:.3f} Gpts/s on {card}{extra}",
+              flush=True)
+        del model, res, ref, T, Cp
+        torch.cuda.empty_cache()
+    return rows
+
+
 def sharded_rank(rank, spec):
     """One rank of the sharded perf path (started by spawn_ranks)."""
     import numpy as np
@@ -664,6 +961,27 @@ def sharded_rank(rank, spec):
         Tr = Tr.cpu().numpy()
         out["max_abs_vs_one_gpu"] = float(np.abs(full - Tr).max())
         out["bitwise_vs_one_gpu"] = bool(np.array_equal(full, Tr))
+        del Tr, Cmr, padr
+
+    # The kp variant on the same grid, against its plain-version run and,
+    # gathered, against the one-GPU kp run: every face flux takes the same
+    # two cells in the same order, ghost or not.
+    kernels.reset_launches()
+    kres = model.run("kp")
+    torch.cuda.synchronize()
+    klaunches = dict(kernels.LAUNCHES)
+    T, Cp = model.init_state()
+    kref = plain_kp_steps(model, T, Cp, cfg.nt)
+    out["kp"] = dict(launches=klaunches, bitwise=bool(torch.equal(kres.T, kref)),
+                     finite=bool(torch.isfinite(kres.T).all()), wtime_s=kres.wtime,
+                     ms_per_step=kres.wtime_it * 1e3, t_eff_gbs=kres.t_eff)
+    del kref
+    kfull = gather_to_host0(kres.T, model.grid)
+    if rank == 0:
+        T1, Cp1 = ref.init_state()
+        T1 = ref.advance_fn("kp")(T1, Cp1, cfg.nt).cpu().numpy()
+        out["kp"]["max_abs_vs_one_gpu"] = float(np.abs(kfull - T1).max())
+        out["kp"]["bitwise_vs_one_gpu"] = bool(np.array_equal(kfull, T1))
     return out
 
 
@@ -685,7 +1003,17 @@ def phase_sharded(card, gpus: int):
     check(ranks[0]["bitwise_vs_one_gpu"],
           f"sharded 2x2 field differs from the whole-domain run of the same kernel by "
           f"{ranks[0]['max_abs_vs_one_gpu']}")
+    for r in ranks:
+        check(r["kp"]["launches"] == kp_only(nt),
+              f"sharded kp rank {r['rank']}: launches {r['kp']['launches']}, expected {nt} "
+              "of each kp kernel")
+        check(r["kp"]["bitwise"] and r["kp"]["finite"],
+              f"sharded kp rank {r['rank']}: kernel run != plain-version run or not finite")
+    check(ranks[0]["kp"]["bitwise_vs_one_gpu"],
+          f"sharded 2x2 kp field differs from the one-GPU kp run by "
+          f"{ranks[0]['kp']['max_abs_vs_one_gpu']}")
     total = sum(r["launches"]["fused_step_cm"] for r in ranks)
+    kp_total = sum(r["kp"]["launches"]["kp_flux"] for r in ranks)
     r0 = ranks[0]
     where = (f"4 ranks sharing {card} (gloo, halo slabs staged through host memory: "
              "not a multi-GPU measurement)" if gpus == 1
@@ -696,7 +1024,12 @@ def phase_sharded(card, gpus: int):
           f"run of the same kernel on one GPU; rank 0: {r0['wtime_s']:.4f} s, "
           f"{r0['wtime_s'] / (nt - warmup) * 1e3:.5f} ms/step, aggregate T_eff "
           f"{r0['t_eff_gbs']:.1f} GB/s", flush=True)
-    return ranks, total
+    print(f"[sharded] kp 12288x12288 f32 on a 2x2 grid, {where}, {nt} steps ({warmup} "
+          f"warmup): {kp_total} launches of each kp kernel ({nt} per rank); each shard "
+          "bitwise == plain-version run; gathered field bitwise == the one-GPU kp run; rank "
+          f"0: {r0['kp']['wtime_s']:.4f} s, {r0['kp']['ms_per_step']:.5f} ms/step, aggregate "
+          f"T_eff {r0['kp']['t_eff_gbs']:.1f} GB/s", flush=True)
+    return ranks, total, kp_total
 
 
 def plain_deep(model, T, Cp, n: int, k: int, route: str):
@@ -1635,7 +1968,7 @@ def main(argv=None) -> int:
         check(torch.cuda.device_count() >= args.gpus,
               f"--gpus {args.gpus} needs {args.gpus} GPUs, "
               f"{torch.cuda.device_count()} visible")
-        ranks, _ = phase_sharded(card, args.gpus)
+        ranks, _, _ = phase_sharded(card, args.gpus)
         deep_ranks, _ = phase_sharded_deep(card, args.gpus)
         hide_ranks, _ = phase_hide(card, args.gpus)
         wave_deep_ranks, _ = phase_wave_deep(card, args.gpus)
@@ -1658,11 +1991,12 @@ def main(argv=None) -> int:
         return 0
     rows = phase_kernels(torch, card, pk)
     big_row, small_row = phase_main(torch, card)
+    kp_rows = phase_kp(torch, card)
     schedule_rows = phase_schedules(torch, card)
     wave_rows = phase_wave(torch, card)
     reversal = phase_reversal(torch, card)
     swe_rows = phase_swe(torch, card)
-    ranks, fused_launches = phase_sharded(card, 1)
+    ranks, fused_launches, kp_sharded_launches = phase_sharded(card, 1)
     deep_ranks, deep_launches = phase_sharded_deep(card, 1)
     hide_ranks, hide_launches = phase_hide(card, 1)
     wave_deep_ranks, wave_deep_launches = phase_wave_deep(card, 1)
@@ -1676,7 +2010,11 @@ def main(argv=None) -> int:
                 "wave_step": hide_launches["wave_step"],
                 "wave_step_masked": hide_launches["wave_step_masked"],
                 "wave_multi_step": wave_deep_launches,
-                "swe_step": hide_launches["swe_step"], "swe_multi_step": swe_deep_launches}
+                "swe_step": hide_launches["swe_step"], "swe_multi_step": swe_deep_launches,
+                # On no model path, as in the JAX package: the kernel cases only.
+                "fused_step_padded": 0}
+    for name in KP:
+        launches[name] = kp_sharded_launches + sum(r["launches"][name] for r in kp_rows)
     for row in schedule_rows + wave_rows + swe_rows:
         for name in ("multi_step_cm", "tb_sweep", "wave_step", "wave_multi_step", "swe_step",
                      "swe_multi_step"):
@@ -1691,14 +2029,14 @@ def main(argv=None) -> int:
             replaces=replaces, launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-            bound_by=main["bound_by"], library_ms=None,
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
         ))
     if args.json:
         path = pathlib.Path(args.json)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(dict(
             card=card, kind=kind, peaks=pk, build_s=build_s, kernel_phases=rows,
-            main_12288=big_row, main_252=small_row, schedules=schedule_rows,
+            main_12288=big_row, main_252=small_row, kp=kp_rows, schedules=schedule_rows,
             wave=wave_rows, reversal=reversal, swe=swe_rows, sharded_ranks=ranks,
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
             wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks, kernels=line,
@@ -1714,4 +2052,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

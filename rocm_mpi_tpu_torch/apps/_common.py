@@ -43,6 +43,9 @@ def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
         p.add_argument("--b-width", default="32,4",
                        help="boundary frame width, e.g. 32,4 (hide.jl:42; clamped to "
                        "half the shard)")
+    p.add_argument("--save-field", default=None, metavar="PATH.npy",
+                   help="gather the final field to rank 0 and save it as .npy (bf16 as "
+                   "float32), to compare the fields of two apps or runs")
     return p
 
 
@@ -146,5 +149,24 @@ def run_app(variant: str, args) -> int:
         f"{result.gpts:.4f} Gpts/s) on {where}"
     )
     log0(f"maximum(T) = {global_max(result.T)}")
+    if args.save_field:
+        save_field(args.save_field, result.T, grid)
+        log0(f"wrote {args.save_field}")
     distributed.finalize()
     return 0
+
+
+def save_field(path, T, grid) -> None:
+    """Gather the field to rank 0 (every rank takes part) and np.save it
+    there."""
+    import pathlib
+
+    import numpy as np
+
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+
+    full = gather_to_host0(T, grid)
+    if full is not None:
+        out = pathlib.Path(path)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        np.save(out, full)

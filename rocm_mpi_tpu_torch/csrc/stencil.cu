@@ -1,6 +1,7 @@
-// Hand-written Hopper kernels of the heat-diffusion perf path.
+// Hand-written Hopper kernels of the heat-diffusion perf path, and the
+// unmasked padded step beside them.
 //
-// Two kernels, each one explicit diffusion step on a 2D or 3D field:
+// Three kernels, each one explicit diffusion step on a 2D or 3D field:
 //
 //   rmt_masked_step   — out = T + Cm * lap(T) on an UNPADDED field, where
 //                       lap = sum_ax ((T[i+1] + T[i-1]) - 2 T) * inv_d2[ax]
@@ -21,14 +22,25 @@
 //                       decomposition (parallel/overlap.py), writing each
 //                       into the shared output in place — the
 //                       dynamic_update_slice splice without a copy.
+//   rmt_fused_step_padded — out = c + ((dt·λ)/Cp) * lap over the whole
+//                       core of the width-1-padded block, the same lap as
+//                       rmt_fused_step_cm, with the coefficient formed per
+//                       cell from Cp and the double dt·λ rounded once to
+//                       the compute type. Replaces pallas_kernels.py
+//                       fused_step_padded (_fused_kernel_whole and, above
+//                       the TPU's VMEM budget, _fused_kernel_striped): the
+//                       split is a limit of the TPU, so one grid covers
+//                       every size. No model path calls it (nor does the
+//                       JAX package's); it is held here as the unmasked
+//                       contract's kernel.
 //
-// The two sum in different orders, each exactly as its TPU kernel does, so
-// each stays bitwise-comparable with its plain PyTorch version
+// Each sums in its TPU kernel's order (the last two share lap_at), so each
+// stays bitwise-comparable with its plain PyTorch version
 // (rocm_mpi_tpu_torch/ops/kernels.py). Build with -fmad=false: a contracted
 // multiply-add rounds once where the plain version rounds twice.
 //
-// Bound on the card: memory. Per cell the step reads T (or Tp) and Cm and
-// writes out — 12 bytes in f32 against ~11 flops, far below the H100's
+// Bound on the card: memory. Per cell the step reads T (or Tp) and Cm (or
+// Cp) and writes out — 12 bytes in f32 against ~11 flops, far below the H100's
 // ratio of peak flops to bytes. The design keeps that to one pass each:
 // threads are laid out along the last (contiguous) axis so a warp reads
 // whole 128-byte lines, and the 2·ndim neighbour reads of a cell hit the
@@ -108,6 +120,25 @@ fused_step_cm_kernel(const S* __restrict__ src, const S* __restrict__ Cm,
   out[idx] = narrow<S>(c + widen(Cm[idx]) * lap);
 }
 
+template <typename S, int NDIM>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+fused_step_padded_kernel(const S* __restrict__ Tp, const S* __restrict__ Cp,
+                         S* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
+                         typename Compute<S>::type dtlam,
+                         typename Compute<S>::type inv0,
+                         typename Compute<S>::type inv1,
+                         typename Compute<S>::type inv2) {
+  using C = typename Compute<S>::type;
+  int64_t i0, i1, i2;
+  if (!rmt::box_cell<NDIM>(Box{0, 0, 0, n0, n1, n2}, &i0, &i1, &i2)) return;
+  const Region<NDIM> r(n1, n2, 1);
+  const int64_t p = r.src(i0, i1, i2);
+  const int64_t idx = r.core(i0, i1, i2);
+  const C c = widen(Tp[p]);
+  const C lap = rmt::lap_at<S, NDIM>(Tp, r, p, c, inv0, inv1, inv2);
+  out[idx] = narrow<S>(c + (dtlam / widen(Cp[idx])) * lap);
+}
+
 template <typename S>
 int launch_masked(int ndim, const void* T, const void* Cm, void* out,
                   int64_t n0, int64_t n1, int64_t n2, double inv0,
@@ -146,6 +177,27 @@ int launch_fused_cm(int ndim, const void* src, const void* Cm, void* out,
   } else {
     fused_step_cm_kernel<S, 3><<<grid, block, 0, stream>>>(
         s, cm, o, n1, n2, box, off, C(inv0), C(inv1), C(inv2));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int launch_fused_padded(int ndim, const void* Tp, const void* Cp, void* out, int64_t n0,
+                        int64_t n1, int64_t n2, double dtlam, double inv0, double inv1,
+                        double inv2, cudaStream_t stream) {
+  using C = typename Compute<S>::type;
+  dim3 grid;
+  if (!rmt::box_grid(ndim, Box{0, 0, 0, n0, n1, ndim == 2 ? 1 : n2}, &grid)) return -2;
+  const dim3 block(kBlockX, kBlockY);
+  const auto* t = static_cast<const S*>(Tp);
+  const auto* cp = static_cast<const S*>(Cp);
+  auto* o = static_cast<S*>(out);
+  if (ndim == 2) {
+    fused_step_padded_kernel<S, 2><<<grid, block, 0, stream>>>(
+        t, cp, o, n0, n1, 1, C(dtlam), C(inv0), C(inv1), C(0));
+  } else {
+    fused_step_padded_kernel<S, 3><<<grid, block, 0, stream>>>(
+        t, cp, o, n0, n1, n2, C(dtlam), C(inv0), C(inv1), C(inv2));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -196,6 +248,29 @@ extern "C" int rmt_fused_step_cm(int dtype, int ndim, const void* src,
     case kBF16:
       return launch_fused_cm<__nv_bfloat16>(ndim, src, Cm, out, n1, n2, box, off, inv0, inv1,
                                             inv2, s);
+    default:
+      return -1;
+  }
+}
+
+// `Tp` is the core (n0, n1, n2) grown by one cell on every axis; Cp and out
+// have the core's extents. `dtlam` is the double dt·λ.
+extern "C" int rmt_fused_step_padded(int dtype, int ndim, const void* Tp, const void* Cp,
+                                     void* out, int64_t n0, int64_t n1, int64_t n2,
+                                     double dtlam, double inv0, double inv1, double inv2,
+                                     void* stream) {
+  if (ndim != 2 && ndim != 3) return -1;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch_fused_padded<float>(ndim, Tp, Cp, out, n0, n1, n2, dtlam, inv0, inv1,
+                                        inv2, s);
+    case kF64:
+      return launch_fused_padded<double>(ndim, Tp, Cp, out, n0, n1, n2, dtlam, inv0, inv1,
+                                         inv2, s);
+    case kBF16:
+      return launch_fused_padded<__nv_bfloat16>(ndim, Tp, Cp, out, n0, n1, n2, dtlam, inv0,
+                                                inv1, inv2, s);
     default:
       return -1;
   }

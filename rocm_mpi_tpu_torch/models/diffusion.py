@@ -10,6 +10,10 @@ One physics model at several performance levels, chosen by variant:
             are folded into a coefficient prepared once per advance, so a
             step is ONE hand kernel — masked_step on one rank,
             exchange_halo + fused_step_cm when sharded.
+  "kp"    — 2D only: the kernel-programming rung, the shard step's
+            exchange and Dirichlet select around THREE hand kernels on
+            the staggered grid (ops.kp.kp_step_padded: flux, residual,
+            update), every step exchanging, on one rank too.
   "hide"  — the Cm contract on the overlap decomposition
             (parallel/overlap.py): the interior box on one CUDA stream
             while the exchange and then the boundary slabs run on
@@ -52,6 +56,7 @@ from rocm_mpi_tpu_torch.ops.diffusion import (
     step_fused,
     step_fused_padded,
 )
+from rocm_mpi_tpu_torch.ops.kp import kp_step_padded
 from rocm_mpi_tpu_torch.parallel import deep_halo
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
@@ -154,13 +159,17 @@ class HeatDiffusion:
         # The time step in the field dtype, as the JAX package rounds it
         # (cfg.jax_dtype(cfg.dt)) before any arithmetic.
         self.dt = torch.tensor(config.dt, dtype=config.torch_dtype, device=self.device)
+        self.dt_value = float(self.dt)  # the same value as a Python double
         self._mask = global_boundary_mask(grid, device=self.device)
         self._step_fns: dict[str, Step] = {}
         self._prep_fns: dict[str, Callable] = {}
         self.register_variant("ap", *self._make_global_step(step_flux_form))
         self.register_variant("fused", *self._make_global_step(step_fused))
-        self.register_variant("shard", self._make_shard_step())
+        self.register_variant("shard", self._make_shard_step(step_fused_padded, self.dt))
         self.register_variant("perf", *self._make_masked_step())
+        if grid.ndim == 2:
+            # The kernels take dt as a double: the float, read once here.
+            self.register_variant("kp", self._make_shard_step(kp_step_padded, self.dt_value))
         self.register_variant("hide", *self._make_hide_step())
 
     # ---- state ----------------------------------------------------------
@@ -222,14 +231,14 @@ class HeatDiffusion:
 
         return step, prepare
 
-    def _make_shard_step(self):
-        """Explicit-decomposition step: exchange, fused padded update,
-        Dirichlet select."""
+    def _make_shard_step(self, padded_update, dt):
+        """Explicit-decomposition step: exchange, `padded_update(Tp, Cp,
+        lam, dt, spacing)` on the padded block, Dirichlet select."""
         cfg, grid = self.config, self.grid
 
         def step(T, Cp, out=None, pad=None):
             Tp = exchange_halo(T, grid, out=pad, wire_mode=cfg.wire_mode)
-            new = step_fused_padded(Tp, Cp, cfg.lam, self.dt, cfg.spacing)
+            new = padded_update(Tp, Cp, cfg.lam, dt, cfg.spacing)
             return torch.where(self._mask, T, new, out=out)
 
         return step
@@ -367,7 +376,7 @@ class HeatDiffusion:
         if extra_kw:
             kw.update(extra_kw)
         T, Cp = self.init_state()
-        dt = float(self.dt)  # the field-dtype step, as a Python double
+        dt = self.dt_value
 
         def advance(T, n):
             return multi_step_fn(T, Cp, cfg.lam, dt, cfg.spacing, n, **kw)

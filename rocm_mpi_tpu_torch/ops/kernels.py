@@ -1,8 +1,8 @@
 """The perf path's stencil kernels — counterpart of the Cm-contract kernels
 of rocm_mpi_tpu/ops/pallas_kernels.py (`masked_step`, `fused_step_cm`,
-`edge_mask`, `edge_masked_cm`) — and what every kernel wrapper of the
-port shares: the launch counts, the ctypes launch, the operand checks and
-the region form.
+`edge_mask`, `edge_masked_cm`) and of its unmasked `fused_step_padded` —
+and what every kernel wrapper of the port shares: the launch counts, the
+ctypes launch, the operand checks and the region form.
 
 Each kernel is CUDA C++ for Hopper (csrc/stencil.cu, built by _build.py)
 behind a wrapper that:
@@ -25,7 +25,7 @@ the overlap decomposition's splice (parallel/overlap.py) without a copy
 per region: operands stay whole and contiguous, the box goes to the
 kernel as numbers.
 
-Numerics shared by both kernels: `inv_d2[ax] = 1/(h·h)` is a Python double
+Numerics shared by the three kernels: `inv_d2[ax] = 1/(h·h)` is a Python double
 applied in the compute dtype (f32 for f32 and bf16, as JAX applies a
 weak-typed scalar); bf16 is storage-only — operands are widened to f32 and
 the result rounded once per launch (pallas_kernels._upcast_for_compute).
@@ -42,11 +42,13 @@ from rocm_mpi_tpu_torch.utils.backend import use_kernel
 
 # Launches of each hand kernel since the last reset_launches(). Only a
 # kernel launch counts; the plain versions never do. The multi-step
-# kernels' wrappers (ops/multistep.py), the wave kernels' (ops/wave.py) and
-# the shallow-water kernels' (ops/swe.py) count here too.
+# kernels' wrappers (ops/multistep.py), the wave kernels' (ops/wave.py), the
+# shallow-water kernels' (ops/swe.py) and the kp kernels' (ops/kp.py) count
+# here too.
 LAUNCHES = {"masked_step": 0, "fused_step_cm": 0, "multi_step_cm": 0, "tb_sweep": 0,
             "wave_step": 0, "wave_step_masked": 0, "wave_multi_step": 0,
-            "swe_step": 0, "swe_multi_step": 0}
+            "swe_step": 0, "swe_multi_step": 0, "fused_step_padded": 0,
+            "kp_flux": 0, "kp_residual": 0, "kp_update": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
@@ -59,6 +61,8 @@ _SIGNATURES = {
     "rmt_masked_step": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *INV_D2, C_PTR]),
     "rmt_fused_step_cm": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *BOX,
                                   *INV_D2, C_PTR]),
+    "rmt_fused_step_padded": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, C_DBL,
+                                      *INV_D2, C_PTR]),
 }
 
 
@@ -320,6 +324,66 @@ def fused_step_cm_region(src, offset: int, Cm, spacing, box, out):
            src.ndim, src.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(out.shape),
            *box_args(box), offset, *inv3(inv_d2))
     LAUNCHES["fused_step_cm"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused_step_padded — the unmasked contract's step from a padded block.
+# ---------------------------------------------------------------------------
+
+
+def fused_step_padded_plain(Tp, Cp, lam, dt, inv_d2, out=None):
+    """Plain version of the fused_step_padded kernel:
+    out = c + ((dt·λ)/Cp) · Σ_ax ((hi - 2·c) + lo) · inv_d2[ax], c = Tp[core],
+    with the double dt·λ rounded once to the compute dtype — the operation
+    order of pallas_kernels._fused_kernel_whole."""
+    cdt = _compute_dtype(Tp.dtype)
+    Tpc, Cpc = Tp.to(cdt), Cp.to(cdt)
+    ndim = Tp.ndim
+    c = Tpc[tuple(slice(1, -1) for _ in range(ndim))]
+    lap = None
+    for ax in range(ndim):
+        hi = tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
+        lo = tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
+        term = ((Tpc[hi] - 2.0 * c) + Tpc[lo]) * inv_d2[ax]
+        lap = term if lap is None else lap + term
+    # A 0-dim tensor, not a Python float: `float / tensor` multiplies by
+    # the reciprocal in PyTorch, which rounds differently from a division.
+    coef = torch.tensor(float(dt) * float(lam), dtype=cdt) / Cpc
+    return _store(c + coef * lap, Tp.dtype, out)
+
+
+def fused_step_padded(Tp, Cp, lam, dt, spacing, out=None):
+    """Candidate update of every core cell from the padded block:
+    new = Tp[core] + (dt·λ)/Cp · ∇²(Tp).
+
+    Replaces pallas_kernels.fused_step_padded (file:136: whole-block
+    `_fused_kernel_whole` :128, and above the 2 MiB VMEM budget the
+    row-striped `_fused_kernel_striped` :180). The whole/striped split is a
+    limit of the TPU's VMEM, not of the arithmetic: on the card one grid of
+    one thread per core cell covers every size, 2D and 3D, f32/f64/bf16.
+    The caller supplies ghosts (halo.exchange_halo) and masks the global
+    boundary. Unlike fused_step_cm the coefficient is formed per cell in
+    the kernel from Cp and the double dt·λ (`dt` a float or the
+    field-dtype time step). No model path calls it, as in the JAX package,
+    whose `shard` variant runs the jnp ops.diffusion.step_fused_padded.
+
+    Bound on the H100: memory — (n+2)^d reads of Tp, n^d of Cp, n^d writes.
+    """
+    if Tp.ndim != Cp.ndim:
+        raise ValueError(f"fused_step_padded: Tp is {Tp.ndim}D, Cp {Cp.ndim}D")
+    core_shape = tuple(n - 2 for n in Tp.shape)
+    check_operands("fused_step_padded", Tp, {"Cp": Cp}, core_shape, spacing, out)
+    inv_d2 = inv_d2_of(spacing)
+    operands = (Tp, Cp) if out is None else (Tp, Cp, out)
+    if not use_kernel(*operands):
+        return fused_step_padded_plain(Tp, Cp, lam, dt, inv_d2, out=out)
+    if out is None:
+        out = torch.empty(core_shape, dtype=Tp.dtype, device=Tp.device)
+    launch("stencil", _SIGNATURES, "rmt_fused_step_padded", Tp.device, _DTYPE_CODE[Tp.dtype],
+           Tp.ndim, Tp.data_ptr(), Cp.data_ptr(), out.data_ptr(), *extents(core_shape),
+           float(dt) * float(lam), *inv3(inv_d2))
+    LAUNCHES["fused_step_padded"] += 1
     return out
 
 

@@ -114,7 +114,9 @@ def test_sharded_perf_launches_no_kernel_on_cpu(ranks):
         assert out["launches"] == {"masked_step": 0, "fused_step_cm": 0,
                                    "multi_step_cm": 0, "tb_sweep": 0, "wave_step": 0,
                                    "wave_step_masked": 0, "wave_multi_step": 0,
-                                   "swe_step": 0, "swe_multi_step": 0}
+                                   "swe_step": 0, "swe_multi_step": 0,
+                                   "fused_step_padded": 0, "kp_flux": 0, "kp_residual": 0,
+                                   "kp_update": 0}
 
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])

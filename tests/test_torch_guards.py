@@ -43,7 +43,8 @@ def test_scan_sees_the_whole_port():
                               "ops/swe.py", "parallel/halo.py", "parallel/deep_halo.py",
                               "parallel/overlap.py", "models/diffusion.py", "models/wave.py",
                               "models/swe.py", "apps/wave_2d.py", "apps/swe_2d.py",
-                              "apps/diffusion_2d_perf_hide.py")} <= names
+                              "apps/diffusion_2d_perf_hide.py", "ops/kp.py",
+                              "apps/diffusion_2d_kp.py", "apps/diffusion_2d_ap.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
 
 
@@ -65,12 +66,13 @@ def test_every_kernel_counts_its_launches():
 
     assert _counted_launches() == set(LAUNCHES)
     assert {"wave_step", "wave_step_masked", "wave_multi_step", "swe_step",
-            "swe_multi_step"} <= set(LAUNCHES)
+            "swe_multi_step", "fused_step_padded", "kp_flux", "kp_residual",
+            "kp_update"} <= set(LAUNCHES)
 
 
 def test_cpu_entry_points_launch_no_kernel():
     # A CPU run of every entry point takes the plain versions: no count moves.
-    from rocm_mpi_tpu_torch.apps import swe_2d
+    from rocm_mpi_tpu_torch.apps import diffusion_2d_ap, diffusion_2d_kp, swe_2d
     from rocm_mpi_tpu_torch.config import SWEConfig, WaveConfig
     from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
     from rocm_mpi_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -96,6 +98,10 @@ def test_cpu_entry_points_launch_no_kernel():
     swe.run_deep(block_steps=4)
     assert swe_2d.main(["--device", "cpu", "--nx", "16", "--ny", "16", "--nt", "8",
                         "--warmup", "0", "--deep", "4"]) == 0
+    for app in (diffusion_2d_kp, diffusion_2d_ap):
+        assert app.main(["--device", "cpu", "--nx", "16", "--ny", "16", "--nt", "8",
+                         "--warmup", "0"]) == 0
+    assert "kp" in heat.variants
     assert set(LAUNCHES.values()) == {0}
 
 
@@ -122,7 +128,7 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
     _no_cuda(monkeypatch)
-    from rocm_mpi_tpu_torch.apps import swe_2d
+    from rocm_mpi_tpu_torch.apps import diffusion_2d_ap, diffusion_2d_kp, swe_2d
     from rocm_mpi_tpu_torch.config import SWEConfig, WaveConfig
     from rocm_mpi_tpu_torch.entry import entry
     from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
@@ -142,6 +148,9 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     assert swe_2d.make_parser().parse_args([]).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         swe_2d.main(["--nx", "16", "--ny", "16", "--nt", "4", "--warmup", "0"])
+    for app in (diffusion_2d_kp, diffusion_2d_ap):
+        with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+            app.main(["--nx", "16", "--ny", "16", "--nt", "4", "--warmup", "0"])
     HeatDiffusion(cfg, device="cpu")  # the explicit ask is honoured
     AcousticWave(wcfg, device="cpu")
     ShallowWater(scfg, device="cpu")

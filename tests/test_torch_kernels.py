@@ -11,6 +11,7 @@ import torch
 
 import rocm_mpi_tpu.ops.pallas_kernels as pk
 from rocm_mpi_tpu_torch.ops import kernels as K
+from rocm_mpi_tpu_torch.ops import kp
 from rocm_mpi_tpu_torch.state import tensor_from_numpy
 
 TOL = {
@@ -127,9 +128,14 @@ def test_cpu_calls_do_not_count_launches():
     K.masked_step(torch.from_numpy(T), torch.from_numpy(Cm), SPACING[2])
     Tp, Cm2 = _padded_inputs((16, 16), np.float64)
     K.fused_step_cm(torch.from_numpy(Tp), torch.from_numpy(Cm2), SPACING[2])
+    Cp = torch.from_numpy(1.0 + Cm2)
+    K.fused_step_padded(torch.from_numpy(Tp), Cp, 1.0, 1e-4, SPACING[2])
+    kp.kp_step_padded(torch.from_numpy(Tp), Cp, 1.0, 1e-4, SPACING[2])
     assert K.LAUNCHES == {"masked_step": 0, "fused_step_cm": 0, "multi_step_cm": 0,
                           "tb_sweep": 0, "wave_step": 0, "wave_step_masked": 0,
-                          "wave_multi_step": 0, "swe_step": 0, "swe_multi_step": 0}
+                          "wave_multi_step": 0, "swe_step": 0, "swe_multi_step": 0,
+                          "fused_step_padded": 0, "kp_flux": 0, "kp_residual": 0,
+                          "kp_update": 0}
 
 
 @pytest.mark.parametrize("kernel", ["masked_step", "fused_step_cm"])

@@ -1,0 +1,286 @@
+"""The kp rung and fused_step_padded of the port (rocm_mpi_tpu_torch/ops/kp.py,
+ops/kernels.py) against the Pallas kernels they port, run as the JAX
+package's own tests run them on the CPU (interpret mode): each of the
+three kp stages and the whole padded step, fused_step_padded on both of
+its JAX routes, the `kp` variant on one rank and on 4 gloo ranks, the kp
+app, and the error cases. The CUDA kernels themselves are held against
+these plain versions on the card by chip_smoke.py."""
+
+import functools
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import rocm_mpi_tpu.ops.pallas_kernels as pk
+import test_torch_rank_worker as worker
+from rocm_mpi_tpu.config import DiffusionConfig as JaxConfig
+from rocm_mpi_tpu.models import HeatDiffusion as JaxHeatDiffusion
+from rocm_mpi_tpu_torch.config import DiffusionConfig
+from rocm_mpi_tpu_torch.models import HeatDiffusion
+from rocm_mpi_tpu_torch.ops import kernels as K
+from rocm_mpi_tpu_torch.ops import kp
+from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+from rocm_mpi_tpu_torch.state import tensor_from_numpy
+from test_torch_kernels import NP, TOL
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+LAM, DT = 1.3, 1e-4
+SPACING = {2: (0.1, 0.07), 3: (0.3, 0.4, 0.5)}
+# Padded 2D blocks: an even core (32, 28) and an odd, unequal one (33, 27),
+# where an off-by-one on qx's extra row or qy's extra column shows.
+KP_PADDED = [(34, 30), (35, 29)]
+
+
+def _kp_inputs(padded, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    lx, ly = padded[0] - 2, padded[1] - 2
+    Tp = rng.random(padded).astype(dtype)
+    Cp = (1.0 + rng.random((lx, ly))).astype(dtype)
+    qx = (rng.random((lx + 1, ly)) - 0.5).astype(dtype)
+    qy = (rng.random((lx, ly + 1)) - 0.5).astype(dtype)
+    dTdt = (rng.random((lx, ly)) - 0.5).astype(dtype)
+    return Tp, Cp, qx, qy, dTdt
+
+
+def _pallas(kernel, out_shapes, *args, **params):
+    """One of kp_step_padded's kernel bodies as its own pallas_call, in
+    interpret mode, whole arrays in and out as kp_step_padded calls it."""
+    structs = tuple(jax.ShapeDtypeStruct(s, args[0].dtype) for s in out_shapes)
+    res = pl.pallas_call(functools.partial(kernel, **params),
+                         out_shape=structs if len(structs) > 1 else structs[0],
+                         interpret=True)(*(jnp.asarray(a) for a in args))
+    return tuple(np.asarray(r) for r in res) if len(structs) > 1 else (np.asarray(res),)
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("padded", KP_PADDED, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("stage", ["flux", "residual", "update", "step"])
+def test_kp_stage_matches_pallas(stage, padded, dtype):
+    Tp, Cp, qx, qy, dTdt = _kp_inputs(padded, NP[dtype])
+    lx, ly = Cp.shape
+    sp = SPACING[2]
+    inv_d = tuple(1.0 / d for d in sp)
+    if stage == "flux":
+        ref = _pallas(pk._flux_kernel, ((lx + 1, ly), (lx, ly + 1)), Tp, lam=LAM, inv_d=inv_d)
+        got = kp.kp_flux(*_t(Tp), LAM, sp)
+        plain = kp.kp_flux_plain(*_t(Tp), LAM, inv_d)
+    elif stage == "residual":
+        ref = _pallas(pk._residual_kernel, ((lx, ly),), qx, qy, Cp, inv_d=inv_d)
+        got = (kp.kp_residual(*_t(qx, qy, Cp), sp),)
+        plain = (kp.kp_residual_plain(*_t(qx, qy, Cp), inv_d),)
+    elif stage == "update":
+        ref = _pallas(pk._update_kernel, ((lx, ly),), Tp, dTdt, dt=DT)
+        got = (kp.kp_update(*_t(Tp, dTdt), DT),)
+        plain = (kp.kp_update_plain(*_t(Tp, dTdt), DT),)
+    else:
+        ref = (np.asarray(pk.kp_step_padded(jnp.asarray(Tp), jnp.asarray(Cp), LAM, DT, sp)),)
+        got = (kp.kp_step_padded(*_t(Tp, Cp), LAM, DT, sp),)
+        plain = (kp.kp_update_plain(torch.from_numpy(Tp), kp.kp_residual_plain(
+            *kp.kp_flux_plain(torch.from_numpy(Tp), LAM, inv_d), torch.from_numpy(Cp), inv_d),
+            DT),)
+    assert len(got) == len(ref)
+    for g, p, r in zip(got, plain, ref):
+        assert g.dtype == p.dtype and g.numpy().dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g, p)  # a CPU tensor takes the plain version
+        np.testing.assert_allclose(g.numpy(), r, **TOL[dtype])
+
+
+# Both fused_step_padded routes of the JAX package: the whole-block kernel,
+# and the row-striped kernel with the VMEM budget shrunk so a small block
+# takes it, as tests/test_torch_kernels.py does for fused_step_cm.
+ROUTES = {"whole": None, "striped": 1024}
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("core", [(32, 28), (33, 27), (12, 10, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_step_padded_matches_pallas(core, route, dtype, monkeypatch):
+    if ROUTES[route] is not None:
+        monkeypatch.setattr(pk, "_VMEM_BLOCK_BUDGET_BYTES", ROUTES[route])
+    rng = np.random.default_rng(3)
+    Tp = rng.random(tuple(n + 2 for n in core)).astype(NP[dtype])
+    Cp = (1.0 + rng.random(core)).astype(NP[dtype])
+    sp = SPACING[len(core)]
+    ref = np.asarray(pk.fused_step_padded(jnp.asarray(Tp), jnp.asarray(Cp), LAM, DT, sp))
+    got = K.fused_step_padded(*_t(Tp, Cp), LAM, DT, sp)
+    assert torch.equal(got, K.fused_step_padded_plain(*_t(Tp, Cp), LAM, DT,
+                                                      K.inv_d2_of(sp)))
+    np.testing.assert_allclose(got.numpy(), ref, **TOL[dtype])
+
+
+def _bf16(a):
+    return jnp.asarray(a, dtype=jnp.bfloat16)
+
+
+@pytest.mark.parametrize("fn", ["kp_step_padded", "fused_step_padded"])
+def test_bf16_is_storage_only(fn):
+    # bf16 in and out, f32 arithmetic inside each launch. kp rounds at each
+    # of its three stores (qx, qy, dTdt are bf16 between the TPU kernels
+    # too); fused_step_padded rounds once. JAX's kernels follow the same
+    # contract, so they agree to within a bf16 rounding of the result.
+    Tp, Cp, *_ = _kp_inputs((34, 30), np.float32)
+    Tp_j, Cp_j = _bf16(Tp), _bf16(Cp)
+    Tp_t, Cp_t = (tensor_from_numpy(np.asarray(a)) for a in (Tp_j, Cp_j))
+    sp = SPACING[2]
+    if fn == "kp_step_padded":
+        got = kp.kp_step_padded(Tp_t, Cp_t, LAM, DT, sp)
+        inv_d = kp.inv_d_of(sp)
+        qx, qy = (q.to(torch.bfloat16) for q in kp.kp_flux_plain(Tp_t.float(), LAM, inv_d))
+        dTdt = kp.kp_residual_plain(qx.float(), qy.float(), Cp_t.float(), inv_d)
+        want = kp.kp_update_plain(Tp_t.float(), dTdt.to(torch.bfloat16).float(), DT)
+        ref = pk.kp_step_padded(Tp_j, Cp_j, LAM, DT, sp)
+    else:
+        got = K.fused_step_padded(Tp_t, Cp_t, LAM, DT, sp)
+        want = K.fused_step_padded(Tp_t.float(), Cp_t.float(), LAM, DT, sp)
+        ref = pk.fused_step_padded(Tp_j, Cp_j, LAM, DT, sp)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref).astype(np.float32),
+                               rtol=2 ** -7, atol=0)
+
+
+def _one_rank(dtype, shape=(64, 64), nt=30):
+    cfg = DiffusionConfig(global_shape=shape, nt=nt, warmup=0, dtype=dtype, dims=(1, 1))
+    return HeatDiffusion(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_kp_run_matches_jax_one_rank(dtype):
+    jcfg = JaxConfig(global_shape=(64, 64), nt=30, warmup=0, dtype=dtype, dims=(1, 1))
+    ref = np.asarray(JaxHeatDiffusion(jcfg, devices=jax.devices()[:1]).run(variant="kp").T)
+    got = _one_rank(dtype).run("kp").T.numpy()
+    np.testing.assert_allclose(got, ref, **TOL[dtype])
+
+
+def test_kp_run_matches_ap():
+    # The JAX package's own bound for kp against ap
+    # (tests/test_pallas_kernels.py, kp on a mesh).
+    model = _one_rank("f64")
+    np.testing.assert_allclose(model.run("kp").T.numpy(), model.run("ap").T.numpy(),
+                               rtol=1e-13, atol=1e-15)
+
+
+def test_kp_step_is_kp_step_padded_between_exchange_and_select():
+    # The variant's step is the shard step around kp_step_padded: the
+    # same exchange and Dirichlet select, the three stages in between.
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+
+    model = _one_rank("f64", shape=(24, 20), nt=5)
+    T, Cp = model.init_state()
+    cfg = model.config
+    ref = T
+    for _ in range(cfg.nt):
+        new = kp.kp_step_padded(exchange_halo(ref, model.grid), Cp, cfg.lam, float(model.dt),
+                                cfg.spacing)
+        ref = torch.where(model._mask, ref, new)
+    assert torch.equal(model.run("kp").T, ref)
+    assert "kp" in model.variants
+
+
+SHARD_SHAPE, SHARD_NT = (32, 24), 8
+SHARD_CASES = [("f64", (2, 2)), ("f64", (4, 1)), ("f32", (2, 2))]
+
+
+@pytest.fixture(scope="module")
+def kp_ranks():
+    spec = dict(shape=SHARD_SHAPE, nt=SHARD_NT, cases=SHARD_CASES)
+    return spawn_ranks(4, worker.run_kp_rank, (spec,), backend="gloo", timeout=240)
+
+
+@pytest.mark.parametrize("dtype,dims", SHARD_CASES, ids=lambda v: str(v))
+def test_sharded_kp_matches_jax_4_device(kp_ranks, dtype, dims):
+    jcfg = JaxConfig(global_shape=SHARD_SHAPE, nt=SHARD_NT, warmup=0, dtype=dtype, dims=dims)
+    ref = np.asarray(JaxHeatDiffusion(jcfg, devices=jax.devices()[:4]).run(variant="kp").T)
+    np.testing.assert_allclose(kp_ranks[0]["runs"][(dtype, dims)], ref, **TOL[dtype])
+    assert all(r["runs"][(dtype, dims)] is None for r in kp_ranks[1:])
+
+
+@pytest.mark.parametrize("dtype,dims", SHARD_CASES, ids=lambda v: str(v))
+def test_sharded_kp_equals_one_rank_bitwise(kp_ranks, dtype, dims):
+    # Every face flux takes the same two cells in the same order whether
+    # its neighbour is a ghost or not: the gathered field is the one-rank
+    # field bit for bit, a check of the exchange.
+    one = _one_rank(dtype, shape=SHARD_SHAPE, nt=SHARD_NT).run("kp").T.numpy()
+    np.testing.assert_array_equal(kp_ranks[0]["runs"][(dtype, dims)], one)
+
+
+def test_sharded_kp_launches_no_kernel_on_cpu(kp_ranks):
+    for r in kp_ranks:
+        assert set(r["launches"].values()) == {0}
+
+
+def test_kp_absent_on_a_3d_grid():
+    # Registered on 2D grids only, as in the JAX package: a 3D run("kp")
+    # raises the same "unknown variant" error, listing the same variants.
+    shape3 = dict(global_shape=(8, 8, 8), lengths=(10.0,) * 3, nt=2, warmup=0, dims=(1, 1, 1))
+    model = HeatDiffusion(DiffusionConfig(**shape3), device="cpu")
+    jmodel = JaxHeatDiffusion(JaxConfig(**shape3), devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match="unknown variant 'kp'") as got:
+        model.run("kp")
+    with pytest.raises(ValueError, match="unknown variant 'kp'") as want:
+        jmodel.run(variant="kp")
+    assert str(got.value) == str(want.value)
+    assert "kp" in _one_rank("f64", shape=(8, 8)).variants
+
+
+def test_kp_step_padded_rejects_3d():
+    Tp, Cp = np.zeros((6, 6, 6)), np.ones((4, 4, 4))
+    with pytest.raises(ValueError, match="2D-only") as got:
+        kp.kp_step_padded(*_t(Tp, Cp), LAM, DT, SPACING[3])
+    with pytest.raises(ValueError, match="2D-only") as want:
+        pk.kp_step_padded(jnp.asarray(Tp), jnp.asarray(Cp), LAM, DT, SPACING[3])
+    assert str(want.value) in str(got.value)
+
+
+def test_wrappers_refuse_bad_operands():
+    Tp, Cp, qx, qy, dTdt = _t(*_kp_inputs((12, 10), np.float64))
+    sp = SPACING[2]
+    with pytest.raises(ValueError, match="must not alias"):
+        kp.kp_update(Tp, dTdt, DT, out=dTdt)
+    with pytest.raises(ValueError, match="out must be"):
+        kp.kp_flux(Tp, LAM, sp, out=(torch.empty_like(qy), torch.empty_like(qy)))
+    with pytest.raises(ValueError, match="must not alias"):
+        q = torch.empty(qx.numel() + qy.numel() - 1, dtype=qx.dtype)
+        kp.kp_flux(Tp, LAM, sp, out=(q[:qx.numel()].view(qx.shape),
+                                     q[-qy.numel():].view(qy.shape)))
+    with pytest.raises(ValueError, match="qx shape"):
+        kp.kp_residual(qy, qx, Cp, sp)
+    with pytest.raises(TypeError, match="dtype"):
+        kp.kp_residual(qx.float(), qy, Cp, sp)
+    with pytest.raises(ValueError, match="must not alias"):
+        K.fused_step_padded(Tp, Cp, LAM, DT, sp, out=Cp)
+    with pytest.raises(ValueError, match="Cp shape"):
+        K.fused_step_padded(Tp, dTdt[1:], LAM, DT, sp)
+    with pytest.raises(RuntimeError, match="no kernel dispatch"):
+        kp.kp_update(Tp.to("meta"), dTdt.to("meta"), DT)
+    # Written into `out` when given, and equal to the allocating call.
+    out = torch.empty_like(Cp)
+    assert kp.kp_step_padded(Tp, Cp, LAM, DT, sp, out=out) is out
+    assert torch.equal(out, kp.kp_step_padded(Tp, Cp, LAM, DT, sp))
+
+
+@pytest.mark.parametrize("variant", ["kp", "ap"])
+def test_app_saves_the_runs_field(variant, tmp_path):
+    path = tmp_path / "T.npy"
+    cmd = [sys.executable, "-m", f"rocm_mpi_tpu_torch.apps.diffusion_2d_{variant}",
+           "--device", "cpu", "--nx", "32", "--ny", "32", "--nt", "20",
+           "--save-field", str(path)]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "not a GPU measurement" in proc.stdout and f"wrote {path}" in proc.stdout
+    cfg = DiffusionConfig(global_shape=(32, 32), lengths=(10.0, 10.0), nt=20, warmup=10,
+                          dtype="f64")
+    want = HeatDiffusion(cfg, device="cpu").run(variant).T.numpy()
+    np.testing.assert_array_equal(np.load(path), want)

@@ -84,7 +84,7 @@ def test_run_validates_windows():
     with pytest.raises(ValueError, match="warmup"):
         ours.run("perf", nt=4, warmup=4)
     with pytest.raises(ValueError, match="unknown variant"):
-        ours.run("kp")
+        ours.run("scan")  # not a variant ("kp" is one on 2D grids)
 
 
 def test_advance_equals_repeated_steps_and_reuses_buffers():

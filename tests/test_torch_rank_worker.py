@@ -1,7 +1,8 @@
 """Ranks of the port's multi-rank CPU checks (gloo), started by
 rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
-tests/test_torch_distributed.py (`run_rank`) and tests/test_torch_overlap.py
-(`run_overlap_rank`); it holds no tests itself. Imports torch and the port
+tests/test_torch_distributed.py (`run_rank`), tests/test_torch_overlap.py
+(`run_overlap_rank`) and tests/test_torch_kp.py (`run_kp_rank`); it holds no
+tests itself. Imports torch and the port
 only, so a spawned rank starts fast; the parent holds the results against
 the JAX package."""
 
@@ -117,5 +118,26 @@ def run_overlap_rank(rank, spec):
         model = ShallowWater(SWEConfig(**spec["swe_deep"], dtype=dtype), device="cpu")
         res = model.run_deep(block_steps=spec["swe_deep_k"])
         out["swe_deep"][dtype] = (res.route, res.k, *gathered(res.h, res.us, model.grid))
+    out["launches"] = dict(kernels.LAUNCHES)
+    return out
+
+
+def run_kp_rank(rank, spec):
+    """One rank of tests/test_torch_kp.py: the `kp` variant on each
+    (dtype, process grid) case, the field gathered to rank 0, with the
+    launch counts of the whole run (none on the CPU)."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+
+    torch.set_num_threads(1)
+    kernels.reset_launches()
+    out = {"runs": {}}
+    for dtype, dims in spec["cases"]:
+        cfg = DiffusionConfig(global_shape=spec["shape"], nt=spec["nt"], warmup=0, dtype=dtype,
+                              dims=dims)
+        model = HeatDiffusion(cfg, device="cpu")
+        out["runs"][(dtype, dims)] = gather_to_host0(model.run("kp").T, model.grid)
     out["launches"] = dict(kernels.LAUNCHES)
     return out
