@@ -18,7 +18,10 @@ the target). Phases, printed as they run (about three minutes on one H100
    card, and timed with CUDA events (median) beside the plain version and
    its bound; the region kernels also as the five boxes of the `hide`
    decomposition of a 6144² shard; the three kp kernels at 12288² and
-   128², fused_step_padded at 12288², 6144², 252² and on the 3D block;
+   128², and kp_update at odd row lengths (12288×12287, 128×127) with
+   its wrapper's host time per call; tb_sweep also at k = 16 on 12320²
+   and ragged (1000×777, k = 5), with its strip/segment plan;
+   fused_step_padded at 12288², 6144², 252² and on the 3D block;
 4. main path, one GPU — HeatDiffusion.run("perf") at 12288² f32 for 1000
    steps and at 252² f32: every step one masked_step launch, the field
    bitwise equal to the plain versions' run of the same steps, and the
@@ -121,6 +124,9 @@ DEEP_SMALL = (316, 316)  # 252² grown by the k = 32 deep ghosts
 WAVE_DEEP_SMALL = (268, 268)  # 252² grown by the wave's k = 8 deep ghosts
 TB_BIG = (12304, 12304)  # 12288² grown by the k = 8 deep ghosts
 TB_BLOCK = (6160, 6160)  # a 6144² shard grown by the k = 8 deep ghosts
+TB_K16 = (12320, 12320)  # 12288² grown by k = 16 ghosts, tb_geometry's other class
+TB_RAGGED = (1000, 777)  # no dimension a multiple of a strip or a segment
+KP_ODD, KP_SMALL_ODD = (12288, 12287), (128, 127)  # rows off the 16-byte grid
 SMALL_3D = (96, 64, 48)
 KP_SMALL = (128, 128)  # the kp app's default grid
 KP = ("kp_flux", "kp_residual", "kp_update")
@@ -146,6 +152,7 @@ KERNELS = {
     "fused_step_padded": ("rocm_mpi_tpu/ops/pallas_kernels.py:136", "stencil.cu"),
 }
 ALL_DTYPES = ("f32", "f64", "bf16")
+HOST_CALLS = 200  # back-to-back wrapper calls timed on the host clock
 # Kernel cases: (kernel, block shape, steps per launch, body form, dtypes).
 # The block shape is the core; the padded kernels read it grown by one.
 # "regions" launches one box per region of the hide decomposition of
@@ -163,6 +170,8 @@ KERNEL_CASES = [
     ("multi_step_cm", DEEP_SMALL, 32, "conly", ("f32",)),
     ("tb_sweep", TB_BIG, 8, "direct", ALL_DTYPES),
     ("tb_sweep", TB_BLOCK, 8, "direct", ALL_DTYPES),
+    ("tb_sweep", TB_K16, 16, "direct", ALL_DTYPES),
+    ("tb_sweep", TB_RAGGED, 5, "direct", ALL_DTYPES),
     ("wave_step", BIG, 1, "direct", ALL_DTYPES),
     ("wave_step", SMALL, 1, "direct", ALL_DTYPES),
     ("wave_step_masked", BLOCK, 1, "whole", ALL_DTYPES),
@@ -183,6 +192,8 @@ KERNEL_CASES = [
     ("kp_flux", KP_SMALL, 1, "direct", ALL_DTYPES),
     ("kp_residual", KP_SMALL, 1, "direct", ALL_DTYPES),
     ("kp_update", KP_SMALL, 1, "direct", ALL_DTYPES),
+    ("kp_update", KP_ODD, 1, "direct", ALL_DTYPES),
+    ("kp_update", KP_SMALL_ODD, 1, "direct", ALL_DTYPES),
     ("fused_step_padded", BIG, 1, "direct", ALL_DTYPES),
     ("fused_step_padded", BLOCK, 1, "direct", ALL_DTYPES),
     ("fused_step_padded", SMALL, 1, "direct", ALL_DTYPES),
@@ -697,7 +708,7 @@ def phase_kernels(torch, card, pk):
                 f" n={steps} {form}" if steps > 1 else f" {form}" if form != "direct" else "")
             check(equal, f"{label}: kernel != plain version (max |diff| {err})")
             small = core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL, SMALL_3D, SWE_DEEP_PADDED,
-                             SWE_F64, SWE_3D, KP_SMALL)
+                             SWE_F64, SWE_3D, KP_SMALL, KP_SMALL_ODD, TB_RAGGED)
             reps = (200 if steps == 1 else 50) if small else (30 if steps == 1 else 20)
             ms = time_ms(run, reps)
             plain_ms = time_ms(plain, max(reps // 4, 5) if steps == 1 else 5)
@@ -724,10 +735,30 @@ def phase_kernels(torch, card, pk):
                        f"{lib_err:.3e})")
             else:
                 lib = "no single PyTorch call computes this step, library_ms null"
+            extra = ""
+            if name == "kp_update":
+                # The wrapper's host time: calls back to back, no sync between
+                # them (the launches queue behind one another on the card).
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    run()
+                row["host_us_per_call"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+                torch.cuda.synchronize()
+                extra = f"; wrapper host time {row['host_us_per_call']:.2f} µs a call"
+            if name == "tb_sweep" and len(core) == 2:
+                from rocm_mpi_tpu_torch.ops import multistep
+
+                tdt = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}[dtype]
+                plan = multistep._device_plan(0, tuple(core), steps, tdt)
+                row["plan"] = plan._asdict()
+                extra = (f"; plan {plan.strips} strips × {plan.segments} segments of "
+                         f"{plan.seg_rows} rows, {plan.waves} wave(s)")
             rows.append(row)
             print(f"[kernel] {label}: bitwise == plain; kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
-                  f"{row['fraction_of_bound']:.3f} of bound) on {card}; {lib}", flush=True)
+                  f"{row['fraction_of_bound']:.3f} of bound) on {card}; {lib}{extra}",
+                  flush=True)
             del run, plain, got, want, library
         torch.cuda.empty_cache()
     return rows

@@ -30,12 +30,13 @@
 // device memory, so they stay three kernels. Each is memory-bound (a few
 // flops a cell against 3-4 field passes: flux reads Tp and writes qx, qy;
 // the residual reads qx, qy, Cp and writes dTdt; the update reads Tp and
-// dTdt and writes out). Design, as stencil.cu: one thread per output cell
-// in 32x8 blocks along the last (contiguous) axis, the neighbour reads
-// served from lines the block already pulled into L1/L2. The flux launch
-// covers (lx + 1, ly + 1) and each thread writes the face of each output
-// its cell has, so the extra row of qx and the extra column of qy take no
-// second launch.
+// dTdt and writes out). Flux and residual, as stencil.cu: one thread per
+// output cell in 32x8 blocks along the last (contiguous) axis, the
+// neighbour reads served from lines the block already pulled into L1/L2.
+// The flux launch covers (lx + 1, ly + 1) and each thread writes the face
+// of each output its cell has, so the extra row of qx and the extra column
+// of qy take no second launch. The update has no neighbours and moves 16
+// bytes of a row per thread (its design note is at update_kernel).
 
 #include "stencil_common.cuh"
 
@@ -93,14 +94,62 @@ residual_kernel(const S* __restrict__ qx, const S* __restrict__ qy,
   dTdt[idx] = narrow<S>((-div) / widen(Cp[idx]));
 }
 
+// kp_update: 16 bytes of a row a thread (4 f32, 2 f64, 8 bf16), one block
+// row per core row (a grid-stride loop covers rows past the 65535 a grid
+// holds). Two layouts:
+// - `vec` (ly a multiple of the width, 16-byte-aligned dTdt and out, the
+//   usual case): a thread moves its own 16 bytes of dTdt and out as one
+//   vector each, with the streaming hints (each is touched once). Tp's
+//   core rows start one element past a row of stride ly + 2, never on the
+//   16-byte grid, so its window is read element by element and the L1
+//   merges a warp's neighbouring requests.
+// - otherwise (a ragged row): a warp's 32 threads take its 32·width
+//   elements in turn, every access scalar and coalesced, the row's tail
+//   masked.
+// Measured on an H100 against the alternatives (realigning 16-byte chunks
+// of Tp by warp shuffle; a persistent grid walking two or four rows a
+// thread; hints on the scalar accesses; 32 bytes a thread; 128 or 512
+// threads a block), this layout was the fastest or within noise of it.
+constexpr int kUpdBytes = 16;
+constexpr int kUpdThreads = 256;
+
 template <typename S>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+struct alignas(kUpdBytes) Chunk {
+  static constexpr int kN = kUpdBytes / static_cast<int>(sizeof(S));
+  S v[kN];
+};
+
+template <typename S>
+__global__ void __launch_bounds__(kUpdThreads)
 update_kernel(const S* __restrict__ Tp, const S* __restrict__ dTdt, S* __restrict__ out,
-              int64_t lx, int64_t ly, typename Compute<S>::type dt) {
-  int64_t i, j;
-  if (!cell(lx, ly, &i, &j)) return;
-  const int64_t idx = i * ly + j;
-  out[idx] = narrow<S>(widen(Tp[(i + 1) * (ly + 2) + j + 1]) + dt * widen(dTdt[idx]));
+              int64_t lx, int64_t ly, bool vec, typename Compute<S>::type dt) {
+  using Ch = Chunk<S>;
+  constexpr int kN = Ch::kN;
+  const int lane = threadIdx.x & 31;
+  const int64_t chunk = static_cast<int64_t>(blockIdx.x) * kUpdThreads + threadIdx.x;
+  // vec: elements j0 .. j0 + kN - 1; else j0 + 32e for e < kN, where j0
+  // is this lane's first element in its warp's 32·kN.
+  const int64_t j0 = vec ? chunk * kN : (chunk - lane) * kN + lane;
+  for (int64_t row = blockIdx.y; row < lx; row += gridDim.y) {
+    const S* t = Tp + (row + 1) * (ly + 2) + 1;
+    const S* r = dTdt + row * ly;
+    S* w = out + row * ly;
+    if (vec) {
+      if (j0 >= ly) return;
+      Ch d;
+      *reinterpret_cast<int4*>(&d) = __ldcs(reinterpret_cast<const int4*>(r + j0));
+      Ch o;
+#pragma unroll
+      for (int e = 0; e < kN; ++e) o.v[e] = narrow<S>(widen(t[j0 + e]) + dt * widen(d.v[e]));
+      __stcs(reinterpret_cast<int4*>(w + j0), *reinterpret_cast<const int4*>(&o));
+    } else {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        const int64_t j = j0 + 32 * e;
+        if (j < ly) w[j] = narrow<S>(widen(t[j]) + dt * widen(r[j]));
+      }
+    }
+  }
 }
 
 // Grid of an (n0, n1) launch; false if empty or a dimension overflows.
@@ -140,11 +189,18 @@ template <typename S>
 int launch_update(const void* Tp, const void* dTdt, void* out, int64_t lx, int64_t ly,
                   double dt, cudaStream_t stream) {
   using C = typename Compute<S>::type;
-  dim3 grid;
-  if (!grid_of(lx, ly, &grid)) return -2;
-  update_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
+  constexpr int kN = Chunk<S>::kN;
+  if (lx < 1 || ly < 1) return -2;
+  // One block row per core row; a block covers 256 chunks of the row.
+  const int64_t gx = ((ly + kN - 1) / kN + kUpdThreads - 1) / kUpdThreads;
+  const int64_t gy = lx < 65535 ? lx : 65535;
+  if (gx > 2147483647LL) return -2;
+  const bool vec = ly % kN == 0 && reinterpret_cast<uintptr_t>(dTdt) % kUpdBytes == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % kUpdBytes == 0;
+  update_kernel<S><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), 1),
+                     kUpdThreads, 0, stream>>>(
       static_cast<const S*>(Tp), static_cast<const S*>(dTdt), static_cast<S*>(out), lx, ly,
-      C(dt));
+      vec, C(dt));
   return static_cast<int>(cudaGetLastError());
 }
 

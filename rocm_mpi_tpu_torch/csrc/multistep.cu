@@ -36,28 +36,40 @@
 // is a few hundred nanoseconds of work, and the grid barrier between
 // steps (about a microsecond) is what the loop pays.
 //
-// rmt_tb_sweep — design. The Hopper reading of the TPU's stripe and
-// ghost-block light cone: each block loads a core tile plus a halo of k
-// cells on every side into shared memory — T, and Cm beside it, both zero
-// beyond the block's edge — runs k steps there ping-ponging two T
-// buffers, and writes only its core tile. Cells of the tile's outer ring
-// see zeros instead of their true neighbours; that error moves inward one
-// cell per step and after k steps has not reached the core (k <= halo,
-// the _tb_kernel contract k <= g). Cells beyond the block's edge hold
+// rmt_tb_sweep — design. Bound: memory — one read of T and Cm and one
+// write per k steps (3 passes; at 12304² f32, 1.82 GB, 0.54 ms on an H100
+// SXM), against ~11 operations a cell and step that the redundant halo
+// work multiplies. The light cone of the TPU's stripes carries over: a
+// region with a halo of k cells, zero beyond it, gives its core exactly
+// after k steps (the error of the zero ring moves one cell a step; k <=
+// halo is the _tb_kernel contract), and cells beyond the block's edge hold
 // T = 0 and Cm = 0, so each step leaves them exactly 0 (0 + 0·lap) and
-// cells next to the edge see the same zeros as the plain version. Cm sits
-// in shared memory because reading it from L2 every step left the warps
-// waiting on that load. The TPU's (g, tm) stripe geometry is not carried
-// over. A 2D tile is 128 columns (a tile row is four warps wide) by as
-// many rows, in multiples of 8, as fit the shared-memory target; each
-// warp walks its rows top to bottom keeping the cells above and at the
-// current row in registers, so a cell step loads three neighbours and Cm
-// from shared memory. A 3D tile starts at 16³ of core and halves its
-// largest axis until the buffers fit all of a block's shared memory (at
-// k = 8, an 8x8x16 core in f32, 4x4x8 in f64: the halo dominates, and a 3D
-// sweep does far more redundant work than a 2D one). Bound: memory — one read of T and
-// Cm and one write per k steps; the redundant halo work and the
-// shared-memory traffic are what this simple design pays on top.
+// cells at the edge see the same zeros as the plain version.
+//
+// 2D streams along axis 0 (the time-skewed wavefront). A warp owns a
+// strip of 128 loaded columns, 4 a lane (a core of 128 - 2k and k halo
+// columns a side), over a segment of rows (its core plus k a side), and
+// walks it once, top to bottom. Each row step loads one row of T and Cm
+// (the next row's loads are in flight while this one computes) and
+// advances each time level s = 1..k by one row, level s one row behind
+// level s - 1; level k emits a finished core row, written straight out.
+// A lane keeps two rows of each level in registers (k is a template
+// argument and the row loop is unrolled by three, so the rotating slots
+// are registers), gets the columns beside its four by shuffle, and reads
+// Cm of the lagging rows from its own ring of k + 1 rows in shared memory.
+// Warps never wait on each other: no barrier, no data passed between
+// warps. Halo work is (128/(128 - 2k))·(1 + 2k/rows) per core cell (1.14
+// × ~1.02 at k = 8 on 12304²). The segment height comes from the Python
+// plan (ops/multistep.tb_plan), sized so the strips × segments fill the
+// card's resident warps in whole waves.
+//
+// 3D keeps light-cone tiles in shared memory: each block loads a core
+// tile plus k halo cells a side — T and Cm — runs k steps there
+// ping-ponging two T buffers and writes its core. The tile starts at 16³
+// of core and halves its largest axis until it fits a block's shared
+// memory (at k = 8, 8x8x16 in f32): the halo dominates, and a 3D sweep
+// does far more redundant work than a 2D one. No model runs it on the
+// card yet.
 
 #include <cooperative_groups.h>
 
@@ -75,12 +87,12 @@ using rmt::narrow;
 using rmt::widen;
 
 constexpr int kThreads = 256;
-// Shared memory a tb_sweep block aims to stay under, so that two blocks
-// share an SM (228 KB each, 1 KB of it reserved per block); tiles shrink
-// until they fit it.
-constexpr int kTileSmemTarget = 112 * 1024;
-// Columns of a 2D tb_sweep tile: four warps wide.
-constexpr int kTileCols = 128;
+// The 2D tb_sweep: columns a lane holds, loaded columns of a warp's strip,
+// and warps (independent strips) a block. ops/multistep.py reads these
+// two lines (tb_layout) rather than restating them.
+constexpr int kTbLaneCols = 4;
+constexpr int kTbStripCols = 32 * kTbLaneCols;
+constexpr int kTbWarpsPerBlock = 4;
 
 enum Form : int { kDirect = 0, kAC = 1, kEQC = 2, kCOnly = 3 };
 
@@ -253,39 +265,261 @@ int dispatch_ndim(int ndim, int form, const void* T, const void* Cm,
 }
 
 // ---------------------------------------------------------------------------
-// rmt_tb_sweep
+// rmt_tb_sweep, 2D: column strips streamed along axis 0
 // ---------------------------------------------------------------------------
 
-// 2D: one step of the tile. Warp w walks rows [w·R, (w+1)·R) of the tile
-// top to bottom, its lanes on neighbouring columns (conflict-free shared
-// loads); a lane keeps the cells above and at the current row in
-// registers, so a cell step loads three neighbours and its Cm.
+// Four compute-type values: one lane's columns of a row.
 template <typename C>
-__device__ __forceinline__ void tb_step_2d(const C* a, C* b, const C* cm, int e0,
-                                           int e1, C inv0, C inv1) {
+struct alignas(16) Quad {
+  C v[kTbLaneCols];
+};
+
+// Shared bytes of a 2D block: each lane's ring of k + 1 Cm rows in the
+// compute type.
+template <typename C>
+constexpr int64_t tb2_smem_bytes(int k) {
+  return static_cast<int64_t>(kTbWarpsPerBlock) * 32 * (k + 1) * kTbLaneCols *
+         static_cast<int64_t>(sizeof(C));
+}
+
+// Row `g` of this lane's four columns c0 .. c0 + 3 of T and Cm, widened;
+// 0 outside the block. `in` holds a bit per column inside [0, n1). (Four
+// scalar loads a lane, which the L1 merges across the warp, measured
+// faster on an H100 than one vector load: fewer registers.)
+template <typename S, typename C>
+__device__ __forceinline__ void tb2_load(const S* __restrict__ T, const S* __restrict__ Cm,
+                                         int64_t g, int64_t n0, int64_t n1, int64_t c0,
+                                         unsigned in, Quad<C>* t, Quad<C>* cm) {
+  const bool row_in = g >= 0 && g < n0;
+  const int64_t at = g * n1 + c0;
+#pragma unroll
+  for (int e = 0; e < kTbLaneCols; ++e) {
+    const bool here = row_in && ((in >> e) & 1u);
+    t->v[e] = here ? widen(T[at + e]) : C(0);
+    cm->v[e] = here ? widen(Cm[at + e]) : C(0);
+  }
+}
+
+// One row step of a warp's strip, with P = (iteration index) mod 3 fixed at
+// compile time so the rotating row slots of every level are registers.
+// Level s (1..K) advances row g - s from level s - 1's rows g - s - 1,
+// g - s and g - s + 1; level L keeps row ρ in slot (ρ - g_begin) mod 3.
+template <typename S, int K, int P>
+__device__ __forceinline__ void tb2_row(
+    typename Compute<S>::type (&v)[K][3][kTbLaneCols],
+    const Quad<typename Compute<S>::type>& t_row, Quad<typename Compute<S>::type>* ring,
+    int i, int64_t g, int64_t r0, int64_t r1, int64_t n1, int64_t c0, unsigned core,
+    S* __restrict__ out, typename Compute<S>::type inv0,
+    typename Compute<S>::type inv1) {
+  using C = typename Compute<S>::type;
   const C zero = C(0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  constexpr int kWarps = kThreads / 32;
-  const int rows = (e0 + kWarps - 1) / kWarps;
-  const int r_begin = warp * rows;
-  const int r_end = r_begin + rows < e0 ? r_begin + rows : e0;
-  if (r_begin >= r_end) return;
-  for (int c = lane; c < e1; c += 32) {
-    C up = r_begin > 0 ? a[(r_begin - 1) * e1 + c] : zero;
-    C cen = a[r_begin * e1 + c];
-    for (int r = r_begin; r < r_end; ++r) {
-      const int j = r * e1 + c;
-      const C down = r + 1 < e0 ? a[j + e1] : zero;
-      const C left = c > 0 ? a[j - 1] : zero;
-      const C right = c + 1 < e1 ? a[j + 1] : zero;
-      b[j] = update<C, 2, kDirect>(cen, cm[j], down + up, right + left, zero, inv0,
-                                   inv1, zero);
-      up = cen;
-      cen = down;
+#pragma unroll
+  for (int e = 0; e < kTbLaneCols; ++e) v[0][P][e] = t_row.v[e];
+#pragma unroll
+  for (int s = 1; s <= K; ++s) {
+    constexpr int kSlots = 3;
+    const int sd = ((P - s + 1) % kSlots + kSlots) % kSlots;  // row g - s + 1
+    const int sc = ((P - s) % kSlots + kSlots) % kSlots;      // row g - s
+    const int su = ((P - s - 1) % kSlots + kSlots) % kSlots;  // row g - s - 1
+    const C(&up)[kTbLaneCols] = v[s - 1][su];
+    const C(&cen)[kTbLaneCols] = v[s - 1][sc];
+    const C(&down)[kTbLaneCols] = v[s - 1][sd];
+    // Cm of row g - s: ring slot (i - s) mod (K + 1); slots not yet
+    // written hold the zeros of rows above the first loaded one.
+    const Quad<C> cm = ring[(((i - s) % (K + 1)) + (K + 1)) % (K + 1) * 32];
+    // The neighbours beyond the strip's two outer columns are unknown; the
+    // shuffle hands lanes 0 and 31 a finite value of their own instead.
+    // Like any halo error it moves one column a level and never reaches
+    // the core, and a column beyond the block's edge still stays exactly
+    // 0 (its Cm is 0), so no lane needs a select.
+    const C edge_l = __shfl_up_sync(0xffffffffu, cen[kTbLaneCols - 1], 1);
+    const C edge_r = __shfl_down_sync(0xffffffffu, cen[0], 1);
+    C nv[kTbLaneCols];
+#pragma unroll
+    for (int e = 0; e < kTbLaneCols; ++e) {
+      const C left = e > 0 ? cen[e - 1] : edge_l;
+      const C right = e + 1 < kTbLaneCols ? cen[e + 1] : edge_r;
+      nv[e] = update<C, 2, kDirect>(cen[e], cm.v[e], down[e] + up[e], right + left, zero,
+                                    inv0, inv1, zero);
+    }
+    if (s < K) {
+#pragma unroll
+      for (int e = 0; e < kTbLaneCols; ++e) v[s][sc][e] = nv[e];
+    } else {
+      const int64_t row = g - K;
+      if (row >= r0 && row < r1) {
+#pragma unroll
+        for (int e = 0; e < kTbLaneCols; ++e)
+          if ((core >> e) & 1u) out[row * n1 + c0 + e] = narrow<S>(nv[e]);
+      }
     }
   }
 }
+
+// A warp owns a strip of 128 loaded columns (4 a lane) — a core of
+// 128 - 2K plus K halo columns a side — over a segment of `seg_rows` core
+// rows plus K halo rows a side. It walks the rows once, top to bottom:
+// each row step loads one row (the next is prefetched into registers while
+// this one is computed) and advances every time level by one row, level s
+// lagging level s - 1 by a row, so level K emits one finished core row a
+// step. Warps are independent: neighbours across lanes come by shuffle,
+// nothing is synchronised, and shared memory holds only each lane's ring
+// of Cm rows.
+template <typename S, int K>
+__global__ void __launch_bounds__(kTbWarpsPerBlock * 32)
+tb2_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ out,
+           int64_t n0, int64_t n1, int64_t strips, int64_t tiles, int64_t seg_rows,
+           typename Compute<S>::type inv0, typename Compute<S>::type inv1) {
+  using C = typename Compute<S>::type;
+  constexpr int kCore = kTbStripCols - 2 * K;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTbWarpsPerBlock + warp;
+  if (tile >= tiles) return;  // the whole warp: nothing below synchronises the block
+  const int64_t strip = tile % strips;
+  const int64_t r0 = (tile / strips) * seg_rows;
+  const int64_t r1 = r0 + seg_rows < n0 ? r0 + seg_rows : n0;
+  const int64_t c0 = strip * kCore - K + lane * kTbLaneCols;
+  // Bits per column: inside the block, and in the strip's core.
+  unsigned in = 0, core = 0;
+#pragma unroll
+  for (int e = 0; e < kTbLaneCols; ++e) {
+    const int lc = lane * kTbLaneCols + e;
+    if (c0 + e >= 0 && c0 + e < n1) in |= 1u << e;
+    if (lc >= K && lc < K + kCore && c0 + e < n1) core |= 1u << e;
+  }
+  // This lane's ring: slot q at ring[q * 32] (a warp's slot is 32
+  // consecutive Quads, so its loads are conflict-free).
+  Quad<C>* ring = reinterpret_cast<Quad<C>*>(smem_raw) + warp * 32 * (K + 1) + lane;
+#pragma unroll
+  for (int q = 0; q <= K; ++q) {
+#pragma unroll
+    for (int e = 0; e < kTbLaneCols; ++e) ring[q * 32].v[e] = C(0);
+  }
+  C v[K][3][kTbLaneCols];
+#pragma unroll
+  for (int l = 0; l < K; ++l)
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < kTbLaneCols; ++e) v[l][q][e] = C(0);
+  // Rows above the block are 0 in truth as in the zeroed state, so the
+  // first segment starts at row 0; every segment ends K rows past its core,
+  // where level K finishes the core's last row.
+  const int64_t g_begin = r0 - K > 0 ? r0 - K : 0;
+  const int64_t g_end = r1 + K;
+  Quad<C> t_next, cm_next;
+  tb2_load<S, C>(T, Cm, g_begin, n0, n1, c0, in, &t_next, &cm_next);
+  int i = 0;
+  for (int64_t g = g_begin; g < g_end; g += 3, i += 3) {
+#define RMT_TB2_STEP(P)                                                           \
+    {                                                                             \
+      const int64_t gp = g + P;                                                   \
+      if (gp >= g_end) break;                                                     \
+      const Quad<C> t_row = t_next;                                               \
+      ring[((i + P) % (K + 1)) * 32] = cm_next;                                   \
+      if (gp + 1 < g_end) tb2_load<S, C>(T, Cm, gp + 1, n0, n1, c0, in, &t_next, &cm_next); \
+      tb2_row<S, K, P>(v, t_row, ring, i + P, gp, r0, r1, n1, c0, core, out, inv0, inv1); \
+    }
+    RMT_TB2_STEP(0)
+    RMT_TB2_STEP(1)
+    RMT_TB2_STEP(2)
+#undef RMT_TB2_STEP
+  }
+}
+
+// Per device, once for each 2D kernel: its shared bytes against the
+// device's opt-in limit a block (-3 if they exceed it), and the function
+// attribute that allows them (only needed above the 48 KB default).
+// Returns 0, -1 for a device index out of range, -3, or a CUDA error.
+constexpr int kMaxDevices = 64;
+
+template <typename S, int K>
+int tb2_prepare(int dev) {
+  using C = typename Compute<S>::type;
+  static bool ready[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return -1;
+  if (ready[dev]) return 0;
+  const int64_t smem = tb2_smem_bytes<C>(K);
+  int optin = 0;
+  const cudaError_t got =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (got != cudaSuccess) return static_cast<int>(got);
+  if (smem > optin) return -3;
+  if (smem > 48 * 1024) {
+    auto kernel = tb2_kernel<S, K>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  ready[dev] = true;
+  return 0;
+}
+
+template <typename S, int K>
+int launch_tb2(const void* T, const void* Cm, void* out, int64_t n0, int64_t n1,
+               int64_t seg_rows, double inv0, double inv1, int dev, cudaStream_t stream) {
+  using C = typename Compute<S>::type;
+  constexpr int kCore = kTbStripCols - 2 * K;
+  if (seg_rows < 1 || n0 < 1 || n1 < 1) return -1;
+  const int rc = tb2_prepare<S, K>(dev);
+  if (rc != 0) return rc;
+  const int64_t strips = (n1 + kCore - 1) / kCore;
+  const int64_t tiles = strips * ((n0 + seg_rows - 1) / seg_rows);
+  const int64_t blocks = (tiles + kTbWarpsPerBlock - 1) / kTbWarpsPerBlock;
+  if (blocks > 2147483647LL) return -2;
+  tb2_kernel<S, K><<<static_cast<unsigned>(blocks), kTbWarpsPerBlock * 32,
+                     static_cast<size_t>(tb2_smem_bytes<C>(K)), stream>>>(
+      static_cast<const S*>(T), static_cast<const S*>(Cm), static_cast<S*>(out), n0, n1,
+      strips, tiles, seg_rows, C(inv0), C(inv1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S, int K>
+int tb2_warps_per_sm(int dev) {
+  using C = typename Compute<S>::type;
+  const int rc = tb2_prepare<S, K>(dev);
+  if (rc != 0) return rc < 0 ? rc : -rc;  // every failure below 1
+  int blocks = 0;
+  auto kernel = tb2_kernel<S, K>;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kTbWarpsPerBlock * 32,
+      static_cast<size_t>(tb2_smem_bytes<C>(K)));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return blocks * kTbWarpsPerBlock;
+}
+
+// The 2D kernel's depth K is a template argument (its level state is
+// registers): one instantiation per K in 1..16.
+#define RMT_TB2_K_CASES(F)                                                              \
+  F(1) F(2) F(3) F(4) F(5) F(6) F(7) F(8) F(9) F(10) F(11) F(12) F(13) F(14) F(15) F(16)
+
+template <typename S>
+int tb2_dispatch(int k, const void* T, const void* Cm, void* out, int64_t n0, int64_t n1,
+                 int64_t seg_rows, double inv0, double inv1, int dev, cudaStream_t s) {
+  switch (k) {
+#define RMT_CASE(K) \
+    case K: return launch_tb2<S, K>(T, Cm, out, n0, n1, seg_rows, inv0, inv1, dev, s);
+    RMT_TB2_K_CASES(RMT_CASE)
+#undef RMT_CASE
+    default: return -1;
+  }
+}
+
+template <typename S>
+int tb2_occupancy(int k, int dev) {
+  switch (k) {
+#define RMT_CASE(K) case K: return tb2_warps_per_sm<S, K>(dev);
+    RMT_TB2_K_CASES(RMT_CASE)
+#undef RMT_CASE
+    default: return -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rmt_tb_sweep, 3D: light-cone tiles in shared memory
+// ---------------------------------------------------------------------------
 
 // Tile coordinates (j0, j1, j2) of tile cell j over extents (e0, e1, e2).
 __device__ __forceinline__ void tile_coords(int j, int e1, int e2, int* j0,
@@ -296,83 +530,50 @@ __device__ __forceinline__ void tile_coords(int j, int e1, int e2, int* j0,
   *j2 = r - *j1 * e2;
 }
 
-template <typename S, int NDIM>
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-tb_sweep_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
-                S* __restrict__ out, int k, int64_t n0, int64_t n1,
-                int64_t n2, int t0, int t1, int t2,
-                typename Compute<S>::type inv0,
-                typename Compute<S>::type inv1,
-                typename Compute<S>::type inv2) {
+tb3_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ out, int k,
+           int64_t n0, int64_t n1, int64_t n2, int t0, int t1, int t2,
+           typename Compute<S>::type inv0, typename Compute<S>::type inv1,
+           typename Compute<S>::type inv2) {
   using C = typename Compute<S>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // Tile = core (t0, t1, t2) plus k halo cells per side on each of the
-  // NDIM axes (axis 2 has extent 1 and no halo in 2D).
+  // Tile = core (t0, t1, t2) plus k halo cells per side on each axis.
   const int e0 = t0 + 2 * k;
   const int e1 = t1 + 2 * k;
-  const int e2 = NDIM == 3 ? t2 + 2 * k : 1;
+  const int e2 = t2 + 2 * k;
   const int tile = e0 * e1 * e2;
   C* a = reinterpret_cast<C*>(smem_raw);
   C* b = a + tile;
   C* cm = b + tile;
   // Block coordinates of tile cell (0, 0, 0).
-  int64_t o0, o1, o2;
-  if (NDIM == 2) {
-    o0 = static_cast<int64_t>(blockIdx.y) * t0 - k;
-    o1 = static_cast<int64_t>(blockIdx.x) * t1 - k;
-    o2 = 0;
-  } else {
-    o0 = static_cast<int64_t>(blockIdx.z) * t0 - k;
-    o1 = static_cast<int64_t>(blockIdx.y) * t1 - k;
-    o2 = static_cast<int64_t>(blockIdx.x) * t2 - k;
-  }
+  const int64_t o0 = static_cast<int64_t>(blockIdx.z) * t0 - k;
+  const int64_t o1 = static_cast<int64_t>(blockIdx.y) * t1 - k;
+  const int64_t o2 = static_cast<int64_t>(blockIdx.x) * t2 - k;
   const int64_t s1 = n2;
   const int64_t s0 = n1 * n2;
   const C zero = C(0);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  constexpr int kWarps = kThreads / 32;
-  if (NDIM == 2) {
-    // Rows by warp, columns by lane: coalesced loads, no index division.
-    for (int r = warp; r < e0; r += kWarps) {
-      const int64_t g0 = o0 + r;
-      const bool row_in = g0 >= 0 && g0 < n0;
-      for (int c = lane; c < e1; c += 32) {
-        const int64_t g1 = o1 + c;
-        const bool inside = row_in && g1 >= 0 && g1 < n1;
-        const int64_t g = g0 * n1 + g1;
-        a[r * e1 + c] = inside ? widen(T[g]) : zero;
-        cm[r * e1 + c] = inside ? widen(Cm[g]) : zero;
-      }
-    }
-  } else {
-    for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-      int j0, j1, j2;
-      tile_coords(j, e1, e2, &j0, &j1, &j2);
-      const int64_t g0 = o0 + j0, g1 = o1 + j1, g2 = o2 + j2;
-      const bool inside = g0 >= 0 && g0 < n0 && g1 >= 0 && g1 < n1 && g2 >= 0 && g2 < n2;
-      const int64_t g = g0 * s0 + g1 * s1 + g2;
-      a[j] = inside ? widen(T[g]) : zero;
-      cm[j] = inside ? widen(Cm[g]) : zero;
-    }
+  for (int j = threadIdx.x; j < tile; j += blockDim.x) {
+    int j0, j1, j2;
+    tile_coords(j, e1, e2, &j0, &j1, &j2);
+    const int64_t g0 = o0 + j0, g1 = o1 + j1, g2 = o2 + j2;
+    const bool inside = g0 >= 0 && g0 < n0 && g1 >= 0 && g1 < n1 && g2 >= 0 && g2 < n2;
+    const int64_t g = g0 * s0 + g1 * s1 + g2;
+    a[j] = inside ? widen(T[g]) : zero;
+    cm[j] = inside ? widen(Cm[g]) : zero;
   }
   __syncthreads();
 
   const int st0 = e1 * e2;  // tile strides
   const int st1 = e2;
   for (int step = 0; step < k; ++step) {
-    if (NDIM == 2) {
-      tb_step_2d<C>(a, b, cm, e0, e1, inv0, inv1);
-    } else {
-      for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-        int j0, j1, j2;
-        tile_coords(j, e1, e2, &j0, &j1, &j2);
-        const C p0 = (j0 + 1 < e0 ? a[j + st0] : zero) + (j0 > 0 ? a[j - st0] : zero);
-        const C p1 = (j1 + 1 < e1 ? a[j + st1] : zero) + (j1 > 0 ? a[j - st1] : zero);
-        const C p2 = (j2 + 1 < e2 ? a[j + 1] : zero) + (j2 > 0 ? a[j - 1] : zero);
-        b[j] = update<C, NDIM, kDirect>(a[j], cm[j], p0, p1, p2, inv0, inv1, inv2);
-      }
+    for (int j = threadIdx.x; j < tile; j += blockDim.x) {
+      int j0, j1, j2;
+      tile_coords(j, e1, e2, &j0, &j1, &j2);
+      const C p0 = (j0 + 1 < e0 ? a[j + st0] : zero) + (j0 > 0 ? a[j - st0] : zero);
+      const C p1 = (j1 + 1 < e1 ? a[j + st1] : zero) + (j1 > 0 ? a[j - st1] : zero);
+      const C p2 = (j2 + 1 < e2 ? a[j + 1] : zero) + (j2 > 0 ? a[j - 1] : zero);
+      b[j] = update<C, 3, kDirect>(a[j], cm[j], p0, p1, p2, inv0, inv1, inv2);
     }
     __syncthreads();
     C* swap = a;
@@ -380,97 +581,81 @@ tb_sweep_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
     b = swap;
   }
 
-  if (NDIM == 2) {
-    for (int r = warp; r < t0; r += kWarps) {
-      const int64_t g0 = o0 + k + r;
-      if (g0 >= n0) break;
-      for (int c = lane; c < t1; c += 32) {
-        const int64_t g1 = o1 + k + c;
-        if (g1 < n1) out[g0 * n1 + g1] = narrow<S>(a[(r + k) * e1 + c + k]);
-      }
-    }
-  } else {
-    const int core = t0 * t1 * t2;
-    for (int j = threadIdx.x; j < core; j += blockDim.x) {
-      int j0, j1, j2;
-      tile_coords(j, t1, t2, &j0, &j1, &j2);
-      const int64_t g0 = o0 + k + j0, g1 = o1 + k + j1, g2 = o2 + k + j2;
-      if (g0 < n0 && g1 < n1 && g2 < n2) {
-        const int tj = (j0 + k) * st0 + (j1 + k) * st1 + j2 + k;
-        out[g0 * s0 + g1 * s1 + g2] = narrow<S>(a[tj]);
-      }
+  const int core = t0 * t1 * t2;
+  for (int j = threadIdx.x; j < core; j += blockDim.x) {
+    int j0, j1, j2;
+    tile_coords(j, t1, t2, &j0, &j1, &j2);
+    const int64_t g0 = o0 + k + j0, g1 = o1 + k + j1, g2 = o2 + k + j2;
+    if (g0 < n0 && g1 < n1 && g2 < n2) {
+      const int tj = (j0 + k) * st0 + (j1 + k) * st1 + j2 + k;
+      out[g0 * s0 + g1 * s1 + g2] = narrow<S>(a[tj]);
     }
   }
 }
 
-// Shared bytes of a tile: two T buffers and Cm, each (core + 2k) cells
-// per axis of the compute type.
+// Shared bytes of a 3D tile: two T buffers and Cm, each (core + 2k)
+// cells per axis of the compute type.
 template <typename C>
-int64_t tile_bytes(int ndim, int k, const int* t) {
+int64_t tile_bytes(int k, const int* t) {
   int64_t cells = 1;
-  for (int ax = 0; ax < ndim; ++ax) cells *= t[ax] + 2 * k;
+  for (int ax = 0; ax < 3; ++ax) cells *= t[ax] + 2 * k;
   return 3 * cells * static_cast<int64_t>(sizeof(C));
 }
 
-template <typename S, int NDIM>
-int launch_tb(int k, const void* T, const void* Cm, void* out, int64_t n0,
-              int64_t n1, int64_t n2, double inv0, double inv1, double inv2,
-              cudaStream_t stream) {
+template <typename S>
+int launch_tb3(int k, const void* T, const void* Cm, void* out, int64_t n0, int64_t n1,
+               int64_t n2, double inv0, double inv1, double inv2, int dev,
+               cudaStream_t stream) {
   using C = typename Compute<S>::type;
-  auto kernel = tb_sweep_kernel<S, NDIM>;
-  int dev = 0;
-  int optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int t[3] = {16, 16, 16};
-  if (NDIM == 2) {
-    // kTileCols columns; rows a multiple of 8 (one per warp and pass),
-    // as many as fit the target, at least 2k + 8.
-    const int64_t row_bytes = 3 * kTileCols * static_cast<int64_t>(sizeof(C));
-    int e0 = static_cast<int>(kTileSmemTarget / row_bytes) / 8 * 8;
-    if (e0 > 96) e0 = 96;
-    if (e0 < 2 * k + 8) e0 = 2 * k + 8;
-    t[0] = e0 - 2 * k;
-    t[1] = kTileCols - 2 * k;
-    t[2] = 1;
-  } else {
-    // 3D: the halo is most of the tile, so take the largest tile shared
-    // memory holds (one block per SM) rather than two smaller ones.
-    while (tile_bytes<C>(NDIM, k, t) > optin) {
-      int big = 0;
-      for (int ax = 1; ax < NDIM; ++ax)
-        if (t[ax] > t[big]) big = ax;
-      if (t[big] == 1) break;
-      t[big] /= 2;
-    }
+  // Per device, read once: the block's shared-memory limit, and the
+  // largest dynamic size set on the kernel so far.
+  static int optin[kMaxDevices] = {};
+  static int64_t allowed[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return -1;
+  if (optin[dev] == 0) {
+    const cudaError_t err =
+        cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t smem = tile_bytes<C>(NDIM, k, t);
-  if (smem > optin) return -3;  // the light cone does not fit shared memory
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t last = NDIM == 2 ? n1 : n2;
-  const int64_t second = NDIM == 2 ? n0 : n1;
-  const int64_t gx = (last + t[NDIM - 1] - 1) / t[NDIM - 1];
-  const int64_t gy = (second + t[NDIM - 2] - 1) / t[NDIM - 2];
-  const int64_t gz = NDIM == 2 ? 1 : (n0 + t[0] - 1) / t[0];
+  // The halo is most of a 3D tile, so take the largest tile shared memory
+  // holds (one block per SM): start at 16³ of core and halve the largest
+  // axis until it fits.
+  int t[3] = {16, 16, 16};
+  while (tile_bytes<C>(k, t) > optin[dev]) {
+    int big = 0;
+    for (int ax = 1; ax < 3; ++ax)
+      if (t[ax] > t[big]) big = ax;
+    if (t[big] == 1) break;
+    t[big] /= 2;
+  }
+  const int64_t smem = tile_bytes<C>(k, t);
+  if (smem > optin[dev]) return -3;  // the light cone does not fit shared memory
+  if (smem > allowed[dev]) {
+    auto kernel = tb3_kernel<S>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev] = smem;
+  }
+  const int64_t gx = (n2 + t[2] - 1) / t[2];
+  const int64_t gy = (n1 + t[1] - 1) / t[1];
+  const int64_t gz = (n0 + t[0] - 1) / t[0];
   if (gx > 2147483647LL || gy > 65535 || gz > 65535) return -2;
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
                   static_cast<unsigned>(gz));
-  kernel<<<grid, kThreads, static_cast<size_t>(smem), stream>>>(
-      static_cast<const S*>(T), static_cast<const S*>(Cm), static_cast<S*>(out),
-      k, n0, n1, n2, t[0], t[1], t[2], C(inv0), C(inv1), C(inv2));
+  tb3_kernel<S><<<grid, kThreads, static_cast<size_t>(smem), stream>>>(
+      static_cast<const S*>(T), static_cast<const S*>(Cm), static_cast<S*>(out), k, n0, n1,
+      n2, t[0], t[1], t[2], C(inv0), C(inv1), C(inv2));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
-int tb_ndim(int ndim, int k, const void* T, const void* Cm, void* out,
-            int64_t n0, int64_t n1, int64_t n2, double inv0, double inv1,
-            double inv2, cudaStream_t s) {
-  if (ndim == 2) return launch_tb<S, 2>(k, T, Cm, out, n0, n1, 1, inv0, inv1, 0.0, s);
-  return launch_tb<S, 3>(k, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, s);
+int tb_ndim(int ndim, int k, const void* T, const void* Cm, void* out, int64_t n0,
+            int64_t n1, int64_t n2, int64_t seg_rows, double inv0, double inv1,
+            double inv2, int dev, cudaStream_t s) {
+  if (ndim == 2)
+    return tb2_dispatch<S>(k, T, Cm, out, n0, n1, seg_rows, inv0, inv1, dev, s);
+  return launch_tb3<S>(k, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, dev, s);
 }
 
 }  // namespace
@@ -504,21 +689,35 @@ extern "C" int rmt_multi_step_cm(int dtype, int ndim, int form, int n_steps,
   }
 }
 
-// `k` direct-form steps, 1 <= k <= 16. `out` must not alias `T`.
+// `k` direct-form steps, 1 <= k <= 16. `out` must not alias `T`. 2D takes
+// `seg_rows` core rows a segment from the plan of ops/multistep.tb_plan;
+// 3D ignores it. `dev` is the current device's index.
 extern "C" int rmt_tb_sweep(int dtype, int ndim, int k, const void* T,
                             const void* Cm, void* out, int64_t n0, int64_t n1,
-                            int64_t n2, double inv0, double inv1, double inv2,
-                            void* stream) {
+                            int64_t n2, int64_t seg_rows, double inv0, double inv1,
+                            double inv2, int dev, void* stream) {
   if ((ndim != 2 && ndim != 3) || k < 1 || k > 16) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return tb_ndim<float>(ndim, k, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, s);
+      return tb_ndim<float>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, inv0, inv1, inv2, dev, s);
     case kF64:
-      return tb_ndim<double>(ndim, k, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, s);
+      return tb_ndim<double>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, inv0, inv1, inv2, dev, s);
     case kBF16:
-      return tb_ndim<__nv_bfloat16>(ndim, k, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, s);
+      return tb_ndim<__nv_bfloat16>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, inv0, inv1, inv2, dev, s);
     default:
       return -1;
+  }
+}
+
+// Warps of the 2D tb_sweep kernel of (dtype, k) that one SM of device
+// `dev` holds at once (> 0), or a failure below 1 (-1, -3 as above, or
+// minus a CUDA error); the plan sizes its segments by it.
+extern "C" int rmt_tb_warps_per_sm(int dtype, int k, int dev) {
+  switch (dtype) {
+    case kF32: return tb2_occupancy<float>(k, dev);
+    case kF64: return tb2_occupancy<double>(k, dev);
+    case kBF16: return tb2_occupancy<__nv_bfloat16>(k, dev);
+    default: return -1;
   }
 }

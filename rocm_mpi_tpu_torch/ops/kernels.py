@@ -87,39 +87,59 @@ def _store(result: torch.Tensor, dtype: torch.dtype, out):
     return out.copy_(result)
 
 
-def _span(t: torch.Tensor) -> tuple[int, int]:
-    start = t.data_ptr()
-    return start, start + t.numel() * t.element_size()
-
-
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.device != b.device:
         return False
-    a0, a1 = _span(a)
-    b0, b1 = _span(b)
-    return a0 < b1 and b0 < a1
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.nbytes and b0 < a0 + a.nbytes
 
 
 def _check_dtypes(name: str, operands: dict) -> None:
-    first = next(iter(operands.values()))
-    if first.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: dtype {first.dtype} not supported "
-                        "(float32, float64, bfloat16)")
+    first = None
     for label, t in operands.items():
-        if t.dtype != first.dtype:
-            raise TypeError(f"{name}: {label} dtype {t.dtype} != field dtype {first.dtype}")
+        if first is None:
+            first = t.dtype
+            if first not in _DTYPE_CODE:
+                raise TypeError(f"{name}: dtype {first} not supported "
+                                "(float32, float64, bfloat16)")
+        elif t.dtype != first:
+            raise TypeError(f"{name}: {label} dtype {t.dtype} != field dtype {first}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
 def _check_out(name: str, out, core_shape, dtype, inputs) -> None:
-    if tuple(out.shape) != tuple(core_shape) or out.dtype != dtype:
+    if out.shape != tuple(core_shape) or out.dtype != dtype:
         raise ValueError(f"{name}: out must be {tuple(core_shape)} {dtype}, got "
                          f"{tuple(out.shape)} {out.dtype}")
     if not out.is_contiguous():
         raise ValueError(f"{name}: out must be contiguous")
-    if any(_overlaps(out, t) for t in inputs):
-        raise ValueError(f"{name}: out must not alias an input")
+    for t in inputs:
+        if _overlaps(out, t):
+            raise ValueError(f"{name}: out must not alias an input")
+
+
+def _operands_ok(field: torch.Tensor, core: dict, core_shape: tuple, spacing, out) -> bool:
+    """check_operands' verdict as plain comparisons, with no message: the
+    path every launch takes when its operands are good."""
+    dtype = field.dtype
+    if dtype not in _DTYPE_CODE or field.ndim not in (2, 3) or not field.is_contiguous():
+        return False
+    if spacing is not None and len(spacing) != field.ndim:
+        return False
+    for t in core.values():
+        if t.dtype != dtype or t.shape != core_shape or not t.is_contiguous():
+            return False
+    if out is None:
+        return True
+    if out.dtype != dtype or out.shape != core_shape or not out.is_contiguous():
+        return False
+    if _overlaps(out, field):
+        return False
+    for t in core.values():
+        if _overlaps(out, t):
+            return False
+    return True
 
 
 def check_operands(name: str, field: torch.Tensor, core: dict, core_shape, spacing,
@@ -128,13 +148,17 @@ def check_operands(name: str, field: torch.Tensor, core: dict, core_shape, spaci
     core-shaped operands `core` ({label: tensor}) share a supported dtype
     and are contiguous, `core` has `core_shape`, one spacing per axis
     (unless `spacing` is None), and `out` (if given) is a core-shaped buffer
-    aliasing no input."""
+    aliasing no input. Good operands pass on plain comparisons; the checks
+    that name the fault run only when those fail."""
+    core_shape = tuple(core_shape)
+    if _operands_ok(field, core, core_shape, spacing, out):
+        return
     _check_dtypes(name, {"field": field, **core})
     if field.ndim not in (2, 3):
         raise ValueError(f"{name}: only 2D and 3D fields, got {field.ndim}D")
     for label, t in core.items():
-        if tuple(t.shape) != tuple(core_shape):
-            raise ValueError(f"{name}: {label} shape {tuple(t.shape)} != {tuple(core_shape)}")
+        if t.shape != core_shape:
+            raise ValueError(f"{name}: {label} shape {tuple(t.shape)} != {core_shape}")
     if spacing is not None and len(spacing) != field.ndim:
         raise ValueError(f"{name}: {len(spacing)} spacings for a {field.ndim}D field")
     if out is not None:
@@ -193,16 +217,34 @@ def inv3(inv_d2) -> tuple[float, ...]:
     return tuple(inv_d2) + (0.0,) * (3 - len(inv_d2))
 
 
+# The ctypes function of each symbol, bound at its first launch.
+_FUNCS: dict = {}
+
+
+def _raw_stream(index: int) -> int:
+    """The cudaStream_t of device `index`'s current stream."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(lib_name: str, signatures: dict, symbol: str, device, *args) -> None:
     """Call `symbol` of library `lib_name` (built at first use) with `args`
-    and this device's current stream; raise if it reports a failure."""
-    lib = _build.load(lib_name, signatures)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, symbol)(*args, stream)
+    and this device's current stream; raise if it reports a failure. The
+    device's context is entered only when it is not the current one."""
+    fn = _FUNCS.get(symbol)
+    if fn is None:
+        fn = _FUNCS[symbol] = getattr(_build.load(lib_name, signatures), symbol)
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index))
     if rc != 0:
         raise RuntimeError(
-            f"{symbol} launch failed with code {rc} (-1: bad dtype/rank/form/steps/box, "
+            f"{symbol} launch failed with code {rc} (-1: bad dtype/rank/form/steps/box/plan, "
             "-2: grid overflow, -3: does not fit the card, >0: CUDA error)"
         )
 

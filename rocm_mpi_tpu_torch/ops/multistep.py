@@ -21,11 +21,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 import warnings
 from typing import NamedTuple
 
 import torch
 
+from rocm_mpi_tpu_torch.ops import _build
 from rocm_mpi_tpu_torch.ops.kernels import (
     _DTYPE_CODE,
     LAUNCHES,
@@ -72,9 +74,12 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,                 # dtype, ndim, k
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,        # T, Cm, out
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,           # extents
+        ctypes.c_int64,                                           # seg_rows
         ctypes.c_double, ctypes.c_double, ctypes.c_double,        # inv_d2
+        ctypes.c_int,                                             # device index
         ctypes.c_void_p,                                          # cudaStream_t
     ]),
+    "rmt_tb_warps_per_sm": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
 }
 
 
@@ -240,6 +245,100 @@ def hbm_class_edge(itemsize: int = 4, k: int = DEFAULT_TB_STEPS) -> int:
     return n
 
 
+class TbLayout(NamedTuple):
+    """The 2D tb_sweep kernel's layout: columns a lane holds and warps a
+    block (csrc/multistep.cu's kTbLaneCols, kTbWarpsPerBlock)."""
+
+    lane_cols: int
+    warps_per_block: int
+
+    @property
+    def strip_cols(self) -> int:
+        """Loaded columns of a warp's strip: 32 lanes of lane_cols."""
+        return 32 * self.lane_cols
+
+
+@functools.lru_cache(maxsize=None)
+def tb_layout() -> TbLayout:
+    """The layout as the kernel's source states it, read from it, so that
+    the plan and the kernel cannot disagree."""
+    src = (_build.CSRC / "multistep.cu").read_text()
+    return TbLayout(*(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                      for name in ("kTbLaneCols", "kTbWarpsPerBlock")))
+
+
+class TbPlan(NamedTuple):
+    """How the 2D tb_sweep kernel cuts an (n0, n1) block: `strips` column
+    strips of `core_cols` core columns (each loaded with k halo columns a
+    side, tb_layout().strip_cols in all), `segments` row segments of
+    `seg_rows` core rows (loaded with k halo rows a side); one warp a
+    (strip, segment) tile, in `waves` rounds of the card's resident warps.
+    The kernel takes `seg_rows` and derives the rest itself."""
+
+    k: int
+    core_cols: int
+    strips: int
+    seg_rows: int
+    segments: int
+    waves: int
+
+
+def tb_plan(shape, k: int, resident_warps: int) -> TbPlan:
+    """The 2D tb_sweep plan of a k-step sweep over `shape` on a card that
+    holds `resident_warps` of the kernel's warps at once. The segment
+    height minimises the sweep's estimated time, waves × (rows a warp
+    walks): tall segments waste less on halo rows, and enough of them
+    fill the card in whole waves."""
+    n0, n1 = (int(n) for n in shape)
+    if not 1 <= k <= _TB_MAX_STEPS:
+        raise ValueError(f"tb_sweep supports 1 <= k <= {_TB_MAX_STEPS}, got {k}")
+    if n0 < 1 or n1 < 1 or resident_warps < 1:
+        raise ValueError(f"tb_plan: empty block {tuple(shape)} or no resident warps")
+    core_cols = tb_layout().strip_cols - 2 * k
+    strips = -(-n1 // core_cols)
+    best = None
+    for segments in range(1, n0 + 1):
+        seg_rows = -(-n0 // segments)
+        if segments > 1 and seg_rows == best[1]:
+            continue  # the same height as fewer segments
+        waves = -(-(strips * -(-n0 // seg_rows)) // resident_warps)
+        cost = waves * (seg_rows + 2 * k)
+        if best is None or cost < best[0]:
+            best = (cost, seg_rows, waves)
+        if seg_rows <= 2 * k:
+            break  # shorter segments are mostly halo
+    _, seg_rows, waves = best
+    return TbPlan(k, core_cols, strips, seg_rows, -(-n0 // seg_rows), waves)
+
+
+def tb_tiles(plan: TbPlan, shape):
+    """The core boxes ((r0, r1), (c0, c1)) of the plan's tiles over
+    `shape`, clipped to the block."""
+    n0, n1 = (int(n) for n in shape)
+    for seg in range(plan.segments):
+        for strip in range(plan.strips):
+            yield ((seg * plan.seg_rows, min((seg + 1) * plan.seg_rows, n0)),
+                   (strip * plan.core_cols, min((strip + 1) * plan.core_cols, n1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(index: int, shape: tuple, k: int, dtype) -> TbPlan:
+    """tb_plan for CUDA device `index`, its resident warps read from the
+    built kernel once per (device, dtype, k)."""
+    return tb_plan(shape, k, _resident_warps(index, k, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_warps(index: int, k: int, dtype) -> int:
+    lib = _build.load("multistep", _SIGNATURES)
+    with torch.cuda.device(index):
+        per_sm = lib.rmt_tb_warps_per_sm(_DTYPE_CODE[dtype], k, index)
+    if per_sm < 1:
+        raise RuntimeError(f"tb_sweep: no resident warp of the k={k} {dtype} kernel "
+                           f"(code {per_sm})")
+    return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -353,16 +452,21 @@ def multi_step(T, Cm, inv_d2, n: int, form: str, out=None):
 
 def tb_sweep(T, Cm, inv_d2, k: int, out=None):
     """The tb_sweep kernel's wrapper: `k` direct-form steps by temporal
-    blocking in one launch for CUDA tensors, tb_sweep_plain for CPU ones."""
+    blocking in one launch for CUDA tensors, tb_sweep_plain for CPU ones.
+    A 2D launch follows tb_plan for its device, shape, k and dtype."""
     _check_operands("tb_sweep", T, Cm, out)
     operands = (T, Cm) if out is None else (T, Cm, out)
     if not use_kernel(*operands):
         return tb_sweep_plain(T, Cm, inv_d2, k, out=out)
+    k = int(k)
     if out is None:
         out = torch.empty_like(T)
+    seg_rows = 0
+    if T.ndim == 2:
+        seg_rows = _device_plan(T.device.index, tuple(T.shape), k, T.dtype).seg_rows
     launch("multistep", _SIGNATURES, "rmt_tb_sweep", T.device, _DTYPE_CODE[T.dtype], T.ndim,
-           int(k), T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(T.shape),
-           *inv3(inv_d2))
+           k, T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(T.shape), seg_rows,
+           *inv3(inv_d2), T.device.index)
     LAUNCHES["tb_sweep"] += 1
     return out
 

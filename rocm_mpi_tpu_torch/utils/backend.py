@@ -45,10 +45,11 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when the hand kernel must run (every tensor on one CUDA
     device), False when the plain version must (every tensor on the CPU).
     Mixed devices and any other device type raise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
-    (dev,) = devices
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            devices = sorted({str(u.device) for u in tensors})
+            raise ValueError(f"tensors on different devices: {devices}")
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":

@@ -197,3 +197,84 @@ def test_edge_masked_cm_matches_jax(shape):
     got = K.edge_masked_cm(torch.from_numpy(T), torch.from_numpy(Cp), 1.1, 2e-4).numpy()
     ref = np.asarray(pk.edge_masked_cm(jnp.asarray(T), jnp.asarray(Cp), 1.1, 2e-4))
     np.testing.assert_allclose(got, ref, rtol=1e-15, atol=0)
+
+
+def test_launch_binds_once_and_enters_only_another_devices_context(monkeypatch):
+    """The shared launch helper: the library is loaded and the symbol bound
+    at its first launch only; the device's context is entered only when the
+    operands' device is not the current one; a non-zero code raises."""
+    entered, calls, loads = [], [], []
+
+    class Context:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+
+    class Lib:
+        @staticmethod
+        def rmt_fake(*args):
+            calls.append(args)
+            return args[0]
+
+    def load(name, signatures):
+        loads.append(name)
+        return Lib
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", Context)
+    monkeypatch.setattr(K, "_raw_stream", lambda index: 1000 + index)
+    monkeypatch.setattr(K._build, "load", load)
+    monkeypatch.delitem(K._FUNCS, "rmt_fake", raising=False)
+    try:
+        K.launch("fake", {}, "rmt_fake", torch.device("cuda", 0), 0, 7)
+        K.launch("fake", {}, "rmt_fake", torch.device("cuda", 0), 0, 8)
+        assert loads == ["fake"] and entered == []
+        assert calls == [(0, 7, 1000), (0, 8, 1000)]
+        K.launch("fake", {}, "rmt_fake", torch.device("cuda", 1), 0, 9)
+        assert entered == [1] and calls[-1] == (0, 9, 1001)
+        with pytest.raises(RuntimeError, match="rmt_fake launch failed with code 5"):
+            K.launch("fake", {}, "rmt_fake", torch.device("cuda", 0), 5)
+    finally:
+        K._FUNCS.pop("rmt_fake", None)
+
+
+def _operand_cases():
+    """(label, field, core, spacing, out) operand sets of check_operands:
+    good ones in 2D and 3D, the rest each wrong in one way."""
+    T2, T3 = torch.rand(6, 5, dtype=torch.float64), torch.rand(4, 3, 5)
+    return [
+        ("good 2D", T2, {"Cm": torch.rand(6, 5, dtype=torch.float64)}, (0.1, 0.2),
+         torch.empty(6, 5, dtype=torch.float64)),
+        ("good 3D, no out", T3, {"Cm": torch.rand(4, 3, 5)}, None, None),
+        ("good bf16", T2.bfloat16(), {}, (0.1, 0.2), torch.empty(6, 5, dtype=torch.bfloat16)),
+        ("int field", T2.int(), {}, None, None),
+        ("1D field", torch.rand(7), {}, None, None),
+        ("strided field", T2.t(), {}, None, None),
+        ("spacing count", T2, {}, (0.1,), None),
+        ("core dtype", T2, {"Cm": torch.rand(6, 5)}, None, None),
+        ("core shape", T2, {"Cm": torch.rand(5, 5, dtype=torch.float64)}, None, None),
+        ("out is the field", T2, {}, None, T2),
+        ("out dtype", T2, {}, None, torch.empty(6, 5)),
+    ]
+
+
+@pytest.mark.parametrize("case", _operand_cases(), ids=lambda c: c[0])
+def test_check_operands_comparisons_agree_with_full_checks(case, monkeypatch):
+    """check_operands passes good operands on plain comparisons alone; the
+    comparisons refuse exactly what the full checks (with their messages)
+    refuse."""
+    label, field, core, spacing, out = case
+    shape = tuple(field.shape)
+    ok = K._operands_ok(field, core, shape, spacing, out)
+    monkeypatch.setattr(K, "_operands_ok", lambda *args: False)  # the full checks alone
+    try:
+        K.check_operands("case", field, core, shape, spacing, out)
+        accepted = True
+    except (TypeError, ValueError):
+        accepted = False
+    assert ok == accepted == label.startswith("good")

@@ -271,6 +271,52 @@ def test_wrappers_refuse_bad_operands():
     assert torch.equal(out, kp.kp_step_padded(Tp, Cp, LAM, DT, sp))
 
 
+def _update_cases():
+    """(label, Tp, dTdt, out) operand sets of kp_update: one good, the rest
+    each wrong in one way that check_operands refuses."""
+    Tp, _, _, _, dTdt = _t(*_kp_inputs((12, 10), np.float64))
+    out = torch.empty_like(dTdt)
+    big = torch.empty(2 * dTdt.numel())
+    return [
+        ("good", Tp, dTdt, out),
+        ("out dtype", Tp, dTdt, out.float()),
+        ("dTdt dtype", Tp, dTdt.float(), out),
+        ("out shape", Tp, dTdt, torch.empty(dTdt.shape[0], dTdt.shape[1] + 1,
+                                            dtype=torch.float64)),
+        ("dTdt shape", Tp, dTdt[1:], out),
+        ("Tp strided", Tp.t(), dTdt.t().contiguous(), out.t().contiguous()),
+        ("out strided", Tp, dTdt, torch.empty(dTdt.shape[1], dTdt.shape[0],
+                                              dtype=torch.float64).t()),
+        ("out is dTdt", Tp, dTdt, dTdt),
+        ("out inside Tp", Tp, dTdt, Tp.view(-1)[:dTdt.numel()].view(dTdt.shape)),
+        ("out straddles dTdt", Tp, big[:dTdt.numel()].view(dTdt.shape),
+         big[dTdt.numel() // 2:dTdt.numel() // 2 + dTdt.numel()].view(dTdt.shape)),
+    ]
+
+
+@pytest.mark.parametrize("case", _update_cases(), ids=lambda c: c[0])
+def test_kp_update_plain_checks_agree_with_check_operands(case, monkeypatch):
+    """check_operands' plain comparisons pass exactly the kp_update operands
+    that its full checks pass; a refused set then raises the full checks'
+    error from kp_update."""
+    label, Tp, dTdt, out = case
+    lx, ly = Tp.shape[0] - 2, Tp.shape[1] - 2
+    ok = K._operands_ok(Tp, {"dTdt": dTdt}, (lx, ly), None, out)
+    with monkeypatch.context() as m:
+        m.setattr(K, "_operands_ok", lambda *args: False)  # the full checks alone
+        try:
+            K.check_operands("kp_update", Tp, {"dTdt": dTdt}, (lx, ly), None, out)
+            accepted = True
+        except (TypeError, ValueError):
+            accepted = False
+    assert ok == accepted == (label == "good")
+    if not ok:
+        with pytest.raises((TypeError, ValueError)):
+            kp.kp_update(Tp, dTdt, DT, out=out)
+    else:
+        assert kp.kp_update(Tp, dTdt, DT, out=out) is out
+
+
 @pytest.mark.parametrize("variant", ["kp", "ap"])
 def test_app_saves_the_runs_field(variant, tmp_path):
     path = tmp_path / "T.npy"

@@ -391,6 +391,115 @@ def test_hbm_validation_matches_jax():
         M.multi_step_cm_hbm(T, T, (0.1, 0.1), 17)
 
 
+# ---------------------------------------------------------------------------
+# The 2D tb_sweep kernel's decomposition (strips × segments), on the CPU
+# ---------------------------------------------------------------------------
+
+TB_PLAN_SHAPES = [(97, 131), (300, 517), (1000, 777), (6160, 6160), (12304, 12304),
+                  (12320, 12320), (16, 24)]
+
+
+@pytest.mark.parametrize("resident", [4, 64, 132 * 16])
+@pytest.mark.parametrize("k", [1, 5, 7, 8, 16])
+@pytest.mark.parametrize("shape", TB_PLAN_SHAPES)
+def test_tb_plan_covers_every_core_cell_once(shape, k, resident):
+    plan = M.tb_plan(shape, k, resident)
+    assert plan.core_cols == M.tb_layout().strip_cols - 2 * k and plan.k == k
+    assert plan.seg_rows >= 1 and plan.waves >= 1
+    assert plan.waves == -(-(plan.strips * plan.segments) // resident)
+    tiles = list(M.tb_tiles(plan, shape))
+    assert len(tiles) == plan.strips * plan.segments
+    # Rows and columns are each cut into consecutive non-empty intervals
+    # that end at the block's edge, so the tiles' product covers every cell
+    # once.
+    for ax, n in enumerate(shape):
+        cuts = sorted({t[ax] for t in tiles})
+        assert cuts[0][0] == 0 and cuts[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+        assert all(lo < hi for lo, hi in cuts)
+    if shape[0] * shape[1] <= 10**6:
+        count = np.zeros(shape, dtype=np.int32)
+        for (r0, r1), (c0, c1) in tiles:
+            count[r0:r1, c0:c1] += 1
+        assert (count == 1).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
+@pytest.mark.parametrize("k", list(range(1, 17)))
+def test_tb_plan_shared_memory_fits_a_block(k, dtype):
+    # The kernel keeps each lane's ring of k + 1 rows of its columns' Cm in
+    # shared memory, at compute width (csrc/multistep.cu tb2_smem_bytes):
+    # a block of the layout must fit an H100's opt-in limit a block.
+    h100_smem_optin = 232_448
+    layout = M.tb_layout()
+    assert (layout.lane_cols, layout.warps_per_block) == (4, 4)
+    width = 8 if dtype == "f64" else 4  # bf16 is computed, and kept, at f32 width
+    assert layout.warps_per_block * 32 * (k + 1) * layout.lane_cols * width <= h100_smem_optin
+    plan = M.tb_plan((12304, 12304), k, 132 * 16)
+    assert plan.core_cols == layout.strip_cols - 2 * k > 0
+
+
+def test_tb_plan_fills_whole_waves_and_rejects_bad_input():
+    # Many resident warps: one wave of short segments; few: tall ones.
+    wide = M.tb_plan((12304, 12304), 8, 132 * 16)
+    narrow = M.tb_plan((12304, 12304), 8, 4)
+    assert wide.waves == 1 and narrow.seg_rows > wide.seg_rows
+    for bad in (dict(k=0), dict(k=17), dict(shape=(0, 8)), dict(resident=0)):
+        args = dict(shape=(64, 64), k=8, resident=16) | bad
+        with pytest.raises(ValueError):
+            M.tb_plan(args["shape"], args["k"], args["resident"])
+
+
+def _tb_emulated(T, Cm, inv_d2, k, plan):
+    """The kernel's decomposition in plain PyTorch: each tile's window
+    (its core grown by k a side, zeros only beyond the block's edge), k
+    plain steps on it, its core kept, the cores stitched."""
+    n0, n1 = T.shape
+    out = torch.empty_like(T)
+    for (r0, r1), (c0, c1) in M.tb_tiles(plan, T.shape):
+        w0, w1 = max(r0 - k, 0), min(r1 + k, n0)
+        v0, v1 = max(c0 - k, 0), min(c1 + k, n1)
+        win = M.tb_sweep_plain(T[w0:w1, v0:v1].contiguous(), Cm[w0:w1, v0:v1].contiguous(),
+                               inv_d2, k)
+        out[r0:r1, c0:c1] = win[r0 - w0:r1 - w0, c0 - v0:c1 - v0]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("resident", [8, 132 * 16])
+@pytest.mark.parametrize("k", [1, 7, 8, 16])
+@pytest.mark.parametrize("shape", [(97, 131), (300, 517)])
+def test_tb_decomposition_equals_the_whole_block_bitwise(shape, k, resident, dtype):
+    rng = np.random.default_rng(k)
+    T = _t(rng.random(shape).astype(NP[dtype]))
+    Cm = K.edge_masked_cm(T, _t((1.0 + rng.random(shape)).astype(NP[dtype])), LAM, 0.2)
+    inv_d2 = K.inv_d2_of(UNEQUAL[2])
+    plan = M.tb_plan(shape, k, resident)
+    assert plan.strips * plan.segments > 1  # the block really is cut
+    want = M.tb_sweep_plain(T, Cm, inv_d2, k)
+    assert torch.equal(_tb_emulated(T, Cm, inv_d2, k, plan), want)
+
+
+def test_tb_sweep_plans_once_per_device_shape_k_and_dtype(monkeypatch):
+    calls = []
+
+    def resident(index, k, dtype):
+        calls.append((index, k, dtype))
+        return 132 * 16
+
+    monkeypatch.setattr(M, "_resident_warps", resident)
+    M._device_plan.cache_clear()
+    try:
+        for _ in range(3):
+            a = M._device_plan(0, (12304, 12304), 8, torch.float32)
+        b = M._device_plan(0, (6160, 6160), 8, torch.float32)
+        assert calls == [(0, 8, torch.float32), (0, 8, torch.float32)]
+        assert a == M.tb_plan((12304, 12304), 8, 132 * 16)
+        assert b == M.tb_plan((6160, 6160), 8, 132 * 16)
+    finally:
+        M._device_plan.cache_clear()
+
+
 def test_cpu_calls_count_no_launches():
     K.reset_launches()
     T, Cp = (_t(a) for a in _field((32, 16), np.float64))
