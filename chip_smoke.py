@@ -21,7 +21,15 @@ the target). Phases, printed as they run (about three minutes on one H100
    128², and kp_update at odd row lengths (12288×12287, 128×127) with
    its wrapper's host time per call; tb_sweep also at k = 16 on 12320²
    and ragged (1000×777, k = 5), with its strip/segment plan;
-   fused_step_padded at 12288², 6144², 252² and on the 3D block;
+   fused_step_padded at 12288², 6144², 252² and on the 3D block; the
+   multi-step kernels (wave_multi_step, swe_multi_step) also on a ragged
+   253×251 block and at the capacity edges of their cluster route (the
+   widest block of 512 (wave) or 256 (SWE) rows one cluster holds, and one
+   column more, which takes the cooperative route), each case printed
+   with its route (cluster size and shared bytes a CTA, or cooperative)
+   and, beside the per-call median, the launch's device time (launches
+   queued behind torch.cuda._sleep) and the wrapper's host µs a call;
+   every main-path block of theirs must take the cluster route;
 4. main path, one GPU — HeatDiffusion.run("perf") at 12288² f32 for 1000
    steps and at 252² f32: every step one masked_step launch, the field
    bitwise equal to the plain versions' run of the same steps, and the
@@ -134,6 +142,16 @@ SWE_DEEP_SMALL = (240, 240)  # run_deep's k = 8 sweep: 256² padded, the admissi
 SWE_DEEP_PADDED = (256, 256)
 SWE_F64 = (180, 180)  # the f64 multi-step admission takes at most 181²
 SWE_3D = (32, 24, 24)  # a 3D block within the multi-step admission
+RAGGED = (253, 251)  # n0 no multiple of a cluster: bands of 16 and 15 rows
+# Rows of the multi-step kernels' capacity-edge blocks (the admission's
+# largest 2D square in f32): the widest block of these rows that one
+# cluster holds, and one column more, which takes the cooperative route.
+EDGE_ROWS = {"wave_multi_step": 512, "swe_multi_step": 256}
+# Blocks of the main paths that must take the multi-step kernels' cluster
+# route: the VMEM loops at 252² (and 180² f64 for the SWE), run_deep's
+# 268² (wave) and 256² (SWE) blocks, one GPU and per rank on the 2×2 grid
+# of 480², and the 3D SWE block.
+RESIDENT_MAIN = ((252, 252), (268, 268), (256, 256), (180, 180), (32, 24, 24))
 HIDE_B_WIDTH = (32, 4)  # the reference's boundary frame (hide.jl:42)
 KERNELS = {
     # name: (source line of the TPU kernel it replaces, CUDA source)
@@ -180,12 +198,14 @@ KERNEL_CASES = [
     ("wave_multi_step", SMALL, 256, "aform", ALL_DTYPES),
     ("wave_multi_step", WAVE_DEEP_SMALL, 8, "aform", ALL_DTYPES),
     ("wave_multi_step", WAVE_DEEP_SMALL, 2, "direct", ("f32",)),
+    ("wave_multi_step", RAGGED, 8, "aform", ALL_DTYPES),
     ("swe_step", BIG, 1, "whole", ALL_DTYPES),
     ("swe_step", SMALL, 1, "whole", ALL_DTYPES),
     ("swe_step", BLOCK, 1, "regions", ALL_DTYPES),
     ("swe_multi_step", SMALL, 256, "direct", ("f32", "bf16")),
     ("swe_multi_step", SWE_DEEP_PADDED, 8, "direct", ("f32", "bf16")),
     ("swe_multi_step", SWE_F64, 256, "direct", ("f64",)),
+    ("swe_multi_step", RAGGED, 8, "direct", ALL_DTYPES),
     ("kp_flux", BIG, 1, "direct", ALL_DTYPES),
     ("kp_residual", BIG, 1, "direct", ALL_DTYPES),
     ("kp_update", BIG, 1, "direct", ALL_DTYPES),
@@ -373,6 +393,41 @@ def bound_ms(pk, dtype: str, nbytes: int, cells: int, steps: int,
     t_bytes = nbytes / pk["bytes_per_s"] * 1e3
     t_ops = flops / pk["f64" if dtype == "f64" else "f32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host µs a call of fn: `calls` calls back to back, no sync between
+    them (the launches queue behind one another on the card)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def device_ms(fn, reps: int, host: float) -> float:
+    """Median device time of `reps` launches of fn, each between two CUDA
+    events, all enqueued while the card is held behind torch.cuda._sleep
+    (long enough for the host to enqueue them, given its `host` µs a
+    call), so that no launch waits for the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    hold_s = 2 * reps * (host + 20.0) * 1e-6 + 1e-3
+    torch.cuda._sleep(int(hold_s * 2e9))  # cycles; the card clocks at most 2 GHz
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -691,12 +746,53 @@ def _same(got, want) -> tuple[bool, float]:
     return equal, err
 
 
+TORCH_DTYPE_NAMES = ("float32", "float64", "bfloat16")
+
+
+def _tdt(torch, dtype: str):
+    return getattr(torch, TORCH_DTYPE_NAMES[ALL_DTYPES.index(dtype)])
+
+
+def resident_plan(torch, name, core, dtype, form):
+    """The route the wrapper of multi-step kernel `name` takes for this
+    block on card 0 (ops/resident.py)."""
+    from rocm_mpi_tpu_torch.ops import swe, wave
+
+    if name == "wave_multi_step":
+        return wave.device_plan(0, tuple(core), _tdt(torch, dtype), form)
+    return swe.device_plan(0, tuple(core), _tdt(torch, dtype))
+
+
+def resident_edge_cases(torch):
+    """Kernel cases at the multi-step kernels' capacity edges on this card,
+    per dtype: the widest block of EDGE_ROWS rows that one cluster holds,
+    and one column more, which takes the cooperative route. Returns the
+    cases and {(kernel, block, dtype): the route each must take}."""
+    from rocm_mpi_tpu_torch.ops import resident, swe, wave
+
+    cases, routes = [], {}
+    for name, n0 in EDGE_ROWS.items():
+        form = "aform" if name == "wave_multi_step" else "direct"
+        for dtype in ALL_DTYPES:
+            tdt = _tdt(torch, dtype)
+            if name == "wave_multi_step":
+                caps, kind = wave.device_caps(0, tdt, 2, form), "wave"
+            else:
+                caps, kind = swe.device_caps(0, tdt, 2), "swe"
+            edge = resident.edge_shape(kind, n0, tdt, caps)
+            for core, route in ((edge, "cluster"), ((n0, edge[1] + 1), "cooperative")):
+                cases.append((name, core, 8, form, (dtype,)))
+                routes[(name, core, dtype)] = route
+    return cases, routes
+
+
 def phase_kernels(torch, card, pk):
     """Every kernel case: bitwise against its plain version on the card,
     then timed beside it and its bound."""
     device = torch.device("cuda", 0)
     rows = []
-    for name, core, steps, form, dtypes in KERNEL_CASES:
+    edges, edge_routes = resident_edge_cases(torch)
+    for name, core, steps, form, dtypes in KERNEL_CASES + edges:
         for dtype in dtypes:
             run, plain, nbytes, *library = _kernel_case(torch, name, core, steps, form, dtype,
                                                         device)
@@ -708,7 +804,7 @@ def phase_kernels(torch, card, pk):
                 f" n={steps} {form}" if steps > 1 else f" {form}" if form != "direct" else "")
             check(equal, f"{label}: kernel != plain version (max |diff| {err})")
             small = core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL, SMALL_3D, SWE_DEEP_PADDED,
-                             SWE_F64, SWE_3D, KP_SMALL, KP_SMALL_ODD, TB_RAGGED)
+                             SWE_F64, SWE_3D, KP_SMALL, KP_SMALL_ODD, TB_RAGGED, RAGGED)
             reps = (200 if steps == 1 else 50) if small else (30 if steps == 1 else 20)
             ms = time_ms(run, reps)
             plain_ms = time_ms(plain, max(reps // 4, 5) if steps == 1 else 5)
@@ -737,20 +833,32 @@ def phase_kernels(torch, card, pk):
                 lib = "no single PyTorch call computes this step, library_ms null"
             extra = ""
             if name == "kp_update":
-                # The wrapper's host time: calls back to back, no sync between
-                # them (the launches queue behind one another on the card).
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(HOST_CALLS):
-                    run()
-                row["host_us_per_call"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
-                torch.cuda.synchronize()
+                row["host_us_per_call"] = host_us(run)
                 extra = f"; wrapper host time {row['host_us_per_call']:.2f} µs a call"
+            if name in EDGE_ROWS:
+                # The route, decided by size before the launch; then the
+                # per-call figure split into the wrapper's host time and the
+                # launch's device time.
+                plan = resident_plan(torch, name, core, dtype, form)
+                want = edge_routes.get((name, tuple(core), dtype))
+                check(want in (None, plan.route),
+                      f"{label}: route {plan.route} at the capacity edge, not {want}")
+                if tuple(core) in RESIDENT_MAIN:
+                    check(plan.route == "cluster",
+                          f"{label}: a main-path block takes the {plan.route} route")
+                row.update(route=plan.route, cluster=plan.cluster, smem_bytes=plan.nbytes,
+                           staged=plan.stage)
+                row["host_us_per_call"] = host_us(run)
+                row["device_ms"] = device_ms(run, reps, row["host_us_per_call"])
+                where = (f"cluster of {plan.cluster} CTAs, {plan.nbytes} B shared a CTA"
+                         f"{', operands staged' if plan.stage else ''}"
+                         if plan.route == "cluster" else "cooperative (state in L2)")
+                extra = (f"; route {where}; device {row['device_ms']:.4f} ms a launch, wrapper "
+                         f"host {row['host_us_per_call']:.2f} µs a call")
             if name == "tb_sweep" and len(core) == 2:
                 from rocm_mpi_tpu_torch.ops import multistep
 
-                tdt = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}[dtype]
-                plan = multistep._device_plan(0, tuple(core), steps, tdt)
+                plan = multistep._device_plan(0, tuple(core), steps, _tdt(torch, dtype))
                 row["plan"] = plan._asdict()
                 extra = (f"; plan {plan.strips} strips × {plan.segments} segments of "
                          f"{plan.seg_rows} rows, {plan.waves} wave(s)")

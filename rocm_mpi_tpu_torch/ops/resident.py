@@ -1,0 +1,148 @@
+"""The route and band plan of the multi-step kernels' cluster route
+(csrc/resident.cuh; the wave_multi_step and swe_multi_step kernels).
+
+A multi-step launch keeps its block on chip for every step, as the TPU
+kernels keep theirs in VMEM: one thread-block cluster of C CTAs holds the
+block in distributed shared memory, CTA r a band of rows along axis 0, and
+the CTAs trade their edge rows between steps through their mbarriers. This
+module decides, before the
+launch, whether a block fits one cluster ("cluster" route) or takes the
+cooperative kernel that keeps the state in L2 ("cooperative" route), with
+how many CTAs, and whether the read-only operands (the wave's M and Cw,
+the SWE's face masks) are staged into shared memory too. The route is a
+function of the shape, the dtype and what the card grants (`Caps`, asked of
+the built kernel once per device: on an H100, clusters of 16 CTAs and
+232,448 bytes of shared memory a CTA); it is never a retry after a
+failure.
+
+The plan: C = min(granted, n0) CTAs; bands of ceil(n0 / C) or floor(n0 / C)
+rows (the larger first); each CTA lays out its shared memory for the
+largest band, in the compute type (f32 for bf16):
+
+* wave: two buffers of U with a halo row each side (the neighbour bands'
+  edge rows), `2·(rows + 2)·plane` cells;
+* SWE: two buffers of h (one row more: the next band's first row, whose
+  h' the CTA computes itself) and ndim velocities with a halo row each
+  side, `2·((rows + 1) + ndim·(rows + 2))·plane` cells;
+
+ahead of them the CTA's two mbarriers (16 bytes), and, when they fit behind
+them, the read-only operands in the storage type (wave: M and Cw; SWE:
+ndim masks). The launcher recomputes the bytes and refuses a plan beyond
+the card's limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+KINDS = ("wave", "swe")
+BARRIER_BYTES = 16  # the CTA's two mbarriers, ahead of the buffers (resident.cuh)
+
+
+class Caps(NamedTuple):
+    """What a device grants one kernel instantiation: the largest cluster
+    size (16, 8, or 0 for none) and the dynamic shared memory a CTA."""
+
+    cluster: int
+    smem_limit: int
+
+
+class ResidentPlan(NamedTuple):
+    """`route` "cluster" or "cooperative"; on the cluster route, `cluster`
+    CTAs of `rows` rows at most, `nbytes` of shared memory a CTA, and
+    whether the read-only operands are staged. The cooperative route has
+    cluster 0, rows 0, nbytes 0."""
+
+    route: str
+    cluster: int
+    rows: int
+    nbytes: int
+    stage: bool
+
+
+COOPERATIVE = ResidentPlan("cooperative", 0, 0, 0, False)
+
+
+def bands(n0: int, cluster: int) -> list[tuple[int, int]]:
+    """The rows [start, end) of each CTA's band (resident.cuh band_of)."""
+    n0, cluster = int(n0), int(cluster)
+    if not 1 <= cluster <= n0:
+        raise ValueError(f"a cluster of {cluster} CTAs cannot split {n0} rows")
+    base, rem = divmod(n0, cluster)
+    out = []
+    for rank in range(cluster):
+        start = rank * base + min(rank, rem)
+        out.append((start, start + base + (1 if rank < rem else 0)))
+    return out
+
+
+def _itemsizes(dtype: torch.dtype) -> tuple[int, int]:
+    """(compute, storage) bytes of an element."""
+    storage = torch.empty((), dtype=dtype).element_size()
+    return (8 if dtype == torch.float64 else 4), storage
+
+
+def smem_bytes(kind: str, shape, dtype: torch.dtype, rows: int, stage: bool) -> int:
+    """Shared memory a CTA of `rows` rows (wave.cu / swe.cu resident_bytes)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}; known: {KINDS}")
+    csize, ssize = _itemsizes(dtype)
+    plane = 1
+    for n in shape[1:]:
+        plane *= int(n)
+    band = rows * plane
+    if kind == "wave":
+        state = 2 * (band + 2 * plane) * csize
+        return BARRIER_BYTES + state + (2 * band * ssize if stage else 0)
+    ndim = len(shape)
+    state = 2 * ((band + plane) + ndim * (band + 2 * plane)) * csize
+    return BARRIER_BYTES + state + (ndim * band * ssize if stage else 0)
+
+
+def plan(kind: str, shape, dtype: torch.dtype, caps: Caps) -> ResidentPlan:
+    """The route of a `kind` block of `shape` and `dtype` on a card that
+    grants `caps`."""
+    n0 = int(shape[0])
+    if caps.cluster < 1 or n0 < 1:
+        return COOPERATIVE
+    cluster = min(caps.cluster, n0)
+    rows = -(-n0 // cluster)
+    nbytes = smem_bytes(kind, shape, dtype, rows, False)
+    if nbytes > caps.smem_limit:
+        return COOPERATIVE
+    staged = smem_bytes(kind, shape, dtype, rows, True)
+    if staged <= caps.smem_limit:
+        return ResidentPlan("cluster", cluster, rows, staged, True)
+    return ResidentPlan("cluster", cluster, rows, nbytes, False)
+
+
+def query_caps(fn, index: int, *args) -> Caps:
+    """Caps of CUDA device `index` from the built library's caps entry `fn`
+    (rmt_wave_multi_step_caps / rmt_swe_multi_step_caps), called with
+    `args` in the device's context."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        rc = fn(*args, index, out)
+    if rc != 0:
+        raise RuntimeError(f"the cluster route's capacity query failed with code {rc}")
+    return Caps(int(out[0]), int(out[1]))
+
+
+def edge_shape(kind: str, n0: int, dtype: torch.dtype, caps: Caps) -> tuple[int, int]:
+    """The widest 2D block (n0, n1) of `kind` that still takes the cluster
+    route under `caps`: (n0, n1 + 1) takes the cooperative one."""
+    if plan(kind, (n0, 1), dtype, caps).route != "cluster":
+        raise ValueError(f"no {kind} block of {n0} rows takes the cluster route")
+    lo, hi = 1, 1
+    while plan(kind, (n0, hi), dtype, caps).route == "cluster":
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:  # the route is "cluster" at lo, "cooperative" at hi
+        mid = (lo + hi) // 2
+        if plan(kind, (n0, mid), dtype, caps).route == "cluster":
+            lo = mid
+        else:
+            hi = mid
+    return (n0, lo)

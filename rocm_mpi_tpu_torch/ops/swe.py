@@ -23,7 +23,9 @@ Two CUDA kernels (csrc/swe.cu, built by _build.py) sit behind the
 wrappers, with the dispatch rule of ops/kernels.py: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel, anything
 else raises. Launches count in kernels.LAUNCHES under "swe_step" and
-"swe_multi_step".
+"swe_multi_step". The multi-step kernel holds a block in one thread-block
+cluster's shared memory where it fits, else in L2 behind a grid barrier:
+ops/resident.py picks the route by size before the launch.
 
 The JAX wrapper of the per-step kernel falls back to jnp beyond the TPU's
 VMEM budget and for f64 on a TPU: limits of the TPU, not different
@@ -42,9 +44,12 @@ the sweep crops.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from rocm_mpi_tpu_torch.ops import multistep
+from rocm_mpi_tpu_torch.ops import _build, multistep, resident
 from rocm_mpi_tpu_torch.ops.kernels import (
     _DTYPE_CODE,
     BOX,
@@ -78,7 +83,9 @@ _SIGNATURES = {
                                    C_PTR, C_PTR, C_PTR,         # M0, M1, M2
                                    C_PTR, C_PTR, C_PTR, C_PTR,  # out h, u0, u1, u2
                                    C_PTR,                       # scratch
-                                   *EXTENTS, *COEFFS, C_PTR]),
+                                   *EXTENTS, *COEFFS,
+                                   C_INT, C_INT, C_INT, C_PTR]),  # cluster, stage, dev
+    "rmt_swe_multi_step_caps": (C_INT, [C_INT, C_INT, C_INT, ctypes.POINTER(C_INT)]),
 }
 
 
@@ -331,13 +338,33 @@ def fb_multi_step(h, us, Mus, cH, cg, n: int, out=None):
                          "field")
     if not use_kernel(*src, *Mus, *outs):
         return swe_multi_step_plain(h, us, Mus, cH, cg, n, out=out)
-    scratch = torch.empty((2 * (ndim + 1),) + tuple(h.shape), dtype=_compute_dtype(h.dtype),
-                          device=h.device)
+    index = h.device.index
+    plan = device_plan(index, tuple(h.shape), h.dtype)
+    scratch = None  # the cluster route keeps the state in shared memory
+    if plan.route == "cooperative":
+        scratch = torch.empty((2 * (ndim + 1),) + tuple(h.shape),
+                              dtype=_compute_dtype(h.dtype), device=h.device)
     launch("swe", _SIGNATURES, "rmt_swe_multi_step", h.device, _DTYPE_CODE[h.dtype], ndim, n,
-           *_ptrs(src), *_ptrs(Mus)[:3], *_ptrs(outs), scratch.data_ptr(),
-           *extents(h.shape), *_coeff_args(cH, cg))
+           *_ptrs(src), *_ptrs(Mus)[:3], *_ptrs(outs),
+           None if scratch is None else scratch.data_ptr(), *extents(h.shape),
+           *_coeff_args(cH, cg), plan.cluster, int(plan.stage), index)
     LAUNCHES["swe_multi_step"] += 1
     return outs[0], outs[1:]
+
+
+@functools.lru_cache(maxsize=None)
+def device_caps(index: int, dtype: torch.dtype, ndim: int) -> resident.Caps:
+    """What CUDA device `index` grants the cluster route of one kernel
+    instantiation, asked of the built kernel once."""
+    fn = _build.load("swe", _SIGNATURES).rmt_swe_multi_step_caps
+    return resident.query_caps(fn, index, _DTYPE_CODE[dtype], ndim)
+
+
+@functools.lru_cache(maxsize=None)
+def device_plan(index: int, shape: tuple, dtype: torch.dtype) -> resident.ResidentPlan:
+    """The route of a swe_multi_step launch on CUDA device `index`
+    (ops/resident.py), made once per (device, shape, dtype)."""
+    return resident.plan("swe", shape, dtype, device_caps(index, dtype, len(shape)))
 
 
 def swe_state_nbytes(shape, dtype) -> int:

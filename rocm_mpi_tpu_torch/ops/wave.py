@@ -12,7 +12,10 @@ Three CUDA kernels (csrc/wave.cu, built by _build.py) sit behind the
 wrappers, with the dispatch rule of ops/kernels.py: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel, anything
 else raises. Launches count in kernels.LAUNCHES under "wave_step",
-"wave_step_masked" and "wave_multi_step".
+"wave_step_masked" and "wave_multi_step". The multi-step kernel holds a
+block in one thread-block cluster's shared memory where it fits, else in
+L2 behind a grid barrier: ops/resident.py picks the route by size before
+the launch.
 
 The JAX wrappers fall back to jnp beyond the TPU's VMEM budget and for
 f64 on a TPU: both are limits of the TPU, not different arithmetic. On
@@ -24,11 +27,12 @@ same shapes the same way.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from rocm_mpi_tpu_torch.ops import multistep
+from rocm_mpi_tpu_torch.ops import _build, multistep, resident
 from rocm_mpi_tpu_torch.ops.kernels import (
     _DTYPE_CODE,
     BOX,
@@ -67,7 +71,10 @@ _SIGNATURES = {
     "rmt_wave_multi_step": (C_INT, [C_INT, C_INT, C_INT, C_INT,            # dtype, ndim, form, n
                                     C_PTR, C_PTR, C_PTR, C_PTR,            # U, U⁻, M, Cw
                                     C_PTR, C_PTR, C_PTR,                   # oU, oU⁻, scratch
-                                    *EXTENTS, *INV_D2, C_PTR]),
+                                    *EXTENTS, *INV_D2,
+                                    C_INT, C_INT, C_INT, C_PTR]),          # cluster, stage, dev
+    "rmt_wave_multi_step_caps": (C_INT, [C_INT, C_INT, C_INT, C_INT,
+                                         ctypes.POINTER(C_INT)]),
 }
 
 
@@ -311,14 +318,34 @@ def leapfrog_multi_step(U, Uprev, M, Cw, inv_d2, n: int, form: str, out=None):
         return wave_multi_step_plain(U, Uprev, M, Cw, inv_d2, n, form, out=out)
     if out is None:
         out = (torch.empty_like(U), torch.empty_like(U))
-    scratch = torch.empty((2,) + tuple(U.shape), dtype=_compute_dtype(U.dtype),
-                          device=U.device)
+    index = U.device.index
+    plan = device_plan(index, tuple(U.shape), U.dtype, form)
+    scratch = None  # the cluster route keeps the state in shared memory
+    if plan.route == "cooperative":
+        scratch = torch.empty((2,) + tuple(U.shape), dtype=_compute_dtype(U.dtype),
+                              device=U.device)
     launch("wave", _SIGNATURES, "rmt_wave_multi_step", U.device, _DTYPE_CODE[U.dtype], U.ndim,
            FORMS[form], int(n), U.data_ptr(), Uprev.data_ptr(), M.data_ptr(), Cw.data_ptr(),
-           out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr(), *extents(U.shape),
-           *inv3(inv_d2))
+           out[0].data_ptr(), out[1].data_ptr(),
+           None if scratch is None else scratch.data_ptr(), *extents(U.shape),
+           *inv3(inv_d2), plan.cluster, int(plan.stage), index)
     LAUNCHES["wave_multi_step"] += 1
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def device_caps(index: int, dtype: torch.dtype, ndim: int, form: str) -> resident.Caps:
+    """What CUDA device `index` grants the cluster route of one kernel
+    instantiation, asked of the built kernel once."""
+    fn = _build.load("wave", _SIGNATURES).rmt_wave_multi_step_caps
+    return resident.query_caps(fn, index, _DTYPE_CODE[dtype], ndim, FORMS[form])
+
+
+@functools.lru_cache(maxsize=None)
+def device_plan(index: int, shape: tuple, dtype: torch.dtype, form: str) -> resident.ResidentPlan:
+    """The route of a wave_multi_step launch on CUDA device `index`
+    (ops/resident.py), made once per (device, shape, dtype, form)."""
+    return resident.plan("wave", shape, dtype, device_caps(index, dtype, len(shape), form))
 
 
 def _check_wave_vmem(U, what: str, hint: str = "") -> int:

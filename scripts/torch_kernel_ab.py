@@ -1,24 +1,35 @@
-"""Time two checkouts of the PyTorch/CUDA port's tb_sweep and kp_update
-side by side on one CUDA card.
+"""Time two checkouts of the PyTorch/CUDA port's tb_sweep, kp_update,
+wave_multi_step and swe_multi_step side by side on one CUDA card.
 
-    python scripts/torch_kernel_ab.py --roots OLD NEW NEW OLD [--json PATH]
+    python scripts/torch_kernel_ab.py --roots OLD NEW NEW OLD [--kernels K ...] [--json PATH]
 
 Each root is a directory that holds a `rocm_mpi_tpu_torch/` package (a
 checkout, or an unpacked `git archive` of one). Every root runs in a
 process of its own, in the order given, so the kernels of each are built
 from its own sources into its own `_build/`; list each root twice, in the
 order old, new, new, old, so that a drift of the card's clocks shows.
-Each process:
+`--kernels` picks what each process times (default: all four):
 
-- times `multistep.tb_sweep` (2D, f32/f64/bf16) at 12304² and 6160²,
-  k = 8, and at 12320², k = 16: the median of CUDA-event-timed launches,
-  each launch held bitwise against `tb_sweep_plain` first;
-- times the host path of `kp.kp_update` at 128² f32: calls back to back,
-  no sync between them, µs a call (median of repeats). Where the root has
-  plain comparisons in front of the checks that name a fault (the shared
-  `kernels._operands_ok`, or a wrapper's own `kp._update_operands_ok`),
-  the wrapper is also timed with those comparisons made to refuse every
-  call, so that the checks behind them run each time.
+- `tb_sweep`: `multistep.tb_sweep` (2D, f32/f64/bf16) at 12304² and
+  6160², k = 8, and at 12320², k = 16: the median of CUDA-event-timed
+  launches, each launch held bitwise against `tb_sweep_plain` first;
+- `kp_update`: the host path of `kp.kp_update` at 128² f32: calls back
+  to back, no sync between them, µs a call (median of repeats). Where the
+  root has plain comparisons in front of the checks that name a fault
+  (the shared `kernels._operands_ok`, or a wrapper's own
+  `kp._update_operands_ok`), the wrapper is also timed with those
+  comparisons made to refuse every call, so that the checks behind them
+  run each time;
+- `wave_multi_step`, `swe_multi_step`: the wrappers
+  `wave.leapfrog_multi_step` (A-form) and `swe.fb_multi_step` at the main
+  paths' blocks: 252², n = 256 (the VMEM loops; the SWE's f64 at 180²),
+  and run_deep's 268² (wave) and 256² (SWE) blocks, n = 8, in f32, f64
+  and bf16 where the JAX admission takes them. Each launch is held
+  bitwise against the plain version first; then three figures: per call
+  (the median of launches each between two CUDA events, as chip_smoke.py
+  times kernels), device (the same, with the launches queued while the
+  card is held behind torch.cuda._sleep, so none waits for the host),
+  and the wrapper's host µs a call (calls back to back, no sync).
 
 The card's name and power limit (nvidia-smi) head the output; one JSON
 object per process follows, and `--json` writes them all.
@@ -40,6 +51,16 @@ KP_SHAPE = (128, 128)
 HOST_CALLS = 2000
 HOST_REPEATS = 7
 SEED = 1234
+KERNELS = ("tb_sweep", "kp_update", "wave_multi_step", "swe_multi_step")
+# (kernel, block, steps a launch, dtypes): the main paths' multi-step blocks.
+MULTI_CASES = (
+    ("wave_multi_step", (252, 252), 256, DTYPES),
+    ("wave_multi_step", (268, 268), 8, DTYPES),
+    ("swe_multi_step", (252, 252), 256, ("f32", "bf16")),
+    ("swe_multi_step", (180, 180), 256, ("f64",)),
+    ("swe_multi_step", (256, 256), 8, ("f32", "bf16")),
+)
+MULTI_HOST_CALLS = 200  # fewer than the launch queue holds at a slow kernel
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
@@ -57,33 +78,117 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def host_us(torch, fn) -> float:
-    """Host µs a call of fn, HOST_CALLS calls back to back (median of
-    HOST_REPEATS repeats)."""
+def host_us(torch, fn, calls: int = HOST_CALLS, repeats: int = HOST_REPEATS) -> float:
+    """Host µs a call of fn, `calls` calls back to back (median of
+    `repeats` repeats)."""
     fn()
     torch.cuda.synchronize()
     reads = []
-    for _ in range(HOST_REPEATS):
+    for _ in range(repeats):
         t0 = time.perf_counter()
-        for _ in range(HOST_CALLS):
+        for _ in range(calls):
             fn()
-        reads.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        reads.append((time.perf_counter() - t0) / calls * 1e6)
         torch.cuda.synchronize()
     return statistics.median(reads)
 
 
-def worker(root: str) -> dict:
+def device_ms(torch, fn, reps: int, host: float) -> float:
+    """Median device time of `reps` launches of fn, each between two CUDA
+    events, all queued while the card is held behind torch.cuda._sleep
+    (long enough for the host to enqueue them at `host` µs a call)."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    hold_s = 2 * reps * (host + 20.0) * 1e-6 + 1e-3
+    torch.cuda._sleep(int(hold_s * 2e9))  # cycles; the card clocks at most 2 GHz
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def multi_case(torch, name, shape, steps, dtype, dev):
+    """(launch, plain version) of a multi-step kernel case: fields in
+    [0, 1), velocities in [-0.5, 0.5), held edges (the wave's interior
+    mask; the SWE's high wall faces), small coefficients."""
+    from rocm_mpi_tpu_torch.ops import swe, wave
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(lo=0.0):
+        return (torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+                + lo).to(dtype)
+
+    if name == "wave_multi_step":
+        U, Uprev = rand(), rand()
+        M = wave.interior_mask(shape, dtype, dev)
+        Cw = (1e-3 * rand()) * M
+        inv_d2 = (1.0, 1.0)
+        outs = (torch.empty_like(U), torch.empty_like(U))
+        return (lambda: wave.leapfrog_multi_step(U, Uprev, M, Cw, inv_d2, steps, "aform",
+                                                 out=outs),
+                lambda: wave.wave_multi_step_plain(U, Uprev, M, Cw, inv_d2, steps, "aform"))
+    Mus = []
+    for a in range(len(shape)):
+        Ma = torch.ones(shape, dtype=dtype, device=dev)
+        Ma.narrow(a, shape[a] - 1, 1).zero_()
+        Mus.append(Ma)
+    h = rand()
+    us = tuple(rand(-0.5) * Ma for Ma in Mus)
+    cH, cg = (0.05,) * len(shape), (0.08,) * len(shape)
+    outs = tuple(torch.empty_like(h) for _ in range(len(shape) + 1))
+
+    def run():
+        got = swe.fb_multi_step(h, us, Mus, cH, cg, steps, out=outs)
+        return (got[0], *got[1])
+
+    def plain():
+        got = swe.swe_multi_step_plain(h, us, Mus, cH, cg, steps)
+        return (got[0], *got[1])
+
+    return run, plain
+
+
+def time_multi(torch, root, kernels, result, dev, tdts):
+    for name, shape, steps, dtypes in MULTI_CASES:
+        if name not in kernels:
+            continue
+        for dtype in dtypes:
+            run, plain = multi_case(torch, name, shape, steps, tdts[dtype], dev)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            reps = 50
+            row = {"kernel": name, "shape": list(shape), "steps": steps, "dtype": dtype,
+                   "bitwise": equal, "ms": time_ms(torch, run, reps)}
+            row["host_us"] = host_us(torch, run, MULTI_HOST_CALLS, 5)
+            row["device_ms"] = device_ms(torch, run, reps, row["host_us"])
+            result["multi_step"].append(row)
+            print(f"[ab] {root} {name} {shape[0]}x{shape[1]} n={steps} {dtype}: per call "
+                  f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, host "
+                  f"{row['host_us']:.2f} µs a call, bitwise {equal}", flush=True)
+            del run, plain, got, want
+        torch.cuda.empty_cache()
+
+
+def worker(root: str, kernels) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    from rocm_mpi_tpu_torch.ops import kernels, kp, multistep
+    from rocm_mpi_tpu_torch.ops import kernels as kernel_ops
+    from rocm_mpi_tpu_torch.ops import kp, multistep
 
     assert os.path.abspath(multistep.__file__).startswith(os.path.abspath(root))
     dev = torch.device("cuda", 0)
     tdts = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
-    result = {"root": root, "tb_sweep": [], "kp_update_host_us": {}}
+    result = {"root": root, "tb_sweep": [], "kp_update_host_us": {}, "multi_step": []}
+    time_multi(torch, root, kernels, result, dev, tdts)
     inv_d2 = (1.0, 1.0)
-    for shape, k in TB_CASES:
+    for shape, k in TB_CASES if "tb_sweep" in kernels else ():
         for name in DTYPES:
             gen = torch.Generator(device=dev).manual_seed(SEED)
             T = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64).to(tdts[name])
@@ -101,6 +206,8 @@ def worker(root: str) -> dict:
                   f"bitwise {equal}", flush=True)
             del T, Cm, out, got
             torch.cuda.empty_cache()
+    if "kp_update" not in kernels:
+        return result
     gen = torch.Generator(device=dev).manual_seed(SEED)
     lx, ly = KP_SHAPE
     Tp = torch.rand((lx + 2, ly + 2), generator=gen, device=dev)
@@ -108,7 +215,7 @@ def worker(root: str) -> dict:
     out = torch.empty((lx, ly), device=dev)
     result["kp_update_host_us"]["wrapper"] = host_us(
         torch, lambda: kp.kp_update(Tp, dTdt, 1e-3, out=out))
-    for module, name in ((kp, "_update_operands_ok"), (kernels, "_operands_ok")):
+    for module, name in ((kp, "_update_operands_ok"), (kernel_ops, "_operands_ok")):
         if hasattr(module, name):
             setattr(module, name, lambda *args: False)
             result["kp_update_host_us"][f"without {name}"] = host_us(
@@ -121,11 +228,13 @@ def worker(root: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--roots", nargs="+", help="checkouts to time, in order")
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
+                        help="what each process times (default: all)")
     parser.add_argument("--json", help="write the results here")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        print("AB_RESULT " + json.dumps(worker(args.worker)), flush=True)
+        print("AB_RESULT " + json.dumps(worker(args.worker, args.kernels)), flush=True)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -133,8 +242,8 @@ def main() -> int:
     print(f"[ab] card: {card}", flush=True)
     results = []
     for root in args.roots:
-        proc = subprocess.run([sys.executable, __file__, "--worker", root],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--worker", root,
+                               "--kernels", *args.kernels], capture_output=True, text=True)
         sys.stdout.write(proc.stdout)
         if proc.returncode != 0:
             sys.stderr.write(proc.stderr)
@@ -145,8 +254,8 @@ def main() -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "runs": results}, f, indent=1)
-    ok = all(r["bitwise"] for run in results for r in run["tb_sweep"])
-    print(f"[ab] every tb_sweep launch bitwise equal to its plain version: {ok}", flush=True)
+    ok = all(r["bitwise"] for run in results for r in run["tb_sweep"] + run["multi_step"])
+    print(f"[ab] every timed launch bitwise equal to its plain version: {ok}", flush=True)
     return 0 if ok else 1
 
 
