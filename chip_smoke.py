@@ -21,15 +21,20 @@ the target). Phases, printed as they run (about three minutes on one H100
    128², and kp_update at odd row lengths (12288×12287, 128×127) with
    its wrapper's host time per call; tb_sweep also at k = 16 on 12320²
    and ragged (1000×777, k = 5), with its strip/segment plan;
-   fused_step_padded at 12288², 6144², 252² and on the 3D block; the
-   multi-step kernels (wave_multi_step, swe_multi_step) also on a ragged
-   253×251 block and at the capacity edges of their cluster route (the
-   widest block of 512 (wave) or 256 (SWE) rows one cluster holds, and one
-   column more, which takes the cooperative route), each case printed
-   with its route (cluster size and shared bytes a CTA, or cooperative)
-   and, beside the per-call median, the launch's device time (launches
-   queued behind torch.cuda._sleep) and the wrapper's host µs a call;
-   every main-path block of theirs must take the cluster route;
+   fused_step_padded at 12288², 6144², 252² and on the 3D block;
+   masked_step also at 12288×12287 and on a 12288² view with storage
+   offset 1, each printed with its layout (16-byte vectors or scalar
+   cells), and at 252² with its wrapper's host µs a call; the multi-step
+   kernels (multi_step_cm, wave_multi_step, swe_multi_step) also on a
+   ragged 253×251 block and at the capacity edges of their cluster route
+   (the widest block of 724 (diffusion), 512 (wave) or 256 (SWE) rows one
+   cluster holds, and one column more, which takes the cooperative
+   route), each case printed with its route (cluster size and shared
+   bytes a CTA, where Cm or the masks are read, or cooperative) and,
+   beside the per-call median, the launch's device time (launches queued
+   behind torch.cuda._sleep) and the wrapper's host µs a call; every
+   main-path block of theirs must take the cluster route at the cluster
+   size the card grants;
 4. main path, one GPU — HeatDiffusion.run("perf") at 12288² f32 for 1000
    steps and at 252² f32: every step one masked_step launch, the field
    bitwise equal to the plain versions' run of the same steps, and the
@@ -41,7 +46,8 @@ the target). Phases, printed as they run (about three minutes on one H100
    default, 128² f64, also held against run("ap") within rtol 1e-13,
    atol 1e-15;
 5. multi-step schedules, one GPU — run_vmem_resident at 252² (256 warmup
-   + 4096 timed steps, chunk 256), run_deep at 252² (32 + 1024, k = 32,
+   + 4096 timed steps, chunk 256; its ms/step the median of three runs'
+   timed windows), run_deep at 252² (32 + 1024, k = 32,
    vmem route), run_hbm_blocked at 12288² (16 + 1000, k = 8) and run_deep
    at 12288² (16 + 1000, k = 8, hbm-tb route), all f32: each asserts its
    route, k and launch count, is bitwise equal to the same schedule run
@@ -146,12 +152,18 @@ RAGGED = (253, 251)  # n0 no multiple of a cluster: bands of 16 and 15 rows
 # Rows of the multi-step kernels' capacity-edge blocks (the admission's
 # largest 2D square in f32): the widest block of these rows that one
 # cluster holds, and one column more, which takes the cooperative route.
-EDGE_ROWS = {"wave_multi_step": 512, "swe_multi_step": 256}
+EDGE_ROWS = {"multi_step_cm": 724, "wave_multi_step": 512, "swe_multi_step": 256}
 # Blocks of the main paths that must take the multi-step kernels' cluster
-# route: the VMEM loops at 252² (and 180² f64 for the SWE), run_deep's
-# 268² (wave) and 256² (SWE) blocks, one GPU and per rank on the 2×2 grid
-# of 480², and the 3D SWE block.
-RESIDENT_MAIN = ((252, 252), (268, 268), (256, 256), (180, 180), (32, 24, 24))
+# route, at the cluster size the card grants: the VMEM loops at 252² (and
+# 180² f64 for the SWE), run_deep's 316² (diffusion), 268² (wave) and 256²
+# (SWE) blocks, one GPU and per rank on the 2×2 grid of 480², and the 3D
+# blocks (diffusion's in f32 only: f64's two buffers exceed a cluster).
+RESIDENT_MAIN = {
+    "multi_step_cm": ((252, 252), (316, 316)),
+    "wave_multi_step": ((252, 252), (268, 268)),
+    "swe_multi_step": ((252, 252), (256, 256), (180, 180), (32, 24, 24)),
+}
+RESIDENT_MAIN_F32 = {"multi_step_cm": (SMALL_3D,)}
 HIDE_B_WIDTH = (32, 4)  # the reference's boundary frame (hide.jl:42)
 KERNELS = {
     # name: (source line of the TPU kernel it replaces, CUDA source)
@@ -178,6 +190,8 @@ HOST_CALLS = 200  # back-to-back wrapper calls timed on the host clock
 KERNEL_CASES = [
     ("masked_step", SMALL, 1, "direct", ALL_DTYPES),
     ("masked_step", BIG, 1, "direct", ALL_DTYPES),
+    ("masked_step", KP_ODD, 1, "direct", ALL_DTYPES),  # rows off the 16-byte grid
+    ("masked_step", BIG, 1, "offset", ALL_DTYPES),  # T a view at storage offset 1
     ("fused_step_cm", SMALL, 1, "direct", ALL_DTYPES),
     ("fused_step_cm", BLOCK, 1, "direct", ALL_DTYPES),
     ("fused_step_cm", BLOCK, 1, "regions", ALL_DTYPES),
@@ -186,6 +200,8 @@ KERNEL_CASES = [
     ("multi_step_cm", DEEP_SMALL, 32, "direct", ("f32",)),
     ("multi_step_cm", DEEP_SMALL, 32, "ac", ("f32",)),
     ("multi_step_cm", DEEP_SMALL, 32, "conly", ("f32",)),
+    ("multi_step_cm", RAGGED, 8, "eqc", ALL_DTYPES),
+    ("multi_step_cm", RAGGED, 8, "ac", ("f64",)),
     ("tb_sweep", TB_BIG, 8, "direct", ALL_DTYPES),
     ("tb_sweep", TB_BLOCK, 8, "direct", ALL_DTYPES),
     ("tb_sweep", TB_K16, 16, "direct", ALL_DTYPES),
@@ -223,6 +239,8 @@ KERNEL_CASES = [
     ("fused_step_cm", SMALL_3D, 1, "direct", ALL_DTYPES),
     ("multi_step_cm", SMALL_3D, 8, "eqc", ALL_DTYPES),
     ("multi_step_cm", SMALL_3D, 8, "ac", ("f32",)),
+    ("multi_step_cm", SMALL_3D, 8, "direct", ("f32",)),
+    ("multi_step_cm", SMALL_3D, 8, "conly", ("f32",)),
     ("tb_sweep", SMALL_3D, 8, "direct", ALL_DTYPES),
     ("wave_step", SMALL_3D, 1, "direct", ALL_DTYPES),
     ("wave_step_masked", SMALL_3D, 1, "regions", ALL_DTYPES),
@@ -244,6 +262,7 @@ MAIN_CASE = {"masked_step": (BIG, "direct"), "fused_step_cm": (BLOCK, "direct"),
 # per-launch A/c/eqc prologue, a few operations per cell, is left out).
 FLOPS_PER_CELL_STEP = {
     ("masked_step", "direct"): lambda nd: 5 * nd + 1,
+    ("masked_step", "offset"): lambda nd: 5 * nd + 1,
     ("fused_step_cm", "direct"): lambda nd: 5 * nd + 1,
     ("fused_step_cm", "regions"): lambda nd: 5 * nd + 1,
     ("multi_step_cm", "direct"): lambda nd: 5 * nd + 1,
@@ -538,10 +557,14 @@ def _kernel_case(torch, name, core, steps, form, dtype, device):
         T = rand(core)
         Cm = kernels.edge_masked_cm(T, torch.ones_like(T), cfg.lam,
                                     torch.tensor(cfg.dt, dtype=tdt, device=device))
+        if form == "offset":  # the same values one element past an allocation's start
+            T = torch.cat([T.new_zeros(1), T.flatten()])[1:].view(core)
         out = torch.empty_like(T)
         if name == "masked_step":
             calls = (lambda: kernels.masked_step(T, Cm, spacing, out=out),
                      lambda: kernels.masked_step_plain(T, Cm, inv_d2))
+            calls[0].layout = ("16-byte vectors" if kernels.masked_layout(
+                core[-1], tdt, T.data_ptr(), Cm.data_ptr(), out.data_ptr()) else "scalar cells")
         elif name == "multi_step_cm":
             calls = (lambda: multistep.multi_step(T, Cm, inv_d2, steps, form, out=out),
                      lambda: multistep.multi_step_cm_plain(T, Cm, inv_d2, steps, form))
@@ -755,12 +778,17 @@ def _tdt(torch, dtype: str):
 
 def resident_plan(torch, name, core, dtype, form):
     """The route the wrapper of multi-step kernel `name` takes for this
-    block on card 0 (ops/resident.py)."""
-    from rocm_mpi_tpu_torch.ops import swe, wave
+    block on card 0 (ops/resident.py), and the caps it was planned with."""
+    from rocm_mpi_tpu_torch.ops import multistep, swe, wave
 
+    tdt = _tdt(torch, dtype)
+    if name == "multi_step_cm":
+        return (multistep.device_plan(0, tuple(core), tdt, form),
+                multistep.device_caps(0, tdt, len(core), form))
     if name == "wave_multi_step":
-        return wave.device_plan(0, tuple(core), _tdt(torch, dtype), form)
-    return swe.device_plan(0, tuple(core), _tdt(torch, dtype))
+        return (wave.device_plan(0, tuple(core), tdt, form),
+                wave.device_caps(0, tdt, len(core), form))
+    return swe.device_plan(0, tuple(core), tdt), swe.device_caps(0, tdt, len(core))
 
 
 def resident_edge_cases(torch):
@@ -768,14 +796,16 @@ def resident_edge_cases(torch):
     per dtype: the widest block of EDGE_ROWS rows that one cluster holds,
     and one column more, which takes the cooperative route. Returns the
     cases and {(kernel, block, dtype): the route each must take}."""
-    from rocm_mpi_tpu_torch.ops import resident, swe, wave
+    from rocm_mpi_tpu_torch.ops import multistep, resident, swe, wave
 
     cases, routes = [], {}
     for name, n0 in EDGE_ROWS.items():
-        form = "aform" if name == "wave_multi_step" else "direct"
+        form = {"multi_step_cm": "eqc", "wave_multi_step": "aform"}.get(name, "direct")
         for dtype in ALL_DTYPES:
             tdt = _tdt(torch, dtype)
-            if name == "wave_multi_step":
+            if name == "multi_step_cm":
+                caps, kind = multistep.device_caps(0, tdt, 2, form), "diffusion"
+            elif name == "wave_multi_step":
                 caps, kind = wave.device_caps(0, tdt, 2, form), "wave"
             else:
                 caps, kind = swe.device_caps(0, tdt, 2), "swe"
@@ -832,26 +862,32 @@ def phase_kernels(torch, card, pk):
             else:
                 lib = "no single PyTorch call computes this step, library_ms null"
             extra = ""
-            if name == "kp_update":
+            if name == "kp_update" or (name == "masked_step" and core == SMALL):
                 row["host_us_per_call"] = host_us(run)
                 extra = f"; wrapper host time {row['host_us_per_call']:.2f} µs a call"
+            if name == "masked_step":
+                row["layout"] = run.layout
+                extra = f"; layout {run.layout}" + extra
             if name in EDGE_ROWS:
                 # The route, decided by size before the launch; then the
                 # per-call figure split into the wrapper's host time and the
                 # launch's device time.
-                plan = resident_plan(torch, name, core, dtype, form)
+                plan, caps = resident_plan(torch, name, core, dtype, form)
                 want = edge_routes.get((name, tuple(core), dtype))
                 check(want in (None, plan.route),
                       f"{label}: route {plan.route} at the capacity edge, not {want}")
-                if tuple(core) in RESIDENT_MAIN:
-                    check(plan.route == "cluster",
-                          f"{label}: a main-path block takes the {plan.route} route")
+                if tuple(core) in RESIDENT_MAIN[name] or (
+                        dtype == "f32" and tuple(core) in RESIDENT_MAIN_F32.get(name, ())):
+                    check(plan.route == "cluster" and plan.cluster == min(caps.cluster, core[0]),
+                          f"{label}: a main-path block takes the {plan.route} route with "
+                          f"{plan.cluster} CTAs (the card grants {caps.cluster})")
                 row.update(route=plan.route, cluster=plan.cluster, smem_bytes=plan.nbytes,
-                           staged=plan.stage)
+                           staged=plan.stage, registers=plan.registers)
                 row["host_us_per_call"] = host_us(run)
                 row["device_ms"] = device_ms(run, reps, row["host_us_per_call"])
                 where = (f"cluster of {plan.cluster} CTAs, {plan.nbytes} B shared a CTA"
                          f"{', operands staged' if plan.stage else ''}"
+                         f"{', Cm in registers' if plan.registers else ''}"
                          if plan.route == "cluster" else "cooperative (state in L2)")
                 extra = (f"; route {where}; device {row['device_ms']:.4f} ms a launch, wrapper "
                          f"host {row['host_us_per_call']:.2f} µs a call")
@@ -1272,6 +1308,18 @@ def phase_schedules(torch, card):
                    k=res.k, launches=launches, wtime_s=res.wtime,
                    ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts,
                    bytes_per_sweep=per_sweep, bytes_per_step=per_sweep / k)
+        windows = ""
+        if meth == "run_vmem_resident":
+            # Its timed window is a few ms on the host clock, where one
+            # window can read twice another: the median of three runs'.
+            reads = [res.wtime_it] + [getattr(model, meth)().wtime_it for _ in range(2)]
+            torch.cuda.synchronize()
+            ratio = res.wtime_it / statistics.median(reads)
+            row.update(window_ms_per_step=[w * 1e3 for w in reads],
+                       ms_per_step=statistics.median(reads) * 1e3,
+                       t_eff_gbs=res.t_eff * ratio, gpts=res.gpts * ratio)
+            windows = (" (median of three runs' windows: "
+                       + ", ".join(f"{w * 1e3:.5f}" for w in reads) + ")")
         if shape == SMALL:
             check_model = model
             T = res.T
@@ -1287,10 +1335,10 @@ def phase_schedules(torch, card):
         rows.append(row)
         print(f"[schedule] {label}, {nt} steps ({warmup} warmup): route {res.route}, "
               f"k {res.k}, {kernel} launches {launches[kernel]}; bitwise == plain-version "
-              f"run; {res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step, effective T_eff "
-              f"{res.t_eff:.1f} GB/s (3 passes per step counted; device memory moved: "
-              f"{per_sweep / 1e6:.1f} MB per sweep, {per_sweep / k / 1e6:.2f} MB per step), "
-              f"{res.gpts:.3f} Gpts/s on {card}"
+              f"run; {res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step{windows}, effective "
+              f"T_eff {row['t_eff_gbs']:.1f} GB/s (3 passes per step counted; device memory "
+              f"moved: {per_sweep / 1e6:.1f} MB per sweep, {per_sweep / k / 1e6:.2f} MB per "
+              f"step), {row['gpts']:.3f} Gpts/s on {card}"
               + (f"; vs analytic Gaussian after {row['analytic_nt']} steps: "
                  f"{row['analytic_rel_err']:.3e} (bound 2e-3)" if "analytic_rel_err" in row
                  else ""), flush=True)

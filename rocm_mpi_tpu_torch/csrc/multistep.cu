@@ -22,20 +22,41 @@
 // store (pallas_kernels._upcast_for_compute).
 //
 // rmt_multi_step_cm — design. The TPU kernel keeps the block in VMEM for
-// the whole chunk. On Hopper a 316² f32 deep block (400 KB), or the 252²
-// field with two ping-pong copies, is larger than one SM's 227 KB of
-// shared memory, so the block lives in L2 instead (50 MB): a persistent
-// cooperative launch (no more blocks than fit on the card at once) runs
-// the steps, ping-ponging between two compute-type buffers the wrapper
-// allocates, with a grid-wide barrier (cooperative_groups grid sync)
-// between steps. Steps read those buffers with __ldcg (L2, never a stale
-// L1 line). The A/c/eqc coefficients are recomputed from Cm in each step
-// rather than kept in prologue arrays: the same operations on the same
-// operands give the same bits, and one read of Cm is fewer bytes than
-// reading A and c. Bound: neither bytes nor flops — at these sizes a step
-// is a few hundred nanoseconds of work, and the grid barrier between
-// steps (about a microsecond) is what the loop pays.
-//
+// the whole chunk. Bound: neither bytes nor flops — at the sizes it runs on
+// (the 252² field, the 316² deep block) a step is a few hundred nanoseconds
+// of arithmetic, and what a step costs is the synchronisation between steps
+// and the latency of the reads. So the block stays on chip for the whole
+// launch (the cluster route, csrc/resident.cuh, as wave.cu's and swe.cu's
+// multi-step kernels): one thread-block cluster of 16 CTAs (8 where the card
+// grants no more) holds it in distributed shared memory, CTA r a band of
+// rows along axis 0 in two compute-type buffers of T with a halo row each
+// side, read from device memory once and written once. Each step reads
+// only the CTA's own shared memory; its new edge rows go straight into the
+// neighbours' halo rows (st.async), counted on their mbarriers, so no
+// cluster barrier (and no cluster-scope fence: scripts/bench_cluster_sync.cu)
+// runs between steps. Each cell's step reads only the previous step's
+// neighbours, so the bands give the whole block's bits. One field and no
+// second state leave registers free: where the band cuts into one run of
+// at most kRegCells rows a warp (reg_seg_rows; every main-path block), each
+// lane walks its run's cells with the cells below and at its row carried
+// and keeps each cell's coefficient (Cm, or c = Cm·inv0 for the
+// equal-spacing forms) in registers for the whole launch, so only T's
+// neighbours pass through shared memory, and a cell costs few more
+// instructions than its arithmetic (on 16 SMs a step is bound by
+// instruction throughput: a walk by slices with a cursor a cell ran 1.5×
+// longer, tables of per-cell offsets spilled at the 64 registers a thread
+// has, and taking the band's last row first, to push it early, doubled the
+// step, all measured on an H100); else the lanes walk the band's cells in
+// slices (resident.cuh Walk), Cm staged into shared memory behind the
+// buffers where it fits, else read from device memory each step. The A/c
+// form's and eqc's other coefficients are recomputed each step: the same
+// operations on the same operands give the prologue's bits. A block too
+// large for one cluster's shared memory takes the cooperative route, chosen
+// by size before the launch (ops/resident.py): a persistent cooperative
+// launch ping-pongs between two compute-type buffers in L2 that the
+// wrapper allocates, with a grid barrier (cooperative_groups grid sync)
+// between steps and __ldcg reads (never a stale L1 line).
+
 // rmt_tb_sweep — design. Bound: memory — one read of T and Cm and one
 // write per k steps (3 passes; at 12304² f32, 1.82 GB, 0.54 ms on an H100
 // SXM), against ~11 operations a cell and step that the redundant halo
@@ -73,6 +94,7 @@
 
 #include <cooperative_groups.h>
 
+#include "resident.cuh"
 #include "stencil_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -96,31 +118,56 @@ constexpr int kTbWarpsPerBlock = 4;
 
 enum Form : int { kDirect = 0, kAC = 1, kEQC = 2, kCOnly = 3 };
 
-// One step of one cell in body form FORM. `t` is the cell, `cm` its
-// coefficient, p_ax = (neighbour at +1) + (neighbour at -1) along axis ax
-// (the TPU kernel's roll(T,-1,ax) + roll(T,1,ax)). Operation order as in
-// _multi_step_kernel:
+// rmt_multi_step_cm's cluster route: the longest run a warp (cells a lane)
+// whose coefficients stay in registers (ops/resident.py reads this line),
+// and where a launch reads Cm (the plan's choice, `cm_at`).
+constexpr int kRegCells = 8;
+enum CmAt : int { kCmDevice = 0, kCmShared = 1, kCmRegisters = 2 };
+
+// The register layout of a band of `rows` rows: one run of rows a warp,
+// a warp-column (32 cells of the last axis at one axis-1 index; n_mid ·
+// ceil(n_last / 32) of them) cut into warps / columns segments. Returns the
+// rows of a segment, the cells a lane keeps, or -1 when the band has more
+// warp-columns than a CTA has warps (ops/resident.py reg_rows).
+__host__ __device__ inline int reg_seg_rows(int rows, int n_mid, int n_last, int warps) {
+  const int cols = n_mid * ((n_last + 31) / 32);
+  if (cols > warps) return -1;
+  const int segs = warps / cols;
+  return (rows + segs - 1) / segs;
+}
+
+// The per-cell coefficient `k` that `update` takes: c = cm·inv0 for the
+// equal-spacing forms (eqc, conly), cm itself for direct and A/c.
+template <typename C, int FORM>
+__device__ __forceinline__ C coef_of(C cm, C inv0) {
+  return (FORM == kEQC || FORM == kCOnly) ? cm * inv0 : cm;
+}
+
+// One step of one cell in body form FORM. `t` is the cell, `k` its
+// coefficient (coef_of), p_ax = (neighbour at +1) + (neighbour at -1) along
+// axis ax (the TPU kernel's roll(T,-1,ax) + roll(T,1,ax)). Operation order
+// as in _multi_step_kernel:
 //   direct: lap = Σ_ax (p_ax - 2t)·inv_ax;          t + cm·lap
 //   A/c:    c_ax = cm·inv_ax, A = 1 - 2·((c0 + c1) + c2);
 //           ((A·t + c0·p0) + c1·p1) + c2·p2
 //   eqc:    c = cm·inv0, s = (p0 + p1) + p2;        (1 - 2nd·c)·t + c·s
 //   conly:  c = cm·inv0;                            t + c·(s - 2nd·t)
 template <typename C, int NDIM, int FORM>
-__device__ __forceinline__ C update(C t, C cm, C p0, C p1, C p2, C inv0,
+__device__ __forceinline__ C update(C t, C k, C p0, C p1, C p2, C inv0,
                                     C inv1, C inv2) {
   const C two = C(2);
   if (FORM == kDirect) {
     C lap = (p0 - two * t) * inv0;
     lap = lap + (p1 - two * t) * inv1;
     if (NDIM == 3) lap = lap + (p2 - two * t) * inv2;
-    return t + cm * lap;
+    return t + k * lap;
   } else if (FORM == kAC) {
-    const C c0 = cm * inv0;
-    const C c1 = cm * inv1;
+    const C c0 = k * inv0;
+    const C c1 = k * inv1;
     C sum = c0 + c1;
     C c2 = C(0);
     if (NDIM == 3) {
-      c2 = cm * inv2;
+      c2 = k * inv2;
       sum = sum + c2;
     }
     const C a = C(1) - two * sum;
@@ -130,15 +177,14 @@ __device__ __forceinline__ C update(C t, C cm, C p0, C p1, C p2, C inv0,
     if (NDIM == 3) acc = acc + c2 * p2;
     return acc;
   } else {
-    const C c = cm * inv0;
     C s = p0 + p1;
     if (NDIM == 3) s = s + p2;
     const C nd2 = C(2 * NDIM);
     if (FORM == kEQC) {
-      const C coef = C(1) - nd2 * c;
-      return coef * t + c * s;
+      const C coef = C(1) - nd2 * k;
+      return coef * t + k * s;
     }
-    return t + c * (s - nd2 * t);
+    return t + k * (s - nd2 * t);
   }
 }
 
@@ -189,7 +235,8 @@ multi_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
         p2 = (i2 + 1 < n2 ? fetch<S, C>(step, T, buf0, buf1, i + 1) : zero) +
              (i2 > 0 ? fetch<S, C>(step, T, buf0, buf1, i - 1) : zero);
       }
-      const C v = update<C, NDIM, FORM>(t, widen(Cm[i]), p0, p1, p2, inv0, inv1, inv2);
+      const C v = update<C, NDIM, FORM>(t, coef_of<C, FORM>(widen(Cm[i]), inv0), p0, p1, p2,
+                                        inv0, inv1, inv2);
       if (last) {
         out[i] = narrow<S>(v);
       } else {
@@ -200,34 +247,300 @@ multi_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
   }
 }
 
-template <typename S, int NDIM, int FORM>
-int launch_multi_step(const void* T, const void* Cm, void* out, void* scratch,
-                      int n_steps, int64_t n0, int64_t n1, int64_t n2,
-                      double inv0, double inv1, double inv2,
-                      cudaStream_t stream) {
+// The cluster route: CTA r of one cluster holds its band of T (see
+// resident.cuh for the band plan) in two compute-type buffers of rows_max + 2
+// rows: row r of the band at row r + 1, and around it the halo rows, the
+// neighbour bands' edge rows (0 beyond the block). Step s reads buffer s % 2
+// and writes the other; it reads only its own shared memory, writes each
+// new edge row into the neighbour's halo row as well, with st.async, and
+// waits on its own mbarrier for the halo rows its neighbours write
+// (resident.cuh: the halo exchange). When REG, each warp walks one run of
+// at most kRegCells rows of one warp-column (reg_seg_rows), the lane's
+// coefficients in registers, loaded once; else each lane walks its warp's
+// slice of the band (resident.cuh Walk) and each step reads Cm from
+// `cm_src`, shared memory when `stage` (loaded there once) or device
+// memory. Either walk carries the cells below and at its row. The last
+// step is the loop body again with the stores to `out` in place of the
+// stores and pushes to shared memory.
+template <typename S, int NDIM, int FORM, bool REG>
+__global__ void __launch_bounds__(rmt::kResidentThreads, 1)
+diffusion_resident_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
+                          S* __restrict__ out, int n_steps, int n0, int n_mid, int n_last,
+                          int stage, typename Compute<S>::type inv0,
+                          typename Compute<S>::type inv1, typename Compute<S>::type inv2) {
   using C = typename Compute<S>::type;
-  auto kernel = multi_step_kernel<S, NDIM, FORM>;
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return -3;
-  const int64_t cells = n0 * n1 * n2;
-  const int64_t want = (cells + kThreads - 1) / kThreads;
-  const int64_t fit = static_cast<int64_t>(per_sm) * sms;
-  const unsigned blocks = static_cast<unsigned>(want < fit ? want : fit);
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int nc = static_cast<int>(cluster.num_blocks());
+  const rmt::Band band = rmt::band_of(n0, nc, rank);
+  const int plane = n_mid * n_last;
+  const int cap = (band.rows_max + 2) * plane;  // cells of a buffer
+  const int cells = band.rows * plane;          // cells of this band
+  const int64_t base = static_cast<int64_t>(band.start) * plane;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // halo arrivals of even, odd steps
+  C* buf = reinterpret_cast<C*>(smem + rmt::kBarrierBytes);  // T: even steps, then odd
+  S* staged = reinterpret_cast<S*>(buf + 2 * cap);            // Cm, when staged
+  if (!REG && stage)
+    rmt::load_bands<false>(staged, Cm + base, cells, static_cast<S*>(nullptr),
+                           static_cast<const S*>(nullptr), 0);
+  const S* cm_src = stage ? staged : Cm + base;
+  // The first buffer takes the band and its halo rows from T (0 beyond the
+  // block); the second's halo rows start at 0 and stay 0 at the block's
+  // edges.
+  const int lo_row = band.start > 0 ? 1 : 0;
+  const int hi_row = band.start + band.rows < n0 ? 1 : 0;
+  rmt::zero_rows(buf + cap, plane);
+  rmt::zero_rows(buf + cap + (band.rows + 1) * plane, plane);
+  if (!lo_row) rmt::zero_rows(buf, plane);
+  if (!hi_row) rmt::zero_rows(buf + (band.rows + 1) * plane, plane);
+  rmt::load_bands<true>(buf + (1 - lo_row) * plane, T + base - lo_row * plane,
+                        (band.rows + lo_row + hi_row) * plane, static_cast<C*>(nullptr),
+                        static_cast<const S*>(nullptr), 0);
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  const rmt::Walk walk(band.rows, n_mid, n_last, warps);
+  const rmt::Walk::Slice slice = walk.slice(static_cast<int>(threadIdx.x >> 5));
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int count = slice.stop - slice.it;  // cells of this lane a step (some past n_last)
+  // REG: this warp's run (reg_seg_rows), rows [ra, ra + nrun) of column
+  // (r_mi, r_c); each of its cells' coefficient in kreg.
+  int nrun = 0, ra = 0, r_mi = 0, r_c = 0;
+  C kreg[kRegCells];
+  if constexpr (REG) {
+    const int cols = n_mid * walk.chunks;
+    const int segs = warps / cols;
+    const int seg_rows = reg_seg_rows(band.rows, n_mid, n_last, warps);
+    const int col = static_cast<int>(threadIdx.x >> 5) / segs;
+    ra = min((static_cast<int>(threadIdx.x >> 5) % segs) * seg_rows, band.rows);
+    r_mi = col / walk.chunks;
+    r_c = (col - r_mi * walk.chunks) * 32 + lane;
+    if (col < cols && r_c < n_last) nrun = min(seg_rows, band.rows - ra);
+#pragma unroll
+    for (int q = 0; q < kRegCells; ++q) {
+      kreg[q] = C(0);
+      if (q < nrun)
+        kreg[q] = coef_of<C, FORM>(widen(Cm[base + (ra + q) * plane + r_mi * n_last + r_c]), inv0);
+    }
+  }
+  // The neighbours' halo rows this CTA's edge rows go to (the band below's
+  // top halo row, the band above's bottom one, at the same buffer offsets)
+  // and their mbarriers, as shared::cluster addresses; 0 where there is none.
+  const uint32_t here = rmt::smem_u32(buf);
+  const uint32_t lo_dst = rank > 0 ? rmt::map_rank(
+      here + (rmt::band_of(n0, nc, rank - 1).rows + 1) * plane * sizeof(C), rank - 1) : 0;
+  const uint32_t lo_bar = rank > 0 ? rmt::map_rank(rmt::smem_u32(bar), rank - 1) : 0;
+  const uint32_t hi_dst = rank + 1 < nc ? rmt::map_rank(here, rank + 1) : 0;
+  const uint32_t hi_bar = rank + 1 < nc ? rmt::map_rank(rmt::smem_u32(bar), rank + 1) : 0;
+  const uint32_t expect = ((rank > 0) + (rank + 1 < nc)) * plane * sizeof(C);
+  if (threadIdx.x == 0) {
+    rmt::mbar_init(bar);
+    rmt::mbar_init(bar + 1);
+    if (nc > 1 && n_steps > 1) rmt::mbar_expect(bar, expect);      // the halo step 0 writes
+    if (nc > 1 && n_steps > 2) rmt::mbar_expect(bar + 1, expect);  // and step 1
+  }
+  cluster.sync();
 
+  // One step; LAST writes `out` instead.
+  auto step_body = [&](int step, auto last_tag) {
+    constexpr bool LAST = decltype(last_tag)::value;
+    const int off = (step & 1) ? cap : 0;
+    const C* __restrict__ cur = buf + off + plane;    // T of this step at its row 0
+    C* __restrict__ nxt = buf + (cap - off) + plane;  // T of the next step
+    const uint32_t push_at = static_cast<uint32_t>((cap - off) * sizeof(C));
+    const uint32_t bar_at = static_cast<uint32_t>((step & 1) * sizeof(uint64_t));
+    if constexpr (REG) {
+      // The warp's run: the cells below and at each row carried down it,
+      // the lane's neighbours along axes 1 and 2 fixed for the run.
+      if (nrun > 0) {
+        const int inplane = r_mi * n_last + r_c;
+        const int j0 = ra * plane + inplane;
+        const bool has_l = r_c > 0, has_r = r_c + 1 < n_last;
+        const bool has_mlo = r_mi > 0, has_mhi = r_mi + 1 < n_mid;
+        const bool push_lo = ra == 0 && lo_dst;
+        const bool push_hi = ra + nrun == band.rows && hi_dst;
+        const uint32_t at = push_at + static_cast<uint32_t>(inplane * sizeof(C));
+        C lo = cur[j0 - plane];
+        C t = cur[j0];
+#pragma unroll
+        for (int q = 0; q < kRegCells; ++q) {
+          if (q < nrun) {
+            const int j = j0 + q * plane;
+            const C hi = cur[j + plane];
+            const C right = has_r ? cur[j + 1] : C(0);
+            const C left = has_l ? cur[j - 1] : C(0);
+            C p1;
+            C p2 = C(0);
+            if constexpr (NDIM == 2) {
+              p1 = right + left;
+            } else {
+              p1 = (has_mhi ? cur[j + n_last] : C(0)) + (has_mlo ? cur[j - n_last] : C(0));
+              p2 = right + left;
+            }
+            const C v = update<C, NDIM, FORM>(t, kreg[q], hi + lo, p1, p2, inv0, inv1, inv2);
+            if constexpr (LAST) {
+              out[base + j] = narrow<S>(v);
+            } else {
+              nxt[j] = v;
+              if (q == 0 && push_lo) rmt::push(lo_dst + at, v, lo_bar + bar_at);
+              if (q + 1 == nrun && push_hi) rmt::push(hi_dst + at, v, hi_bar + bar_at);
+            }
+            lo = t;
+            t = hi;
+          }
+        }
+      }
+      return;
+    }
+    int r = slice.r0, mi = slice.mi, ch = slice.ch;
+    C lo = C(0), t = C(0);  // the walk carries the cells below and at its row
+    for (int q0 = 0; q0 < count; q0 += kRegCells) {
+#pragma unroll
+      for (int q = 0; q < kRegCells; ++q) {
+        if (q0 + q < count) {
+          const int c = ch * 32 + lane;
+          if (c < n_last) {
+            const int inplane = mi * n_last + c;
+            const int j = r * plane + inplane;
+            if (q0 + q == 0 || r == 0) {  // a run's first row
+              lo = cur[j - plane];
+              t = cur[j];
+            }
+            const C hi = cur[j + plane];
+            const C right = c + 1 < n_last ? cur[j + 1] : C(0);
+            const C left = c > 0 ? cur[j - 1] : C(0);
+            C p1;
+            C p2 = C(0);
+            if constexpr (NDIM == 2) {
+              p1 = right + left;
+            } else {
+              p1 = (mi + 1 < n_mid ? cur[j + n_last] : C(0)) + (mi > 0 ? cur[j - n_last] : C(0));
+              p2 = right + left;
+            }
+            const C v = update<C, NDIM, FORM>(t, coef_of<C, FORM>(widen(cm_src[j]), inv0),
+                                              hi + lo, p1, p2, inv0, inv1, inv2);
+            if constexpr (LAST) {
+              out[base + j] = narrow<S>(v);
+            } else {
+              nxt[j] = v;
+              const uint32_t at = push_at + static_cast<uint32_t>(inplane * sizeof(C));
+              if (r == 0 && lo_dst) rmt::push(lo_dst + at, v, lo_bar + bar_at);
+              if (r + 1 == band.rows && hi_dst) rmt::push(hi_dst + at, v, hi_bar + bar_at);
+            }
+            lo = t;
+            t = hi;
+          }
+          walk.next_cell(&r, &mi, &ch);
+        }
+      }
+    }
+  };
+  for (int step = 0; step < n_steps; ++step) {
+    if (step > 0) {
+      // The halo the last step wrote; then its mbarrier takes the next
+      // step's, before any push of this step lets a neighbour run ahead
+      // (expect > 0: a phase cannot complete before the neighbours push).
+      if (nc > 1) {
+        rmt::mbar_wait(bar + ((step - 1) & 1), ((step - 1) >> 1) & 1);
+        if (threadIdx.x == 0 && step + 1 < n_steps - 1)
+          rmt::mbar_expect(bar + ((step - 1) & 1), expect);
+      }
+      __syncthreads();
+    }
+    if (step + 1 < n_steps) {
+      step_body(step, std::false_type{});
+    } else {
+      step_body(step, std::true_type{});
+    }
+  }
+  cluster.sync();  // no CTA leaves while a store it made to a neighbour may be in flight
+}
+
+// Bytes of shared memory a CTA of the cluster route: the mbarriers, two
+// compute-type buffers of `rows` + 2 rows of `plane` cells, and Cm when
+// staged.
+template <typename S>
+size_t resident_bytes(int64_t rows, int64_t plane, int stage) {
+  using C = typename Compute<S>::type;
+  const size_t cells = static_cast<size_t>(rows * plane);
+  return rmt::kBarrierBytes + 2 * (cells + 2 * plane) * sizeof(C) +
+         (stage ? cells * sizeof(S) : 0);
+}
+
+// One cache a (dtype, rank, form, REG): the cluster kernel's caps and (in
+// the REG one) the cooperative kernel's co-resident blocks, per device.
+template <typename S, int NDIM, int FORM, bool REG>
+rmt::CapsCache& caps_cache() {
+  static rmt::CapsCache cache;
+  return cache;
+}
+
+// The caps of the REG instantiation stand for both: the two differ in no
+// resource the grant depends on (threads, dynamic shared memory).
+template <typename S, int NDIM, int FORM>
+int caps_of(int dev, int* out) {
+  rmt::ClusterCaps caps;
+  const cudaError_t err = rmt::cluster_caps(diffusion_resident_kernel<S, NDIM, FORM, true>, dev,
+                                            &caps_cache<S, NDIM, FORM, true>(), &caps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = caps.cluster;
+  out[1] = caps.smem_limit;
+  return 0;
+}
+
+template <typename S, int NDIM, int FORM, bool REG>
+int launch_resident(const S* t, const S* cm, S* o, int n_steps, int64_t n0, int64_t n1,
+                    int64_t n2, typename Compute<S>::type c0, typename Compute<S>::type c1,
+                    typename Compute<S>::type c2, int cluster, int stage, int dev,
+                    cudaStream_t stream) {
+  auto kernel = diffusion_resident_kernel<S, NDIM, FORM, REG>;
+  rmt::ClusterCaps caps;
+  cudaError_t err = rmt::cluster_caps(kernel, dev, &caps_cache<S, NDIM, FORM, REG>(), &caps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t plane = n1 * n2;
+  const int64_t rows = (n0 + cluster - 1) / cluster;
+  const size_t bytes = resident_bytes<S>(rows, plane, stage);
+  if (!rmt::plan_fits(caps, cluster, n0, bytes) || plane > (int64_t{1} << 30)) return -1;
+  const int64_t n_mid = NDIM == 2 ? 1 : n1;
+  const int64_t n_last = NDIM == 2 ? n1 : n2;
+  if (REG) {
+    const int seg = reg_seg_rows(static_cast<int>(rows), static_cast<int>(n_mid),
+                                 static_cast<int>(n_last), rmt::kResidentThreads / 32);
+    if (seg < 1 || seg > kRegCells) return -1;
+  }
+  err = rmt::launch_cluster(kernel, cluster, bytes, stream, t, cm, o, n_steps,
+                            static_cast<int>(n0), static_cast<int>(n_mid),
+                            static_cast<int>(n_last), stage, c0, c1, c2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S, int NDIM, int FORM>
+int launch_multi(const void* T, const void* Cm, void* out, void* scratch, int n_steps,
+                 int64_t n0, int64_t n1, int64_t n2, double inv0, double inv1, double inv2,
+                 int cluster, int cm_at, int dev, cudaStream_t stream) {
+  using C = typename Compute<S>::type;
   const S* t = static_cast<const S*>(T);
   const S* cm = static_cast<const S*>(Cm);
   S* o = static_cast<S*>(out);
+  C c0 = C(inv0), c1 = C(inv1), c2 = C(inv2);
+  if (cluster > 0 && cm_at == kCmRegisters)
+    return launch_resident<S, NDIM, FORM, true>(t, cm, o, n_steps, n0, n1, n2, c0, c1, c2,
+                                                cluster, 0, dev, stream);
+  if (cluster > 0)
+    return launch_resident<S, NDIM, FORM, false>(t, cm, o, n_steps, n0, n1, n2, c0, c1, c2,
+                                                 cluster, cm_at == kCmShared, dev, stream);
+  if (scratch == nullptr) return -1;
+  auto kernel = multi_step_kernel<S, NDIM, FORM>;
+  int fit = 0;
+  cudaError_t err = rmt::coop_blocks(kernel, dev, kThreads, &caps_cache<S, NDIM, FORM, true>(),
+                                     &fit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fit < 1) return -3;
+  const int64_t cells = n0 * n1 * n2;
+  const int64_t want = (cells + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(want < fit ? want : fit);
   C* b0 = static_cast<C*>(scratch);
   C* b1 = b0 + cells;
-  C c0 = C(inv0), c1 = C(inv1), c2 = C(inv2);
   void* args[] = {&t, &cm, &o, &b0, &b1, &n_steps, &n0, &n1, &n2, &c0, &c1, &c2};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks),
                                     dim3(kThreads), args, 0, stream);
@@ -235,33 +548,39 @@ int launch_multi_step(const void* T, const void* Cm, void* out, void* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S, int NDIM>
-int dispatch_form(int form, const void* T, const void* Cm, void* out,
-                  void* scratch, int n_steps, int64_t n0, int64_t n1,
-                  int64_t n2, double inv0, double inv1, double inv2,
-                  cudaStream_t s) {
-  switch (form) {
-    case kDirect:
-      return launch_multi_step<S, NDIM, kDirect>(T, Cm, out, scratch, n_steps, n0, n1, n2, inv0, inv1, inv2, s);
-    case kAC:
-      return launch_multi_step<S, NDIM, kAC>(T, Cm, out, scratch, n_steps, n0, n1, n2, inv0, inv1, inv2, s);
-    case kEQC:
-      return launch_multi_step<S, NDIM, kEQC>(T, Cm, out, scratch, n_steps, n0, n1, n2, inv0, inv1, inv2, s);
-    case kCOnly:
-      return launch_multi_step<S, NDIM, kCOnly>(T, Cm, out, scratch, n_steps, n0, n1, n2, inv0, inv1, inv2, s);
-    default:
-      return -1;
+// The instantiation of (ndim, form): F<NDIM, FORM>(args...), -1 for a form
+// out of range.
+#define RMT_MULTI_DISPATCH(F, ndim, form, ...)                                  \
+  switch ((ndim) * 4 + (form)) {                                                \
+    case 2 * 4 + kDirect: return F<S, 2, kDirect>(__VA_ARGS__);                 \
+    case 2 * 4 + kAC: return F<S, 2, kAC>(__VA_ARGS__);                         \
+    case 2 * 4 + kEQC: return F<S, 2, kEQC>(__VA_ARGS__);                       \
+    case 2 * 4 + kCOnly: return F<S, 2, kCOnly>(__VA_ARGS__);                   \
+    case 3 * 4 + kDirect: return F<S, 3, kDirect>(__VA_ARGS__);                 \
+    case 3 * 4 + kAC: return F<S, 3, kAC>(__VA_ARGS__);                         \
+    case 3 * 4 + kEQC: return F<S, 3, kEQC>(__VA_ARGS__);                       \
+    case 3 * 4 + kCOnly: return F<S, 3, kCOnly>(__VA_ARGS__);                   \
+    default: return -1;                                                         \
   }
+
+template <typename S>
+int dispatch_multi(int ndim, int form, const void* T, const void* Cm, void* out,
+                   void* scratch, int n_steps, int64_t n0, int64_t n1, int64_t n2,
+                   double inv0, double inv1, double inv2, int cluster, int cm_at, int dev,
+                   cudaStream_t s) {
+  if (form < 0 || form > kCOnly) return -1;
+  if (ndim == 2) {
+    n2 = 1;
+    inv2 = 0.0;
+  }
+  RMT_MULTI_DISPATCH(launch_multi, ndim, form, T, Cm, out, scratch, n_steps, n0, n1, n2, inv0,
+                     inv1, inv2, cluster, cm_at, dev, s)
 }
 
 template <typename S>
-int dispatch_ndim(int ndim, int form, const void* T, const void* Cm,
-                  void* out, void* scratch, int n_steps, int64_t n0,
-                  int64_t n1, int64_t n2, double inv0, double inv1,
-                  double inv2, cudaStream_t s) {
-  if (ndim == 2)
-    return dispatch_form<S, 2>(form, T, Cm, out, scratch, n_steps, n0, n1, 1, inv0, inv1, 0.0, s);
-  return dispatch_form<S, 3>(form, T, Cm, out, scratch, n_steps, n0, n1, n2, inv0, inv1, inv2, s);
+int dispatch_caps(int ndim, int form, int dev, int* out) {
+  if (form < 0 || form > kCOnly) return -1;
+  RMT_MULTI_DISPATCH(caps_of, ndim, form, dev, out)
 }
 
 // ---------------------------------------------------------------------------
@@ -433,7 +752,7 @@ tb2_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ ou
 // device's opt-in limit a block (-3 if they exceed it), and the function
 // attribute that allows them (only needed above the 48 KB default).
 // Returns 0, -1 for a device index out of range, -3, or a CUDA error.
-constexpr int kMaxDevices = 64;
+using rmt::kMaxDevices;
 
 template <typename S, int K>
 int tb2_prepare(int dev) {
@@ -663,29 +982,57 @@ int tb_ndim(int ndim, int k, const void* T, const void* Cm, void* out, int64_t n
 // C interface, bound with ctypes. `dtype` is 0 f32, 1 f64, 2 bf16; shapes
 // are the block's extents, n2 = 1 in 2D; `stream` is a cudaStream_t.
 // Return codes: 0 on success, >0 a CUDA error (the launch's, or
-// cudaGetLastError() after it), -1 an unsupported dtype, rank, form or
-// step count, -2 a grid that overflows a launch dimension, -3 a launch
+// cudaGetLastError() after it), -1 an unsupported dtype, rank, form, step
+// count or plan, -2 a grid that overflows a launch dimension, -3 a launch
 // that cannot fit (no co-resident block; a light cone larger than shared
 // memory). Launches are asynchronous on `stream`; nothing here allocates.
 
-// `form`: 0 direct, 1 A/c, 2 eqc, 3 conly. `scratch` holds 2·n0·n1·n2
-// elements of the compute type (f32 for bf16). `out` must not alias `T`.
+// `form`: 0 direct, 1 A/c, 2 eqc, 3 conly. The route is the caller's plan
+// (ops/resident.py), made before the launch: `cluster` > 0 launches one
+// cluster of that many CTAs (at most the size rmt_multi_step_cm_caps
+// grants, and at most n0), reading Cm where `cm_at` says (0 device memory,
+// 1 staged into shared memory, 2 registers, which needs at most kRegCells
+// cells a lane); a plan whose bytes a CTA exceed the card's limit, or that
+// keeps more cells a lane in registers, returns -1, and `scratch` is not
+// read. `cluster` == 0 takes the cooperative route, whose `scratch` holds
+// 2·n0·n1·n2 elements of the compute type (f32 for bf16). `dev` is the
+// current device's index. `out` must not alias `T`.
 extern "C" int rmt_multi_step_cm(int dtype, int ndim, int form, int n_steps,
                                  const void* T, const void* Cm, void* out,
                                  void* scratch, int64_t n0, int64_t n1,
                                  int64_t n2, double inv0, double inv1,
-                                 double inv2, void* stream) {
-  if ((ndim != 2 && ndim != 3) || n_steps < 1) return -1;
+                                 double inv2, int cluster, int cm_at, int dev,
+                                 void* stream) {
+  if ((ndim != 2 && ndim != 3) || n_steps < 1 || cluster < 0 || cm_at < kCmDevice ||
+      cm_at > kCmRegisters)
+    return -1;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return dispatch_ndim<float>(ndim, form, T, Cm, out, scratch, n_steps, n0, n1, n2, inv0, inv1, inv2, s);
+      return dispatch_multi<float>(ndim, form, T, Cm, out, scratch, n_steps, n0, n1, n2, inv0,
+                                   inv1, inv2, cluster, cm_at, dev, s);
     case kF64:
-      return dispatch_ndim<double>(ndim, form, T, Cm, out, scratch, n_steps, n0, n1, n2, inv0, inv1, inv2, s);
+      return dispatch_multi<double>(ndim, form, T, Cm, out, scratch, n_steps, n0, n1, n2, inv0,
+                                    inv1, inv2, cluster, cm_at, dev, s);
     case kBF16:
-      return dispatch_ndim<__nv_bfloat16>(ndim, form, T, Cm, out, scratch, n_steps, n0, n1, n2, inv0, inv1, inv2, s);
+      return dispatch_multi<__nv_bfloat16>(ndim, form, T, Cm, out, scratch, n_steps, n0, n1,
+                                           n2, inv0, inv1, inv2, cluster, cm_at, dev, s);
     default:
       return -1;
+  }
+}
+
+// What device `dev` (the current one) grants the cluster route of one
+// (dtype, ndim, form): out[0] the largest cluster size (16, 8, or 0 for
+// none), out[1] the dynamic shared memory a CTA may use. Asked once per
+// device; the launches reuse the answer.
+extern "C" int rmt_multi_step_cm_caps(int dtype, int ndim, int form, int dev, int* out) {
+  if (ndim != 2 && ndim != 3) return -1;
+  switch (dtype) {
+    case kF32: return dispatch_caps<float>(ndim, form, dev, out);
+    case kF64: return dispatch_caps<double>(ndim, form, dev, out);
+    case kBF16: return dispatch_caps<__nv_bfloat16>(ndim, form, dev, out);
+    default: return -1;
   }
 }
 

@@ -1,5 +1,5 @@
-// The cluster-resident loop shared by the multi-step kernels (wave.cu,
-// swe.cu): one thread-block cluster of C CTAs holds a whole block in its
+// The cluster-resident loop shared by the multi-step kernels (multistep.cu,
+// wave.cu, swe.cu): one thread-block cluster of C CTAs holds a whole block in its
 // distributed shared memory for every step of a launch, the CTAs trading
 // their bands' edge rows through their mbarriers (the halo exchange, below)
 // instead of meeting at a barrier each step.
@@ -336,6 +336,20 @@ struct Walk {
     if (++*ch == chunks) {
       *ch = 0;
       ++*mi;
+    }
+  }
+
+  // A slice walked cell by cell rather than run by run: s.stop - s.it
+  // cells, the first at row s.r0 of warp-column (s.mi, s.ch); each call
+  // moves (r, mi, ch) to the next, and a new run starts where r comes back
+  // to 0.
+  __device__ __forceinline__ void next_cell(int* r, int* mi, int* ch) const {
+    if (++*r == rows) {
+      *r = 0;
+      if (++*ch == chunks) {
+        *ch = 0;
+        ++*mi;
+      }
     }
   }
 };

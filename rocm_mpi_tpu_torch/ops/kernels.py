@@ -58,7 +58,8 @@ EXTENTS = [C_I64] * 3                  # core extents (n2 = 1 in 2D)
 BOX = [C_I64] * 6 + [C_INT]            # lo0..lo2, e0..e2, source offset
 INV_D2 = [C_DBL] * 3
 _SIGNATURES = {
-    "rmt_masked_step": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *INV_D2, C_PTR]),
+    "rmt_masked_step": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *INV_D2, C_INT,
+                                C_PTR]),
     "rmt_fused_step_cm": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *BOX,
                                   *INV_D2, C_PTR]),
     "rmt_fused_step_padded": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, C_DBL,
@@ -73,7 +74,7 @@ def reset_launches() -> None:
 
 def inv_d2_of(spacing) -> tuple[float, ...]:
     """Per-axis 1/h², computed in Python doubles as the JAX kernels do."""
-    return tuple(1.0 / (float(d) * float(d)) for d in spacing)
+    return tuple([1.0 / (float(d) * float(d)) for d in spacing])
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -210,7 +211,8 @@ def box_args(box) -> tuple[int, ...]:
 
 
 def extents(shape) -> tuple[int, ...]:
-    return tuple(int(s) for s in shape) + (1,) * (3 - len(shape))
+    out = tuple(map(int, shape))
+    return out + (1,) * (3 - len(out))
 
 
 def inv3(inv_d2) -> tuple[float, ...]:
@@ -274,6 +276,21 @@ def masked_step_plain(T, Cm, inv_d2, out=None):
     return _store(Tc + Cmc * lap, T.dtype, out)
 
 
+# Cells in 16 bytes, by dtype: the cells a lane of masked_step moves.
+LANE_CELLS = {torch.float32: 4, torch.float64: 2, torch.bfloat16: 8}
+
+
+def masked_layout(n_last: int, dtype: torch.dtype, t: int, cm: int, o: int) -> bool:
+    """masked_step's layout: True (16-byte vectors) when the last axis's
+    `n_last` cells are a whole number of 16-byte lanes and T, Cm and out
+    (addresses t, cm, o) all lie on the 16-byte grid; False (scalar cells)
+    for a ragged last axis or a view off the grid, and always for f64,
+    whose two-cell vectors measured slower on an H100 than its scalar
+    cells (12288²: 1.27 ms against 1.185, scripts/torch_kernel_ab.py)."""
+    return (dtype is not torch.float64 and n_last % LANE_CELLS[dtype] == 0
+            and not (t | cm | o) & 15)
+
+
 def masked_step(T, Cm, spacing, out=None):
     """One explicit step with the Dirichlet mask folded into `Cm`.
 
@@ -284,11 +301,11 @@ def masked_step(T, Cm, spacing, out=None):
     they are held, so held cells come back bit-unchanged.
 
     Bound on the H100: memory — 3 passes of the field per step (read T and
-    Cm, write out) at ~11 flops per cell. Design: one thread per cell, 32x8
-    blocks coalesced along the last axis; the 2·ndim neighbour reads are
-    served from L1/L2 lines the block already loads, so device memory sees
-    about one pass per operand. At 252² the step is launch-bound instead
-    (762 KB in f32).
+    Cm, write out) at ~11 flops per cell. Design: a lane moves 16 bytes of
+    a row and walks a run of rows with the rows around it in registers,
+    neighbours along the last axis by shuffle (csrc/stencil.cu); the
+    layout, vectors or scalar cells, is masked_layout's. At 252² the step
+    is launch-bound instead (762 KB in f32).
     """
     check_operands("masked_step", T, {"Cm": Cm}, T.shape, spacing, out)
     inv_d2 = inv_d2_of(spacing)
@@ -297,8 +314,10 @@ def masked_step(T, Cm, spacing, out=None):
         return masked_step_plain(T, Cm, inv_d2, out=out)
     if out is None:
         out = torch.empty_like(T)
+    t, cm, o = T.data_ptr(), Cm.data_ptr(), out.data_ptr()
     launch("stencil", _SIGNATURES, "rmt_masked_step", T.device, _DTYPE_CODE[T.dtype], T.ndim,
-           T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(T.shape), *inv3(inv_d2))
+           t, cm, o, *extents(T.shape), *inv3(inv_d2),
+           masked_layout(T.shape[-1], T.dtype, t, cm, o))
     LAUNCHES["masked_step"] += 1
     return out
 

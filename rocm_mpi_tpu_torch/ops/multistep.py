@@ -7,7 +7,9 @@ Two CUDA kernels (csrc/multistep.cu, built by _build.py) sit behind the
 wrappers, with the same dispatch rule as ops/kernels.py: a CPU tensor
 takes the plain PyTorch version, a CUDA tensor launches the kernel, and
 anything else raises. Launches count in kernels.LAUNCHES under
-"multi_step_cm" and "tb_sweep".
+"multi_step_cm" and "tb_sweep". The multi_step_cm kernel holds a block in
+one thread-block cluster's shared memory where it fits, else in L2 behind
+a grid barrier: ops/resident.py picks the route by size before the launch.
 
 The constants below are the JAX package's TPU budgets (VMEM, Mosaic's
 compile envelope, the sublane-tiled stripe geometry). They mean nothing
@@ -27,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from rocm_mpi_tpu_torch.ops import _build
+from rocm_mpi_tpu_torch.ops import _build, resident
 from rocm_mpi_tpu_torch.ops.kernels import (
     _DTYPE_CODE,
     LAUNCHES,
@@ -68,8 +70,11 @@ _SIGNATURES = {
         ctypes.c_void_p,                                          # scratch
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,           # extents
         ctypes.c_double, ctypes.c_double, ctypes.c_double,        # inv_d2
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,                 # cluster, cm_at, device
         ctypes.c_void_p,                                          # cudaStream_t
     ]),
+    "rmt_multi_step_cm_caps": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
     "rmt_tb_sweep": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,                 # dtype, ndim, k
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,        # T, Cm, out
@@ -432,7 +437,9 @@ def _check_operands(name: str, T, Cm, out) -> None:
 
 def multi_step(T, Cm, inv_d2, n: int, form: str, out=None):
     """The multi_step_cm kernel's wrapper: `n` steps of body form `form`
-    in one launch for CUDA tensors, multi_step_cm_plain for CPU ones."""
+    in one launch for CUDA tensors, multi_step_cm_plain for CPU ones. The
+    route is device_plan's; only the cooperative route allocates its
+    scratch."""
     _check_operands("multi_step_cm", T, Cm, out)
     if form not in FORMS:
         raise ValueError(f"unknown body form {form!r}; known: {tuple(FORMS)}")
@@ -441,13 +448,41 @@ def multi_step(T, Cm, inv_d2, n: int, form: str, out=None):
         return multi_step_cm_plain(T, Cm, inv_d2, n, form, out=out)
     if out is None:
         out = torch.empty_like(T)
-    scratch = torch.empty((2,) + tuple(T.shape), dtype=_compute_dtype(T.dtype),
-                          device=T.device)
+    index = T.device.index
+    plan = device_plan(index, tuple(T.shape), T.dtype, form)
+    scratch = None  # the cluster route keeps the state in shared memory
+    if plan.route == "cooperative":
+        scratch = torch.empty((2,) + tuple(T.shape), dtype=_compute_dtype(T.dtype),
+                              device=T.device)
     launch("multistep", _SIGNATURES, "rmt_multi_step_cm", T.device, _DTYPE_CODE[T.dtype],
            T.ndim, FORMS[form], int(n), T.data_ptr(), Cm.data_ptr(), out.data_ptr(),
-           scratch.data_ptr(), *extents(T.shape), *inv3(inv_d2))
+           None if scratch is None else scratch.data_ptr(), *extents(T.shape),
+           *inv3(inv_d2), plan.cluster, cm_at(plan), index)
     LAUNCHES["multi_step_cm"] += 1
     return out
+
+
+def cm_at(plan: resident.ResidentPlan) -> int:
+    """Where a multi_step_cm launch reads Cm (multistep.cu CmAt): 0 device
+    memory, 1 staged into shared memory, 2 registers."""
+    return 2 if plan.registers else int(plan.stage)
+
+
+@functools.lru_cache(maxsize=None)
+def device_caps(index: int, dtype: torch.dtype, ndim: int, form: str) -> resident.Caps:
+    """What CUDA device `index` grants the cluster route of one kernel
+    instantiation, asked of the built kernel once."""
+    fn = _build.load("multistep", _SIGNATURES).rmt_multi_step_cm_caps
+    return resident.query_caps(fn, index, _DTYPE_CODE[dtype], ndim, FORMS[form])
+
+
+@functools.lru_cache(maxsize=None)
+def device_plan(index: int, shape: tuple, dtype: torch.dtype,
+                form: str) -> resident.ResidentPlan:
+    """The route of a multi_step_cm launch on CUDA device `index`
+    (ops/resident.py), made once per (device, shape, dtype, form)."""
+    return resident.plan("diffusion", shape, dtype,
+                         device_caps(index, dtype, len(shape), form))
 
 
 def tb_sweep(T, Cm, inv_d2, k: int, out=None):

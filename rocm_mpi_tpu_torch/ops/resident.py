@@ -1,5 +1,6 @@
 """The route and band plan of the multi-step kernels' cluster route
-(csrc/resident.cuh; the wave_multi_step and swe_multi_step kernels).
+(csrc/resident.cuh; the multi_step_cm, wave_multi_step and swe_multi_step
+kernels).
 
 A multi-step launch keeps its block on chip for every step, as the TPU
 kernels keep theirs in VMEM: one thread-block cluster of C CTAs holds the
@@ -8,8 +9,9 @@ the CTAs trade their edge rows between steps through their mbarriers. This
 module decides, before the
 launch, whether a block fits one cluster ("cluster" route) or takes the
 cooperative kernel that keeps the state in L2 ("cooperative" route), with
-how many CTAs, and whether the read-only operands (the wave's M and Cw,
-the SWE's face masks) are staged into shared memory too. The route is a
+how many CTAs, and where the read-only operands (diffusion's Cm, the
+wave's M and Cw, the SWE's face masks) are read: staged into shared memory
+too, or for diffusion kept in registers. The route is a
 function of the shape, the dtype and what the card grants (`Caps`, asked of
 the built kernel once per device: on an H100, clusters of 16 CTAs and
 232,448 bytes of shared memory a CTA); it is never a retry after a
@@ -19,26 +21,34 @@ The plan: C = min(granted, n0) CTAs; bands of ceil(n0 / C) or floor(n0 / C)
 rows (the larger first); each CTA lays out its shared memory for the
 largest band, in the compute type (f32 for bf16):
 
-* wave: two buffers of U with a halo row each side (the neighbour bands'
-  edge rows), `2·(rows + 2)·plane` cells;
+* diffusion: two buffers of T with a halo row each side (the neighbour
+  bands' edge rows), `2·(rows + 2)·plane` cells;
+* wave: two buffers of U with a halo row each side, the same;
 * SWE: two buffers of h (one row more: the next band's first row, whose
   h' the CTA computes itself) and ndim velocities with a halo row each
   side, `2·((rows + 1) + ndim·(rows + 2))·plane` cells;
 
 ahead of them the CTA's two mbarriers (16 bytes), and, when they fit behind
-them, the read-only operands in the storage type (wave: M and Cw; SWE:
-ndim masks). The launcher recomputes the bytes and refuses a plan beyond
-the card's limit.
+them, the read-only operands in the storage type (diffusion: Cm; wave: M
+and Cw; SWE: ndim masks). Diffusion's Cm needs no shared memory where the
+band cuts into one run of at most `reg_cells()` rows a warp (`reg_rows`):
+each lane keeps its run's coefficients in registers for the whole launch.
+The launcher recomputes the bytes and the run, and refuses a plan beyond
+the card's limit or its registers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 from typing import NamedTuple
 
 import torch
 
-KINDS = ("wave", "swe")
+from rocm_mpi_tpu_torch.ops import _build
+
+KINDS = ("diffusion", "wave", "swe")
 BARRIER_BYTES = 16  # the CTA's two mbarriers, ahead of the buffers (resident.cuh)
 
 
@@ -52,18 +62,51 @@ class Caps(NamedTuple):
 
 class ResidentPlan(NamedTuple):
     """`route` "cluster" or "cooperative"; on the cluster route, `cluster`
-    CTAs of `rows` rows at most, `nbytes` of shared memory a CTA, and
-    whether the read-only operands are staged. The cooperative route has
-    cluster 0, rows 0, nbytes 0."""
+    CTAs of `rows` rows at most, `nbytes` of shared memory a CTA, whether
+    the read-only operands are staged, and (diffusion) whether Cm is kept
+    in registers instead. The cooperative route has cluster 0, rows 0,
+    nbytes 0."""
 
     route: str
     cluster: int
     rows: int
     nbytes: int
     stage: bool
+    registers: bool = False
 
 
 COOPERATIVE = ResidentPlan("cooperative", 0, 0, 0, False)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(source: str, name: str) -> int:
+    """`constexpr int name = N;` of a kernel source, read from it, so that
+    the plan and the kernel cannot disagree."""
+    text = (_build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def reg_cells() -> int:
+    """The longest run a warp (cells a lane) whose coefficients the
+    diffusion kernel keeps in registers (multistep.cu kRegCells)."""
+    return _constant("multistep.cu", "kRegCells")
+
+
+def reg_rows(shape, rows: int) -> int | None:
+    """The diffusion kernel's register layout of a band of `rows` rows of
+    `shape` (multistep.cu reg_seg_rows): one run of rows a warp, each
+    warp-column (32 cells of the last axis at one axis-1 index) cut into
+    warps / columns segments. The rows of a segment, the cells a lane
+    keeps; None when the band has more warp-columns than a CTA has warps
+    (kResidentThreads / 32)."""
+    warps = _constant("resident.cuh", "kResidentThreads") // 32
+    cols = 1
+    for n in shape[1:-1]:
+        cols *= int(n)
+    cols *= -(-int(shape[-1]) // 32)
+    if cols > warps:
+        return None
+    return -(-int(rows) // (warps // cols))
 
 
 def bands(n0: int, cluster: int) -> list[tuple[int, int]]:
@@ -86,7 +129,8 @@ def _itemsizes(dtype: torch.dtype) -> tuple[int, int]:
 
 
 def smem_bytes(kind: str, shape, dtype: torch.dtype, rows: int, stage: bool) -> int:
-    """Shared memory a CTA of `rows` rows (wave.cu / swe.cu resident_bytes)."""
+    """Shared memory a CTA of `rows` rows (multistep.cu / wave.cu / swe.cu
+    resident_bytes)."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; known: {KINDS}")
     csize, ssize = _itemsizes(dtype)
@@ -94,9 +138,10 @@ def smem_bytes(kind: str, shape, dtype: torch.dtype, rows: int, stage: bool) -> 
     for n in shape[1:]:
         plane *= int(n)
     band = rows * plane
-    if kind == "wave":
+    if kind in ("diffusion", "wave"):
         state = 2 * (band + 2 * plane) * csize
-        return BARRIER_BYTES + state + (2 * band * ssize if stage else 0)
+        staged = (1 if kind == "diffusion" else 2) * band * ssize
+        return BARRIER_BYTES + state + (staged if stage else 0)
     ndim = len(shape)
     state = 2 * ((band + plane) + ndim * (band + 2 * plane)) * csize
     return BARRIER_BYTES + state + (ndim * band * ssize if stage else 0)
@@ -113,6 +158,10 @@ def plan(kind: str, shape, dtype: torch.dtype, caps: Caps) -> ResidentPlan:
     nbytes = smem_bytes(kind, shape, dtype, rows, False)
     if nbytes > caps.smem_limit:
         return COOPERATIVE
+    if kind == "diffusion":
+        run = reg_rows(shape, rows)
+        if run is not None and run <= reg_cells():
+            return ResidentPlan("cluster", cluster, rows, nbytes, False, True)
     staged = smem_bytes(kind, shape, dtype, rows, True)
     if staged <= caps.smem_limit:
         return ResidentPlan("cluster", cluster, rows, staged, True)
@@ -121,7 +170,8 @@ def plan(kind: str, shape, dtype: torch.dtype, caps: Caps) -> ResidentPlan:
 
 def query_caps(fn, index: int, *args) -> Caps:
     """Caps of CUDA device `index` from the built library's caps entry `fn`
-    (rmt_wave_multi_step_caps / rmt_swe_multi_step_caps), called with
+    (rmt_multi_step_cm_caps, rmt_wave_multi_step_caps,
+    rmt_swe_multi_step_caps), called with
     `args` in the device's context."""
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(index):

@@ -1,5 +1,6 @@
-"""Time two checkouts of the PyTorch/CUDA port's tb_sweep, kp_update,
-wave_multi_step and swe_multi_step side by side on one CUDA card.
+"""Time two checkouts of the PyTorch/CUDA port's masked_step, tb_sweep,
+kp_update, multi_step_cm, wave_multi_step and swe_multi_step side by side
+on one CUDA card.
 
     python scripts/torch_kernel_ab.py --roots OLD NEW NEW OLD [--kernels K ...] [--json PATH]
 
@@ -8,8 +9,12 @@ checkout, or an unpacked `git archive` of one). Every root runs in a
 process of its own, in the order given, so the kernels of each are built
 from its own sources into its own `_build/`; list each root twice, in the
 order old, new, new, old, so that a drift of the card's clocks shows.
-`--kernels` picks what each process times (default: all four):
+`--kernels` picks what each process times (default: all six):
 
+- `masked_step`: `kernels.masked_step` at 12288² in f32, f64 and bf16
+  (the one-GPU perf step): the median of CUDA-event-timed launches, each
+  launch held bitwise against `masked_step_plain` first; and at 252² f32
+  (entry()'s step) the same, with the wrapper's host µs a call;
 - `tb_sweep`: `multistep.tb_sweep` (2D, f32/f64/bf16) at 12304² and
   6160², k = 8, and at 12320², k = 16: the median of CUDA-event-timed
   launches, each launch held bitwise against `tb_sweep_plain` first;
@@ -20,11 +25,13 @@ order old, new, new, old, so that a drift of the card's clocks shows.
   `kp._update_operands_ok`), the wrapper is also timed with those
   comparisons made to refuse every call, so that the checks behind them
   run each time;
-- `wave_multi_step`, `swe_multi_step`: the wrappers
-  `wave.leapfrog_multi_step` (A-form) and `swe.fb_multi_step` at the main
-  paths' blocks: 252², n = 256 (the VMEM loops; the SWE's f64 at 180²),
-  and run_deep's 268² (wave) and 256² (SWE) blocks, n = 8, in f32, f64
-  and bf16 where the JAX admission takes them. Each launch is held
+- `multi_step_cm`, `wave_multi_step`, `swe_multi_step`: the wrappers
+  `multistep.multi_step` (eqc), `wave.leapfrog_multi_step` (A-form) and
+  `swe.fb_multi_step` at the main paths' blocks: 252², n = 256 (the VMEM
+  loops; the SWE's f64 at 180²), run_deep's 316² (diffusion, n = 32),
+  268² (wave) and 256² (SWE) blocks (n = 8), and diffusion's 96×64×48
+  f32 block (n = 8), in f32, f64 and bf16 where the JAX admission takes
+  them. Each launch is held
   bitwise against the plain version first; then three figures: per call
   (the median of launches each between two CUDA events, as chip_smoke.py
   times kernels), device (the same, with the launches queued while the
@@ -51,9 +58,14 @@ KP_SHAPE = (128, 128)
 HOST_CALLS = 2000
 HOST_REPEATS = 7
 SEED = 1234
-KERNELS = ("tb_sweep", "kp_update", "wave_multi_step", "swe_multi_step")
+KERNELS = ("masked_step", "tb_sweep", "kp_update", "multi_step_cm", "wave_multi_step",
+           "swe_multi_step")
+MASKED_BIG, MASKED_SMALL = (12288, 12288), (252, 252)
 # (kernel, block, steps a launch, dtypes): the main paths' multi-step blocks.
 MULTI_CASES = (
+    ("multi_step_cm", (252, 252), 256, DTYPES),
+    ("multi_step_cm", (316, 316), 32, DTYPES),
+    ("multi_step_cm", (96, 64, 48), 8, ("f32",)),
     ("wave_multi_step", (252, 252), 256, DTYPES),
     ("wave_multi_step", (268, 268), 8, DTYPES),
     ("swe_multi_step", (252, 252), 256, ("f32", "bf16")),
@@ -115,7 +127,7 @@ def multi_case(torch, name, shape, steps, dtype, dev):
     """(launch, plain version) of a multi-step kernel case: fields in
     [0, 1), velocities in [-0.5, 0.5), held edges (the wave's interior
     mask; the SWE's high wall faces), small coefficients."""
-    from rocm_mpi_tpu_torch.ops import swe, wave
+    from rocm_mpi_tpu_torch.ops import kernels, multistep, swe, wave
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -123,6 +135,13 @@ def multi_case(torch, name, shape, steps, dtype, dev):
         return (torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
                 + lo).to(dtype)
 
+    if name == "multi_step_cm":
+        T = rand()
+        Cm = kernels.edge_masked_cm(T, torch.ones_like(T), 1.0, 0.1)
+        inv_d2 = (1.0,) * len(shape)
+        out = torch.empty_like(T)
+        return (lambda: multistep.multi_step(T, Cm, inv_d2, steps, "eqc", out=out),
+                lambda: multistep.multi_step_cm_plain(T, Cm, inv_d2, steps, "eqc"))
     if name == "wave_multi_step":
         U, Uprev = rand(), rand()
         M = wave.interior_mask(shape, dtype, dev)
@@ -161,6 +180,8 @@ def time_multi(torch, root, kernels, result, dev, tdts):
             run, plain = multi_case(torch, name, shape, steps, tdts[dtype], dev)
             got, want = run(), plain()
             torch.cuda.synchronize()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
             equal = all(torch.equal(g, w) for g, w in zip(got, want))
             reps = 50
             row = {"kernel": name, "shape": list(shape), "steps": steps, "dtype": dtype,
@@ -168,11 +189,44 @@ def time_multi(torch, root, kernels, result, dev, tdts):
             row["host_us"] = host_us(torch, run, MULTI_HOST_CALLS, 5)
             row["device_ms"] = device_ms(torch, run, reps, row["host_us"])
             result["multi_step"].append(row)
-            print(f"[ab] {root} {name} {shape[0]}x{shape[1]} n={steps} {dtype}: per call "
+            print(f"[ab] {root} {name} {'x'.join(map(str, shape))} n={steps} {dtype}: per call "
                   f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, host "
                   f"{row['host_us']:.2f} µs a call, bitwise {equal}", flush=True)
             del run, plain, got, want
         torch.cuda.empty_cache()
+
+
+def time_masked(torch, root, result, dev, tdts):
+    """masked_step at 12288² (three dtypes) and 252² f32, each launch held
+    bitwise against the plain version first."""
+    from rocm_mpi_tpu_torch.ops import kernels as kernel_ops
+
+    spacing = (0.1, 0.1)
+    inv_d2 = kernel_ops.inv_d2_of(spacing)
+    for shape, names in ((MASKED_BIG, DTYPES), (MASKED_SMALL, ("f32",))):
+        for name in names:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            T = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64).to(tdts[name])
+            Cm = (torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+                  * 0.002).to(tdts[name])
+            out = torch.empty_like(T)
+
+            def run():
+                return kernel_ops.masked_step(T, Cm, spacing, out=out)
+
+            got = run()
+            equal = bool(torch.equal(got, kernel_ops.masked_step_plain(T, Cm, inv_d2)))
+            row = {"shape": list(shape), "dtype": name, "bitwise": equal,
+                   "ms": time_ms(torch, run, 30 if shape == MASKED_BIG else 200)}
+            extra = ""
+            if shape == MASKED_SMALL:
+                row["host_us"] = host_us(torch, run)
+                extra = f", host {row['host_us']:.2f} µs a call"
+            result["masked_step"].append(row)
+            print(f"[ab] {root} masked_step {shape[0]}x{shape[1]} {name}: {row['ms']:.4f} ms"
+                  f"{extra}, bitwise {equal}", flush=True)
+            del T, Cm, out, got
+            torch.cuda.empty_cache()
 
 
 def worker(root: str, kernels) -> dict:
@@ -185,7 +239,10 @@ def worker(root: str, kernels) -> dict:
     assert os.path.abspath(multistep.__file__).startswith(os.path.abspath(root))
     dev = torch.device("cuda", 0)
     tdts = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
-    result = {"root": root, "tb_sweep": [], "kp_update_host_us": {}, "multi_step": []}
+    result = {"root": root, "masked_step": [], "tb_sweep": [], "kp_update_host_us": {},
+              "multi_step": []}
+    if "masked_step" in kernels:
+        time_masked(torch, root, result, dev, tdts)
     time_multi(torch, root, kernels, result, dev, tdts)
     inv_d2 = (1.0, 1.0)
     for shape, k in TB_CASES if "tb_sweep" in kernels else ():
@@ -254,7 +311,8 @@ def main() -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "runs": results}, f, indent=1)
-    ok = all(r["bitwise"] for run in results for r in run["tb_sweep"] + run["multi_step"])
+    ok = all(r["bitwise"] for run in results
+             for r in run["masked_step"] + run["tb_sweep"] + run["multi_step"])
     print(f"[ab] every timed launch bitwise equal to its plain version: {ok}", flush=True)
     return 0 if ok else 1
 

@@ -278,3 +278,171 @@ def test_check_operands_comparisons_agree_with_full_checks(case, monkeypatch):
     except (TypeError, ValueError):
         accepted = False
     assert ok == accepted == label.startswith("good")
+
+
+# ---------------------------------------------------------------------------
+# masked_step's 16-byte lane tiling (csrc/stencil.cu masked_step_kernel)
+# ---------------------------------------------------------------------------
+
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_a_lane_moves_16_bytes(dtype):
+    tdt = DTYPES[dtype]
+    assert K.LANE_CELLS[tdt] * torch.empty((), dtype=tdt).element_size() == 16
+
+
+def test_f64_always_takes_scalar_cells():
+    base = 1 << 20
+    assert not K.masked_layout(12288, torch.float64, base, base + 4096, base + 8192)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_masked_layout_takes_vectors_only_on_the_16_byte_grid(dtype):
+    tdt = DTYPES[dtype]
+    w = K.LANE_CELLS[tdt]
+    item = 16 // w
+    base = 1 << 20
+    assert K.masked_layout(12288, tdt, base, base + 4096, base + 8192)
+    assert K.masked_layout(3 * w, tdt, base, base, base)
+    for ragged in (12287, w + 1, 1):
+        assert not K.masked_layout(ragged, tdt, base, base, base)
+    # any one operand off the grid by an element (a view with a storage
+    # offset) takes the scalar cells
+    for off in range(3):
+        ptrs = [base, base + 256, base + 512]
+        ptrs[off] += item
+        assert not K.masked_layout(12288, tdt, *ptrs)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_masked_step_wrapper_passes_its_layout_to_the_kernel(dtype, monkeypatch):
+    # With the dispatch forced to the kernel path on CPU tensors, the
+    # launch receives masked_layout's verdict as its last argument.
+    tdt = DTYPES[dtype]
+    w = K.LANE_CELLS[tdt]
+    calls = []
+    monkeypatch.setattr(K, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(K, "launch", lambda *args: calls.append(args))
+    sp = (0.1, 0.1)
+
+    def run(T, Cm, out):
+        K.masked_step(T, Cm, sp, out=out)
+        return calls[-1][-1]
+
+    shape = (12, 4 * w)
+    T, Cm, out = (torch.zeros(shape, dtype=tdt) for _ in range(3))
+    assert run(T, Cm, out) == (dtype != "f64")
+    ragged = (12, 4 * w + 1)
+    assert not run(*(torch.zeros(ragged, dtype=tdt) for _ in range(3)))
+    shifted = torch.zeros(12 * 4 * w + 1, dtype=tdt)[1:].view(shape)  # storage offset 1
+    assert shifted.is_contiguous() and shifted.storage_offset() == 1
+    assert not run(shifted, Cm, out)
+    assert not run(T, Cm, torch.zeros(12 * 4 * w + 1, dtype=tdt)[1:].view(shape))
+    assert K.LAUNCHES["masked_step"] == 4
+    K.reset_launches()
+
+
+def _stencil_constant(name):
+    from rocm_mpi_tpu_torch.ops import resident
+
+    return resident._constant("stencil.cu", name)
+
+
+def _lane_tiled_step(T, Cm, inv_d2, vec, run_rows=None, outer=True):
+    """masked_step's lane tiling in plain PyTorch: a warp's strip of 32·W
+    cells of the last axis walked down runs of rows (the launcher's run
+    length unless `run_rows`), the rows above and below carried; lane l's
+    cells l·W + e (vec) or l + 32·e (scalar cells); each cell's last-axis
+    neighbours from the lane's own cells, the lanes beside it (the
+    shuffles: a shift across lanes for vec, a rotation for scalar cells)
+    or, for the strip's two outer cells, the loads of lanes 0 and 31 (0
+    when not `outer`); every cell past the field 0. In the kernel's
+    operation order, rounded once."""
+    cdt = K._compute_dtype(T.dtype)
+    w = K.LANE_CELLS[T.dtype]
+    n0, n_last = T.shape[0], T.shape[-1]
+    n_mid = int(np.prod(T.shape[1:-1], dtype=np.int64))
+    assert not vec or n_last % w == 0
+    strips = -(-n_last // (32 * w))
+    width = strips * 32 * w
+    if run_rows is None:
+        run_rows = strips * n_mid * n0 // _stencil_constant("kMsFillWarps")
+        run_rows = min(max(run_rows, 1), _stencil_constant("kMsRunRows"))
+    Tz = torch.zeros(n0, n_mid, width + 1, dtype=cdt)  # + the cell past the last strip
+    Tz[:, :, :n_last] = T.to(cdt).reshape(n0, n_mid, n_last)
+    Cz = torch.zeros(n0, n_mid, width, dtype=cdt)
+    Cz[:, :, :n_last] = Cm.to(cdt).reshape(n0, n_mid, n_last)
+    lane = torch.arange(32)[:, None]
+    e = torch.arange(w)[None, :]
+    idx = lane * w + e if vec else lane + 32 * e  # the strip's cell of lane l's cell e
+    zero = torch.zeros(32, w, dtype=cdt)
+    out = torch.zeros(n0, n_mid, width, dtype=cdt)
+    for mid in range(n_mid):
+        for s in range(strips):
+            first = s * 32 * w
+            cols = first + idx
+
+            def row(g, m=mid):
+                return Tz[g, m][cols] if 0 <= g < n0 and 0 <= m < n_mid else zero
+
+            for r0 in range(0, n0, run_rows):
+                up, cen, dn = row(r0 - 1), row(r0), row(r0 + 1)
+                for g in range(r0, min(r0 + run_rows, n0)):
+                    c = cen
+                    outer_lo = Tz[g, mid, first - 1] if first > 0 else torch.zeros((), dtype=cdt)
+                    outer_hi = Tz[g, mid, first + 32 * w]
+                    if vec:
+                        lo = torch.cat([torch.roll(c[:, -1], 1)[:, None], c[:, :-1]], 1)
+                        hi = torch.cat([c[:, 1:], torch.roll(c[:, 0], -1)[:, None]], 1)
+                    else:
+                        rot_l, rot_r = torch.roll(c, 1, dims=0), torch.roll(c, -1, dims=0)
+                        lo, hi = rot_l.clone(), rot_r.clone()
+                        lo[0, 1:] = rot_l[0, :-1]
+                        hi[31, :-1] = rot_r[31, 1:]
+                    lo[0, 0] = outer_lo if outer else 0.0
+                    hi[31, w - 1] = outer_hi if outer else 0.0
+                    lap = ((dn + up) - 2.0 * c) * inv_d2[0]
+                    if T.ndim == 3:
+                        lap = lap + ((row(g, mid + 1) + row(g, mid - 1)) - 2.0 * c) * inv_d2[1]
+                        lap = lap + ((hi + lo) - 2.0 * c) * inv_d2[2]
+                    else:
+                        lap = lap + ((hi + lo) - 2.0 * c) * inv_d2[1]
+                    out[g, mid, cols] = c + Cz[g, mid][cols] * lap
+                    up, cen, dn = cen, dn, row(g + 2)
+    return out[:, :, :n_last].reshape(T.shape).to(T.dtype)
+
+
+# Ragged and whole last axes: 53 and 45 cells fit no lane width, 300 fits
+# f32's and f64's but not bf16's, 40 and 256 every one's; 300 and 256
+# cells take two strips in f64. Vectors only where the wrapper takes them
+# (never in f64).
+LANE_CASES = [(shape, dtype, vec) for shape in [(37, 53), (9, 300), (11, 256), (7, 5, 45),
+                                                (6, 4, 40)]
+              for dtype in DTYPES for vec in (False, True)
+              if not vec or (dtype != "f64" and shape[-1] % K.LANE_CELLS[DTYPES[dtype]] == 0)]
+
+
+@pytest.mark.parametrize("run_rows", [None, 4])
+@pytest.mark.parametrize("shape,dtype,vec", LANE_CASES)
+def test_lane_tiling_equals_the_plain_step_bitwise(shape, dtype, vec, run_rows):
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(7)
+    T = torch.from_numpy(rng.random(shape)).to(tdt)
+    Cm = torch.from_numpy(rng.random(shape) * 1e-3).to(tdt)  # the edge too: ghosts must be 0
+    inv_d2 = K.inv_d2_of(SPACING[len(shape)])
+    got = _lane_tiled_step(T, Cm, inv_d2, vec, run_rows)
+    assert torch.equal(got, K.masked_step_plain(T, Cm, inv_d2))
+
+
+@pytest.mark.parametrize("vec", [False, True])
+def test_the_lane_tiling_needs_the_outer_loads(vec):
+    # Without lanes 0 and 31's loads of the strip's outer neighbours the
+    # strips do not give the step: the bitwise test above can fail.
+    rng = np.random.default_rng(8)
+    T = torch.from_numpy(rng.random((5, 300))).float()
+    Cm = torch.from_numpy(rng.random((5, 300)) * 1e-3).float()
+    inv_d2 = K.inv_d2_of(SPACING[2])
+    got = _lane_tiled_step(T, Cm, inv_d2, vec, outer=False)
+    assert not torch.equal(got, K.masked_step_plain(T, Cm, inv_d2))
