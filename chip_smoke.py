@@ -5,7 +5,7 @@
     python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-10 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
-the target). Phases, printed as they run (about three minutes on one H100
+the target). Phases, printed as they run (about four minutes on one H100
 80GB HBM3, the build included):
 
 1. environment — torch, CUDA and nvcc versions, the card's name and power
@@ -65,6 +65,16 @@ the target). Phases, printed as they run (about three minutes on one H100
    run_deep at 240² (8 + 1024, k = 8, vmem route on 256²) and at 252² (the
    jnp route: no kernel), each with its mass drift |Σh − Σh₀|/|Σh₀|
    printed and held under 1e-13 (f64) or 1e-6 (f32);
+   [scan] the scan driver (models/scan.py: the q-step chunks captured as
+   CUDA graphs and replayed) beside the step driver on each small and
+   large main path — diffusion `perf` 252² and 12288² f32, `kp` 128² f64,
+   wave `perf` 252² and 12288² f32, SWE `perf` 252² f64 and 12288² f32,
+   1000 steps after 10 — and at the plan's edges: warmup 0 (q = nt,
+   capped), an odd c (two graphs) and the wave with c not a multiple of 3
+   (three graphs). Each: the fields bitwise equal, route "scan-graph", q,
+   c and the graphs captured (and their host ms), the launch counts nt
+   per kernel of the step under both drivers, ms/step of both the median
+   of three timed windows;
 6. main path, sharded — the 2×2 perf path (halo exchange + fused_step_cm)
    run by 4 ranks that share this one card over a gloo group (halo slabs
    staged through host memory): every step one fused_step_cm launch per
@@ -72,7 +82,9 @@ the target). Phases, printed as they run (about three minutes on one H100
    field bitwise equal to the same kernel run over the whole zero-padded
    domain on one GPU; then `kp` on the same grid, each shard bitwise equal
    to its plain-version run and the gathered field bitwise equal to the
-   one-GPU kp run;
+   one-GPU kp run; and `perf` through `run(driver="scan")`, which with
+   more than one rank takes the eager loop route ("scan-loop"), bitwise
+   equal to the step driver's field;
 7. deep schedule, sharded — run_deep on the 2×2 grid of 12288² (k = 8,
    hbm-tb route on 6160² padded shards) by the same 4 ranks over gloo,
    16 + 32 steps: each shard bitwise equal to its plain-version run, the
@@ -1138,6 +1150,16 @@ def sharded_rank(rank, spec):
         out["bitwise_vs_one_gpu"] = bool(np.array_equal(full, Tr))
         del Tr, Cmr, padr
 
+    # The scan driver on the same grid: more than one rank takes the eager
+    # loop route, the same steps, so the field is bitwise the step driver's.
+    kernels.reset_launches()
+    sres = model.run("perf", driver="scan")
+    torch.cuda.synchronize()
+    out["scan"] = dict(route=sres.route, k=sres.k, launches=dict(kernels.LAUNCHES),
+                       bitwise=bool(torch.equal(sres.T, res.T)),
+                       ms_per_step=sres.wtime_it * 1e3)
+    del sres
+
     # The kp variant on the same grid, against its plain-version run and,
     # gathered, against the one-GPU kp run: every face flux takes the same
     # two cells in the same order, ghost or not.
@@ -1187,6 +1209,12 @@ def phase_sharded(card, gpus: int):
     check(ranks[0]["kp"]["bitwise_vs_one_gpu"],
           f"sharded 2x2 kp field differs from the one-GPU kp run by "
           f"{ranks[0]['kp']['max_abs_vs_one_gpu']}")
+    for r in ranks:
+        sc = r["scan"]
+        check(sc["route"] == "scan-loop" and sc["bitwise"]
+              and sc["launches"] == only("fused_step_cm", nt),
+              f"sharded scan rank {r['rank']}: route {sc['route']}, launches "
+              f"{sc['launches']}, bitwise == step {sc['bitwise']}")
     total = sum(r["launches"]["fused_step_cm"] for r in ranks)
     kp_total = sum(r["kp"]["launches"]["kp_flux"] for r in ranks)
     r0 = ranks[0]
@@ -1199,6 +1227,10 @@ def phase_sharded(card, gpus: int):
           f"run of the same kernel on one GPU; rank 0: {r0['wtime_s']:.4f} s, "
           f"{r0['wtime_s'] / (nt - warmup) * 1e3:.5f} ms/step, aggregate T_eff "
           f"{r0['t_eff_gbs']:.1f} GB/s", flush=True)
+    print(f"[sharded] perf driver=\"scan\" on the same grid: route {r0['scan']['route']}, "
+          f"q {r0['scan']['k']}, fused_step_cm launches {nt} per rank; each shard bitwise == "
+          f"the step driver's; rank 0 {r0['scan']['ms_per_step']:.5f} ms/step (step driver "
+          f"{r0['wtime_s'] / (nt - warmup) * 1e3:.5f})", flush=True)
     print(f"[sharded] kp 12288x12288 f32 on a 2x2 grid, {where}, {nt} steps ({warmup} "
           f"warmup): {kp_total} launches of each kp kernel ({nt} per rank); each shard "
           "bitwise == plain-version run; gathered field bitwise == the one-GPU kp run; rank "
@@ -1772,6 +1804,124 @@ def phase_swe(torch, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The scan driver (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+# (label, model, variant, shape, dtype, nt, warmup): the main paths at
+# their apps' windows (q = c = 10; the wave's three graphs), then the
+# plan's edges — warmup 0 (q = nt = 1000, capped at c = 10), an odd c
+# (q = c = 5: two graphs) and the wave with warmup 0 (c = 10, not a
+# multiple of 3: three graphs).
+SCAN_CASES = [
+    ("diffusion perf", "diffusion", "perf", SMALL, "f32", MAIN_NT, MAIN_WARMUP),
+    ("diffusion perf", "diffusion", "perf", BIG, "f32", MAIN_NT, MAIN_WARMUP),
+    ("diffusion kp", "diffusion", "kp", KP_SMALL, "f64", MAIN_NT, MAIN_WARMUP),
+    ("wave perf", "wave", "perf", SMALL, "f32", MAIN_NT, MAIN_WARMUP),
+    ("wave perf", "wave", "perf", BIG, "f32", MAIN_NT, MAIN_WARMUP),
+    ("SWE perf", "swe", "perf", SMALL, "f64", MAIN_NT, MAIN_WARMUP),
+    ("SWE perf", "swe", "perf", BIG, "f32", MAIN_NT, MAIN_WARMUP),
+    ("diffusion perf, warmup 0", "diffusion", "perf", SMALL, "f32", MAIN_NT, 0),
+    ("diffusion perf, odd c", "diffusion", "perf", SMALL, "f32", MAIN_NT + 5, 5),
+    ("wave perf, warmup 0", "wave", "perf", SMALL, "f32", MAIN_NT, 0),
+]
+SCAN_KERNELS = {("diffusion", "perf"): ("masked_step",), ("diffusion", "kp"): KP,
+                ("wave", "perf"): ("wave_step",), ("swe", "perf"): ("swe_step",)}
+SCAN_WINDOWS = 3  # timed windows a driver, reported by their median
+
+
+def _scan_fields(model_name, res) -> tuple:
+    if model_name == "diffusion":
+        return (res.T,)
+    if model_name == "wave":
+        return (res.U,)
+    return (res.h, *res.us)
+
+
+def _scan_loop(torch, name, model, variant):
+    """The scan advance of `model`'s run windows after its first call (q
+    steps, which captures): its ScanLoop, for the plan, the graphs and the
+    capture's host time."""
+    advance, q = model.scan_advance_fn(variant)
+    if name == "diffusion":
+        T, Cp = model.init_state()
+        advance(T, Cp, q)
+    elif name == "wave":
+        advance(*model.init_state(), q)
+    else:
+        advance(*model.init_state(), model.face_masks(), q)
+    torch.cuda.synchronize()
+    return advance.loop
+
+
+def phase_scan(torch, card):
+    """Each SCAN_CASES run through `run(driver="scan")` beside
+    `run(driver="step")` on one GPU: the fields bitwise equal, the scan
+    route "scan-graph" with q, c and the graph count of its plan, the
+    launch counts of both drivers nt per kernel of the step, and ms/step of
+    both the median of SCAN_WINDOWS timed windows; then the captures of one
+    more scan advance, timed on the host clock, with the graph count."""
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    rows = []
+    for label, name, variant, shape, dtype, nt, warmup in SCAN_CASES:
+        if name == "diffusion":
+            model = _kp_model(shape, nt, warmup, dtype)
+        elif name == "wave":
+            model = _wave_model(shape, nt, warmup, dtype)
+        else:
+            model = _swe_model(shape, nt, warmup, dtype)
+        expect = {k: nt if k in SCAN_KERNELS[name, variant] else 0 for k in kernels.LAUNCHES}
+        ms, fields, launches = {}, {}, {}
+        for driver in ("step", "scan"):
+            times = []
+            for _ in range(SCAN_WINDOWS):
+                kernels.reset_launches()
+                res = model.run(variant, driver=driver)
+                torch.cuda.synchronize()
+                launches[driver] = dict(kernels.LAUNCHES)
+                check(launches[driver] == expect,
+                      f"[scan] {label} {shape} {driver}: launches {launches[driver]}, "
+                      f"expected {expect}")
+                times.append(res.wtime_it * 1e3)
+                route, k = res.route, res.k
+            ms[driver] = statistics.median(times)
+            fields[driver] = _scan_fields(name, res)
+            del res
+        check(route == "scan-graph", f"[scan] {label}: route {route}")
+        loop = _scan_loop(torch, name, model, variant)
+        plan = loop.plan
+        loop_graphs = len(loop.graphs)
+        capture_ms = loop.capture_s * 1e3
+        check(plan.q == k and loop_graphs == plan.graphs,
+              f"[scan] {label}: q {plan.q} (run: {k}), {loop_graphs} graphs captured, plan "
+              f"{plan}")
+        del loop
+        same = all(torch.equal(a, b) for a, b in zip(fields["step"], fields["scan"]))
+        if not same:
+            diff = max(float((a.double() - b.double()).abs().max())
+                       for a, b in zip(fields["step"], fields["scan"]))
+            check(False, f"[scan] {label} {shape} {dtype}: scan != step (max |diff| {diff})")
+        check(all(bool(torch.isfinite(f).all()) for f in fields["scan"]),
+              f"[scan] {label}: result not finite")
+        row = dict(label=label, model=name, variant=variant, shape=list(shape), dtype=dtype,
+                   nt=nt, warmup=warmup, q=k, c=plan.c, graphs=loop_graphs,
+                   capture_ms=capture_ms,
+                   launches=launches["scan"], step_ms_per_step=ms["step"],
+                   scan_ms_per_step=ms["scan"], bitwise=same)
+        rows.append(row)
+        counts = ", ".join(f"{n} {launches['scan'][n]}" for n in SCAN_KERNELS[name, variant])
+        print(f"[scan] {label} {shape[0]}x{shape[1]} {dtype}, {nt} steps ({warmup} warmup): "
+              f"route {route}, q {k}, c {plan.c}, {loop_graphs} graph(s) captured in "
+              f"{capture_ms:.1f} ms, launches "
+              f"{counts}; scan bitwise == step; ms/step (median of {SCAN_WINDOWS} windows) "
+              f"step {ms['step']:.6f}, scan {ms['scan']:.6f} ({ms['step'] / ms['scan']:.2f}x) "
+              f"on {card}", flush=True)
+        del model, fields
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _timed_loop(torch, fn, reps: int) -> float:
     """ms per call of `fn` over `reps` calls, host clock around
     synchronised work, every rank barriered on both sides."""
@@ -2183,6 +2333,7 @@ def main(argv=None) -> int:
     wave_rows = phase_wave(torch, card)
     reversal = phase_reversal(torch, card)
     swe_rows = phase_swe(torch, card)
+    scan_rows = phase_scan(torch, card)
     ranks, fused_launches, kp_sharded_launches = phase_sharded(card, 1)
     deep_ranks, deep_launches = phase_sharded_deep(card, 1)
     hide_ranks, hide_launches = phase_hide(card, 1)
@@ -2206,6 +2357,10 @@ def main(argv=None) -> int:
         for name in ("multi_step_cm", "tb_sweep", "wave_step", "wave_multi_step", "swe_step",
                      "swe_multi_step"):
             launches[name] += row["launches"][name]
+    # The scan driver's runs: each case's last scan window.
+    for row in scan_rows:
+        for name, count in row["launches"].items():
+            launches[name] += count
     line = []
     for name, (replaces, source) in KERNELS.items():
         shape, form = MAIN_CASE[name]
@@ -2224,7 +2379,8 @@ def main(argv=None) -> int:
         path.write_text(json.dumps(dict(
             card=card, kind=kind, peaks=pk, build_s=build_s, kernel_phases=rows,
             main_12288=big_row, main_252=small_row, kp=kp_rows, schedules=schedule_rows,
-            wave=wave_rows, reversal=reversal, swe=swe_rows, sharded_ranks=ranks,
+            wave=wave_rows, reversal=reversal, swe=swe_rows, scan=scan_rows,
+            sharded_ranks=ranks,
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
             wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks, kernels=line,
             seconds=time.perf_counter() - t0,

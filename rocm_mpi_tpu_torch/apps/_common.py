@@ -18,10 +18,13 @@ import subprocess
 
 def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
     """The options every app of the port shares: grid, steps, dtype,
-    process grid and device."""
+    process grid, device and the per-step variants' driver."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--nx", type=int, default=nx, help="global grid points, x")
     p.add_argument("--ny", type=int, default=ny, help="global grid points, y")
+    p.add_argument("--fact", type=int, default=0,
+                   help="if set, every grid axis becomes fact*1024 (the reference perf "
+                   "app's 'fact' knob; in 3D this includes nz)")
     p.add_argument("--nt", type=int, default=nt, help="time steps")
     p.add_argument("--warmup", type=int, default=10, help="untimed steps")
     p.add_argument("--dtype", default=dtype, choices=["f32", "f64", "bf16"])
@@ -29,7 +32,27 @@ def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
                    help="process grid, e.g. 2,2 (default: auto near-square)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the hand kernels; cpu their plain versions")
+    p.add_argument("--driver", default="scan", choices=["step", "scan"],
+                   help="loop form of the per-step variants (default: scan, the q-step "
+                   "chunks replayed as CUDA graphs on one GPU; step: one Python step "
+                   "call after another). Bitwise the same result; the schedules "
+                   "(--deep, --vmem) have their own loop forms and ignore it")
     return p
+
+
+def grid_shape(args, ndim: int = 2) -> tuple[int, ...]:
+    """The global shape the options ask for: (nx, ny[, nz]), or fact·1024
+    on every axis when --fact is set."""
+    shape = (args.nx, args.ny, getattr(args, "nz", 0))[:ndim]
+    return tuple(args.fact * 1024 for _ in shape) if args.fact else shape
+
+
+def driver_note(args, result) -> str:
+    """The driver a per-step run took, for its result line: the step
+    driver, or the scan driver with its route and q."""
+    if args.driver == "step":
+        return "driver step"
+    return f"driver scan (route {result.route}, q {result.k})"
 
 
 def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
@@ -121,7 +144,7 @@ def run_app(variant: str, args) -> int:
 
     hide = {"b_width": parse_ints(args.b_width)} if variant == "hide" else {}
     cfg = DiffusionConfig(
-        global_shape=(args.nx, args.ny), lengths=(10.0, 10.0), nt=args.nt,
+        global_shape=grid_shape(args), lengths=(10.0, 10.0), nt=args.nt,
         warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims), **hide,
     )
     model = HeatDiffusion(cfg, device=device)
@@ -129,6 +152,7 @@ def run_app(variant: str, args) -> int:
     where = where_line(device)
     log0(f"grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
          f"({grid.nprocs} rank(s)) on {where}")
+    note = ""
     if args.deep:
         # Label the run with the depth that will execute (run_deep degrades
         # k to gcd(warmup, nt - warmup, K)).
@@ -142,11 +166,12 @@ def run_app(variant: str, args) -> int:
              f"{k_eff} steps; T_eff counts 3 passes per step, so it is an effective "
              "rate and may exceed the card's memory rate")
     else:
-        result = model.run(variant)
+        result = model.run(variant, driver=args.driver)
+        note = f"; {driver_note(args, result)}"
     log0(
         f"Executed {result.nt} steps ({result.warmup} warmup) in = "
         f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
-        f"{result.gpts:.4f} Gpts/s) on {where}"
+        f"{result.gpts:.4f} Gpts/s) on {where}{note}"
     )
     log0(f"maximum(T) = {global_max(result.T)}")
     if args.save_field:

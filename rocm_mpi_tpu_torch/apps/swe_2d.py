@@ -22,8 +22,10 @@ import sys
 
 from rocm_mpi_tpu_torch.apps._common import (
     base_parser,
+    driver_note,
     global_max,
     global_sum,
+    grid_shape,
     parse_ints,
     where_line,
 )
@@ -59,7 +61,7 @@ def main(argv=None) -> int:
         if me == 0:
             print(msg, flush=True)
 
-    shape = (args.nx, args.ny) + ((args.nz,) if args.nz > 1 else ())
+    shape = grid_shape(args, 3 if args.nz > 1 else 2)
     cfg = SWEConfig(global_shape=shape, lengths=(10.0,) * len(shape), nt=args.nt,
                     warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims))
     model = ShallowWater(cfg, device=device)
@@ -68,6 +70,7 @@ def main(argv=None) -> int:
     log0(f"swe grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
          f"({grid.nprocs} rank(s)) on {where}")
     mass0 = global_sum(model.init_state()[0])
+    note = ""
     if args.deep:
         k = model.effective_deep_depth(block_steps=args.deep, warn=False)
         label = f"deep{k}"
@@ -85,14 +88,15 @@ def main(argv=None) -> int:
         result = model.run_vmem_resident()
     else:
         label = args.variant
-        result = model.run(args.variant)
+        result = model.run(args.variant, driver=args.driver)
+        note = f"; {driver_note(args, result)}"
     passes = 2 * (cfg.ndim + 1)
-    if result.route is not None:
+    if result.route is not None and not note:
         log0(f"{label}: route {result.route}, {result.k} steps per launch or sweep; T_eff "
              f"counts {passes} passes per step, so it is an effective rate")
     log0(f"{label}: executed {result.nt} steps ({result.warmup} warmup) in = "
          f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
-         f"{result.gpts:.4f} Gpts/s) on {where}")
+         f"{result.gpts:.4f} Gpts/s) on {where}{note}")
     mass = global_sum(result.h)
     log0(f"mass drift = {abs(mass - mass0) / abs(mass0):.3e} (closed basin: conserved up to "
          "storage-dtype rounding)")

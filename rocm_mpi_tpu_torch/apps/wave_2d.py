@@ -19,7 +19,9 @@ import sys
 
 from rocm_mpi_tpu_torch.apps._common import (
     base_parser,
+    driver_note,
     global_max,
+    grid_shape,
     parse_ints,
     where_line,
 )
@@ -54,7 +56,7 @@ def main(argv=None) -> int:
         if me == 0:
             print(msg, flush=True)
 
-    shape = (args.nx, args.ny) + ((args.nz,) if args.nz > 1 else ())
+    shape = grid_shape(args, 3 if args.nz > 1 else 2)
     cfg = WaveConfig(global_shape=shape, lengths=(10.0,) * len(shape), nt=args.nt,
                      warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims))
     model = AcousticWave(cfg, device=device)
@@ -62,6 +64,7 @@ def main(argv=None) -> int:
     where = where_line(device)
     log0(f"wave grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
          f"({grid.nprocs} rank(s)) on {where}")
+    note = ""
     if args.deep:
         k = model.effective_deep_depth(block_steps=args.deep, warn=False)
         label = f"deep{k}"
@@ -79,13 +82,14 @@ def main(argv=None) -> int:
         result = model.run_vmem_resident()
     else:
         label = args.variant
-        result = model.run(args.variant)
-    if result.route is not None:
+        result = model.run(args.variant, driver=args.driver)
+        note = f"; {driver_note(args, result)}"
+    if result.route is not None and not note:
         log0(f"{label}: route {result.route}, {result.k} steps per launch or sweep; T_eff "
              "counts 4 passes per step, so it is an effective rate")
     log0(f"{label}: executed {result.nt} steps ({result.warmup} warmup) in = "
          f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
-         f"{result.gpts:.4f} Gpts/s) on {where}")
+         f"{result.gpts:.4f} Gpts/s) on {where}{note}")
     log0(f"maximum(|U|) = {global_max(result.U.abs())}")
     distributed.finalize()
     return 0

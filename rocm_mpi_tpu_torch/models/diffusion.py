@@ -20,6 +20,12 @@ One physics model at several performance levels, chosen by variant:
             another, every box one fused_step_cm region launch, in every
             dtype. One rank has nothing to hide and runs "perf".
 
+two drivers of the per-step variants, chosen by `run(driver=...)`:
+
+  "step" — advance_fn, one Python step call after another;
+  "scan" — scan_advance_fn, JAX's q-step chunks as CUDA graphs
+           (models/scan.py), bitwise equal to "step";
+
 and three multi-step schedules beside the per-step variants:
 
   run_vmem_resident — one rank: `chunk` steps per launch of the
@@ -56,6 +62,7 @@ from rocm_mpi_tpu_torch.ops.diffusion import (
     step_fused,
     step_fused_padded,
 )
+from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops.kp import kp_step_padded
 from rocm_mpi_tpu_torch.parallel import deep_halo
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
@@ -73,8 +80,9 @@ class RunResult:
     warmup: int
     config: DiffusionConfig
     # The multi-step schedules' record of what ran: the local route
-    # ("vmem-loop", "hbm-tb"; for run_deep "vmem", "hbm-tb" or "jnp") and
-    # the steps per launch or sweep. None for the per-step variants.
+    # ("vmem-loop", "hbm-tb"; for run_deep "vmem", "hbm-tb" or "jnp";
+    # for the scan driver "scan-graph", "scan-eager" or "scan-loop") and
+    # the steps per launch, sweep or chunk. None for the step driver.
     route: str | None = None
     k: int | None = None
 
@@ -322,9 +330,7 @@ class HeatDiffusion:
         JAX argument, the caller must not use it afterwards.
         """
         step, prep = self._get_step(variant), self.prepare_fn(variant)
-        # Every step exchanges except the unsharded perf step (and hide,
-        # which is perf on one rank).
-        exchanges = not (variant in ("perf", "hide") and self.grid.nprocs == 1)
+        exchanges = self._exchanges(variant)
 
         def advance(T, Cp, n):
             C = prep(Cp)
@@ -338,15 +344,69 @@ class HeatDiffusion:
 
         return advance
 
+    def _exchanges(self, variant: str) -> bool:
+        """Every step exchanges except the unsharded perf step (and hide,
+        which is perf on one rank)."""
+        return not (variant in ("perf", "hide") and self.grid.nprocs == 1)
+
+    def scan_advance_fn(self, variant: str, nt: int | None = None,
+                        warmup: int | None = None, chunk: int | None = None,
+                        config: str | None = None):
+        """(advance(T, Cp, n) -> T, q): the scan driver (models/scan.py).
+
+        q is JAX's: the largest chunk serving both timing windows,
+        gcd(warmup, nt − warmup, chunk or nt − warmup), with a warning when
+        an explicit chunk degrades. A call runs n // q chunks of q steps,
+        JAX's floor: on one CUDA rank as replays of captured CUDA graphs,
+        on the CPU as the same schedule of eager steps, sharded as a plain
+        loop. The coefficient is prepared once per call, outside the
+        chunks. `config="auto"` needs the tuning cache and raises
+        NotImplementedError. The passed-in T becomes a buffer of the
+        driver: like a donated JAX argument, the caller must rebind T from
+        the result. `advance.loop` is the ScanLoop (route, plan, graphs).
+        """
+        cfg = self.config
+        step, prep = self._get_step(variant), self.prepare_fn(variant)
+        q = scan_chunk(cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
+                       chunk, "scan driver chunk", config)
+        pad = None
+        if self._exchanges(variant):
+            pad = torch.zeros(self._padded_shape(), dtype=cfg.torch_dtype, device=self.device)
+
+        def one_step(src, out, consts):
+            (T,), (C,) = src, consts
+            return step(T, C, out=out, pad=pad)
+
+        loop = ScanLoop(one_step, graph_plan(q, 2), scan_route(self.device, self.grid.nprocs))
+
+        def advance(T, Cp, n):
+            (T,) = loop((T,), (prep(Cp),), n)
+            return T
+
+        advance.loop = loop
+        return advance, q
+
     def run(self, variant: str = "ap", nt: int | None = None,
-            warmup: int | None = None) -> RunResult:
+            warmup: int | None = None, driver: str = "step",
+            config: str | None = None) -> RunResult:
         """Run `nt` steps from the initial condition; time all but the
-        first `warmup`."""
+        first `warmup`. `driver="scan"` runs scan_advance_fn's chunks, with
+        the same steps in the same order as "step": the result is bitwise
+        equal, and `route`/`k` report the scan route and q.
+        `config` reaches the scan driver only."""
+        if driver not in ("step", "scan"):
+            raise ValueError(f"driver must be 'step' or 'scan', got {driver!r}")
         nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
         T, Cp = self.init_state()
-        advance = self.advance_fn(variant)
+        route = k = None
+        if driver == "scan":
+            advance, k = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
+            route = advance.loop.route
+        else:
+            advance = self.advance_fn(variant)
         T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
-        return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=self.config)
+        return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=self.config,
+                         route=route, k=k)
 
     # ---- multi-step schedules -------------------------------------------
 

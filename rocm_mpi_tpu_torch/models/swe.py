@@ -23,7 +23,9 @@ Variants, each on this rank's shard:
             leaves: the interior box from the raw shard during the
             exchange, then the boundary slabs. One rank runs "perf".
 
-and two schedules: run_vmem_resident (one rank, `chunk` steps per launch
+the step and scan drivers (`run(driver=...)`; the scan driver runs JAX's
+q-step chunks as CUDA graphs, models/scan.py), and two schedules:
+run_vmem_resident (one rank, `chunk` steps per launch
 of the swe_multi_step kernel) and run_deep (any grid, one width-k
 exchange of the whole state per k steps,
 parallel/deep_halo.make_swe_deep_sweep).
@@ -41,6 +43,7 @@ import torch
 
 from rocm_mpi_tpu_torch.config import SWEConfig, validate_wire_mode
 from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
+from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops import multistep, swe
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
 from rocm_mpi_tpu_torch.parallel import deep_halo
@@ -60,8 +63,9 @@ class SWERunResult:
     warmup: int
     config: SWEConfig
     # The schedules' record of what ran: the local route ("vmem-loop"; for
-    # run_deep "vmem" or "jnp") and the steps per launch or sweep. None for
-    # the per-step variants.
+    # run_deep "vmem" or "jnp"; for the scan driver "scan-graph",
+    # "scan-eager" or "scan-loop") and the steps per launch, sweep or
+    # chunk. None for the step driver.
     route: str | None = None
     k: int | None = None
 
@@ -227,18 +231,51 @@ class ShallowWater:
         return SWERunResult(h=h, us=tuple(us), wtime=wtime, nt=nt, warmup=warmup,
                             config=self.config)
 
+    def scan_advance_fn(self, variant: str = "perf", nt: int | None = None,
+                        warmup: int | None = None, chunk: int | None = None,
+                        config: str | None = None):
+        """(advance(h, us, Mus, n) -> (h, us), q): the scan driver, SWE
+        edition (see HeatDiffusion.scan_advance_fn). The whole state tuple
+        and a spare tuple rotate with period 2; the masks are bound per
+        call, read-only. `n` runs n // q chunks; the caller must rebind the
+        state from the result."""
+        cfg = self.config
+        step = self._step(variant)
+        q = scan_chunk(cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
+                       chunk, "SWE scan driver chunk", config)
+        pads = tuple(torch.zeros(tuple(n + 2 for n in self.grid.local_shape),
+                                 dtype=cfg.torch_dtype, device=self.device)
+                     for _ in range(cfg.ndim + 1))
+
+        def one_step(src, out, consts):
+            ((h, *us),), (Mus,) = src, consts
+            h2, us2 = step(h, tuple(us), Mus, out=out, pads=pads)
+            return (h2, *us2)
+
+        loop = ScanLoop(one_step, graph_plan(q, 2), scan_route(self.device, self.grid.nprocs))
+
+        def advance(h, us, Mus, n):
+            ((h, *us),) = loop(((h, *us),), (tuple(Mus),), n)
+            return h, tuple(us)
+
+        advance.loop = loop
+        return advance, q
+
     def run(self, variant: str = "perf", nt: int | None = None, warmup: int | None = None,
-            driver: str = "step") -> SWERunResult:
+            driver: str = "step", config: str | None = None) -> SWERunResult:
         """Run `nt` steps of `variant` from the initial condition, timing all
-        but the first `warmup`. Only the per-step driver is ported:
-        driver="scan" raises NotImplementedError."""
+        but the first `warmup`. `driver="scan"` runs scan_advance_fn's
+        chunks, bitwise equal to "step", with `route`/`k` the scan route and
+        q; `config` reaches the scan driver only."""
         if driver not in ("step", "scan"):
             raise ValueError(f"driver must be 'step' or 'scan', got {driver!r}")
-        if driver == "scan":
-            raise NotImplementedError(
-                "the scan driver is not ported yet; driver='step' runs the same steps"
-            )
-        return self._run_timed(self.advance_fn(variant), nt, warmup)
+        if driver == "step":
+            return self._run_timed(self.advance_fn(variant), nt, warmup)
+        nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
+        advance, q = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
+        res = self._run_timed(advance, nt, warmup)
+        res.route, res.k = advance.loop.route, q
+        return res
 
     # ---- schedules ------------------------------------------------------
 

@@ -22,7 +22,9 @@ Variants, each on this rank's shard:
             slabs run on another, each box one wave_step_masked region
             launch. One rank has nothing to hide and runs "perf".
 
-and two schedules: run_vmem_resident (one rank, `chunk` steps per launch
+the step and scan drivers (`run(driver=...)`; the scan driver runs JAX's
+q-step chunks as CUDA graphs, models/scan.py), and two schedules:
+run_vmem_resident (one rank, `chunk` steps per launch
 of the wave_multi_step kernel) and run_deep (any grid, one width-k
 exchange of the pair per k steps, parallel/deep_halo.make_wave_deep_sweep).
 
@@ -40,6 +42,7 @@ import torch
 
 from rocm_mpi_tpu_torch.config import WaveConfig, validate_wire_mode
 from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
+from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops import multistep, wave
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
 from rocm_mpi_tpu_torch.parallel import deep_halo
@@ -58,8 +61,9 @@ class WaveRunResult:
     warmup: int
     config: WaveConfig
     # The schedules' record of what ran: the local route ("vmem-loop"; for
-    # run_deep "vmem" or "jnp") and the steps per launch or sweep. None for
-    # the per-step variants.
+    # run_deep "vmem" or "jnp"; for the scan driver "scan-graph",
+    # "scan-eager" or "scan-loop") and the steps per launch, sweep or
+    # chunk. None for the step driver.
     route: str | None = None
     k: int | None = None
 
@@ -223,18 +227,49 @@ class AcousticWave:
                                              nt, warmup, sharded=self.grid.nprocs > 1)
         return WaveRunResult(U=U, wtime=wtime, nt=nt, warmup=warmup, config=self.config)
 
+    def scan_advance_fn(self, variant: str = "perf", nt: int | None = None,
+                        warmup: int | None = None, chunk: int | None = None,
+                        config: str | None = None):
+        """(advance(U, U⁻, C2, n) -> (U, U⁻), q): the scan driver, wave
+        edition (see HeatDiffusion.scan_advance_fn). The pair and a spare
+        rotate with period 3, so a graph of c steps with c not a multiple
+        of 3 comes in three phases (models/scan.py). `n` runs n // q
+        chunks; the caller must rebind U and U⁻ from the result."""
+        cfg = self.config
+        step, _ = self._step(variant)
+        prep = self.prepare_fn(variant)
+        q = scan_chunk(cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
+                       chunk, "wave scan driver chunk", config)
+        pad = torch.zeros(tuple(n + 2 for n in self.grid.local_shape), dtype=cfg.torch_dtype,
+                          device=self.device)
+
+        def one_step(src, out, consts):
+            (U, Uprev), (C2, P) = src, consts
+            return step(U, Uprev, C2, P, out=out, pad=pad)
+
+        loop = ScanLoop(one_step, graph_plan(q, 3), scan_route(self.device, self.grid.nprocs))
+
+        def advance(U, Uprev, C2, n):
+            return loop((U, Uprev), (C2, prep(C2)), n)
+
+        advance.loop = loop
+        return advance, q
+
     def run(self, variant: str = "perf", nt: int | None = None, warmup: int | None = None,
-            driver: str = "step") -> WaveRunResult:
+            driver: str = "step", config: str | None = None) -> WaveRunResult:
         """Run `nt` steps of `variant` from the initial condition, timing all
-        but the first `warmup`. Only the per-step driver is ported:
-        driver="scan" raises NotImplementedError."""
+        but the first `warmup`. `driver="scan"` runs scan_advance_fn's
+        chunks, bitwise equal to "step", with `route`/`k` the scan route and
+        q; `config` reaches the scan driver only."""
         if driver not in ("step", "scan"):
             raise ValueError(f"driver must be 'step' or 'scan', got {driver!r}")
-        if driver == "scan":
-            raise NotImplementedError(
-                "the scan driver is not ported yet; driver='step' runs the same steps"
-            )
-        return self._run_timed(self.advance_fn(variant), nt, warmup)
+        if driver == "step":
+            return self._run_timed(self.advance_fn(variant), nt, warmup)
+        nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
+        advance, q = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
+        res = self._run_timed(advance, nt, warmup)
+        res.route, res.k = advance.loop.route, q
+        return res
 
     # ---- schedules ------------------------------------------------------
 

@@ -1,8 +1,8 @@
 """Ranks of the port's multi-rank CPU checks (gloo), started by
 rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
 tests/test_torch_distributed.py (`run_rank`), tests/test_torch_overlap.py
-(`run_overlap_rank`) and tests/test_torch_kp.py (`run_kp_rank`); it holds no
-tests itself. Imports torch and the port
+(`run_overlap_rank`), tests/test_torch_kp.py (`run_kp_rank`) and
+tests/test_torch_scan.py (`run_scan_rank`); it holds no tests itself. Imports torch and the port
 only, so a spawned rank starts fast; the parent holds the results against
 the JAX package."""
 
@@ -139,5 +139,34 @@ def run_kp_rank(rank, spec):
                               dims=dims)
         model = HeatDiffusion(cfg, device="cpu")
         out["runs"][(dtype, dims)] = gather_to_host0(model.run("kp").T, model.grid)
+    out["launches"] = dict(kernels.LAUNCHES)
+    return out
+
+
+def run_scan_rank(rank, spec):
+    """One rank of tests/test_torch_scan.py: every variant of the three
+    models through run(driver="step") and run(driver="scan") on this
+    rank's shard. Returns {(model, variant): (scan bitwise == step, scan
+    route, q)} and the launch counts (none on the CPU)."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    torch.set_num_threads(1)
+    kernels.reset_launches()
+    kw = dict(global_shape=spec["shape"], nt=spec["nt"], warmup=spec["warmup"],
+              dtype=spec["dtype"], dims=spec["dims"])
+    out = {"runs": {}}
+    models = (("diffusion", HeatDiffusion(DiffusionConfig(**kw), device="cpu"),
+               lambda r: (r.T,)),
+              ("wave", AcousticWave(WaveConfig(**kw), device="cpu"), lambda r: (r.U,)),
+              ("swe", ShallowWater(SWEConfig(**kw), device="cpu"), lambda r: (r.h, *r.us)))
+    for name, model, fields in models:
+        variants = model.variants if name == "diffusion" else model.VARIANTS
+        for variant in variants:
+            step = model.run(variant, driver="step")
+            scan = model.run(variant, driver="scan")
+            same = all(torch.equal(a, b) for a, b in zip(fields(step), fields(scan)))
+            out["runs"][(name, variant)] = (same, scan.route, scan.k)
     out["launches"] = dict(kernels.LAUNCHES)
     return out

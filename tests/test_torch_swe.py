@@ -594,8 +594,9 @@ def test_run_reports_metrics_and_refuses_what_is_not_ported():
     assert r.wtime > 0 and r.gpts > 0 and r.t_eff > 0
     assert tuple(r.h.shape) == (24, 20) and (r.route, r.k) == (None, None)
     assert r.t_eff == pytest.approx(6 * 24 * 20 * 8 / 1e9 / r.wtime_it)
-    with pytest.raises(NotImplementedError, match="scan driver"):
-        ours.run("perf", driver="scan")
+    scan = ours.run("perf", driver="scan")
+    assert torch.equal(scan.h, r.h) and all(torch.equal(a, b) for a, b in zip(scan.us, r.us))
+    assert (scan.route, scan.k) == ("scan-eager", 8)
     with pytest.raises(ValueError, match="driver"):
         ours.run("perf", driver="loop")
     with pytest.raises(ValueError, match="unknown SWE variant"):
