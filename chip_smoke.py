@@ -2,14 +2,15 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-10 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-14 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
-the target). Phases, printed as they run (about four minutes on one H100
+the target). Phases, printed as they run (about six minutes on one H100
 80GB HBM3, the build included):
 
 1. environment — torch, CUDA and nvcc versions, the card's name and power
-   limit (nvidia-smi);
+   limit (nvidia-smi); [host] the hostname, driver, NCCL version and
+   `nvidia-smi topo -m`, the facts a multi-card number depends on;
 2. build — nvcc builds every csrc/*.cu, one process per source, all
    started together;
 3. kernels — each kernel at the main paths' shapes, in f32, f64 and bf16
@@ -101,12 +102,33 @@ the target). Phases, printed as they run (about four minutes on one H100
 10. shallow-water deep schedule, sharded — the same for ShallowWater on
    the 2×2 grid of 480² (k = 8, 256² padded shards, vmem route): the
    gathered state bitwise equal to the one-GPU run_deep, whose 496² block
-   takes the jnp route (the same arithmetic).
+   takes the jnp route (the same arithmetic);
+11. ring — the ring smoke test (parallel/ring.py): one rank (the identity,
+   a copy), then 4 ranks each asserting it holds its left neighbour's
+   rank, with the median µs of a ring round (1000 rounds between CUDA
+   events) at 16 B and at a 6144-element f32 slab (a halo row of 2×2 of
+   12288²);
+12. host-staged — run("shard") with halo_transport="host" (the numpy
+   oracle, the native engine for f64) within rtol 2e-5 / atol 2e-6 of the
+   device run("perf") on 512²: on one rank (f32 and f64) and on 4 ranks of
+   the 2×2 grid; the native engine (csrc/halostage.cpp, built with g++)
+   bitwise equal to the numpy stepper at 2×2 of 512² f64, each one's ms
+   per step;
+13. wire — on the 2×2 grid of 512² f32, perf with an f32 and a bf16
+   wire and run_deep k = 8 with bf16, int8 and int8_delta, each within its
+   wire.TOLERANCE row of the f64 host-staged oracle; the same runs in f64
+   within 1e-12 of 4 CPU gloo ranks, and six exchanges of each reduced
+   mode, ghosts and state, bitwise equal to the CPU ranks'; the f32
+   wire's exchange bitwise equal to the zero-padded global field; the
+   bytes an interior rank sends per mode;
+14. dryrun — rocm_mpi_tpu_torch.entry.dryrun_multichip(4), every leg
+   launching its kernels.
 
-With `--gpus 4` phases 6-10 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-14 run one rank per GPU over NCCL (6 and 8 for
 1000 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
-exchange, the interiors and the slabs timed alone), and phases 3-5 are
-skipped. `chip_trace_hide.py` traces the phase-8 steps under
+exchange, the interiors and the slabs timed alone; 13 also with the
+exchange alone per wire mode at 2×2 of 12288², widths 1 and 8), and
+phases 3-5 are skipped. `chip_trace_hide.py` traces the phase-8 steps under
 torch.profiler.
 
 Then it prints the card line, one JSON line describing every kernel, and
@@ -125,6 +147,7 @@ import ctypes
 import json
 import os
 import pathlib
+import shutil
 import signal
 import statistics
 import subprocess
@@ -314,6 +337,33 @@ WAVE_DEEP_NT, WAVE_DEEP_WARMUP, WAVE_DEEP_K = 1032, 8, 8
 REVERSAL_STEPS = 500
 WAVE_DEEP_SHARDED = (480, 480)  # 2×2 shards of 240², 256² with the k = 8 ghosts
 SWE_MASS_BOUND = {"f64": 1e-13, "f32": 1e-6}
+# The transport plane's phases.
+RING_ROUNDS = 1000  # ring rounds timed per message size
+RING_SLAB = 6144  # one halo row of a 6144² shard (2×2 of 12288²)
+HOST_SHAPE = (512, 512)
+HOST_NT, HOST_WARMUP = 100, 10
+HOST_TIMED_STEPS = 20  # steps timed for the native engine and the numpy stepper
+HOST_TOL = dict(rtol=2e-5, atol=2e-6)  # the JAX dry run's tolerance against the oracle
+WIRE_SHAPE = (512, 512)
+WIRE_NT, WIRE_WARMUP, WIRE_K = 200, 8, 8  # k divides both windows
+WIRE_CASES = (("perf", "f32"), ("perf", "bf16"), ("deep", "bf16"), ("deep", "int8"),
+              ("deep", "int8_delta"))
+# The card's f64 wire runs against the same runs on CPU gloo ranks, which
+# tests/test_torch_wire.py holds to the JAX package within 1e-12 in f64.
+WIRE_TWIN_TOL = 1e-12
+WIRE_SENDS = 6  # exchanges threaded through each codec's state
+# The kernels each leg of dryrun_multichip must launch on the card.
+DRYRUN_LEGS = {
+    "kp": ("kp_flux", "kp_residual", "kp_update"), "perf": ("fused_step_cm",),
+    "hide": ("fused_step_cm",), "deep": ("multi_step_cm",), "hbm": ("tb_sweep",),
+    "wave-perf": ("wave_step",), "wave-hide": ("wave_step_masked",),
+    "wave-deep": ("wave_multi_step",), "swe-perf": ("swe_step",), "swe-hide": ("swe_step",),
+    "swe-deep": ("swe_multi_step",), "3d-perf": ("fused_step_cm",),
+    "3d-hide": ("fused_step_cm",), "3d-deep": ("multi_step_cm",),
+    "wave-3d-perf": ("wave_step",), "wave-3d-hide": ("wave_step_masked",),
+    "wave-3d-deep": ("wave_multi_step",), "swe-3d-perf": ("swe_step",),
+    "swe-3d-hide": ("swe_step",), "swe-3d-deep": ("swe_multi_step",),
+}
 
 
 class PhaseError(RuntimeError):
@@ -2263,13 +2313,519 @@ def phase_swe_deep(card, gpus: int):
     return ranks, total
 
 
+# ---------------------------------------------------------------------------
+# The transport plane: ring, host-staged oracle, wire modes, dry run
+# ---------------------------------------------------------------------------
+
+
+def phase_host_facts(card):
+    """[host] the machine a multi-card number was taken on: hostname,
+    driver, NCCL version and the cards' topology (nvidia-smi topo -m)."""
+    import socket
+
+    import torch
+
+    smi = shutil.which("nvidia-smi")
+    check(smi is not None, "nvidia-smi not found")
+
+    def smi_out(*args):
+        out = subprocess.run([smi, *args], capture_output=True, text=True, check=False)
+        return out.stdout.strip()
+
+    driver = smi_out("--query-gpu=driver_version", "--format=csv,noheader").splitlines()
+    version = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, version)) if isinstance(version, tuple) else str(version)
+    topo = smi_out("topo", "-m")
+    facts = dict(hostname=socket.gethostname(), driver=driver[0] if driver else None,
+                 nccl=nccl, cards=torch.cuda.device_count(), card=card, topo=topo)
+    print(f"[host] hostname {facts['hostname']}, driver {facts['driver']}, NCCL {nccl}, "
+          f"{facts['cards']} card(s) visible ({card}); nvidia-smi topo -m:", flush=True)
+    for line in topo.splitlines():
+        print(f"[host]   {line}", flush=True)
+    return facts
+
+
+def ring_round_us(torch, ring_exchange, x, rounds: int) -> float:
+    """Median µs of one ring round of `x` between two CUDA events, over
+    `rounds` rounds queued back to back after 20 untimed ones."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    for _ in range(20):
+        x = ring_exchange(x)
+    torch.cuda.synchronize()
+    distributed.barrier()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(rounds)]
+    for start, end in pairs:
+        start.record()
+        x = ring_exchange(x)
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) * 1e3
+
+
+def ring_rank(rank, spec):
+    """One rank of [ring]: the demo's left-neighbour check, then the round
+    times at 16 bytes and at one halo row."""
+    import torch
+
+    from rocm_mpi_tpu_torch.parallel import distributed
+    from rocm_mpi_tpu_torch.parallel.ring import ring_exchange, ring_exchange_demo
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    distributed.barrier()
+    n = distributed.world_size()
+    sent, received = ring_exchange_demo(4, device=device)
+    expect = (rank - 1) % n
+    out = dict(rank=rank, device=str(device), sent=sent.tolist(), received=received.tolist(),
+               ok=bool((received == expect).all()) and received.is_cuda, expect=expect)
+    small = torch.full((4,), float(rank), device=device)  # 16 bytes
+    slab = torch.full((RING_SLAB,), float(rank), device=device)
+    out["us_16B"] = ring_round_us(torch, ring_exchange, small, RING_ROUNDS)
+    out["us_slab"] = ring_round_us(torch, ring_exchange, slab, RING_ROUNDS)
+    return out
+
+
+def phase_ring(torch, card, gpus: int):
+    """[ring] the ring smoke test: one rank (the identity) in this process,
+    then 4 ranks — sharing this card over gloo, or one a card over NCCL —
+    each asserting its left neighbour, with the round's median µs at 16 B
+    and at a 6144-element f32 slab."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+    from rocm_mpi_tpu_torch.parallel.ring import ring_exchange_demo
+
+    sent, received = ring_exchange_demo(4, device="cuda")
+    check(torch.equal(sent, received) and received.data_ptr() != sent.data_ptr(),
+          "one-rank ring is not a copy of the buffer")
+    print(f"[ring] one rank: sent {sent.tolist()} received {received.tolist()} (the "
+          "identity, a copy)", flush=True)
+    backend = "gloo" if gpus == 1 else "nccl"
+    ranks = spawn_ranks(4, ring_rank, (dict(gpus=gpus),), backend=backend, timeout=300)
+    for r in ranks:
+        check(r["ok"], f"ring rank {r['rank']}: received {r['received']}, expected "
+              f"{float(r['expect'])} (its left neighbour)")
+    where = (f"4 ranks sharing {card} (gloo, staged through host memory: not a multi-GPU "
+             "measurement)" if gpus == 1 else f"4 GPUs, one rank each, NCCL ({card} each)")
+    for r in ranks:
+        print(f"[ring] rank {r['rank']} on {r['device']}: sent {r['sent']} received "
+              f"{r['received']} (left neighbour {r['expect']}) ok; a round (median of "
+              f"{RING_ROUNDS}, CUDA events): {r['us_16B']:.2f} us at 16 B, "
+              f"{r['us_slab']:.2f} us at {RING_SLAB} f32 ({RING_SLAB * 4} B)", flush=True)
+    print(f"[ring] 4-rank ring over {where}: every rank holds its left neighbour's rank; "
+          f"slowest rank's median round {max(r['us_16B'] for r in ranks):.2f} us at 16 B, "
+          f"{max(r['us_slab'] for r in ranks):.2f} us at {RING_SLAB} f32", flush=True)
+    return ranks
+
+
+def _host_vs_device(torch, cfg, device):
+    """run("shard") through the host-staged oracle and run("perf") on the
+    card for `cfg`: (host result, device result, device launches)."""
+    import dataclasses
+
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    host = HeatDiffusion(dataclasses.replace(cfg, halo_transport="host"), device=device)
+    res_h = host.run("shard")
+    kernels.reset_launches()
+    res_d = HeatDiffusion(dataclasses.replace(cfg, halo_transport="ici"),
+                          device=device).run("perf")
+    torch.cuda.synchronize()
+    return res_h, res_d, dict(kernels.LAUNCHES)
+
+
+def _max_rel(torch, got, ref) -> tuple[float, bool]:
+    """(max |got − ref| / max |ref|, allclose at HOST_TOL) in f64 on this
+    rank's shard."""
+    got, ref = got.double(), ref.double()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    return rel, bool(torch.allclose(got, ref, **HOST_TOL))
+
+
+def host_staged_rank(rank, spec):
+    """One rank of [host-staged] on the 2×2 grid: the host-staged run
+    against the device perf run on this shard."""
+    import torch
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    distributed.barrier()
+    cfg = DiffusionConfig(global_shape=HOST_SHAPE, nt=HOST_NT, warmup=HOST_WARMUP,
+                          dtype="f32", dims=(2, 2))
+    res_h, res_d, launches = _host_vs_device(torch, cfg, device)
+    rel, close = _max_rel(torch, res_h.T, res_d.T)
+    return dict(rank=rank, route=res_h.route, rel=rel, close=close, launches=launches,
+                host_ms=res_h.wtime_it * 1e3, device_ms=res_d.wtime_it * 1e3,
+                on_card=res_h.T.is_cuda)
+
+
+def phase_host_staged(torch, card, gpus: int):
+    """[host-staged] run("shard") with halo_transport="host" against the
+    device perf run: on this card alone (f32 and f64) and on 4 ranks of
+    the 2×2 grid; the native engine bitwise against the numpy stepper, each
+    one's ms per step, at 2×2 of 512² f64."""
+    import numpy as np
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.parallel import native_halo, wire
+    from rocm_mpi_tpu_torch.parallel.halo import HostStagedStepper
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    out = {"one_card": {}}
+    launches = {name: 0 for name in ("masked_step", "fused_step_cm")}
+    if gpus == 1:
+        for dtype in ("f32", "f64"):
+            cfg = DiffusionConfig(global_shape=HOST_SHAPE, nt=HOST_NT, warmup=HOST_WARMUP,
+                                  dtype=dtype, dims=(1, 1))
+            res_h, res_d, counts = _host_vs_device(torch, cfg, "cuda")
+            rel, close = _max_rel(torch, res_h.T, res_d.T)
+            check(res_h.route == "host-staged" and res_h.T.is_cuda,
+                  f"host-staged run took route {res_h.route} on {res_h.T.device}")
+            check(counts == only("masked_step", HOST_NT),
+                  f"one-card perf beside the oracle: launches {counts}")
+            check(close, f"one-card host-staged {dtype} run differs from the device perf run "
+                  f"by {rel:.3e} (relative), beyond rtol {HOST_TOL['rtol']}")
+            launches["masked_step"] += counts["masked_step"]
+            out["one_card"][dtype] = dict(rel=rel, host_ms=res_h.wtime_it * 1e3,
+                                          device_ms=res_d.wtime_it * 1e3)
+            print(f"[host-staged] one card, {HOST_SHAPE[0]}x{HOST_SHAPE[1]} {dtype}, "
+                  f"{HOST_NT} steps ({HOST_WARMUP} warmup): run(\"shard\") through the "
+                  f"host-staged oracle within rtol {HOST_TOL['rtol']} / atol "
+                  f"{HOST_TOL['atol']} of run(\"perf\") on the card (max rel diff {rel:.3e}); "
+                  f"{res_h.wtime_it * 1e3:.4f} ms/step on the host against "
+                  f"{res_d.wtime_it * 1e3:.5f} on {card}", flush=True)
+    backend = "gloo" if gpus == 1 else "nccl"
+    ranks = spawn_ranks(4, host_staged_rank, (dict(gpus=gpus),), backend=backend, timeout=300)
+    for r in ranks:
+        check(r["route"] == "host-staged" and r["on_card"],
+              f"host-staged rank {r['rank']}: route {r['route']}")
+        check(r["launches"] == only("fused_step_cm", HOST_NT),
+              f"host-staged rank {r['rank']}: perf launches {r['launches']}")
+        check(r["close"], f"host-staged rank {r['rank']}: shard differs from the device perf "
+              f"run by {r['rel']:.3e} (relative)")
+        launches["fused_step_cm"] += r["launches"]["fused_step_cm"]
+    where = ("4 ranks sharing the card (gloo)" if gpus == 1
+             else f"4 GPUs, NCCL ({card} each)")
+    print(f"[host-staged] 2x2 of {HOST_SHAPE[0]}x{HOST_SHAPE[1]} f32 on {where}: every "
+          f"shard of the host-staged run within rtol {HOST_TOL['rtol']} of the device perf "
+          f"run (max rel diff {max(r['rel'] for r in ranks):.3e}); rank 0 "
+          f"{ranks[0]['host_ms']:.4f} ms/step host-staged, {ranks[0]['device_ms']:.5f} "
+          "device", flush=True)
+    out["ranks"] = ranks
+
+    # The native engine against the numpy stepper: bitwise, and timed.
+    check(native_halo.available(), "the native halostage engine did not build (g++)")
+    grid = wire.OracleGrid(HOST_SHAPE, (2, 2), tuple(10.0 / n for n in HOST_SHAPE))
+    rng = np.random.default_rng(SEED)
+    T0, Cp = rng.random(HOST_SHAPE), 1.0 + rng.random(HOST_SHAPE)
+    dt = min(d * d for d in grid.spacing) / 4.1
+    native = HostStagedStepper(grid, 1.0, dt, use_native=True)
+    plain = HostStagedStepper(grid, 1.0, dt, use_native=False)
+    check(native.use_native, "the stepper did not take the native engine")
+    times = {}
+    fields = {}
+    for name, stepper in (("native", native), ("numpy", plain)):
+        stepper.run(T0, Cp, 2)
+        t0 = time.perf_counter()
+        fields[name] = stepper.run(T0, Cp, HOST_TIMED_STEPS)
+        times[name] = (time.perf_counter() - t0) / HOST_TIMED_STEPS * 1e3
+    check(np.array_equal(fields["native"], fields["numpy"]),
+          "native halostage engine differs from the numpy stepper")
+    out["engine_ms"] = times
+    print(f"[host-staged] native engine (csrc/halostage.cpp, a thread a shard) bitwise == "
+          f"numpy stepper over {HOST_TIMED_STEPS} steps at 2x2 of {HOST_SHAPE[0]}x"
+          f"{HOST_SHAPE[1]} f64: native {times['native']:.4f} ms/step, numpy "
+          f"{times['numpy']:.4f} ms/step on the host ({os.cpu_count()} cores)", flush=True)
+    return out, launches
+
+
+def wire_twin(torch, device):
+    """This rank's share of [wire]'s comparison of the card with the CPU,
+    run on `device`: the f64 twin of each wire run, and WIRE_SENDS
+    exchanges of a seeded f32 field scaled by (1 + send/10) in each reduced
+    mode, at width 1 (the stateless modes) and WIRE_K, threading the
+    state. Returns numpy arrays: {"runs": {case: shard}, "exchanges":
+    {case: [(padded block, state), ...]}}."""
+    import numpy as np
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.parallel import wire
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+
+    base = dict(global_shape=WIRE_SHAPE, nt=WIRE_NT, warmup=WIRE_WARMUP, dims=(2, 2))
+    out = dict(runs={}, exchanges={})
+    for kind, mode in WIRE_CASES:
+        model = HeatDiffusion(DiffusionConfig(**base, dtype="f64", wire_mode=mode),
+                              device=device)
+        res = model.run("perf") if kind == "perf" else model.run_deep(block_steps=WIRE_K)
+        out["runs"][f"{kind}-{mode}"] = res.T.cpu().numpy()
+    grid = model.grid
+    G = np.random.default_rng(SEED).random(WIRE_SHAPE).astype(np.float32)
+    for mode in wire.WIRE_MODES[1:]:
+        for width in (1, WIRE_K):
+            if width == 1 and wire.is_stateful(mode):
+                continue  # the per-step exchange is stateless
+            state = wire.init_exchange_state(grid.local_shape, width, mode, torch.float32,
+                                             device=device)
+            sends = []
+            for t in range(WIRE_SENDS):
+                u = torch.from_numpy(G[grid.shard_slices()] * np.float32(1 + t / 10))
+                u = u.to(device)
+                if wire.is_stateful(mode):
+                    padded, state = exchange_halo(u, grid, width=width, wire_mode=mode,
+                                                  wire_state=state)
+                else:
+                    padded = exchange_halo(u, grid, width=width, wire_mode=mode)
+                sends.append((padded.cpu().numpy(), [x.cpu().numpy() for x in state]))
+            out["exchanges"][f"{mode}-w{width}"] = sends
+    return out
+
+
+def wire_cpu_rank(rank, spec):
+    """One CPU gloo rank of [wire]: wire_twin on the CPU."""
+    import torch
+
+    torch.set_num_threads(2)
+    return wire_twin(torch, "cpu")
+
+
+def wire_rank(rank, spec):
+    """One rank of [wire] on the 2×2 grid: the f64 host-staged oracle, perf
+    with an f32 and a bf16 wire and run_deep k = 8 with each reduced mode,
+    each against the oracle; the f32 wire's exchange against the
+    zero-padded global field; wire_twin on the card; with several cards,
+    the exchange alone per mode at 2×2 of 12288²."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel import distributed, wire
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+    from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    distributed.barrier()
+    base = dict(global_shape=WIRE_SHAPE, nt=WIRE_NT, warmup=WIRE_WARMUP, dims=(2, 2))
+    oracle = HeatDiffusion(DiffusionConfig(**base, dtype="f64", halo_transport="host"),
+                           device=device).run("shard").T
+
+    def global_rel(T):
+        diff = (T.double() - oracle).abs().max().reshape(1)
+        peak = oracle.abs().max().reshape(1)
+        both = torch.cat([diff, peak])
+        if distributed.staged(both):
+            both = both.cpu()
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        return float(both[0] / both[1])
+
+    out = dict(rank=rank, runs={}, launches={name: 0 for name in kernels.LAUNCHES})
+
+    def counted(fn):
+        kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        for name, count in kernels.LAUNCHES.items():
+            out["launches"][name] += count
+        return res, dict(kernels.LAUNCHES)
+
+    for kind, mode in WIRE_CASES:
+        model = HeatDiffusion(DiffusionConfig(**base, dtype="f32", wire_mode=mode),
+                              device=device)
+        res, launches = counted(lambda: model.run("perf") if kind == "perf"
+                                else model.run_deep(block_steps=WIRE_K))
+        out["runs"][f"{kind}-{mode}"] = dict(
+            kind=kind, mode=mode, rel=global_rel(res.T), route=res.route, k=res.k,
+            launches=launches, ms_per_step=res.wtime_it * 1e3,
+            finite=bool(torch.isfinite(res.T).all()))
+
+    # The f32 wire's ghosts are the neighbours' cells bit for bit: a window
+    # of the zero-padded global field.
+    grid = model.grid
+    G = np.random.default_rng(SEED).random(WIRE_SHAPE).astype(np.float32)
+    out["f32_window"] = {}
+    for width in (1, WIRE_K):
+        window = tuple(slice(a, b + 2 * width) for a, b in grid.shard_bounds())
+        padded = exchange_halo(torch.from_numpy(G[grid.shard_slices()]).to(device), grid,
+                               width=width, wire_mode="f32")
+        out["f32_window"][width] = bool(np.array_equal(padded.cpu().numpy(),
+                                                       np.pad(G, width)[window]))
+    out["twin"] = wire_twin(torch, device)
+
+    if spec["gpus"] > 1:
+        # The exchange alone per mode at 2×2 of 12288²: width 1 (perf) and
+        # width 8 (the deep sweep), stateful modes threading their state.
+        grid = GlobalGrid(BIG, (10.0, 10.0), (2, 2), rank)
+        T = torch.rand(grid.local_shape, device=device)
+        ms = {}
+        for width in (1, WIRE_K):
+            pad = torch.zeros(tuple(n + 2 * width for n in T.shape), device=device)
+            for mode in wire.WIRE_MODES:
+                if width == 1 and wire.is_stateful(mode):
+                    continue  # the per-step exchange is stateless
+                state = [wire.init_exchange_state(grid.local_shape, width, mode,
+                                                  torch.float32, device=device)]
+
+                def once(mode=mode, width=width, pad=pad, state=state):
+                    if wire.is_stateful(mode):
+                        _, state[0] = exchange_halo(T, grid, width=width, wire_mode=mode,
+                                                    out=pad, wire_state=state[0])
+                    else:
+                        exchange_halo(T, grid, width=width, wire_mode=mode, out=pad)
+
+                ms[f"{mode}-w{width}"] = _timed_loop(torch, once, 100)
+        out["exchange_ms"] = ms
+    return out
+
+
+def _twin_diffs(card, cpu):
+    """Card against CPU for one rank's wire_twin: {run: max |card − cpu|
+    over this shard, and this shard's max |cpu|}, and the exchanges that
+    differ in any bit, padded block or state."""
+    import numpy as np
+
+    runs = {k: (float(np.abs(card["runs"][k] - v).max()), float(np.abs(v).max()))
+            for k, v in cpu["runs"].items()}
+    differ = []
+    for key, sends in cpu["exchanges"].items():
+        for t, ((padded, state), (got, got_state)) in enumerate(
+                zip(sends, card["exchanges"][key])):
+            if not (np.array_equal(got, padded) and len(got_state) == len(state)
+                    and all(np.array_equal(a, b) for a, b in zip(got_state, state))):
+                worst = max(float(np.abs(a - b).max())
+                            for a, b in zip((got, *got_state), (padded, *state)))
+                differ.append(f"{key} send {t} (max |diff| {worst:.3e})")
+    return runs, differ
+
+
+def phase_wire(torch, card, gpus: int):
+    """[wire] on the 2×2 grid of 512²: perf with an f32 and a bf16 wire
+    and run_deep k = 8 with bf16, int8 and int8_delta, each within its
+    TOLERANCE row of the f64 host-staged oracle; the same runs in f64 on
+    the card within WIRE_TWIN_TOL of CPU gloo ranks, and each reduced
+    mode's exchanges (ghosts and state) bitwise the CPU ranks'; the f32
+    wire's exchange bitwise the zero-padded global field; each mode's
+    exchange bytes, and with 4 cards its exchange alone at 2×2 of 12288²."""
+    from rocm_mpi_tpu_torch.parallel import wire
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_nbytes
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    backend = "gloo" if gpus == 1 else "nccl"
+    ranks = spawn_ranks(4, wire_rank, (dict(gpus=gpus),), backend=backend, timeout=600)
+    cpu = spawn_ranks(4, wire_cpu_rank, ({},), backend="gloo", timeout=600)
+    r0 = ranks[0]
+    for r in ranks:
+        for run in r["runs"].values():
+            kind, mode = run["kind"], run["mode"]
+            want = "fused_step_cm" if kind == "perf" else "multi_step_cm"
+            check(run["finite"] and run["launches"][want] > 0,
+                  f"wire rank {r['rank']} {kind} {mode}: launches {run['launches']}")
+            check(run["rel"] <= wire.TOLERANCE[mode],
+                  f"wire {kind} {mode}: relative error {run['rel']:.3e} against the f64 "
+                  f"oracle beyond its TOLERANCE row {wire.TOLERANCE[mode]}")
+        for width, same in r["f32_window"].items():
+            check(same, f"wire rank {r['rank']}: the f32 wire's width-{width} exchange "
+                  "differs from the zero-padded global field")
+    twin = {}
+    for r, c in zip(ranks, cpu):
+        runs, differ = _twin_diffs(r.pop("twin"), c)
+        check(not differ, f"wire rank {r['rank']}: the card's exchanges differ from the CPU "
+              f"ranks': {', '.join(differ)}")
+        for key, (diff, peak) in runs.items():
+            d, p = twin.get(key, (0.0, 0.0))
+            twin[key] = (max(d, diff), max(p, peak))
+    twin = {key: d / p for key, (d, p) in twin.items()}
+    for key, rel in twin.items():
+        check(rel <= WIRE_TWIN_TOL, f"wire {key} f64 on the card differs from the CPU "
+              f"ranks' run by {rel:.3e} (relative), beyond {WIRE_TWIN_TOL}")
+    for run in r0["runs"].values():
+        kind, mode = run["kind"], run["mode"]
+        what = (f"perf, {WIRE_NT} steps" if kind == "perf"
+                else f"run_deep k = {run['k']} ({run['route']} route), {WIRE_NT} steps")
+        print(f"[wire] 2x2 of {WIRE_SHAPE[0]}x{WIRE_SHAPE[1]} f32, {mode} wire, {what}: "
+              f"max rel err {run['rel']:.3e} against the f64 host-staged oracle (TOLERANCE "
+              f"{wire.TOLERANCE[mode]}); rank 0 {run['ms_per_step']:.5f} ms/step; in f64 "
+              f"{twin[f'{kind}-{mode}']:.3e} (relative) from the same run on 4 CPU gloo ranks "
+              f"(bound {WIRE_TWIN_TOL})", flush=True)
+    print(f"[wire] f32 wire: each rank's width-1 and width-{WIRE_K} exchange bitwise == the "
+          f"zero-padded global field; bf16 (widths 1 and {WIRE_K}), int8 and int8_delta "
+          f"(width {WIRE_K}): ghosts and state over {WIRE_SENDS} sends bitwise == the CPU "
+          "ranks'", flush=True)
+    nbytes = {}
+    for local, width in (((WIRE_SHAPE[0] // 2, WIRE_SHAPE[1] // 2), 1), (BLOCK, 1),
+                         (BLOCK, WIRE_K)):
+        row = {m: exchange_nbytes(local, 4, width, wire_mode=m) for m in wire.WIRE_MODES}
+        nbytes[f"{local[0]}x{local[1]}-w{width}"] = row
+        print(f"[wire] bytes an interior rank sends per exchange, {local[0]}x{local[1]} f32 "
+              f"shard, width {width}: " + ", ".join(f"{m} {b}" for m, b in row.items()),
+              flush=True)
+    if gpus > 1:
+        for r in ranks:
+            print(f"[wire] rank {r['rank']} exchange alone (ms, host clock around 100 "
+                  f"synchronised exchanges, 2x2 of {BIG[0]}x{BIG[1]} f32 on {card}): "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in r["exchange_ms"].items()),
+                  flush=True)
+    launches = {}
+    for r in ranks:
+        for name, count in r["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    return dict(ranks=ranks, nbytes=nbytes, twin=twin), launches
+
+
+def phase_dryrun(torch, card, gpus: int):
+    """[dryrun] dryrun_multichip(4): 4 ranks sharing this card over gloo,
+    or one a card over NCCL; on the card each leg must launch its kernels."""
+    from rocm_mpi_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    reports = dryrun_multichip(4, device="cuda")
+    seconds = time.perf_counter() - t0
+    for r in reports:
+        for leg, kernels_ in DRYRUN_LEGS.items():
+            got = r["launches"][leg]
+            check(all(got[k] > 0 for k in kernels_),
+                  f"dryrun rank {r['rank']} leg {leg}: launches {got}, expected "
+                  f"{', '.join(kernels_)}")
+    launches = {}
+    for r in reports:
+        for counts in r["launches"].values():
+            for name, count in counts.items():
+                launches[name] = launches.get(name, 0) + count
+    where = "4 ranks sharing the card (gloo)" if gpus == 1 else f"4 GPUs, NCCL ({card} each)"
+    print(f"[dryrun] dryrun_multichip(4) on {where} in {seconds:.1f} s; kernel launches "
+          "over its legs (all ranks): " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                                    if v), flush=True)
+    return dict(reports=reports, seconds=seconds), launches
+
+
+def phase_transport(torch, card, gpus: int):
+    """[ring], [host-staged], [wire] and [dryrun] in turn: (their records,
+    the kernel launches of the model paths they drove)."""
+    out = dict(ring=phase_ring(torch, card, gpus))
+    launches = {}
+    for name, phase in (("host_staged", phase_host_staged), ("wire", phase_wire),
+                        ("dryrun", phase_dryrun)):
+        out[name], counts = phase(torch, card, gpus)
+        for kernel, count in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    return out, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write every measurement to PATH")
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
                         help="4: run only the sharded phases (perf, deep, hide, wave and "
-                        "shallow-water deep), "
+                        "shallow-water deep, ring, host-staged, wire, dryrun), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -2297,6 +2853,7 @@ def main(argv=None) -> int:
     pk = peaks(kind)
     t0 = time.perf_counter()
     phase_environment(torch, card)
+    host = phase_host_facts(card)
     if pk["assumed"]:
         print(f"[env] no published peaks on record for {kind!r}: bounds use the "
               "H100 SXM's", flush=True)
@@ -2305,20 +2862,17 @@ def main(argv=None) -> int:
         check(torch.cuda.device_count() >= args.gpus,
               f"--gpus {args.gpus} needs {args.gpus} GPUs, "
               f"{torch.cuda.device_count()} visible")
-        ranks, _, _ = phase_sharded(card, args.gpus)
-        deep_ranks, _ = phase_sharded_deep(card, args.gpus)
-        hide_ranks, _ = phase_hide(card, args.gpus)
-        wave_deep_ranks, _ = phase_wave_deep(card, args.gpus)
-        swe_deep_ranks, _ = phase_swe_deep(card, args.gpus)
+        record = dict(card=card, kind=kind, host=host, build_s=build_s)
+        record["sharded_ranks"], _, _ = phase_sharded(card, args.gpus)
+        record["sharded_deep_ranks"], _ = phase_sharded_deep(card, args.gpus)
+        record["hide_ranks"], _ = phase_hide(card, args.gpus)
+        record["wave_deep_ranks"], _ = phase_wave_deep(card, args.gpus)
+        record["swe_deep_ranks"], _ = phase_swe_deep(card, args.gpus)
+        record["transport"], _ = phase_transport(torch, card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
             path.parent.mkdir(parents=True, exist_ok=True)
-            path.write_text(json.dumps(dict(card=card, kind=kind, build_s=build_s,
-                                            sharded_ranks=ranks,
-                                            sharded_deep_ranks=deep_ranks,
-                                            hide_ranks=hide_ranks,
-                                            wave_deep_ranks=wave_deep_ranks,
-                                            swe_deep_ranks=swe_deep_ranks), indent=1))
+            path.write_text(json.dumps(record, indent=1, default=str))
         print(f"[done] sharded phases passed in {time.perf_counter() - t0:.1f} s",
               flush=True)
         print(card, flush=True)
@@ -2339,6 +2893,7 @@ def main(argv=None) -> int:
     hide_ranks, hide_launches = phase_hide(card, 1)
     wave_deep_ranks, wave_deep_launches = phase_wave_deep(card, 1)
     swe_deep_ranks, swe_deep_launches = phase_swe_deep(card, 1)
+    transport, transport_launches = phase_transport(torch, card, 1)
 
     # Launches on the main paths: each path ran with the counts set to 0
     # just before it and read just after.
@@ -2361,6 +2916,10 @@ def main(argv=None) -> int:
     for row in scan_rows:
         for name, count in row["launches"].items():
             launches[name] += count
+    # The transport phases: the host-staged comparison's perf runs, the
+    # wire runs and every leg of the dry run.
+    for name, count in transport_launches.items():
+        launches[name] += count
     line = []
     for name, (replaces, source) in KERNELS.items():
         shape, form = MAIN_CASE[name]
@@ -2382,9 +2941,9 @@ def main(argv=None) -> int:
             wave=wave_rows, reversal=reversal, swe=swe_rows, scan=scan_rows,
             sharded_ranks=ranks,
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
-            wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks, kernels=line,
-            seconds=time.perf_counter() - t0,
-        ), indent=1))
+            wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks, host=host,
+            transport=transport, kernels=line, seconds=time.perf_counter() - t0,
+        ), indent=1, default=str))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

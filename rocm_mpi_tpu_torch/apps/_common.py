@@ -15,6 +15,8 @@ import argparse
 import shutil
 import subprocess
 
+from rocm_mpi_tpu_torch.parallel.wire import WIRE_MODES
+
 
 def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
     """The options every app of the port shares: grid, steps, dtype,
@@ -37,6 +39,10 @@ def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
                    "chunks replayed as CUDA graphs on one GPU; step: one Python step "
                    "call after another). Bitwise the same result; the schedules "
                    "(--deep, --vmem) have their own loop forms and ignore it")
+    p.add_argument("--wire-mode", default="f32", choices=list(WIRE_MODES),
+                   help="on-wire halo slab precision (parallel/wire.py; default f32, the "
+                   "exchange as it is; bf16 halves the wire; int8/int8_delta quantize "
+                   "with error feedback and need --deep)")
     return p
 
 
@@ -62,6 +68,11 @@ def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
                    help="use deep-halo sweeps: exchange width-K ghosts every K steps "
                    "instead of width-1 every step (parallel.deep_halo); K must divide "
                    "both --warmup and nt - warmup, or it degrades to their gcd")
+    p.add_argument("--transport", default=None, choices=["ici", "host"],
+                   help="halo transport: the device exchange, or host staging (the "
+                   "reference's IGG_ROCMAWARE_MPI=1/0; only variant 'shard' runs the "
+                   "host-staged oracle, the others warn). Default: $RMT_HALO_TRANSPORT "
+                   "or ici")
     if variant == "hide":
         p.add_argument("--b-width", default="32,4",
                        help="boundary frame width, e.g. 32,4 (hide.jl:42; clamped to "
@@ -95,7 +106,7 @@ def global_max(x) -> float:
 
     peak = x.float().max().reshape(1)
     if distributed.is_distributed():
-        if peak.is_cuda and distributed.backend() == "gloo":
+        if distributed.staged(peak):
             peak = peak.cpu()  # gloo carries CPU tensors only
         dist.all_reduce(peak, op=dist.ReduceOp.MAX)
     return float(peak)
@@ -110,7 +121,7 @@ def global_sum(x) -> float:
 
     total = x.sum(dtype=torch.float64).reshape(1)
     if distributed.is_distributed():
-        if total.is_cuda and distributed.backend() == "gloo":
+        if distributed.staged(total):
             total = total.cpu()  # gloo carries CPU tensors only
         dist.all_reduce(total, op=dist.ReduceOp.SUM)
     return float(total)
@@ -142,10 +153,13 @@ def run_app(variant: str, args) -> int:
         if me == 0:
             print(msg, flush=True)
 
-    hide = {"b_width": parse_ints(args.b_width)} if variant == "hide" else {}
+    kwargs = {"b_width": parse_ints(args.b_width)} if variant == "hide" else {}
+    if args.transport:
+        kwargs["halo_transport"] = args.transport
     cfg = DiffusionConfig(
         global_shape=grid_shape(args), lengths=(10.0, 10.0), nt=args.nt,
-        warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims), **hide,
+        warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims),
+        wire_mode=args.wire_mode, **kwargs,
     )
     model = HeatDiffusion(cfg, device=device)
     grid = model.grid

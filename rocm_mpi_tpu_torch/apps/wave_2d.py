@@ -58,7 +58,8 @@ def main(argv=None) -> int:
 
     shape = grid_shape(args, 3 if args.nz > 1 else 2)
     cfg = WaveConfig(global_shape=shape, lengths=(10.0,) * len(shape), nt=args.nt,
-                     warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims))
+                     warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims),
+                     wire_mode=args.wire_mode)
     model = AcousticWave(cfg, device=device)
     grid = model.grid
     where = where_line(device)

@@ -2,10 +2,11 @@
 — of an acoustic-wave run (`WaveConfig`, rocm_mpi_tpu/models/wave.py) and
 of a shallow-water run (`SWEConfig`, rocm_mpi_tpu/models/swe.py).
 
-Same fields, same validation, same stable time step. Two knobs are not
-ported yet and raise NotImplementedError when set away from their
-defaults: `halo_transport="host"` (the host-staged oracle transport) and
-any on-wire precision other than "f32" (ROADMAP.md lists both).
+Same fields, same validation, same stable time step. `halo_transport`
+picks the diffusion `shard` variant's transport: "ici" the device
+exchange, "host" the host-staged numpy oracle (parallel/halo.py
+HostStagedStepper); `wire_mode` the halo slabs' on-wire precision
+(parallel/wire.py).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import math
 import os
 
 import torch
+
+from rocm_mpi_tpu_torch.parallel import wire
 
 DTYPES = {
     "f32": torch.float32,
@@ -29,22 +32,6 @@ DTYPES = {
 # the collective (the reference's IGG_ROCMAWARE_MPI=1); "host" stages the
 # exchange through host memory (=0).
 HALO_TRANSPORT_ENV = "RMT_HALO_TRANSPORT"
-
-# The JAX package's on-wire halo precisions (rocm_mpi_tpu/parallel/wire.py
-# WIRE_MODES), kept here so the port validates the same names.
-WIRE_MODES = ("f32", "bf16", "int8", "int8_delta")
-
-
-def validate_wire_mode(mode: str) -> str:
-    """Unknown modes raise ValueError, as the JAX package does; known
-    reduced-precision modes are not ported yet."""
-    if mode not in WIRE_MODES:
-        raise ValueError(f"unknown wire_mode {mode!r}; known: {WIRE_MODES}")
-    if mode != "f32":
-        raise NotImplementedError(
-            f"wire_mode {mode!r} is not ported yet; only 'f32' runs"
-        )
-    return mode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,12 +60,7 @@ class DiffusionConfig:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
         if self.halo_transport not in ("ici", "host"):
             raise ValueError("halo_transport must be 'ici' or 'host'")
-        if self.halo_transport == "host":
-            raise NotImplementedError(
-                "halo_transport='host' (the host-staged oracle transport) "
-                "is not ported yet"
-            )
-        validate_wire_mode(self.wire_mode)
+        wire.validate_mode(self.wire_mode)
 
     @property
     def ndim(self) -> int:
@@ -121,7 +103,7 @@ class WaveConfig:
             raise ValueError("lengths rank must match global_shape rank")
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
-        validate_wire_mode(self.wire_mode)
+        wire.validate_mode(self.wire_mode)
 
     @property
     def ndim(self) -> int:
@@ -164,7 +146,7 @@ class SWEConfig:
             raise ValueError("lengths rank must match global_shape rank")
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
-        validate_wire_mode(self.wire_mode)
+        wire.validate_mode(self.wire_mode)
 
     @property
     def ndim(self) -> int:

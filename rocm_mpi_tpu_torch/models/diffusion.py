@@ -38,7 +38,14 @@ and three multi-step schedules beside the per-step variants:
 
 Every variant runs on this rank's shard. "ap" and "fused" are written for
 the whole domain; on a shard they run on the halo-padded block and keep
-its core, which gives each cell the arithmetic of the global form.
+its core, which gives each cell the arithmetic of the global form. Their
+exchange stands in for the JAX package's GSPMD communication, so it
+always ships full precision: a reduced `wire_mode` reaches the `shard`,
+`perf`, `kp` and `hide` exchanges and the deep sweeps only.
+
+`halo_transport="host"` routes `run("shard")` to the host-staged numpy
+oracle (parallel/halo.HostStagedStepper, `_run_host_staged`); the other
+variants keep their device exchange and warn, as in the JAX package.
 
 In place of JAX buffer donation the advance keeps two field buffers and
 swaps them each step, as the reference swaps `T, T2 = T2, T`; the sharded
@@ -52,9 +59,10 @@ import math
 import warnings
 from typing import Callable
 
+import numpy as np
 import torch
 
-from rocm_mpi_tpu_torch.config import DiffusionConfig, validate_wire_mode
+from rocm_mpi_tpu_torch.config import DiffusionConfig
 from rocm_mpi_tpu_torch.ops import kernels, multistep
 from rocm_mpi_tpu_torch.ops.diffusion import (
     gaussian_ic,
@@ -64,8 +72,14 @@ from rocm_mpi_tpu_torch.ops.diffusion import (
 )
 from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops.kp import kp_step_padded
-from rocm_mpi_tpu_torch.parallel import deep_halo
-from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
+from rocm_mpi_tpu_torch.parallel import deep_halo, wire
+from rocm_mpi_tpu_torch.parallel.gather import allgather_to_host
+from rocm_mpi_tpu_torch.parallel.halo import (
+    HostStagedStepper,
+    exchange_halo,
+    global_boundary_mask,
+    place_core,
+)
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
 from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
 from rocm_mpi_tpu_torch.utils import metrics
@@ -81,8 +95,9 @@ class RunResult:
     config: DiffusionConfig
     # The multi-step schedules' record of what ran: the local route
     # ("vmem-loop", "hbm-tb"; for run_deep "vmem", "hbm-tb" or "jnp";
-    # for the scan driver "scan-graph", "scan-eager" or "scan-loop") and
-    # the steps per launch, sweep or chunk. None for the step driver.
+    # for the scan driver "scan-graph", "scan-eager" or "scan-loop"; for
+    # the host-staged oracle "host-staged") and the steps per launch,
+    # sweep or chunk. None for the step driver.
     route: str | None = None
     k: int | None = None
 
@@ -139,6 +154,19 @@ def default_deep_depth(local_shape, itemsize: int) -> int:
     if padded_bytes(k) > budget:
         k = min(k, multistep.DEFAULT_TB_STEPS)
     return max(1, k)
+
+
+def warn_host_transport_ignored(variant: str, stacklevel: int = 3) -> None:
+    """The warning for halo_transport='host' on a variant that keeps its
+    device exchange (only 'shard' routes to the host-staged oracle) — the
+    JAX package's text."""
+    warnings.warn(
+        f"halo_transport='host' is not honored by variant {variant!r} — "
+        "only variant 'shard' routes to the host-staged oracle stepper; "
+        "all other variants keep their device-side communication (GSPMD "
+        "or ppermute).",
+        stacklevel=stacklevel,
+    )
 
 
 # A step is step(T, C, out, pad) -> new T. `out` is a field-shaped buffer
@@ -233,7 +261,7 @@ class HeatDiffusion:
             return place_core(Cp)
 
         def step(T, Cpp, out=None, pad=None):
-            Tp = exchange_halo(T, grid, out=pad, wire_mode=cfg.wire_mode)
+            Tp = exchange_halo(T, grid, out=pad)
             new = raw_step(Tp, Cpp, cfg.lam, self.dt, cfg.spacing)[core]
             return torch.where(self._mask, T, new, out=out)
 
@@ -393,10 +421,27 @@ class HeatDiffusion:
         first `warmup`. `driver="scan"` runs scan_advance_fn's chunks, with
         the same steps in the same order as "step": the result is bitwise
         equal, and `route`/`k` report the scan route and q.
-        `config` reaches the scan driver only."""
+        `config` reaches the scan driver only.
+
+        With halo_transport="host", "shard" runs the host-staged oracle
+        (`_run_host_staged`, whatever the driver) and every other variant
+        warns and keeps its device exchange."""
         if driver not in ("step", "scan"):
             raise ValueError(f"driver must be 'step' or 'scan', got {driver!r}")
         nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
+        cfg = self.config
+        if cfg.halo_transport == "host":
+            if variant == "shard":
+                return self._run_host_staged(nt, warmup)
+            warn_host_transport_ignored(variant)
+        if cfg.wire_mode != "f32" and variant in ("ap", "fused"):
+            warnings.warn(
+                f"wire_mode={cfg.wire_mode!r} is not honored by variant "
+                f"{variant!r} — the GSPMD global-array variants have no "
+                "explicit exchange to encode; use shard/perf/hide or the "
+                "deep schedule.",
+                stacklevel=2,
+            )
         T, Cp = self.init_state()
         route = k = None
         if driver == "scan":
@@ -407,6 +452,25 @@ class HeatDiffusion:
         T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
         return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=self.config,
                          route=route, k=k)
+
+    def _run_host_staged(self, nt: int, warmup: int) -> RunResult:
+        """The host-staged oracle run (the IGG_ROCMAWARE_MPI=0 analog):
+        every rank gathers the initial field, runs HostStagedStepper over
+        the whole process grid in numpy (the native engine for f64 where
+        it builds), timing only the stepper's steps after `warmup`, and
+        keeps its own shard, on the model's device. Each rank runs the
+        same deterministic steps, so every shard is the stepper's. bf16
+        fields step in float32 and are rounded back at the end."""
+        cfg, grid = self.config, self.grid
+        T, Cp = self.init_state()
+        T_np, Cp_np = allgather_to_host(T, grid), allgather_to_host(Cp, grid)
+        stepper = HostStagedStepper(grid, cfg.lam, cfg.dt, wire_mode=cfg.wire_mode)
+        T_np, wtime = metrics.timed_window(lambda T_, n: stepper.run(T_, Cp_np, n), T_np,
+                                           nt, warmup)
+        shard = np.ascontiguousarray(T_np[grid.shard_slices()])
+        T_out = torch.from_numpy(shard).to(device=self.device, dtype=cfg.torch_dtype)
+        return RunResult(T=T_out, wtime=wtime, nt=nt, warmup=warmup, config=cfg,
+                         route="host-staged")
 
     # ---- multi-step schedules -------------------------------------------
 
@@ -511,9 +575,10 @@ class HeatDiffusion:
     def effective_wire_mode(self, wire_mode: str | None = None,
                             config: str | None = None) -> str:
         """The state exchange's on-wire precision of a deep run: an explicit
-        `wire_mode`, else the config's. Only "f32" is ported."""
+        `wire_mode`, else the config's. `config="auto"` needs the tuning
+        cache and raises NotImplementedError."""
         if wire_mode is not None:
-            return validate_wire_mode(wire_mode)
+            return wire.validate_mode(wire_mode)
         tuned = deep_halo.resolve_deep_config(self.grid, self.config.torch_dtype,
                                               config)["wire_mode"]
         return tuned if tuned is not None else self.config.wire_mode
@@ -525,8 +590,12 @@ class HeatDiffusion:
         schedule. The coefficient is exchanged and masked once per call,
         then n_steps/k sweeps run; `n_steps` must be a multiple of k.
         `advance.schedule` is the DeepSchedule (its `route` says which
-        local route the last sweep took)."""
+        local route the last sweep took). For the stateful wire modes each
+        call starts from a zero wire state (the JAX package's first-sweep
+        contract) and threads it through its sweeps."""
         cfg = self.config
+        if cfg.halo_transport == "host":
+            warn_host_transport_ignored("deep", stacklevel=3)
         k = self.effective_deep_depth(nt, warmup, block_steps, config=config)
         wm = self.effective_wire_mode(wire_mode, config)
         sched = deep_halo.make_deep_sweep(self.grid, k, cfg.lam, self.dt, cfg.spacing,
@@ -539,8 +608,13 @@ class HeatDiffusion:
             if n_steps == 0:
                 return T
             Cm = sched.prepare(Cp)
-            for _ in range(n_steps // k):
-                T = sched.sweep(T, Cm)
+            if sched.init_wire is None:
+                for _ in range(n_steps // k):
+                    T = sched.sweep(T, Cm)
+            else:
+                ws = sched.init_wire(T.dtype, T.device)
+                for _ in range(n_steps // k):
+                    T, ws = sched.sweep(T, Cm, ws)
             return T.contiguous()
 
         advance.schedule = sched

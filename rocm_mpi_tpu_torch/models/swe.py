@@ -41,12 +41,12 @@ import dataclasses
 
 import torch
 
-from rocm_mpi_tpu_torch.config import SWEConfig, validate_wire_mode
+from rocm_mpi_tpu_torch.config import SWEConfig
 from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
 from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops import multistep, swe
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
-from rocm_mpi_tpu_torch.parallel import deep_halo
+from rocm_mpi_tpu_torch.parallel import deep_halo, wire
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
 from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
@@ -141,9 +141,9 @@ class ShallowWater:
         cH, cg = self.coeffs
         core = tuple(slice(1, -1) for _ in range(ndim))
 
-        def exchange(h, us, pads):
+        def exchange(h, us, pads, wire_mode=wm):
             pads = pads if pads is not None else (None,) * (ndim + 1)
-            return tuple(exchange_halo(t, grid, out=p, wire_mode=wm)
+            return tuple(exchange_halo(t, grid, out=p, wire_mode=wire_mode)
                          for t, p in zip((h, *us), pads))
 
         def split(leaves):
@@ -159,8 +159,10 @@ class ShallowWater:
             Mp = tuple(deep_halo.padded_face_mask(padded_shape, grid, a, 1, cfg.torch_dtype,
                                                   device=self.device) for a in range(ndim))
 
+            # The stand-in for JAX's GSPMD communication: full precision,
+            # whatever the wire mode (as diffusion's ap).
             def step(h, us, Mus, out=None, pads=None):
-                hp, *ups = exchange(h, us, pads)
+                hp, *ups = exchange(h, us, pads, wire_mode="f32")
                 h2, us2 = swe.masked_swe_step(hp, ups, Mp, cH, cg)
                 return h2[core], tuple(u[core] for u in us2)
 
@@ -337,7 +339,7 @@ class ShallowWater:
         route the last sweep took)."""
         cfg = self.config
         k = self.effective_deep_depth(nt, warmup, block_steps)
-        wm = cfg.wire_mode if wire_mode is None else validate_wire_mode(wire_mode)
+        wm = cfg.wire_mode if wire_mode is None else wire.validate_mode(wire_mode)
         sched = deep_halo.make_swe_deep_sweep(self.grid, k, cfg.dt, cfg.spacing, cfg.H0, cfg.g,
                                               wire_mode=wm)
 
@@ -350,8 +352,13 @@ class ShallowWater:
             if n_steps == 0:
                 return h, us
             Mp = sched.prepare(h)
-            for _ in range(n_steps // k):
-                h, us = sched.sweep(h, us, Mp)
+            if sched.init_wire is None:
+                for _ in range(n_steps // k):
+                    h, us = sched.sweep(h, us, Mp)
+            else:  # a zero wire state per call, as in the JAX package
+                ws = sched.init_wire(h.dtype, h.device)
+                for _ in range(n_steps // k):
+                    h, us, ws = sched.sweep(h, us, Mp, ws)
             return h.contiguous(), tuple(u.contiguous() for u in us)
 
         advance.schedule = sched

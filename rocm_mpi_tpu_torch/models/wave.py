@@ -40,12 +40,12 @@ from typing import Callable
 
 import torch
 
-from rocm_mpi_tpu_torch.config import WaveConfig, validate_wire_mode
+from rocm_mpi_tpu_torch.config import WaveConfig
 from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
 from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops import multistep, wave
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
-from rocm_mpi_tpu_torch.parallel import deep_halo
+from rocm_mpi_tpu_torch.parallel import deep_halo, wire
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
 from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
@@ -148,8 +148,10 @@ class AcousticWave:
         core = tuple(slice(1, -1) for _ in range(grid.ndim))
 
         if variant == "ap":
+            # The stand-in for JAX's GSPMD communication: full precision,
+            # whatever the wire mode (as diffusion's ap).
             def step(U, Uprev, C2, C2p, out=None, pad=None):
-                Up = exchange_halo(U, grid, out=pad, wire_mode=wm)
+                Up = exchange_halo(U, grid, out=pad)
                 new = wave.wave_step_fused(Up, place_core(Uprev), C2p, self.dt, sp)[core]
                 return torch.where(self._mask, U, new, out=out)
 
@@ -330,7 +332,7 @@ class AcousticWave:
         route the last sweep took)."""
         cfg = self.config
         k = self.effective_deep_depth(nt, warmup, block_steps)
-        wm = cfg.wire_mode if wire_mode is None else validate_wire_mode(wire_mode)
+        wm = cfg.wire_mode if wire_mode is None else wire.validate_mode(wire_mode)
         sched = deep_halo.make_wave_deep_sweep(self.grid, k, self.dt_value, cfg.spacing,
                                                wire_mode=wm)
 
@@ -341,8 +343,13 @@ class AcousticWave:
             if n_steps == 0:
                 return U, Uprev
             P = sched.prepare(C2)
-            for _ in range(n_steps // k):
-                U, Uprev = sched.sweep(U, Uprev, P)
+            if sched.init_wire is None:
+                for _ in range(n_steps // k):
+                    U, Uprev = sched.sweep(U, Uprev, P)
+            else:  # a zero wire state per call, as in the JAX package
+                ws = sched.init_wire(U.dtype, U.device)
+                for _ in range(n_steps // k):
+                    U, Uprev, ws = sched.sweep(U, Uprev, P, ws)
             return U.contiguous(), Uprev.contiguous()
 
         advance.schedule = sched

@@ -28,6 +28,14 @@ masks once per advance and exchanges all ndim+1 coupled fields once per
 sweep; its local k steps take ops.swe.swe_multi_step_masked ("vmem") when
 the padded state passes the JAX admission, (3·ndim + 2)·compute_nbytes <=
 2 MiB, else k plain roll-form masked_swe_steps ("jnp").
+
+`wire_mode` is the state exchange's on-wire precision (parallel/wire.py);
+the loop-invariant `prepare` exchange always ships full precision, as in
+the JAX package. For the stateful modes (int8, int8_delta) the schedule's
+`init_wire(dtype, device)` builds this rank's zero wire state, and the
+sweep takes it last and returns it last: `sweep(state…, prepared,
+wire_state) -> (state…, wire_state)`, the state of each exchanged field
+in turn (`wire.init_exchange_state` with one field per leaf).
 """
 
 from __future__ import annotations
@@ -37,9 +45,9 @@ from typing import Callable
 
 import torch
 
-from rocm_mpi_tpu_torch.config import validate_wire_mode
 from rocm_mpi_tpu_torch.ops import multistep, swe, wave
 from rocm_mpi_tpu_torch.ops.kernels import inv_d2_of
+from rocm_mpi_tpu_torch.parallel import wire
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 
@@ -49,13 +57,39 @@ class DeepSchedule:
     """A deep-halo schedule: `prepare(Cp)` exchanges and masks the
     coefficient once, returning this rank's k-padded Cm; `sweep(T, Cm)`
     advances this rank's shard k steps with one exchange of T. `route` is
-    the local route the last sweep took ("vmem", "hbm-tb" or "jnp")."""
+    the local route the last sweep took ("vmem", "hbm-tb" or "jnp").
+    `init_wire(dtype, device)` is None for the stateless wire modes; for
+    the stateful ones it builds the zero wire state the sweep threads."""
 
     prepare: Callable
     sweep: Callable
     k: int
     wire_mode: str = "f32"
     route: str | None = None
+    init_wire: Callable | None = None
+
+
+def _wire_exchange(grid: GlobalGrid, k: int, wire_mode: str, fields: int):
+    """(exchange(i, t, buf, ws) -> (padded, ws-part), init_wire) for a
+    schedule exchanging `fields` same-shaped fields per sweep: field `i`
+    takes its slice of the flat wire state `ws` (empty for the stateless
+    modes). init_wire is None for the stateless modes."""
+    per_field = wire.state_arity(wire_mode) * 2 * grid.ndim
+    if not wire.is_stateful(wire.validate_mode(wire_mode)):
+        def exchange(i, t, buf, ws):
+            return exchange_halo(t, grid, width=k, wire_mode=wire_mode, out=buf), ()
+
+        return exchange, None
+
+    def exchange(i, t, buf, ws):
+        return exchange_halo(t, grid, width=k, wire_mode=wire_mode, out=buf,
+                             wire_state=ws[i * per_field:(i + 1) * per_field])
+
+    def init_wire(dtype, device=None):
+        return wire.init_exchange_state(grid.local_shape, k, wire_mode, dtype,
+                                        fields=fields, device=device)
+
+    return exchange, init_wire
 
 
 def _validate_depth(grid: GlobalGrid, k: int, label: str = "sweep depth"):
@@ -149,9 +183,11 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
     of T into a padded buffer the schedule reuses, the local k steps on
     the route `local_route` picks, the core kept). `dt` may be a Python
     float or a 0-dim tensor in the field dtype, as the model passes it.
+    A stateful `wire_mode` makes it `sweep(T, Cm, wire_state) -> (T,
+    wire_state)`.
     """
     _validate_depth(grid, k, "sweep depth")
-    validate_wire_mode(wire_mode)
+    exchange, init_wire = _wire_exchange(grid, k, wire_mode, 1)
     if local_form not in ("auto", "jnp"):
         raise ValueError(f"local_form must be 'auto' or 'jnp', got {local_form!r}")
     core = tuple(slice(k, -k) for _ in range(grid.ndim))
@@ -162,11 +198,11 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
     def prepare(Cp):
         return padded_update_coefficient(exchange_halo(Cp, grid, width=k), grid, k, lam, dt)
 
-    def sweep(T, Cm):
+    def sweep(T, Cm, *wire_state):
         buf = pad.get("T")
         if buf is None or buf.dtype != T.dtype or buf.device != T.device:
             buf = pad["T"] = torch.zeros(padded_shape, dtype=T.dtype, device=T.device)
-        Tp = exchange_halo(T, grid, width=k, wire_mode=wire_mode, out=buf)
+        Tp, ws = exchange(0, T, buf, wire_state[0] if wire_state else ())
         route = local_route(padded_shape, T.dtype, k, local_form)
         if route == "vmem":
             Tp = multistep.multi_step_cm(Tp, Cm, spacing, k)
@@ -175,9 +211,9 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
         else:
             Tp = jnp_k_steps(Tp, Cm, inv_d2, k)
         sched.route = route
-        return Tp[core]
+        return (Tp[core], ws) if init_wire else Tp[core]
 
-    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode)
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire)
     return sched
 
 
@@ -201,10 +237,11 @@ def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
     `sweep(U, Uprev, (M, Cw))` -> (U, Uprev) advanced k steps: one width-k
     exchange of each leaf of the pair into buffers the schedule reuses,
     the local k steps on `wave_local_route`'s route, both leaves cropped to
-    the core.
+    the core. A stateful `wire_mode` adds a trailing wire state to the
+    sweep's arguments and results.
     """
     _validate_depth(grid, k, "sweep depth")
-    validate_wire_mode(wire_mode)
+    exchange, init_wire = _wire_exchange(grid, k, wire_mode, 2)
     core = tuple(slice(k, -k) for _ in range(grid.ndim))
     inv_d2 = inv_d2_of(spacing)
     dt2 = float(dt) * float(dt)
@@ -217,15 +254,16 @@ def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
         M = torch.where(hold, torch.zeros_like(C2p), torch.ones_like(C2p))
         return M, (dt2 * C2p) * M
 
-    def padded(name, t):
-        buf = pads.get(name)
+    def padded(i, t, ws):
+        buf = pads.get(i)
         if buf is None or buf.dtype != t.dtype or buf.device != t.device:
-            buf = pads[name] = torch.zeros(padded_shape, dtype=t.dtype, device=t.device)
-        return exchange_halo(t, grid, width=k, wire_mode=wire_mode, out=buf)
+            buf = pads[i] = torch.zeros(padded_shape, dtype=t.dtype, device=t.device)
+        return exchange(i, t, buf, ws)
 
-    def sweep(U, Uprev, prepared):
+    def sweep(U, Uprev, prepared, *wire_state):
         M, Cw = prepared
-        Up, Upp = padded("U", U), padded("Uprev", Uprev)
+        ws = wire_state[0] if wire_state else ()
+        (Up, ws_u), (Upp, ws_p) = padded(0, U, ws), padded(1, Uprev, ws)
         route = wave_local_route(padded_shape, U.dtype)
         if route == "vmem":
             U2, Up2 = wave.wave_multi_step_masked(Up, Upp, M, Cw, spacing, k)
@@ -234,9 +272,11 @@ def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
             for _ in range(k):
                 U2, Up2 = wave.masked_leapfrog_step(U2, Up2, M, Cw, inv_d2)
         sched.route = route
+        if init_wire:
+            return U2[core], Up2[core], ws_u + ws_p
         return U2[core], Up2[core]
 
-    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode)
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire)
     return sched
 
 
@@ -277,11 +317,12 @@ def make_swe_deep_sweep(grid: GlobalGrid, k: int, dt, spacing, H, g,
     `swe_local_route`'s route, every leaf cropped to the core. The light
     cone is the diffusion one: a step moves information one cell (a
     diagonal counts as one), so width-k ghosts keep the core exact for k
-    steps.
+    steps. A stateful `wire_mode` adds a trailing wire state (h's, then
+    each velocity's) to the sweep's arguments and results.
     """
     _validate_depth(grid, k, "sweep depth")
-    validate_wire_mode(wire_mode)
     ndim = grid.ndim
+    exchange, init_wire = _wire_exchange(grid, k, wire_mode, ndim + 1)
     core = tuple(slice(k, -k) for _ in range(ndim))
     cH, cg = swe.swe_coeffs(dt, spacing, H, g)
     padded_shape = tuple(n + 2 * k for n in grid.local_shape)
@@ -291,15 +332,16 @@ def make_swe_deep_sweep(grid: GlobalGrid, k: int, dt, spacing, H, g,
         return tuple(padded_face_mask(padded_shape, grid, a, k, h.dtype, device=h.device)
                      for a in range(ndim))
 
-    def padded(i, t):
+    def padded(i, t, ws):
         buf = pads.get(i)
         if buf is None or buf.dtype != t.dtype or buf.device != t.device:
             buf = pads[i] = torch.zeros(padded_shape, dtype=t.dtype, device=t.device)
-        return exchange_halo(t, grid, width=k, wire_mode=wire_mode, out=buf)
+        return exchange(i, t, buf, ws)
 
-    def sweep(h, us, Mp):
-        hp = padded(0, h)
-        ups = tuple(padded(1 + a, u) for a, u in enumerate(us))
+    def sweep(h, us, Mp, *wire_state):
+        ws = wire_state[0] if wire_state else ()
+        outs = [padded(i, t, ws) for i, t in enumerate((h, *us))]
+        hp, ups = outs[0][0], tuple(p for p, _ in outs[1:])
         route = swe_local_route(padded_shape, h.dtype)
         if route == "vmem":
             h2, us2 = swe.swe_multi_step_masked(hp, ups, Mp, cH, cg, k)
@@ -308,7 +350,9 @@ def make_swe_deep_sweep(grid: GlobalGrid, k: int, dt, spacing, H, g,
             for _ in range(k):
                 h2, us2 = swe.masked_swe_step(h2, us2, Mp, cH, cg)
         sched.route = route
+        if init_wire:
+            return h2[core], tuple(u[core] for u in us2), sum((w for _, w in outs), ())
         return h2[core], tuple(u[core] for u in us2)
 
-    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode)
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire)
     return sched

@@ -68,6 +68,12 @@ def backend() -> str | None:
     return dist.get_backend() if is_distributed() else None
 
 
+def staged(t: torch.Tensor) -> bool:
+    """True when the process group cannot carry `t` where it lies (gloo
+    and a CUDA tensor): it then goes through host memory."""
+    return t.is_cuda and backend() == "gloo"
+
+
 def local_device(device_type: str) -> torch.device:
     """This rank's device: cuda:(LOCAL_RANK mod card count), or the CPU.
     Raises when CUDA is asked for and absent."""

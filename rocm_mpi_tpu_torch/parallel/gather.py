@@ -1,5 +1,6 @@
 """Gather the global field to rank 0 — counterpart of
-rocm_mpi_tpu/parallel/gather.py (the reference's `gather!`).
+rocm_mpi_tpu/parallel/gather.py (the reference's `gather!`) — or to every
+rank (`allgather_to_host`, what the host-staged oracle starts from).
 
 Shards do not overlap, so the gather places each rank's shard at its
 bounds in one host array. bf16 fields come back as float32 (exact;
@@ -23,20 +24,37 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def gather_to_host0(x: torch.Tensor, grid: GlobalGrid) -> np.ndarray | None:
-    """The full global field as numpy on rank 0, None on the other ranks."""
+def _sendable(x: torch.Tensor, grid: GlobalGrid) -> torch.Tensor:
+    """This rank's shard as the process group can carry it."""
     if tuple(x.shape) != grid.local_shape:
         raise ValueError(f"shard shape {tuple(x.shape)} != {grid.local_shape}")
+    x = x.contiguous()
+    return x.cpu() if distributed.staged(x) else x
+
+
+def gather_to_host0(x: torch.Tensor, grid: GlobalGrid) -> np.ndarray | None:
+    """The full global field as numpy on rank 0, None on the other ranks."""
+    x = _sendable(x, grid)
     if grid.nprocs == 1:
         return _host(x)
-    x = x.contiguous()
-    if x.is_cuda and distributed.backend() == "gloo":
-        x = x.cpu()  # gloo carries CPU tensors only
     parts = [torch.empty_like(x) for _ in range(grid.nprocs)] if grid.rank == 0 else None
     dist.gather(x, gather_list=parts, dst=0)
-    if grid.rank != 0:
-        return None
+    return _assemble(parts, grid) if grid.rank == 0 else None
+
+
+def _assemble(parts, grid: GlobalGrid) -> np.ndarray:
+    """The global field from every rank's shard, in rank order."""
     out = np.empty(grid.global_shape, dtype=_host(parts[0]).dtype)
     for r, part in enumerate(parts):
         out[grid.shard_slices(r)] = _host(part)
     return out
+
+
+def allgather_to_host(x: torch.Tensor, grid: GlobalGrid) -> np.ndarray:
+    """The full global field as numpy on every rank."""
+    x = _sendable(x, grid)
+    if grid.nprocs == 1:
+        return _host(x)
+    parts = [torch.empty_like(x) for _ in range(grid.nprocs)]
+    dist.all_gather(parts, x)
+    return _assemble(parts, grid)

@@ -13,54 +13,38 @@ Contracts kept from the JAX package:
 * Non-periodic domain: a rank at the domain edge posts nothing toward the
   missing neighbour, and that ghost layer stays zero. Those zeros only
   ever feed cells the Cm coefficient holds fixed.
+* On-wire precision (`wire_mode`, parallel/wire.py): "f32" sends the
+  slab as it is; the other modes encode each slab before it is sent and
+  decode it, in the buffer's dtype, before it lands.
 
 Each axis posts its sends and receives together (dist.batch_isend_irecv)
 and waits for them before the next axis, whose slabs include the ghosts
 just received. Slabs are made contiguous before sending. A gloo process
 group carries CPU tensors only, so for CUDA buffers on gloo every slab is
 staged through host memory; NCCL sends device to device.
+
+`HostStagedStepper` is the host-staged oracle (the reference's
+IGG_ROCMAWARE_MPI=0 path): a numpy diffusion stepper over every shard of
+the global field, its halos copied between shards in host memory.
 """
 
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from rocm_mpi_tpu_torch.config import validate_wire_mode
-from rocm_mpi_tpu_torch.parallel import distributed
+from rocm_mpi_tpu_torch.parallel import distributed, wire
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
-
-
-def slab_shapes(local_shape, width: int = 1, axes=None) -> list[tuple[int, ...]]:
-    """Per-shard send slab shapes in exchange order (axis-major, lo then
-    hi): padded extent on axes exchanged earlier, core extent after."""
-    local_shape = tuple(int(n) for n in local_shape)
-    ndim = len(local_shape)
-    axes = tuple(range(ndim) if axes is None else axes)
-    shapes: list[tuple[int, ...]] = []
-    done: list[int] = []
-    for ax in axes:
-        shape = tuple(
-            width if a == ax
-            else local_shape[a] + 2 * width if a in done
-            else local_shape[a]
-            for a in range(ndim)
-        )
-        shapes.extend((shape, shape))
-        done.append(ax)
-    return shapes
 
 
 def exchange_nbytes(local_shape, itemsize: int, width: int = 1, axes=None,
                     wire_mode: str = "f32") -> int:
     """Bytes an interior rank SENDS per `exchange_halo` call: two slabs per
-    exchanged axis at the state's itemsize (edge ranks send less)."""
-    validate_wire_mode(wire_mode)
-    return sum(
-        math.prod(s) * int(itemsize) for s in slab_shapes(local_shape, width, axes)
-    )
+    exchanged axis at `wire_mode`'s on-wire itemsize (bf16 2 bytes, the
+    int8 modes 1 byte plus a scale per slab, "f32" the state's itemsize).
+    Edge ranks send less."""
+    return wire.exchange_wire_nbytes(local_shape, int(itemsize), width, axes, wire_mode)
 
 
 def place_core(u: torch.Tensor, width: int = 1, axes=None, out=None) -> torch.Tensor:
@@ -84,27 +68,46 @@ def place_core(u: torch.Tensor, width: int = 1, axes=None, out=None) -> torch.Te
     return out
 
 
-def _staged(t: torch.Tensor) -> bool:
-    """True when the process group cannot carry `t` where it lies (gloo
-    and a CUDA tensor): the slab then goes through host memory."""
-    return t.is_cuda and distributed.backend() == "gloo"
-
-
 def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
-                  axes=None, wire_mode: str = "f32") -> torch.Tensor:
+                  axes=None, wire_mode: str = "f32", wire_state=None):
     """Fill the ghost layers of a `place_core`-shaped buffer from the
-    neighbouring ranks, in place; returns `buf`."""
-    validate_wire_mode(wire_mode)
+    neighbouring ranks, in place; returns `buf`.
+
+    `wire_mode` is the on-wire slab precision (parallel/wire.py). "f32"
+    sends the slabs as they are. "bf16" rounds each slab to bfloat16 for
+    the wire and widens it to the buffer dtype before it lands. The
+    stateful modes ("int8", "int8_delta") also take `wire_state`, this
+    rank's flat state tuple (`wire.init_exchange_state`), send each slab
+    as int8 codes and a one-element scale, and return `(buf, new_state)`.
+
+    Slab state follows the JAX package's order: per axis a "lo" group (the
+    slab this rank sends up, the ghost it receives from below) and a "hi"
+    group (sent down, received from above). Every group runs its codec's
+    send, a rank at the domain edge included, and a ghost no neighbour
+    sends decodes from a zero payload, as an omitted `ppermute` delivers
+    zeros in the JAX package; so each rank's state and ghosts equal its
+    JAX shard's.
+    """
+    stateful = wire.is_stateful(wire_mode)
+    if stateful and wire_state is None:
+        raise ValueError(
+            f"wire_mode {wire_mode!r} carries error-feedback state across exchanges; "
+            "per-step (stateless) paths support f32/bf16 only — use the deep-halo "
+            "schedules (run_deep / --deep), which thread the state through their sweeps"
+        )
     axes = tuple(range(grid.ndim) if axes is None else axes)
     exchanged = set(axes)
     ndim = buf.ndim
     width = int(width)
+    codec = wire.slab_codec(wire_mode) if wire_mode != "f32" else None
+    arity = wire.state_arity(wire_mode)
+    new_state: list[torch.Tensor] = []
 
     def core_extent(a):
         return buf.shape[a] - (2 * width if a in exchanged else 0)
 
     done: list[int] = []
-    for ax in axes:
+    for i_ax, ax in enumerate(axes):
         n = core_extent(ax)
 
         def region(lo_idx):
@@ -117,34 +120,67 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
                 for a in range(ndim)
             )
 
-        ops, landings = [], []
-        for direction, send_at, recv_at in ((+1, n, n + width), (-1, width, 0)):
-            peer = grid.neighbor(ax, direction)
-            if peer is None:
-                continue  # domain edge: nothing posted, the ghost stays zero
-            send = buf[region(send_at)].contiguous()
-            recv = torch.empty_like(send)
-            if _staged(buf):
-                send, recv = send.cpu(), recv.cpu()
-            ops.append(dist.P2POp(dist.isend, send, peer))
-            ops.append(dist.P2POp(dist.irecv, recv, peer))
-            landings.append((region(recv_at), recv))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-            for dst, recv in landings:
-                buf[dst] = recv
+        if codec is None:
+            ops, landings = [], []
+            for direction, send_at, recv_at in ((+1, n, n + width), (-1, width, 0)):
+                peer = grid.neighbor(ax, direction)
+                if peer is None:
+                    continue  # domain edge: nothing posted, the ghost stays zero
+                send = buf[region(send_at)].contiguous()
+                recv = torch.empty_like(send)
+                if distributed.staged(buf):
+                    send, recv = send.cpu(), recv.cpu()
+                ops.append(dist.P2POp(dist.isend, send, peer))
+                ops.append(dist.P2POp(dist.irecv, recv, peer))
+                landings.append((region(recv_at), recv))
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+                for dst, recv in landings:
+                    buf[dst] = recv
+        else:
+            ops, landings = [], []
+            # (group, slab sent, toward, ghost received, from)
+            for g, (send_at, to_dir, recv_at, from_dir) in enumerate(
+                    ((n, +1, 0, -1), (width, -1, n + width, +1))):
+                first = (2 * i_ax + g) * arity
+                st = tuple(wire_state[first:first + arity]) if stateful else ()
+                payload, st = codec.send(buf[region(send_at)], st)
+                to_peer = grid.neighbor(ax, to_dir)
+                from_peer = grid.neighbor(ax, from_dir)
+                if to_peer is not None:
+                    for p in payload:
+                        p = p.contiguous()
+                        ops.append(dist.P2POp(dist.isend, p.cpu() if distributed.staged(buf) else p,
+                                              to_peer))
+                if from_peer is None:
+                    got = tuple(torch.zeros_like(p) for p in payload)
+                else:
+                    got = tuple(torch.empty_like(p, device="cpu" if distributed.staged(buf) else None)
+                                for p in payload)
+                    ops.extend(dist.P2POp(dist.irecv, r, from_peer) for r in got)
+                landings.append((region(recv_at), got, st))
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            for dst, got, st in landings:
+                decoded, st = codec.recv(tuple(r.to(buf.device) for r in got), st, buf.dtype)
+                buf[dst] = decoded
+                new_state.extend(st)
         done.append(ax)
+    if stateful:
+        return buf, tuple(new_state)
     return buf
 
 
 def exchange_halo(u: torch.Tensor, grid: GlobalGrid, width: int = 1, axes=None,
-                  wire_mode: str = "f32", out=None) -> torch.Tensor:
+                  wire_mode: str = "f32", out=None, wire_state=None):
     """Pad the local shard `u` with its neighbours' ghost cells: the
     `update_halo!` analog, one call per step, all axes. `out` reuses a
-    padded buffer (see `place_core`)."""
+    padded buffer (see `place_core`). The stateful wire modes take
+    `wire_state` and return `(padded, new_state)` (see `exchange_into`)."""
     return exchange_into(place_core(u, width, axes, out=out), grid, width, axes,
-                         wire_mode=wire_mode)
+                         wire_mode=wire_mode, wire_state=wire_state)
 
 
 def global_boundary_mask(grid: GlobalGrid, dtype=torch.bool, device=None) -> torch.Tensor:
@@ -159,3 +195,123 @@ def global_boundary_mask(grid: GlobalGrid, dtype=torch.bool, device=None) -> tor
         view[ax] = local[ax]
         mask = mask | edge.reshape(view)
     return mask if dtype == torch.bool else mask.to(dtype)
+
+
+class HostStagedStepper:
+    """Numpy diffusion stepper with explicitly host-staged halos — the
+    JAX package's HostStagedStepper (rocm_mpi_tpu/parallel/halo.py).
+
+    The IGG_ROCMAWARE_MPI=0 analog: every step, each shard's boundary
+    slices are copied through host memory into its neighbours' ghost
+    layers, then every shard is updated on its own. It needs no device and
+    no process group, so a disagreement with a device run isolates the
+    device's transport: an oracle, not a fast path.
+
+    `grid` is any object with `global_shape`, `dims`, `spacing`,
+    `local_shape` and `ndim` (a GlobalGrid, or wire.OracleGrid). It works
+    on the whole global field. `wire_mode` applies the numpy wire codec
+    (wire.NumpyWireCodec) to every ghost slab it copies, its state kept per
+    logical wire across steps. `use_native` picks the C++ engine
+    (parallel/native_halo.py, bitwise equal, one thread per shard): None
+    takes it when it builds and the grid has at most 3 axes; True requires
+    it and raises when it cannot be built. The engine stages
+    full-precision ghosts only, so any other wire mode runs the numpy
+    steps.
+
+    The JAX stepper's telemetry spans and its fault and flight-recorder
+    hooks are left out: telemetry and resilience are not ported yet
+    (ROADMAP Queue 1 items 9 and 11).
+    """
+
+    def __init__(self, grid, lam: float, dt: float, use_native: bool | None = None,
+                 wire_mode: str = "f32"):
+        from rocm_mpi_tpu_torch.parallel import native_halo
+
+        self.grid = grid
+        self.lam = lam
+        self.dt = dt
+        self.wire_mode = wire.validate_mode(wire_mode)
+        self._codec = wire.NumpyWireCodec(wire_mode) if wire_mode != "f32" else None
+        if use_native is None:
+            use_native = grid.ndim <= 3 and native_halo.available()
+        elif use_native and wire_mode == "f32":
+            native_halo._load()  # raises when the engine cannot be built
+        self.use_native = bool(use_native) and wire_mode == "f32"
+
+    def _shard_slices(self, coords) -> tuple[slice, ...]:
+        local = self.grid.local_shape
+        return tuple(slice(c * ln, (c + 1) * ln) for c, ln in zip(coords, local))
+
+    def step(self, T: np.ndarray, Cp: np.ndarray) -> np.ndarray:
+        """One host-staged step: the native engine for f64 fields when it
+        was chosen, else `step_python`."""
+        if self.use_native and T.dtype == np.float64 and Cp.dtype == np.float64:
+            from rocm_mpi_tpu_torch.parallel import native_halo
+
+            return native_halo.host_staged_step(T, Cp, self.grid.dims, self.grid.spacing,
+                                                self.lam, self.dt)
+        return self.step_python(T, Cp)
+
+    def step_python(self, T: np.ndarray, Cp: np.ndarray) -> np.ndarray:
+        grid = self.grid
+        ndim = grid.ndim
+        local = grid.local_shape
+        inner = tuple(slice(1, -1) for _ in range(ndim))
+
+        # Phase 1 — the host-staged exchange: each shard's padded block is
+        # assembled in host memory, its ghosts read from the neighbouring
+        # shards (zero at the domain edge, as in exchange_halo).
+        padded = {}
+        for coords in np.ndindex(*grid.dims):
+            block = np.zeros(tuple(ln + 2 for ln in local), dtype=T.dtype)
+            block[inner] = T[self._shard_slices(coords)]
+            for ax in range(ndim):
+                for side, nb_off in (("lo", -1), ("hi", +1)):
+                    nb = list(coords)
+                    nb[ax] += nb_off
+                    if not 0 <= nb[ax] < grid.dims[ax]:
+                        continue  # domain edge: the ghost stays zero (unused)
+                    nb_core = self._shard_slices(nb)
+                    src = list(nb_core)
+                    dst = [slice(1, 1 + ln) for ln in local]
+                    if nb_off == -1:  # ghost row 0 <- the neighbour's last row
+                        src[ax] = slice(nb_core[ax].stop - 1, nb_core[ax].stop)
+                        dst[ax] = slice(0, 1)
+                    else:  # the last ghost row <- the neighbour's first row
+                        src[ax] = slice(nb_core[ax].start, nb_core[ax].start + 1)
+                        dst[ax] = slice(local[ax] + 1, local[ax] + 2)
+                    ghost = T[tuple(src)]
+                    if self._codec is not None:
+                        # One logical wire per (receiver, axis, side): its
+                        # codec state persists across steps under this key.
+                        ghost = self._codec.apply((coords, ax, side), ghost)
+                    block[tuple(dst)] = ghost
+            padded[coords] = block
+
+        # Phase 2 — every shard updated on its own, global boundary cells
+        # held. The reciprocal is multiplied (not divided by), so the
+        # result is bitwise the native engine's.
+        inv_d2 = tuple(1.0 / (d * d) for d in grid.spacing)
+        out = np.array(T, copy=True)
+        for coords, block in padded.items():
+            core = self._shard_slices(coords)
+            lap = np.zeros(local, dtype=T.dtype)
+            for ax in range(ndim):
+                hi_s = tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
+                lo_s = tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
+                lap += (block[hi_s] - 2.0 * block[inner] + block[lo_s]) * inv_d2[ax]
+            new = T[core] + self.dt * self.lam / Cp[core] * lap
+            keep = np.zeros(local, dtype=bool)
+            for ax in range(ndim):
+                gidx = coords[ax] * local[ax] + np.arange(local[ax])
+                edge = (gidx == 0) | (gidx == grid.global_shape[ax] - 1)
+                sh = [1] * ndim
+                sh[ax] = local[ax]
+                keep |= edge.reshape(sh)
+            out[core] = np.where(keep, T[core], new)
+        return out
+
+    def run(self, T: np.ndarray, Cp: np.ndarray, nt: int) -> np.ndarray:
+        for _ in range(int(nt)):
+            T = self.step(T, Cp)
+        return T

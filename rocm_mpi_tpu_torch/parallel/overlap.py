@@ -34,6 +34,11 @@ The shard is decomposed axis by axis: axis 0 gives its first and last
 the remaining middle, and so on; the innermost box is the interior. Only
 `mask_boundary=False` is ported — every caller in the repository holds
 its boundary by data (Cm == 0, M == 0).
+
+`wire_mode` reaches every leaf's exchange. The step is stateless, so a
+stateful mode (int8, int8_delta) is refused by the exchange when the step
+runs, as in the JAX package, where a model whose config names a
+deep-only mode still builds its per-step variants.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from typing import Callable
 
 import torch
 
-from rocm_mpi_tpu_torch.config import validate_wire_mode
+from rocm_mpi_tpu_torch.parallel import wire
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 
@@ -115,7 +120,7 @@ def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
     as `T`) are buffers the caller reuses across steps; absent, they are
     allocated.
     """
-    validate_wire_mode(wire_mode)
+    wire.validate_mode(wire_mode)
     if mask_boundary:
         raise NotImplementedError(
             "mask_boundary=True (a Dirichlet hold after the region updates) is not "

@@ -56,6 +56,9 @@ def test_invalid_configs_raise_like_jax(kw):
     dict(wire_mode="int8_delta"),
 ])
 def test_unported_knobs_raise_not_implemented(kw):
-    JaxConfig(**kw)  # valid in the reference
-    with pytest.raises(NotImplementedError):
-        DiffusionConfig(**kw)
+    # The host-staged transport and the wire modes are ported: the port
+    # accepts every knob the reference accepts, with the same values.
+    jax_cfg = JaxConfig(**kw)  # valid in the reference
+    cfg = DiffusionConfig(**kw)
+    for name, value in kw.items():
+        assert getattr(cfg, name) == getattr(jax_cfg, name) == value

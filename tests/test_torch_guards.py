@@ -44,7 +44,10 @@ def test_scan_sees_the_whole_port():
                               "parallel/overlap.py", "models/diffusion.py", "models/wave.py",
                               "models/swe.py", "apps/wave_2d.py", "apps/swe_2d.py",
                               "apps/diffusion_2d_perf_hide.py", "ops/kp.py",
-                              "apps/diffusion_2d_kp.py", "apps/diffusion_2d_ap.py")} <= names
+                              "apps/diffusion_2d_kp.py", "apps/diffusion_2d_ap.py",
+                              "parallel/ring.py", "parallel/wire.py",
+                              "parallel/native_halo.py", "apps/ici_ring_test.py",
+                              "entry.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
 
 

@@ -633,8 +633,14 @@ def test_deep_sweep_validation():
         deep_halo.make_deep_sweep(grid, 0, 1.0, 1e-3, (0.5, 0.5))
     with pytest.raises(ValueError, match="local_form"):
         deep_halo.make_deep_sweep(grid, 2, 1.0, 1e-3, (0.5, 0.5), local_form="pallas")
-    with pytest.raises(NotImplementedError):
-        deep_halo.make_deep_sweep(grid, 2, 1.0, 1e-3, (0.5, 0.5), wire_mode="bf16")
+    # Every wire mode builds; a stateful one threads its state through the
+    # sweep (init_wire), and an unknown one raises as the JAX package does.
+    assert deep_halo.make_deep_sweep(grid, 2, 1.0, 1e-3, (0.5, 0.5),
+                                     wire_mode="bf16").init_wire is None
+    assert deep_halo.make_deep_sweep(grid, 2, 1.0, 1e-3, (0.5, 0.5),
+                                     wire_mode="int8").init_wire is not None
+    with pytest.raises(ValueError, match="unknown wire_mode"):
+        deep_halo.make_deep_sweep(grid, 2, 1.0, 1e-3, (0.5, 0.5), wire_mode="fp8")
 
 
 def test_deep_advance_rejects_a_count_the_depth_does_not_divide():

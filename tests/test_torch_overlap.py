@@ -152,8 +152,14 @@ def test_mask_boundary_true_is_not_ported():
     grid = GlobalGrid((16, 12), (10.0, 10.0), (1, 1))
     with pytest.raises(NotImplementedError, match="mask_boundary"):
         overlap.make_overlap_step(grid, lambda *a: None, (4, 4), mask_boundary=True)
-    with pytest.raises(NotImplementedError):
-        overlap.make_overlap_step(grid, lambda *a: None, (4, 4), wire_mode="bf16")
+    # A bf16 wire is accepted; a stateful mode is refused by the exchange
+    # when the (stateless) step runs, as in the JAX package.
+    overlap.make_overlap_step(grid, lambda *a: None, (4, 4), wire_mode="bf16")
+    step = overlap.make_overlap_step(grid, lambda *a: None, (4, 4), wire_mode="int8")
+    with pytest.raises(ValueError, match="carries error-feedback state"):
+        step(torch.zeros(16, 12), None)
+    with pytest.raises(ValueError, match="unknown wire_mode"):
+        overlap.make_overlap_step(grid, lambda *a: None, (4, 4), wire_mode="fp8")
 
 
 # ---------------------------------------------------------------------------

@@ -601,8 +601,7 @@ def test_run_reports_metrics_and_refuses_what_is_not_ported():
         ours.run("perf", driver="loop")
     with pytest.raises(ValueError, match="unknown SWE variant"):
         ours.run("kp")
-    with pytest.raises(NotImplementedError):
-        SWEConfig(wire_mode="bf16")
+    assert SWEConfig(wire_mode="bf16").wire_mode == "bf16"  # ported
     with pytest.raises(ValueError):
         SWEConfig(wire_mode="f16")
     with pytest.raises(ValueError, match="lengths rank"):

@@ -1,0 +1,126 @@
+"""Ranks of the transport plane's multi-rank CPU checks (gloo), started by
+rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
+tests/test_torch_ring.py (`run_ring_rank`), tests/test_torch_wire.py
+(`run_wire_rank`) and tests/test_torch_host_staged.py
+(`run_host_staged_rank`); it holds no tests itself. Imports torch and the
+port only, so a spawned rank starts fast; the parent holds the results
+against the JAX package."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def global_field(shape, seed=0):
+    return np.random.default_rng(seed).random(shape)
+
+
+def run_ring_rank(rank, spec):
+    """(sent, received) of the ring demo (shift 1), and of `ring_exchange`
+    of the same buffer for each other shift of spec."""
+    from rocm_mpi_tpu_torch.parallel.ring import ring_exchange, ring_exchange_demo
+
+    torch.set_num_threads(1)
+    sent, received = ring_exchange_demo(spec["width"], device="cpu")
+    return {shift: (sent.numpy(), (received if shift == 1 else ring_exchange(sent, shift))
+                    .numpy())
+            for shift in spec["shifts"]}
+
+
+def _exchanges(grid, shape, width, mode, dtype, steps):
+    """`steps` exchanges of this rank's shard of the seeded global field
+    scaled by (1 + step/10), threading the wire state: each exchange's
+    padded block and state as numpy."""
+    from rocm_mpi_tpu_torch.parallel import wire
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+
+    G = global_field(shape)
+    state = wire.init_exchange_state(grid.local_shape, width, mode, dtype)
+    out = []
+    for t in range(steps):
+        u = torch.from_numpy(np.ascontiguousarray(G[grid.shard_slices()] * (1.0 + t / 10)))
+        u = u.to(dtype)
+        if wire.is_stateful(mode):
+            padded, state = exchange_halo(u, grid, width=width, wire_mode=mode,
+                                          wire_state=state)
+        else:
+            padded = exchange_halo(u, grid, width=width, wire_mode=mode)
+        out.append((padded.float().numpy() if dtype == torch.bfloat16 else padded.numpy(),
+                    tuple(s.numpy() for s in state)))
+    return out
+
+
+def run_wire_rank(rank, spec):
+    """The wire modes on a 2×2 grid: raw exchanges with their state, the
+    diffusion per-step variants, and the three models' deep schedules, each
+    field gathered to rank 0; then the refusals."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+
+    torch.set_num_threads(1)
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    out = {"exchange": {}, "runs": {}, "deep": {}, "refused": {}}
+    for key, (shape, dims, width, mode, dtype) in spec["exchanges"].items():
+        grid = init_global_grid(*shape, dims=dims)
+        out["exchange"][key] = _exchanges(grid, shape, width, mode, dtypes[dtype],
+                                          spec["steps"])
+    for dtype, variant, mode in spec["runs"]:
+        cfg = DiffusionConfig(**spec["diffusion"], dtype=dtype, wire_mode=mode)
+        model = HeatDiffusion(cfg, device="cpu")
+        out["runs"][(dtype, variant, mode)] = gather_to_host0(model.run(variant).T, model.grid)
+    for workload, mode in spec["deep_runs"]:
+        if workload == "diffusion":
+            model = HeatDiffusion(DiffusionConfig(**spec["diffusion"], wire_mode=mode),
+                                  device="cpu")
+            res = model.run_deep(block_steps=spec["k"])
+            fields = (res.T,)
+        elif workload == "wave":
+            model = AcousticWave(WaveConfig(**spec["diffusion"], wire_mode=mode), device="cpu")
+            res = model.run_deep(block_steps=spec["k"])
+            fields = (res.U,)
+        else:
+            model = ShallowWater(SWEConfig(**spec["diffusion"], wire_mode=mode), device="cpu")
+            res = model.run_deep(block_steps=spec["k"])
+            fields = (res.h, *res.us)
+        out["deep"][(workload, mode)] = (res.route, res.k,
+                                         [gather_to_host0(f, model.grid) for f in fields])
+    # A stateful mode on a per-step path: the exchange refuses it when the
+    # step runs (every rank raises before posting anything).
+    for variant in ("perf", "shard", "hide"):
+        model = HeatDiffusion(DiffusionConfig(**spec["diffusion"], wire_mode="int8"),
+                              device="cpu")
+        try:
+            model.run(variant)
+        except ValueError as e:
+            out["refused"][variant] = str(e)
+    return out
+
+
+def host_staged_run(cfg, jax_state):
+    """run("shard") of `cfg` (halo_transport="host") started from the JAX
+    package's initial state (numpy), so both packages step the same
+    numbers: (route, the field gathered to rank 0)."""
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+    from rocm_mpi_tpu_torch.state import state_from_numpy
+
+    model = HeatDiffusion(cfg, device="cpu")
+    model.init_state = lambda: state_from_numpy(*jax_state, model.grid, device="cpu")
+    res = model.run("shard")
+    return res.route, gather_to_host0(res.T, model.grid)
+
+
+def run_host_staged_rank(rank, spec):
+    """host_staged_run for each (dtype, wire mode) of spec."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+
+    torch.set_num_threads(1)
+    return {
+        (dtype, mode): host_staged_run(
+            DiffusionConfig(**spec["cfg"], dtype=dtype, halo_transport="host", wire_mode=mode),
+            spec["jax_states"][dtype])
+        for dtype, mode in spec["runs"]
+    }

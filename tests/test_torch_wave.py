@@ -491,8 +491,7 @@ def test_run_reports_metrics_and_refuses_what_is_not_ported():
         ours.run("perf", driver="loop")
     with pytest.raises(ValueError, match="unknown wave variant"):
         ours.run("kp")
-    with pytest.raises(NotImplementedError):
-        WaveConfig(wire_mode="bf16")
+    assert WaveConfig(wire_mode="bf16").wire_mode == "bf16"  # ported
     with pytest.raises(ValueError):
         WaveConfig(wire_mode="f16")
 
