@@ -2,7 +2,7 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-14 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-15 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
 the target). Phases, printed as they run (about six minutes on one H100
@@ -83,9 +83,16 @@ the target). Phases, printed as they run (about six minutes on one H100
    field bitwise equal to the same kernel run over the whole zero-padded
    domain on one GPU; then `kp` on the same grid, each shard bitwise equal
    to its plain-version run and the gathered field bitwise equal to the
-   one-GPU kp run; and `perf` through `run(driver="scan")`, which with
-   more than one rank takes the eager loop route ("scan-loop"), bitwise
-   equal to the step driver's field;
+   one-GPU kp run; and `perf` through `run(driver="scan")`, bitwise
+   equal to the step driver's field: over gloo the eager loop route
+   ("scan-loop"), over NCCL (`--gpus 4`) the graphs ("scan-graph");
+   with `--gpus 4` then [sharded-scan]: diffusion perf, kp and hide, wave
+   and SWE perf and hide, and diffusion perf on the bf16 wire, each on
+   the 2×2 grid of 12288² (500 steps after 10) under the scan driver's
+   graphs (the halo exchange captured with the steps), bitwise equal on
+   every rank to the same rank's step-driver run with the same launch
+   counts, its ms/step beside the step driver's and the eager loop's, its
+   graphs and each rank's capture host ms;
 7. deep schedule, sharded — run_deep on the 2×2 grid of 12288² (k = 8,
    hbm-tb route on 6160² padded shards) by the same 4 ranks over gloo,
    16 + 32 steps: each shard bitwise equal to its plain-version run, the
@@ -122,9 +129,18 @@ the target). Phases, printed as they run (about six minutes on one H100
    wire's exchange bitwise equal to the zero-padded global field; the
    bytes an interior rank sends per mode;
 14. dryrun — rocm_mpi_tpu_torch.entry.dryrun_multichip(4), every leg
-   launching its kernels.
+   launching its kernels;
+15. weak scaling (run after phase 10, before the transport phases) — the
+   weak-scaling app's rungs (rocm_mpi_tpu_torch/apps/weak_scaling.py,
+   counts 1, 2 and 4 at 252² a rank, f32): diffusion perf, hide and deep
+   under the scan driver and hide under the step driver, every row
+   finite, the sharded per-step rows on their scan route, and the
+   gathered 4-rank perf field bitwise equal to the whole-domain run of
+   the same kernel on one GPU; on one card 4 gloo ranks share it (120
+   steps after 24, rows `mechanics_only`), with `--gpus 4` one rank a
+   card over NCCL (the app's 2000 after 200: the north-star rows).
 
-With `--gpus 4` phases 6-14 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-15 run one rank per GPU over NCCL (6 and 8 for
 1000 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
 exchange, the interiors and the slabs timed alone; 13 also with the
 exchange alone per wire mode at 2×2 of 12288², widths 1 and 8), and
@@ -143,8 +159,10 @@ when the port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -200,6 +218,25 @@ RESIDENT_MAIN = {
 }
 RESIDENT_MAIN_F32 = {"multi_step_cm": (SMALL_3D,)}
 HIDE_B_WIDTH = (32, 4)  # the reference's boundary frame (hide.jl:42)
+# [sharded-scan]: (label, model, variant, wire mode) on the 2×2 grid of
+# 12288², each under three drivers, in 500 timed steps (q = 10).
+SHARDED_SCAN_NT, SHARDED_SCAN_WARMUP = 510, 10
+SHARDED_SCAN_RUNS = (
+    ("diffusion perf", "diffusion", "perf", "f32"),
+    ("diffusion kp", "diffusion", "kp", "f32"),
+    ("diffusion hide", "diffusion", "hide", "f32"),
+    ("wave perf", "wave", "perf", "f32"),
+    ("wave hide", "wave", "hide", "f32"),
+    ("swe perf", "swe", "perf", "f32"),
+    ("swe hide", "swe", "hide", "f32"),
+    ("diffusion perf, bf16 wire", "diffusion", "perf", "bf16"),
+)
+# [weak-scaling]: the north-star geometry, 252² a rank, the app's rungs.
+WEAK_LOCAL, WEAK_COUNTS = 252, "1,2,4"
+WEAK_RUNS = (("perf", "scan"), ("hide", "scan"), ("deep", "scan"), ("hide", "step"))
+# (nt, warmup) by card count: the app's defaults on four cards; on one
+# card the gloo ranks stage every exchange through host memory, so fewer.
+WEAK_WINDOWS = {4: (2000, 200), 1: (120, 24)}
 KERNELS = {
     # name: (source line of the TPU kernel it replaces, CUDA source)
     "masked_step": ("rocm_mpi_tpu/ops/pallas_kernels.py:1191", "stencil.cu"),
@@ -1142,6 +1179,28 @@ def phase_kp(torch, card):
     return rows
 
 
+def whole_domain_fused_step_cm(torch, shape, lengths, nt: int, device):
+    """(the field after nt fused_step_cm steps over the whole zero-padded
+    domain on one GPU, as numpy; its one-rank model). Every cell sees the
+    neighbours a sharded perf run gives it, in the same order, so the
+    gathered sharded field must match it bit for bit: a check of the
+    exchange itself."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.halo import place_core
+    from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
+
+    one = DiffusionConfig(global_shape=shape, lengths=lengths, dtype="f32", dims=(1, 1))
+    ref = HeatDiffusion(one, grid=GlobalGrid(shape, one.lengths, (1, 1)), device=device)
+    T, Cp = ref.init_state()
+    Cm = ref.prepare_fn("perf")(Cp)
+    pad = torch.zeros(tuple(n + 2 for n in shape), dtype=T.dtype, device=device)
+    for _ in range(nt):
+        T = kernels.fused_step_cm(place_core(T, out=pad), Cm, one.spacing)
+    return T.cpu().numpy(), ref
+
+
 def sharded_rank(rank, spec):
     """One rank of the sharded perf path (started by spawn_ranks)."""
     import numpy as np
@@ -1152,11 +1211,8 @@ def sharded_rank(rank, spec):
     from rocm_mpi_tpu_torch.ops import kernels
     from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
     from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
-    from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 
     import torch.distributed as dist
-
-    from rocm_mpi_tpu_torch.parallel.halo import place_core
 
     # One card: every rank on cuda:0 (gloo). Several cards: rank r on
     # cuda:r, NCCL sending device to device.
@@ -1184,24 +1240,14 @@ def sharded_rank(rank, spec):
                t_eff_gbs=res.t_eff)
     full = gather_to_host0(res.T, model.grid)
     if rank == 0:
-        # The same steps over the whole domain on one GPU, through the same
-        # kernel on the zero-padded field: every cell sees the same
-        # neighbours in the same order, so the gathered field must match
-        # bit for bit — a check of the exchange itself.
-        one = DiffusionConfig(global_shape=shape, dtype="f32", dims=(1, 1))
-        ref = HeatDiffusion(one, grid=GlobalGrid(shape, one.lengths, (1, 1)), device=device)
-        Tr, Cpr = ref.init_state()
-        Cmr = ref.prepare_fn("perf")(Cpr)
-        padr = torch.zeros(tuple(n + 2 for n in shape), dtype=Tr.dtype, device=device)
-        for _ in range(cfg.nt):
-            Tr = kernels.fused_step_cm(place_core(Tr, out=padr), Cmr, cfg.spacing)
-        Tr = Tr.cpu().numpy()
+        Tr, ref = whole_domain_fused_step_cm(torch, shape, cfg.lengths, cfg.nt, device)
         out["max_abs_vs_one_gpu"] = float(np.abs(full - Tr).max())
         out["bitwise_vs_one_gpu"] = bool(np.array_equal(full, Tr))
-        del Tr, Cmr, padr
+        del Tr
 
-    # The scan driver on the same grid: more than one rank takes the eager
-    # loop route, the same steps, so the field is bitwise the step driver's.
+    # The scan driver on the same grid, the same steps, so the field is
+    # bitwise the step driver's: CUDA graphs over NCCL, the eager loop
+    # over gloo.
     kernels.reset_launches()
     sres = model.run("perf", driver="scan")
     torch.cuda.synchronize()
@@ -1259,9 +1305,10 @@ def phase_sharded(card, gpus: int):
     check(ranks[0]["kp"]["bitwise_vs_one_gpu"],
           f"sharded 2x2 kp field differs from the one-GPU kp run by "
           f"{ranks[0]['kp']['max_abs_vs_one_gpu']}")
+    scan_route = "scan-loop" if gpus == 1 else "scan-graph"
     for r in ranks:
         sc = r["scan"]
-        check(sc["route"] == "scan-loop" and sc["bitwise"]
+        check(sc["route"] == scan_route and sc["bitwise"]
               and sc["launches"] == only("fused_step_cm", nt),
               f"sharded scan rank {r['rank']}: route {sc['route']}, launches "
               f"{sc['launches']}, bitwise == step {sc['bitwise']}")
@@ -1287,6 +1334,212 @@ def phase_sharded(card, gpus: int):
           f"0: {r0['kp']['wtime_s']:.4f} s, {r0['kp']['ms_per_step']:.5f} ms/step, aggregate "
           f"T_eff {r0['kp']['t_eff_gbs']:.1f} GB/s", flush=True)
     return ranks, total, kp_total
+
+
+@contextlib.contextmanager
+def eager_scan_loop(name: str):
+    """Within: `run(driver="scan")` of model `name` builds its ScanLoop on
+    the route "scan-loop" (the chunks as an eager loop), the yardstick the
+    graphs are held against."""
+    import importlib
+
+    module = importlib.import_module(f"rocm_mpi_tpu_torch.models.{name}")
+    route = module.scan_route
+    module.scan_route = lambda *args: "scan-loop"
+    try:
+        yield
+    finally:
+        module.scan_route = route
+
+
+def sharded_scan_rank(rank, spec):
+    """One rank of [sharded-scan]: each SHARDED_SCAN_RUNS case on the 2×2
+    grid through the step driver, the scan driver (CUDA graphs over NCCL)
+    and the scan driver's eager loop, each run's launch counts read just
+    after it; then one more scan advance for its graphs and capture time."""
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    dist.barrier()
+    models = {"diffusion": (HeatDiffusion, DiffusionConfig),
+              "wave": (AcousticWave, WaveConfig), "swe": (ShallowWater, SWEConfig)}
+    out = dict(rank=rank)
+    for label, name, variant, mode in SHARDED_SCAN_RUNS:
+        model_cls, cfg_cls = models[name]
+        cfg = cfg_cls(global_shape=tuple(spec["shape"]), nt=spec["nt"], warmup=spec["warmup"],
+                      dtype="f32", dims=(2, 2), b_width=HIDE_B_WIDTH, wire_mode=mode)
+        model = model_cls(cfg, device=device)
+        runs = {}
+        for driver in ("step", "scan", "scan-loop"):
+            kernels.reset_launches()
+            with eager_scan_loop(name) if driver == "scan-loop" else contextlib.nullcontext():
+                res = model.run(variant, driver="step" if driver == "step" else "scan")
+            torch.cuda.synchronize()
+            runs[driver] = dict(launches=dict(kernels.LAUNCHES), route=res.route, k=res.k,
+                                ms=res.wtime_it * 1e3, fields=_scan_fields(name, res))
+            del res
+        step = runs["step"]["fields"]
+        loop = _scan_loop(torch, name, model, variant)
+        out[label] = dict(
+            route=runs["scan"]["route"], loop_route=runs["scan-loop"]["route"],
+            q=runs["scan"]["k"], c=loop.plan.c, graphs=len(loop.graphs),
+            plan_graphs=loop.plan.graphs, capture_ms=loop.capture_s * 1e3,
+            bitwise=all(torch.equal(a, b) for a, b in zip(step, runs["scan"]["fields"])),
+            loop_bitwise=all(torch.equal(a, b)
+                             for a, b in zip(step, runs["scan-loop"]["fields"])),
+            finite=all(bool(torch.isfinite(f).all()) for f in runs["scan"]["fields"]),
+            **{f"{d}_launches": runs[d]["launches"] for d in runs},
+            **{f"{d}_ms": runs[d]["ms"] for d in runs})
+        del loop, runs, step, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_scan(card, gpus: int):
+    """[sharded-scan] the scan driver on the 2×2 grid of 12288² over NCCL,
+    one rank a card: every case replays CUDA graphs that hold the halo
+    exchange, bitwise equal to the same rank's step-driver run, with the
+    step driver's launch counts; ms/step beside the step driver's and the
+    eager loop's, the graphs and each rank's capture host ms."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    nt, warmup = SHARDED_SCAN_NT, SHARDED_SCAN_WARMUP
+    spec = dict(shape=BIG, nt=nt, warmup=warmup, gpus=gpus)
+    ranks = spawn_ranks(4, sharded_scan_rank, (spec,), backend="nccl", timeout=600)
+    totals: dict[str, int] = {}
+    for label, *_ in SHARDED_SCAN_RUNS:
+        for r in ranks:
+            got = r[label]
+            check(got["route"] == "scan-graph" and got["loop_route"] == "scan-loop",
+                  f"[sharded-scan] {label} rank {r['rank']}: routes {got['route']}, "
+                  f"{got['loop_route']}")
+            check(got["bitwise"] and got["loop_bitwise"] and got["finite"],
+                  f"[sharded-scan] {label} rank {r['rank']}: graph bitwise == step "
+                  f"{got['bitwise']}, loop {got['loop_bitwise']}, finite {got['finite']}")
+            check(got["scan_launches"] == got["step_launches"] == got["scan-loop_launches"]
+                  and any(got["scan_launches"].values()),
+                  f"[sharded-scan] {label} rank {r['rank']}: launches step "
+                  f"{got['step_launches']}, graph {got['scan_launches']}, loop "
+                  f"{got['scan-loop_launches']}")
+            check(got["graphs"] == got["plan_graphs"],
+                  f"[sharded-scan] {label} rank {r['rank']}: {got['graphs']} graphs, plan "
+                  f"{got['plan_graphs']}")
+            for name, count in got["scan_launches"].items():
+                totals[name] = totals.get(name, 0) + count
+        r0 = ranks[0][label]
+        counts = ", ".join(f"{k} {v}" for k, v in r0["scan_launches"].items() if v)
+        print(f"[sharded-scan] {label}, 2x2 of {BIG[0]}x{BIG[1]} f32, 4 GPUs over NCCL "
+              f"({card} each), {nt} steps ({warmup} warmup): route scan-graph on every rank, "
+              f"q {r0['q']}, c {r0['c']}, {r0['graphs']} graph(s); each rank bitwise == its "
+              f"step-driver run, launches per rank == the step driver's ({counts}); rank 0 "
+              f"ms/step graph {r0['scan_ms']:.5f}, step {r0['step_ms']:.5f}, eager loop "
+              f"{r0['scan-loop_ms']:.5f}; capture host ms per rank " + ", ".join(
+                  f"{r[label]['capture_ms']:.1f}" for r in ranks), flush=True)
+    return ranks, totals
+
+
+def weak_scaling_rank(rank, spec):
+    """One rank of [weak-scaling]: the weak-scaling app's ladder
+    (apps/weak_scaling.ladder) for each WEAK_RUNS case, the launch counts
+    of each ladder read just after it; for perf under the scan driver, the
+    4-rank field gathered and, on rank 0, the whole-domain run of the same
+    kernel on one GPU."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.apps import weak_scaling
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    dist.barrier()
+    out = dict(rank=rank, runs={}, launches={})
+    for variant, driver in WEAK_RUNS:
+        args = weak_scaling.make_parser().parse_args([
+            "--local", str(WEAK_LOCAL), "--nt", str(spec["nt"]), "--warmup",
+            str(spec["warmup"]), "--counts", WEAK_COUNTS, "--variant", variant,
+            "--driver", driver, "--dtype", "f32"])
+        kernels.reset_launches()
+        rows = weak_scaling.ladder(args, device, log=lambda msg: None)
+        torch.cuda.synchronize()
+        key = f"{variant} {driver}"
+        out["launches"][key] = dict(kernels.LAUNCHES)
+        out["runs"][key] = [dict(row, route=rung.result.route, k=rung.result.k,
+                                 us_per_step=rung.result.wtime_it * 1e6,
+                                 finite=bool(torch.isfinite(rung.result.T).all()))
+                            for row, rung in rows]
+        if (variant, driver) == ("perf", "scan"):
+            last = rows[-1][1]
+            full = gather_to_host0(last.result.T, last.model.grid)
+            if rank == 0:
+                ref, _ = whole_domain_fused_step_cm(torch, last.shape,
+                                                    last.model.config.lengths,
+                                                    last.model.config.nt, device)
+                out["bitwise_vs_one_gpu"] = bool(np.array_equal(full, ref))
+                out["max_abs_vs_one_gpu"] = float(np.abs(full - ref).max())
+        del rows
+    return out
+
+
+def phase_weak_scaling(card, gpus: int):
+    """[weak-scaling] the weak-scaling app's rungs (counts 1, 2, 4 at 252²
+    a rank, f32) for diffusion perf, hide and deep under the scan driver
+    and hide under the step driver: over NCCL, one rank a card, the
+    north-star rows; on one card, 4 gloo ranks sharing it, the mechanics
+    only. Every row finite, the sharded per-step rows on their route, and
+    the gathered 4-rank perf field bitwise equal to the whole-domain run of
+    the same kernel on one GPU."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    nt, warmup = WEAK_WINDOWS[gpus]
+    spec = dict(nt=nt, warmup=warmup, gpus=gpus)
+    backend = "gloo" if gpus == 1 else "nccl"
+    ranks = spawn_ranks(4, weak_scaling_rank, (spec,), backend=backend, timeout=600)
+    sharded_route = "scan-loop" if gpus == 1 else "scan-graph"
+    r0 = ranks[0]
+    for variant, driver in WEAK_RUNS:
+        key = f"{variant} {driver}"
+        rows = r0["runs"][key]
+        check([row["devices"] for row in rows] == [1, 2, 4],
+              f"[weak-scaling] {key}: rows {[row['devices'] for row in rows]}")
+        for row in rows:
+            check(row["finite"] and all(math.isfinite(row[k]) for k in
+                                        ("gpts", "gpts_per_device", "efficiency")),
+                  f"[weak-scaling] {key} n={row['devices']}: not finite ({row})")
+            check(row.get("mechanics_only", False) == (gpus == 1),
+                  f"[weak-scaling] {key} n={row['devices']}: mechanics_only "
+                  f"{row.get('mechanics_only')}")
+            if driver == "scan" and variant != "deep" and row["devices"] > 1:
+                check(row["route"] == sharded_route,
+                      f"[weak-scaling] {key} n={row['devices']}: route {row['route']}")
+    check(r0["bitwise_vs_one_gpu"],
+          f"[weak-scaling] perf n=4 gathered field differs from the whole-domain run of the "
+          f"same kernel by {r0['max_abs_vs_one_gpu']}")
+    where = (f"4 ranks sharing {card} (gloo; mechanics only, the rates are not a multi-GPU "
+             "measurement)" if gpus == 1 else f"4 GPUs, one rank each, NCCL ({card} each)")
+    print(f"[weak-scaling] {WEAK_LOCAL}x{WEAK_LOCAL} f32 a rank, {nt} steps ({warmup} "
+          f"warmup), counts {WEAK_COUNTS}, on {where}; the gathered perf n=4 field bitwise == "
+          "the whole-domain run of the same kernel on one GPU", flush=True)
+    for variant, driver in WEAK_RUNS:
+        for row in r0["runs"][f"{variant} {driver}"]:
+            print(f"[weak-scaling] {variant} --driver {driver} n={row['devices']} dims "
+                  f"{row['dims']}: {row['us_per_step']:.3f} us/step, {row['gpts']} Gpts/s, "
+                  f"{row['gpts_per_device']} per device, efficiency {row['efficiency']} "
+                  f"(route {row['route']}, k {row['k']})", flush=True)
+    totals: dict[str, int] = {}
+    for r in ranks:
+        for counts in r["launches"].values():
+            for name, count in counts.items():
+                totals[name] = totals.get(name, 0) + count
+    return ranks, totals
 
 
 def plain_deep(model, T, Cp, n: int, k: int, route: str):
@@ -2824,8 +3077,9 @@ def main(argv=None) -> int:
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write every measurement to PATH")
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
-                        help="4: run only the sharded phases (perf, deep, hide, wave and "
-                        "shallow-water deep, ring, host-staged, wire, dryrun), "
+                        help="4: run only the sharded phases (perf, sharded scan, deep, hide, "
+                        "wave and shallow-water deep, weak scaling, ring, host-staged, wire, "
+                        "dryrun), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -2864,10 +3118,12 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} visible")
         record = dict(card=card, kind=kind, host=host, build_s=build_s)
         record["sharded_ranks"], _, _ = phase_sharded(card, args.gpus)
+        record["sharded_scan_ranks"], _ = phase_sharded_scan(card, args.gpus)
         record["sharded_deep_ranks"], _ = phase_sharded_deep(card, args.gpus)
         record["hide_ranks"], _ = phase_hide(card, args.gpus)
         record["wave_deep_ranks"], _ = phase_wave_deep(card, args.gpus)
         record["swe_deep_ranks"], _ = phase_swe_deep(card, args.gpus)
+        record["weak_scaling_ranks"], _ = phase_weak_scaling(card, args.gpus)
         record["transport"], _ = phase_transport(torch, card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
@@ -2893,6 +3149,7 @@ def main(argv=None) -> int:
     hide_ranks, hide_launches = phase_hide(card, 1)
     wave_deep_ranks, wave_deep_launches = phase_wave_deep(card, 1)
     swe_deep_ranks, swe_deep_launches = phase_swe_deep(card, 1)
+    weak_ranks, weak_launches = phase_weak_scaling(card, 1)
     transport, transport_launches = phase_transport(torch, card, 1)
 
     # Launches on the main paths: each path ran with the counts set to 0
@@ -2916,10 +3173,11 @@ def main(argv=None) -> int:
     for row in scan_rows:
         for name, count in row["launches"].items():
             launches[name] += count
-    # The transport phases: the host-staged comparison's perf runs, the
-    # wire runs and every leg of the dry run.
-    for name, count in transport_launches.items():
-        launches[name] += count
+    # The weak-scaling rungs, then the transport phases: the host-staged
+    # comparison's perf runs, the wire runs and every leg of the dry run.
+    for counts in (weak_launches, transport_launches):
+        for name, count in counts.items():
+            launches[name] += count
     line = []
     for name, (replaces, source) in KERNELS.items():
         shape, form = MAIN_CASE[name]
@@ -2941,7 +3199,8 @@ def main(argv=None) -> int:
             wave=wave_rows, reversal=reversal, swe=swe_rows, scan=scan_rows,
             sharded_ranks=ranks,
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
-            wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks, host=host,
+            wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks,
+            weak_scaling_ranks=weak_ranks, host=host,
             transport=transport, kernels=line, seconds=time.perf_counter() - t0,
         ), indent=1, default=str))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

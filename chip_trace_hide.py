@@ -2,7 +2,7 @@
 """Trace the 2×2 `perf` and `hide` steps of diffusion and the wave under
 torch.profiler, one rank per GPU over NCCL.
 
-    python3 chip_trace_hide.py [--shape 12288 12288] [--steps 30]
+    python3 chip_trace_hide.py [--shape 12288 12288] [--steps 30] [--driver scan]
     python3 chip_trace_hide.py --device cpu --shape 64 48   # a rehearsal over gloo
 
 The same configuration as `chip_smoke.py --gpus 4` phase 8 (f32, b_width
@@ -17,7 +17,10 @@ and NCCL's `nccl:coalesced` annotation spans its kernel, so counting
 either would count a kernel twice) from the same window (their
 ratio is the device's busy share, above 1 where streams overlap), and
 the kernels that take most device time; it writes Chrome traces to
-chiprun_out/hide_trace_<model>_<variant>.json.
+chiprun_out/hide_trace_<model>_<variant>[_scan].json. `--driver scan`
+traces the scan driver's replays instead (each window one chunk of
+`--steps` steps, the halo exchange inside the graphs over NCCL); its
+warm-up is one untraced chunk, which captures the graphs.
 """
 
 from __future__ import annotations
@@ -66,10 +69,14 @@ def trace_rank(rank, spec):
             torch.cuda.synchronize()
         distributed.barrier()
 
+    scan = spec["driver"] == "scan"
     rows = {}
     for label, model in models:
         for variant in ("perf", "hide"):
-            advance = model.advance_fn(variant)
+            if scan:
+                advance, _ = model.scan_advance_fn(variant, nt=2 * steps, warmup=steps)
+            else:
+                advance = model.advance_fn(variant)
             state = model.init_state()
             if label == "diffusion":
                 def run(n, T=state[0], Cp=state[1]):
@@ -77,7 +84,7 @@ def trace_rank(rank, spec):
             else:
                 def run(n, U=state[0], Uprev=state[1], C2=state[2]):
                     advance(U.clone(), Uprev.clone(), C2, n)
-            run(5)
+            run(steps if scan else 5)
             sync()
             with profile(activities=activities):
                 run(steps)
@@ -90,7 +97,8 @@ def trace_rank(rank, spec):
                 wall = (time.perf_counter() - t0) / steps * 1e3
             sync()
             if rank == 0:
-                prof.export_chrome_trace(str(out_dir / f"hide_trace_{label}_{variant}.json"))
+                name = f"hide_trace_{label}_{variant}{'_scan' if scan else ''}.json"
+                prof.export_chrome_trace(str(out_dir / name))
             events = [e for e in prof.key_averages()
                       if e.device_type != DeviceType.CPU and not e.is_user_annotation
                       and e.self_device_time_total > 0]
@@ -108,6 +116,8 @@ def main(argv=None) -> int:
     parser.add_argument("--shape", type=int, nargs=2, default=(12288, 12288))
     parser.add_argument("--steps", type=int, default=30, help="steps in each traced window")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    parser.add_argument("--driver", choices=["step", "scan"], default="step",
+                        help="step: the eager steps; scan: the scan driver's graphs")
     args = parser.parse_args(argv)
 
     import torch
@@ -120,13 +130,15 @@ def main(argv=None) -> int:
     from rocm_mpi_tpu_torch.apps._common import card_line
     from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
 
-    spec = dict(shape=list(args.shape), steps=args.steps, device=args.device)
+    spec = dict(shape=list(args.shape), steps=args.steps, device=args.device,
+                driver=args.driver)
     backend = "nccl" if args.device == "cuda" else "gloo"
     ranks = spawn_ranks(4, trace_rank, (spec,), backend=backend, timeout=600)
     card = card_line() if args.device == "cuda" else "the CPU: not a GPU measurement"
     n0, n1 = args.shape
     for key, row in ranks[0].items():
-        print(f"[hide-trace] rank 0 {key} {n0}x{n1} f32 2x2, {args.steps} steps under "
+        print(f"[hide-trace] rank 0 {key} {n0}x{n1} f32 2x2, driver {args.driver}, "
+              f"{args.steps} steps under "
               f"torch.profiler: {row['wall_ms']:.4f} ms/step on the host clock, "
               f"{row['device_ms']:.4f} ms/step of device time; most: "
               + "; ".join(f"{name} {ms:.4f} ms x{count}" for name, ms, count in row["top"])

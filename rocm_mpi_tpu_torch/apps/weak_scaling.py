@@ -1,0 +1,234 @@
+"""Weak-scaling harness — the north-star measurement; counterpart of
+apps/weak_scaling.py.
+
+Holds the shard size fixed (`--local` cells a side per rank), grows the
+global grid with the rank count (`--counts`), and reports per-device
+Gpts/s and the efficiency against the smallest count run (the BASELINE.md
+target: `hide` at 252² a device at ≥ 90 % against one card). One rank
+per GPU under torchrun; with `--device cpu` the ranks are gloo processes
+and every row is marked `mechanics_only`, as are the rows of gloo ranks
+sharing one card.
+
+For each count n every rank joins the process subgroup of ranks 0 … n − 1
+(`dist.new_group` is collective), ranks below n build the n-rank grid
+(`suggest_dims(n, 2)`, `local · dims` cells, lengths `10 · dims`) and
+run the model under the subgroup's barriers, and the others sit the rung
+out; every rank then meets at one barrier before the next rung. Over NCCL
+the per-step variants run the scan driver's CUDA graphs, halo exchange
+included (`--driver scan`, the default); `--variant deep` runs the
+deep-halo sweeps.
+
+  torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --json --local 252
+  torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --device cpu --local 16 --json
+  python -m rocm_mpi_tpu_torch.apps.weak_scaling --local 252       # one GPU: the n = 1 row
+
+Under torchrun, put another flag before `--local`: torchrun reads a
+leading `--local` as an abbreviation of its own options and stops.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+from rocm_mpi_tpu_torch.apps._common import driver_note, where_line
+
+VARIANTS = ("ap", "fused", "shard", "perf", "kp", "hide", "deep")
+# The variants of the wave and the shallow water (the JAX app's refusal).
+WORKLOAD_VARIANTS = ("ap", "perf", "hide", "deep")
+# Flags the JAX app has whose planes are not ported yet: accepted, then
+# refused.
+NOT_PORTED = {
+    "telemetry": "--telemetry", "telemetry_windows": "--telemetry-windows",
+    "health": "--health", "no_probes": "--no-probes", "autotune": "--autotune",
+}
+
+
+def make_parser():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--local", type=int, default=252,
+                   help="per-rank shard edge (target geometry: 252)")
+    p.add_argument("--nt", type=int, default=2000)
+    p.add_argument("--warmup", type=int, default=200)
+    p.add_argument("--variant", default="hide", choices=list(VARIANTS),
+                   help="step schedule; 'deep' = deep-halo sweeps (run_deep)")
+    p.add_argument("--workload", default="diffusion", choices=["diffusion", "wave", "swe"],
+                   help="physics model (the wave and the shallow water take the variants "
+                   "ap/perf/hide/deep)")
+    p.add_argument("--deep-k", type=int, default=None, metavar="K",
+                   help="deep-halo sweep depth (default: run_deep's own)")
+    p.add_argument("--dtype", default="f32", choices=["f32", "f64", "bf16"])
+    p.add_argument("--counts", default=None,
+                   help="comma-separated rank counts (default: powers of 2 up to the "
+                   "world size)")
+    p.add_argument("--json", action="store_true", help="emit one JSON line per count as well")
+    p.add_argument("--driver", default="scan", choices=["step", "scan"],
+                   help="loop form of the per-step variants (default: scan, CUDA graphs "
+                   "with the exchange captured over NCCL); --variant deep ignores it")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda: one GPU a rank, NCCL; cpu: the plain versions, gloo")
+    # Not ported yet (ROADMAP Queue 1 items 7-9): accepted, then refused.
+    p.add_argument("--telemetry", default=None, metavar="DIR")
+    p.add_argument("--telemetry-windows", type=int, default=None, metavar="W")
+    p.add_argument("--health", action="store_true")
+    p.add_argument("--no-probes", action="store_true")
+    p.add_argument("--autotune", action="store_true")
+    return p
+
+
+def refuse_unported(args) -> None:
+    """Raise NotImplementedError for any flag whose plane is not ported."""
+    given = [flag for dest, flag in NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
+    if given:
+        raise NotImplementedError(
+            f"{', '.join(given)}: telemetry, tuning and resilience are not ported yet "
+            "(ROADMAP Queue 1 items 7-9)")
+
+
+def parse_counts(text: str | None, world: int) -> list[int]:
+    """Ascending, deduplicated counts (the first row run is the efficiency
+    baseline); by default the powers of 2 up to `world`."""
+    if text:
+        return sorted({int(c) for c in text.split(",")})
+    counts, c = [], 1
+    while c <= world:
+        counts.append(c)
+        c *= 2
+    return counts
+
+
+def rung_groups(counts, world: int) -> dict:
+    """count -> the barrier group of its ranks 0 … n − 1: a new subgroup
+    for 1 < n < world (every rank makes each, as `dist.new_group` is
+    collective), the default group (None) for n = world, none needed for
+    one rank."""
+    import torch.distributed as dist
+
+    return {n: dist.new_group(list(range(n))) if 1 < n < world else None
+            for n in counts if n <= world}
+
+
+@dataclasses.dataclass
+class Rung:
+    """One count's run on this rank."""
+
+    n: int
+    dims: tuple[int, ...]
+    shape: tuple[int, ...]
+    model: object
+    result: object
+
+
+def run_rung(args, n: int, group, device) -> Rung | None:
+    """The n-rank rung of `args` on this rank: None when this rank sits it
+    out, else the model and its run's result."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+    from rocm_mpi_tpu_torch.parallel import distributed
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid, suggest_dims
+
+    rank = distributed.rank()
+    if rank >= n:
+        return None
+    dims = suggest_dims(n, 2)
+    shape = (args.local * dims[0], args.local * dims[1])
+    lengths = (10.0 * dims[0], 10.0 * dims[1])
+    model_cls, cfg_cls = {"diffusion": (HeatDiffusion, DiffusionConfig),
+                          "wave": (AcousticWave, WaveConfig),
+                          "swe": (ShallowWater, SWEConfig)}[args.workload]
+    cfg = cfg_cls(global_shape=shape, lengths=lengths, nt=args.nt, warmup=args.warmup,
+                  dtype=args.dtype, dims=dims)
+    grid = init_global_grid(*shape, lengths=lengths, dims=dims, nprocs=n, rank=rank,
+                            group=group)
+    model = model_cls(cfg, grid=grid, device=device)
+    if args.variant == "deep":
+        result = model.run_deep(block_steps=args.deep_k)
+    else:
+        result = model.run(args.variant, driver=args.driver)
+    return Rung(n=n, dims=dims, shape=shape, model=model, result=result)
+
+
+def mechanics_only(device) -> bool:
+    """True when the rates are not a multi-GPU measurement: the CPU, or
+    gloo ranks sharing a card."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    return device.type == "cpu" or distributed.backend() == "gloo"
+
+
+def ladder(args, device, log=print) -> list[tuple[dict, Rung]]:
+    """Every count of `args` on this rank: (the JSON row, the rung) of each
+    rung this rank ran, the row with the JAX app's keys. `log` takes the
+    JAX app's line of each row, and with `--json` the row."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    world = distributed.world_size()
+    counts = parse_counts(args.counts, world)
+    groups = rung_groups(counts, world) if distributed.is_distributed() else {}
+    base = None
+    out = []
+    for n in counts:
+        if n > world:
+            log(f"n={n}: skipped (only {world} ranks)")
+            continue
+        rung = run_rung(args, n, groups.get(n), device)
+        # The sitting-out ranks wait here, so no rank's next set-up shares
+        # the host with a timed window.
+        distributed.barrier()
+        if rung is None:
+            continue
+        r = rung.result
+        per_dev = r.gpts / n
+        if base is None:
+            base = (per_dev, n)
+        eff = per_dev / base[0]
+        note = f"; {driver_note(args, r)}" if args.variant != "deep" else (
+            f"; deep (route {r.route}, k {r.k})")
+        log(f"n={n:4d} mesh={rung.dims} global={rung.shape}: "
+            f"{r.wtime_it * 1e6:9.3f} us/step  {r.gpts:9.4f} Gpts/s "
+            f"({per_dev:7.4f}/dev)  efficiency={eff:6.1%} vs n={base[1]}{note}")
+        wl = "" if args.workload == "diffusion" else f"{args.workload} "
+        row = {"metric": f"weak-scaling {wl}{args.variant} {args.local}²/dev",
+               "devices": n, "dims": list(rung.dims), "gpts": round(r.gpts, 4),
+               "gpts_per_device": round(per_dev, 4), "efficiency": round(eff, 4)}
+        if mechanics_only(device):
+            row["mechanics_only"] = True
+        if args.json:
+            log(json.dumps(row))
+        out.append((row, rung))
+    return out
+
+
+def main(argv=None) -> int:
+    args = make_parser().parse_args(argv)
+    refuse_unported(args)
+
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    distributed.maybe_initialize_distributed(args.device)
+    device = distributed.local_device(args.device)
+    me = distributed.rank()
+
+    def log0(msg):
+        if me == 0:
+            print(msg, flush=True)
+
+    if args.workload != "diffusion" and args.variant not in WORKLOAD_VARIANTS:
+        log0(f"--workload {args.workload} supports variants ap/perf/hide/deep, "
+             f"not {args.variant!r}")
+        distributed.finalize()
+        return 2
+    log0(f"weak scaling: variant={args.variant}, {args.local}²/device, nt={args.nt}, "
+         f"dtype={args.dtype}, {distributed.world_size()} rank(s) available")
+    log0(f"on {where_line(device)}" + (
+        "; mechanics only: the rates are not a multi-GPU measurement"
+        if mechanics_only(device) else ""))
+    ladder(args, device, log=log0)
+    distributed.finalize()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

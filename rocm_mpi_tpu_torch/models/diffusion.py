@@ -72,7 +72,7 @@ from rocm_mpi_tpu_torch.ops.diffusion import (
 )
 from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops.kp import kp_step_padded
-from rocm_mpi_tpu_torch.parallel import deep_halo, wire
+from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
 from rocm_mpi_tpu_torch.parallel.gather import allgather_to_host
 from rocm_mpi_tpu_torch.parallel.halo import (
     HostStagedStepper,
@@ -322,7 +322,7 @@ class HeatDiffusion:
             kernels.fused_step_cm_region(src, offset, Cm, cfg.spacing, box, out)
 
         local = make_overlap_step(grid, region_update, cfg.b_width, mask_boundary=False,
-                                  wire_mode=cfg.wire_mode)
+                                  wire_mode=cfg.wire_mode, device=self.device)
 
         def step(T, Cm, out=None, pad=None):
             return local(T, Cm, out=out, pad=pad)
@@ -385,8 +385,9 @@ class HeatDiffusion:
         q is JAX's: the largest chunk serving both timing windows,
         gcd(warmup, nt − warmup, chunk or nt − warmup), with a warning when
         an explicit chunk degrades. A call runs n // q chunks of q steps,
-        JAX's floor: on one CUDA rank as replays of captured CUDA graphs,
-        on the CPU as the same schedule of eager steps, sharded as a plain
+        JAX's floor: on one CUDA rank, or CUDA ranks over NCCL (the halo
+        exchange captured too), as replays of captured CUDA graphs; on one
+        CPU rank as the same schedule of eager steps; over gloo as a plain
         loop. The coefficient is prepared once per call, outside the
         chunks. `config="auto"` needs the tuning cache and raises
         NotImplementedError. The passed-in T becomes a buffer of the
@@ -405,7 +406,8 @@ class HeatDiffusion:
             (T,), (C,) = src, consts
             return step(T, C, out=out, pad=pad)
 
-        loop = ScanLoop(one_step, graph_plan(q, 2), scan_route(self.device, self.grid.nprocs))
+        route = scan_route(self.device, self.grid.nprocs, distributed.backend())
+        loop = ScanLoop(one_step, graph_plan(q, 2), route)
 
         def advance(T, Cp, n):
             (T,) = loop((T,), (prep(Cp),), n)
@@ -476,7 +478,8 @@ class HeatDiffusion:
 
     def _timed(self, advance, T, nt, warmup):
         """metrics.timed_window of `advance(T, n)` on this model's grid."""
-        return metrics.timed_window(advance, T, nt, warmup, sharded=self.grid.nprocs > 1)
+        return metrics.timed_window(advance, T, nt, warmup, sharded=self.grid.nprocs > 1,
+                                    group=self.grid.group)
 
     def _run_single_shard(self, nt, warmup, multi_step_fn, granularity: int,
                           granularity_kw: str, explicit: bool = False,

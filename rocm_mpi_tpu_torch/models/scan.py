@@ -23,17 +23,27 @@ and replayed, so a step costs its kernels' device time:
   by the phase, so the floor is JAX's `lax.fori_loop(0, n // q, …)`.
 * Capture happens at the first call that replays, after one step on
   scratch copies of the slots (never on the state): that step builds and
-  loads the kernels and binds their symbols outside the capture. The
-  model's run makes that call in its warmup window whenever warmup > 0,
-  where JAX compiles. No capture error is caught.
+  loads the kernels and binds their symbols outside the capture, and on a
+  sharded grid sets up NCCL's communicator and point-to-point
+  connections and the exchange's persistent buffers. The model's run
+  makes that call in its warmup window whenever warmup > 0, where JAX
+  compiles. The capture mode is "thread_local": NCCL's watchdog thread
+  queries events while a rank captures, which the default global mode
+  counts against the capture. No capture error is caught: a capture that
+  fails raises, and nothing falls back to the eager loop.
 * LAUNCHES counts kernel executions: the warm-up and the captures leave
   it as it was, and each replay adds the launches its graph recorded.
 
-On the CPU the same replay schedule runs eagerly on the same slots, so
-the tests reach the phase logic ("scan-eager"). With more than one rank
-the chunk runs as a plain eager loop ("scan-loop"), decided from the
-process count before any launch: an exchange over NCCL inside a graph is
-not captured yet.
+On more than one rank over NCCL the graphs hold each step's halo
+exchange too (parallel/halo.py: NCCL point-to-point, ordered on the
+stream), and every rank captures and replays the same graphs in the same
+order, so each rank's NCCL operations keep the eager loop's order. Ranks
+over gloo (several sharing one card, or CPU ranks) wait on the host for
+each exchange, which no graph can hold: their chunks run as a plain
+eager loop ("scan-loop"). On one CPU rank the same replay schedule runs
+eagerly on the same slots, so the tests reach the phase logic
+("scan-eager"). `scan_route` decides from the device, the process count
+and the backend, before any launch.
 
 Like a donated JAX argument, the state passed in becomes a slot: the
 caller must not use it afterwards. A later call that passes back the
@@ -222,7 +232,7 @@ class ScanLoop:
                 for phase in self.plan.phases:
                     graph = torch.cuda.CUDAGraph()
                     at = dict(launches)
-                    graph.capture_begin(pool=pool)
+                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                     try:
                         self._steps(self.slots, phase, self.plan.c)
                     finally:
@@ -252,10 +262,12 @@ class ScanLoop:
         return roles(self.slots, self.phase)[:-1]
 
 
-def scan_route(device: torch.device, nprocs: int) -> str:
-    """The route of a scan advance, from the process count and device
-    alone: more than one rank "scan-loop", else "scan-graph" on CUDA and
-    "scan-eager" on the CPU."""
-    if nprocs > 1:
-        return "scan-loop"
-    return "scan-graph" if device.type == "cuda" else "scan-eager"
+def scan_route(device: torch.device, nprocs: int, backend: str | None) -> str:
+    """The route of a scan advance, from the device, the process count and
+    the process group's backend alone: CUDA graphs ("scan-graph") on one
+    CUDA rank and on CUDA ranks over NCCL; the eager loop ("scan-loop") on
+    more than one rank otherwise (gloo, whose exchange waits on the host);
+    the eager replay schedule ("scan-eager") on one CPU rank."""
+    if device.type == "cuda" and (nprocs == 1 or backend == "nccl"):
+        return "scan-graph"
+    return "scan-loop" if nprocs > 1 else "scan-eager"

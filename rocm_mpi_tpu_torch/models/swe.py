@@ -46,7 +46,7 @@ from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
 from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops import multistep, swe
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
-from rocm_mpi_tpu_torch.parallel import deep_halo, wire
+from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
 from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
@@ -188,7 +188,7 @@ class ShallowWater:
                 swe.swe_step_region(src, offset, box, Mus, self.coeffs, out)
 
             local = make_overlap_step(grid, region_update, cfg.b_width, mask_boundary=False,
-                                      wire_mode=wm)
+                                      wire_mode=wm, device=self.device)
 
             def step(h, us, Mus, out=None, pads=None):
                 return split(local((h, *us), tuple(Mus), out=out, pad=pads))
@@ -229,7 +229,8 @@ class ShallowWater:
         h, us = self.init_state()
         Mus = self.face_masks()
         (h, us), wtime = metrics.timed_window(lambda s, n: advance(*s, Mus, n), (h, us),
-                                              nt, warmup, sharded=self.grid.nprocs > 1)
+                                              nt, warmup, sharded=self.grid.nprocs > 1,
+                                              group=self.grid.group)
         return SWERunResult(h=h, us=tuple(us), wtime=wtime, nt=nt, warmup=warmup,
                             config=self.config)
 
@@ -254,7 +255,8 @@ class ShallowWater:
             h2, us2 = step(h, tuple(us), Mus, out=out, pads=pads)
             return (h2, *us2)
 
-        loop = ScanLoop(one_step, graph_plan(q, 2), scan_route(self.device, self.grid.nprocs))
+        route = scan_route(self.device, self.grid.nprocs, distributed.backend())
+        loop = ScanLoop(one_step, graph_plan(q, 2), route)
 
         def advance(h, us, Mus, n):
             ((h, *us),) = loop(((h, *us),), (tuple(Mus),), n)

@@ -45,7 +45,7 @@ from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
 from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
 from rocm_mpi_tpu_torch.ops import multistep, wave
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
-from rocm_mpi_tpu_torch.parallel import deep_halo, wire
+from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
 from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
 from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
@@ -149,7 +149,9 @@ class AcousticWave:
 
         if variant == "ap":
             # The stand-in for JAX's GSPMD communication: full precision,
-            # whatever the wire mode (as diffusion's ap).
+            # whatever the wire mode (as diffusion's ap). The padded U⁻ is
+            # made and dropped within the step, so a captured step's graph
+            # pool reuses its memory and no replay reads a freed buffer.
             def step(U, Uprev, C2, C2p, out=None, pad=None):
                 Up = exchange_halo(U, grid, out=pad)
                 new = wave.wave_step_fused(Up, place_core(Uprev), C2p, self.dt, sp)[core]
@@ -180,7 +182,7 @@ class AcousticWave:
                 wave.wave_step_masked_region(src, offset, Uprev, M, Cw, sp, box, out)
 
             local = make_overlap_step(grid, region_update, cfg.b_width, mask_boundary=False,
-                                      wire_mode=wm)
+                                      wire_mode=wm, device=self.device)
 
             def step(U, Uprev, C2, P, out=None, pad=None):
                 M, Cw = P
@@ -226,7 +228,8 @@ class AcousticWave:
         nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
         U, Uprev, C2 = self.init_state()
         (U, _), wtime = metrics.timed_window(lambda s, n: advance(*s, C2, n), (U, Uprev),
-                                             nt, warmup, sharded=self.grid.nprocs > 1)
+                                             nt, warmup, sharded=self.grid.nprocs > 1,
+                                             group=self.grid.group)
         return WaveRunResult(U=U, wtime=wtime, nt=nt, warmup=warmup, config=self.config)
 
     def scan_advance_fn(self, variant: str = "perf", nt: int | None = None,
@@ -249,7 +252,8 @@ class AcousticWave:
             (U, Uprev), (C2, P) = src, consts
             return step(U, Uprev, C2, P, out=out, pad=pad)
 
-        loop = ScanLoop(one_step, graph_plan(q, 3), scan_route(self.device, self.grid.nprocs))
+        route = scan_route(self.device, self.grid.nprocs, distributed.backend())
+        loop = ScanLoop(one_step, graph_plan(q, 3), route)
 
         def advance(U, Uprev, C2, n):
             return loop((U, Uprev), (C2, prep(C2)), n)

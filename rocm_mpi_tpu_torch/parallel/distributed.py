@@ -8,8 +8,8 @@ memory (parallel/halo.py); that is how several ranks share one card.
 
 Ranks come either from `torchrun` (RANK, WORLD_SIZE, MASTER_ADDR,
 MASTER_PORT, LOCAL_RANK in the environment; `maybe_initialize_distributed`)
-or from an explicit address, world size and rank (`init_distributed`, used
-by parallel/launcher.spawn_ranks).
+or from a store port, world size and rank (`init_distributed`, used by
+parallel/launcher.spawn_ranks, which serves the store on localhost).
 """
 
 from __future__ import annotations
@@ -26,12 +26,12 @@ def default_backend(device_type: str) -> str:
     return "nccl" if device_type == "cuda" else "gloo"
 
 
-def init_distributed(rank: int, world_size: int, init_method: str,
+def init_distributed(rank: int, world_size: int, store_port: int,
                      backend: str) -> None:
-    """Join the default process group at `init_method` (e.g.
-    tcp://localhost:PORT)."""
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size)
+    """Join the default process group through the key-value store served
+    on localhost:`store_port` (parallel/launcher.spawn_ranks serves it)."""
+    store = dist.TCPStore("localhost", store_port, world_size, is_master=False)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
 
 
 def maybe_initialize_distributed(device_type: str = "cuda") -> bool:
@@ -84,9 +84,10 @@ def local_device(device_type: str) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-def barrier() -> None:
+def barrier(group=None) -> None:
+    """Wait for every rank of `group` (None: the default group)."""
     if is_distributed():
-        dist.barrier()
+        dist.barrier(group=group)
 
 
 def finalize() -> None:

@@ -19,9 +19,21 @@ Contracts kept from the JAX package:
 
 Each axis posts its sends and receives together (dist.batch_isend_irecv)
 and waits for them before the next axis, whose slabs include the ghosts
-just received. Slabs are made contiguous before sending. A gloo process
-group carries CPU tensors only, so for CUDA buffers on gloo every slab is
-staged through host memory; NCCL sends device to device.
+just received. On NCCL the wait is a stream wait: the exchange never
+synchronises the host, so a CUDA graph can capture it (models/scan.py).
+NCCL sends device to device. A gloo process group carries CPU tensors
+only, so for CUDA buffers on gloo every slab is staged through host
+memory (an eager route: a capture cannot hold a host wait).
+
+The stateless wire modes ("f32", "bf16") pack each slab with `copy_`
+into a send buffer of the wire dtype, receive into a buffer of the same
+shape and land it with `copy_` into the ghost view. Those buffers are
+made at a geometry's first exchange and kept on the grid
+(`GlobalGrid.exchange_buffers`, keyed by padded shape, dtype, width,
+axes, wire mode and device), so every later exchange allocates nothing
+and a captured exchange always finds the buffers it was captured with.
+The stateful modes (int8, int8_delta) run only on the deep schedules,
+which stay eager, and allocate their payloads per call.
 
 `HostStagedStepper` is the host-staged oracle (the reference's
 IGG_ROCMAWARE_MPI=0 path): a numpy diffusion stepper over every shard of
@@ -75,10 +87,12 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
 
     `wire_mode` is the on-wire slab precision (parallel/wire.py). "f32"
     sends the slabs as they are. "bf16" rounds each slab to bfloat16 for
-    the wire and widens it to the buffer dtype before it lands. The
-    stateful modes ("int8", "int8_delta") also take `wire_state`, this
-    rank's flat state tuple (`wire.init_exchange_state`), send each slab
-    as int8 codes and a one-element scale, and return `(buf, new_state)`.
+    the wire and widens it to the buffer dtype as it lands; a ghost no
+    neighbour sends is zeroed, as it decodes from a zero payload below.
+    The stateful modes ("int8", "int8_delta") also take `wire_state`,
+    this rank's flat state tuple (`wire.init_exchange_state`), send each
+    slab as int8 codes and a one-element scale, and return
+    `(buf, new_state)`.
 
     Slab state follows the JAX package's order: per axis a "lo" group (the
     slab this rank sends up, the ghost it receives from below) and a "hi"
@@ -96,23 +110,55 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
             "schedules (run_deep / --deep), which thread the state through their sweeps"
         )
     axes = tuple(range(grid.ndim) if axes is None else axes)
+    width = int(width)
+    if stateful:
+        return _exchange_stateful(buf, grid, width, axes, wire_mode, wire_state)
+    key = (tuple(buf.shape), buf.dtype, width, axes, wire_mode, buf.device)
+    slabs = grid.exchange_buffers.setdefault(key, {})
+    wire_dtype = wire.payload_dtype(wire_mode, buf.dtype)
+    home = torch.device("cpu") if distributed.staged(buf) else buf.device
+    for ax, region, n in _axis_regions(buf, axes, width):
+        ops, landings = [], []
+        for direction, send_at, recv_at in ((+1, n, n + width), (-1, width, 0)):
+            ghost = buf[region(recv_at)]
+            peer = grid.neighbor(ax, direction)
+            if peer is None:
+                # Domain edge: nothing posted. The f32 ghost keeps the zeros
+                # `place_core` made it with; a codec's ghost decodes zeros.
+                if wire_mode != "f32":
+                    ghost.zero_()
+                continue
+            pair = slabs.get((ax, direction))
+            if pair is None:
+                pair = slabs[(ax, direction)] = tuple(
+                    torch.empty(ghost.shape, dtype=wire_dtype, device=home) for _ in range(2))
+            send, recv = pair
+            send.copy_(buf[region(send_at)])
+            ops.append(dist.P2POp(dist.isend, send, peer))
+            ops.append(dist.P2POp(dist.irecv, recv, peer))
+            landings.append((ghost, recv))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            for ghost, recv in landings:
+                ghost.copy_(recv)
+    return buf
+
+
+def _axis_regions(buf: torch.Tensor, axes: tuple[int, ...], width: int):
+    """(axis, region, core extent) for each exchanged axis in turn:
+    `region(lo)` indexes axis `axis` at [lo, lo + width), the padded
+    extent of the axes exchanged before it and the core extent of the
+    rest of `axes`."""
     exchanged = set(axes)
     ndim = buf.ndim
-    width = int(width)
-    codec = wire.slab_codec(wire_mode) if wire_mode != "f32" else None
-    arity = wire.state_arity(wire_mode)
-    new_state: list[torch.Tensor] = []
 
     def core_extent(a):
         return buf.shape[a] - (2 * width if a in exchanged else 0)
 
     done: list[int] = []
-    for i_ax, ax in enumerate(axes):
-        n = core_extent(ax)
-
-        def region(lo_idx):
-            # Axis `ax` at [lo_idx, lo_idx + width); padded extent on axes
-            # already exchanged, core extent on the rest of `axes`.
+    for ax in axes:
+        def region(lo_idx, ax=ax, done=tuple(done)):
             return tuple(
                 slice(lo_idx, lo_idx + width) if a == ax
                 else slice(None) if a in done or a not in exchanged
@@ -120,57 +166,45 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
                 for a in range(ndim)
             )
 
-        if codec is None:
-            ops, landings = [], []
-            for direction, send_at, recv_at in ((+1, n, n + width), (-1, width, 0)):
-                peer = grid.neighbor(ax, direction)
-                if peer is None:
-                    continue  # domain edge: nothing posted, the ghost stays zero
-                send = buf[region(send_at)].contiguous()
-                recv = torch.empty_like(send)
-                if distributed.staged(buf):
-                    send, recv = send.cpu(), recv.cpu()
-                ops.append(dist.P2POp(dist.isend, send, peer))
-                ops.append(dist.P2POp(dist.irecv, recv, peer))
-                landings.append((region(recv_at), recv))
-            if ops:
-                for req in dist.batch_isend_irecv(ops):
-                    req.wait()
-                for dst, recv in landings:
-                    buf[dst] = recv
-        else:
-            ops, landings = [], []
-            # (group, slab sent, toward, ghost received, from)
-            for g, (send_at, to_dir, recv_at, from_dir) in enumerate(
-                    ((n, +1, 0, -1), (width, -1, n + width, +1))):
-                first = (2 * i_ax + g) * arity
-                st = tuple(wire_state[first:first + arity]) if stateful else ()
-                payload, st = codec.send(buf[region(send_at)], st)
-                to_peer = grid.neighbor(ax, to_dir)
-                from_peer = grid.neighbor(ax, from_dir)
-                if to_peer is not None:
-                    for p in payload:
-                        p = p.contiguous()
-                        ops.append(dist.P2POp(dist.isend, p.cpu() if distributed.staged(buf) else p,
-                                              to_peer))
-                if from_peer is None:
-                    got = tuple(torch.zeros_like(p) for p in payload)
-                else:
-                    got = tuple(torch.empty_like(p, device="cpu" if distributed.staged(buf) else None)
-                                for p in payload)
-                    ops.extend(dist.P2POp(dist.irecv, r, from_peer) for r in got)
-                landings.append((region(recv_at), got, st))
-            if ops:
-                for req in dist.batch_isend_irecv(ops):
-                    req.wait()
-            for dst, got, st in landings:
-                decoded, st = codec.recv(tuple(r.to(buf.device) for r in got), st, buf.dtype)
-                buf[dst] = decoded
-                new_state.extend(st)
+        yield ax, region, core_extent(ax)
         done.append(ax)
-    if stateful:
-        return buf, tuple(new_state)
-    return buf
+
+
+def _exchange_stateful(buf, grid, width, axes, wire_mode, wire_state):
+    """exchange_into for the int8 modes: each group runs its codec's send
+    and the state threads through, in the JAX package's order."""
+    codec = wire.slab_codec(wire_mode)
+    arity = wire.state_arity(wire_mode)
+    staged = distributed.staged(buf)
+    new_state: list[torch.Tensor] = []
+    for i_ax, (ax, region, n) in enumerate(_axis_regions(buf, axes, width)):
+        ops, landings = [], []
+        # (group, slab sent, toward, ghost received, from)
+        for g, (send_at, to_dir, recv_at, from_dir) in enumerate(
+                ((n, +1, 0, -1), (width, -1, n + width, +1))):
+            first = (2 * i_ax + g) * arity
+            payload, st = codec.send(buf[region(send_at)], tuple(wire_state[first:first + arity]))
+            to_peer = grid.neighbor(ax, to_dir)
+            from_peer = grid.neighbor(ax, from_dir)
+            if to_peer is not None:
+                for p in payload:
+                    p = p.contiguous()
+                    ops.append(dist.P2POp(dist.isend, p.cpu() if staged else p, to_peer))
+            if from_peer is None:
+                got = tuple(torch.zeros_like(p) for p in payload)
+            else:
+                got = tuple(torch.empty_like(p, device="cpu" if staged else None)
+                            for p in payload)
+                ops.extend(dist.P2POp(dist.irecv, r, from_peer) for r in got)
+            landings.append((region(recv_at), got, st))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        for dst, got, st in landings:
+            decoded, st = codec.recv(tuple(r.to(buf.device) for r in got), st, buf.dtype)
+            buf[dst] = decoded
+            new_state.extend(st)
+    return buf, tuple(new_state)
 
 
 def exchange_halo(u: torch.Tensor, grid: GlobalGrid, width: int = 1, axes=None,

@@ -2,27 +2,26 @@
 rocm_mpi_tpu/parallel/launcher.py, enough for tests and one-host checks.
 
 `spawn_ranks(n, fn, args)` starts n fresh processes (spawn start method),
-joins them into one process group at tcp://localhost:<free port>, runs
-`fn(rank, *args)` in each and returns the n results in rank order. `fn`
-and its arguments must be picklable (a module-level function). A rank
-that raises or dies fails the whole launch with its traceback; every
-process is joined or killed before this returns.
+joins them into one process group whose key-value store the launcher
+serves on localhost, runs `fn(rank, *args)` in each and returns the n
+results in rank order. `fn` and its arguments must be picklable (a
+module-level function). A rank that raises or dies fails the whole
+launch with its traceback; every process is joined or killed before this
+returns.
+
+The launcher binds the store itself, on a port the system picks, and
+hands the ranks that port: a port found free and released for a rank to
+bind later can be taken by any other socket in between (EADDRINUSE).
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
-import socket
 import time
 import traceback
 
+import torch.distributed as dist
 import torch.multiprocessing as mp
-
-
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _rank_main(rank, world_size, port, backend, fn, args, results):
@@ -32,8 +31,7 @@ def _rank_main(rank, world_size, port, backend, fn, args, results):
 
     os.environ["LOCAL_RANK"] = str(rank)
     try:
-        distributed.init_distributed(rank, world_size,
-                                     f"tcp://localhost:{port}", backend)
+        distributed.init_distributed(rank, world_size, port, backend)
         try:
             out = fn(rank, *args)
         finally:
@@ -52,7 +50,8 @@ def spawn_ranks(n: int, fn, args=(), backend: str = "gloo",
     within `timeout` seconds."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = free_port()
+    store = dist.TCPStore("localhost", 0, n, is_master=True, wait_for_workers=False)
+    port = store.port
     procs = [
         ctx.Process(target=_rank_main,
                     args=(r, n, port, backend, fn, tuple(args), results))

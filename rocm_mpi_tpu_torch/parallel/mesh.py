@@ -63,12 +63,24 @@ def plan_dims(global_shape: Sequence[int], max_devices: int) -> tuple[int, ...]:
 @dataclasses.dataclass(frozen=True)
 class GlobalGrid:
     """A global cartesian grid of cells split over a process grid, seen
-    from one rank (`rank`)."""
+    from one rank (`rank`).
+
+    `group` is the process group whose barriers a run on this grid
+    takes: None for the default group, or a subgroup of the grid's ranks
+    0 … nprocs − 1 when the process group holds more ranks than the grid
+    (a weak-scaling rung, apps/weak_scaling.py). Halo messages name
+    ranks of the default group, which are the grid's ranks either way.
+    `exchange_buffers` holds the halo exchange's persistent slab buffers
+    (parallel/halo.py), so a rank's exchanges on this grid allocate once.
+    """
 
     global_shape: tuple[int, ...]
     lengths: tuple[float, ...]
     dims: tuple[int, ...]
     rank: int = 0
+    group: object = dataclasses.field(default=None, compare=False, repr=False)
+    exchange_buffers: dict = dataclasses.field(default_factory=dict, init=False,
+                                               compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.dims) != len(self.global_shape):
@@ -175,11 +187,13 @@ def init_global_grid(
     dims: Sequence[int] | None = None,
     nprocs: int | None = None,
     rank: int | None = None,
+    group=None,
 ) -> GlobalGrid:
     """Build this rank's view of a GlobalGrid.
 
     `nprocs` and `rank` default to the process group's world size and
-    rank (1 and 0 without one). Trailing size-1 axes are dropped (the
+    rank (1 and 0 without one); `group` is the grid's barrier group
+    (GlobalGrid.group). Trailing size-1 axes are dropped (the
     reference's `nz=1` idiom). `dims=None` picks the near-square
     factorisation of `nprocs`, shrunk to divide the grid (with a warning
     when ranks are left out, as the JAX package warns about devices).
@@ -214,4 +228,4 @@ def init_global_grid(
     dims = tuple(int(d) for d in dims)
     if math.prod(dims) > nprocs:
         raise ValueError(f"dims {dims} need {math.prod(dims)} ranks, have {nprocs}")
-    return GlobalGrid(global_shape=shape, lengths=lengths, dims=dims, rank=rank)
+    return GlobalGrid(global_shape=shape, lengths=lengths, dims=dims, rank=rank, group=group)

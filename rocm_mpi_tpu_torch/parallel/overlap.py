@@ -22,7 +22,13 @@ schedule explicit, per step, on CUDA streams of two priorities:
 
 Every box writes its own cells of one output buffer in place (the region
 form of ops/kernels.py), so there is no splice copy and, with the
-masked-coefficient contracts, no trailing Dirichlet select. Tensors the
+masked-coefficient contracts, no trailing Dirichlet select.
+
+The step synchronises no host: the fork and the join are stream waits,
+which a CUDA graph capture records as edges between its nodes, so the
+scan driver captures the whole step, exchange included
+(models/scan.py). The two side streams are made when the step is built
+for a CUDA device, never inside a capture. Tensors the
 side streams touch are allocated on the current stream before step 1 and
 only reused by it after step 5, so the caching allocator never hands
 their memory to another user while a side stream still reads it. On the
@@ -104,7 +110,7 @@ def _leaves(x) -> tuple[torch.Tensor, ...]:
 
 
 def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
-                      mask_boundary: bool = False, wire_mode: str = "f32"):
+                      mask_boundary: bool = False, wire_mode: str = "f32", device=None):
     """Build the shard-local overlap step (any ndim).
 
     `region_update(src, offset, box, C, out)` updates core box `box` of
@@ -118,7 +124,7 @@ def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
     update reads core-only (a coefficient, or a tuple such as the wave's
     (U⁻, M, Cw)); it is never exchanged. `out` and `pad` (same structure
     as `T`) are buffers the caller reuses across steps; absent, they are
-    allocated.
+    allocated. `device`, when a CUDA device, makes its side streams now.
     """
     wire.validate_mode(wire_mode)
     if mask_boundary:
@@ -139,6 +145,9 @@ def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
             streams[device] = (torch.cuda.Stream(device, priority=INTERIOR_PRIORITY),
                                torch.cuda.Stream(device, priority=BOUNDARY_PRIORITY))
         return streams[device]
+
+    if device is not None and torch.device(device).type == "cuda":
+        side_streams(torch.device(device))
 
     def local_step(T, C, out=None, pad=None):
         tupled = isinstance(T, (tuple, list))

@@ -101,6 +101,18 @@ def payload_itemsize(mode: str, itemsize: int) -> int:
     return int(itemsize)
 
 
+def payload_dtype(mode: str, dtype):
+    """The torch dtype a stateless mode's slab travels in: f32 the state
+    dtype, bf16 bfloat16. Their codecs are a cast each way, so the
+    exchange packs and lands a slab with `copy_` into and out of a
+    buffer of this dtype, bitwise what `slab_codec` gives."""
+    import torch
+
+    if is_stateful(mode):
+        raise ValueError(f"wire_mode {mode!r} ships int8 codes and a scale, not one dtype")
+    return torch.bfloat16 if mode == "bf16" else dtype
+
+
 def slab_overhead_bytes(mode: str, itemsize: int) -> int:
     """Per-slab side bytes: the int8 modes ship one scale in the state
     dtype beside each slab."""

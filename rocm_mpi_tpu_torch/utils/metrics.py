@@ -67,16 +67,18 @@ def resolve_windows(config, nt: int | None = None,
     return nt, warmup
 
 
-def timed_window(advance, state, nt: int, warmup: int, sharded: bool = False):
+def timed_window(advance, state, nt: int, warmup: int, sharded: bool = False,
+                 group=None):
     """Run `advance(state, n) -> state` over the first `warmup` steps, then
     time it over the other nt - warmup: the device synchronised, and on a
-    sharded grid every rank barriered, on each side of the timed window.
-    `state` is a tensor or a tuple led by one. Returns (state, seconds)."""
+    sharded grid every rank of `group` (None: the default group)
+    barriered, on each side of the timed window. `state` is a tensor or a
+    tuple led by one. Returns (state, seconds)."""
 
     def settle(state):
         force(state[0] if isinstance(state, tuple) else state)
         if sharded:
-            distributed.barrier()
+            distributed.barrier(group)
 
     if warmup:
         state = advance(state, warmup)

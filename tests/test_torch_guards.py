@@ -47,7 +47,9 @@ def test_scan_sees_the_whole_port():
                               "apps/diffusion_2d_kp.py", "apps/diffusion_2d_ap.py",
                               "parallel/ring.py", "parallel/wire.py",
                               "parallel/native_halo.py", "apps/ici_ring_test.py",
-                              "entry.py")} <= names
+                              "entry.py", "apps/weak_scaling.py", "models/scan.py",
+                              "parallel/mesh.py", "parallel/distributed.py",
+                              "utils/metrics.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
 
 
@@ -131,7 +133,7 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
     _no_cuda(monkeypatch)
-    from rocm_mpi_tpu_torch.apps import diffusion_2d_ap, diffusion_2d_kp, swe_2d
+    from rocm_mpi_tpu_torch.apps import diffusion_2d_ap, diffusion_2d_kp, swe_2d, weak_scaling
     from rocm_mpi_tpu_torch.config import SWEConfig, WaveConfig
     from rocm_mpi_tpu_torch.entry import entry
     from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
@@ -149,6 +151,9 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         entry()
     # The app's default device is the card: without one it refuses.
     assert swe_2d.make_parser().parse_args([]).device == "cuda"
+    assert weak_scaling.make_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        weak_scaling.main(["--local", "8", "--nt", "4", "--warmup", "0"])
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         swe_2d.main(["--nx", "16", "--ny", "16", "--nt", "4", "--warmup", "0"])
     for app in (diffusion_2d_kp, diffusion_2d_ap):

@@ -2,7 +2,9 @@
 rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
 tests/test_torch_distributed.py (`run_rank`), tests/test_torch_overlap.py
 (`run_overlap_rank`), tests/test_torch_kp.py (`run_kp_rank`) and
-tests/test_torch_scan.py (`run_scan_rank`); it holds no tests itself. Imports torch and the port
+tests/test_torch_scan.py (`run_scan_rank`), tests/test_torch_sharded_scan.py
+(`run_sharded_scan_rank`) and tests/test_torch_weak_scaling.py
+(`run_weak_scaling_rank`); it holds no tests itself. Imports torch and the port
 only, so a spawned rank starts fast; the parent holds the results against
 the JAX package."""
 
@@ -170,3 +172,49 @@ def run_scan_rank(rank, spec):
             out["runs"][(name, variant)] = (same, scan.route, scan.k)
     out["launches"] = dict(kernels.LAUNCHES)
     return out
+
+
+def run_sharded_scan_rank(rank, spec):
+    """One rank of tests/test_torch_sharded_scan.py: each (model, variant,
+    wire mode, grid) of spec["cases"] through run(driver="step") and
+    run(driver="scan") on one model, so both drivers share the grid's
+    exchange buffers. Returns {case: (scan bitwise == step, scan route,
+    q)}."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+
+    torch.set_num_threads(1)
+    models = {"diffusion": (HeatDiffusion, DiffusionConfig, lambda r: (r.T,)),
+              "wave": (AcousticWave, WaveConfig, lambda r: (r.U,)),
+              "swe": (ShallowWater, SWEConfig, lambda r: (r.h, *r.us))}
+    out = {}
+    for case in spec["cases"]:
+        name, variant, mode, shape, dims = case
+        model_cls, cfg_cls, fields = models[name]
+        cfg = cfg_cls(global_shape=shape, lengths=(10.0,) * len(shape), nt=spec["nt"],
+                      warmup=spec["warmup"], dtype="f64", dims=dims, wire_mode=mode)
+        model = model_cls(cfg, device="cpu")
+        scan = model.run(variant, driver="scan")
+        step = model.run(variant, driver="step")
+        same = all(torch.equal(a, b) for a, b in zip(fields(step), fields(scan)))
+        out[case] = (same, scan.route, scan.k)
+    return out
+
+
+def run_weak_scaling_rank(rank, spec):
+    """One rank of tests/test_torch_weak_scaling.py: the app's ladder of
+    spec["argv"] with every diffusion model started from the JAX package's
+    initial state (spec["jax_state"], numpy), and the last rung's field
+    gathered to rank 0. Returns (rows, gathered field or None)."""
+    from rocm_mpi_tpu_torch.apps import weak_scaling
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+    from rocm_mpi_tpu_torch.state import state_from_numpy
+
+    torch.set_num_threads(1)
+    HeatDiffusion.init_state = lambda self: state_from_numpy(*spec["jax_state"], self.grid,
+                                                             device="cpu")
+    args = weak_scaling.make_parser().parse_args(spec["argv"])
+    rows = weak_scaling.ladder(args, torch.device("cpu"), log=lambda msg: None)
+    last = rows[-1][1]
+    return [row for row, _ in rows], gather_to_host0(last.result.T, last.model.grid)

@@ -192,9 +192,7 @@ def test_sharded_route_is_decided_before_any_launch():
     model = HeatDiffusion(cfg, grid=grid, device="cpu")
     advance, q = model.scan_advance_fn("perf")
     assert advance.loop.route == "scan-loop" and advance.loop.slots is None and q == 8
-    assert scan.scan_route(torch.device("cuda", 0), 4) == "scan-loop"
-    assert scan.scan_route(torch.device("cuda", 0), 1) == "scan-graph"
-    assert scan.scan_route(torch.device("cpu"), 1) == "scan-eager"
+    # The route table itself: tests/test_torch_sharded_scan.py.
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +275,8 @@ class _FakeGraph:
         self.ops = []
         _FakeGraph.made += 1
 
-    def capture_begin(self, pool=None):
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self.mode = capture_error_mode
         _FakeGraph.capturing = self
 
     def capture_end(self):

@@ -1,8 +1,9 @@
 """Ranks of the transport plane's multi-rank CPU checks (gloo), started by
 rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
 tests/test_torch_ring.py (`run_ring_rank`), tests/test_torch_wire.py
-(`run_wire_rank`) and tests/test_torch_host_staged.py
-(`run_host_staged_rank`); it holds no tests itself. Imports torch and the
+(`run_wire_rank`), tests/test_torch_host_staged.py
+(`run_host_staged_rank`) and tests/test_torch_sharded_scan.py
+(`run_exchange_rank`); it holds no tests itself. Imports torch and the
 port only, so a spawned rank starts fast; the parent holds the results
 against the JAX package."""
 
@@ -124,3 +125,71 @@ def run_host_staged_rank(rank, spec):
             spec["jax_states"][dtype])
         for dtype, mode in spec["runs"]
     }
+
+
+# The allocating calls a steady-state exchange must not make.
+_FACTORIES = (("torch", "empty"), ("torch", "empty_like"), ("torch", "zeros"),
+              ("torch", "zeros_like"), ("torch", "full"), ("Tensor", "contiguous"),
+              ("Tensor", "clone"), ("Tensor", "cpu"), ("Tensor", "to"))
+
+
+def _count_allocations(fn):
+    """(fn(), the calls it made to the tensor factories of _FACTORIES)."""
+    calls = []
+    saved = []
+    for owner_name, attr in _FACTORIES:
+        owner = torch if owner_name == "torch" else torch.Tensor
+        orig = getattr(owner, attr)
+        saved.append((owner, attr, orig))
+
+        def counted(*a, _orig=orig, _name=f"{owner_name}.{attr}", **k):
+            calls.append(_name)
+            return _orig(*a, **k)
+
+        setattr(owner, attr, counted)
+    try:
+        return fn(), calls
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
+
+
+def run_exchange_rank(rank, spec):
+    """Each exchange case of spec: `_exchanges` (ghosts and state of
+    spec["steps"] exchanges, held to JAX by the parent) and, for the
+    stateless modes, the persistent buffers: the grid's buffers after the
+    first exchange_into, their data pointers after every later call, and
+    the allocating calls those later calls made."""
+    from rocm_mpi_tpu_torch.parallel import wire
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_into, place_core
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+
+    torch.set_num_threads(1)
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    out = {"exchange": {}, "reuse": {}}
+    for key, (shape, dims, width, mode, dtype) in spec["exchanges"].items():
+        grid = init_global_grid(*shape, dims=dims)
+        out["exchange"][key] = _exchanges(grid, shape, width, mode, dtypes[dtype],
+                                          spec["steps"])
+        if wire.is_stateful(mode):
+            continue
+        grid = init_global_grid(*shape, dims=dims)
+        G = global_field(shape)
+        u = torch.from_numpy(np.ascontiguousarray(G[grid.shard_slices()])).to(dtypes[dtype])
+        buf = place_core(u, width)
+
+        def pointers():
+            return sorted(t.data_ptr() for slabs in grid.exchange_buffers.values()
+                          for pair in slabs.values() for t in pair)
+
+        exchange_into(buf, grid, width, wire_mode=mode)
+        first = pointers()
+        later, allocations = [], []
+        for _ in range(spec["steps"]):
+            _, calls = _count_allocations(
+                lambda: exchange_into(buf, grid, width, wire_mode=mode))
+            later.append(pointers())
+            allocations.extend(calls)
+        out["reuse"][key] = dict(first=first, later=later, allocations=allocations,
+                                 keys=len(grid.exchange_buffers))
+    return out
