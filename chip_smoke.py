@@ -36,11 +36,11 @@ the target). Phases, printed as they run (about six minutes on one H100
    behind torch.cuda._sleep) and the wrapper's host µs a call; every
    main-path block of theirs must take the cluster route at the cluster
    size the card grants;
-4. main path, one GPU — HeatDiffusion.run("perf") at 12288² f32 for 1000
-   steps and at 252² f32: every step one masked_step launch, the field
+4. main path, one GPU — HeatDiffusion.run("perf") at 12288² f32 for 500
+   steps and at 252² f32 for 1000: every step one masked_step launch, the field
    bitwise equal to the plain versions' run of the same steps, and the
    252² field within the analytic Gaussian bound;
-   [kp] HeatDiffusion.run("kp") at 12288² f32 for 1000 steps (one launch
+   [kp] HeatDiffusion.run("kp") at 12288² f32 for 500 steps (one launch
    of each kp kernel a step, no other kernel, the field bitwise equal to
    the plain versions' run; the copy into the padded buffer, the three
    kernels and the select of a step timed alone) and at the kp app's
@@ -48,31 +48,38 @@ the target). Phases, printed as they run (about six minutes on one H100
    atol 1e-15;
 5. multi-step schedules, one GPU — run_vmem_resident at 252² (256 warmup
    + 4096 timed steps, chunk 256; its ms/step the median of three runs'
-   timed windows), run_deep at 252² (32 + 1024, k = 32,
-   vmem route), run_hbm_blocked at 12288² (16 + 1000, k = 8) and run_deep
-   at 12288² (16 + 1000, k = 8, hbm-tb route), all f32: each asserts its
-   route, k and launch count, is bitwise equal to the same schedule run
-   through the plain versions on the card, and prints ms/step, effective
-   T_eff and Gpts/s; the 252² results stay within the analytic Gaussian
-   bound;
+   timed windows), run_deep at 252² (32 + 1024, k = 32, and 200 + 1800,
+   k = 8, the weak-scaling app's windows; vmem route), run_hbm_blocked at
+   12288² (16 + 1000, k = 8) and run_deep at 12288² (16 + 1000, k = 8,
+   hbm-tb route), all f32, each as CUDA graphs of its sweeps
+   (models/scan.sweep_loop; loop route "scan-graph" asserted): each
+   asserts its route, k and launch count, is bitwise equal to the same
+   schedule run through the plain versions on the card and to the eager
+   sweep loop the graphs replace (the ops' loops over launches, the deep
+   schedule's sweeps one call after another), and prints the loop's q, c,
+   graphs, capture host ms and the launches a replay records, graph and
+   eager ms/step side by side, effective T_eff and Gpts/s; the 252²
+   results within 1056 steps stay within the analytic Gaussian bound;
    [wave] the same for the acoustic wave: AcousticWave.run("perf") at
-   12288² (one wave_step launch per step; the copy, kernel and select of
+   12288² for 500 steps (one wave_step launch per step; the copy, kernel and select of
    a step timed alone), run_vmem_resident at 252² (256 + 4096, chunk 256)
-   and run_deep at 252² (8 + 1024, k = 8), and time reversal at 252² f64;
+   and run_deep at 252² (8 + 1024, k = 8), both also against their eager
+   sweep loops as in phase 5, and time reversal at 252² f64;
    [swe] the same for the shallow water: ShallowWater.run("perf") at
-   12288² f32 (one swe_step launch per step; the three copies into the
+   12288² f32 for 500 steps (one swe_step launch per step; the three copies into the
    padded buffers and the kernel of a step timed alone) and at 252² f64
    (the app's default), run_vmem_resident at 252² (256 + 4096, chunk 256),
    run_deep at 240² (8 + 1024, k = 8, vmem route on 256²) and at 252² (the
-   jnp route: no kernel), each with its mass drift |Σh − Σh₀|/|Σh₀|
+   jnp route: no kernel), the schedules also against their eager sweep
+   loops as in phase 5, each with its mass drift |Σh − Σh₀|/|Σh₀|
    printed and held under 1e-13 (f64) or 1e-6 (f32);
    [scan] the scan driver (models/scan.py: the q-step chunks captured as
    CUDA graphs and replayed) beside the step driver on each small and
    large main path — diffusion `perf` 252² and 12288² f32, `kp` 128² f64,
    wave `perf` 252² and 12288² f32, SWE `perf` 252² f64 and 12288² f32,
-   1000 steps after 10 — and at the plan's edges: warmup 0 (q = nt,
-   capped), an odd c (two graphs) and the wave with c not a multiple of 3
-   (three graphs). Each: the fields bitwise equal, route "scan-graph", q,
+   1000 steps after 10 (500 at 12288²) — and at the plan's edges: warmup
+   0 (q = nt, capped), an odd c (two graphs) and the wave with c not a
+   multiple of 3 (three graphs). Each: the fields bitwise equal, route "scan-graph", q,
    c and the graphs captured (and their host ms), the launch counts nt
    per kernel of the step under both drivers, ms/step of both the median
    of three timed windows;
@@ -95,8 +102,13 @@ the target). Phases, printed as they run (about six minutes on one H100
    graphs and each rank's capture host ms;
 7. deep schedule, sharded — run_deep on the 2×2 grid of 12288² (k = 8,
    hbm-tb route on 6160² padded shards) by the same 4 ranks over gloo,
-   16 + 32 steps: each shard bitwise equal to its plain-version run, the
-   gathered field bitwise equal to the one-GPU run_deep of the same k;
+   16 + 32 steps: each shard bitwise equal to its plain-version run and
+   to the eager sweep loop, the gathered field bitwise equal to the
+   one-GPU run_deep of the same k; then run_deep 16 + 32 in each wire
+   mode (f32, bf16, int8, int8_delta), every shard bitwise equal to the
+   same mode's eager sweep loop over the two calls (each starting from a
+   zero wire state); the loop route "scan-loop" over gloo, "scan-graph"
+   over NCCL, with graph and eager ms/step;
 8. hide, sharded — diffusion, wave and shallow-water `perf` and `hide` on
    the 2×2 grid of 12288² (b_width (32, 4), five region launches per rank
    and step), 20 steps: each shard bitwise equal to its plain-version run,
@@ -104,12 +116,13 @@ the target). Phases, printed as they run (about six minutes on one H100
    hide's ms/step beside perf's;
 9. wave deep schedule, sharded — run_deep on the 2×2 grid of 480² (k = 8,
    256² padded shards, vmem route), 16 + 32 steps: each shard bitwise equal
-   to its plain-version run, the gathered field bitwise equal to the
-   one-GPU run_deep;
+   to its plain-version run and to the eager sweep loop (loop route as in
+   7), the gathered field bitwise equal to the one-GPU run_deep;
 10. shallow-water deep schedule, sharded — the same for ShallowWater on
-   the 2×2 grid of 480² (k = 8, 256² padded shards, vmem route): the
-   gathered state bitwise equal to the one-GPU run_deep, whose 496² block
-   takes the jnp route (the same arithmetic);
+   the 2×2 grid of 480² (k = 8, 256² padded shards, vmem route): each
+   shard also bitwise equal to the eager sweep loop, the gathered state
+   bitwise equal to the one-GPU run_deep, whose 496² block takes the jnp
+   route (the same arithmetic);
 11. ring — the ring smoke test (parallel/ring.py): one rank (the identity,
    a copy), then 4 ranks each asserting it holds its left neighbour's
    rank, with the median µs of a ring round (1000 rounds between CUDA
@@ -134,14 +147,15 @@ the target). Phases, printed as they run (about six minutes on one H100
    weak-scaling app's rungs (rocm_mpi_tpu_torch/apps/weak_scaling.py,
    counts 1, 2 and 4 at 252² a rank, f32): diffusion perf, hide and deep
    under the scan driver and hide under the step driver, every row
-   finite, the sharded per-step rows on their scan route, and the
+   finite, the sharded per-step rows on their scan route, the deep rows
+   on their loop route (graphs on one card and over NCCL), and the
    gathered 4-rank perf field bitwise equal to the whole-domain run of
    the same kernel on one GPU; on one card 4 gloo ranks share it (120
    steps after 24, rows `mechanics_only`), with `--gpus 4` one rank a
    card over NCCL (the app's 2000 after 200: the north-star rows).
 
 With `--gpus 4` phases 6-15 run one rank per GPU over NCCL (6 and 8 for
-1000 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
+500 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
 exchange, the interiors and the slabs timed alone; 13 also with the
 exchange alone per wire mode at 2×2 of 12288², widths 1 and 8), and
 phases 3-5 are skipped. `chip_trace_hide.py` traces the phase-8 steps under
@@ -361,6 +375,11 @@ FLOPS_PER_CELL_STEP = {
     ("fused_step_padded", "direct"): lambda nd: 5 * nd + 2,
 }
 MAIN_NT, MAIN_WARMUP = 1000, 10
+# The 12288² runs of the per-step paths and their plain-version
+# references: on one GPU [main], [kp], [wave], [swe] and [scan], with
+# `--gpus 4` [sharded] and [hide]. Half of MAIN_NT keeps the whole
+# script within its time.
+BIG_NT = 500
 SHARD_NT, SHARD_WARMUP = 20, 2
 # Windows of the multi-step schedules: k divides both, so nothing degrades.
 VMEM_NT, VMEM_WARMUP = 4352, 256
@@ -1013,8 +1032,8 @@ def _single_gpu_run(torch, shape, card):
     from rocm_mpi_tpu_torch.ops import kernels
     from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
 
-    cfg = DiffusionConfig(global_shape=shape, nt=MAIN_NT, warmup=MAIN_WARMUP,
-                          dtype="f32", dims=(1, 1))
+    cfg = DiffusionConfig(global_shape=shape, nt=BIG_NT if shape == BIG else MAIN_NT,
+                          warmup=MAIN_WARMUP, dtype="f32", dims=(1, 1))
     grid = init_global_grid(*shape, dims=(1, 1), nprocs=1, rank=0)
     model = HeatDiffusion(cfg, grid=grid, device="cuda")
 
@@ -1139,21 +1158,22 @@ def phase_kp(torch, card):
 
     rows = []
     for shape, dtype in ((BIG, "f32"), (KP_SMALL, "f64")):
-        model = _kp_model(shape, MAIN_NT, MAIN_WARMUP, dtype)
+        nt = BIG_NT if shape == BIG else MAIN_NT
+        model = _kp_model(shape, nt, MAIN_WARMUP, dtype)
         kernels.reset_launches()
         res = model.run("kp")
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         label = f"kp {shape[0]}x{shape[1]} {dtype}"
-        check(launches == kp_only(MAIN_NT),
-              f"{label}: launches {launches}, expected {MAIN_NT} of each kp kernel")
+        check(launches == kp_only(nt),
+              f"{label}: launches {launches}, expected {nt} of each kp kernel")
         check(tuple(res.T.shape) == shape and bool(torch.isfinite(res.T).all()),
               f"{label}: result not finite or misshapen")
         T, Cp = model.init_state()
-        ref = plain_kp_steps(model, T, Cp, MAIN_NT)
+        ref = plain_kp_steps(model, T, Cp, nt)
         check(torch.equal(res.T, ref), f"{label}: kernel run != plain-version run "
               f"(max |diff| {float((res.T.double() - ref.double()).abs().max())})")
-        row = dict(shape=list(shape), dtype=dtype, nt=MAIN_NT, warmup=MAIN_WARMUP,
+        row = dict(shape=list(shape), dtype=dtype, nt=nt, warmup=MAIN_WARMUP,
                    launches=launches, wtime_s=res.wtime, ms_per_step=res.wtime_it * 1e3,
                    t_eff_gbs=res.t_eff, gpts=res.gpts)
         extra = ""
@@ -1169,7 +1189,7 @@ def phase_kp(torch, card):
             row["max_abs_vs_ap"] = err
             extra = f"; max |kp - ap| {err:.3e} (bound rtol 1e-13, atol 1e-15)"
         rows.append(row)
-        print(f"[kp] {label}, {MAIN_NT} steps ({MAIN_WARMUP} warmup): launches "
+        print(f"[kp] {label}, {nt} steps ({MAIN_WARMUP} warmup): launches "
               f"{', '.join(f'{k} {launches[k]}' for k in KP)}; bitwise == plain-version run; "
               f"{res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step, T_eff {res.t_eff:.1f} "
               f"GB/s (3 passes per step counted), {res.gpts:.3f} Gpts/s on {card}{extra}",
@@ -1283,7 +1303,7 @@ def phase_sharded(card, gpus: int):
     rank per card over NCCL when `gpus` is 4."""
     from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
 
-    nt, warmup = (SHARD_NT, SHARD_WARMUP) if gpus == 1 else (MAIN_NT, MAIN_WARMUP)
+    nt, warmup = (SHARD_NT, SHARD_WARMUP) if gpus == 1 else (BIG_NT, MAIN_WARMUP)
     spec = dict(shape=BIG, nt=nt, warmup=warmup, gpus=gpus)
     backend = "gloo" if gpus == 1 else "nccl"
     ranks = spawn_ranks(4, sharded_rank, (spec,), backend=backend, timeout=600)
@@ -1520,6 +1540,12 @@ def phase_weak_scaling(card, gpus: int):
             if driver == "scan" and variant != "deep" and row["devices"] > 1:
                 check(row["route"] == sharded_route,
                       f"[weak-scaling] {key} n={row['devices']}: route {row['route']}")
+            if variant == "deep":
+                # One CUDA rank, or CUDA ranks over NCCL: graphs of sweeps.
+                want = "scan-graph" if row["devices"] == 1 else sharded_route
+                check(row["loop_route"] == want,
+                      f"[weak-scaling] deep n={row['devices']}: loop route "
+                      f"{row['loop_route']}, expected {want}")
     check(r0["bitwise_vs_one_gpu"],
           f"[weak-scaling] perf n=4 gathered field differs from the whole-domain run of the "
           f"same kernel by {r0['max_abs_vs_one_gpu']}")
@@ -1533,7 +1559,9 @@ def phase_weak_scaling(card, gpus: int):
             print(f"[weak-scaling] {variant} --driver {driver} n={row['devices']} dims "
                   f"{row['dims']}: {row['us_per_step']:.3f} us/step, {row['gpts']} Gpts/s, "
                   f"{row['gpts_per_device']} per device, efficiency {row['efficiency']} "
-                  f"(route {row['route']}, k {row['k']})", flush=True)
+                  f"(route {row['route']}, k {row['k']}"
+                  + (f", loop route {row['loop_route']}" if "loop_route" in row else "")
+                  + ")", flush=True)
     totals: dict[str, int] = {}
     for r in ranks:
         for counts in r["launches"].values():
@@ -1584,10 +1612,143 @@ def plain_schedule(model, meth: str, route: str, k: int, nt: int):
     return T
 
 
-# (method, shape, nt, warmup, expected route, expected k, kernel)
+@contextlib.contextmanager
+def watch_loops():
+    """The sweep and scan loops (models/scan.ScanLoop) made inside the
+    block, in the order they were made: what a schedule's graphs
+    recorded, read after its run."""
+    from rocm_mpi_tpu_torch.models.scan import ScanLoop
+
+    made = []
+    init = ScanLoop.__init__
+
+    def tracked(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    ScanLoop.__init__ = tracked
+    try:
+        yield made
+    finally:
+        ScanLoop.__init__ = init
+
+
+def loop_facts(loop) -> dict:
+    """A schedule's loop as printed and recorded: q and c in sweeps, the
+    graphs it captured, and the kernel launches each graph's replay adds."""
+    return dict(q=loop.plan.q, c=loop.plan.c, graphs=len(loop.graphs),
+                replay_launches={f"{phase}+{count}": dict(rec) for (phase, count), rec
+                                 in loop.recorded.items()})
+
+
+def loop_text(res, facts) -> str:
+    return (f"loop route {res.loop_route}, q {facts['q']} and c {facts['c']} sweeps, "
+            f"{facts['graphs']} graph(s), capture {res.capture_ms:.1f} host ms, a replay "
+            f"launches {facts['replay_launches']}")
+
+
+def eager_schedule(model, meth: str, k: int):
+    """The eager sweep loop a schedule's graphs replace, over the model's
+    windows from its initial state, timed like the run: the ops' Python
+    loops over launches (run_vmem_resident, run_hbm_blocked), or the deep
+    schedule's prepare once a call (with a zero wire state; the model's
+    wire mode) and its sweeps one Python call after another. Returns (the
+    state's leaves, seconds a step)."""
+    from rocm_mpi_tpu_torch.ops import multistep, swe, wave
+    from rocm_mpi_tpu_torch.parallel import deep_halo
+    from rocm_mpi_tpu_torch.utils import metrics
+
+    cfg, grid = model.config, model.grid
+    kind = type(model).__name__
+    wire_mode = cfg.wire_mode
+    if meth == "run_deep":
+        if kind == "HeatDiffusion":
+            sched = deep_halo.make_deep_sweep(grid, k, cfg.lam, model.dt, cfg.spacing,
+                                              wire_mode=wire_mode)
+            T, Cp = model.init_state()
+            state, coeff = (T,), (lambda s: Cp)
+
+            def sweep(s, P, ws):
+                out = sched.sweep(s[0], P, *ws)
+                return ((out[0],), out[1:]) if ws else ((out,), ())
+        elif kind == "AcousticWave":
+            sched = deep_halo.make_wave_deep_sweep(grid, k, model.dt_value, cfg.spacing,
+                                                   wire_mode=wire_mode)
+            U, Uprev, C2 = model.init_state()
+            state, coeff = (U, Uprev), (lambda s: C2)
+
+            def sweep(s, P, ws):
+                out = sched.sweep(*s, P, *ws)
+                return tuple(out[:2]), tuple(out[2:])
+        else:
+            sched = deep_halo.make_swe_deep_sweep(grid, k, cfg.dt, cfg.spacing, cfg.H0, cfg.g,
+                                                  wire_mode=wire_mode)
+            h, us = model.init_state()
+            state, coeff = (h, *us), (lambda s: s[0])
+
+            def sweep(s, P, ws):
+                out = sched.sweep(s[0], s[1:], P, *ws)
+                return (out[0], *out[1]), tuple(out[2:])
+
+        def advance(s, n):
+            P = sched.prepare(coeff(s))
+            ws = (sched.init_wire(s[0].dtype, s[0].device),) if sched.init_wire else ()
+            for _ in range(n // k):
+                s, ws = sweep(s, P, ws)
+            return s
+    elif kind == "HeatDiffusion":
+        T, Cp = model.init_state()
+        state = (T,)
+
+        def advance(s, n):
+            if meth == "run_vmem_resident":
+                return (multistep.fused_multi_step(s[0], Cp, cfg.lam, model.dt_value,
+                                                   cfg.spacing, n, chunk=k,
+                                                   warn_on_cap=False),)
+            return (multistep.fused_multi_step_hbm(s[0], Cp, cfg.lam, model.dt_value,
+                                                   cfg.spacing, n, block_steps=k),)
+    elif kind == "AcousticWave":
+        U, Uprev, C2 = model.init_state()
+        state = (U, Uprev)
+
+        def advance(s, n):
+            return wave.wave_multi_step(*s, C2, model.dt_value, cfg.spacing, n, chunk=k,
+                                        warn_on_cap=False)
+    else:
+        h, us = model.init_state()
+        Mus = model.face_masks()
+        state = (h, *us)
+
+        def advance(s, n):
+            h2, us2 = swe.swe_multi_step(s[0], s[1:], Mus, cfg.dt, cfg.spacing, cfg.H0, cfg.g,
+                                         n, chunk=k, warn_on_cap=False)
+            return (h2, *us2)
+    state, wtime = metrics.timed_window(advance, state, cfg.nt, cfg.warmup,
+                                        sharded=grid.nprocs > 1, group=grid.group)
+    return tuple(t.contiguous() for t in state), wtime / (cfg.nt - cfg.warmup)
+
+
+def graph_against_eager(torch, model, meth: str, res, leaves, k: int, label: str,
+                        loops) -> dict:
+    """Hold a schedule's run's leaves bitwise to the eager sweep loop of
+    the same schedule, windows and wire mode; the record of both times
+    and of the run's loop (the last of `loops`)."""
+    eager, eager_s = eager_schedule(model, meth, k)
+    equal, err = _same(tuple(leaves), eager[:len(leaves)])
+    check(equal, f"{label}: graph run != eager sweep loop (max |diff| {err})")
+    torch.cuda.synchronize()
+    return dict(loop_route=res.loop_route, capture_ms=res.capture_ms,
+                graph_ms_per_step=res.wtime_it * 1e3, eager_ms_per_step=eager_s * 1e3,
+                **loop_facts(loops[-1]))
+
+
+# (method, shape, nt, warmup, expected route, expected k, kernel): the
+# windows of PRs 2–8, and run_deep 252² at k = 8 with the weak-scaling
+# app's windows (its n = 1 deep rung).
 SCHEDULES = [
     ("run_vmem_resident", SMALL, VMEM_NT, VMEM_WARMUP, "vmem-loop", 256, "multi_step_cm"),
     ("run_deep", SMALL, DEEP_SMALL_NT, DEEP_SMALL_WARMUP, "vmem", 32, "multi_step_cm"),
+    ("run_deep", SMALL, WEAK_WINDOWS[4][0], WEAK_WINDOWS[4][1], "vmem", 8, "multi_step_cm"),
     ("run_hbm_blocked", BIG, TB_NT, TB_WARMUP, "hbm-tb", 8, "tb_sweep"),
     ("run_deep", BIG, TB_NT, TB_WARMUP, "hbm-tb", 8, "tb_sweep"),
 ]
@@ -1604,8 +1765,10 @@ def _analytic_rel(torch, model, T):
 
 def phase_schedules(torch, card):
     """The three multi-step schedules on one GPU, through their entry
-    points: route, k and launches asserted, bitwise against the plain
-    versions' run of the same schedule, timed."""
+    points, as CUDA graphs of sweeps: route, loop route, k and launches
+    asserted, bitwise against the plain versions' run of the same
+    schedule and against the eager sweep loop the graphs replace, both
+    timed."""
     from rocm_mpi_tpu_torch.config import DiffusionConfig
     from rocm_mpi_tpu_torch.models import HeatDiffusion
     from rocm_mpi_tpu_torch.ops import kernels
@@ -1618,12 +1781,15 @@ def phase_schedules(torch, card):
         model = HeatDiffusion(cfg, grid=init_global_grid(*shape, dims=(1, 1), nprocs=1,
                                                          rank=0), device="cuda")
         kernels.reset_launches()
-        res = getattr(model, meth)()
+        with watch_loops() as loops:
+            res = (model.run_deep(block_steps=k) if meth == "run_deep"
+                   else getattr(model, meth)())
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        label = f"{meth} {shape[0]}x{shape[1]} f32"
-        check((res.route, res.k) == (route, k),
-              f"{label}: route {res.route} k {res.k}, expected {route} k {k}")
+        label = f"{meth} {shape[0]}x{shape[1]} f32 k {k}"
+        check((res.route, res.k, res.loop_route) == (route, k, "scan-graph"),
+              f"{label}: route {res.route} k {res.k} loop {res.loop_route}, expected {route} "
+              f"k {k} scan-graph")
         check(launches == only(kernel, nt // k),
               f"{label}: launches {launches}, expected {nt // k} {kernel}")
         check(tuple(res.T.shape) == shape and bool(torch.isfinite(res.T).all()),
@@ -1642,7 +1808,8 @@ def phase_schedules(torch, card):
         row = dict(method=meth, shape=list(shape), nt=nt, warmup=warmup, route=res.route,
                    k=res.k, launches=launches, wtime_s=res.wtime,
                    ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts,
-                   bytes_per_sweep=per_sweep, bytes_per_step=per_sweep / k)
+                   bytes_per_sweep=per_sweep, bytes_per_step=per_sweep / k,
+                   **graph_against_eager(torch, model, meth, res, (res.T,), k, label, loops))
         windows = ""
         if meth == "run_vmem_resident":
             # Its timed window is a few ms on the host clock, where one
@@ -1655,7 +1822,8 @@ def phase_schedules(torch, card):
                        t_eff_gbs=res.t_eff * ratio, gpts=res.gpts * ratio)
             windows = (" (median of three runs' windows: "
                        + ", ".join(f"{w * 1e3:.5f}" for w in reads) + ")")
-        if shape == SMALL:
+        if shape == SMALL and (meth == "run_vmem_resident" or nt <= DEEP_SMALL_NT):
+            # (The weak-scaling windows' 2000 steps reach the held walls.)
             check_model = model
             T = res.T
             if meth == "run_vmem_resident":
@@ -1670,14 +1838,17 @@ def phase_schedules(torch, card):
         rows.append(row)
         print(f"[schedule] {label}, {nt} steps ({warmup} warmup): route {res.route}, "
               f"k {res.k}, {kernel} launches {launches[kernel]}; bitwise == plain-version "
-              f"run; {res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step{windows}, effective "
+              f"run and == the eager sweep loop; {loop_text(res, row)}; graph "
+              f"{row['graph_ms_per_step']:.5f} ms/step against the eager loop's "
+              f"{row['eager_ms_per_step']:.5f}; "
+              f"{res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step{windows}, effective "
               f"T_eff {row['t_eff_gbs']:.1f} GB/s (3 passes per step counted; device memory "
               f"moved: {per_sweep / 1e6:.1f} MB per sweep, {per_sweep / k / 1e6:.2f} MB per "
               f"step), {row['gpts']:.3f} Gpts/s on {card}"
               + (f"; vs analytic Gaussian after {row['analytic_nt']} steps: "
                  f"{row['analytic_rel_err']:.3e} (bound 2e-3)" if "analytic_rel_err" in row
                  else ""), flush=True)
-        del model, res, ref
+        del model, res, ref, loops
         torch.cuda.empty_cache()
     return rows
 
@@ -1704,16 +1875,35 @@ def sharded_deep_rank(rank, spec):
     model = HeatDiffusion(cfg, device=device)
 
     kernels.reset_launches()
-    res = model.run_deep()
+    with watch_loops() as loops:
+        res = model.run_deep()
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
 
     T, Cp = model.init_state()
     ref = plain_deep(model, T, Cp, cfg.nt, res.k, res.route)
+    label = f"sharded deep rank {rank}"
     out = dict(rank=rank, launches=launches, route=res.route, k=res.k,
                bitwise=bool(torch.equal(res.T, ref)),
                finite=bool(torch.isfinite(res.T).all()), wtime_s=res.wtime,
-               ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts)
+               ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts,
+               **graph_against_eager(torch, model, "run_deep", res, (res.T,), res.k, label,
+                                     loops))
+    del loops
+    # Every wire mode, each held bitwise to its own eager sweep loop on the
+    # card over two calls (the warmup and the timed window), each of which
+    # starts from a zero wire state.
+    out["wire"] = {}
+    for mode in ("f32", "bf16", "int8", "int8_delta"):
+        wcfg = DiffusionConfig(global_shape=shape, nt=SHARD_DEEP_NT, warmup=SHARD_DEEP_WARMUP,
+                               dtype="f32", dims=(2, 2), wire_mode=mode)
+        wmodel = HeatDiffusion(wcfg, device=device)
+        with watch_loops() as loops:
+            wres = wmodel.run_deep(block_steps=res.k)
+        out["wire"][mode] = dict(
+            route=wres.route, **graph_against_eager(torch, wmodel, "run_deep", wres, (wres.T,),
+                                                    res.k, f"{label} {mode} wire", loops))
+        del loops, wmodel, wres
     full = gather_to_host0(res.T, model.grid)
     if rank == 0:
         # The same schedule over the whole domain on one GPU, at the same k:
@@ -1743,10 +1933,15 @@ def phase_sharded_deep(card, gpus: int):
     spec = dict(shape=BIG, nt=nt, warmup=warmup, gpus=gpus)
     backend = "gloo" if gpus == 1 else "nccl"
     ranks = spawn_ranks(4, sharded_deep_rank, (spec,), backend=backend, timeout=900)
+    loop_route = "scan-loop" if gpus == 1 else "scan-graph"
     for r in ranks:
         check((r["route"], r["k"]) == ("hbm-tb", 8),
               f"sharded deep rank {r['rank']}: route {r['route']} k {r['k']}, "
               "expected hbm-tb k 8")
+        for mode, w in [("f32 (main)", r)] + list(r["wire"].items()):
+            check(w["loop_route"] == loop_route,
+                  f"sharded deep rank {r['rank']} {mode}: loop route {w['loop_route']}, "
+                  f"expected {loop_route}")
         check(r["launches"] == only("tb_sweep", nt // 8),
               f"sharded deep rank {r['rank']}: launches {r['launches']}, expected "
               f"{nt // 8} tb_sweep")
@@ -1767,8 +1962,21 @@ def phase_sharded_deep(card, gpus: int):
           "rank); each shard bitwise == plain-version run; gathered field bitwise == the "
           f"one-GPU run_deep (max |diff| {r0['max_abs_vs_one_gpu']}); rank 0: "
           f"{r0['wtime_s']:.4f} s, {r0['ms_per_step']:.5f} ms/step, aggregate effective "
-          f"T_eff {r0['t_eff_gbs']:.1f} GB/s, {r0['gpts']:.3f} Gpts/s", flush=True)
+          f"T_eff {r0['t_eff_gbs']:.1f} GB/s, {r0['gpts']:.3f} Gpts/s; every shard bitwise "
+          f"== the eager sweep loop; {_loop_line(r0)}", flush=True)
+    for mode, w in r0["wire"].items():
+        print(f"[sharded-deep] {mode} wire, {SHARD_DEEP_NT} steps ({SHARD_DEEP_WARMUP} "
+              f"warmup), k 8: every shard bitwise == its eager sweep loop over the two calls; "
+              f"rank 0 {_loop_line(w)}", flush=True)
     return ranks, total
+
+
+def _loop_line(r) -> str:
+    """A rank's loop record (graph_against_eager) as one clause."""
+    return (f"loop route {r['loop_route']}, q {r['q']} and c {r['c']} sweeps, {r['graphs']} "
+            f"graph(s), capture {r['capture_ms']:.1f} host ms, a replay launches "
+            f"{r['replay_launches']}; graph {r['graph_ms_per_step']:.5f} ms/step against the "
+            f"eager loop's {r['eager_ms_per_step']:.5f}")
 
 
 # ---------------------------------------------------------------------------
@@ -1841,7 +2049,7 @@ def plain_wave_schedule(model, meth: str, k: int, nt: int):
 
 # (method, shape, nt, warmup, expected route, expected k, kernel, launches)
 WAVE_RUNS = [
-    ("run", BIG, MAIN_NT, MAIN_WARMUP, None, None, "wave_step", MAIN_NT),
+    ("run", BIG, BIG_NT, MAIN_WARMUP, None, None, "wave_step", BIG_NT),
     ("run_vmem_resident", SMALL, VMEM_NT, VMEM_WARMUP, "vmem-loop", 256, "wave_multi_step",
      VMEM_NT // 256),
     ("run_deep", SMALL, WAVE_DEEP_NT, WAVE_DEEP_WARMUP, "vmem", WAVE_DEEP_K, "wave_multi_step",
@@ -1882,17 +2090,20 @@ def phase_wave(torch, card):
     for meth, shape, nt, warmup, route, k, kernel, count in WAVE_RUNS:
         model = _wave_model(shape, nt, warmup)
         kernels.reset_launches()
-        if meth == "run":
-            res = model.run("perf")
-        elif meth == "run_deep":
-            res = model.run_deep(block_steps=k)
-        else:
-            res = model.run_vmem_resident()
+        with watch_loops() as loops:
+            if meth == "run":
+                res = model.run("perf")
+            elif meth == "run_deep":
+                res = model.run_deep(block_steps=k)
+            else:
+                res = model.run_vmem_resident()
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         label = f"wave {meth} {shape[0]}x{shape[1]} f32"
         check((res.route, res.k) == (route, k),
               f"{label}: route {res.route} k {res.k}, expected {route} k {k}")
+        check(meth == "run" or res.loop_route == "scan-graph",
+              f"{label}: loop route {res.loop_route}, expected scan-graph")
         check(launches == only(kernel, count),
               f"{label}: launches {launches}, expected {count} {kernel}")
         check(tuple(res.U.shape) == shape and bool(torch.isfinite(res.U).all()),
@@ -1908,6 +2119,12 @@ def phase_wave(torch, card):
                    k=res.k, launches=launches, wtime_s=res.wtime,
                    ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts,
                    max_abs_u=float(res.U.abs().max()))
+        graphs = ""
+        if meth != "run":
+            row.update(graph_against_eager(torch, model, meth, res, (res.U,), k, label, loops))
+            graphs = (f" and == the eager sweep loop; {loop_text(res, row)}; graph "
+                      f"{row['graph_ms_per_step']:.5f} ms/step against the eager loop's "
+                      f"{row['eager_ms_per_step']:.5f}")
         if meth == "run":
             row["parts_ms"] = _wave_perf_parts(torch, model, res.U)
             print("[wave] perf step's parts alone at "
@@ -1916,10 +2133,10 @@ def phase_wave(torch, card):
                   flush=True)
         rows.append(row)
         print(f"[wave] {label}, {nt} steps ({warmup} warmup): route {res.route}, k {res.k}, "
-              f"{kernel} launches {launches[kernel]}; bitwise == plain-version run; "
+              f"{kernel} launches {launches[kernel]}; bitwise == plain-version run{graphs}; "
               f"{res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step, T_eff {res.t_eff:.1f} "
               f"GB/s (4 passes per step counted), {res.gpts:.3f} Gpts/s on {card}", flush=True)
-        del model, res, ref
+        del model, res, ref, loops
         torch.cuda.empty_cache()
     return rows
 
@@ -2017,7 +2234,7 @@ def plain_swe_schedule(model, meth: str, k: int, nt: int):
 
 # (method, shape, dtype, nt, warmup, expected route, expected k, kernel, launches)
 SWE_RUNS = [
-    ("run", BIG, "f32", MAIN_NT, MAIN_WARMUP, None, None, "swe_step", MAIN_NT),
+    ("run", BIG, "f32", BIG_NT, MAIN_WARMUP, None, None, "swe_step", BIG_NT),
     ("run", SMALL, "f64", MAIN_NT, MAIN_WARMUP, None, None, "swe_step", MAIN_NT),
     ("run_vmem_resident", SMALL, "f32", VMEM_NT, VMEM_WARMUP, "vmem-loop", 256,
      "swe_multi_step", VMEM_NT // 256),
@@ -2061,17 +2278,20 @@ def phase_swe(torch, card):
         model = _swe_model(shape, nt, warmup, dtype)
         mass0 = float(model.init_state()[0].sum(dtype=torch.float64))
         kernels.reset_launches()
-        if meth == "run":
-            res = model.run("perf")
-        elif meth == "run_deep":
-            res = model.run_deep(block_steps=k)
-        else:
-            res = model.run_vmem_resident()
+        with watch_loops() as loops:
+            if meth == "run":
+                res = model.run("perf")
+            elif meth == "run_deep":
+                res = model.run_deep(block_steps=k)
+            else:
+                res = model.run_vmem_resident()
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         label = f"swe {meth} {shape[0]}x{shape[1]} {dtype}"
         check((res.route, res.k) == (route, k),
               f"{label}: route {res.route} k {res.k}, expected {route} k {k}")
+        check(meth == "run" or res.loop_route == "scan-graph",
+              f"{label}: loop route {res.loop_route}, expected scan-graph")
         check(launches == only(kernel or "swe_step", count),
               f"{label}: launches {launches}, expected {count} {kernel}")
         got = _leaves(res.h, res.us)
@@ -2088,6 +2308,12 @@ def phase_swe(torch, card):
                    route=res.route, k=res.k, launches=launches, wtime_s=res.wtime,
                    ms_per_step=res.wtime_it * 1e3, t_eff_gbs=res.t_eff, gpts=res.gpts,
                    mass_drift=drift, max_abs_h=float(res.h.abs().max()))
+        graphs = ""
+        if meth != "run":
+            row.update(graph_against_eager(torch, model, meth, res, got, k, label, loops))
+            graphs = (f" and == the eager sweep loop; {loop_text(res, row)}; graph "
+                      f"{row['graph_ms_per_step']:.5f} ms/step against the eager loop's "
+                      f"{row['eager_ms_per_step']:.5f}")
         if meth == "run" and shape == BIG:
             row["parts_ms"] = _swe_perf_parts(torch, model, res.h)
             print("[swe] perf step's parts alone at "
@@ -2097,12 +2323,13 @@ def phase_swe(torch, card):
         rows.append(row)
         print(f"[swe] {label}, {nt} steps ({warmup} warmup): route {res.route}, k {res.k}, "
               f"{kernel or 'no kernel'} launches {launches[kernel] if kernel else 0}; bitwise "
-              f"== plain-version run; {res.wtime:.4f} s, {row['ms_per_step']:.5f} ms/step, "
+              f"== plain-version run{graphs}; {res.wtime:.4f} s, {row['ms_per_step']:.5f} "
+              "ms/step, "
               f"T_eff {res.t_eff:.1f} GB/s ({2 * (len(shape) + 1)} passes per step counted), "
               f"{res.gpts:.3f} Gpts/s; mass drift {drift:.3e} (bound "
               f"{SWE_MASS_BOUND[dtype]:.0e}), max |h| {row['max_abs_h']:.6f} on {card}",
               flush=True)
-        del model, res, ref, got
+        del model, res, ref, got, loops
         torch.cuda.empty_cache()
     return rows
 
@@ -2118,12 +2345,12 @@ def phase_swe(torch, card):
 # multiple of 3: three graphs).
 SCAN_CASES = [
     ("diffusion perf", "diffusion", "perf", SMALL, "f32", MAIN_NT, MAIN_WARMUP),
-    ("diffusion perf", "diffusion", "perf", BIG, "f32", MAIN_NT, MAIN_WARMUP),
+    ("diffusion perf", "diffusion", "perf", BIG, "f32", BIG_NT, MAIN_WARMUP),
     ("diffusion kp", "diffusion", "kp", KP_SMALL, "f64", MAIN_NT, MAIN_WARMUP),
     ("wave perf", "wave", "perf", SMALL, "f32", MAIN_NT, MAIN_WARMUP),
-    ("wave perf", "wave", "perf", BIG, "f32", MAIN_NT, MAIN_WARMUP),
+    ("wave perf", "wave", "perf", BIG, "f32", BIG_NT, MAIN_WARMUP),
     ("SWE perf", "swe", "perf", SMALL, "f64", MAIN_NT, MAIN_WARMUP),
-    ("SWE perf", "swe", "perf", BIG, "f32", MAIN_NT, MAIN_WARMUP),
+    ("SWE perf", "swe", "perf", BIG, "f32", BIG_NT, MAIN_WARMUP),
     ("diffusion perf, warmup 0", "diffusion", "perf", SMALL, "f32", MAIN_NT, 0),
     ("diffusion perf, odd c", "diffusion", "perf", SMALL, "f32", MAIN_NT + 5, 5),
     ("wave perf, warmup 0", "wave", "perf", SMALL, "f32", MAIN_NT, 0),
@@ -2356,7 +2583,7 @@ def phase_hide(card, gpus: int):
     from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
     from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, region_boxes
 
-    nt, warmup = (SHARD_NT, SHARD_WARMUP) if gpus == 1 else (MAIN_NT, MAIN_WARMUP)
+    nt, warmup = (SHARD_NT, SHARD_WARMUP) if gpus == 1 else (BIG_NT, MAIN_WARMUP)
     spec = dict(shape=BIG, nt=nt, warmup=warmup, gpus=gpus)
     backend = "gloo" if gpus == 1 else "nccl"
     ranks = spawn_ranks(4, hide_rank, (spec,), backend=backend, timeout=420)
@@ -2433,13 +2660,17 @@ def wave_deep_rank(rank, spec):
                      dims=(2, 2))
     model = AcousticWave(cfg, device=device)
     kernels.reset_launches()
-    res = model.run_deep(block_steps=k)
+    with watch_loops() as loops:
+        res = model.run_deep(block_steps=k)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     ref = plain_wave_schedule(model, "run_deep", k, cfg.nt)
     out = dict(rank=rank, launches=launches, route=res.route, k=res.k,
                bitwise=bool(torch.equal(res.U, ref)), finite=bool(torch.isfinite(res.U).all()),
-               ms_per_step=res.wtime_it * 1e3, gpts=res.gpts)
+               ms_per_step=res.wtime_it * 1e3, gpts=res.gpts,
+               **graph_against_eager(torch, model, "run_deep", res, (res.U,), k,
+                                     f"wave deep rank {rank}", loops))
+    del loops
     full = gather_to_host0(res.U, model.grid)
     if rank == 0:
         # The same schedule over the whole domain on one GPU at the same k:
@@ -2463,9 +2694,11 @@ def phase_wave_deep(card, gpus: int):
     spec = dict(shape=WAVE_DEEP_SHARDED, nt=nt, warmup=warmup, k=k, gpus=gpus)
     ranks = spawn_ranks(4, wave_deep_rank, (spec,), backend="gloo" if gpus == 1 else "nccl",
                         timeout=600)
+    loop_route = "scan-loop" if gpus == 1 else "scan-graph"
     for r in ranks:
-        check((r["route"], r["k"]) == ("vmem", k),
-              f"wave deep rank {r['rank']}: route {r['route']} k {r['k']}")
+        check((r["route"], r["k"], r["loop_route"]) == ("vmem", k, loop_route),
+              f"wave deep rank {r['rank']}: route {r['route']} k {r['k']} loop "
+              f"{r['loop_route']}")
         check(r["launches"] == only("wave_multi_step", nt // k),
               f"wave deep rank {r['rank']}: launches {r['launches']}")
         check(r["bitwise"] and r["finite"],
@@ -2480,8 +2713,8 @@ def phase_wave_deep(card, gpus: int):
     print(f"[wave-deep] run_deep {n}x{n} f32 on a 2x2 grid ({where}), {nt} steps ({warmup} "
           f"warmup): route vmem, k {k}, wave_multi_step launches {total} ({nt // k} per "
           "rank); each shard bitwise == plain-version run; gathered field bitwise == the "
-          f"one-GPU run_deep ({n + 2 * k}x{n + 2 * k} padded, vmem); rank 0 "
-          f"{r0['ms_per_step']:.5f} ms/step on {card}", flush=True)
+          f"one-GPU run_deep ({n + 2 * k}x{n + 2 * k} padded, vmem); every shard bitwise == "
+          f"the eager sweep loop; rank 0 {_loop_line(r0)} on {card}", flush=True)
     return ranks, total
 
 
@@ -2505,7 +2738,8 @@ def swe_deep_rank(rank, spec):
                     dims=(2, 2))
     model = ShallowWater(cfg, device=device)
     kernels.reset_launches()
-    res = model.run_deep(block_steps=k)
+    with watch_loops() as loops:
+        res = model.run_deep(block_steps=k)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     got = _leaves(res.h, res.us)
@@ -2513,7 +2747,10 @@ def swe_deep_rank(rank, spec):
     out = dict(rank=rank, launches=launches, route=res.route, k=res.k,
                bitwise=_same(got, ref)[0],
                finite=all(bool(torch.isfinite(t).all()) for t in got),
-               ms_per_step=res.wtime_it * 1e3, gpts=res.gpts)
+               ms_per_step=res.wtime_it * 1e3, gpts=res.gpts,
+               **graph_against_eager(torch, model, "run_deep", res, got, k,
+                                     f"swe deep rank {rank}", loops))
+    del loops
     full = [gather_to_host0(t, model.grid) for t in got]
     if rank == 0:
         # The same schedule over the whole domain on one GPU at the same k:
@@ -2541,9 +2778,11 @@ def phase_swe_deep(card, gpus: int):
     spec = dict(shape=WAVE_DEEP_SHARDED, nt=nt, warmup=warmup, k=k, gpus=gpus)
     ranks = spawn_ranks(4, swe_deep_rank, (spec,), backend="gloo" if gpus == 1 else "nccl",
                         timeout=600)
+    loop_route = "scan-loop" if gpus == 1 else "scan-graph"
     for r in ranks:
-        check((r["route"], r["k"]) == ("vmem", k),
-              f"swe deep rank {r['rank']}: route {r['route']} k {r['k']}")
+        check((r["route"], r["k"], r["loop_route"]) == ("vmem", k, loop_route),
+              f"swe deep rank {r['rank']}: route {r['route']} k {r['k']} loop "
+              f"{r['loop_route']}")
         check(r["launches"] == only("swe_multi_step", nt // k),
               f"swe deep rank {r['rank']}: launches {r['launches']}")
         check(r["bitwise"] and r["finite"],
@@ -2561,8 +2800,8 @@ def phase_swe_deep(card, gpus: int):
           f"warmup): route vmem, k {k}, swe_multi_step launches {total} ({nt // k} per "
           "rank); each shard bitwise == plain-version run; gathered state bitwise == the "
           f"one-GPU run_deep ({n + 2 * k}x{n + 2 * k} padded, jnp route); mass drift "
-          f"{r0['mass_drift']:.3e}; rank 0 {r0['ms_per_step']:.5f} ms/step on {card}",
-          flush=True)
+          f"{r0['mass_drift']:.3e}; every shard bitwise == the eager sweep loop; rank 0 "
+          f"{_loop_line(r0)} on {card}", flush=True)
     return ranks, total
 
 

@@ -37,8 +37,9 @@ def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
     p.add_argument("--driver", default="scan", choices=["step", "scan"],
                    help="loop form of the per-step variants (default: scan, the q-step "
                    "chunks replayed as CUDA graphs on one GPU; step: one Python step "
-                   "call after another). Bitwise the same result; the schedules "
-                   "(--deep, --vmem) have their own loop forms and ignore it")
+                   "call after another). Bitwise the same result. The schedules "
+                   "(--deep, --vmem) do not take it: on a CUDA rank they always run as "
+                   "one captured program, CUDA graphs of their sweeps")
     p.add_argument("--wire-mode", default="f32", choices=list(WIRE_MODES),
                    help="on-wire halo slab precision (parallel/wire.py; default f32, the "
                    "exchange as it is; bf16 halves the wire; int8/int8_delta quantize "
@@ -51,6 +52,13 @@ def grid_shape(args, ndim: int = 2) -> tuple[int, ...]:
     on every axis when --fact is set."""
     shape = (args.nx, args.ny, getattr(args, "nz", 0))[:ndim]
     return tuple(args.fact * 1024 for _ in shape) if args.fact else shape
+
+
+def schedule_note(result) -> str:
+    """A schedule's routes for its result line: the local route, and the
+    loop that ran its sweeps with its captures' host ms."""
+    return (f"route {result.route}, loop route {result.loop_route} (capture "
+            f"{result.capture_ms:.1f} ms)")
 
 
 def driver_note(args, result) -> str:
@@ -176,7 +184,7 @@ def run_app(variant: str, args) -> int:
              + (f", degraded from {args.deep}" if k_eff != args.deep else "")
              + ") instead of the per-step variant")
         result = model.run_deep(block_steps=args.deep)
-        log0(f"{variant}: local route {result.route}, one width-{k_eff} exchange per "
+        log0(f"{variant}: local {schedule_note(result)}, one width-{k_eff} exchange per "
              f"{k_eff} steps; T_eff counts 3 passes per step, so it is an effective "
              "rate and may exceed the card's memory rate")
     else:

@@ -27,6 +27,7 @@ from rocm_mpi_tpu_torch.apps._common import (
     global_sum,
     grid_shape,
     parse_ints,
+    schedule_note,
     where_line,
 )
 
@@ -93,7 +94,7 @@ def main(argv=None) -> int:
         note = f"; {driver_note(args, result)}"
     passes = 2 * (cfg.ndim + 1)
     if result.route is not None and not note:
-        log0(f"{label}: route {result.route}, {result.k} steps per launch or sweep; T_eff "
+        log0(f"{label}: {schedule_note(result)}, {result.k} steps per launch or sweep; T_eff "
              f"counts {passes} passes per step, so it is an effective rate")
     log0(f"{label}: executed {result.nt} steps ({result.warmup} warmup) in = "
          f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "

@@ -23,6 +23,7 @@ from rocm_mpi_tpu_torch.apps._common import (
     global_max,
     grid_shape,
     parse_ints,
+    schedule_note,
     where_line,
 )
 
@@ -86,7 +87,7 @@ def main(argv=None) -> int:
         result = model.run(args.variant, driver=args.driver)
         note = f"; {driver_note(args, result)}"
     if result.route is not None and not note:
-        log0(f"{label}: route {result.route}, {result.k} steps per launch or sweep; T_eff "
+        log0(f"{label}: {schedule_note(result)}, {result.k} steps per launch or sweep; T_eff "
              "counts 4 passes per step, so it is an effective rate")
     log0(f"{label}: executed {result.nt} steps ({result.warmup} warmup) in = "
          f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "

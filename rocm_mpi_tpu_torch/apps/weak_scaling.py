@@ -16,7 +16,8 @@ run the model under the subgroup's barriers, and the others sit the rung
 out; every rank then meets at one barrier before the next rung. Over NCCL
 the per-step variants run the scan driver's CUDA graphs, halo exchange
 included (`--driver scan`, the default); `--variant deep` runs the
-deep-halo sweeps.
+deep-halo sweeps, as CUDA graphs of sweeps on CUDA ranks (their rows
+record the loop route, `loop_route`).
 
   torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --json --local 252
   torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --device cpu --local 16 --json
@@ -66,7 +67,8 @@ def make_parser():
     p.add_argument("--json", action="store_true", help="emit one JSON line per count as well")
     p.add_argument("--driver", default="scan", choices=["step", "scan"],
                    help="loop form of the per-step variants (default: scan, CUDA graphs "
-                   "with the exchange captured over NCCL); --variant deep ignores it")
+                   "with the exchange captured over NCCL); --variant deep does not take "
+                   "it: its sweeps always run as CUDA graphs on CUDA ranks")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda: one GPU a rank, NCCL; cpu: the plain versions, gloo")
     # Not ported yet (ROADMAP Queue 1 items 7-9): accepted, then refused.
@@ -185,7 +187,7 @@ def ladder(args, device, log=print) -> list[tuple[dict, Rung]]:
             base = (per_dev, n)
         eff = per_dev / base[0]
         note = f"; {driver_note(args, r)}" if args.variant != "deep" else (
-            f"; deep (route {r.route}, k {r.k})")
+            f"; deep (route {r.route}, loop route {r.loop_route}, k {r.k})")
         log(f"n={n:4d} mesh={rung.dims} global={rung.shape}: "
             f"{r.wtime_it * 1e6:9.3f} us/step  {r.gpts:9.4f} Gpts/s "
             f"({per_dev:7.4f}/dev)  efficiency={eff:6.1%} vs n={base[1]}{note}")
@@ -193,6 +195,10 @@ def ladder(args, device, log=print) -> list[tuple[dict, Rung]]:
         row = {"metric": f"weak-scaling {wl}{args.variant} {args.local}²/dev",
                "devices": n, "dims": list(rung.dims), "gpts": round(r.gpts, 4),
                "gpts_per_device": round(per_dev, 4), "efficiency": round(eff, 4)}
+        if args.variant == "deep":
+            # Beside the JAX app's keys: the loop the sweeps ran in
+            # ("scan-graph" on CUDA ranks, over NCCL too).
+            row["loop_route"] = r.loop_route
         if mechanics_only(device):
             row["mechanics_only"] = True
         if args.json:

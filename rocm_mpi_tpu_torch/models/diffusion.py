@@ -29,12 +29,20 @@ two drivers of the per-step variants, chosen by `run(driver=...)`:
 and three multi-step schedules beside the per-step variants:
 
   run_vmem_resident — one rank: `chunk` steps per launch of the
-                      multi_step_cm kernel (ops.multistep.fused_multi_step);
+                      multi_step_cm kernel (ops.multistep.vmem_sweeps);
   run_hbm_blocked   — one rank: k steps per pass over device memory, the
-                      tb_sweep kernel (ops.multistep.fused_multi_step_hbm);
+                      tb_sweep kernel (ops.multistep.hbm_sweeps);
   run_deep          — any process grid: one width-k exchange per k steps,
                       the local k steps on multi_step_cm or tb_sweep by
                       block size (parallel.deep_halo).
+
+Each schedule runs its sweeps (a launch, or a deep sweep with its
+exchange) through an exact loop of models/scan.py (`sweep_loop`), as JAX
+runs them in one compiled program: CUDA graphs of sweeps on one CUDA rank
+and on CUDA ranks over NCCL ("scan-graph"), the eager loop over gloo
+("scan-loop"), the same replay schedule eagerly on one CPU rank
+("scan-eager"). The per-call work (the coefficient, the zero wire state)
+runs eagerly before the replays.
 
 Every variant runs on this rank's shard. "ap" and "fused" are written for
 the whole domain; on a shard they run on the halo-padded block and keep
@@ -70,7 +78,17 @@ from rocm_mpi_tpu_torch.ops.diffusion import (
     step_fused,
     step_fused_padded,
 )
-from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
+from rocm_mpi_tpu_torch.models.scan import (
+    ScanLoop,
+    check_sweeps,
+    graph_plan,
+    loop_record,
+    padded_slot,
+    scan_chunk,
+    scan_route,
+    sweep_loop,
+    window_sweeps,
+)
 from rocm_mpi_tpu_torch.ops.kp import kp_step_padded
 from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
 from rocm_mpi_tpu_torch.parallel.gather import allgather_to_host
@@ -100,6 +118,11 @@ class RunResult:
     # sweep or chunk. None for the step driver.
     route: str | None = None
     k: int | None = None
+    # The loop the schedules and the scan driver ran ("scan-graph",
+    # "scan-loop" or "scan-eager") and the host ms its graphs' captures
+    # took (0.0 off the graph route). None for the step driver.
+    loop_route: str | None = None
+    capture_ms: float | None = None
 
     @property
     def wtime_it(self) -> float:
@@ -445,15 +468,14 @@ class HeatDiffusion:
                 stacklevel=2,
             )
         T, Cp = self.init_state()
-        route = k = None
-        if driver == "scan":
-            advance, k = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
-            route = advance.loop.route
-        else:
+        if driver == "step":
             advance = self.advance_fn(variant)
+            T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
+            return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=self.config)
+        advance, k = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
         T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
         return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=self.config,
-                         route=route, k=k)
+                         route=advance.loop.route, k=k, **loop_record(advance.loop))
 
     def _run_host_staged(self, nt: int, warmup: int) -> RunResult:
         """The host-staged oracle run (the IGG_ROCMAWARE_MPI=0 analog):
@@ -481,15 +503,17 @@ class HeatDiffusion:
         return metrics.timed_window(advance, T, nt, warmup, sharded=self.grid.nprocs > 1,
                                     group=self.grid.group)
 
-    def _run_single_shard(self, nt, warmup, multi_step_fn, granularity: int,
-                          granularity_kw: str, explicit: bool = False,
+    def _run_single_shard(self, nt, warmup, sweeps_fn, granularity: int,
+                          granularity_kw: str, route: str, explicit: bool = False,
                           extra_kw=None) -> RunResult:
         """Shared scaffold of the one-rank multi-step paths: pick a
         granularity dividing both the warmup and timed windows
-        (effective_block_steps), then run and time
-        `multi_step_fn(T, Cp, lam, dt, spacing, n, <granularity_kw>=g)`.
-        `explicit` marks a caller-requested granularity, whose degradation
-        warns."""
+        (effective_block_steps), cut the loop with
+        `sweeps_fn(T, lam, dt, spacing, 0, <granularity_kw>=g)` (a
+        multistep.SweepPlan), then run and time it through a sweep loop:
+        the coefficient (and the pow2 pad) once per call, eagerly, and the
+        launches as CUDA graphs on a CUDA device. `explicit` marks a
+        caller-requested granularity, whose degradation warns."""
         cfg = self.config
         nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
         if self.grid.nprocs != 1:
@@ -503,28 +527,32 @@ class HeatDiffusion:
         if extra_kw:
             kw.update(extra_kw)
         T, Cp = self.init_state()
-        dt = self.dt_value
+        parts = sweeps_fn(T, cfg.lam, self.dt_value, cfg.spacing, 0, **kw)
+
+        def one_sweep(src, out, consts):
+            (T,), (Cm,) = src, consts
+            return parts.sweep(T, Cm, out=out)
+
+        loop = sweep_loop(one_sweep, window_sweeps(nt, warmup, parts.k), self.device, 1,
+                          label=f"{route} launch of {parts.k} steps")
 
         def advance(T, n):
-            return multi_step_fn(T, Cp, cfg.lam, dt, cfg.spacing, n, **kw)
+            sweeps = check_sweeps(n, parts.k)
+            Tb, Cm = parts.prepare(T, Cp)
+            (Tb,) = loop((Tb,), (Cm,), sweeps)
+            return parts.finish(Tb)
 
         T, wtime = self._timed(advance, T, nt, warmup)
-        if key == "chunk":
-            plan = multistep.plan_vmem_loop(
-                cfg.global_shape, cfg.torch_dtype, 0, chunk=gran,
-                body_form=kw.get("body_form"), pad_pow2=kw.get("pad_pow2"))
-            route, k = "vmem-loop", plan.chunk
-        else:
-            route, k = "hbm-tb", gran
         return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=cfg,
-                         route=route, k=k)
+                         route=route, k=parts.k, **loop_record(loop))
 
     def run_vmem_resident(self, nt: int | None = None, warmup: int | None = None,
                           chunk: int | None = None, body_form: str | None = None,
                           pad_pow2: bool | None = None, config: str | None = None,
                           program_cache: dict | None = None) -> RunResult:
         """One-rank loop of `chunk` steps per launch of the multi_step_cm
-        kernel (ops.multistep.fused_multi_step); the field must fit the
+        kernel (ops.multistep.vmem_sweeps, the launches of
+        fused_multi_step through a sweep loop); the field must fit the
         VMEM budget the JAX package routes by. `chunk` defaults to
         DEFAULT_STEP_CHUNK, gcd'd against both windows; `body_form` and
         `pad_pow2` select the kernel form. `config="auto"` needs the
@@ -537,8 +565,8 @@ class HeatDiffusion:
         if pad_pow2 is None:
             pad_pow2 = multistep.VMEM_PAD_POW2
         return self._run_single_shard(
-            nt, warmup, multistep.fused_multi_step,
-            multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk, "chunk",
+            nt, warmup, multistep.vmem_sweeps,
+            multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk, "chunk", "vmem-loop",
             explicit=chunk is not None,
             extra_kw={"body_form": body_form, "pad_pow2": pad_pow2},
         )
@@ -547,14 +575,15 @@ class HeatDiffusion:
                         block_steps: int | None = None) -> RunResult:
         """One-rank temporal blocking: each launch of the tb_sweep kernel
         advances the field `block_steps` steps (default DEFAULT_TB_STEPS)
-        in one pass over device memory (ops.multistep.fused_multi_step_hbm)."""
+        in one pass over device memory (ops.multistep.hbm_sweeps, the
+        launches of fused_multi_step_hbm through a sweep loop)."""
         cfg = self.config
         k = multistep.DEFAULT_TB_STEPS if block_steps is None else block_steps
         effective_block_steps(cfg.nt if nt is None else nt,
                               cfg.warmup if warmup is None else warmup, k,
                               label="temporal blocking block_steps", stacklevel=2)
-        return self._run_single_shard(nt, warmup, multistep.fused_multi_step_hbm, k,
-                                      "block_steps")
+        return self._run_single_shard(nt, warmup, multistep.hbm_sweeps, k, "block_steps",
+                                      "hbm-tb")
 
     def effective_deep_depth(self, nt: int | None = None, warmup: int | None = None,
                              block_steps: int | None = None, warn: bool = True,
@@ -591,11 +620,16 @@ class HeatDiffusion:
                         wire_mode: str | None = None):
         """(advance(T, Cp, n_steps) -> T, executed depth k) of the deep
         schedule. The coefficient is exchanged and masked once per call,
-        then n_steps/k sweeps run; `n_steps` must be a multiple of k.
-        `advance.schedule` is the DeepSchedule (its `route` says which
-        local route the last sweep took). For the stateful wire modes each
+        and T placed into the core of the loop's k-padded block; then
+        n_steps/k sweeps (DeepSchedule.step, the state kept padded) run
+        through a sweep loop (models/scan.py: CUDA graphs of sweeps, the
+        exchange included, on a CUDA rank), and the call returns the
+        core. `n_steps` must be a multiple of k. `advance.schedule` is the
+        DeepSchedule (its `route` says which local route the sweeps
+        took), `advance.loop` the loop. For the stateful wire modes each
         call starts from a zero wire state (the JAX package's first-sweep
-        contract) and threads it through its sweeps."""
+        contract), zeroed eagerly in the loop's slot, and threads it
+        through its sweeps."""
         cfg = self.config
         if cfg.halo_transport == "host":
             warn_host_transport_ignored("deep", stacklevel=3)
@@ -604,23 +638,29 @@ class HeatDiffusion:
         sched = deep_halo.make_deep_sweep(self.grid, k, cfg.lam, self.dt, cfg.spacing,
                                           wire_mode=wm)
 
+        def one_sweep(src, out, consts):
+            ((Tp, *ws),), (Cm,) = src, consts
+            if sched.init_wire is None:
+                return sched.step(Tp, Cm, out[0])
+            Tp, ws = sched.step(Tp, Cm, out[0], tuple(ws))
+            return (Tp, *ws)
+
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
+        loop = sweep_loop(one_sweep, window_sweeps(nt, warmup, k), self.device,
+                          self.grid.nprocs, label=f"deep sweep of {k} steps on local route "
+                          f"{sched.route_of(cfg.torch_dtype)}")
+        core = tuple(slice(k, -k) for _ in self.grid.local_shape)
+
         def advance(T, Cp, n_steps):
-            n_steps = int(n_steps)
-            if n_steps % k != 0:
-                raise ValueError(f"n_steps {n_steps} must be a multiple of the depth {k}")
-            if n_steps == 0:
+            sweeps = check_sweeps(n_steps, k)
+            if sweeps == 0:
                 return T
             Cm = sched.prepare(Cp)
-            if sched.init_wire is None:
-                for _ in range(n_steps // k):
-                    T = sched.sweep(T, Cm)
-            else:
-                ws = sched.init_wire(T.dtype, T.device)
-                for _ in range(n_steps // k):
-                    T, ws = sched.sweep(T, Cm, ws)
-            return T.contiguous()
+            (slot,) = loop((padded_slot(loop, (T,), k, sched.init_wire),), (Cm,), sweeps)
+            return slot[0][core].contiguous()
 
         advance.schedule = sched
+        advance.loop = loop
         return advance, k
 
     def run_deep(self, nt: int | None = None, warmup: int | None = None,
@@ -638,4 +678,4 @@ class HeatDiffusion:
         T, Cp = self.init_state()
         T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
         return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=cfg,
-                         route=advance.schedule.route, k=k)
+                         route=advance.schedule.route, k=k, **loop_record(advance.loop))

@@ -29,8 +29,8 @@ and replayed, so a step costs its kernels' device time:
   makes that call in its warmup window whenever warmup > 0, where JAX
   compiles. The capture mode is "thread_local": NCCL's watchdog thread
   queries events while a rank captures, which the default global mode
-  counts against the capture. No capture error is caught: a capture that
-  fails raises, and nothing falls back to the eager loop.
+  counts against the capture. A capture that fails raises, naming the
+  loop's step and the graph, and nothing falls back to the eager loop.
 * LAUNCHES counts kernel executions: the warm-up and the captures leave
   it as it was, and each replay adds the launches its graph recorded.
 
@@ -49,11 +49,25 @@ Like a donated JAX argument, the state passed in becomes a slot: the
 caller must not use it afterwards. A later call that passes back the
 state the last call returned runs without a copy; any other state is
 copied into the slots.
+
+The multi-step schedules (`sweep_loop`) drive the same loop with a sweep
+for a step: one call of the step advances k model steps (a deep-halo
+sweep, or one launch of a multi-step kernel), and n, q and c count
+sweeps. A slot may carry extra leaves beside the state, the stateful
+wire modes' exchange state, which the step reads from its source slot
+and writes into its out slot like the state. Such a loop is `exact`: a
+call of n sweeps runs all n, JAX's `fori_loop(0, n_steps // k, …)`:
+(n // c) graphs of c sweeps, then n mod c graphs of one sweep, each
+captured when a call first needs it (after the first capture, no
+scratch step). The per-call work (the coefficient's exchange and mask,
+the zeroing of the wire state) stays outside the graphs: the model runs
+it eagerly into the bound constants and slots before the replays.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable
 
@@ -163,18 +177,24 @@ ScanStep = Callable[..., object]
 
 
 class ScanLoop:
-    """The q-step chunks of one advance over p rotating slots."""
+    """The q-step chunks of one advance over p rotating slots. An `exact`
+    loop runs every step a call asks for (see the module docstring)."""
 
-    def __init__(self, step: ScanStep, plan: GraphPlan, route: str):
+    def __init__(self, step: ScanStep, plan: GraphPlan, route: str, exact: bool = False,
+                 label: str = "step"):
         if route not in ("scan-graph", "scan-eager", "scan-loop"):
             raise ValueError(f"unknown scan route {route!r}")
-        self.step, self.plan, self.route = step, plan, route
+        self.step, self.plan, self.route, self.exact = step, plan, route, exact
+        self.label = label
         self.slots = None
         self.consts = None
         self.phase = 0
-        self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
-        self.recorded: dict[int, dict[str, int]] = {}
+        # Keyed by (starting phase, steps): the plan's chunks of c steps
+        # and, for an exact loop, the one-step graphs of a remainder.
+        self.graphs: dict[tuple[int, int], torch.cuda.CUDAGraph] = {}
+        self.recorded: dict[tuple[int, int], dict[str, int]] = {}
         self.capture_s = 0.0
+        self._pool = None
 
     # ---- binding --------------------------------------------------------
 
@@ -187,7 +207,7 @@ class ScanLoop:
             self.slots = (*state, spare)
             self.consts = consts
             return
-        for phase in self.plan.phases:
+        for phase in range(self.plan.period):
             if all(_same(s, r) for s, r in zip(state, roles(self.slots, phase))):
                 self.phase = phase
                 break
@@ -201,6 +221,11 @@ class ScanLoop:
             if dst is not src and src is not None:
                 _write(dst, src)
 
+    def current(self):
+        """The slots in the roles a step reads (what the last call
+        returned), or None before the first call."""
+        return None if self.slots is None else roles(self.slots, self.phase)[:-1]
+
     # ---- stepping -------------------------------------------------------
 
     def _step_into(self, slots, phase: int) -> None:
@@ -212,54 +237,156 @@ class ScanLoop:
         for s in range(count):
             self._step_into(slots, (phase + s) % p)
 
-    def _capture(self) -> None:
-        """One step on scratch copies, then one graph of c steps per phase
-        of the plan, all in one pool, captured on a side stream as
-        torch.cuda.graph does (without its garbage collection and cache
-        release before every capture); LAUNCHES left as it was.
-        `capture_s` is the host time it took."""
+    def schedule(self, n: int) -> list[tuple[int, int]]:
+        """(starting phase, steps) of each replay of a call of n steps from
+        the current phase: the plan's floor of chunks, or for an exact
+        loop n // c chunks and n mod c single steps."""
+        c, p = self.plan.c, self.plan.period
+        if self.exact:
+            counts = [c] * (int(n) // c) + [1] * (int(n) % c)
+        else:
+            counts = [c] * self.plan.replays(n)
+        out, phase = [], self.phase
+        for count in counts:
+            out.append((phase, count))
+            phase = (phase + count) % p
+        return out
+
+    def _capture(self, keys=()) -> None:
+        """Capture a graph for each key (phase, steps) not yet held: the
+        plan's chunk at each of its phases, and `keys`. The first capture
+        runs one step on scratch copies first. All graphs share one pool
+        and are captured on a side stream as torch.cuda.graph does
+        (without its garbage collection and cache release before every
+        capture); LAUNCHES left as it was. `capture_s` adds the host time
+        it took."""
         t0 = time.perf_counter()
         launches = kernels.LAUNCHES
         before = dict(launches)
         device = _leaves(self.slots[0])[0].device
+        wanted = [(phase, self.plan.c) for phase in self.plan.phases] + list(keys)
         with torch.cuda.device(device):
-            scratch = tuple(_map(torch.clone, s) for s in self.slots)
-            self._step_into(scratch, 0)
-            del scratch
-            torch.cuda.synchronize(device)
-            pool = torch.cuda.graph_pool_handle()
+            if self._pool is None:
+                scratch = tuple(_map(torch.clone, s) for s in self.slots)
+                self._step_into(scratch, 0)
+                del scratch
+                torch.cuda.synchronize(device)
+                self._pool = torch.cuda.graph_pool_handle()
             with torch.cuda.stream(torch.cuda.Stream(device)):
-                for phase in self.plan.phases:
+                for key in dict.fromkeys(wanted):
+                    if key in self.graphs:
+                        continue
                     graph = torch.cuda.CUDAGraph()
                     at = dict(launches)
-                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                     try:
-                        self._steps(self.slots, phase, self.plan.c)
-                    finally:
-                        graph.capture_end()
-                    self.graphs[phase] = graph
-                    self.recorded[phase] = {k: launches[k] - at[k] for k in launches
-                                            if launches[k] != at[k]}
+                        graph.capture_begin(pool=self._pool,
+                                            capture_error_mode="thread_local")
+                        try:
+                            self._steps(self.slots, *key)
+                        finally:
+                            graph.capture_end()
+                    except Exception as err:
+                        raise RuntimeError(
+                            f"CUDA graph capture of {key[1]} x {self.label} (phase "
+                            f"{key[0]}) failed; the loop does not fall back to eager "
+                            f"steps: {err}") from err
+                    self.graphs[key] = graph
+                    self.recorded[key] = {k: launches[k] - at[k] for k in launches
+                                          if launches[k] != at[k]}
         launches.update(before)
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s += time.perf_counter() - t0
 
     def __call__(self, state: tuple, consts: tuple, n: int) -> tuple:
         """Advance `state` (the p − 1 slots a step reads, in role order) by
-        (n // q)·q steps; returns the new state in the same form."""
+        (n // q)·q steps, or n for an exact loop; returns the new state in
+        the same form."""
         self._bind(tuple(state), tuple(consts))
-        schedule = self.plan.schedule(n, self.phase)
-        if schedule and self.route == "scan-graph" and not self.graphs:
-            self._capture()
+        schedule = self.schedule(n)
+        graphs = self.route == "scan-graph"
+        if graphs and any(key not in self.graphs for key in schedule):
+            self._capture(schedule)
         launches = kernels.LAUNCHES
-        for phase in schedule:
-            if self.route == "scan-graph":
-                self.graphs[phase].replay()
-                for name, k in self.recorded[phase].items():
+        for key in schedule:
+            if graphs:
+                self.graphs[key].replay()
+                for name, k in self.recorded[key].items():
                     launches[name] += k
             else:
-                self._steps(self.slots, phase, self.plan.c)
-        self.phase = (self.phase + len(schedule) * self.plan.c) % self.plan.period
+                self._steps(self.slots, *key)
+        if schedule:
+            last, count = schedule[-1]
+            self.phase = (last + count) % self.plan.period
         return roles(self.slots, self.phase)[:-1]
+
+
+def sweep_loop(sweep: ScanStep, sweeps: int, device: torch.device, nprocs: int,
+               label: str, period: int = 2) -> ScanLoop:
+    """The exact loop of a multi-step schedule: `sweep(src, out, consts)`
+    advances k model steps, `sweeps` is q counted in sweeps (the sweeps
+    of gcd(warmup, nt − warmup)), and the route is scan_route's. A sweep
+    replaces the whole state, so the slots rotate with period 2."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    return ScanLoop(sweep, graph_plan(max(1, int(sweeps)), period),
+                    scan_route(device, nprocs, distributed.backend()), exact=True,
+                    label=label)
+
+
+def window_sweeps(nt: int, warmup: int, k: int) -> int:
+    """q of a schedule's sweep loop, in sweeps of k steps: the sweeps of
+    gcd(warmup, nt − warmup), which k divides (effective_block_steps)."""
+    return max(1, math.gcd(int(warmup), int(nt) - int(warmup)) // int(k))
+
+
+def check_sweeps(n_steps, k: int) -> int:
+    """The sweeps of a call of `n_steps`, which must be a multiple of k."""
+    n_steps = int(n_steps)
+    if n_steps % k != 0:
+        raise ValueError(f"n_steps {n_steps} must be a multiple of the depth {k}")
+    return n_steps // k
+
+
+def fresh_extras(loop: ScanLoop, lead: int, make: Callable) -> tuple:
+    """The extra leaves a call starts from, zero (the stateful wire
+    modes' first-sweep contract): `make()` at the loop's first call, then
+    the current slot's leaves after its `lead` state leaves, zeroed
+    eagerly, before any replay."""
+    current = loop.current()
+    if current is None:
+        return tuple(make())
+    extras = tuple(current[0][lead:])
+    for t in extras:
+        t.zero_()
+    return extras
+
+
+def padded_slot(loop: ScanLoop, state, k: int, init_wire: Callable | None = None) -> tuple:
+    """The slot a deep-halo call starts from: the loop's k-padded blocks
+    with the fields of `state` placed in their cores (the current slot's
+    blocks, ghosts as the last sweep left them, or zero blocks at the
+    first call), then, for a stateful wire mode, the zero wire state
+    (`fresh_extras` of `init_wire(dtype, device)`)."""
+    from rocm_mpi_tpu_torch.parallel.halo import place_core
+
+    current = loop.current()
+    if current is None:
+        blocks = tuple(torch.zeros(tuple(n + 2 * k for n in t.shape), dtype=t.dtype,
+                                   device=t.device) for t in state)
+    else:
+        blocks = tuple(current[0][:len(state)])
+    for t, b in zip(state, blocks):
+        place_core(t, k, out=b)
+    if init_wire is None:
+        return blocks
+    like = state[0]
+    return (*blocks, *fresh_extras(loop, len(state),
+                                   lambda: init_wire(like.dtype, like.device)))
+
+
+def loop_record(loop: ScanLoop) -> dict:
+    """The run-result fields of a sweep or scan loop: its route and the
+    host ms its captures took."""
+    return {"loop_route": loop.route, "capture_ms": loop.capture_s * 1e3}
 
 
 def scan_route(device: torch.device, nprocs: int, backend: str | None) -> str:

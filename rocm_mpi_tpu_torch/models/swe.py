@@ -28,7 +28,9 @@ q-step chunks as CUDA graphs, models/scan.py), and two schedules:
 run_vmem_resident (one rank, `chunk` steps per launch
 of the swe_multi_step kernel) and run_deep (any grid, one width-k
 exchange of the whole state per k steps,
-parallel/deep_halo.make_swe_deep_sweep).
+parallel/deep_halo.make_swe_deep_sweep), each run through an exact sweep
+loop of models/scan.py: CUDA graphs of sweeps on a CUDA rank, as JAX runs
+them in one compiled program.
 
 In place of JAX buffer donation the advance keeps two state tuples, the
 state and a spare the step writes into, and rotates them each step; the
@@ -43,7 +45,17 @@ import torch
 
 from rocm_mpi_tpu_torch.config import SWEConfig
 from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
-from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
+from rocm_mpi_tpu_torch.models.scan import (
+    ScanLoop,
+    check_sweeps,
+    graph_plan,
+    loop_record,
+    padded_slot,
+    scan_chunk,
+    scan_route,
+    sweep_loop,
+    window_sweeps,
+)
 from rocm_mpi_tpu_torch.ops import multistep, swe
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
 from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
@@ -65,9 +77,12 @@ class SWERunResult:
     # The schedules' record of what ran: the local route ("vmem-loop"; for
     # run_deep "vmem" or "jnp"; for the scan driver "scan-graph",
     # "scan-eager" or "scan-loop") and the steps per launch, sweep or
-    # chunk. None for the step driver.
+    # chunk; the loop that ran them ("scan-graph", "scan-loop",
+    # "scan-eager") and its captures' host ms. None for the step driver.
     route: str | None = None
     k: int | None = None
+    loop_route: str | None = None
+    capture_ms: float | None = None
 
     @property
     def wtime_it(self) -> float:
@@ -279,6 +294,7 @@ class ShallowWater:
         advance, q = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
         res = self._run_timed(advance, nt, warmup)
         res.route, res.k = advance.loop.route, q
+        vars(res).update(loop_record(advance.loop))
         return res
 
     # ---- schedules ------------------------------------------------------
@@ -286,11 +302,12 @@ class ShallowWater:
     def run_vmem_resident(self, nt: int | None = None, warmup: int | None = None,
                           chunk: int | None = None, config: str | None = None) -> SWERunResult:
         """One-rank loop of `chunk` steps per launch of the swe_multi_step
-        kernel (ops.swe.swe_multi_step); the state must pass the JAX
-        admission. `chunk` defaults to DEFAULT_STEP_CHUNK, gcd'd against
-        both windows (a warning when an explicit chunk degrades);
-        `config="auto"` needs the tuning cache and raises
-        NotImplementedError."""
+        kernel (ops.swe.swe_sweeps, the launches of swe_multi_step through
+        a sweep loop: CUDA graphs of launches on a CUDA device); the state
+        must pass the JAX admission. `chunk` defaults to
+        DEFAULT_STEP_CHUNK, gcd'd against both windows (a warning when an
+        explicit chunk degrades); `config="auto"` needs the tuning cache
+        and raises NotImplementedError."""
         if self.grid.nprocs != 1:
             raise ValueError("the VMEM-resident path requires an unsharded grid")
         multistep._check_config(config)
@@ -300,15 +317,25 @@ class ShallowWater:
         chunk = effective_block_steps(
             nt, warmup, multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk,
             warn=explicit, label="SWE VMEM chunk")
-        nbytes = multistep._compute_nbytes(self.grid.local_shape, cfg.torch_dtype)
+        h0, _ = self.init_state()
+        parts = swe.swe_sweeps(h0, cfg.dt, cfg.spacing, cfg.H0, cfg.g, 0, chunk=chunk,
+                               warn_on_cap=False)
+
+        def one_sweep(src, out, consts):
+            ((h, *us),), (Mus,) = src, consts
+            h2, us2 = parts.sweep(h, tuple(us), Mus, out=out)
+            return (h2, *us2)
+
+        loop = sweep_loop(one_sweep, window_sweeps(nt, warmup, parts.k), self.device, 1,
+                          label=f"vmem-loop launch of {parts.k} steps")
 
         def advance(h, us, Mus, n):
-            return swe.swe_multi_step(h, us, Mus, cfg.dt, cfg.spacing, cfg.H0, cfg.g, n,
-                                      chunk=chunk, warn_on_cap=False)
+            ((h, *us),) = loop(((h, *us),), (tuple(Mus),), check_sweeps(n, parts.k))
+            return h, tuple(us)
 
         res = self._run_timed(advance, nt, warmup)
-        res.route = "vmem-loop"
-        res.k = multistep.resolve_step_chunk(chunk, chunk, nbytes, warn_on_cap=False)
+        res.route, res.k = "vmem-loop", parts.k
+        vars(res).update(loop_record(loop))
         return res
 
     def effective_deep_depth(self, nt: int | None = None, warmup: int | None = None,
@@ -336,34 +363,50 @@ class ShallowWater:
         """(advance(h, us, Mus, n_steps) -> (h, us), executed depth k) of the
         deep schedule: the padded face masks are built once per call (`Mus`
         is accepted and ignored, so the signature matches advance_fn's),
-        then n_steps/k sweeps run; `n_steps` must be a multiple of k.
-        `advance.schedule` is the DeepSchedule (its `route` says which local
-        route the last sweep took)."""
+        then n_steps/k sweeps (DeepSchedule.step) run through a sweep loop
+        (models/scan.py: CUDA graphs of sweeps, the exchanges included, on
+        a CUDA rank);
+        `n_steps` must be a multiple of k. `advance.schedule` is the
+        DeepSchedule (its `route` says which local route the sweeps took),
+        `advance.loop` the loop. Each call places the state into the
+        loop's k-padded blocks and returns their cores. A stateful wire
+        mode starts each call from a zero wire state, as in the JAX
+        package."""
         cfg = self.config
         k = self.effective_deep_depth(nt, warmup, block_steps)
         wm = cfg.wire_mode if wire_mode is None else wire.validate_mode(wire_mode)
         sched = deep_halo.make_swe_deep_sweep(self.grid, k, cfg.dt, cfg.spacing, cfg.H0, cfg.g,
                                               wire_mode=wm)
+        lead = cfg.ndim + 1
+
+        def one_sweep(src, out, consts):
+            (slot,), (Mp,) = src, consts
+            hp, ups, ws = slot[0], tuple(slot[1:lead]), tuple(slot[lead:])
+            if sched.init_wire is None:
+                h2, us2 = sched.step(hp, ups, Mp, out)
+                return (h2, *us2)
+            h2, us2, ws2 = sched.step(hp, ups, Mp, out[:lead], ws)
+            return (h2, *us2, *ws2)
+
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
+        loop = sweep_loop(one_sweep, window_sweeps(nt, warmup, k), self.device,
+                          self.grid.nprocs, label=f"SWE deep sweep of {k} steps on local "
+                          f"route {sched.route_of(cfg.torch_dtype)}")
+        core = tuple(slice(k, -k) for _ in self.grid.local_shape)
 
         def advance(h, us, Mus, n_steps):
             del Mus
-            n_steps = int(n_steps)
-            if n_steps % k != 0:
-                raise ValueError(f"n_steps {n_steps} must be a multiple of the depth {k}")
+            sweeps = check_sweeps(n_steps, k)
             us = tuple(us)
-            if n_steps == 0:
+            if sweeps == 0:
                 return h, us
             Mp = sched.prepare(h)
-            if sched.init_wire is None:
-                for _ in range(n_steps // k):
-                    h, us = sched.sweep(h, us, Mp)
-            else:  # a zero wire state per call, as in the JAX package
-                ws = sched.init_wire(h.dtype, h.device)
-                for _ in range(n_steps // k):
-                    h, us, ws = sched.sweep(h, us, Mp, ws)
-            return h.contiguous(), tuple(u.contiguous() for u in us)
+            (slot,) = loop((padded_slot(loop, (h, *us), k, sched.init_wire),), (Mp,), sweeps)
+            return slot[0][core].contiguous(), tuple(u[core].contiguous()
+                                                     for u in slot[1:lead])
 
         advance.schedule = sched
+        advance.loop = loop
         return advance, k
 
     def run_deep(self, nt: int | None = None, warmup: int | None = None,
@@ -373,4 +416,5 @@ class ShallowWater:
         advance, k = self.deep_advance_fn(block_steps, nt, warmup, wire_mode=wire_mode)
         res = self._run_timed(advance, nt, warmup)
         res.route, res.k = advance.schedule.route, k
+        vars(res).update(loop_record(advance.loop))
         return res

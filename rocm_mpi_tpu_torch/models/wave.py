@@ -26,7 +26,9 @@ the step and scan drivers (`run(driver=...)`; the scan driver runs JAX's
 q-step chunks as CUDA graphs, models/scan.py), and two schedules:
 run_vmem_resident (one rank, `chunk` steps per launch
 of the wave_multi_step kernel) and run_deep (any grid, one width-k
-exchange of the pair per k steps, parallel/deep_halo.make_wave_deep_sweep).
+exchange of the pair per k steps, parallel/deep_halo.make_wave_deep_sweep),
+each run through an exact sweep loop of models/scan.py: CUDA graphs of
+sweeps on a CUDA rank, as JAX runs them in one compiled program.
 
 In place of JAX buffer donation the advance keeps three field buffers,
 the pair and a spare the step writes into, and rotates them each step;
@@ -42,7 +44,17 @@ import torch
 
 from rocm_mpi_tpu_torch.config import WaveConfig
 from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
-from rocm_mpi_tpu_torch.models.scan import ScanLoop, graph_plan, scan_chunk, scan_route
+from rocm_mpi_tpu_torch.models.scan import (
+    ScanLoop,
+    check_sweeps,
+    graph_plan,
+    loop_record,
+    padded_slot,
+    scan_chunk,
+    scan_route,
+    sweep_loop,
+    window_sweeps,
+)
 from rocm_mpi_tpu_torch.ops import multistep, wave
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
 from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
@@ -63,9 +75,12 @@ class WaveRunResult:
     # The schedules' record of what ran: the local route ("vmem-loop"; for
     # run_deep "vmem" or "jnp"; for the scan driver "scan-graph",
     # "scan-eager" or "scan-loop") and the steps per launch, sweep or
-    # chunk. None for the step driver.
+    # chunk; the loop that ran them ("scan-graph", "scan-loop",
+    # "scan-eager") and its captures' host ms. None for the step driver.
     route: str | None = None
     k: int | None = None
+    loop_route: str | None = None
+    capture_ms: float | None = None
 
     @property
     def wtime_it(self) -> float:
@@ -275,6 +290,7 @@ class AcousticWave:
         advance, q = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
         res = self._run_timed(advance, nt, warmup)
         res.route, res.k = advance.loop.route, q
+        vars(res).update(loop_record(advance.loop))
         return res
 
     # ---- schedules ------------------------------------------------------
@@ -282,7 +298,9 @@ class AcousticWave:
     def run_vmem_resident(self, nt: int | None = None, warmup: int | None = None,
                           chunk: int | None = None, config: str | None = None) -> WaveRunResult:
         """One-rank loop of `chunk` steps per launch of the wave_multi_step
-        kernel (ops.wave.wave_multi_step); the field must fit half the VMEM
+        kernel (ops.wave.wave_sweeps, the launches of wave_multi_step
+        through a sweep loop: CUDA graphs of launches on a CUDA device, M
+        and Cw formed once per call); the field must fit half the VMEM
         budget the JAX package routes by. `chunk` defaults to
         DEFAULT_STEP_CHUNK, gcd'd against both windows (a warning when an
         explicit chunk degrades); `config="auto"` needs the tuning cache
@@ -296,15 +314,25 @@ class AcousticWave:
         chunk = effective_block_steps(
             nt, warmup, multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk,
             warn=explicit, label="wave VMEM chunk")
-        nbytes = multistep._compute_nbytes(self.grid.local_shape, cfg.torch_dtype)
-        dt, sp = self.dt_value, cfg.spacing
+        U0, _, _ = self.init_state()
+        parts = wave.wave_sweeps(U0, self.dt_value, cfg.spacing, 0, chunk=chunk,
+                                 warn_on_cap=False)
+
+        def one_sweep(src, out, consts):
+            ((U, Uprev),), ((M, Cw),) = src, consts
+            return parts.sweep(U, Uprev, M, Cw, out=out)
+
+        loop = sweep_loop(one_sweep, window_sweeps(nt, warmup, parts.k), self.device, 1,
+                          label=f"vmem-loop launch of {parts.k} steps")
 
         def advance(U, Uprev, C2, n):
-            return wave.wave_multi_step(U, Uprev, C2, dt, sp, n, chunk=chunk, warn_on_cap=False)
+            ((U, Uprev),) = loop(((U, Uprev),), (parts.prepare(U, C2),),
+                                 check_sweeps(n, parts.k))
+            return U, Uprev
 
         res = self._run_timed(advance, nt, warmup)
-        res.route = "vmem-loop"
-        res.k = multistep.resolve_step_chunk(chunk, chunk, nbytes, warn_on_cap=False)
+        res.route, res.k = "vmem-loop", parts.k
+        vars(res).update(loop_record(loop))
         return res
 
     def effective_deep_depth(self, nt: int | None = None, warmup: int | None = None,
@@ -330,33 +358,45 @@ class AcousticWave:
     def deep_advance_fn(self, block_steps: int | None = None, nt: int | None = None,
                         warmup: int | None = None, wire_mode: str | None = None):
         """(advance(U, U⁻, C2, n_steps) -> (U, U⁻), executed depth k) of the
-        deep schedule: c² is exchanged and masked once per call, then
-        n_steps/k sweeps run; `n_steps` must be a multiple of k.
-        `advance.schedule` is the DeepSchedule (its `route` says which local
-        route the last sweep took)."""
+        deep schedule: c² is exchanged and masked once per call and the
+        pair placed into the loop's k-padded blocks, then n_steps/k sweeps
+        (DeepSchedule.step) run through a sweep loop (models/scan.py: CUDA
+        graphs of sweeps, the exchanges included, on a CUDA rank), and the
+        call returns the cores; `n_steps` must be a multiple of k.
+        `advance.schedule` is the DeepSchedule (its `route` says which
+        local route the sweeps took), `advance.loop` the loop. A stateful
+        wire mode starts each call from a zero wire state, as in the JAX
+        package."""
         cfg = self.config
         k = self.effective_deep_depth(nt, warmup, block_steps)
         wm = cfg.wire_mode if wire_mode is None else wire.validate_mode(wire_mode)
         sched = deep_halo.make_wave_deep_sweep(self.grid, k, self.dt_value, cfg.spacing,
                                                wire_mode=wm)
 
+        def one_sweep(src, out, consts):
+            ((Up, Upp, *ws),), (P,) = src, consts
+            if sched.init_wire is None:
+                return sched.step(Up, Upp, P, out)
+            U2, Up2, ws2 = sched.step(Up, Upp, P, out[:2], tuple(ws))
+            return (U2, Up2, *ws2)
+
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
+        loop = sweep_loop(one_sweep, window_sweeps(nt, warmup, k), self.device,
+                          self.grid.nprocs, label=f"wave deep sweep of {k} steps on local "
+                          f"route {sched.route_of(cfg.torch_dtype)}")
+        core = tuple(slice(k, -k) for _ in self.grid.local_shape)
+
         def advance(U, Uprev, C2, n_steps):
-            n_steps = int(n_steps)
-            if n_steps % k != 0:
-                raise ValueError(f"n_steps {n_steps} must be a multiple of the depth {k}")
-            if n_steps == 0:
+            sweeps = check_sweeps(n_steps, k)
+            if sweeps == 0:
                 return U, Uprev
             P = sched.prepare(C2)
-            if sched.init_wire is None:
-                for _ in range(n_steps // k):
-                    U, Uprev = sched.sweep(U, Uprev, P)
-            else:  # a zero wire state per call, as in the JAX package
-                ws = sched.init_wire(U.dtype, U.device)
-                for _ in range(n_steps // k):
-                    U, Uprev, ws = sched.sweep(U, Uprev, P, ws)
-            return U.contiguous(), Uprev.contiguous()
+            ((Up, Upp, *_),) = loop((padded_slot(loop, (U, Uprev), k, sched.init_wire),),
+                                    (P,), sweeps)
+            return Up[core].contiguous(), Upp[core].contiguous()
 
         advance.schedule = sched
+        advance.loop = loop
         return advance, k
 
     def run_deep(self, nt: int | None = None, warmup: int | None = None,
@@ -366,4 +406,5 @@ class AcousticWave:
         advance, k = self.deep_advance_fn(block_steps, nt, warmup, wire_mode=wire_mode)
         res = self._run_timed(advance, nt, warmup)
         res.route, res.k = advance.schedule.route, k
+        vars(res).update(loop_record(advance.loop))
         return res

@@ -231,10 +231,13 @@ def _raw_stream(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
-def launch(lib_name: str, signatures: dict, symbol: str, device, *args) -> None:
+def launch(lib_name: str, signatures: dict, symbol: str, device, *args,
+           route: str | None = None) -> None:
     """Call `symbol` of library `lib_name` (built at first use) with `args`
-    and this device's current stream; raise if it reports a failure. The
-    device's context is entered only when it is not the current one."""
+    and this device's current stream; raise if it reports a failure,
+    naming `route` (the multi-step kernels' cluster or cooperative launch)
+    where given. The device's context is entered only when it is not the
+    current one."""
     fn = _FUNCS.get(symbol)
     if fn is None:
         fn = _FUNCS[symbol] = getattr(_build.load(lib_name, signatures), symbol)
@@ -245,8 +248,9 @@ def launch(lib_name: str, signatures: dict, symbol: str, device, *args) -> None:
         with torch.cuda.device(index):
             rc = fn(*args, _raw_stream(index))
     if rc != 0:
+        on = f" on the {route} route" if route else ""
         raise RuntimeError(
-            f"{symbol} launch failed with code {rc} (-1: bad dtype/rank/form/steps/box/plan, "
+            f"{symbol} launch{on} failed with code {rc} (-1: bad dtype/rank/form/steps/box/plan, "
             "-2: grid overflow, -3: does not fit the card, >0: CUDA error)"
         )
 

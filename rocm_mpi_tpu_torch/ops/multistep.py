@@ -25,7 +25,7 @@ import functools
 import math
 import re
 import warnings
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -438,8 +438,8 @@ def _check_operands(name: str, T, Cm, out) -> None:
 def multi_step(T, Cm, inv_d2, n: int, form: str, out=None):
     """The multi_step_cm kernel's wrapper: `n` steps of body form `form`
     in one launch for CUDA tensors, multi_step_cm_plain for CPU ones. The
-    route is device_plan's; only the cooperative route allocates its
-    scratch."""
+    route is device_plan's; the cooperative route keeps its state in
+    resident.scratch."""
     _check_operands("multi_step_cm", T, Cm, out)
     if form not in FORMS:
         raise ValueError(f"unknown body form {form!r}; known: {tuple(FORMS)}")
@@ -452,12 +452,11 @@ def multi_step(T, Cm, inv_d2, n: int, form: str, out=None):
     plan = device_plan(index, tuple(T.shape), T.dtype, form)
     scratch = None  # the cluster route keeps the state in shared memory
     if plan.route == "cooperative":
-        scratch = torch.empty((2,) + tuple(T.shape), dtype=_compute_dtype(T.dtype),
-                              device=T.device)
+        scratch = resident.scratch(2, T.shape, _compute_dtype(T.dtype), T.device)
     launch("multistep", _SIGNATURES, "rmt_multi_step_cm", T.device, _DTYPE_CODE[T.dtype],
            T.ndim, FORMS[form], int(n), T.data_ptr(), Cm.data_ptr(), out.data_ptr(),
            None if scratch is None else scratch.data_ptr(), *extents(T.shape),
-           *inv3(inv_d2), plan.cluster, cm_at(plan), index)
+           *inv3(inv_d2), plan.cluster, cm_at(plan), index, route=plan.route)
     LAUNCHES["multi_step_cm"] += 1
     return out
 
@@ -533,6 +532,65 @@ def _check_vmem(T, what: str, hint: str) -> None:
         )
 
 
+class SweepPlan(NamedTuple):
+    """A one-rank multi-step loop cut for a driver: `sweep(...)` one
+    launch of `k` steps; `prepare(...)` the per-call work (diffusion:
+    `(T, Cp) -> (T, Cm)`, the edge-masked coefficient and the pow2 pad of
+    the field and the coefficient where one applies), and `finish(T)`
+    the launch's block back at the caller's shape, each None where there
+    is nothing to do. The ops' loops (fused_multi_step,
+    fused_multi_step_hbm, wave.wave_multi_step, swe.swe_multi_step) drive
+    it eagerly; the models' schedules through a sweep loop
+    (models/scan.py)."""
+
+    k: int
+    sweep: Callable
+    prepare: Callable | None = None
+    finish: Callable | None = None
+
+
+def vmem_sweeps(T, lam, dt, spacing, n_steps: int, chunk=None, warn_on_cap=True,
+                body_form=None, pad_pow2=None, config=None) -> SweepPlan:
+    """The VMEM loop of a single-shard field like `T` as a SweepPlan: the
+    chunk, body form and pad of plan_vmem_loop for `n_steps`, one launch
+    of the multi_step_cm kernel a sweep."""
+    _check_vmem(T, "field", "use the per-step path")
+    lam, dt = float(lam), float(dt)
+    inv_d2 = inv_d2_of(spacing)
+    orig_shape = tuple(T.shape)
+    choice = plan_vmem_loop(orig_shape, T.dtype, n_steps, chunk=chunk, body_form=body_form,
+                            pad_pow2=pad_pow2, config=config, warn_on_cap=warn_on_cap)
+    widths = []
+    if choice.pad_applied:
+        for p, d in reversed(list(zip(choice.padded_shape, orig_shape))):
+            widths += [0, p - d]
+    elif choice.pad_applied is False:
+        warnings.warn(
+            f"pad_pow2 requested but SKIPPED: the padded field would exceed "
+            f"the VMEM budget ({_VMEM_BLOCK_BUDGET_BYTES}); the program runs "
+            "unpadded — do not label this measurement 'pad'",
+            stacklevel=3,
+        )
+    block = choice.padded_shape if choice.pad_applied else orig_shape
+    form = multi_step_form(block, T.dtype, choice.chunk, inv_d2, choice.body_form)
+
+    def prepare(T, Cp):
+        Cm = edge_masked_cm(T, Cp, lam, dt)
+        if widths:  # pad cells are frozen: Cm pads to 0
+            return torch.nn.functional.pad(T, widths), torch.nn.functional.pad(Cm, widths)
+        return T, Cm
+
+    def sweep(T, Cm, out=None):
+        return multi_step(T, Cm, inv_d2, choice.chunk, form, out=out)
+
+    def finish(T):
+        if tuple(T.shape) != orig_shape:
+            return T[tuple(slice(0, d) for d in orig_shape)].contiguous()
+        return T
+
+    return SweepPlan(choice.chunk, sweep, prepare, finish)
+
+
 def fused_multi_step(T, Cp, lam, dt, spacing, n_steps: int, chunk=None,
                      warn_on_cap=True, body_form=None, pad_pow2=None, config=None):
     """Advance a single-shard field `n_steps`, `chunk` steps per launch of
@@ -540,37 +598,15 @@ def fused_multi_step(T, Cp, lam, dt, spacing, n_steps: int, chunk=None,
     edge-masked coefficient computed once per call.
 
     Replaces pallas_kernels.fused_multi_step (file:714). The chunk,
-    body form and pad follow plan_vmem_loop; the outer loop is a Python
-    loop over launches, and a chunk that does not divide `n_steps`
-    raises. Returns a new tensor; `T` is not written.
+    body form and pad follow plan_vmem_loop (vmem_sweeps); the outer loop
+    is a Python loop over launches, and a chunk that does not divide
+    `n_steps` raises. Returns a new tensor; `T` is not written.
     """
-    _check_vmem(T, "field", "use the per-step path")
-    n_steps = int(n_steps)
-    lam, dt = float(lam), float(dt)
-    inv_d2 = inv_d2_of(spacing)
-    Cm = edge_masked_cm(T, Cp, lam, dt)
-    orig_shape = tuple(T.shape)
-    choice = plan_vmem_loop(T.shape, T.dtype, n_steps, chunk=chunk, body_form=body_form,
-                            pad_pow2=pad_pow2, config=config, warn_on_cap=warn_on_cap)
-    if choice.pad_applied:
-        widths = []
-        for p, d in reversed(list(zip(choice.padded_shape, T.shape))):
-            widths += [0, p - d]
-        T = torch.nn.functional.pad(T, widths)  # pad cells are frozen: Cm pads to 0
-        Cm = torch.nn.functional.pad(Cm, widths)
-    elif choice.pad_applied is False:
-        warnings.warn(
-            f"pad_pow2 requested but SKIPPED: the padded field would exceed "
-            f"the VMEM budget ({_VMEM_BLOCK_BUDGET_BYTES}); the program runs "
-            "unpadded — do not label this measurement 'pad'",
-            stacklevel=2,
-        )
-    form = multi_step_form(T.shape, T.dtype, choice.chunk, inv_d2, choice.body_form)
-    out = _repeat(lambda x, o: multi_step(x, Cm, inv_d2, choice.chunk, form, out=o),
-                  T, n_steps // choice.chunk)
-    if tuple(out.shape) != orig_shape:
-        out = out[tuple(slice(0, d) for d in orig_shape)].contiguous()
-    return out
+    plan = vmem_sweeps(T, lam, dt, spacing, n_steps, chunk=chunk, warn_on_cap=warn_on_cap,
+                       body_form=body_form, pad_pow2=pad_pow2, config=config)
+    T, Cm = plan.prepare(T, Cp)
+    return plan.finish(_repeat(lambda x, o: plan.sweep(x, Cm, out=o), T,
+                               int(n_steps) // plan.k))
 
 
 def multi_step_cm(T, Cm, spacing, n_steps: int, out=None):
@@ -611,6 +647,30 @@ def _check_tb(T, k: int) -> tuple[int, int]:
     return g, tm
 
 
+def hbm_sweeps(T, lam, dt, spacing, n_steps: int, block_steps=None) -> SweepPlan:
+    """Temporal blocking of a single-shard field like `T` as a SweepPlan:
+    one launch of the tb_sweep kernel advances the whole field
+    `block_steps` steps. fused_multi_step_hbm's checks."""
+    if T.dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {T.dtype} not supported (float32, float64, bfloat16)")
+    k = DEFAULT_TB_STEPS if block_steps is None else int(block_steps)
+    if not 1 <= k <= _TB_MAX_STEPS:
+        raise ValueError(f"block_steps must be in [1, {_TB_MAX_STEPS}], got {k}")
+    _check_tb(T, k)
+    if int(n_steps) % k != 0:
+        raise ValueError(f"n_steps {int(n_steps)} must be a multiple of {k}")
+    inv_d2 = inv_d2_of(spacing)
+    lam, dt = float(lam), float(dt)
+
+    def prepare(T, Cp):
+        return T, edge_masked_cm(T, Cp, lam, dt)
+
+    def sweep(T, Cm, out=None):
+        return tb_sweep(T, Cm, inv_d2, k, out=out)
+
+    return SweepPlan(k, sweep, prepare, lambda T: T)
+
+
 def fused_multi_step_hbm(T, Cp, lam, dt, spacing, n_steps: int, block_steps=None):
     """Advance a single-shard field `n_steps` by temporal blocking: each
     launch of the tb_sweep kernel advances the whole field `block_steps`
@@ -619,20 +679,11 @@ def fused_multi_step_hbm(T, Cp, lam, dt, spacing, n_steps: int, block_steps=None
     Replaces pallas_kernels.fused_multi_step_hbm (file:1019). Same
     checks: 1 <= block_steps <= 16, the stripe divisibility and slab
     envelope of tb_geometry/tb_slab_fits, and `n_steps` a multiple of
-    `block_steps`. Returns a new tensor; `T` is not written.
+    `block_steps` (hbm_sweeps). Returns a new tensor; `T` is not written.
     """
-    if T.dtype not in _DTYPE_CODE:
-        raise TypeError(f"dtype {T.dtype} not supported (float32, float64, bfloat16)")
-    k = DEFAULT_TB_STEPS if block_steps is None else int(block_steps)
-    if not 1 <= k <= _TB_MAX_STEPS:
-        raise ValueError(f"block_steps must be in [1, {_TB_MAX_STEPS}], got {k}")
-    _check_tb(T, k)
-    n_steps = int(n_steps)
-    if n_steps % k != 0:
-        raise ValueError(f"n_steps {n_steps} must be a multiple of {k}")
-    inv_d2 = inv_d2_of(spacing)
-    Cm = edge_masked_cm(T, Cp, float(lam), float(dt))
-    return _repeat(lambda x, o: tb_sweep(x, Cm, inv_d2, k, out=o), T, n_steps // k)
+    plan = hbm_sweeps(T, lam, dt, spacing, n_steps, block_steps)
+    T, Cm = plan.prepare(T, Cp)
+    return _repeat(lambda x, o: plan.sweep(x, Cm, out=o), T, int(n_steps) // plan.k)
 
 
 def multi_step_cm_hbm(T, Cm, spacing, n_steps: int, out=None):

@@ -15,7 +15,9 @@ too, or for diffusion kept in registers. The route is a
 function of the shape, the dtype and what the card grants (`Caps`, asked of
 the built kernel once per device: on an H100, clusters of 16 CTAs and
 232,448 bytes of shared memory a CTA); it is never a retry after a
-failure.
+failure. The cooperative route's state lives in a buffer kept per block
+shape (`scratch`), so no launch of either route allocates after the
+first, and a launch captured into a CUDA graph replays unchanged.
 
 The plan: C = min(granted, n0) CTAs; bands of ceil(n0 / C) or floor(n0 / C)
 rows (the larger first); each CTA lays out its shared memory for the
@@ -166,6 +168,23 @@ def plan(kind: str, shape, dtype: torch.dtype, caps: Caps) -> ResidentPlan:
     if staged <= caps.smem_limit:
         return ResidentPlan("cluster", cluster, rows, staged, True)
     return ResidentPlan("cluster", cluster, rows, nbytes, False)
+
+
+# The cooperative route's state buffers, one per (device, planes, shape,
+# compute dtype), made at a block's first launch and kept: a launch
+# captured into a CUDA graph finds at every replay the buffer it was
+# captured with, and no launch allocates after the first. Launches on one
+# stream run one after another, so they share it.
+_SCRATCH: dict[tuple, torch.Tensor] = {}
+
+
+def scratch(planes: int, shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The cooperative route's `planes` × `shape` state buffer on `device`."""
+    key = (device, int(planes), tuple(int(n) for n in shape), dtype)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.empty((int(planes),) + key[2], dtype=dtype, device=device)
+    return buf
 
 
 def query_caps(fn, index: int, *args) -> Caps:

@@ -342,12 +342,11 @@ def fb_multi_step(h, us, Mus, cH, cg, n: int, out=None):
     plan = device_plan(index, tuple(h.shape), h.dtype)
     scratch = None  # the cluster route keeps the state in shared memory
     if plan.route == "cooperative":
-        scratch = torch.empty((2 * (ndim + 1),) + tuple(h.shape),
-                              dtype=_compute_dtype(h.dtype), device=h.device)
+        scratch = resident.scratch(2 * (ndim + 1), h.shape, _compute_dtype(h.dtype), h.device)
     launch("swe", _SIGNATURES, "rmt_swe_multi_step", h.device, _DTYPE_CODE[h.dtype], ndim, n,
            *_ptrs(src), *_ptrs(Mus)[:3], *_ptrs(outs),
            None if scratch is None else scratch.data_ptr(), *extents(h.shape),
-           *_coeff_args(cH, cg), plan.cluster, int(plan.stage), index)
+           *_coeff_args(cH, cg), plan.cluster, int(plan.stage), index, route=plan.route)
     LAUNCHES["swe_multi_step"] += 1
     return outs[0], outs[1:]
 
@@ -406,6 +405,25 @@ def swe_multi_step_masked(h, us, Mus, cH, cg, n_steps: int, out=None):
     return fb_multi_step(h, us, Mus, cH, cg, n, out=out)
 
 
+def swe_sweeps(h, dt, spacing, H, g, n_steps: int, chunk=None, warn_on_cap=True,
+               config=None) -> multistep.SweepPlan:
+    """The SWE's VMEM loop of a single-shard state like `h` as a
+    multistep.SweepPlan: the JAX admission and the chunk policy of
+    multistep.resolve_step_chunk for `n_steps`; `sweep(h, us, Mus,
+    out=None) -> (h, us)` one launch of the swe_multi_step kernel (no
+    per-call work: the masks are the caller's)."""
+    multistep._check_config(config)
+    _check_swe_vmem(h, "; use the per-step path")
+    chunk = multistep.resolve_step_chunk(
+        n_steps, chunk, multistep._compute_nbytes(h.shape, h.dtype), warn_on_cap)
+    cH, cg = swe_coeffs(dt, spacing, H, g)
+
+    def sweep(h, us, Mus, out=None):
+        return swe_multi_step_masked(h, us, Mus, cH, cg, chunk, out=out)
+
+    return multistep.SweepPlan(chunk, sweep)
+
+
 def swe_multi_step(h, us, Mus, dt, spacing, H, g, n_steps: int, chunk=None,
                    warn_on_cap=True, config=None):
     """Advance a single-shard SWE state `n_steps`, `chunk` steps per launch
@@ -418,14 +436,10 @@ def swe_multi_step(h, us, Mus, dt, spacing, H, g, n_steps: int, chunk=None,
     admission is the JAX one, and `config="auto"` needs the tuning cache
     (NotImplementedError). Returns (h, us); the inputs are not written.
     """
-    multistep._check_config(config)
-    _check_swe_vmem(h, "; use the per-step path")
-    chunk = multistep.resolve_step_chunk(
-        n_steps, chunk, multistep._compute_nbytes(h.shape, h.dtype), warn_on_cap)
-    cH, cg = swe_coeffs(dt, spacing, H, g)
+    plan = swe_sweeps(h, dt, spacing, H, g, n_steps, chunk, warn_on_cap, config)
     state, spare = (h, tuple(us)), None
-    for _ in range(int(n_steps) // chunk):
-        nxt = swe_multi_step_masked(*state, Mus, cH, cg, chunk, out=spare)
+    for _ in range(int(n_steps) // plan.k):
+        nxt = plan.sweep(*state, Mus, out=spare)
         spare = None if state[0] is h else (state[0], *state[1])
         state = nxt
     return state

@@ -322,13 +322,12 @@ def leapfrog_multi_step(U, Uprev, M, Cw, inv_d2, n: int, form: str, out=None):
     plan = device_plan(index, tuple(U.shape), U.dtype, form)
     scratch = None  # the cluster route keeps the state in shared memory
     if plan.route == "cooperative":
-        scratch = torch.empty((2,) + tuple(U.shape), dtype=_compute_dtype(U.dtype),
-                              device=U.device)
+        scratch = resident.scratch(2, U.shape, _compute_dtype(U.dtype), U.device)
     launch("wave", _SIGNATURES, "rmt_wave_multi_step", U.device, _DTYPE_CODE[U.dtype], U.ndim,
            FORMS[form], int(n), U.data_ptr(), Uprev.data_ptr(), M.data_ptr(), Cw.data_ptr(),
            out[0].data_ptr(), out[1].data_ptr(),
            None if scratch is None else scratch.data_ptr(), *extents(U.shape),
-           *inv3(inv_d2), plan.cluster, int(plan.stage), index)
+           *inv3(inv_d2), plan.cluster, int(plan.stage), index, route=plan.route)
     LAUNCHES["wave_multi_step"] += 1
     return tuple(out)
 
@@ -381,6 +380,29 @@ def wave_multi_step_masked(U, Uprev, M, Cw, spacing, n_steps: int, out=None):
                                out=out)
 
 
+def wave_sweeps(U, dt, spacing, n_steps: int, chunk=None, warn_on_cap=True,
+                config=None) -> multistep.SweepPlan:
+    """The wave's VMEM loop of a single-shard state like `U` as a
+    multistep.SweepPlan: the chunk policy of multistep.resolve_step_chunk
+    for `n_steps`; `prepare(U, C2) -> (M, Cw)` per call (M =
+    interior_mask, Cw = dt²·C2·M with dt² the double product, as the JAX
+    package forms it); `sweep(U, Uprev, M, Cw, out=None) -> (U, U⁻)` one
+    launch of the wave_multi_step kernel."""
+    multistep._check_config(config)
+    nbytes = _check_wave_vmem(U, "field", "; use the per-step path")
+    chunk = multistep.resolve_step_chunk(n_steps, chunk, nbytes, warn_on_cap)
+    dt2 = float(dt) * float(dt)
+
+    def prepare(U, C2):
+        M = interior_mask(U.shape, U.dtype, U.device)
+        return M, (dt2 * C2) * M
+
+    def sweep(U, Uprev, M, Cw, out=None):
+        return wave_multi_step_masked(U, Uprev, M, Cw, spacing, chunk, out=out)
+
+    return multistep.SweepPlan(chunk, sweep, prepare)
+
+
 def wave_multi_step(U, Uprev, C2, dt, spacing, n_steps: int, chunk=None, warn_on_cap=True,
                     config=None):
     """Advance a single-shard leapfrog state `n_steps`, `chunk` steps per
@@ -394,14 +416,11 @@ def wave_multi_step(U, Uprev, C2, dt, spacing, n_steps: int, chunk=None, warn_on
     `config="auto"` needs the tuning cache (NotImplementedError). Returns
     the pair (U, U⁻); the inputs are not written.
     """
-    multistep._check_config(config)
-    nbytes = _check_wave_vmem(U, "field", "; use the per-step path")
-    chunk = multistep.resolve_step_chunk(n_steps, chunk, nbytes, warn_on_cap)
-    M = interior_mask(U.shape, U.dtype, U.device)
-    Cw = ((float(dt) * float(dt)) * C2) * M
+    plan = wave_sweeps(U, dt, spacing, n_steps, chunk, warn_on_cap, config)
+    M, Cw = plan.prepare(U, C2)
     pair, spare = (U, Uprev), None
-    for _ in range(int(n_steps) // chunk):
-        nxt = wave_multi_step_masked(*pair, M, Cw, spacing, chunk, out=spare)
+    for _ in range(int(n_steps) // plan.k):
+        nxt = plan.sweep(*pair, M, Cw, out=spare)
         spare = None if pair[0] is U else pair
         pair = nxt
     return pair

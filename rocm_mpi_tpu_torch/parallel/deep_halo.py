@@ -29,6 +29,14 @@ sweep; its local k steps take ops.swe.swe_multi_step_masked ("vmem") when
 the padded state passes the JAX admission, (3·ndim + 2)·compute_nbytes <=
 2 MiB, else k plain roll-form masked_swe_steps ("jnp").
 
+A sweep returns the core of a padded buffer the schedule reuses, as a
+view the next sweep overwrites: a driver copies it out before the next
+sweep. The models' deep advances (models/scan.sweep_loop) copy it into
+their loop's out slot, so on a CUDA rank a sweep, its exchange included,
+is captured into a CUDA graph and replayed; nothing in a sweep syncs the
+host. The "jnp" routes allocate their step temporaries inside the sweep,
+and a captured sweep takes them from its graph's pool.
+
 `wire_mode` is the state exchange's on-wire precision (parallel/wire.py);
 the loop-invariant `prepare` exchange always ships full precision, as in
 the JAX package. For the stateful modes (int8, int8_delta) the schedule's
@@ -48,7 +56,7 @@ import torch
 from rocm_mpi_tpu_torch.ops import multistep, swe, wave
 from rocm_mpi_tpu_torch.ops.kernels import inv_d2_of
 from rocm_mpi_tpu_torch.parallel import wire
-from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, exchange_into, place_core
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 
 
@@ -56,10 +64,29 @@ from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 class DeepSchedule:
     """A deep-halo schedule: `prepare(Cp)` exchanges and masks the
     coefficient once, returning this rank's k-padded Cm; `sweep(T, Cm)`
-    advances this rank's shard k steps with one exchange of T. `route` is
-    the local route the last sweep took ("vmem", "hbm-tb" or "jnp").
-    `init_wire(dtype, device)` is None for the stateless wire modes; for
-    the stateful ones it builds the zero wire state the sweep threads."""
+    advances this rank's shard k steps with one exchange of T.
+
+    `step(Tp, Cm, out)` is the same sweep on state that stays padded: the
+    exchange fills the ghosts of the k-padded block `Tp` in place, and the
+    k steps write the whole padded result into `out` (a block of Tp's
+    shape, never Tp), whose core is the next sweep's state. The sweep
+    loops of the models (models/scan.sweep_loop) keep their state so,
+    which saves `sweep`'s two copies of the core a sweep (into the
+    padded buffer, out of the result). It takes the same cells as
+    `sweep`: interior ghosts are exchanged every sweep, and a ghost no
+    neighbour sends stays what the first block held there (zero): the
+    schedules hold off-domain cells (diffusion's Cm and the wave's M and
+    Cw are 0 there, so the k steps return them unchanged), and the
+    shallow water's sealed walls keep them at rest.
+
+    `route` is the local route the last sweep took ("vmem", "hbm-tb" or
+    "jnp"), set each time a sweep's Python runs: at every eager sweep,
+    and at the warm-up and capture of a captured one, whose replays take
+    the route it recorded (a function of the block's shape and dtype
+    alone, `route_of(dtype)`). `init_wire(dtype, device)` is None for the
+    stateless wire modes; for the stateful ones it builds the zero wire
+    state the sweep threads (`sweep(..., ws) -> (..., ws)`, and `step`
+    alike)."""
 
     prepare: Callable
     sweep: Callable
@@ -67,22 +94,25 @@ class DeepSchedule:
     wire_mode: str = "f32"
     route: str | None = None
     init_wire: Callable | None = None
+    route_of: Callable | None = None
+    step: Callable | None = None
 
 
 def _wire_exchange(grid: GlobalGrid, k: int, wire_mode: str, fields: int):
-    """(exchange(i, t, buf, ws) -> (padded, ws-part), init_wire) for a
-    schedule exchanging `fields` same-shaped fields per sweep: field `i`
-    takes its slice of the flat wire state `ws` (empty for the stateless
-    modes). init_wire is None for the stateless modes."""
+    """(exchange(i, Tp, ws) -> (Tp, ws-part), init_wire) for a schedule
+    exchanging `fields` same-shaped fields per sweep: the width-k ghosts
+    of the padded block `Tp` filled in place, field `i` taking its slice
+    of the flat wire state `ws` (empty for the stateless modes).
+    init_wire is None for the stateless modes."""
     per_field = wire.state_arity(wire_mode) * 2 * grid.ndim
     if not wire.is_stateful(wire.validate_mode(wire_mode)):
-        def exchange(i, t, buf, ws):
-            return exchange_halo(t, grid, width=k, wire_mode=wire_mode, out=buf), ()
+        def exchange(i, Tp, ws):
+            return exchange_into(Tp, grid, width=k, wire_mode=wire_mode), ()
 
         return exchange, None
 
-    def exchange(i, t, buf, ws):
-        return exchange_halo(t, grid, width=k, wire_mode=wire_mode, out=buf,
+    def exchange(i, Tp, ws):
+        return exchange_into(Tp, grid, width=k, wire_mode=wire_mode,
                              wire_state=ws[i * per_field:(i + 1) * per_field])
 
     def init_wire(dtype, device=None):
@@ -90,6 +120,21 @@ def _wire_exchange(grid: GlobalGrid, k: int, wire_mode: str, fields: int):
                                         fields=fields, device=device)
 
     return exchange, init_wire
+
+
+def _pads(padded_shape, k: int):
+    """padded(i, t) -> a k-padded buffer of field `i` (kept per field,
+    dtype and device, so every sweep reuses it) holding `t` in its core,
+    zeros in its ghosts until the exchange fills them."""
+    bufs: dict[int, torch.Tensor] = {}
+
+    def padded(i, t):
+        buf = bufs.get(i)
+        if buf is None or buf.dtype != t.dtype or buf.device != t.device:
+            buf = bufs[i] = torch.zeros(padded_shape, dtype=t.dtype, device=t.device)
+        return place_core(t, k, out=buf)
+
+    return padded
 
 
 def _validate_depth(grid: GlobalGrid, k: int, label: str = "sweep depth"):
@@ -181,7 +226,8 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
     `prepare(Cp)` -> k-padded Cm (one width-k exchange of Cp, once per
     advance); `sweep(T, Cm)` -> T advanced k steps (one width-k exchange
     of T into a padded buffer the schedule reuses, the local k steps on
-    the route `local_route` picks, the core kept). `dt` may be a Python
+    the route `local_route` picks, the core kept); `step(Tp, Cm, out)`
+    the same on a padded block (DeepSchedule). `dt` may be a Python
     float or a 0-dim tensor in the field dtype, as the model passes it.
     A stateful `wire_mode` makes it `sweep(T, Cm, wire_state) -> (T,
     wire_state)`.
@@ -193,28 +239,41 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
     core = tuple(slice(k, -k) for _ in range(grid.ndim))
     inv_d2 = inv_d2_of(spacing)
     padded_shape = tuple(n + 2 * k for n in grid.local_shape)
-    pad: dict[str, torch.Tensor] = {}
+    padded = _pads(padded_shape, k)
 
     def prepare(Cp):
         return padded_update_coefficient(exchange_halo(Cp, grid, width=k), grid, k, lam, dt)
 
-    def sweep(T, Cm, *wire_state):
-        buf = pad.get("T")
-        if buf is None or buf.dtype != T.dtype or buf.device != T.device:
-            buf = pad["T"] = torch.zeros(padded_shape, dtype=T.dtype, device=T.device)
-        Tp, ws = exchange(0, T, buf, wire_state[0] if wire_state else ())
-        route = local_route(padded_shape, T.dtype, k, local_form)
-        if route == "vmem":
-            Tp = multistep.multi_step_cm(Tp, Cm, spacing, k)
-        elif route == "hbm-tb":
-            Tp = multistep.multi_step_cm_hbm(Tp, Cm, spacing, k)
-        else:
-            Tp = jnp_k_steps(Tp, Cm, inv_d2, k)
-        sched.route = route
-        return (Tp[core], ws) if init_wire else Tp[core]
+    def route_of(dtype):
+        return local_route(padded_shape, dtype, k, local_form)
 
-    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire)
+    def step(Tp, Cm, out=None, *wire_state):
+        Tp, ws = exchange(0, Tp, wire_state[0] if wire_state else ())
+        route = sched.route = route_of(Tp.dtype)
+        if route == "vmem":
+            out = multistep.multi_step_cm(Tp, Cm, spacing, k, out=out)
+        elif route == "hbm-tb":
+            out = multistep.multi_step_cm_hbm(Tp, Cm, spacing, k, out=out)
+        else:
+            out = _into(out, jnp_k_steps(Tp, Cm, inv_d2, k))
+        return (out, ws) if init_wire else out
+
+    def sweep(T, Cm, *wire_state):
+        got = step(padded(0, T), Cm, None, *wire_state)
+        return (got[0][core], got[1]) if init_wire else got[core]
+
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire,
+                         route_of=route_of, step=step)
     return sched
+
+
+def _into(out, result):
+    """`result`, copied into `out` when a buffer is given."""
+    if out is None:
+        return result
+    if isinstance(out, tuple):
+        return tuple(o.copy_(r) for o, r in zip(out, result))
+    return out.copy_(result)
 
 
 def wave_local_route(padded_shape, dtype) -> str:
@@ -237,8 +296,9 @@ def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
     `sweep(U, Uprev, (M, Cw))` -> (U, Uprev) advanced k steps: one width-k
     exchange of each leaf of the pair into buffers the schedule reuses,
     the local k steps on `wave_local_route`'s route, both leaves cropped to
-    the core. A stateful `wire_mode` adds a trailing wire state to the
-    sweep's arguments and results.
+    the core; `step(Up, Upp, (M, Cw), out)` the same on padded blocks, into
+    the pair `out` (DeepSchedule). A stateful `wire_mode` adds a trailing
+    wire state to the sweep's arguments and results.
     """
     _validate_depth(grid, k, "sweep depth")
     exchange, init_wire = _wire_exchange(grid, k, wire_mode, 2)
@@ -246,7 +306,7 @@ def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
     inv_d2 = inv_d2_of(spacing)
     dt2 = float(dt) * float(dt)
     padded_shape = tuple(n + 2 * k for n in grid.local_shape)
-    pads: dict[str, torch.Tensor] = {}
+    padded = _pads(padded_shape, k)
 
     def prepare(C2):
         C2p = exchange_halo(C2, grid, width=k)
@@ -254,29 +314,29 @@ def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
         M = torch.where(hold, torch.zeros_like(C2p), torch.ones_like(C2p))
         return M, (dt2 * C2p) * M
 
-    def padded(i, t, ws):
-        buf = pads.get(i)
-        if buf is None or buf.dtype != t.dtype or buf.device != t.device:
-            buf = pads[i] = torch.zeros(padded_shape, dtype=t.dtype, device=t.device)
-        return exchange(i, t, buf, ws)
+    def route_of(dtype):
+        return wave_local_route(padded_shape, dtype)
 
-    def sweep(U, Uprev, prepared, *wire_state):
+    def step(Up, Upp, prepared, out=None, *wire_state):
         M, Cw = prepared
         ws = wire_state[0] if wire_state else ()
-        (Up, ws_u), (Upp, ws_p) = padded(0, U, ws), padded(1, Uprev, ws)
-        route = wave_local_route(padded_shape, U.dtype)
+        (Up, ws_u), (Upp, ws_p) = exchange(0, Up, ws), exchange(1, Upp, ws)
+        route = sched.route = route_of(Up.dtype)
         if route == "vmem":
-            U2, Up2 = wave.wave_multi_step_masked(Up, Upp, M, Cw, spacing, k)
+            pair = wave.wave_multi_step_masked(Up, Upp, M, Cw, spacing, k, out=out)
         else:
-            U2, Up2 = Up, Upp
+            pair = Up, Upp
             for _ in range(k):
-                U2, Up2 = wave.masked_leapfrog_step(U2, Up2, M, Cw, inv_d2)
-        sched.route = route
-        if init_wire:
-            return U2[core], Up2[core], ws_u + ws_p
-        return U2[core], Up2[core]
+                pair = wave.masked_leapfrog_step(*pair, M, Cw, inv_d2)
+            pair = _into(out, pair)
+        return (*pair, ws_u + ws_p) if init_wire else tuple(pair)
 
-    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire)
+    def sweep(U, Uprev, prepared, *wire_state):
+        got = step(padded(0, U), padded(1, Uprev), prepared, None, *wire_state)
+        return (got[0][core], got[1][core], *got[2:])
+
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire,
+                         route_of=route_of, step=step)
     return sched
 
 
@@ -314,11 +374,13 @@ def make_swe_deep_sweep(grid: GlobalGrid, k: int, dt, spacing, H, g,
     the dtype and device; once per advance). `sweep(h, us, Mp)` -> (h, us)
     advanced k steps: one width-k exchange of each of the ndim+1 coupled
     fields into buffers the schedule reuses, the local k steps on
-    `swe_local_route`'s route, every leaf cropped to the core. The light
-    cone is the diffusion one: a step moves information one cell (a
-    diagonal counts as one), so width-k ghosts keep the core exact for k
-    steps. A stateful `wire_mode` adds a trailing wire state (h's, then
-    each velocity's) to the sweep's arguments and results.
+    `swe_local_route`'s route, every leaf cropped to the core; `step(hp,
+    ups, Mp, out)` the same on padded blocks, into the tuple `out` (h, u0,
+    …) (DeepSchedule). The light cone is the diffusion one: a step moves
+    information one cell (a diagonal counts as one), so width-k ghosts
+    keep the core exact for k steps. A stateful `wire_mode` adds a
+    trailing wire state (h's, then each velocity's) to the sweep's
+    arguments and results.
     """
     _validate_depth(grid, k, "sweep depth")
     ndim = grid.ndim
@@ -326,33 +388,36 @@ def make_swe_deep_sweep(grid: GlobalGrid, k: int, dt, spacing, H, g,
     core = tuple(slice(k, -k) for _ in range(ndim))
     cH, cg = swe.swe_coeffs(dt, spacing, H, g)
     padded_shape = tuple(n + 2 * k for n in grid.local_shape)
-    pads: dict[int, torch.Tensor] = {}
+    padded = _pads(padded_shape, k)
 
     def prepare(h):
         return tuple(padded_face_mask(padded_shape, grid, a, k, h.dtype, device=h.device)
                      for a in range(ndim))
 
-    def padded(i, t, ws):
-        buf = pads.get(i)
-        if buf is None or buf.dtype != t.dtype or buf.device != t.device:
-            buf = pads[i] = torch.zeros(padded_shape, dtype=t.dtype, device=t.device)
-        return exchange(i, t, buf, ws)
+    def route_of(dtype):
+        return swe_local_route(padded_shape, dtype)
 
-    def sweep(h, us, Mp, *wire_state):
+    def step(hp, ups, Mp, out=None, *wire_state):
         ws = wire_state[0] if wire_state else ()
-        outs = [padded(i, t, ws) for i, t in enumerate((h, *us))]
+        outs = [exchange(i, t, ws) for i, t in enumerate((hp, *ups))]
         hp, ups = outs[0][0], tuple(p for p, _ in outs[1:])
-        route = swe_local_route(padded_shape, h.dtype)
+        route = sched.route = route_of(hp.dtype)
         if route == "vmem":
-            h2, us2 = swe.swe_multi_step_masked(hp, ups, Mp, cH, cg, k)
+            h2, us2 = swe.swe_multi_step_masked(hp, ups, Mp, cH, cg, k, out=out)
         else:
             h2, us2 = hp, ups
             for _ in range(k):
                 h2, us2 = swe.masked_swe_step(h2, us2, Mp, cH, cg)
-        sched.route = route
+            h2, *us2 = _into(out, (h2, *us2))
         if init_wire:
-            return h2[core], tuple(u[core] for u in us2), sum((w for _, w in outs), ())
-        return h2[core], tuple(u[core] for u in us2)
+            return h2, tuple(us2), sum((w for _, w in outs), ())
+        return h2, tuple(us2)
 
-    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire)
+    def sweep(h, us, Mp, *wire_state):
+        got = step(padded(0, h), tuple(padded(i + 1, u) for i, u in enumerate(us)), Mp,
+                   None, *wire_state)
+        return (got[0][core], tuple(u[core] for u in got[1]), *got[2:])
+
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire,
+                         route_of=route_of, step=step)
     return sched

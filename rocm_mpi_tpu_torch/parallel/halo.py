@@ -32,8 +32,9 @@ made at a geometry's first exchange and kept on the grid
 (`GlobalGrid.exchange_buffers`, keyed by padded shape, dtype, width,
 axes, wire mode and device), so every later exchange allocates nothing
 and a captured exchange always finds the buffers it was captured with.
-The stateful modes (int8, int8_delta) run only on the deep schedules,
-which stay eager, and allocate their payloads per call.
+The stateful modes (int8, int8_delta) run only on the deep schedules;
+their codecs write each slab's codes and scale into buffers kept the
+same way, so their exchange captures too (models/scan.sweep_loop).
 
 `HostStagedStepper` is the host-staged oracle (the reference's
 IGG_ROCMAWARE_MPI=0 path): a numpy diffusion stepper over every shard of
@@ -172,10 +173,16 @@ def _axis_regions(buf: torch.Tensor, axes: tuple[int, ...], width: int):
 
 def _exchange_stateful(buf, grid, width, axes, wire_mode, wire_state):
     """exchange_into for the int8 modes: each group runs its codec's send
-    and the state threads through, in the JAX package's order."""
+    and the state threads through, in the JAX package's order. The codes
+    and scales travel in buffers kept on the grid beside the f32 slabs
+    (per group: the send and receive pair, and zeros for a ghost no
+    neighbour sends), so a captured exchange allocates no message."""
     codec = wire.slab_codec(wire_mode)
     arity = wire.state_arity(wire_mode)
     staged = distributed.staged(buf)
+    home = torch.device("cpu") if staged else buf.device
+    key = (tuple(buf.shape), buf.dtype, width, axes, wire_mode, buf.device)
+    slabs = grid.exchange_buffers.setdefault(key, {})
     new_state: list[torch.Tensor] = []
     for i_ax, (ax, region, n) in enumerate(_axis_regions(buf, axes, width)):
         ops, landings = [], []
@@ -183,18 +190,21 @@ def _exchange_stateful(buf, grid, width, axes, wire_mode, wire_state):
         for g, (send_at, to_dir, recv_at, from_dir) in enumerate(
                 ((n, +1, 0, -1), (width, -1, n + width, +1))):
             first = (2 * i_ax + g) * arity
-            payload, st = codec.send(buf[region(send_at)], tuple(wire_state[first:first + arity]))
+            slab = buf[region(send_at)]
+            msgs = slabs.get((ax, g))
+            if msgs is None:
+                msgs = slabs[(ax, g)] = _int8_messages(slab.shape, buf.dtype, buf.device, home)
+            send, recv, zero = msgs
+            payload, st = codec.send(slab, tuple(wire_state[first:first + arity]), out=send)
             to_peer = grid.neighbor(ax, to_dir)
             from_peer = grid.neighbor(ax, from_dir)
             if to_peer is not None:
-                for p in payload:
-                    p = p.contiguous()
-                    ops.append(dist.P2POp(dist.isend, p.cpu() if staged else p, to_peer))
+                ops.extend(dist.P2POp(dist.isend, p.cpu() if staged else p, to_peer)
+                           for p in payload)
             if from_peer is None:
-                got = tuple(torch.zeros_like(p) for p in payload)
+                got = zero
             else:
-                got = tuple(torch.empty_like(p, device="cpu" if staged else None)
-                            for p in payload)
+                got = recv
                 ops.extend(dist.P2POp(dist.irecv, r, from_peer) for r in got)
             landings.append((region(recv_at), got, st))
         if ops:
@@ -205,6 +215,19 @@ def _exchange_stateful(buf, grid, width, axes, wire_mode, wire_state):
             buf[dst] = decoded
             new_state.extend(st)
     return buf, tuple(new_state)
+
+
+def _int8_messages(shape, dtype, device, home):
+    """(send, receive, zeros) of one int8 group, each (codes, scale): the
+    codes of the slab's shape in int8, the scale one element of the field
+    dtype. The receive pair lies where the process group carries it
+    (`home`: host memory for a gloo group and a CUDA field); the zeros,
+    never written, decode a ghost no neighbour sends."""
+    def pair(where, make):
+        return (make(shape, dtype=torch.int8, device=where),
+                make((1,), dtype=dtype, device=where))
+
+    return pair(device, torch.empty), pair(home, torch.empty), pair(device, torch.zeros)
 
 
 def exchange_halo(u: torch.Tensor, grid: GlobalGrid, width: int = 1, axes=None,

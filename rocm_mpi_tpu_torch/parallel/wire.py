@@ -188,20 +188,25 @@ def init_exchange_state(local_shape, width: int, mode: str, dtype, axes=None,
 # ---------------------------------------------------------------------------
 
 
-def _quantize_int8(x):
-    """(int8 codes, scale as a one-element tensor in x.dtype). An all-zero
-    slab takes scale 1, so nothing divides by zero, and a zero scale (a
-    slab that never arrived) still decodes to 0. The operation order is
-    the JAX package's: x / scale (a division, not a reciprocal product)
-    in x's dtype, round half to even, then clamp. The divisor 127 is a
+def _quantize_int8(x, out=None):
+    """(int8 codes, scale as a one-element tensor in x.dtype), written
+    into `out` = (codes, scale) buffers when given. An all-zero slab
+    takes scale 1, so nothing divides by zero, and a zero scale (a slab
+    that never arrived) still decodes to 0. The operation order is the
+    JAX package's: x / scale (a division, not a reciprocal product) in
+    x's dtype, round half to even, then clamp. The divisor 127 is a
     tensor on x's device: CUDA divides by a Python scalar as a product
     with its reciprocal, which moves the scale by an ulp."""
     import torch
 
     m = x.abs().max()
     scale = torch.where(m > 0, m / torch.full_like(m, 127.0), torch.ones_like(m))
-    q = torch.clamp(torch.round(x / scale), -127.0, 127.0).to(torch.int8)
-    return q, scale.reshape(1)
+    q = torch.clamp(torch.round(x / scale), -127.0, 127.0)
+    if out is None:
+        return q.to(torch.int8), scale.reshape(1)
+    # The codes are whole numbers in [-127, 127]: the cast into the int8
+    # buffer is exact, as .to(torch.int8) is.
+    return out[0].copy_(q), out[1].copy_(scale.reshape(1))
 
 
 def _dequantize_int8(q, scale, dtype):
@@ -209,10 +214,12 @@ def _dequantize_int8(q, scale, dtype):
 
 
 class SlabCodec(NamedTuple):
-    """One slab's wire transform: `send(slab, state) -> (payload, state)`
-    and `recv(payload, state, dtype) -> (decoded, state)`. The payload is
-    a tuple of tensors, each sent as one message; `state` a tuple of
-    `state_arity(mode)` tensors (empty for stateless modes)."""
+    """One slab's wire transform: `send(slab, state, out=None) ->
+    (payload, state)` and `recv(payload, state, dtype) -> (decoded,
+    state)`. The payload is a tuple of tensors, each sent as one message,
+    written into the tensors of `out` when given (the int8 modes: codes
+    and scale); `state` a tuple of `state_arity(mode)` tensors (empty for
+    stateless modes)."""
 
     send: object
     recv: object
@@ -225,7 +232,7 @@ def slab_codec(mode: str) -> SlabCodec:
 
     if mode == "f32":
 
-        def send(slab, state):
+        def send(slab, state, out=None):
             return (slab,), state
 
         def recv(shipped, state, dtype):
@@ -233,7 +240,7 @@ def slab_codec(mode: str) -> SlabCodec:
 
     elif mode == "bf16":
 
-        def send(slab, state):
+        def send(slab, state, out=None):
             return (slab.to(torch.bfloat16),), state
 
         def recv(shipped, state, dtype):
@@ -242,10 +249,10 @@ def slab_codec(mode: str) -> SlabCodec:
 
     elif mode == "int8":
 
-        def send(slab, state):
+        def send(slab, state, out=None):
             (resid,) = state
             comp = slab + resid  # error feedback: carry the last send's error
-            q, scale = _quantize_int8(comp)
+            q, scale = _quantize_int8(comp, out)
             deq = _dequantize_int8(q, scale, slab.dtype)
             return (q, scale), (comp - deq,)
 
@@ -255,10 +262,10 @@ def slab_codec(mode: str) -> SlabCodec:
 
     else:  # int8_delta
 
-        def send(slab, state):
+        def send(slab, state, out=None):
             resid, prev_send, prev_recv = state
             comp = slab + resid
-            q, scale = _quantize_int8(comp - prev_send)
+            q, scale = _quantize_int8(comp - prev_send, out)
             deq = _dequantize_int8(q, scale, slab.dtype)
             new_prev = prev_send + deq
             return (q, scale), (comp - new_prev, new_prev, prev_recv)

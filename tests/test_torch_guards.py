@@ -49,7 +49,8 @@ def test_scan_sees_the_whole_port():
                               "parallel/native_halo.py", "apps/ici_ring_test.py",
                               "entry.py", "apps/weak_scaling.py", "models/scan.py",
                               "parallel/mesh.py", "parallel/distributed.py",
-                              "utils/metrics.py")} <= names
+                              "utils/metrics.py", "ops/resident.py",
+                              "apps/_common.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
 
 

@@ -2,8 +2,9 @@
 rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
 tests/test_torch_ring.py (`run_ring_rank`), tests/test_torch_wire.py
 (`run_wire_rank`), tests/test_torch_host_staged.py
-(`run_host_staged_rank`) and tests/test_torch_sharded_scan.py
-(`run_exchange_rank`); it holds no tests itself. Imports torch and the
+(`run_host_staged_rank`), tests/test_torch_sharded_scan.py
+(`run_exchange_rank`) and tests/test_torch_deep_scan.py
+(`run_deep_scan_rank`); it holds no tests itself. Imports torch and the
 port only, so a spawned rank starts fast; the parent holds the results
 against the JAX package."""
 
@@ -192,4 +193,99 @@ def run_exchange_rank(rank, spec):
             allocations.extend(calls)
         out["reuse"][key] = dict(first=first, later=later, allocations=allocations,
                                  keys=len(grid.exchange_buffers))
+    return out
+
+
+def seeded_state(model, seed=0):
+    """This rank's shard of a seeded numpy state of `model` (diffusion:
+    (T, Cp); the wave: (U, U⁻, C2); the SWE: (h, us), the velocities
+    zero on the wall faces as the masks hold them), in the model's dtype
+    on its device — what `init_state` returns."""
+    cfg, grid = model.config, model.grid
+    rng = np.random.default_rng(seed)
+    shape = cfg.global_shape
+
+    def shard(a):
+        return torch.from_numpy(np.ascontiguousarray(a[grid.shard_slices()])).to(
+            device=model.device, dtype=cfg.torch_dtype)
+
+    name = type(model).__name__
+    if name == "HeatDiffusion":
+        return shard(rng.random(shape)), shard(1.0 + rng.random(shape))
+    if name == "AcousticWave":
+        U = rng.random(shape)
+        return (shard(U), shard(U + 0.01 * rng.random(shape)),
+                shard(cfg.c0 ** 2 * (0.5 + 0.5 * rng.random(shape))))
+    h = shard(0.1 * rng.random(shape))
+    us = tuple(shard(0.01 * rng.random(shape)) * m for m in model.face_masks())
+    return h, us
+
+
+def eager_deep(model, k, wire_mode, calls):
+    """The deep schedule as an eager loop of sweeps, from `model.init_state()`:
+    per call of `calls` (steps each) the schedule's prepare once and a
+    zero wire state, then the sweeps one Python call after another, each
+    taking the last one's cropped view. Returns the state's leaves."""
+    from rocm_mpi_tpu_torch.parallel import deep_halo
+
+    cfg, grid = model.config, model.grid
+    name = type(model).__name__
+    if name == "HeatDiffusion":
+        sched = deep_halo.make_deep_sweep(grid, k, cfg.lam, model.dt, cfg.spacing,
+                                          wire_mode=wire_mode)
+        T, coeff = model.init_state()
+        state = (T,)
+    elif name == "AcousticWave":
+        sched = deep_halo.make_wave_deep_sweep(grid, k, model.dt_value, cfg.spacing,
+                                               wire_mode=wire_mode)
+        U, Uprev, coeff = model.init_state()
+        state = (U, Uprev)
+    else:
+        sched = deep_halo.make_swe_deep_sweep(grid, k, cfg.dt, cfg.spacing, cfg.H0, cfg.g,
+                                              wire_mode=wire_mode)
+        h, us = model.init_state()
+        state = (h, *us)
+    for n in calls:
+        P = sched.prepare(state[0] if name == "ShallowWater" else coeff)
+        ws = (sched.init_wire(state[0].dtype, state[0].device),) if sched.init_wire else ()
+        for _ in range(n // k):
+            if name == "HeatDiffusion":
+                out = sched.sweep(state[0], P, *ws)
+                state, ws = ((out[0],), out[1:]) if ws else ((out,), ())
+            elif name == "AcousticWave":
+                out = sched.sweep(*state, P, *ws)
+                state, ws = tuple(out[:2]), tuple(out[2:])
+            else:
+                out = sched.sweep(state[0], state[1:], P, *ws)
+                state, ws = (out[0], *out[1]), tuple(out[2:])
+    return [t.contiguous() for t in state], sched
+
+
+def run_deep_scan_rank(rank, spec):
+    """run_deep of each (workload, wire mode) of spec on a 2×2 grid from
+    the seeded state: the local and loop routes, the fields gathered to
+    rank 0, and whether this rank's shards equal the eager sweep loop's
+    of the same windows bit for bit."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+
+    torch.set_num_threads(1)
+    classes = {"diffusion": (HeatDiffusion, DiffusionConfig),
+               "wave": (AcousticWave, WaveConfig), "swe": (ShallowWater, SWEConfig)}
+    out = {}
+    for workload, mode in spec["runs"]:
+        model_cls, cfg_cls = classes[workload]
+        model = model_cls(cfg_cls(**spec["cfg"], wire_mode=mode), device="cpu")
+        model.init_state = lambda model=model: seeded_state(model, spec["seed"])
+        res = model.run_deep(block_steps=spec["k"])
+        fields = {"diffusion": lambda: (res.T,), "wave": lambda: (res.U,),
+                  "swe": lambda: (res.h, *res.us)}[workload]()
+        cfg = model.config
+        want, _ = eager_deep(model, spec["k"], mode, (cfg.warmup, cfg.nt - cfg.warmup))
+        eager = want[:1] if workload == "wave" else want
+        out[(workload, mode)] = dict(
+            route=res.route, loop_route=res.loop_route, k=res.k,
+            bitwise_eager=all(torch.equal(a, b) for a, b in zip(fields, eager)),
+            fields=[gather_to_host0(f, model.grid) for f in fields])
     return out
