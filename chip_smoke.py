@@ -2,7 +2,7 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-15 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-17 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
 the target). Phases, printed as they run (about six minutes on one H100
@@ -152,9 +152,34 @@ the target). Phases, printed as they run (about six minutes on one H100
    gathered 4-rank perf field bitwise equal to the whole-domain run of
    the same kernel on one GPU; on one card 4 gloo ranks share it (120
    steps after 24, rows `mechanics_only`), with `--gpus 4` one rank a
-   card over NCCL (the app's 2000 after 200: the north-star rows).
+   card over NCCL (the app's 2000 after 200: the north-star rows);
+16. 3d (run after phase 5's [scan]) — BASELINE.json's diffusion_3D_perf_hide
+   at 128³ f32: `perf` under the scan driver's graphs (masked_step in 3D,
+   100 steps after 10) and run_deep k = 8 (112 after 16, graphs of
+   sweeps; the JAX rule routes its 144³ block to plain steps, "jnp": no
+   kernel), each bitwise against its plain-version run with its launches
+   counted (run_deep also against its eager sweep loop), ms/step, Gpts/s
+   and the bytes bound printed; tb_sweep at k = 16 on a 3D block must
+   raise (its light cone exceeds shared memory); then the 3D app at its
+   defaults as a subprocess. With `--gpus 4`: the 2×2×1
+   grid of 256×256×128 (128³ a rank) over NCCL under the graphs — `perf`,
+   `hide` at the app's shell (8, 8, 128), clamped to (8, 8, 64) with no
+   interior box, and at (8, 8, 8), and run_deep k = 8 — every rank bitwise
+   its plain-version run and `hide` bitwise `perf`, the boxes and each
+   ms/step printed; then the app under torchrun on the four cards;
+17. checkpoint (after 16) — utils/checkpoint.py: a run of 48 steps saved
+   every 16, "crashed" after 32 and resumed from latest_valid_step into a
+   fresh model, bitwise the straight 48-step run, for diffusion `perf`
+   12288² f32 under the scan driver with exact segments, run_deep k = 8
+   (--ckpt-every 10 rounded to 16) and SWE `perf` 252² f64 (a tuple
+   state; mass drift held); a truncated newest step skipped by
+   latest_valid_step and a flipped byte refused by restore_state; save
+   ms, bytes a save and restore ms printed. With `--gpus 4`: 2×2 of
+   12288² `perf` over NCCL graphs, each rank saving its 6144² shard,
+   every rank resumed bitwise. Checkpoints go to a temporary directory
+   that the phase removes.
 
-With `--gpus 4` phases 6-15 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-17 run one rank per GPU over NCCL (6 and 8 for
 500 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
 exchange, the interiors and the slabs timed alone; 13 also with the
 exchange alone per wire mode at 2×2 of 12288², widths 1 and 8), and
@@ -232,6 +257,17 @@ RESIDENT_MAIN = {
 }
 RESIDENT_MAIN_F32 = {"multi_step_cm": (SMALL_3D,)}
 HIDE_B_WIDTH = (32, 4)  # the reference's boundary frame (hide.jl:42)
+# [3d]: BASELINE.json's diffusion_3D_perf_hide, 128³ a device, f32.
+CUBE = (128, 128, 128)
+CUBE_DEEP = (144, 144, 144)  # 128³ grown by the k = 8 deep ghosts: tb_sweep's block
+CUBE_SHARDED, CUBE_DIMS = (256, 256, 128), (2, 2, 1)  # 128³ a rank on four cards
+CUBE_NT, CUBE_WARMUP = 110, 10  # 100 steps after 10
+CUBE_DEEP_NT, CUBE_DEEP_WARMUP = 128, 16  # 112 after 16: k = 8 divides both windows
+APP_B_WIDTH_3D = (8, 8, 128)  # the app's shell: clamps to (8, 8, 64), no interior
+HIDE_B_WIDTH_3D = (8, 8, 8)  # a shell that leaves an interior to hide
+# [checkpoint]: a run of CKPT_NT steps saved every CKPT_EVERY, "crashed"
+# after CKPT_CRASH and resumed.
+CKPT_NT, CKPT_EVERY, CKPT_CRASH = 48, 16, 32
 # [sharded-scan]: (label, model, variant, wire mode) on the 2×2 grid of
 # 12288², each under three drivers, in 500 timed steps (q = 10).
 SHARDED_SCAN_NT, SHARDED_SCAN_WARMUP = 510, 10
@@ -334,6 +370,13 @@ KERNEL_CASES = [
     ("swe_step", SWE_3D, 1, "regions", ALL_DTYPES),
     ("swe_multi_step", SWE_3D, 8, "direct", ALL_DTYPES),
     ("fused_step_padded", SMALL_3D, 1, "direct", ALL_DTYPES),
+    # The 3D main paths' blocks at 128³ a device ([3d]): masked_step on one
+    # card, fused_step_cm and its hide boxes (HIDE_B_WIDTH_3D) a rank,
+    # tb_sweep on run_deep's k = 8 padded block.
+    ("masked_step", CUBE, 1, "direct", ("f32",)),
+    ("fused_step_cm", CUBE, 1, "direct", ("f32",)),
+    ("fused_step_cm", CUBE, 1, "regions", ("f32",)),
+    ("tb_sweep", CUBE_DEEP, 8, "direct", ("f32",)),
 ]
 # The f32 case whose times stand for each kernel in the JSON line: the
 # launch its main path makes most.
@@ -419,6 +462,7 @@ DRYRUN_LEGS = {
     "wave-3d-perf": ("wave_step",), "wave-3d-hide": ("wave_step_masked",),
     "wave-3d-deep": ("wave_multi_step",), "swe-3d-perf": ("swe_step",),
     "swe-3d-hide": ("swe_step",), "swe-3d-deep": ("swe_multi_step",),
+    "checkpoint": ("fused_step_cm",),
 }
 
 
@@ -650,7 +694,8 @@ def _kernel_case(torch, name, core, steps, form, dtype, device):
         """The hide decomposition's boxes: the interior from the raw block
         (offset 0), the slabs from the padded one (offset 1)."""
         raw = src[tuple(slice(1, -1) for _ in core)].contiguous()
-        boxes = region_boxes(core, effective_b_width(core, HIDE_B_WIDTH))
+        bw = HIDE_B_WIDTH_3D if core == CUBE else HIDE_B_WIDTH
+        boxes = region_boxes(core, effective_b_width(core, bw))
 
         def run():
             for box in boxes:
@@ -1573,9 +1618,10 @@ def phase_weak_scaling(card, gpus: int):
 def plain_deep(model, T, Cp, n: int, k: int, route: str):
     """`n` steps of the deep schedule through the plain versions: the same
     prepare, width-k exchange and crop as parallel.deep_halo, the local k
-    steps by multi_step_cm_plain ("vmem") or tb_sweep_plain ("hbm-tb")."""
+    steps by multi_step_cm_plain ("vmem"), tb_sweep_plain ("hbm-tb") or
+    the plain steps of the "jnp" route."""
     from rocm_mpi_tpu_torch.ops import kernels, multistep
-    from rocm_mpi_tpu_torch.parallel.deep_halo import make_deep_sweep
+    from rocm_mpi_tpu_torch.parallel.deep_halo import jnp_k_steps, make_deep_sweep
     from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
 
     cfg = model.config
@@ -1587,6 +1633,8 @@ def plain_deep(model, T, Cp, n: int, k: int, route: str):
         if route == "vmem":
             form = multistep.multi_step_form(Tp.shape, Tp.dtype, k, inv_d2)
             Tp = multistep.multi_step_cm_plain(Tp, Cm, inv_d2, k, form)
+        elif route == "jnp":  # the JAX package's XLA route: plain steps, no kernel
+            Tp = jnp_k_steps(Tp, Cm, inv_d2, k)
         else:
             Tp = multistep.tb_sweep_plain(Tp, Cm, inv_d2, k)
         T = Tp[core]
@@ -2806,6 +2854,476 @@ def phase_swe_deep(card, gpus: int):
 
 
 # ---------------------------------------------------------------------------
+# 3D at 128³ a device, and checkpointed runs
+# ---------------------------------------------------------------------------
+
+
+def _cube_model(shape, nt, warmup, dims=(1, 1, 1), b_width=(8, 8, 128), device="cuda"):
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+
+    cfg = DiffusionConfig(global_shape=shape, lengths=(10.0,) * 3, nt=nt, warmup=warmup,
+                          dtype="f32", dims=dims, b_width=b_width)
+    return HeatDiffusion(cfg, device=device)
+
+
+def _cube_rates(pk, res, cells_per_device: int, passes: int = 3) -> dict:
+    """ms/step, Gpts/s a device and the share of one device's bytes bound
+    (`passes` f32 passes over its cells a step) of a run."""
+    ms = res.wtime_it * 1e3
+    bound = passes * cells_per_device * 4 / pk["bytes_per_s"] * 1e3
+    return dict(ms_per_step=ms, gpts=res.gpts, bound_ms=bound, of_bound=bound / ms,
+                capture_ms=res.capture_ms, loop_route=res.loop_route)
+
+
+def phase_3d(torch, card, pk):
+    """[3d], one card: BASELINE.json's diffusion_3D_perf_hide at 128³ f32 —
+    `perf` under the scan driver's graphs (masked_step in 3D), run_deep
+    k = 8 as graphs of sweeps (the jnp route), both bitwise against their
+    plain-version runs with their launches counted; the 3D tb_sweep at
+    k = 16 must raise (its light cone does not fit shared memory); then
+    the 3D app itself."""
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    cells = math.prod(CUBE)
+    model = _cube_model(CUBE, CUBE_NT, CUBE_WARMUP)
+    kernels.reset_launches()
+    res = model.run("perf", driver="scan")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(launches == only("masked_step", CUBE_NT),
+          f"3D perf 128³: launches {launches}, expected {CUBE_NT} masked_step")
+    check(res.route == "scan-graph", f"3D perf 128³: scan route {res.route}")
+    T, Cp = model.init_state()
+    Cm = model.prepare_fn("perf")(Cp)
+    inv_d2 = kernels.inv_d2_of(model.config.spacing)
+    for _ in range(CUBE_NT):
+        T = kernels.masked_step_plain(T, Cm, inv_d2)
+    check(torch.equal(res.T, T), "3D perf 128³: kernel run != plain-version run")
+    perf = dict(launches=launches, q=res.k, **_cube_rates(pk, res, cells))
+    print(f"[3d] perf 128x128x128 f32, {CUBE_NT - CUBE_WARMUP} steps after {CUBE_WARMUP}, "
+          f"scan driver (route {res.route}, q {res.k}, capture {res.capture_ms:.1f} host ms): "
+          f"masked_step launches {launches['masked_step']}; bitwise == plain-version run; "
+          f"{perf['ms_per_step']:.5f} ms/step, {res.gpts:.3f} Gpts/s, bytes bound "
+          f"{perf['bound_ms']:.5f} ms ({perf['of_bound']:.3f} of it) on {card}", flush=True)
+    del res, T, Cm
+
+    # run_deep k = 8: the 144³ padded block is past the VMEM budget, and its
+    # 32-row slab (2.65 MB) past the temporal-blocked sweep's 2.5 MB slab
+    # budget, so the JAX package's rule (deep_halo.local_route) takes the
+    # "jnp" route: k plain steps a sweep, no kernel, under the graphs.
+    model = _cube_model(CUBE, CUBE_DEEP_NT, CUBE_DEEP_WARMUP)
+    kernels.reset_launches()
+    with watch_loops() as loops:
+        res = model.run_deep(block_steps=8)
+    torch.cuda.synchronize()
+    dlaunches = dict(kernels.LAUNCHES)
+    check((res.route, res.k, res.loop_route) == ("jnp", 8, "scan-graph"),
+          f"3D run_deep 128³: route {res.route} k {res.k} loop {res.loop_route}")
+    check(dlaunches == only("tb_sweep", 0),
+          f"3D run_deep 128³ (jnp route): launches {dlaunches}, expected none")
+    T, Cp = model.init_state()
+    ref = plain_deep(model, T, Cp, CUBE_DEEP_NT, 8, res.route)
+    check(torch.equal(res.T, ref), "3D run_deep 128³: graph run != plain-version run")
+    deep = {"launches": dlaunches, "route": res.route, **_cube_rates(pk, res, cells),
+            **graph_against_eager(torch, model, "run_deep", res, (res.T,), 8,
+                                  "3D run_deep 128³", loops)}
+    print(f"[3d] run_deep 128x128x128 f32 k 8: route {res.route} (the JAX rule: the 144³ "
+          f"block's 32-row slab exceeds the tb_sweep slab budget; plain steps, no kernel), "
+          f"{CUBE_DEEP_NT - CUBE_DEEP_WARMUP} steps after {CUBE_DEEP_WARMUP}, graphs of "
+          f"sweeps: bitwise == plain-version run and == the eager sweep loop; "
+          f"{_loop_line(deep)}; {res.gpts:.3f} Gpts/s on {card}", flush=True)
+    del res, T, ref, loops
+
+    # k = 16 in 3D: the tb_sweep kernel's light cone does not fit shared
+    # memory; the launch raises, never falls back.
+    from rocm_mpi_tpu_torch.ops import multistep
+
+    T16 = torch.rand(tuple(n + 32 for n in CUBE), device="cuda")
+    try:
+        multistep.tb_sweep(T16, torch.zeros_like(T16), kernels.inv_d2_of((0.1,) * 3), 16)
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        check("code -3" in str(err), f"3D tb_sweep k 16 raised {err!r}, not -3 (does not fit)")
+        raised = str(err)
+    else:
+        raise PhaseError("3D tb_sweep k 16 on 160³ ran: its light cone exceeds shared memory")
+    del T16
+    print(f"[3d] tb_sweep k 16 on 160³ (128³ with its ghosts) raises as it must: "
+          f"{raised.splitlines()[0][:110]}", flush=True)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rocm_mpi_tpu_torch.apps.diffusion_3d_perf_hide"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    app_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the 3D app failed (rc {proc.returncode}):\n{proc.stdout}\n"
+          f"{proc.stderr}")
+    lines = proc.stdout.splitlines()
+    executed = next((ln for ln in lines if ln.startswith("Executed 100 steps")), None)
+    check(executed is not None and any("clamped to (8, 8, 64)" in ln for ln in lines),
+          f"the 3D app printed no run line or clamp:\n{proc.stdout}")
+    print(f"[3d] python -m rocm_mpi_tpu_torch.apps.diffusion_3d_perf_hide (its defaults: "
+          f"128³ f32, 100 steps with 10 warmup, b_width (8, 8, 128)) in {app_s:.1f} s: "
+          + next(ln for ln in lines if "clamped to" in ln), flush=True)
+    print(f"[3d]   {executed}", flush=True)
+    return dict(perf=perf, deep=deep, k16_raises=raised, app_line=executed,
+                app_seconds=app_s)
+
+
+def three_d_rank(rank, spec):
+    """One rank of [3d] on four cards (started by spawn_ranks): the 2×2×1
+    grid of 256×256×128, 128³ a rank, over NCCL — perf, hide at two
+    shells, run_deep k = 8 — each against its plain-version run."""
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    dist.barrier()
+    shape, dims = tuple(spec["shape"]), tuple(spec["dims"])
+    out = dict(rank=rank, runs={})
+    perf_T = None
+    for label, variant, bw in (("perf", "perf", APP_B_WIDTH_3D),
+                               ("hide app b_width", "hide", APP_B_WIDTH_3D),
+                               ("hide (8, 8, 8)", "hide", HIDE_B_WIDTH_3D)):
+        model = _cube_model(shape, CUBE_NT, CUBE_WARMUP, dims=dims, b_width=bw, device=device)
+        kernels.reset_launches()
+        res = model.run(variant, driver="scan")
+        torch.cuda.synchronize()
+        got = dict(launches=dict(kernels.LAUNCHES), route=res.route,
+                   ms_per_step=res.wtime_it * 1e3, capture_ms=res.capture_ms,
+                   finite=bool(torch.isfinite(res.T).all()))
+        if variant == "perf":
+            T, Cp = model.init_state()
+            Cm = model.prepare_fn("perf")(Cp)
+            inv_d2 = kernels.inv_d2_of(model.config.spacing)
+            pad = torch.zeros(tuple(n + 2 for n in T.shape), dtype=T.dtype, device=device)
+            for _ in range(CUBE_NT):
+                T = kernels.fused_step_cm_plain(exchange_halo(T, model.grid, out=pad), Cm,
+                                                inv_d2)
+            got["bitwise"] = bool(torch.equal(res.T, T))
+            perf_T = res.T
+            del T, Cm, pad
+        else:
+            got["bitwise"] = bool(torch.equal(res.T, perf_T))  # hide == perf == plain
+        out["runs"][label] = got
+        out["local"] = model.grid.local_shape
+    model = _cube_model(shape, CUBE_DEEP_NT, CUBE_DEEP_WARMUP, dims=dims, device=device)
+    kernels.reset_launches()
+    res = model.run_deep(block_steps=8)
+    torch.cuda.synchronize()
+    T, Cp = model.init_state()
+    ref = plain_deep(model, T, Cp, CUBE_DEEP_NT, 8, res.route)
+    out["runs"]["deep"] = dict(launches=dict(kernels.LAUNCHES), route=res.route, k=res.k,
+                               loop_route=res.loop_route, ms_per_step=res.wtime_it * 1e3,
+                               capture_ms=res.capture_ms, bitwise=bool(torch.equal(res.T, ref)),
+                               finite=bool(torch.isfinite(res.T).all()))
+    return out
+
+
+def phase_3d_sharded(card, gpus: int):
+    """[3d], four cards: 2×2×1 of 256×256×128 over NCCL (the z faces are
+    the domain's: they exchange nothing; the 6-face exchange is held by
+    the CPU tests on 8 gloo ranks), then the 3D app under torchrun."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+    from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, ghost_free, region_boxes
+
+    spec = dict(shape=CUBE_SHARDED, dims=CUBE_DIMS, gpus=gpus)
+    ranks = spawn_ranks(4, three_d_rank, (spec,), backend="nccl", timeout=600)
+    boxes = {}
+    for label, bw in (("hide app b_width", APP_B_WIDTH_3D), ("hide (8, 8, 8)", HIDE_B_WIDTH_3D)):
+        eff = effective_b_width(CUBE, bw)
+        regions = region_boxes(CUBE, eff)
+        boxes[label] = (eff, len(regions), sum(ghost_free(b, CUBE) for b in regions))
+    expect = {"perf": only("fused_step_cm", CUBE_NT),
+              "deep": only("tb_sweep", 0)}  # the jnp route: no kernel
+    for label, (_, n_boxes, _) in boxes.items():
+        expect[label] = only("fused_step_cm", n_boxes * CUBE_NT)
+    for r in ranks:
+        check(tuple(r["local"]) == CUBE, f"[3d] rank {r['rank']} shard {r['local']}")
+        for label, got in r["runs"].items():
+            check(got["launches"] == expect[label],
+                  f"[3d] rank {r['rank']} {label}: launches {got['launches']}, expected "
+                  f"{expect[label]}")
+            check(got["bitwise"] and got["finite"],
+                  f"[3d] rank {r['rank']} {label}: not bitwise its plain-version run (hide: "
+                  "perf's field) or not finite")
+        check(r["runs"]["perf"]["route"] == "scan-graph"
+              and (r["runs"]["deep"]["route"], r["runs"]["deep"]["loop_route"])
+              == ("jnp", "scan-graph"),
+              f"[3d] rank {r['rank']}: routes {r['runs']['perf']['route']}, "
+              f"{r['runs']['deep']['route']}, {r['runs']['deep']['loop_route']}")
+    r0 = ranks[0]["runs"]
+    for label, (eff, n, inner) in boxes.items():
+        print(f"[3d] {label}: b_width clamped to {eff} on 128³: {inner} interior box(es), "
+              f"{n - inner} slab box(es), {n} fused_step_cm region launches a step", flush=True)
+    print(f"[3d] 2x2x1 of 256x256x128 f32 (128³ a rank), 4 GPUs, NCCL ({card} each), "
+          f"{CUBE_NT - CUBE_WARMUP} steps after {CUBE_WARMUP} under the scan driver's graphs: "
+          "every rank bitwise its plain-version run, hide bitwise perf; rank 0 ms/step perf "
+          f"{r0['perf']['ms_per_step']:.5f}, hide app b_width "
+          f"{r0['hide app b_width']['ms_per_step']:.5f}, hide (8, 8, 8) "
+          f"{r0['hide (8, 8, 8)']['ms_per_step']:.5f}; run_deep k 8 (jnp route, graphs of "
+          f"sweeps, {CUBE_DEEP_NT - CUBE_DEEP_WARMUP} after {CUBE_DEEP_WARMUP}) "
+          f"{r0['deep']['ms_per_step']:.5f}", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "4", "-m", "rocm_mpi_tpu_torch.apps.diffusion_3d_perf_hide", "--nx", "256", "--ny",
+         "256", "--nz", "128", "--dims", "2,2,1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    app_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the 3D app under torchrun failed (rc {proc.returncode}):\n"
+          f"{proc.stdout}\n{proc.stderr[-4000:]}")
+    executed = next((ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("Executed 100 steps")), None)
+    check(executed is not None, f"the 3D app under torchrun printed no run line:\n{proc.stdout}")
+    print(f"[3d] torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.diffusion_3d_perf_hide "
+          f"--nx 256 --ny 256 --nz 128 --dims 2,2,1 in {app_s:.1f} s: {executed}", flush=True)
+    return dict(ranks=ranks, boxes=boxes, app_line=executed, app_seconds=app_s)
+
+
+def _crash_and_resume(torch, make, nt: int, every: int, crash: int, directory,
+                      grid=None):
+    """A straight run of `nt` steps, then a run checkpointed every `every`
+    steps that "crashes" after `crash`, and a fresh model resumed from
+    latest_valid_step to `nt`. `make()` -> (advance(state, n) -> state,
+    initial state); each call is a fresh model. Returns (straight,
+    resumed, facts), the launches of the crashed and resumed runs
+    counted with the counts set to 0 just before each."""
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    adv, state = make()
+    straight = tuple(t.clone() for t in ckpt.tree_leaves(adv(state, nt)))
+    del adv, state
+    adv, state = make()
+    ckpt._SAVE_WALLS.clear()
+    kernels.reset_launches()
+    ckpt.run_segmented(adv, state, crash, directory, every, grid=grid)
+    torch.cuda.synchronize()
+    crashed = dict(kernels.LAUNCHES)
+    loop = getattr(adv, "loop", None)
+    graphs = None if loop is None else len(loop.graphs)
+    del adv, state
+    adv, like = make()
+    latest = ckpt.latest_valid_step(directory, grid=grid)
+    check(latest == crash, f"latest_valid_step {latest}, expected {crash}")
+    t0 = time.perf_counter()
+    restored = ckpt.restore_state(directory, latest, like, grid=grid)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(all(r.data_ptr() != t.data_ptr() and r.device == t.device for r, t in
+              zip(ckpt.tree_leaves(restored), ckpt.tree_leaves(like))),
+          "restore_state returned a tensor of the template or off its device")
+    del like
+    kernels.reset_launches()
+    final = ckpt.run_segmented(adv, restored, nt, directory, every, start_step=latest, grid=grid)
+    torch.cuda.synchronize()
+    resumed = dict(kernels.LAUNCHES)
+    manifest = ckpt.read_manifest(directory, nt)
+    facts = dict(save_ms=[w * 1e3 for w in ckpt._SAVE_WALLS], restore_ms=restore_ms,
+                 bytes_per_save=sum(manifest["files"].values()) if manifest else None,
+                 graphs_captured=graphs, crashed_launches=crashed, resumed_launches=resumed,
+                 bitwise=all(torch.equal(a, b) for a, b in
+                             zip(ckpt.tree_leaves(final), straight)))
+    return straight, final, facts
+
+
+def _ckpt_text(f) -> str:
+    saves = f["save_ms"]
+    return (f"save {statistics.median(saves):.1f} ms (median of {len(saves)}; "
+            f"{f['bytes_per_save'] / 1e6:.1f} MB a save), restore {f['restore_ms']:.1f} ms")
+
+
+def phase_checkpoint(torch, card):
+    """[checkpoint], one card: checkpointed runs that "crash" and resume
+    into a fresh model, bitwise the straight run — diffusion perf 12288²
+    under the scan driver (exact segments), run_deep k = 8 with an
+    interval rounded to the quantum, SWE perf 252² f64 (a tuple state) —
+    then a truncated newest step (skipped) and a flipped byte (refused)."""
+    import tempfile
+
+    from rocm_mpi_tpu_torch.apps._common import checkpoint_interval
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="rmt-ckpt-")
+    try:
+        def diffusion(kind):
+            def make():
+                model = HeatDiffusion(DiffusionConfig(global_shape=BIG, nt=CKPT_NT, warmup=0,
+                                                      dtype="f32", dims=(1, 1)), device="cuda")
+                T, Cp = model.init_state()
+                if kind == "deep":
+                    advance, k = model.deep_advance_fn(block_steps=8, nt=CKPT_NT, warmup=0)
+                    route = advance.schedule.route_of(torch.float32)
+                    check(k == 8 and route == "hbm-tb", f"checkpoint deep: k {k} route {route}")
+                else:
+                    advance, _ = model.scan_advance_fn("perf", nt=CKPT_EVERY, warmup=0,
+                                                       exact=True)
+
+                def seg(s, n):
+                    return (advance(s[0], Cp, n),)
+
+                seg.loop = advance.loop
+                return seg, (T,)
+
+            return make
+
+        _, _, f = _crash_and_resume(torch, diffusion("perf"), CKPT_NT, CKPT_EVERY,
+                                    CKPT_CRASH, f"{root}/perf")
+        check(f["bitwise"], "checkpoint perf 12288²: the resumed run != the straight run")
+        check(f["crashed_launches"] == only("masked_step", CKPT_CRASH)
+              and f["resumed_launches"] == only("masked_step", CKPT_NT - CKPT_CRASH),
+              f"checkpoint perf: launches {f['crashed_launches']}, {f['resumed_launches']}")
+        out["perf"] = f
+        print(f"[checkpoint] perf 12288x12288 f32, scan driver with exact segments "
+              f"({f['graphs_captured']} graph(s) captured for the run), {CKPT_NT} steps every "
+              f"{CKPT_EVERY}: crashed after {CKPT_CRASH}, resumed from latest_valid_step into a "
+              f"fresh model: bitwise == the straight run; masked_step launches "
+              f"{CKPT_CRASH} + {CKPT_NT - CKPT_CRASH}; {_ckpt_text(f)} on {card}", flush=True)
+        shutil.rmtree(f"{root}/perf", ignore_errors=True)
+
+        said = []
+        every = checkpoint_interval(argparse.Namespace(ckpt_every=10, nt=CKPT_NT), 8,
+                                    said.append)
+        check(every == 16 and said and "rounded to 16" in said[0],
+              f"--ckpt-every 10 with k 8 gave {every} ({said})")
+        _, _, f = _crash_and_resume(torch, diffusion("deep"), CKPT_NT, every,
+                                    CKPT_CRASH, f"{root}/deep")
+        check(f["bitwise"], "checkpoint run_deep 12288²: the resumed run != the straight run")
+        check(f["crashed_launches"] == only("tb_sweep", CKPT_CRASH // 8)
+              and f["resumed_launches"] == only("tb_sweep", (CKPT_NT - CKPT_CRASH) // 8),
+              f"checkpoint deep: launches {f['crashed_launches']}, {f['resumed_launches']}")
+        out["deep"] = f
+        print(f"[checkpoint] run_deep 12288x12288 f32 k 8 (hbm-tb), {said[0]}: crashed after "
+              f"{CKPT_CRASH}, resumed: bitwise == the straight run; tb_sweep launches "
+              f"{CKPT_CRASH // 8} + {(CKPT_NT - CKPT_CRASH) // 8}; {_ckpt_text(f)} on {card}",
+              flush=True)
+        shutil.rmtree(f"{root}/deep", ignore_errors=True)
+
+        def swe():
+            model = _swe_model(SMALL, CKPT_NT, 0, dtype="f64")
+            h, us = model.init_state()
+            Mus = model.face_masks()
+            advance, _ = model.scan_advance_fn("perf", nt=CKPT_EVERY, warmup=0, exact=True)
+
+            def seg(s, n):
+                return tuple(advance(s[0], s[1], Mus, n))
+
+            seg.loop = advance.loop
+            return seg, (h, us)
+
+        straight, final, f = _crash_and_resume(torch, swe, CKPT_NT, CKPT_EVERY,
+                                               CKPT_CRASH, f"{root}/swe")
+        check(f["bitwise"], "checkpoint SWE 252² f64: the resumed run != the straight run")
+        check(f["crashed_launches"] == only("swe_step", CKPT_CRASH)
+              and f["resumed_launches"] == only("swe_step", CKPT_NT - CKPT_CRASH),
+              f"checkpoint SWE: launches {f['crashed_launches']}, {f['resumed_launches']}")
+        h0 = _swe_model(SMALL, CKPT_NT, 0, dtype="f64").init_state()[0]
+        f["mass_drift"] = float(abs(final[0].double().sum() - h0.double().sum())
+                                / h0.double().sum())
+        check(f["mass_drift"] <= SWE_MASS_BOUND["f64"], f"checkpoint SWE mass drift "
+              f"{f['mass_drift']}")
+        out["swe"] = f
+        print(f"[checkpoint] SWE perf 252x252 f64, state (h, (u0, u1)), {CKPT_NT} steps every "
+              f"{CKPT_EVERY}: crashed after {CKPT_CRASH}, resumed: bitwise == the straight "
+              f"run; swe_step launches {CKPT_CRASH} + {CKPT_NT - CKPT_CRASH}; mass drift "
+              f"{f['mass_drift']:.3e}; {_ckpt_text(f)} on {card}", flush=True)
+
+        # Corruption: a truncated newest step is skipped; a flipped byte
+        # (sizes intact) is refused at restore.
+        d = f"{root}/swe"
+        leaf = pathlib.Path(d) / str(CKPT_NT) / "rank-0" / "leaf-0.npy"
+        leaf.write_bytes(leaf.read_bytes()[:-100])
+        lines = []
+        fallback = ckpt.latest_valid_step(d, log=lines.append)
+        check(fallback == CKPT_CRASH and lines,
+              f"a truncated step {CKPT_NT}: latest_valid_step gave {fallback}")
+        leaf = pathlib.Path(d) / str(CKPT_CRASH) / "rank-0" / "leaf-1.npy"
+        raw = bytearray(leaf.read_bytes())
+        raw[-3] ^= 0x10
+        leaf.write_bytes(bytes(raw))
+        try:
+            ckpt.restore_state(d, CKPT_CRASH, _swe_model(SMALL, CKPT_NT, 0, "f64").init_state())
+        except ckpt.CheckpointCorruptionError as err:
+            refused = str(err)
+        else:
+            raise PhaseError("a flipped byte was restored without complaint")
+        out["corruption"] = dict(fallback=fallback, refused=refused)
+        print(f"[checkpoint] corruption: step {CKPT_NT} truncated -> latest_valid_step falls "
+              f"back to {fallback} ({lines[0][:90]}); a flipped byte in step {CKPT_CRASH} -> "
+              f"CheckpointCorruptionError ({refused[:90]})", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def checkpoint_rank(rank, spec):
+    """One rank of [checkpoint] on four cards: 2×2 of 12288² perf under the
+    scan driver's graphs over NCCL, each rank saving its 6144² shard."""
+    import torch
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+
+    device = torch.device("cuda", rank % spec["gpus"])
+    torch.cuda.set_device(device)
+    dist.barrier()
+    grid = init_global_grid(*BIG, dims=(2, 2))
+
+    def make():
+        model = HeatDiffusion(DiffusionConfig(global_shape=BIG, nt=CKPT_NT, warmup=0,
+                                              dtype="f32", dims=(2, 2)), grid=grid,
+                              device=device)
+        T, Cp = model.init_state()
+        advance, _ = model.scan_advance_fn("perf", nt=CKPT_EVERY, warmup=0, exact=True)
+
+        def seg(s, n):
+            return (advance(s[0], Cp, n),)
+
+        seg.loop = advance.loop
+        return seg, (T,)
+
+    _, _, f = _crash_and_resume(torch, make, CKPT_NT, CKPT_EVERY, CKPT_CRASH, spec["dir"],
+                                grid=grid)
+    return dict(rank=rank, **f)
+
+
+def phase_checkpoint_sharded(card, gpus: int):
+    """[checkpoint], four cards: every rank resumes bitwise."""
+    import tempfile
+
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    with tempfile.TemporaryDirectory(prefix="rmt-ckpt-") as d:
+        ranks = spawn_ranks(4, checkpoint_rank, (dict(gpus=gpus, dir=d),), backend="nccl",
+                            timeout=600)
+    for r in ranks:
+        check(r["bitwise"], f"[checkpoint] rank {r['rank']}: resumed != straight")
+        check(r["crashed_launches"] == only("fused_step_cm", CKPT_CRASH)
+              and r["resumed_launches"] == only("fused_step_cm", CKPT_NT - CKPT_CRASH),
+              f"[checkpoint] rank {r['rank']}: launches {r['crashed_launches']}, "
+              f"{r['resumed_launches']}")
+        check(r["graphs_captured"], f"[checkpoint] rank {r['rank']}: no graph captured")
+    r0 = ranks[0]
+    print(f"[checkpoint] perf 2x2 of 12288x12288 f32, 4 GPUs, NCCL ({card} each), scan "
+          f"driver's graphs with exact segments ({r0['graphs_captured']} graph(s) a rank), "
+          f"{CKPT_NT} steps every {CKPT_EVERY}, each rank saving its 6144² shard: crashed after "
+          f"{CKPT_CRASH}, resumed: every rank bitwise == its straight run; rank 0 "
+          f"{_ckpt_text(r0)} (all four shards: {r0['bytes_per_save'] / 1e6:.1f} MB)",
+          flush=True)
+    return ranks
+
+
+# ---------------------------------------------------------------------------
 # The transport plane: ring, host-staged oracle, wire modes, dry run
 # ---------------------------------------------------------------------------
 
@@ -3317,8 +3835,8 @@ def main(argv=None) -> int:
                         help="also write every measurement to PATH")
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
                         help="4: run only the sharded phases (perf, sharded scan, deep, hide, "
-                        "wave and shallow-water deep, weak scaling, ring, host-staged, wire, "
-                        "dryrun), "
+                        "wave and shallow-water deep, 3d, checkpoint, weak scaling, ring, "
+                        "host-staged, wire, dryrun), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -3362,6 +3880,8 @@ def main(argv=None) -> int:
         record["hide_ranks"], _ = phase_hide(card, args.gpus)
         record["wave_deep_ranks"], _ = phase_wave_deep(card, args.gpus)
         record["swe_deep_ranks"], _ = phase_swe_deep(card, args.gpus)
+        record["three_d"] = phase_3d_sharded(card, args.gpus)
+        record["checkpoint_ranks"] = phase_checkpoint_sharded(card, args.gpus)
         record["weak_scaling_ranks"], _ = phase_weak_scaling(card, args.gpus)
         record["transport"], _ = phase_transport(torch, card, args.gpus)
         if args.json:
@@ -3383,6 +3903,8 @@ def main(argv=None) -> int:
     reversal = phase_reversal(torch, card)
     swe_rows = phase_swe(torch, card)
     scan_rows = phase_scan(torch, card)
+    cube = phase_3d(torch, card, pk)
+    ckpt_rec = phase_checkpoint(torch, card)
     ranks, fused_launches, kp_sharded_launches = phase_sharded(card, 1)
     deep_ranks, deep_launches = phase_sharded_deep(card, 1)
     hide_ranks, hide_launches = phase_hide(card, 1)
@@ -3414,7 +3936,11 @@ def main(argv=None) -> int:
             launches[name] += count
     # The weak-scaling rungs, then the transport phases: the host-staged
     # comparison's perf runs, the wire runs and every leg of the dry run.
-    for counts in (weak_launches, transport_launches):
+    # [3d] and [checkpoint]: each run's counts, set to 0 just before it.
+    for counts in (cube["perf"]["launches"], cube["deep"]["launches"],
+                   *(ckpt_rec[k][w] for k in ("perf", "deep", "swe")
+                     for w in ("crashed_launches", "resumed_launches")),
+                   weak_launches, transport_launches):
         for name, count in counts.items():
             launches[name] += count
     line = []
@@ -3439,7 +3965,7 @@ def main(argv=None) -> int:
             sharded_ranks=ranks,
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
             wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks,
-            weak_scaling_ranks=weak_ranks, host=host,
+            weak_scaling_ranks=weak_ranks, three_d=cube, checkpoint=ckpt_rec, host=host,
             transport=transport, kernels=line, seconds=time.perf_counter() - t0,
         ), indent=1, default=str))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

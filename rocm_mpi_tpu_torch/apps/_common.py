@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import shutil
 import subprocess
+import sys
 
 from rocm_mpi_tpu_torch.parallel.wire import WIRE_MODES
 
@@ -47,9 +48,26 @@ def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
     return p
 
 
+def positive_int(v):
+    """argparse type: int >= 1."""
+    i = int(v)
+    if i < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return i
+
+
+def nonneg_int(v):
+    """argparse type: int >= 0."""
+    i = int(v)
+    if i < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {v}")
+    return i
+
+
 def grid_shape(args, ndim: int = 2) -> tuple[int, ...]:
     """The global shape the options ask for: (nx, ny[, nz]), or fact·1024
-    on every axis when --fact is set."""
+    on every axis when --fact is set. Pass the ndim the options imply
+    (3 when --nz is set): the default keeps (nx, ny)."""
     shape = (args.nx, args.ny, getattr(args, "nz", 0))[:ndim]
     return tuple(args.fact * 1024 for _ in shape) if args.fact else shape
 
@@ -69,9 +87,10 @@ def driver_note(args, result) -> str:
     return f"driver scan (route {result.route}, q {result.k})"
 
 
-def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
-    p = base_parser(f"2D heat diffusion — {variant} variant", nx=nx, ny=ny, nt=nt,
-                    dtype=dtype)
+def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str, nz: int = 0):
+    p = base_parser(f"{'3D' if nz else '2D'} heat diffusion — {variant} variant", nx=nx,
+                    ny=ny, nt=nt, dtype=dtype)
+    p.add_argument("--nz", type=int, default=nz, help="global grid points, z (0 = 2D)")
     p.add_argument("--deep", type=int, default=0, metavar="K",
                    help="use deep-halo sweeps: exchange width-K ghosts every K steps "
                    "instead of width-1 every step (parallel.deep_halo); K must divide "
@@ -85,10 +104,164 @@ def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str):
         p.add_argument("--b-width", default="32,4",
                        help="boundary frame width, e.g. 32,4 (hide.jl:42; clamped to "
                        "half the shard)")
+    add_save_field_flag(p)
+    add_checkpoint_flags(p)
+    return p
+
+
+def add_save_field_flag(p) -> None:
     p.add_argument("--save-field", default=None, metavar="PATH.npy",
                    help="gather the final field to rank 0 and save it as .npy (bf16 as "
                    "float32), to compare the fields of two apps or runs")
-    return p
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint mode (counterpart of apps/_common.py:215-386)
+# ---------------------------------------------------------------------------
+
+# The resilience plane's flags: parsed, then refused (ROADMAP Queue 1 item 9).
+RESILIENCE_FLAGS = {"retries": "--retries", "inject_fault": "--inject-fault"}
+
+
+def add_checkpoint_flags(p) -> None:
+    """The shared --checkpoint/--ckpt-every/--resume block
+    (utils/checkpoint.py), and the resilience plane's --retries and
+    --inject-fault, which the port refuses."""
+    p.add_argument("--checkpoint", default=None, metavar="DIR",
+                   help="checkpoint the run state into DIR every --ckpt-every steps "
+                   "(each rank saves its shards; utils/checkpoint.py)")
+    p.add_argument("--ckpt-every", type=positive_int, default=None, metavar="N",
+                   help="checkpoint interval in steps (default: nt/4; rounded up to a "
+                   "multiple of --deep's k)")
+    p.add_argument("--resume", action="store_true",
+                   help="with --checkpoint: continue from the latest VALID saved step in "
+                   "DIR (corrupt or truncated checkpoints are skipped) instead of the "
+                   "initial condition")
+    p.add_argument("--retries", type=nonneg_int, default=0, metavar="N",
+                   help="supervised restarts (not ported yet: refused)")
+    p.add_argument("--inject-fault", default=None, metavar="SPEC",
+                   help="fault injection drills (not ported yet: refused)")
+
+
+def refuse_unported_resilience(args) -> None:
+    """Exit 2, naming the flags, when the resilience plane's flags are set."""
+    given = [flag for dest, flag in RESILIENCE_FLAGS.items() if getattr(args, dest, None)]
+    if given:
+        print(f"{', '.join(given)}: the resilience plane (supervised restarts, fault "
+              "injection; rocm_mpi_tpu/resilience/) is not ported yet (ROADMAP Queue 1 "
+              "item 9); run without it", file=sys.stderr, flush=True)
+        raise SystemExit(2)
+
+
+def checkpoint_interval(args, quantum: int = 1, log0=None) -> int:
+    """--ckpt-every (default nt/4) rounded up to a multiple of the
+    schedule's step quantum, saying so through `log0`."""
+    every = args.ckpt_every or max(args.nt // 4, 1)
+    if every % quantum:
+        rounded = (every // quantum + 1) * quantum
+        if log0 is not None:
+            log0(f"--ckpt-every {every} rounded to {rounded} (the schedule advances "
+                 f"{quantum} steps at a time)")
+        every = rounded
+    return every
+
+
+def per_step_checkpoint_advance(args, model, variant: str):
+    """Checkpoint mode's per-step advance, which must run exactly the
+    steps of every segment: under --driver scan the scan driver with
+    exact counts, its graphs planned for one segment (q = the interval)
+    and captured once for the whole run; under --driver step the step
+    loop."""
+    if args.driver == "scan":
+        advance, _ = model.scan_advance_fn(variant, nt=checkpoint_interval(args), warmup=0,
+                                           exact=True)
+        return advance
+    return model.advance_fn(variant)
+
+
+def checkpoint_schedule(args, model, make_per_step):
+    """The one chooser of checkpoint mode's schedule: (make_advance,
+    quantum). With --deep the model's deep advance over the whole run
+    (warmup 0), whose executed k is the quantum; otherwise the per-step
+    advance with quantum 1."""
+    if getattr(args, "deep", 0):
+        advance, k = model.deep_advance_fn(block_steps=args.deep, nt=args.nt, warmup=0)
+        return (lambda: advance), k
+    return make_per_step, 1
+
+
+def checkpointed_run(args, advance, init_state, log0, quantum: int = 1, grid=None):
+    """--checkpoint mode: the segmented advance with saves between
+    segments (utils/checkpoint.run_segmented); --resume restores the
+    latest valid step first. `advance(state, n) -> state` runs exactly
+    n steps; its `loop` attribute, when set, is the loop whose graphs the
+    run captured. Returns (final state, steps run here, wall seconds of
+    the segmented loop, saves included)."""
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+    from rocm_mpi_tpu_torch.utils.metrics import Timer
+
+    every = checkpoint_interval(args, quantum, log0)
+    start = 0
+    state = init_state
+    if args.resume:
+        latest = ckpt.latest_valid_step(args.checkpoint, log=log0, grid=grid)
+        if latest is not None:
+            start = latest
+            log0(f"--resume: restoring step {latest} from {args.checkpoint}")
+            state = ckpt.restore_state(args.checkpoint, latest, init_state, grid=grid,
+                                       log=log0)
+        else:
+            log0(f"--resume: no checkpoint under {args.checkpoint}; starting from the "
+                 "initial condition")
+    if start % quantum or (args.nt - start) % quantum:
+        log0(f"--resume: checkpoint step {start} / window {args.nt - start} is not a "
+             f"multiple of the schedule's step quantum {quantum} (was this checkpoint "
+             "written by a different schedule or nt?); resume with the schedule that "
+             "wrote it or adjust --nt")
+        raise SystemExit(2)
+    if start >= args.nt:
+        log0(f"--resume: checkpoint already at step {start} >= nt={args.nt}; nothing to run")
+        return state, 0, 0.0
+    lead = ckpt.tree_leaves(state)[0]
+    timer = Timer()
+    timer.tic(lead)
+    state = ckpt.run_segmented(advance, state, args.nt, args.checkpoint, every,
+                               start_step=start, grid=grid, log=log0)
+    wtime = timer.toc(ckpt.tree_leaves(state)[0])
+    log0(f"checkpointed {start}→{args.nt} every {every} steps into {args.checkpoint}")
+    loop = getattr(advance, "loop", None)
+    if loop is not None:
+        log0(f"checkpoint mode: loop route {loop.route}, {len(loop.graphs)} graph(s) "
+             "captured for the whole run")
+    return state, args.nt - start, wtime
+
+
+def make_checkpoint_runner(args, log0, advance_state, make_result, quantum: int = 1,
+                           grid=None):
+    """The checkpoint-mode runner the apps share: `advance_state() ->
+    (advance, init_state)` builds the segmented advance and
+    `make_result(state, ran, wtime)` the workload's run result with
+    nt=ran, warmup=0 (nt 0: the resume was already complete)."""
+
+    def runner():
+        adv, init_state = advance_state()
+        state, ran, wtime = checkpointed_run(args, adv, init_state, log0, quantum=quantum,
+                                             grid=grid)
+        return make_result(state, ran, wtime)
+
+    return runner
+
+
+def report_checkpointed_line(result, args, log0, where: str = "") -> None:
+    """The checkpoint-mode 'Executed …' line: rates only when steps ran."""
+    if result.nt == 0:
+        log0("0 steps run (checkpoint already complete); state restored")
+        return
+    on = f" on {where}" if where else ""
+    log0(f"Executed {result.nt} steps in = {result.wtime:.3e} sec (@ T_eff = "
+         f"{result.t_eff:.2f} GB/s aggregate, {result.gpts:.4f} Gpts/s){on}")
+    log0("(durability mode: wall time includes checkpoint saves — not the benchmark "
+         "protocol)")
 
 
 def parse_ints(text: str | None) -> tuple[int, ...] | None:
@@ -151,8 +324,10 @@ def card_line() -> str | None:
 def run_app(variant: str, args) -> int:
     from rocm_mpi_tpu_torch.config import DiffusionConfig
     from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.models.diffusion import RunResult
     from rocm_mpi_tpu_torch.parallel import distributed
 
+    refuse_unported_resilience(args)
     distributed.maybe_initialize_distributed(args.device)
     device = distributed.local_device(args.device)
     me = distributed.rank()
@@ -164,8 +339,9 @@ def run_app(variant: str, args) -> int:
     kwargs = {"b_width": parse_ints(args.b_width)} if variant == "hide" else {}
     if args.transport:
         kwargs["halo_transport"] = args.transport
+    shape = grid_shape(args, 3 if args.nz else 2)
     cfg = DiffusionConfig(
-        global_shape=grid_shape(args), lengths=(10.0, 10.0), nt=args.nt,
+        global_shape=shape, lengths=(10.0,) * len(shape), nt=args.nt,
         warmup=args.warmup, dtype=args.dtype, dims=parse_ints(args.dims),
         wire_mode=args.wire_mode, **kwargs,
     )
@@ -174,33 +350,76 @@ def run_app(variant: str, args) -> int:
     where = where_line(device)
     log0(f"grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
          f"({grid.nprocs} rank(s)) on {where}")
+    ckpt_mode = bool(args.checkpoint)
+    if variant == "hide" and not args.deep:
+        log0(hide_note(grid, cfg.b_width))
     note = ""
     if args.deep:
         # Label the run with the depth that will execute (run_deep degrades
-        # k to gcd(warmup, nt - warmup, K)).
-        k_eff = model.effective_deep_depth(block_steps=args.deep, warn=False)
+        # k to gcd(warmup, nt - warmup, K); checkpoint mode has no warmup
+        # window, so its k is gcd'd against nt alone).
+        k_eff = model.effective_deep_depth(warmup=0 if ckpt_mode else None,
+                                           block_steps=args.deep, warn=False)
         variant = f"deep{k_eff}"
         log0(f"--deep: running deep-halo sweeps (k={k_eff}"
              + (f", degraded from {args.deep}" if k_eff != args.deep else "")
              + ") instead of the per-step variant")
-        result = model.run_deep(block_steps=args.deep)
-        log0(f"{variant}: local {schedule_note(result)}, one width-{k_eff} exchange per "
-             f"{k_eff} steps; T_eff counts 3 passes per step, so it is an effective "
-             "rate and may exceed the card's memory rate")
+    if ckpt_mode:
+        make_advance, quantum = checkpoint_schedule(
+            args, model, lambda: per_step_checkpoint_advance(args, model, variant))
+
+        def advance_state():
+            advance = make_advance()
+            T, Cp = model.init_state()
+
+            def seg(s, n):
+                return (advance(s[0], Cp, n),)
+
+            seg.loop = getattr(advance, "loop", None)
+            return seg, (T,)
+
+        runner = make_checkpoint_runner(
+            args, log0, advance_state,
+            lambda s, ran, wtime: RunResult(T=s[0], wtime=wtime, nt=ran, warmup=0,
+                                            config=cfg),
+            quantum=quantum, grid=grid)
+        result = runner()
+        report_checkpointed_line(result, args, log0, where)
     else:
-        result = model.run(variant, driver=args.driver)
-        note = f"; {driver_note(args, result)}"
-    log0(
-        f"Executed {result.nt} steps ({result.warmup} warmup) in = "
-        f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
-        f"{result.gpts:.4f} Gpts/s) on {where}{note}"
-    )
+        if args.deep:
+            result = model.run_deep(block_steps=args.deep)
+            log0(f"{variant}: local {schedule_note(result)}, one width-{result.k} exchange "
+                 f"per {result.k} steps; T_eff counts 3 passes per step, so it is an "
+                 "effective rate and may exceed the card's memory rate")
+        else:
+            result = model.run(variant, driver=args.driver)
+            note = f"; {driver_note(args, result)}"
+        log0(
+            f"Executed {result.nt} steps ({result.warmup} warmup) in = "
+            f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
+            f"{result.gpts:.4f} Gpts/s) on {where}{note}"
+        )
     log0(f"maximum(T) = {global_max(result.T)}")
     if args.save_field:
         save_field(args.save_field, result.T, grid)
         log0(f"wrote {args.save_field}")
     distributed.finalize()
     return 0
+
+
+def hide_note(grid, b_width) -> str:
+    """The hide decomposition of this rank's shard: the frame width as
+    asked and as clamped (to half the shard), and its interior (ghost-free)
+    and slab boxes."""
+    from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, ghost_free, region_boxes
+
+    local = grid.local_shape
+    bw = effective_b_width(local, b_width)
+    boxes = region_boxes(local, bw)
+    inner = sum(ghost_free(b, local) for b in boxes)
+    one = "; one rank has nothing to hide and runs the perf step" if grid.nprocs == 1 else ""
+    return (f"hide: b_width {tuple(b_width)} clamped to {bw} on the {local} shard: "
+            f"{inner} interior box(es), {len(boxes) - inner} slab box(es){one}")
 
 
 def save_field(path, T, grid) -> None:

@@ -13,16 +13,31 @@ per step (read U, U⁻ and C2; write U⁺).
   python -m rocm_mpi_tpu_torch.apps.wave_2d --deep 8 --nt 1032 --warmup 8
   torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.wave_2d --variant hide
   python -m rocm_mpi_tpu_torch.apps.wave_2d --device cpu --nx 48 --ny 40 --nt 24 --warmup 8
+  python -m rocm_mpi_tpu_torch.apps.wave_2d --device cpu --nx 48 --ny 40 --nt 24 --checkpoint ck
+  python -m rocm_mpi_tpu_torch.apps.wave_2d --device cpu --nx 48 --ny 40 --nt 48 --checkpoint ck --resume
+
+`--checkpoint DIR` saves the state (U, U⁻) every `--ckpt-every` steps
+(utils/checkpoint.py; with --deep rounded up to a multiple of k) and
+`--resume` continues from the latest valid step; `--save-field` writes
+the final U.
 """
 
 import sys
 
 from rocm_mpi_tpu_torch.apps._common import (
+    add_checkpoint_flags,
+    add_save_field_flag,
     base_parser,
+    checkpoint_schedule,
     driver_note,
     global_max,
     grid_shape,
+    make_checkpoint_runner,
     parse_ints,
+    per_step_checkpoint_advance,
+    refuse_unported_resilience,
+    report_checkpointed_line,
+    save_field,
     schedule_note,
     where_line,
 )
@@ -39,11 +54,14 @@ def make_parser():
                        "pair once per K steps instead of width 1 every step")
     sched.add_argument("--vmem", action="store_true",
                        help="chunked multi-step loop (one GPU only)")
+    add_save_field_flag(p)
+    add_checkpoint_flags(p)
     return p
 
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    refuse_unported_resilience(args)
 
     from rocm_mpi_tpu_torch.config import WaveConfig
     from rocm_mpi_tpu_torch.models import AcousticWave
@@ -67,32 +85,62 @@ def main(argv=None) -> int:
     log0(f"wave grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
          f"({grid.nprocs} rank(s)) on {where}")
     note = ""
-    if args.deep:
-        k = model.effective_deep_depth(block_steps=args.deep, warn=False)
-        label = f"deep{k}"
-        log0(f"--deep: running deep-halo sweeps (k={k}"
-             + (f", degraded from {args.deep}" if k != args.deep else "")
-             + ") instead of the per-step variant")
-        result = model.run_deep(block_steps=k)
-    elif args.vmem:
-        if grid.nprocs != 1:
-            log0(f"--vmem requires a one-rank grid (the loop is unsharded); the process "
-                 f"grid is {grid.dims}")
+    if args.checkpoint:
+        if args.vmem:
+            log0("--checkpoint supports the per-step and deep schedules; drop --vmem")
             distributed.finalize()
             return 2
-        label = "vmem"
-        result = model.run_vmem_resident()
+        from rocm_mpi_tpu_torch.models.wave import WaveRunResult
+
+        make_advance, quantum = checkpoint_schedule(
+            args, model, lambda: per_step_checkpoint_advance(args, model, args.variant))
+
+        def advance_state():
+            advance = make_advance()
+            U, Uprev, C2 = model.init_state()
+
+            def seg(s, n):
+                return tuple(advance(s[0], s[1], C2, n))
+
+            seg.loop = getattr(advance, "loop", None)
+            return seg, (U, Uprev)
+
+        result = make_checkpoint_runner(
+            args, log0, advance_state,
+            lambda s, ran, wtime: WaveRunResult(U=s[0], wtime=wtime, nt=ran, warmup=0,
+                                                config=cfg),
+            quantum=quantum, grid=grid)()
+        report_checkpointed_line(result, args, log0, where)
     else:
-        label = args.variant
-        result = model.run(args.variant, driver=args.driver)
-        note = f"; {driver_note(args, result)}"
-    if result.route is not None and not note:
-        log0(f"{label}: {schedule_note(result)}, {result.k} steps per launch or sweep; T_eff "
-             "counts 4 passes per step, so it is an effective rate")
-    log0(f"{label}: executed {result.nt} steps ({result.warmup} warmup) in = "
-         f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
-         f"{result.gpts:.4f} Gpts/s) on {where}{note}")
+        if args.deep:
+            k = model.effective_deep_depth(block_steps=args.deep, warn=False)
+            label = f"deep{k}"
+            log0(f"--deep: running deep-halo sweeps (k={k}"
+                 + (f", degraded from {args.deep}" if k != args.deep else "")
+                 + ") instead of the per-step variant")
+            result = model.run_deep(block_steps=k)
+        elif args.vmem:
+            if grid.nprocs != 1:
+                log0(f"--vmem requires a one-rank grid (the loop is unsharded); the process "
+                     f"grid is {grid.dims}")
+                distributed.finalize()
+                return 2
+            label = "vmem"
+            result = model.run_vmem_resident()
+        else:
+            label = args.variant
+            result = model.run(args.variant, driver=args.driver)
+            note = f"; {driver_note(args, result)}"
+        if result.route is not None and not note:
+            log0(f"{label}: {schedule_note(result)}, {result.k} steps per launch or sweep; "
+                 "T_eff counts 4 passes per step, so it is an effective rate")
+        log0(f"{label}: executed {result.nt} steps ({result.warmup} warmup) in = "
+             f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
+             f"{result.gpts:.4f} Gpts/s) on {where}{note}")
     log0(f"maximum(|U|) = {global_max(result.U.abs())}")
+    if args.save_field:
+        save_field(args.save_field, result.U, grid)
+        log0(f"wrote {args.save_field}")
     distributed.finalize()
     return 0
 

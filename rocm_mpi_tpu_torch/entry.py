@@ -65,9 +65,13 @@ def dryrun_multichip(n_devices: int, device=None) -> list[dict]:
       8³ shards: diffusion `ap`, `perf`, `hide` and two k = 2 deep sweeps
       against the oracle, the wave and the shallow water against `ap`.
 
-    Not yet: the JAX dry run's checkpoint/resume leg, which needs the
-    port's checkpointing (ROADMAP Queue 1 item 8).
+    * the checkpoint/resume leg: the `perf` advance of the 2D diffusion
+      grid segmented with per-rank saves every 2 steps (utils/checkpoint
+      `run_segmented`), stopped at the midpoint, `latest_step` restored
+      into a fresh template and run to the end: bitwise the straight run.
     """
+    import tempfile
+
     import torch
 
     from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
@@ -82,8 +86,9 @@ def dryrun_multichip(n_devices: int, device=None) -> list[dict]:
         backend = "nccl" if cards >= n else "gloo"
     else:
         gpus, backend = 0, "gloo"
-    spec = dict(device=dev.type, gpus=gpus)
-    reports = spawn_ranks(n, _dryrun_rank, (spec,), backend=backend, timeout=600)
+    with tempfile.TemporaryDirectory(prefix="rmt-dryrun-ckpt-") as ckpt_dir:
+        spec = dict(device=dev.type, gpus=gpus, ckpt_dir=ckpt_dir)
+        reports = spawn_ranks(n, _dryrun_rank, (spec,), backend=backend, timeout=600)
     dims, dims3 = suggest_dims(n, 2), suggest_dims(n, 3)
     where = (f"{n} CPU ranks (gloo)" if dev.type == "cpu" else
              f"{n} ranks on {gpus} GPU(s) ({backend})")
@@ -99,7 +104,9 @@ def dryrun_multichip(n_devices: int, device=None) -> list[dict]:
         f"perf/hide and deep (2x k=4) agree with ap; SWE perf/hide and deep (2x k=4) "
         f"agree with ap, mass drift {r0['swe_mass_drift']:.2e}; 3D grid {dims3} "
         "ap/perf/hide + deep (2x k=2) match the 3D oracle; wave-3D and SWE-3D "
-        "perf/hide + deep (2x k=2) agree with ap; checkpoint/resume: not ported yet",
+        "perf/hide + deep (2x k=2) agree with ap; checkpoint/resume: perf segmented with "
+        f"per-rank saves every 2 steps, crashed at step {r0['ckpt_latest']}, resumed from "
+        f"latest_step into a fresh template, bitwise == the straight {N_STEPS}-step run",
         flush=True,
     )
     return reports
@@ -196,6 +203,35 @@ def _dryrun_rank(rank: int, spec: dict) -> dict:
 
     _allclose(_host(leg("deep", deep)), mine(oracle, grid), "deep-halo sweeps (2x k=4)")
     report["routes"]["deep"] = sched.route
+
+    # Checkpoint/resume (__graft_entry__.py:201-236): the perf advance
+    # segmented with per-rank saves on this grid, "crashed" at the
+    # midpoint, resumed from the latest saved step into a fresh template:
+    # bitwise the straight run.
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    perf_advance = model.advance_fn("perf")
+    ckdir = spec["ckpt_dir"]
+
+    def seg_advance(s, n):
+        return (perf_advance(s[0], Cp, n),)
+
+    def resumed_run():
+        ckpt.run_segmented(seg_advance, (T0.clone(),), N_STEPS // 2, ckdir, every=2,
+                           grid=grid)
+        latest = ckpt.latest_step(ckdir)
+        _check(latest == N_STEPS // 2,
+               f"expected the latest checkpoint at {N_STEPS // 2}, got {latest}")
+        fresh = (model.init_state()[0],)
+        resumed = ckpt.restore_state(ckdir, latest, fresh, grid=grid)
+        (final,) = ckpt.run_segmented(seg_advance, resumed, N_STEPS, ckdir, every=2,
+                                      start_step=latest, grid=grid)
+        return final, latest
+
+    final, report["ckpt_latest"] = leg("checkpoint", resumed_run)
+    straight = perf_advance(T0.clone(), Cp, N_STEPS)
+    _check(torch.equal(final, straight),
+           "crash-resumed segmented run is not bitwise-equal to the straight run")
 
     # The HBM-class deep sweep: a shard whose padded block exceeds the VMEM
     # budget takes the temporal-blocked route.

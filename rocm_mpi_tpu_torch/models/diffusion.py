@@ -402,7 +402,7 @@ class HeatDiffusion:
 
     def scan_advance_fn(self, variant: str, nt: int | None = None,
                         warmup: int | None = None, chunk: int | None = None,
-                        config: str | None = None):
+                        config: str | None = None, exact: bool = False):
         """(advance(T, Cp, n) -> T, q): the scan driver (models/scan.py).
 
         q is JAX's: the largest chunk serving both timing windows,
@@ -416,6 +416,11 @@ class HeatDiffusion:
         NotImplementedError. The passed-in T becomes a buffer of the
         driver: like a donated JAX argument, the caller must rebind T from
         the result. `advance.loop` is the ScanLoop (route, plan, graphs).
+
+        `exact=True` runs every step a call asks for, as the schedules'
+        sweep loops do: n // c graphs of c steps, then one-step graphs
+        (checkpoint mode's segments, whose lengths need not be multiples
+        of q; the graphs are captured once and serve every segment).
         """
         cfg = self.config
         step, prep = self._get_step(variant), self.prepare_fn(variant)
@@ -430,7 +435,7 @@ class HeatDiffusion:
             return step(T, C, out=out, pad=pad)
 
         route = scan_route(self.device, self.grid.nprocs, distributed.backend())
-        loop = ScanLoop(one_step, graph_plan(q, 2), route)
+        loop = ScanLoop(one_step, graph_plan(q, 2), route, exact=exact)
 
         def advance(T, Cp, n):
             (T,) = loop((T,), (prep(Cp),), n)

@@ -251,12 +251,12 @@ class ShallowWater:
 
     def scan_advance_fn(self, variant: str = "perf", nt: int | None = None,
                         warmup: int | None = None, chunk: int | None = None,
-                        config: str | None = None):
+                        config: str | None = None, exact: bool = False):
         """(advance(h, us, Mus, n) -> (h, us), q): the scan driver, SWE
         edition (see HeatDiffusion.scan_advance_fn). The whole state tuple
         and a spare tuple rotate with period 2; the masks are bound per
-        call, read-only. `n` runs n // q chunks; the caller must rebind the
-        state from the result."""
+        call, read-only. `n` runs n // q chunks (all n steps with
+        `exact=True`); the caller must rebind the state from the result."""
         cfg = self.config
         step = self._step(variant)
         q = scan_chunk(cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
@@ -271,7 +271,7 @@ class ShallowWater:
             return (h2, *us2)
 
         route = scan_route(self.device, self.grid.nprocs, distributed.backend())
-        loop = ScanLoop(one_step, graph_plan(q, 2), route)
+        loop = ScanLoop(one_step, graph_plan(q, 2), route, exact=exact)
 
         def advance(h, us, Mus, n):
             ((h, *us),) = loop(((h, *us),), (tuple(Mus),), n)

@@ -249,12 +249,13 @@ class AcousticWave:
 
     def scan_advance_fn(self, variant: str = "perf", nt: int | None = None,
                         warmup: int | None = None, chunk: int | None = None,
-                        config: str | None = None):
+                        config: str | None = None, exact: bool = False):
         """(advance(U, U⁻, C2, n) -> (U, U⁻), q): the scan driver, wave
         edition (see HeatDiffusion.scan_advance_fn). The pair and a spare
         rotate with period 3, so a graph of c steps with c not a multiple
         of 3 comes in three phases (models/scan.py). `n` runs n // q
-        chunks; the caller must rebind U and U⁻ from the result."""
+        chunks (all n steps with `exact=True`); the caller must rebind U
+        and U⁻ from the result."""
         cfg = self.config
         step, _ = self._step(variant)
         prep = self.prepare_fn(variant)
@@ -268,7 +269,7 @@ class AcousticWave:
             return step(U, Uprev, C2, P, out=out, pad=pad)
 
         route = scan_route(self.device, self.grid.nprocs, distributed.backend())
-        loop = ScanLoop(one_step, graph_plan(q, 3), route)
+        loop = ScanLoop(one_step, graph_plan(q, 3), route, exact=exact)
 
         def advance(U, Uprev, C2, n):
             return loop((U, Uprev), (C2, prep(C2)), n)

@@ -50,7 +50,8 @@ def test_scan_sees_the_whole_port():
                               "entry.py", "apps/weak_scaling.py", "models/scan.py",
                               "parallel/mesh.py", "parallel/distributed.py",
                               "utils/metrics.py", "ops/resident.py",
-                              "apps/_common.py")} <= names
+                              "apps/_common.py", "utils/checkpoint.py",
+                              "apps/diffusion_3d_perf_hide.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
 
 
@@ -107,6 +108,10 @@ def test_cpu_entry_points_launch_no_kernel():
     for app in (diffusion_2d_kp, diffusion_2d_ap):
         assert app.main(["--device", "cpu", "--nx", "16", "--ny", "16", "--nt", "8",
                          "--warmup", "0"]) == 0
+    from rocm_mpi_tpu_torch.apps import diffusion_3d_perf_hide
+
+    assert diffusion_3d_perf_hide.main(["--device", "cpu", "--nx", "16", "--ny", "16", "--nz",
+                                        "16", "--nt", "8", "--warmup", "0"]) == 0
     assert "kp" in heat.variants
     assert set(LAUNCHES.values()) == {0}
 
@@ -157,7 +162,9 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         weak_scaling.main(["--local", "8", "--nt", "4", "--warmup", "0"])
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         swe_2d.main(["--nx", "16", "--ny", "16", "--nt", "4", "--warmup", "0"])
-    for app in (diffusion_2d_kp, diffusion_2d_ap):
+    from rocm_mpi_tpu_torch.apps import diffusion_3d_perf_hide
+
+    for app in (diffusion_2d_kp, diffusion_2d_ap, diffusion_3d_perf_hide):
         with pytest.raises(RuntimeError, match="CUDA is unavailable"):
             app.main(["--nx", "16", "--ny", "16", "--nt", "4", "--warmup", "0"])
     HeatDiffusion(cfg, device="cpu")  # the explicit ask is honoured

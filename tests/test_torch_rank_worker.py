@@ -3,8 +3,10 @@ rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks from
 tests/test_torch_distributed.py (`run_rank`), tests/test_torch_overlap.py
 (`run_overlap_rank`), tests/test_torch_kp.py (`run_kp_rank`) and
 tests/test_torch_scan.py (`run_scan_rank`), tests/test_torch_sharded_scan.py
-(`run_sharded_scan_rank`) and tests/test_torch_weak_scaling.py
-(`run_weak_scaling_rank`); it holds no tests itself. Imports torch and the port
+(`run_sharded_scan_rank`), tests/test_torch_weak_scaling.py
+(`run_weak_scaling_rank`), tests/test_torch_checkpoint.py
+(`run_checkpoint_rank`) and tests/test_torch_diffusion_3d.py
+(`run_3d_rank`); it holds no tests itself. Imports torch and the port
 only, so a spawned rank starts fast; the parent holds the results against
 the JAX package."""
 
@@ -218,3 +220,81 @@ def run_weak_scaling_rank(rank, spec):
     rows = weak_scaling.ladder(args, torch.device("cpu"), log=lambda msg: None)
     last = rows[-1][1]
     return [row for row, _ in rows], gather_to_host0(last.result.T, last.model.grid)
+
+
+def run_checkpoint_rank(rank, spec):
+    """One rank of tests/test_torch_checkpoint.py on a 2×2 grid: the
+    shallow water's segmented runs (the step driver every 16, the scan
+    driver with exact counts every 5) against the straight run, and a
+    crash after 32 steps resumed from latest_valid_step into a fresh
+    model. Returns the bitwise verdicts, the resumed step and rank 0's
+    manifest."""
+    from rocm_mpi_tpu_torch.config import SWEConfig
+    from rocm_mpi_tpu_torch.models import ShallowWater
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    torch.set_num_threads(1)
+    cfg = SWEConfig(global_shape=spec["shape"], nt=spec["nt"], warmup=0, dtype="f64",
+                    dims=spec["dims"])
+
+    def fresh():
+        model = ShallowWater(cfg, device="cpu")
+        Mus = model.face_masks()
+        step = model.advance_fn("perf")
+        scan, _ = model.scan_advance_fn("perf", nt=5, warmup=0, exact=True)
+        return (model, lambda s, n: tuple(step(*s, Mus, n)),
+                lambda s, n: tuple(scan(*s, Mus, n)))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(ckpt.tree_leaves(a), ckpt.tree_leaves(b)))
+
+    model, step_adv, scan_adv = fresh()
+    grid = model.grid
+    nt = spec["nt"]
+    ref = step_adv(model.init_state(), nt)
+    root = spec["dir"]
+    out = {}
+    seg = ckpt.run_segmented(step_adv, model.init_state(), nt, f"{root}/step", 16, grid=grid)
+    out["step_segments"] = same(seg, ref)
+    seg = ckpt.run_segmented(scan_adv, model.init_state(), nt, f"{root}/scan", 5, grid=grid)
+    out["scan_segments"] = same(seg, ref)
+    # "Crash" after 32 of 48 steps, then a fresh model resumes.
+    ckpt.run_segmented(step_adv, model.init_state(), 32, f"{root}/crash", 16, grid=grid)
+    model, step_adv, _ = fresh()
+    start = ckpt.latest_valid_step(f"{root}/crash", grid=model.grid)
+    like = model.init_state()
+    restored = ckpt.restore_state(f"{root}/crash", start, like, grid=model.grid)
+    out["fresh_tensors"] = all(r.data_ptr() != t.data_ptr() for r, t in
+                               zip(ckpt.tree_leaves(restored), ckpt.tree_leaves(like)))
+    final = ckpt.run_segmented(step_adv, restored, nt, f"{root}/crash", 16, start_step=start,
+                               grid=model.grid)
+    out["resumed"] = same(final, ref)
+    out["start"] = start
+    flat = ckpt.restore_state(f"{root}/crash", nt, None, grid=model.grid, devices="cpu")
+    out["like_none"] = same(flat, ref)
+    out["manifest"] = ckpt.read_manifest(f"{root}/crash", nt) if rank == 0 else None
+    return out
+
+
+def run_3d_rank(rank, spec):
+    """One rank of tests/test_torch_diffusion_3d.py: each 3D diffusion
+    variant of spec["variants"] from the JAX package's initial state
+    (spec["jax_state"], numpy) on spec["dims"], gathered to rank 0."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+    from rocm_mpi_tpu_torch.state import state_from_numpy
+
+    torch.set_num_threads(1)
+    kernels.reset_launches()
+    cfg = DiffusionConfig(global_shape=spec["shape"], lengths=(10.0,) * 3, nt=spec["nt"],
+                          warmup=0, dtype="f64", dims=spec["dims"], b_width=spec["b_width"])
+    model = HeatDiffusion(cfg, device="cpu")
+    T0, Cp = state_from_numpy(*spec["jax_state"], model.grid, device="cpu")
+    out = {}
+    for variant in spec["variants"]:
+        T = model.advance_fn(variant)(T0.clone(), Cp, spec["nt"])
+        out[variant] = gather_to_host0(T, model.grid)
+    out["launches"] = dict(kernels.LAUNCHES)
+    return out
