@@ -25,7 +25,16 @@ the target). Phases, printed as they run (about six minutes on one H100
    fused_step_padded at 12288², 6144², 252² and on the 3D block;
    masked_step also at 12288×12287 and on a 12288² view with storage
    offset 1, each printed with its layout (16-byte vectors or scalar
-   cells), and at 252² with its wrapper's host µs a call; the multi-step
+   cells), and at 252² with its wrapper's host µs a call; fused_step_cm
+   in both of its callers' forms: from a padded block (its views, the
+   scalar layout) and in the face form the sharded steps launch (the
+   shard and contiguous faces: all present, none below on any axis as at
+   a domain corner, or none), whole and as the hide boxes, at 252², a
+   6144² shard, ragged 253×251, the small 3D block and a 128³ shard,
+   three dtypes, each printed with its layout and, beside the per-call
+   median, its device time queued behind torch.cuda._sleep and the time
+   a launch of 200 queued between two CUDA events (the figure for the
+   128³ shard, whose one launch is too short for a pair of events); the multi-step
    kernels (multi_step_cm, wave_multi_step, swe_multi_step) also on a
    ragged 253×251 block and at the capacity edges of their cluster route
    (the widest block of 724 (diffusion), 512 (wave) or 256 (SWE) rows one
@@ -83,10 +92,13 @@ the target). Phases, printed as they run (about six minutes on one H100
    c and the graphs captured (and their host ms), the launch counts nt
    per kernel of the step under both drivers, ms/step of both the median
    of three timed windows;
-6. main path, sharded — the 2×2 perf path (halo exchange + fused_step_cm)
-   run by 4 ranks that share this one card over a gloo group (halo slabs
-   staged through host memory): every step one fused_step_cm launch per
-   rank, each shard bitwise equal to the plain versions' run, the gathered
+6. main path, sharded — the 2×2 perf path (the face exchange, one batch
+   a step, + fused_step_cm from the shard and its faces) run by 4 ranks
+   that share this one card over a gloo group (faces staged through host
+   memory): every step one fused_step_cm launch per rank, each shard
+   bitwise equal to the plain versions' run and to the same steps over
+   the padded route they replaced (exchange_halo + fused_step_cm on the
+   block; its ms/step printed beside), the gathered
    field bitwise equal to the same kernel run over the whole zero-padded
    domain on one GPU; then `kp` on the same grid, each shard bitwise equal
    to its plain-version run and the gathered field bitwise equal to the
@@ -94,7 +106,9 @@ the target). Phases, printed as they run (about six minutes on one H100
    equal to the step driver's field: over gloo the eager loop route
    ("scan-loop"), over NCCL (`--gpus 4`) the graphs ("scan-graph");
    with `--gpus 4` then [sharded-scan]: diffusion perf, kp and hide, wave
-   and SWE perf and hide, and diffusion perf on the bf16 wire, each on
+   and SWE perf and hide, diffusion perf on the bf16 wire, and diffusion
+   perf and hide over the padded route (the yardstick of the face route,
+   bitwise its fields), each on
    the 2×2 grid of 12288² (500 steps after 10) under the scan driver's
    graphs (the halo exchange captured with the steps), bitwise equal on
    every rank to the same rank's step-driver run with the same launch
@@ -113,7 +127,8 @@ the target). Phases, printed as they run (about six minutes on one H100
    the 2×2 grid of 12288² (b_width (32, 4), five region launches per rank
    and step), 20 steps: each shard bitwise equal to its plain-version run,
    the diffusion and shallow-water hide fields bitwise equal to perf's,
-   hide's ms/step beside perf's;
+   the diffusion hide bitwise equal to its padded route's, hide's
+   ms/step beside perf's (and the padded route's);
 9. wave deep schedule, sharded — run_deep on the 2×2 grid of 480² (k = 8,
    256² padded shards, vmem route), 16 + 32 steps: each shard bitwise equal
    to its plain-version run and to the eager sweep loop (loop route as in
@@ -150,7 +165,9 @@ the target). Phases, printed as they run (about six minutes on one H100
    finite, the sharded per-step rows on their scan route, the deep rows
    on their loop route (graphs on one card and over NCCL), and the
    gathered 4-rank perf field bitwise equal to the whole-domain run of
-   the same kernel on one GPU; on one card 4 gloo ranks share it (120
+   the same kernel on one GPU; then perf and hide under the scan driver
+   over the padded route (their launches not counted with the main
+   path's), printed beside; on one card 4 gloo ranks share it (120
    steps after 24, rows `mechanics_only`), with `--gpus 4` one rank a
    card over NCCL (the app's 2000 after 200: the north-star rows);
 16. 3d (run after phase 5's [scan]) — BASELINE.json's diffusion_3D_perf_hide
@@ -166,7 +183,9 @@ the target). Phases, printed as they run (about six minutes on one H100
    `hide` at the app's shell (8, 8, 128), clamped to (8, 8, 64) with no
    interior box, and at (8, 8, 8), and run_deep k = 8 — every rank bitwise
    its plain-version run and `hide` bitwise `perf`, the boxes and each
-   ms/step printed; then the app under torchrun on the four cards;
+   ms/step printed, `perf` and `hide` (8, 8, 8) also over the padded
+   route, bitwise, their ms/step beside; then the app under torchrun on
+   the four cards;
 17. checkpoint (after 16) — utils/checkpoint.py: a run of 48 steps saved
    every 16, "crashed" after 32 and resumed from latest_valid_step into a
    fresh model, bitwise the straight 48-step run, for diffusion `perf`
@@ -181,7 +200,9 @@ the target). Phases, printed as they run (about six minutes on one H100
 
 With `--gpus 4` phases 6-17 run one rank per GPU over NCCL (6 and 8 for
 500 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
-exchange, the interiors and the slabs timed alone; 13 also with the
+exchange (the face exchange and the padded one), the interiors and the
+slabs (the diffusion's from the faces and from the block) timed alone; 13
+also with the
 exchange alone per wire mode at 2×2 of 12288², widths 1 and 8), and
 phases 3-5 are skipped. `chip_trace_hide.py` traces the phase-8 steps under
 torch.profiler.
@@ -280,10 +301,17 @@ SHARDED_SCAN_RUNS = (
     ("swe perf", "swe", "perf", "f32"),
     ("swe hide", "swe", "hide", "f32"),
     ("diffusion perf, bf16 wire", "diffusion", "perf", "bf16"),
+    # The padded route the face exchange replaced (register_padded_variants):
+    # the yardstick of the two diffusion rows above, bitwise their fields.
+    ("diffusion perf, padded route", "diffusion", "perf-padded", "f32"),
+    ("diffusion hide, padded route", "diffusion", "hide-padded", "f32"),
 )
 # [weak-scaling]: the north-star geometry, 252² a rank, the app's rungs.
 WEAK_LOCAL, WEAK_COUNTS = 252, "1,2,4"
 WEAK_RUNS = (("perf", "scan"), ("hide", "scan"), ("deep", "scan"), ("hide", "step"))
+# The same ladder over the padded route the face exchange replaced
+# (padded_route()): the yardstick of the sharded perf and hide rungs.
+WEAK_PADDED_RUNS = (("perf", "scan"), ("hide", "scan"))
 # (nt, warmup) by card count: the app's defaults on four cards; on one
 # card the gloo ranks stage every exchange through host memory, so fewer.
 WEAK_WINDOWS = {4: (2000, 200), 1: (120, 24)}
@@ -305,6 +333,7 @@ KERNELS = {
 }
 ALL_DTYPES = ("f32", "f64", "bf16")
 HOST_CALLS = 200  # back-to-back wrapper calls timed on the host clock
+FUSED_LOOP = 200  # fused_step_cm launches queued between two CUDA events
 # Kernel cases: (kernel, block shape, steps per launch, body form, dtypes).
 # The block shape is the core; the padded kernels read it grown by one.
 # "regions" launches one box per region of the hide decomposition of
@@ -315,8 +344,15 @@ KERNEL_CASES = [
     ("masked_step", KP_ODD, 1, "direct", ALL_DTYPES),  # rows off the 16-byte grid
     ("masked_step", BIG, 1, "offset", ALL_DTYPES),  # T a view at storage offset 1
     ("fused_step_cm", SMALL, 1, "direct", ALL_DTYPES),
-    ("fused_step_cm", BLOCK, 1, "direct", ALL_DTYPES),
+    ("fused_step_cm", BLOCK, 1, "direct", ALL_DTYPES),  # the padded caller: scalar cells
     ("fused_step_cm", BLOCK, 1, "regions", ALL_DTYPES),
+    # The face form, as the sharded perf and hide steps launch it.
+    ("fused_step_cm", SMALL, 1, "faces", ALL_DTYPES),
+    ("fused_step_cm", BLOCK, 1, "faces", ALL_DTYPES),
+    ("fused_step_cm", BLOCK, 1, "faces-edge", ALL_DTYPES),
+    ("fused_step_cm", BLOCK, 1, "faces-null", ALL_DTYPES),
+    ("fused_step_cm", BLOCK, 1, "face-regions", ALL_DTYPES),
+    ("fused_step_cm", RAGGED, 1, "faces", ALL_DTYPES),  # a ragged last axis: scalar cells
     ("multi_step_cm", DEEP_SMALL, 32, "eqc", ALL_DTYPES),
     ("multi_step_cm", SMALL, 256, "eqc", ALL_DTYPES),
     ("multi_step_cm", DEEP_SMALL, 32, "direct", ("f32",)),
@@ -359,6 +395,9 @@ KERNEL_CASES = [
     # drives on the card yet.
     ("masked_step", SMALL_3D, 1, "direct", ALL_DTYPES),
     ("fused_step_cm", SMALL_3D, 1, "direct", ALL_DTYPES),
+    ("fused_step_cm", SMALL_3D, 1, "faces", ALL_DTYPES),
+    ("fused_step_cm", SMALL_3D, 1, "faces-edge", ALL_DTYPES),
+    ("fused_step_cm", SMALL_3D, 1, "face-regions", ALL_DTYPES),
     ("multi_step_cm", SMALL_3D, 8, "eqc", ALL_DTYPES),
     ("multi_step_cm", SMALL_3D, 8, "ac", ("f32",)),
     ("multi_step_cm", SMALL_3D, 8, "direct", ("f32",)),
@@ -376,11 +415,13 @@ KERNEL_CASES = [
     ("masked_step", CUBE, 1, "direct", ("f32",)),
     ("fused_step_cm", CUBE, 1, "direct", ("f32",)),
     ("fused_step_cm", CUBE, 1, "regions", ("f32",)),
+    ("fused_step_cm", CUBE, 1, "faces", ALL_DTYPES),
+    ("fused_step_cm", CUBE, 1, "face-regions", ALL_DTYPES),
     ("tb_sweep", CUBE_DEEP, 8, "direct", ("f32",)),
 ]
 # The f32 case whose times stand for each kernel in the JSON line: the
 # launch its main path makes most.
-MAIN_CASE = {"masked_step": (BIG, "direct"), "fused_step_cm": (BLOCK, "direct"),
+MAIN_CASE = {"masked_step": (BIG, "direct"), "fused_step_cm": (BLOCK, "faces"),
              "multi_step_cm": (SMALL, "eqc"), "tb_sweep": (TB_BIG, "direct"),
              "wave_step": (BIG, "direct"), "wave_step_masked": (BLOCK, "regions"),
              "wave_multi_step": (SMALL, "aform"), "swe_step": (BIG, "whole"),
@@ -394,6 +435,10 @@ FLOPS_PER_CELL_STEP = {
     ("masked_step", "offset"): lambda nd: 5 * nd + 1,
     ("fused_step_cm", "direct"): lambda nd: 5 * nd + 1,
     ("fused_step_cm", "regions"): lambda nd: 5 * nd + 1,
+    ("fused_step_cm", "faces"): lambda nd: 5 * nd + 1,
+    ("fused_step_cm", "faces-edge"): lambda nd: 5 * nd + 1,
+    ("fused_step_cm", "faces-null"): lambda nd: 5 * nd + 1,
+    ("fused_step_cm", "face-regions"): lambda nd: 5 * nd + 1,
     ("multi_step_cm", "direct"): lambda nd: 5 * nd + 1,
     ("tb_sweep", "direct"): lambda nd: 5 * nd + 1,
     ("multi_step_cm", "ac"): lambda nd: 3 * nd + 1,
@@ -611,6 +656,24 @@ def device_ms(fn, reps: int, host: float) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def loop_ms(fn, calls: int, host: float) -> float:
+    """Device ms a call of fn over `calls` calls queued behind
+    torch.cuda._sleep (long enough for the host to enqueue them at `host`
+    µs a call), between two CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * calls * (host + 20.0) * 1e-6 + 1e-3) * 2e9))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median of `reps` launches of fn, each between two CUDA events."""
     import torch
@@ -736,18 +799,65 @@ def _kernel_case(torch, name, core, steps, form, dtype, device):
                      lambda: multistep.tb_sweep_plain(T, Cm, inv_d2, steps))
         return (*calls, 3 * cells * item)
     if name == "fused_step_cm":
+        # The face form reads the core, the 2·ndim faces and Cm once and
+        # writes out once (no corner of a padded block): its bytes.
         Tp = rand(padded)
         Cm = rand(core, cfg.dt)
         out = torch.empty(core, dtype=tdt, device=device)
-        nbytes = (Tp.numel() + 2 * cells) * item
-        if form == "regions":
-            run, ref = regions(
-                lambda src, off, box, o: kernels.fused_step_cm_region(src, off, Cm, spacing, box, o),
-                lambda win, sl, o: kernels.fused_step_cm_plain(win, Cm[sl], inv_d2, out=o),
-                Tp, out)
+        nbytes = (3 * cells + 2 * sum(cells // n for n in core)) * item
+        if form in ("direct", "regions"):
+            # The padded-block caller: views one cell into the block, so the
+            # scalar layout.
+            layout = kernels.face_layout(*kernels.face_views(Tp), Cm, out)
+            if form == "regions":
+                run, ref = regions(
+                    lambda src, off, box, o: kernels.fused_step_cm_region(src, off, Cm, spacing,
+                                                                          box, o),
+                    lambda win, sl, o: kernels.fused_step_cm_plain(win, Cm[sl], inv_d2, out=o),
+                    Tp, out)
+            else:
+                run, ref = (lambda: kernels.fused_step_cm(Tp, Cm, spacing, out=out),
+                            lambda: kernels.fused_step_cm_plain(Tp, Cm, inv_d2))
+            run.layout = "16-byte vectors" if layout else "scalar cells"
             return run, ref, nbytes
-        return (lambda: kernels.fused_step_cm(Tp, Cm, spacing, out=out),
-                lambda: kernels.fused_step_cm_plain(Tp, Cm, inv_d2), nbytes)
+        # The face form as the sharded steps call it: the shard and the
+        # exchange's contiguous faces; at a domain edge (a corner rank: no
+        # face below on any axis) or on one rank (none at all) a face is None.
+        T = Tp[tuple(slice(1, -1) for _ in core)].contiguous()
+        faces = [f.clone(memory_format=torch.contiguous_format)
+                 for f in kernels.face_views(Tp)[1]]
+        if form == "faces-edge":
+            faces[0::2] = [None] * len(core)
+        elif form == "faces-null":
+            faces = [None] * len(faces)
+        faces = tuple(faces)
+        layout = kernels.face_layout(T, faces, Cm, out)
+        if form == "face-regions":
+            bw = HIDE_B_WIDTH_3D if core == CUBE else HIDE_B_WIDTH
+            boxes = region_boxes(core, effective_b_width(core, bw))
+            none = (None,) * len(faces)
+
+            def run():
+                for box in boxes:
+                    kernels.fused_step_cm_faces(T, none if ghost_free(box, core) else faces, Cm,
+                                                spacing, box=box, out=out)
+                return out
+
+            def ref():
+                res = torch.empty_like(out)
+                for box in boxes:
+                    kernels.fused_step_cm_faces_plain(
+                        T, none if ghost_free(box, core) else faces, Cm, inv_d2, box=box,
+                        out=res)
+                return res
+        else:
+            def run():
+                return kernels.fused_step_cm_faces(T, faces, Cm, spacing, out=out)
+
+            def ref():
+                return kernels.fused_step_cm_faces_plain(T, faces, Cm, inv_d2)
+        run.layout = "16-byte vectors" if layout else "scalar cells"
+        return run, ref, nbytes
     wcfg = WaveConfig(global_shape=domain, lengths=lengths, dtype=dtype)
     dt = float(torch.tensor(wcfg.dt, dtype=tdt))
     dt2 = dt * dt
@@ -1028,9 +1138,19 @@ def phase_kernels(torch, card, pk):
             if name == "kp_update" or (name == "masked_step" and core == SMALL):
                 row["host_us_per_call"] = host_us(run)
                 extra = f"; wrapper host time {row['host_us_per_call']:.2f} µs a call"
-            if name == "masked_step":
+            if name in ("masked_step", "fused_step_cm"):
                 row["layout"] = run.layout
                 extra = f"; layout {run.layout}" + extra
+            if name == "fused_step_cm":
+                # Many launches: the device time of one queued behind the
+                # card's sleep, and of FUSED_LOOP of them between two events
+                # (a 3D shard's launch is too short for one pair of events).
+                row["host_us_per_call"] = host_us(run)
+                row["device_ms"] = device_ms(run, reps, row["host_us_per_call"])
+                row["loop_ms"] = loop_ms(run, FUSED_LOOP, row["host_us_per_call"])
+                extra += (f"; device {row['device_ms']:.4f} ms a launch, {FUSED_LOOP} queued "
+                          f"{row['loop_ms']:.4f} ms a launch ({b_ms / row['loop_ms']:.3f} of "
+                          f"bound), wrapper host {row['host_us_per_call']:.2f} µs a call")
             if name in EDGE_ROWS:
                 # The route, decided by size before the launch; then the
                 # per-call figure split into the wrapper's host time and the
@@ -1266,6 +1386,73 @@ def whole_domain_fused_step_cm(torch, shape, lengths, nt: int, device):
     return T.cpu().numpy(), ref
 
 
+def register_padded_variants(model, names=("perf-padded", "hide-padded")):
+    """Register, under `names`, a sharded HeatDiffusion's perf and hide
+    steps over the padded route the face exchange replaced: exchange_halo
+    (the shard copied into a padded buffer, then a batch an axis) and
+    fused_step_cm on the block, or the hide boxes from it. Each step keeps
+    its own padded buffer (made at its first call, before any capture), as
+    the model's advance kept one for it. The yardstick of the face route's
+    ms/step, run beside it in the same call; never a model path."""
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+    from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
+
+    cfg, grid = model.config, model.grid
+    prepare = model.prepare_fn("perf")
+    pads = {}
+
+    def pad_of(T):
+        key = (T.shape, T.dtype, T.device)
+        if key not in pads:
+            pads[key] = torch_zeros_padded(T)
+        return pads[key]
+
+    def perf(T, Cm, out=None, pad=None):
+        Tp = exchange_halo(T, grid, out=pad_of(T), wire_mode=cfg.wire_mode)
+        return kernels.fused_step_cm(Tp, Cm, cfg.spacing, out=out)
+
+    def region_update(src, offset, box, Cm, out):
+        kernels.fused_step_cm_region(src, offset, Cm, cfg.spacing, box, out)
+
+    local = make_overlap_step(grid, region_update, cfg.b_width, wire_mode=cfg.wire_mode,
+                              device=model.device)
+
+    def hide(T, Cm, out=None, pad=None):
+        return local(T, Cm, out=out, pad=pad_of(T))
+
+    model.register_variant(names[0], perf, prepare)
+    model.register_variant(names[1], hide, prepare)
+
+
+def torch_zeros_padded(T):
+    """A zero buffer of T grown by one cell on every axis."""
+    import torch
+
+    return torch.zeros(tuple(n + 2 for n in T.shape), dtype=T.dtype, device=T.device)
+
+
+@contextlib.contextmanager
+def padded_route():
+    """Within: every sharded HeatDiffusion built runs its perf and hide
+    steps over the padded route (register_padded_variants under their own
+    names), so an app's ladder can be timed on it beside the face route."""
+    from rocm_mpi_tpu_torch.models import diffusion
+
+    init = diffusion.HeatDiffusion.__init__
+
+    def patched(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if self.grid.nprocs > 1:
+            register_padded_variants(self, names=("perf", "hide"))
+
+    diffusion.HeatDiffusion.__init__ = patched
+    try:
+        yield
+    finally:
+        diffusion.HeatDiffusion.__init__ = init
+
+
 def sharded_rank(rank, spec):
     """One rank of the sharded perf path (started by spawn_ranks)."""
     import numpy as np
@@ -1293,6 +1480,13 @@ def sharded_rank(rank, spec):
     res = model.run("perf")
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    # The same steps over the padded route the face exchange replaced: the
+    # same field bit for bit, its ms/step beside (its launches not counted).
+    register_padded_variants(model)
+    pres = model.run("perf-padded")
+    torch.cuda.synchronize()
+    padded = dict(bitwise=bool(torch.equal(pres.T, res.T)), ms_per_step=pres.wtime_it * 1e3)
+    del pres
 
     T, Cp = model.init_state()
     Cm = model.prepare_fn("perf")(Cp)
@@ -1302,7 +1496,7 @@ def sharded_rank(rank, spec):
         T = kernels.fused_step_cm_plain(exchange_halo(T, model.grid, out=pad), Cm, inv_d2)
     out = dict(rank=rank, launches=launches, bitwise=bool(torch.equal(res.T, T)),
                finite=bool(torch.isfinite(res.T).all()), wtime_s=res.wtime,
-               t_eff_gbs=res.t_eff)
+               t_eff_gbs=res.t_eff, padded=padded)
     full = gather_to_host0(res.T, model.grid)
     if rank == 0:
         Tr, ref = whole_domain_fused_step_cm(torch, shape, cfg.lengths, cfg.nt, device)
@@ -1358,6 +1552,8 @@ def phase_sharded(card, gpus: int):
               f"{nt} fused_step_cm")
         check(r["bitwise"] and r["finite"],
               f"sharded rank {r['rank']}: kernel run != plain-version run or not finite")
+        check(r["padded"]["bitwise"],
+              f"sharded rank {r['rank']}: the face route != the padded route")
     check(ranks[0]["bitwise_vs_one_gpu"],
           f"sharded 2x2 field differs from the whole-domain run of the same kernel by "
           f"{ranks[0]['max_abs_vs_one_gpu']}")
@@ -1384,10 +1580,13 @@ def phase_sharded(card, gpus: int):
              "not a multi-GPU measurement)" if gpus == 1
              else f"4 GPUs, one rank each, NCCL ({card} each)")
     print(f"[sharded] perf 12288x12288 f32 on a 2x2 grid, {where}, {nt} steps "
-          f"({warmup} warmup): fused_step_cm launches {total} ({nt} per rank); each "
-          "shard bitwise == plain-version run; gathered field bitwise == the whole-domain "
+          f"({warmup} warmup): the face exchange (one batch a step) and fused_step_cm from "
+          f"the shard and its faces, launches {total} ({nt} per rank); each "
+          "shard bitwise == plain-version run and == the padded route's (exchange_halo + "
+          "fused_step_cm on the block); gathered field bitwise == the whole-domain "
           f"run of the same kernel on one GPU; rank 0: {r0['wtime_s']:.4f} s, "
-          f"{r0['wtime_s'] / (nt - warmup) * 1e3:.5f} ms/step, aggregate T_eff "
+          f"{r0['wtime_s'] / (nt - warmup) * 1e3:.5f} ms/step (padded route "
+          f"{r0['padded']['ms_per_step']:.5f}), aggregate T_eff "
           f"{r0['t_eff_gbs']:.1f} GB/s", flush=True)
     print(f"[sharded] perf driver=\"scan\" on the same grid: route {r0['scan']['route']}, "
           f"q {r0['scan']['k']}, fused_step_cm launches {nt} per rank; each shard bitwise == "
@@ -1435,11 +1634,14 @@ def sharded_scan_rank(rank, spec):
     models = {"diffusion": (HeatDiffusion, DiffusionConfig),
               "wave": (AcousticWave, WaveConfig), "swe": (ShallowWater, SWEConfig)}
     out = dict(rank=rank)
+    face_fields = {}  # the face route's step-driver fields, by variant
     for label, name, variant, mode in SHARDED_SCAN_RUNS:
         model_cls, cfg_cls = models[name]
         cfg = cfg_cls(global_shape=tuple(spec["shape"]), nt=spec["nt"], warmup=spec["warmup"],
                       dtype="f32", dims=(2, 2), b_width=HIDE_B_WIDTH, wire_mode=mode)
         model = model_cls(cfg, device=device)
+        if name == "diffusion":
+            register_padded_variants(model)
         runs = {}
         for driver in ("step", "scan", "scan-loop"):
             kernels.reset_launches()
@@ -1451,7 +1653,12 @@ def sharded_scan_rank(rank, spec):
             del res
         step = runs["step"]["fields"]
         loop = _scan_loop(torch, name, model, variant)
+        if name == "diffusion" and mode == "f32" and variant in ("perf", "hide"):
+            face_fields[variant] = step
+        padded = variant.endswith("-padded")
+        face = face_fields[variant.removesuffix("-padded")] if padded else step
         out[label] = dict(
+            face_bitwise=all(torch.equal(a, b) for a, b in zip(step, face)),
             route=runs["scan"]["route"], loop_route=runs["scan-loop"]["route"],
             q=runs["scan"]["k"], c=loop.plan.c, graphs=len(loop.graphs),
             plan_graphs=loop.plan.graphs, capture_ms=loop.capture_s * 1e3,
@@ -1484,9 +1691,11 @@ def phase_sharded_scan(card, gpus: int):
             check(got["route"] == "scan-graph" and got["loop_route"] == "scan-loop",
                   f"[sharded-scan] {label} rank {r['rank']}: routes {got['route']}, "
                   f"{got['loop_route']}")
-            check(got["bitwise"] and got["loop_bitwise"] and got["finite"],
+            check(got["bitwise"] and got["loop_bitwise"] and got["finite"]
+                  and got["face_bitwise"],
                   f"[sharded-scan] {label} rank {r['rank']}: graph bitwise == step "
-                  f"{got['bitwise']}, loop {got['loop_bitwise']}, finite {got['finite']}")
+                  f"{got['bitwise']}, loop {got['loop_bitwise']}, finite {got['finite']}, "
+                  f"padded route == face route {got['face_bitwise']}")
             check(got["scan_launches"] == got["step_launches"] == got["scan-loop_launches"]
                   and any(got["scan_launches"].values()),
                   f"[sharded-scan] {label} rank {r['rank']}: launches step "
@@ -1527,7 +1736,8 @@ def weak_scaling_rank(rank, spec):
     torch.cuda.set_device(device)
     dist.barrier()
     out = dict(rank=rank, runs={}, launches={})
-    for variant, driver in WEAK_RUNS:
+
+    def ladder(variant, driver):
         args = weak_scaling.make_parser().parse_args([
             "--local", str(WEAK_LOCAL), "--nt", str(spec["nt"]), "--warmup",
             str(spec["warmup"]), "--counts", WEAK_COUNTS, "--variant", variant,
@@ -1535,12 +1745,14 @@ def weak_scaling_rank(rank, spec):
         kernels.reset_launches()
         rows = weak_scaling.ladder(args, device, log=lambda msg: None)
         torch.cuda.synchronize()
+        return rows, dict(kernels.LAUNCHES), [
+            dict(row, route=rung.result.route, k=rung.result.k,
+                 us_per_step=rung.result.wtime_it * 1e6,
+                 finite=bool(torch.isfinite(rung.result.T).all())) for row, rung in rows]
+
+    for variant, driver in WEAK_RUNS:
         key = f"{variant} {driver}"
-        out["launches"][key] = dict(kernels.LAUNCHES)
-        out["runs"][key] = [dict(row, route=rung.result.route, k=rung.result.k,
-                                 us_per_step=rung.result.wtime_it * 1e6,
-                                 finite=bool(torch.isfinite(rung.result.T).all()))
-                            for row, rung in rows]
+        rows, out["launches"][key], out["runs"][key] = ladder(variant, driver)
         if (variant, driver) == ("perf", "scan"):
             last = rows[-1][1]
             full = gather_to_host0(last.result.T, last.model.grid)
@@ -1550,6 +1762,12 @@ def weak_scaling_rank(rank, spec):
                                                     last.model.config.nt, device)
                 out["bitwise_vs_one_gpu"] = bool(np.array_equal(full, ref))
                 out["max_abs_vs_one_gpu"] = float(np.abs(full - ref).max())
+        del rows
+    # The padded route's rungs: their launches are a comparison's, not
+    # counted with the main path's.
+    for variant, driver in WEAK_PADDED_RUNS:
+        with padded_route():
+            rows, _, out["runs"][f"{variant} {driver} padded"] = ladder(variant, driver)
         del rows
     return out
 
@@ -1599,9 +1817,15 @@ def phase_weak_scaling(card, gpus: int):
     print(f"[weak-scaling] {WEAK_LOCAL}x{WEAK_LOCAL} f32 a rank, {nt} steps ({warmup} "
           f"warmup), counts {WEAK_COUNTS}, on {where}; the gathered perf n=4 field bitwise == "
           "the whole-domain run of the same kernel on one GPU", flush=True)
-    for variant, driver in WEAK_RUNS:
-        for row in r0["runs"][f"{variant} {driver}"]:
-            print(f"[weak-scaling] {variant} --driver {driver} n={row['devices']} dims "
+    for variant, driver in WEAK_PADDED_RUNS:
+        for row in r0["runs"][f"{variant} {driver} padded"]:
+            check(row["finite"], f"[weak-scaling] {variant} padded route n={row['devices']}: "
+                  "not finite")
+    for variant, driver, padded in ([(v, d, "") for v, d in WEAK_RUNS]
+                                    + [(v, d, " padded") for v, d in WEAK_PADDED_RUNS]):
+        for row in r0["runs"][f"{variant} {driver}{padded}"]:
+            route = " over the padded route" if padded else ""
+            print(f"[weak-scaling] {variant}{route} --driver {driver} n={row['devices']} dims "
                   f"{row['dims']}: {row['us_per_step']:.3f} us/step, {row['gpts']} Gpts/s, "
                   f"{row['gpts_per_device']} per device, efficiency {row['efficiency']} "
                   f"(route {row['route']}, k {row['k']}"
@@ -2526,7 +2750,7 @@ def hide_rank(rank, spec):
     from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
     from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
     from rocm_mpi_tpu_torch.ops import kernels, swe, wave
-    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_faces, exchange_halo
     from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, ghost_free, region_boxes
 
     device = torch.device("cuda", rank % spec["gpus"])
@@ -2559,6 +2783,13 @@ def hide_rank(rank, spec):
                                 finite=bool(torch.isfinite(r.T).all()))
                         for v, (r, l) in got.items()}
     out["diffusion"]["hide_eq_perf"] = bool(torch.equal(got["hide"][0].T, got["perf"][0].T))
+    # The hide step over the padded route the face exchange replaced.
+    register_padded_variants(model)
+    pres = model.run("hide-padded")
+    torch.cuda.synchronize()
+    out["diffusion"]["hide_padded"] = dict(bitwise=bool(torch.equal(pres.T, got["hide"][0].T)),
+                                           ms_per_step=pres.wtime_it * 1e3)
+    del pres
 
     wcfg = WaveConfig(global_shape=shape, nt=nt, warmup=warmup, dtype="f32", dims=(2, 2),
                       b_width=HIDE_B_WIDTH)
@@ -2587,7 +2818,9 @@ def hide_rank(rank, spec):
 
     if spec["gpus"] > 1:
         # The overlap's parts alone: the exchange, the interior box from
-        # the raw shard, the slab boxes from the padded buffer.
+        # the raw shard, the slab boxes from the shard and its faces (the
+        # diffusion), or from the padded buffer (the wave and the SWE, and
+        # the diffusion's padded route beside).
         local = model.grid.local_shape
         boxes = region_boxes(local, effective_b_width(local, HIDE_B_WIDTH))
         inner = [b for b in boxes if ghost_free(b, local)]
@@ -2597,11 +2830,16 @@ def hide_rank(rank, spec):
         U, Uprev, C2 = wmodel.init_state()
         M, Cw = wmodel.prepare_fn("hide")(C2)
         sp = cfg.spacing
+        faces = exchange_faces(T, model.grid)
+        none = (None,) * len(faces)
         parts = dict(
+            face_exchange=_timed_loop(torch, lambda: exchange_faces(T, model.grid), 100),
             exchange=_timed_loop(torch, lambda: exchange_halo(T, model.grid, out=pad), 100),
-            diffusion_interior=time_ms(lambda: [kernels.fused_step_cm_region(
-                T, 0, Cm, sp, b, res_out) for b in inner], 100),
-            diffusion_slabs=time_ms(lambda: [kernels.fused_step_cm_region(
+            diffusion_interior=time_ms(lambda: [kernels.fused_step_cm_faces(
+                T, none, Cm, sp, box=b, out=res_out) for b in inner], 100),
+            diffusion_slabs=time_ms(lambda: [kernels.fused_step_cm_faces(
+                T, faces, Cm, sp, box=b, out=res_out) for b in slabs], 100),
+            diffusion_slabs_padded=time_ms(lambda: [kernels.fused_step_cm_region(
                 pad, 1, Cm, sp, b, res_out) for b in slabs], 100),
             wave_interior=time_ms(lambda: [wave.wave_step_masked_region(
                 U, 0, Uprev, M, Cw, sp, b, res_out) for b in inner], 100),
@@ -2654,6 +2892,8 @@ def phase_hide(card, gpus: int):
                   "plain-version run or not finite")
         check(r["diffusion"]["hide_eq_perf"],
               f"hide phase rank {r['rank']}: diffusion hide != perf")
+        check(r["diffusion"]["hide_padded"]["bitwise"],
+              f"hide phase rank {r['rank']}: diffusion hide != its padded route")
         check(r["swe"]["hide_eq_perf"],
               f"hide phase rank {r['rank']}: shallow-water hide != perf")
     where = (f"4 ranks sharing {card} (gloo, halo slabs staged through host memory: "
@@ -2664,6 +2904,10 @@ def phase_hide(card, gpus: int):
         h, p = r0[model]["hide"], r0[model]["perf"]
         extra = (f"; hide - perf max |diff| {r0['wave']['hide_minus_perf']:.3e}"
                  if model == "wave" else "; hide field bitwise == perf field")
+        if model == "diffusion":
+            extra += ("; the face exchange and the slabs from the shard and its faces, "
+                      "bitwise == the padded route (hide "
+                      f"{r0['diffusion']['hide_padded']['ms_per_step']:.5f} ms/step there)")
         print(f"[hide] {model} {BIG[0]}x{BIG[1]} f32 on a 2x2 grid, b_width {HIDE_B_WIDTH}, "
               f"{n_boxes} region launches per step per rank, {where}, {nt} steps ({warmup} "
               f"warmup): each shard bitwise == plain-version run (hide and perf){extra}; "
@@ -2970,6 +3214,15 @@ def phase_3d(torch, card, pk):
                 app_seconds=app_s)
 
 
+# [3d] on four cards: (label, variant, b_width), the padded routes the face
+# exchange replaced last (register_padded_variants), their yardstick.
+THREE_D_RUNS = (("perf", "perf", APP_B_WIDTH_3D),
+                ("hide app b_width", "hide", APP_B_WIDTH_3D),
+                ("hide (8, 8, 8)", "hide", HIDE_B_WIDTH_3D),
+                ("perf, padded route", "perf-padded", APP_B_WIDTH_3D),
+                ("hide (8, 8, 8), padded route", "hide-padded", HIDE_B_WIDTH_3D))
+
+
 def three_d_rank(rank, spec):
     """One rank of [3d] on four cards (started by spawn_ranks): the 2×2×1
     grid of 256×256×128, 128³ a rank, over NCCL — perf, hide at two
@@ -2986,10 +3239,9 @@ def three_d_rank(rank, spec):
     shape, dims = tuple(spec["shape"]), tuple(spec["dims"])
     out = dict(rank=rank, runs={})
     perf_T = None
-    for label, variant, bw in (("perf", "perf", APP_B_WIDTH_3D),
-                               ("hide app b_width", "hide", APP_B_WIDTH_3D),
-                               ("hide (8, 8, 8)", "hide", HIDE_B_WIDTH_3D)):
+    for label, variant, bw in THREE_D_RUNS:
         model = _cube_model(shape, CUBE_NT, CUBE_WARMUP, dims=dims, b_width=bw, device=device)
+        register_padded_variants(model)
         kernels.reset_launches()
         res = model.run(variant, driver="scan")
         torch.cuda.synchronize()
@@ -3039,9 +3291,11 @@ def phase_3d_sharded(card, gpus: int):
         regions = region_boxes(CUBE, eff)
         boxes[label] = (eff, len(regions), sum(ghost_free(b, CUBE) for b in regions))
     expect = {"perf": only("fused_step_cm", CUBE_NT),
+              "perf, padded route": only("fused_step_cm", CUBE_NT),
               "deep": only("tb_sweep", 0)}  # the jnp route: no kernel
     for label, (_, n_boxes, _) in boxes.items():
         expect[label] = only("fused_step_cm", n_boxes * CUBE_NT)
+    expect["hide (8, 8, 8), padded route"] = expect["hide (8, 8, 8)"]
     for r in ranks:
         check(tuple(r["local"]) == CUBE, f"[3d] rank {r['rank']} shard {r['local']}")
         for label, got in r["runs"].items():
@@ -3062,10 +3316,14 @@ def phase_3d_sharded(card, gpus: int):
               f"{n - inner} slab box(es), {n} fused_step_cm region launches a step", flush=True)
     print(f"[3d] 2x2x1 of 256x256x128 f32 (128³ a rank), 4 GPUs, NCCL ({card} each), "
           f"{CUBE_NT - CUBE_WARMUP} steps after {CUBE_WARMUP} under the scan driver's graphs: "
-          "every rank bitwise its plain-version run, hide bitwise perf; rank 0 ms/step perf "
-          f"{r0['perf']['ms_per_step']:.5f}, hide app b_width "
+          "every rank bitwise its plain-version run, hide bitwise perf, the padded route "
+          "bitwise the face route; rank 0 ms/step perf "
+          f"{r0['perf']['ms_per_step']:.5f} (padded route "
+          f"{r0['perf, padded route']['ms_per_step']:.5f}), hide app b_width "
           f"{r0['hide app b_width']['ms_per_step']:.5f}, hide (8, 8, 8) "
-          f"{r0['hide (8, 8, 8)']['ms_per_step']:.5f}; run_deep k 8 (jnp route, graphs of "
+          f"{r0['hide (8, 8, 8)']['ms_per_step']:.5f} (padded route "
+          f"{r0['hide (8, 8, 8), padded route']['ms_per_step']:.5f}); run_deep k 8 (jnp "
+          "route, graphs of "
           f"sweeps, {CUBE_DEEP_NT - CUBE_DEEP_WARMUP} after {CUBE_DEEP_WARMUP}) "
           f"{r0['deep']['ms_per_step']:.5f}", flush=True)
     t0 = time.perf_counter()

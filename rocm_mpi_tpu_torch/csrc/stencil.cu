@@ -10,18 +10,22 @@
 //                       masked_step (_per_step_kernel, and at small sizes
 //                       the one-step form of _multi_step_kernel).
 //   rmt_fused_step_cm — out = c + Cm * lap over a BOX of the core, read
-//                       from a source grown by `off` cells per axis: the
-//                       width-1-padded block (off = 1) or the raw shard
-//                       (off = 0, for boxes whose stencil stays inside it),
-//                       where c = src[i + off] and
+//                       where the data already lies: the core T (any
+//                       strides, the last axis contiguous) and its 2·ndim
+//                       ghost faces, one pointer each (null: a domain edge,
+//                       read as 0), where c = T[i] and
 //                       lap = sum_ax ((hi - 2 c) + lo) * inv_d2[ax].
 //                       Replaces pallas_kernels.py fused_step_cm
 //                       (_fused_kernel_whole_cm / _fused_kernel_striped_cm):
-//                       the whole block is box = core, off = 1; the `hide`
-//                       variant launches one box per region of the overlap
-//                       decomposition (parallel/overlap.py), writing each
-//                       into the shared output in place — the
-//                       dynamic_update_slice splice without a copy.
+//                       the padded-block call passes views into the block
+//                       (its core and its ghost rows and columns); the
+//                       sharded steps pass the shard and the receive
+//                       buffers of the face exchange (parallel/halo.py
+//                       exchange_faces), so no step copies the shard into
+//                       a padded buffer; the `hide` variant launches one
+//                       box per region of the overlap decomposition
+//                       (parallel/overlap.py), writing each into the
+//                       shared output in place.
 //   rmt_fused_step_padded — out = c + ((dt·λ)/Cp) * lap over the whole
 //                       core of the width-1-padded block, the same lap as
 //                       rmt_fused_step_cm, with the coefficient formed per
@@ -34,7 +38,7 @@
 //                       JAX package's); it is held here as the unmasked
 //                       contract's kernel.
 //
-// Each sums in its TPU kernel's order (the last two share lap_at), so each
+// Each sums in its TPU kernel's order (the last two in lap_at's), so each
 // stays bitwise-comparable with its plain PyTorch version
 // (rocm_mpi_tpu_torch/ops/kernels.py). Build with -fmad=false: a contracted
 // multiply-add rounds once where the plain version rounds twice.
@@ -42,15 +46,16 @@
 // Bound on the card: memory. Per cell the step reads T (or Tp) and Cm (or
 // Cp) and writes out — 12 bytes in f32 against ~11 flops, far below the H100's
 // ratio of peak flops to bytes. The design keeps that to one pass each.
-// rmt_masked_step moves 16 bytes of a row a lane and walks runs of rows
-// with the rows around it in registers (its design note is at
-// masked_step_kernel): one-cell-a-thread loads of two bytes left bf16 at
-// 0.46 of its bound on an H100. The other two give one thread to each core
-// cell, laid out along the last (contiguous) axis so a warp reads whole
-// 128-byte lines, and the 2·ndim neighbour reads of a cell hit the lines
-// its block's other threads already pulled into L1/L2: a plain 2D grid of
-// 32x8 blocks (plus the leading axis on grid.z in 3D), ragged edges masked,
-// 64-bit offsets. No TPU stripes or 3-slot blocks in either.
+// rmt_masked_step and rmt_fused_step_cm move 16 bytes of a row a lane and
+// walk runs of rows with the rows around it in registers (the design note
+// is at masked_step_kernel, the face form's at fused_step_cm_kernel):
+// one-cell-a-thread loads of two bytes left bf16 at 0.45 of its bound on
+// an H100. rmt_fused_step_padded gives one thread to each core cell, laid
+// out along the last (contiguous) axis so a warp reads whole 128-byte
+// lines, and the 2·ndim neighbour reads of a cell hit the lines its
+// block's other threads already pulled into L1/L2: a plain 2D grid of 32x8
+// blocks (plus the leading axis on grid.z in 3D), ragged edges masked,
+// 64-bit offsets. No TPU stripes or 3-slot blocks in any.
 //
 // bf16 is storage-only: loads are widened to f32, the step is computed in
 // f32 and rounded to bf16 once on store (pallas_kernels._upcast_for_compute).
@@ -265,22 +270,334 @@ masked_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
   }
 }
 
-template <typename S, int NDIM>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-fused_step_cm_kernel(const S* __restrict__ src, const S* __restrict__ Cm,
-                     S* __restrict__ out, int64_t n1, int64_t n2, Box box, int off,
-                     typename Compute<S>::type inv0,
-                     typename Compute<S>::type inv1,
-                     typename Compute<S>::type inv2) {
+// fused_step_cm, the face form: masked_step's layout (16 bytes of a row a
+// lane or scalar cells, runs of rows in registers, last-axis neighbours by
+// shuffle) over a box of the core, with the ghosts read where the exchange
+// left them instead of from a padded copy of the shard. A warp walks a
+// strip of the box's last axis at one axis-1 index (3D) down a run of
+// axis-0 rows. What a lane reads, by where the neighbour lies:
+// - inside the core: T, through its strides (the padded caller's core is
+//   a view into the block; the sharded steps' core is the shard itself);
+// - the axis-0 rows above the first and below the last row: the axis-0
+//   faces, read as rows;
+// - in 3D, the axis-1 rows beside the first and last axis-1 index: the
+//   axis-1 faces, read as rows;
+// - the last-axis neighbours at the shard's two edges: the last-axis
+//   faces, one cell a row, read by the lane that needs it into a register
+//   of its own (lanes 0 and 31 for the strip's outer neighbours, and the
+//   lane whose cell lies just past the core);
+// - a null face reads as 0 (a domain edge, where Cm = 0 holds the cell).
+// Loads are predicated on the box grown by one cell along the last axis,
+// so a narrow box (a hide slab) reads only its own lines. The strips start
+// on the kN-cell grid in the VEC layout, so a box at any column keeps its
+// 16-byte vectors; a vector that straddles the box's edge is stored cell
+// by cell. The sum is fused_step_cm's, ((hi - 2c) + lo) · inv per axis,
+// axis 0, then 1, then 2 (lap_at's order).
+constexpr int kFaces = 6;
+// Runs of up to 8 rows, and registers capped so 6 blocks fit an SM (80 a
+// thread): the face form's per-warp set-up costs more than masked_step's,
+// so its runs are longer; on an H100 at a 6144² and a 128³ shard this
+// pair read fastest of runs of 4, 8 and 16, capped or not
+// (scripts/torch_face_variants.py builds and times the variants).
+constexpr int kFaceRunRows = 8;
+constexpr int kFaceMinBlocks = 6;
+
+// The 2·ndim ghost faces: face (axis a, side s: 0 below, 1 above) at
+// 2a + s, null where there is none; `s` the face's strides along its other
+// axes, in axis order (the last axis of a row face is contiguous).
+template <typename S>
+struct FaceSet {
+  const S* p[kFaces];
+  int64_t s[kFaces][2];
+};
+
+// The core (n0, n_mid, n_last; n_mid = 1 in 2D), T's strides along axes 0
+// and 1 (its last axis contiguous), the box [lo, hi) per axis, and the
+// launch's cut: strips of 32·kN cells from `a0` along the last axis, runs
+// of `run_rows` rows along axis 0, `items` warps in all.
+struct FaceGeom {
+  int64_t n0, n_mid, n_last;
+  int64_t ts0, ts1;
+  int64_t lo0, lo_mid, lo_last, hi0, hi_mid, hi_last;
+  int64_t a0, strips, items;
+  int run_rows;
+};
+
+// Where one warp's rows come from in the face form, fixed before its walk
+// (every face index a constant, so nothing indexes the parameters at run
+// time), and the loads of a row: straight-line and predicated, as
+// ms_load's, so each row's loads issue together ahead of the compute that
+// needs them. Member functions, force-inlined, so the state stays in
+// registers. A row may come from T or from a face, so no load is provably
+// based on one restrict pointer: the loads are non-coherent (__ldg;
+// nothing the kernel writes aliases them, the wrapper checks) or
+// streaming (__ldcs, Cm), both free to be scheduled ahead of the stores.
+template <typename S, int NDIM, bool VEC>
+struct FaceWalk {
+  using Row = MsRow<S>;
+  static constexpr int kN = Row::kN;
+  const S* t_at;   // T at this warp's axis-1 index m
+  int64_t ts0;     // T's axis-0 stride
+  int64_t n0;      // the core's rows
+  int64_t col;     // this lane's first cell
+  const S* f0_lo;  // the axis-0 faces' rows at m (null: zeros)
+  const S* f0_hi;
+  const S* fl_hi;  // the last-axis face above at m: row i at fl_hi[i · fl_hi_s]
+  int64_t fl_hi_s;
+  unsigned need;   // bit e: this lane reads cell e from the row (VEC: bit 0, the vector)
+  unsigned past;   // bit e: this lane's cell e is the one just past the core, and read
+
+  // This lane's cells of the row at `base` (null: zeros) that it reads
+  // inside the core, each load straight into its register (zeroed first):
+  // no instruction touches a loaded register before the compute that
+  // uses it, so the loads of the next row stay in flight meanwhile.
+  __device__ __forceinline__ Row load(const S* base, bool stream) const {
+    Row r;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) r.v[e] = ms_zero<S>();
+    if constexpr (VEC) {
+      if (base != nullptr && (need & 1u)) {
+        const int4* q = reinterpret_cast<const int4*>(base + col);
+        *reinterpret_cast<int4*>(&r) = stream ? __ldcs(q) : __ldg(q);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        if (base != nullptr && ((need >> e) & 1u)) {
+          const S* at = base + col + 32 * e;
+          r.v[e] = stream ? __ldcs(at) : __ldg(at);
+        }
+      }
+    }
+    return r;
+  }
+
+  // Row i of axis 0 (when `on`; else zeros): T in the core, the axis-0
+  // faces at i = -1 and n0.
+  __device__ __forceinline__ Row row(int64_t i, bool on) const {
+    const S* base = i >= 0 && i < n0 ? t_at + i * ts0 : (i < 0 ? f0_lo : f0_hi);
+    return load(on ? base : nullptr, false);
+  }
+
+  // The cell just past the core in row i of T (when `on` and this lane
+  // reads it; else 0): the last-axis face above, in a register of its own.
+  __device__ __forceinline__ S past_of(int64_t i, bool on) const {
+    return on && past != 0u && fl_hi != nullptr && i >= 0 && i < n0
+               ? __ldg(fl_hi + i * fl_hi_s)
+               : ms_zero<S>();
+  }
+};
+
+template <typename S, int NDIM, bool VEC>
+__global__ void __launch_bounds__(kMsWarps * 32, kFaceMinBlocks)
+fused_step_cm_kernel(const S* __restrict__ T, FaceSet<S> f, const S* __restrict__ Cm,
+                     S* __restrict__ out, FaceGeom g, typename Compute<S>::type inv0,
+                     typename Compute<S>::type inv1, typename Compute<S>::type inv2) {
   using C = typename Compute<S>::type;
-  int64_t i0, i1, i2;
-  if (!rmt::box_cell<NDIM>(box, &i0, &i1, &i2)) return;
-  const Region<NDIM> r(n1, n2, off);
-  const int64_t p = r.src(i0, i1, i2);
-  const int64_t idx = r.core(i0, i1, i2);
-  const C c = widen(src[p]);
-  const C lap = rmt::lap_at<S, NDIM>(src, r, p, c, inv0, inv1, inv2);
-  out[idx] = narrow<S>(c + widen(Cm[idx]) * lap);
+  using Row = MsRow<S>;
+  constexpr int kN = Row::kN;
+  constexpr int kLast = 2 * (NDIM - 1);  // the last axis's first face
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kMsWarps + (threadIdx.x >> 5);
+  if (item >= g.items) return;  // the whole warp: nothing below synchronises the block
+  // item = (run · e_mid + mid) · strips + strip
+  // (in 32 bits where the launch fits them: a 64-bit division costs a
+  // warp several times a 32-bit one, and every warp divides twice)
+  const int64_t e_mid = g.hi_mid - g.lo_mid;
+  int64_t strip, mid, run;
+  if (g.items <= 0xffffffffLL) {
+    const uint32_t it = static_cast<uint32_t>(item), st = static_cast<uint32_t>(g.strips);
+    const uint32_t rs = it / st, em = static_cast<uint32_t>(e_mid);
+    strip = it - rs * st;
+    mid = rs % em;
+    run = rs / em;
+  } else {
+    const int64_t rs = item / g.strips;
+    strip = item - rs * g.strips;
+    mid = rs % e_mid;
+    run = rs / e_mid;
+  }
+  const int64_t m = g.lo_mid + mid;
+  const int64_t r0 = g.lo0 + run * g.run_rows;
+  const int64_t r1 = r0 + g.run_rows < g.hi0 ? r0 + g.run_rows : g.hi0;
+  const int64_t first = g.a0 + strip * 32 * kN;  // the strip's first cell
+  const int64_t plane = g.n_mid * g.n_last;      // Cm's and out's axis-0 stride
+  const S* c_at = Cm + m * g.n_last;
+  S* o_at = out + m * g.n_last;
+  // The last-axis cells a row is read at: the box and one neighbour a side.
+  const int64_t need_lo = g.lo_last - 1;
+  const int64_t need_hi = g.hi_last;
+  FaceWalk<S, NDIM, VEC> w;
+  w.t_at = T + m * g.ts1;
+  w.ts0 = g.ts0;
+  w.n0 = g.n0;
+  w.col = first + (VEC ? lane * kN : lane);
+  w.f0_lo = f.p[0];
+  w.f0_hi = f.p[1];
+  const S* fl_lo = f.p[kLast];
+  const int64_t fl_lo_s = f.s[kLast][0];
+  w.fl_hi = f.p[kLast + 1];
+  w.fl_hi_s = f.s[kLast + 1][0];
+  if constexpr (NDIM == 3) {
+    if (w.f0_lo != nullptr) w.f0_lo += m * f.s[0][0];
+    if (w.f0_hi != nullptr) w.f0_hi += m * f.s[1][0];
+    if (fl_lo != nullptr) fl_lo += m * f.s[kLast][1];
+    if (w.fl_hi != nullptr) w.fl_hi += m * f.s[kLast + 1][1];
+  }
+  // The cells this lane reads of a row (the box and one neighbour a side,
+  // inside the core), and the one just past the core if it reads it.
+  w.need = 0;
+  w.past = 0;
+  if constexpr (VEC) {
+    w.need = w.col < g.n_last && w.col + kN - 1 >= need_lo && w.col <= need_hi ? 1u : 0u;
+    w.past = w.col == g.n_last && need_hi == g.n_last ? 1u : 0u;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int64_t x = w.col + 32 * e;
+      const bool read = x >= need_lo && x <= need_hi;
+      w.need |= (read && x < g.n_last ? 1u : 0u) << e;
+      w.past |= (read && x == g.n_last ? 1u : 0u) << e;
+    }
+  }
+  // In 3D, the rows at m ± 1: row i at base + i · stride, from T inside
+  // the core, from the axis-1 faces just outside it (null: zeros).
+  const S* mh_base = nullptr;
+  const S* ml_base = nullptr;
+  int64_t mh_s = g.ts0, ml_s = g.ts0;
+  if constexpr (NDIM == 3) {
+    if (m + 1 < g.n_mid) {
+      mh_base = T + (m + 1) * g.ts1;
+    } else {
+      mh_base = f.p[3];
+      mh_s = f.s[3][0];
+    }
+    if (m > 0) {
+      ml_base = T + (m - 1) * g.ts1;
+    } else {
+      ml_base = f.p[2];
+      ml_s = f.s[2][0];
+    }
+  }
+  // The strip's outer neighbours: lane 0's left, lane 31's right, from T,
+  // or from a last-axis face at the core's edge; row i at edge_base[i · edge_s].
+  const int64_t outer = lane == 0 ? first - 1 : first + 32 * kN;
+  const S* edge_base = nullptr;
+  int64_t edge_s = g.ts0;
+  if ((lane == 0 || lane == 31) && outer >= need_lo && outer <= need_hi) {
+    if (outer < 0) {
+      edge_base = fl_lo;
+      edge_s = fl_lo_s;
+    } else if (outer >= g.n_last) {
+      edge_base = w.fl_hi;
+      edge_s = w.fl_hi_s;
+    } else {
+      edge_base = w.t_at + outer;
+    }
+  }
+  const S zero = ms_zero<S>();
+  auto edge_of = [&](int64_t i, bool on) -> S {
+    return on && edge_base != nullptr && i >= 0 && i < g.n0 ? __ldg(edge_base + i * edge_s)
+                                                            : zero;
+  };
+  Row up = w.row(r0 - 1, true);
+  Row cen = w.row(r0, true);
+  Row dn = w.row(r0 + 1, true);
+  S edge = edge_of(r0, true);
+  S edge_dn = edge_of(r0 + 1, true);
+  S past = w.past_of(r0, true);
+  S past_dn = w.past_of(r0 + 1, true);
+  Row cm = w.load(c_at + r0 * plane, true);
+  Row mhi, mlo;
+  if constexpr (NDIM == 3) {
+    mhi = w.load(mh_base == nullptr ? nullptr : mh_base + r0 * mh_s, false);
+    mlo = w.load(ml_base == nullptr ? nullptr : ml_base + r0 * ml_s, false);
+  }
+  const C two = C(2);
+  for (int64_t i = r0; i < r1; ++i) {
+    // The next row's loads, in flight while this one is computed.
+    const bool more = i + 1 < r1;
+    const Row nx = w.row(i + 2, more);
+    const S edge_nx = edge_of(i + 2, more);
+    const S past_nx = w.past_of(i + 2, more);
+    const Row cm_nx = w.load(more ? c_at + (i + 1) * plane : nullptr, true);
+    Row mhi_nx, mlo_nx;
+    if constexpr (NDIM == 3) {
+      mhi_nx = w.load(more && mh_base != nullptr ? mh_base + (i + 1) * mh_s : nullptr, false);
+      mlo_nx = w.load(more && ml_base != nullptr ? ml_base + (i + 1) * ml_s : nullptr, false);
+    }
+    // This lane's cells; the one just past the core (if it reads it) from
+    // the last-axis face, chosen here, where it is used.
+    C c[kN];
+#pragma unroll
+    for (int e = 0; e < kN; ++e) c[e] = (w.past >> e) & 1u ? widen(past) : widen(cen.v[e]);
+    // The neighbours along the last axis: lo[e] at cell - 1, hi[e] at +1.
+    C lo[kN], hi[kN];
+    const C outer_v = widen(edge);
+    if constexpr (VEC) {
+      const C from_l = __shfl_up_sync(kAll, c[kN - 1], 1);
+      const C from_r = __shfl_down_sync(kAll, c[0], 1);
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        lo[e] = e > 0 ? c[e - 1] : (lane == 0 ? outer_v : from_l);
+        hi[e] = e + 1 < kN ? c[e + 1] : (lane == 31 ? outer_v : from_r);
+      }
+    } else {
+      C rot_l[kN], rot_r[kN];  // cell e of the lane before, and after (cyclic)
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        rot_l[e] = __shfl_sync(kAll, c[e], (lane + 31) & 31);
+        rot_r[e] = __shfl_sync(kAll, c[e], (lane + 1) & 31);
+      }
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        lo[e] = lane > 0 ? rot_l[e] : (e > 0 ? rot_l[e - 1] : outer_v);
+        hi[e] = lane < 31 ? rot_r[e] : (e + 1 < kN ? rot_r[e + 1] : outer_v);
+      }
+    }
+    Row o;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      // ((hi - 2c) + lo) · inv, axis 0, then 1, then 2, as lap_at sums.
+      C lap = ((widen(dn.v[e]) - two * c[e]) + widen(up.v[e])) * inv0;
+      if constexpr (NDIM == 3) {
+        lap = lap + ((widen(mhi.v[e]) - two * c[e]) + widen(mlo.v[e])) * inv1;
+        lap = lap + ((hi[e] - two * c[e]) + lo[e]) * inv2;
+      } else {
+        lap = lap + ((hi[e] - two * c[e]) + lo[e]) * inv1;
+      }
+      o.v[e] = narrow<S>(c[e] + widen(cm.v[e]) * lap);
+    }
+    S* dst = o_at + i * plane;
+    if constexpr (VEC) {
+      if (w.col >= g.lo_last && w.col + kN <= g.hi_last) {
+        __stcs(reinterpret_cast<int4*>(dst + w.col), *reinterpret_cast<const int4*>(&o));
+      } else {
+#pragma unroll
+        for (int e = 0; e < kN; ++e)
+          if (w.col + e >= g.lo_last && w.col + e < g.hi_last) dst[w.col + e] = o.v[e];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        const int64_t x = w.col + 32 * e;
+        if (x >= g.lo_last && x < g.hi_last) dst[x] = o.v[e];
+      }
+    }
+    up = cen;
+    cen = dn;
+    dn = nx;
+    edge = edge_dn;
+    edge_dn = edge_nx;
+    past = past_dn;
+    past_dn = past_nx;
+    cm = cm_nx;
+    if constexpr (NDIM == 3) {
+      mhi = mhi_nx;
+      mlo = mlo_nx;
+    }
+  }
 }
 
 template <typename S, int NDIM>
@@ -350,25 +667,80 @@ int launch_masked(int ndim, const void* T, const void* Cm, void* out,
   return launch_masked_nd<S, 3, false>(t, cm, o, n0, n1, n2, inv0, inv1, inv2, stream);
 }
 
-template <typename S>
-int launch_fused_cm(int ndim, const void* src, const void* Cm, void* out,
-                    int64_t n1, int64_t n2, Box box, int off, double inv0,
-                    double inv1, double inv2, cudaStream_t stream) {
+template <typename S, int NDIM, bool VEC>
+int launch_fused_cm_nd(const S* t, const FaceSet<S>& f, const S* cm, S* o, FaceGeom g,
+                       double inv0, double inv1, double inv2, cudaStream_t stream) {
   using C = typename Compute<S>::type;
-  dim3 grid;
-  if (!rmt::box_grid(ndim, box, &grid)) return -2;
-  const dim3 block(kBlockX, kBlockY);
-  const auto* s = static_cast<const S*>(src);
+  constexpr int kN = MsRow<S>::kN;
+  // Strips on the kN-cell grid in VEC (the box's first vector may start
+  // before the box), from the box's first cell otherwise.
+  g.a0 = VEC ? g.lo_last - g.lo_last % kN : g.lo_last;
+  g.strips = (g.hi_last - g.a0 + 32 * kN - 1) / (32 * kN);
+  const int64_t e0 = g.hi0 - g.lo0;
+  // Runs of kFaceRunRows rows, cut shorter where the box gives fewer than
+  // kMsFillWarps warps of them, as masked_step cuts them.
+  const int64_t cols = g.strips * (g.hi_mid - g.lo_mid);
+  int64_t run_rows = cols * e0 / kMsFillWarps;
+  run_rows = run_rows < 1 ? 1 : run_rows > kFaceRunRows ? kFaceRunRows : run_rows;
+  g.run_rows = static_cast<int>(run_rows);
+  g.items = cols * ((e0 + run_rows - 1) / run_rows);
+  const int64_t blocks = (g.items + kMsWarps - 1) / kMsWarps;
+  if (blocks > 2147483647LL) return -2;
+  fused_step_cm_kernel<S, NDIM, VEC><<<static_cast<unsigned>(blocks), kMsWarps * 32, 0, stream>>>(
+      t, f, cm, o, g, C(inv0), C(inv1), C(inv2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `vec`: the wrapper's layout choice (ops/kernels.face_layout); a launch
+// that asks for the 16-byte layout where a row read as vectors is off the
+// 16-byte grid is refused (-1) rather than misread, as is a row face whose
+// last axis is not contiguous.
+template <typename S>
+int launch_fused_cm(int ndim, const void* T, const int64_t* t_strides, const int64_t* faces,
+                    const int64_t* face_strides, const void* Cm, void* out, int64_t n0,
+                    int64_t n1, int64_t n2, const Box& box, double inv0, double inv1,
+                    double inv2, int vec, cudaStream_t stream) {
+  constexpr int kN = MsRow<S>::kN;
+  const bool three = ndim == 3;
+  FaceSet<S> f;
+  for (int k = 0; k < kFaces; ++k) {
+    const bool given = k < 2 * ndim && faces[k] != 0;
+    f.p[k] = given ? reinterpret_cast<const S*>(static_cast<uintptr_t>(faces[k])) : nullptr;
+    f.s[k][0] = k < 2 * ndim ? face_strides[2 * k] : 0;
+    f.s[k][1] = k < 2 * ndim ? face_strides[2 * k + 1] : 0;
+  }
+  FaceGeom g{};
+  g.n0 = n0;
+  g.n_mid = three ? n1 : 1;
+  g.n_last = three ? n2 : n1;
+  g.ts0 = t_strides[0];
+  g.ts1 = three ? t_strides[1] : 0;
+  g.lo0 = box.lo0;
+  g.hi0 = box.lo0 + box.e0;
+  g.lo_mid = three ? box.lo1 : 0;
+  g.hi_mid = three ? box.lo1 + box.e1 : 1;
+  g.lo_last = three ? box.lo2 : box.lo1;
+  g.hi_last = three ? box.lo2 + box.e2 : box.lo1 + box.e1;
+  uintptr_t grid = reinterpret_cast<uintptr_t>(T) | reinterpret_cast<uintptr_t>(Cm) |
+                   reinterpret_cast<uintptr_t>(out);
+  bool rows_on_grid = g.n_last % kN == 0 && g.ts0 % kN == 0 && g.ts1 % kN == 0;
+  for (int k = 0; k < 2 * (ndim - 1); ++k) {  // the faces read as rows
+    if (f.p[k] == nullptr) continue;
+    const int64_t last_stride = three ? f.s[k][1] : f.s[k][0];
+    if (g.n_last > 1 && last_stride != 1) return -1;
+    grid |= reinterpret_cast<uintptr_t>(f.p[k]);
+    if (three) rows_on_grid = rows_on_grid && f.s[k][0] % kN == 0;
+  }
+  if (vec && (!kVecLayout<S> || !rows_on_grid || grid % kMsBytes != 0)) return -1;
+  const auto* t = static_cast<const S*>(T);
   const auto* cm = static_cast<const S*>(Cm);
   auto* o = static_cast<S*>(out);
-  if (ndim == 2) {
-    fused_step_cm_kernel<S, 2><<<grid, block, 0, stream>>>(
-        s, cm, o, n1, 1, box, off, C(inv0), C(inv1), C(0));
-  } else {
-    fused_step_cm_kernel<S, 3><<<grid, block, 0, stream>>>(
-        s, cm, o, n1, n2, box, off, C(inv0), C(inv1), C(inv2));
+  if constexpr (kVecLayout<S>) {
+    if (vec && !three) return launch_fused_cm_nd<S, 2, true>(t, f, cm, o, g, inv0, inv1, 0.0, stream);
+    if (vec) return launch_fused_cm_nd<S, 3, true>(t, f, cm, o, g, inv0, inv1, inv2, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (!three) return launch_fused_cm_nd<S, 2, false>(t, f, cm, o, g, inv0, inv1, 0.0, stream);
+  return launch_fused_cm_nd<S, 3, false>(t, f, cm, o, g, inv0, inv1, inv2, stream);
 }
 
 template <typename S>
@@ -423,26 +795,31 @@ extern "C" int rmt_masked_step(int dtype, int ndim, const void* T,
   }
 }
 
-// The box is [lo, lo + e) per axis of the core (n0, n1, n2); `src` is the
-// core grown by `off` (0 or 1) cells on every axis; Cm and out have the
-// core's extents and out is written only inside the box.
-extern "C" int rmt_fused_step_cm(int dtype, int ndim, const void* src,
-                                 const void* Cm, void* out, int64_t n0,
-                                 int64_t n1, int64_t n2, int64_t lo0, int64_t lo1,
-                                 int64_t lo2, int64_t e0, int64_t e1, int64_t e2,
-                                 int off, double inv0, double inv1, double inv2,
-                                 void* stream) {
+// The box is [lo, lo + e) per axis of the core (n0, n1, n2). `T` is the
+// core with strides `t_strides` (axes 0 and 1; the last axis contiguous);
+// `faces` the 2·ndim face pointers, face (axis a, side s) at 2a + s, 0 for
+// none (read as zeros); `face_strides` two per face, its strides along its
+// other axes in axis order. Cm and out are contiguous with the core's
+// extents; out is written only inside the box. `vec` as rmt_masked_step's.
+extern "C" int rmt_fused_step_cm(int dtype, int ndim, const void* T, const int64_t* t_strides,
+                                 const int64_t* faces, const int64_t* face_strides,
+                                 const void* Cm, void* out, int64_t n0, int64_t n1,
+                                 int64_t n2, int64_t lo0, int64_t lo1, int64_t lo2, int64_t e0,
+                                 int64_t e1, int64_t e2, double inv0, double inv1,
+                                 double inv2, int vec, void* stream) {
   const Box box{lo0, lo1, ndim == 2 ? 0 : lo2, e0, e1, ndim == 2 ? 1 : e2};
-  if (!rmt::box_fits(box, off, ndim, n0, n1, n2)) return -1;
+  if (!rmt::box_fits(box, 1, ndim, n0, n1, n2)) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_fused_cm<float>(ndim, src, Cm, out, n1, n2, box, off, inv0, inv1, inv2, s);
+      return launch_fused_cm<float>(ndim, T, t_strides, faces, face_strides, Cm, out, n0, n1,
+                                    n2, box, inv0, inv1, inv2, vec, s);
     case kF64:
-      return launch_fused_cm<double>(ndim, src, Cm, out, n1, n2, box, off, inv0, inv1, inv2, s);
+      return launch_fused_cm<double>(ndim, T, t_strides, faces, face_strides, Cm, out, n0, n1,
+                                     n2, box, inv0, inv1, inv2, vec, s);
     case kBF16:
-      return launch_fused_cm<__nv_bfloat16>(ndim, src, Cm, out, n1, n2, box, off, inv0, inv1,
-                                            inv2, s);
+      return launch_fused_cm<__nv_bfloat16>(ndim, T, t_strides, faces, face_strides, Cm, out,
+                                            n0, n1, n2, box, inv0, inv1, inv2, vec, s);
     default:
       return -1;
   }

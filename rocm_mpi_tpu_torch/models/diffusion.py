@@ -8,8 +8,10 @@ One physics model at several performance levels, chosen by variant:
   "shard" — explicit halo exchange + step_fused_padded + Dirichlet select
   "perf"  — the Cm contract: the Dirichlet mask and the (dt·λ)/Cp divide
             are folded into a coefficient prepared once per advance, so a
-            step is ONE hand kernel — masked_step on one rank,
-            exchange_halo + fused_step_cm when sharded.
+            step is ONE hand kernel — masked_step on one rank; when
+            sharded, the face exchange (halo.exchange_faces: the 2·ndim
+            faces in one batch) + one fused_step_cm launch that reads
+            the shard and the received faces in place.
   "kp"    — 2D only: the kernel-programming rung, the shard step's
             exchange and Dirichlet select around THREE hand kernels on
             the staggered grid (ops.kp.kp_step_padded: flux, residual,
@@ -17,8 +19,9 @@ One physics model at several performance levels, chosen by variant:
   "hide"  — the Cm contract on the overlap decomposition
             (parallel/overlap.py): the interior box on one CUDA stream
             while the exchange and then the boundary slabs run on
-            another, every box one fused_step_cm region launch, in every
-            dtype. One rank has nothing to hide and runs "perf".
+            another, every box one fused_step_cm launch from the shard
+            (and the slabs from the received faces), in every dtype. One
+            rank has nothing to hide and runs "perf".
 
 two drivers of the per-step variants, chosen by `run(driver=...)`:
 
@@ -57,7 +60,8 @@ variants keep their device exchange and warn, as in the JAX package.
 
 In place of JAX buffer donation the advance keeps two field buffers and
 swaps them each step, as the reference swaps `T, T2 = T2, T`; the sharded
-steps also reuse one padded buffer for the exchange.
+`shard`, `kp`, `ap` and `fused` steps also reuse one padded buffer for the
+exchange (`perf` and `hide` build none: their faces live on the grid).
 """
 
 from __future__ import annotations
@@ -94,6 +98,7 @@ from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
 from rocm_mpi_tpu_torch.parallel.gather import allgather_to_host
 from rocm_mpi_tpu_torch.parallel.halo import (
     HostStagedStepper,
+    exchange_faces,
     exchange_halo,
     global_boundary_mask,
     place_core,
@@ -326,26 +331,30 @@ class HeatDiffusion:
 
             return step, prepare
 
+        # Sharded: the 2·ndim faces in one batch, then one face-form launch
+        # from the shard and the received faces; no padded block.
         def step(T, Cm, out=None, pad=None):
-            Tp = exchange_halo(T, grid, out=pad, wire_mode=cfg.wire_mode)
-            return kernels.fused_step_cm(Tp, Cm, cfg.spacing, out=out)
+            faces = exchange_faces(T, grid, wire_mode=cfg.wire_mode)
+            return kernels.fused_step_cm_faces(T, faces, Cm, cfg.spacing, out=out)
 
         return step, prepare
 
     def _make_hide_step(self):
         """hide rung: the Cm contract on the overlap decomposition, every
         region one fused_step_cm launch in every dtype (the JAX package's
-        f64 jnp strips exist only because Mosaic has no f64). One rank
-        routes to the perf step, bitwise. Returns (step, prepare)."""
+        f64 jnp strips exist only because Mosaic has no f64), the slabs
+        read from the shard and the exchanged faces. One rank routes to
+        the perf step, bitwise. Returns (step, prepare)."""
         cfg, grid = self.config, self.grid
         if grid.nprocs == 1:
             return self._make_masked_step()
 
-        def region_update(src, offset, box, Cm, out):
-            kernels.fused_step_cm_region(src, offset, Cm, cfg.spacing, box, out)
+        def region_update(T, faces, box, Cm, out):
+            kernels.fused_step_cm_faces(T, faces or (None,) * (2 * T.ndim), Cm, cfg.spacing,
+                                        box=box, out=out)
 
         local = make_overlap_step(grid, region_update, cfg.b_width, mask_boundary=False,
-                                  wire_mode=cfg.wire_mode, device=self.device)
+                                  wire_mode=cfg.wire_mode, device=self.device, faces=True)
 
         def step(T, Cm, out=None, pad=None):
             return local(T, Cm, out=out, pad=pad)
@@ -381,12 +390,12 @@ class HeatDiffusion:
         JAX argument, the caller must not use it afterwards.
         """
         step, prep = self._get_step(variant), self.prepare_fn(variant)
-        exchanges = self._exchanges(variant)
+        pads = self._pads(variant)
 
         def advance(T, Cp, n):
             C = prep(Cp)
             pad = None
-            if exchanges:
+            if pads:
                 pad = torch.zeros(self._padded_shape(), dtype=T.dtype, device=T.device)
             spare = torch.empty_like(T)
             for _ in range(int(n)):
@@ -395,10 +404,11 @@ class HeatDiffusion:
 
         return advance
 
-    def _exchanges(self, variant: str) -> bool:
-        """Every step exchanges except the unsharded perf step (and hide,
-        which is perf on one rank)."""
-        return not (variant in ("perf", "hide") and self.grid.nprocs == 1)
+    def _pads(self, variant: str) -> bool:
+        """Whether `variant`'s steps exchange into a padded buffer: all but
+        perf and hide, which read the shard (and, sharded, the exchanged
+        faces) in place."""
+        return variant not in ("perf", "hide")
 
     def scan_advance_fn(self, variant: str, nt: int | None = None,
                         warmup: int | None = None, chunk: int | None = None,
@@ -427,7 +437,7 @@ class HeatDiffusion:
         q = scan_chunk(cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
                        chunk, "scan driver chunk", config)
         pad = None
-        if self._exchanges(variant):
+        if self._pads(variant):
             pad = torch.zeros(self._padded_shape(), dtype=cfg.torch_dtype, device=self.device)
 
         def one_step(src, out, consts):

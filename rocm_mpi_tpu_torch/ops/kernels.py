@@ -25,6 +25,13 @@ the overlap decomposition's splice (parallel/overlap.py) without a copy
 per region: operands stay whole and contiguous, the box goes to the
 kernel as numbers.
 
+`fused_step_cm` goes one step further, in its face form
+(`fused_step_cm_faces`): it reads the core and its 2·ndim ghost faces
+where they lie — views into a padded block (`fused_step_cm`,
+`fused_step_cm_region`), or the shard and the receive buffers of
+halo.exchange_faces (the sharded `perf` and `hide` steps), so those
+steps build no padded block.
+
 Numerics shared by the three kernels: `inv_d2[ax] = 1/(h·h)` is a Python double
 applied in the compute dtype (f32 for f32 and bf16, as JAX applies a
 weak-typed scalar); bf16 is storage-only — operands are widened to f32 and
@@ -54,14 +61,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 # ctypes argument lists of the C interfaces (csrc/*.cu).
 C_INT, C_I64, C_DBL, C_PTR = ctypes.c_int, ctypes.c_int64, ctypes.c_double, ctypes.c_void_p
+C_I64P = ctypes.POINTER(ctypes.c_int64)  # a host array of int64 (strides, face pointers)
 EXTENTS = [C_I64] * 3                  # core extents (n2 = 1 in 2D)
-BOX = [C_I64] * 6 + [C_INT]            # lo0..lo2, e0..e2, source offset
+BOX_CELLS = [C_I64] * 6               # lo0..lo2, e0..e2
+BOX = BOX_CELLS + [C_INT]              # and the source offset
 INV_D2 = [C_DBL] * 3
 _SIGNATURES = {
     "rmt_masked_step": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *INV_D2, C_INT,
                                 C_PTR]),
-    "rmt_fused_step_cm": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *BOX,
-                                  *INV_D2, C_PTR]),
+    "rmt_fused_step_cm": (C_INT, [C_INT, C_INT, C_PTR, C_I64P, C_I64P, C_I64P, C_PTR, C_PTR,
+                                  *EXTENTS, *BOX_CELLS, *INV_D2, C_INT, C_PTR]),
     "rmt_fused_step_padded": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, C_DBL,
                                       *INV_D2, C_PTR]),
 }
@@ -88,11 +97,21 @@ def _store(result: torch.Tensor, dtype: torch.dtype, out):
     return out.copy_(result)
 
 
+def _span(t: torch.Tensor) -> int:
+    """Bytes from a tensor's first element to past its last, strides
+    included (a view's nbytes undercounts a strided face)."""
+    if t.is_contiguous():
+        return t.nbytes
+    if t.numel() == 0:
+        return 0
+    return (sum((n - 1) * s for n, s in zip(t.shape, t.stride())) + 1) * t.element_size()
+
+
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.device != b.device:
         return False
     a0, b0 = a.data_ptr(), b.data_ptr()
-    return a0 < b0 + b.nbytes and b0 < a0 + a.nbytes
+    return a0 < b0 + _span(b) and b0 < a0 + _span(a)
 
 
 def _check_dtypes(name: str, operands: dict) -> None:
@@ -327,7 +346,7 @@ def masked_step(T, Cm, spacing, out=None):
 
 
 # ---------------------------------------------------------------------------
-# fused_step_cm — one step of every core cell from a width-1-padded block.
+# fused_step_cm — one step of a box of the core, from the core and its faces.
 # ---------------------------------------------------------------------------
 
 
@@ -349,6 +368,208 @@ def fused_step_cm_plain(Tp, Cm, inv_d2, out=None):
     return _store(c + Cmc * lap, Tp.dtype, out)
 
 
+def ghost_slices(ndim: int):
+    """The 2·ndim ghost faces of a width-1-padded block, in the face order
+    of the face form (axis 0 below, axis 0 above, axis 1 below, …): each
+    slice tuple spans the core on the other axes."""
+    core = slice(1, -1)
+    return tuple(
+        tuple(at if a == ax else core for a in range(ndim))
+        for ax in range(ndim) for at in (slice(0, 1), slice(-1, None)))
+
+
+def face_views(Tp):
+    """(T, faces) of a width-1-padded block as views: its core and its
+    2·ndim ghost faces (ghost_slices' order), each face the core's shape
+    with extent 1 along its axis."""
+    core = tuple(slice(1, -1) for _ in range(Tp.ndim))
+    return Tp[core], tuple(Tp[sl] for sl in ghost_slices(Tp.ndim))
+
+
+def assemble_padded(T, faces):
+    """The width-1-padded block of core `T` and its faces (zeros where a
+    face is None): the block the face form reads in place."""
+    ndim = T.ndim
+    Tp = torch.zeros(tuple(n + 2 for n in T.shape), dtype=T.dtype, device=T.device)
+    Tp[tuple(slice(1, -1) for _ in range(ndim))] = T
+    for sl, face in zip(ghost_slices(ndim), faces):
+        if face is not None:
+            Tp[sl] = face
+    return Tp
+
+
+def fused_step_cm_faces_plain(T, faces, Cm, inv_d2, box=None, out=None):
+    """Plain version of the face form: fused_step_cm_plain on the padded
+    block assembled from `T` and `faces`, over `box` (default the whole
+    core), written into `out` (required with a box)."""
+    Tp = assemble_padded(T, faces)
+    if box is None:
+        return fused_step_cm_plain(Tp, Cm, inv_d2, out=out)
+    window, sl = region_slices(box, 1)
+    fused_step_cm_plain(Tp[window], Cm[sl], inv_d2, out=out[sl])
+    return out
+
+
+def _face_shape(shape, ax: int) -> tuple[int, ...]:
+    return tuple(1 if a == ax else int(n) for a, n in enumerate(shape))
+
+
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    return t.shape[-1] == 1 or t.stride(-1) == 1
+
+
+def check_faces(name: str, T, faces, Cm, box, spacing, out) -> None:
+    """Checks of a face-form launch: `T` (any strides, its last axis
+    contiguous), `faces` (2·ndim tensors or None, each the core's shape
+    with extent 1 along its axis, a row face's last axis contiguous), `Cm`
+    and `out` (contiguous, the core's shape) share a supported dtype and
+    device, `out` aliases no input, and `box` lies in the core."""
+    if T.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {T.dtype} not supported (float32, float64, bfloat16)")
+    ndim = T.ndim
+    if ndim not in (2, 3):
+        raise ValueError(f"{name}: only 2D and 3D fields, got {ndim}D")
+    if not _rows_contiguous(T):
+        raise ValueError(f"{name}: T's last axis must be contiguous")
+    if spacing is not None and len(spacing) != ndim:
+        raise ValueError(f"{name}: {len(spacing)} spacings for a {ndim}D field")
+    core_shape = tuple(T.shape)
+    if len(faces) != 2 * ndim:
+        raise ValueError(f"{name}: {len(faces)} faces for a {ndim}D field (2 per axis)")
+    given = [f for f in faces if f is not None]
+    for k, face in enumerate(faces):
+        if face is None:
+            continue
+        ax = k // 2
+        if face.dtype != T.dtype or face.device != T.device:
+            raise TypeError(f"{name}: face {k} is {face.dtype} on {face.device}, T "
+                            f"{T.dtype} on {T.device}")
+        if tuple(face.shape) != _face_shape(core_shape, ax):
+            raise ValueError(f"{name}: face {k} shape {tuple(face.shape)} != "
+                             f"{_face_shape(core_shape, ax)}")
+        if ax < ndim - 1 and not _rows_contiguous(face):
+            raise ValueError(f"{name}: face {k}'s last axis must be contiguous")
+    for label, t in (("Cm", Cm), ("out", out)):
+        if t is None:
+            continue
+        if t.dtype != T.dtype or t.device != T.device:
+            raise TypeError(f"{name}: {label} is {t.dtype} on {t.device}, T {T.dtype} on "
+                            f"{T.device}")
+        if tuple(t.shape) != core_shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous {core_shape}, got "
+                             f"{tuple(t.shape)}")
+    if out is not None:
+        for t in (T, Cm, *given):
+            if _overlaps(out, t):
+                raise ValueError(f"{name}: out must not alias an input")
+    if box is not None:
+        if len(box) != ndim:
+            raise ValueError(f"{name}: a {len(box)}-axis box for a {ndim}D core")
+        for (lo, hi), n in zip(box, core_shape):
+            if not 0 <= lo < hi <= n:
+                raise ValueError(f"{name}: box {tuple(box)} is empty or outside the core "
+                                 f"{core_shape}")
+
+
+def face_layout(T, faces, Cm, out) -> bool:
+    """fused_step_cm's layout, masked_layout's rule over every row it reads
+    as vectors: True (16-byte vectors) when the dtype is f32 or bf16, the
+    last axis is a whole number of 16-byte lanes, T's and the row faces'
+    row strides are too, and T, Cm, out and the row faces lie on the
+    16-byte grid; False (scalar cells) otherwise — the padded caller's core,
+    a view one cell into the block, always."""
+    dtype = T.dtype
+    if dtype is torch.float64:
+        return False
+    kn = LANE_CELLS[dtype]
+    ndim = T.ndim
+    if T.shape[-1] % kn or T.stride(0) % kn or (ndim == 3 and T.stride(1) % kn):
+        return False
+    grid = T.data_ptr() | Cm.data_ptr() | out.data_ptr()
+    for k, face in enumerate(faces[:2 * (ndim - 1)]):  # the row faces
+        if face is None:
+            continue
+        grid |= face.data_ptr()
+        if ndim == 3 and face.stride(1 if k < 2 else 0) % kn:  # its row stride
+            return False
+    return not grid & 15
+
+
+def _face_args(T, faces):
+    """ctypes arrays of T's strides (axes 0 and 1), the face pointers (0 for
+    none) and each face's strides along its other axes."""
+    ndim = T.ndim
+    strides = (ctypes.c_int64 * 2)(T.stride(0), T.stride(1) if ndim == 3 else 0)
+    ptrs = (ctypes.c_int64 * 6)(*[0 if f is None else f.data_ptr() for f in faces])
+    fstr = [0] * 12
+    for k, face in enumerate(faces):
+        if face is not None:
+            other = [face.stride(a) for a in range(ndim) if a != k // 2]
+            fstr[2 * k:2 * k + len(other)] = other
+    return strides, ptrs, (ctypes.c_int64 * 12)(*fstr)
+
+
+# The checked launch arguments of recent face-form calls, keyed by every
+# property of the operands the checks read (pointers, shapes, strides,
+# dtypes, devices) with the box and the spacing: a step calls with the
+# same few operands again and again, so the checks and the ctypes arrays
+# are made once each. Holds no tensor.
+_FACE_CALLS: dict = {}
+_FACE_CALLS_MAX = 256
+
+
+def _operand_key(t):
+    return None if t is None else (t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
+
+
+def _face_call(T, faces, Cm, spacing, box, out):
+    """check_faces' verdict and the launch's ctypes arguments (T's
+    strides, face pointers, face strides, the layout), from _FACE_CALLS
+    or made and kept."""
+    key = (_operand_key(T), tuple(_operand_key(f) for f in faces), _operand_key(Cm),
+           _operand_key(out), tuple(map(tuple, box)), tuple(spacing))
+    args = _FACE_CALLS.get(key)
+    if args is None:
+        check_faces("fused_step_cm", T, faces, Cm, box, spacing, out)
+        args = (*_face_args(T, faces), face_layout(T, faces, Cm, out))
+        if len(_FACE_CALLS) >= _FACE_CALLS_MAX:
+            _FACE_CALLS.clear()
+        _FACE_CALLS[key] = args
+    return args
+
+
+def fused_step_cm_faces(T, faces, Cm, spacing, box=None, out=None):
+    """fused_step_cm in the face form: a step of `box` (default the whole
+    core) of `T` from T and its ghost faces where they lie, written into
+    `out` in place (allocated for the whole core when absent); returns
+    `out`.
+
+    `faces` holds 2·ndim tensors or None, axis 0 below and above, then
+    axis 1, …: each the core's shape with extent 1 along its axis (a
+    ghost of the padded block, or a receive buffer of
+    halo.exchange_faces). A None face reads as zeros: a domain edge, whose
+    cells Cm holds. This is the sharded `perf` and `hide` steps' launch;
+    fused_step_cm and fused_step_cm_region pass views into a padded block.
+
+    Bound on the H100: memory — T, the faces and Cm read once, out written
+    once, per box. Design: masked_step's (csrc/stencil.cu
+    fused_step_cm_kernel), in the layout of face_layout.
+    """
+    if out is None:
+        check_faces("fused_step_cm", T, faces, Cm, box, spacing, None)
+        out = torch.empty(T.shape, dtype=T.dtype, device=T.device)
+    if box is None:
+        box = core_box(T.shape)
+    strides, ptrs, fstr, vec = _face_call(T, faces, Cm, spacing, box, out)
+    if not use_kernel(T, Cm, out, *[f for f in faces if f is not None]):
+        return fused_step_cm_faces_plain(T, faces, Cm, inv_d2_of(spacing), box=box, out=out)
+    launch("stencil", _SIGNATURES, "rmt_fused_step_cm", T.device, _DTYPE_CODE[T.dtype],
+           T.ndim, T.data_ptr(), strides, ptrs, fstr, Cm.data_ptr(), out.data_ptr(),
+           *extents(T.shape), *box_args(box), *inv3(inv_d2_of(spacing)), vec)
+    LAUNCHES["fused_step_cm"] += 1
+    return out
+
+
 def fused_step_cm(Tp, Cm, spacing, out=None):
     """Masked per-step core update from the padded block: new =
     Tp[core] + Cm · ∇²(Tp).
@@ -356,12 +577,12 @@ def fused_step_cm(Tp, Cm, spacing, out=None):
     Replaces pallas_kernels.fused_step_cm (file:290: whole-block
     `_fused_kernel_whole_cm`, striped `_fused_kernel_striped_cm`). `Tp` is
     the shard grown by one ghost layer per side (halo.exchange_halo);
-    `Cm` the core-shaped masked coefficient. On the card this is the
-    region kernel over the whole core, read from the padded block.
+    `Cm` the core-shaped masked coefficient. On the card this is the face
+    form over the whole core, given views into `Tp` (face_views): a core
+    one cell into the block, so the scalar layout.
 
-    Bound on the H100: memory — (n+2)^d reads of Tp, n^d of Cm, n^d writes
-    per step. Design: as masked_step, one thread per core cell in 32x8
-    blocks along the last axis; neighbour reads come from cached lines.
+    Bound on the H100: memory — the core and the 2·ndim faces of Tp and
+    Cm read once, out written once per step.
     """
     if Tp.ndim != Cm.ndim:
         raise ValueError(f"fused_step_cm: Tp is {Tp.ndim}D, Cm {Cm.ndim}D")
@@ -370,26 +591,22 @@ def fused_step_cm(Tp, Cm, spacing, out=None):
     operands = (Tp, Cm) if out is None else (Tp, Cm, out)
     if not use_kernel(*operands):
         return fused_step_cm_plain(Tp, Cm, inv_d2_of(spacing), out=out)
-    if out is None:
-        out = torch.empty(core_shape, dtype=Tp.dtype, device=Tp.device)
-    return fused_step_cm_region(Tp, 1, Cm, spacing, core_box(core_shape), out)
+    T, faces = face_views(Tp)
+    return fused_step_cm_faces(T, faces, Cm, spacing, out=out)
 
 
 def fused_step_cm_region(src, offset: int, Cm, spacing, box, out):
     """fused_step_cm on one box of the core, written into `out` in place
     (module docstring: the region form). `src` is the padded block
-    (offset 1) or the raw shard (offset 0); returns `out`."""
+    (offset 1), read through its core and faces, or the raw shard (offset
+    0, a box whose stencil stays inside it), read with no faces; returns
+    `out`."""
     check_region("fused_step_cm", src, offset, {"Cm": Cm}, box, spacing, out)
-    inv_d2 = inv_d2_of(spacing)
-    if not use_kernel(src, Cm, out):
-        window, sl = region_slices(box, offset)
-        fused_step_cm_plain(src[window], Cm[sl], inv_d2, out=out[sl])
-        return out
-    launch("stencil", _SIGNATURES, "rmt_fused_step_cm", src.device, _DTYPE_CODE[src.dtype],
-           src.ndim, src.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(out.shape),
-           *box_args(box), offset, *inv3(inv_d2))
-    LAUNCHES["fused_step_cm"] += 1
-    return out
+    if offset == 1:
+        T, faces = face_views(src)
+    else:
+        T, faces = src, (None,) * (2 * src.ndim)
+    return fused_step_cm_faces(T, faces, Cm, spacing, box=box, out=out)
 
 
 # ---------------------------------------------------------------------------

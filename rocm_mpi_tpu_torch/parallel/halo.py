@@ -36,6 +36,12 @@ The stateful modes (int8, int8_delta) run only on the deep schedules;
 their codecs write each slab's codes and scale into buffers kept the
 same way, so their exchange captures too (models/scan.sweep_loop).
 
+`exchange_faces` serves the sharded diffusion `perf` and `hide` steps,
+whose 5- and 7-point stencils read no corner: it sends the 2·ndim faces
+of the shard in one batch and returns the receive buffers, which the
+face form of `fused_step_cm` reads in place, so those steps build no
+padded buffer and copy no shard.
+
 `HostStagedStepper` is the host-staged oracle (the reference's
 IGG_ROCMAWARE_MPI=0 path): a numpy diffusion stepper over every shard of
 the global field, its halos copied between shards in host memory.
@@ -81,6 +87,15 @@ def place_core(u: torch.Tensor, width: int = 1, axes=None, out=None) -> torch.Te
     return out
 
 
+def _refuse_stateful(wire_mode: str):
+    """Raise for a stateful wire mode on a per-step exchange."""
+    raise ValueError(
+        f"wire_mode {wire_mode!r} carries error-feedback state across exchanges; "
+        "per-step (stateless) paths support f32/bf16 only — use the deep-halo "
+        "schedules (run_deep / --deep), which thread the state through their sweeps"
+    )
+
+
 def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
                   axes=None, wire_mode: str = "f32", wire_state=None):
     """Fill the ghost layers of a `place_core`-shaped buffer from the
@@ -105,11 +120,7 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
     """
     stateful = wire.is_stateful(wire_mode)
     if stateful and wire_state is None:
-        raise ValueError(
-            f"wire_mode {wire_mode!r} carries error-feedback state across exchanges; "
-            "per-step (stateless) paths support f32/bf16 only — use the deep-halo "
-            "schedules (run_deep / --deep), which thread the state through their sweeps"
-        )
+        _refuse_stateful(wire_mode)
     axes = tuple(range(grid.ndim) if axes is None else axes)
     width = int(width)
     if stateful:
@@ -228,6 +239,75 @@ def _int8_messages(shape, dtype, device, home):
                 make((1,), dtype=dtype, device=where))
 
     return pair(device, torch.empty), pair(home, torch.empty), pair(device, torch.zeros)
+
+
+def exchange_faces(u: torch.Tensor, grid: GlobalGrid, wire_mode: str = "f32"):
+    """The width-1 face exchange of the sharded diffusion `perf` and `hide`
+    steps: this rank's 2·ndim ghost faces, received from its neighbours,
+    with no padded block and no copy of the shard.
+
+    Returns a tuple in the face order of kernels.fused_step_cm_faces (axis
+    0 below, axis 0 above, axis 1 below, …): each face the shard's shape
+    with extent 1 along its axis, None where no neighbour is (a domain
+    edge, read as zeros). Each face of `u` is packed into a send buffer
+    of the wire dtype (the axis-1 face of a C-ordered shard is strided: it
+    is packed once, as every slab is), and every axis goes in ONE
+    `batch_isend_irecv`: the 5- and 7-point stencils read no corner, so
+    no axis waits for another. Each message carries its own tag (axis and
+    direction), so a pair of ranks that meet on one axis never confuses
+    two messages. The bf16 wire lands each payload in a face of the
+    field's dtype (a face-sized copy), widened as `exchange_into` widens
+    it, so the ghosts equal its (and JAX's) bit for bit. The buffers live
+    in `grid.exchange_buffers` beside the slabs: a captured step finds the
+    same tensors at every replay and allocates nothing. The stateful wire
+    modes are refused, as on every per-step path.
+    """
+    if wire.is_stateful(wire_mode):
+        _refuse_stateful(wire_mode)
+    key = ("faces", tuple(u.shape), u.dtype, wire_mode, u.device)
+    bufs = grid.exchange_buffers.setdefault(key, {})
+    wire_dtype = wire.payload_dtype(wire_mode, u.dtype)
+    home = torch.device("cpu") if distributed.staged(u) else u.device
+    ops, landings, faces = [], [], []
+    for ax in range(u.ndim):
+        n = u.shape[ax]
+        # (side, toward, the face of u sent that way): below first.
+        for side, direction, at in ((0, -1, 0), (1, +1, n - 1)):
+            peer = grid.neighbor(ax, direction)
+            if peer is None:
+                faces.append(None)
+                continue
+            msgs = bufs.get((ax, side))
+            if msgs is None:
+                msgs = bufs[(ax, side)] = _face_messages(u, ax, wire_dtype, home)
+            send, recv, face = msgs
+            send.copy_(u.narrow(ax, at, 1))
+            # A message's tag: its axis and the way it travels, the same at
+            # both ends (what this rank sends down, its peer receives from up).
+            ops.append(dist.P2POp(dist.isend, send, peer, tag=2 * ax + side))
+            ops.append(dist.P2POp(dist.irecv, recv, peer, tag=2 * ax + 1 - side))
+            if face is not recv:
+                landings.append((face, recv))
+            faces.append(face)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        for face, recv in landings:
+            face.copy_(recv)
+    return tuple(faces)
+
+
+def _face_messages(u, ax, wire_dtype, home):
+    """(send, receive, face) of one face of `u` along `ax`: the send and
+    receive buffers in the wire dtype where the process group carries them
+    (`home`), and the face the kernel reads, the receive buffer itself
+    when it already is the field's dtype on the field's device."""
+    shape = tuple(1 if a == ax else n for a, n in enumerate(u.shape))
+    send = torch.empty(shape, dtype=wire_dtype, device=home)
+    recv = torch.empty(shape, dtype=wire_dtype, device=home)
+    if wire_dtype == u.dtype and home == u.device:
+        return send, recv, recv
+    return send, recv, torch.empty(shape, dtype=u.dtype, device=u.device)
 
 
 def exchange_halo(u: torch.Tensor, grid: GlobalGrid, width: int = 1, axes=None,

@@ -11,14 +11,19 @@ schedule explicit, per step, on CUDA streams of two priorities:
 
   1. an event on the current stream marks the state ready;
   2. the interior stream (normal priority) waits for it and launches the
-     ghost-free interior box from the RAW shard (source offset 0): its
-     width-1 stencil never leaves the shard, so it reads no ghost;
-  3. the current stream runs the halo exchange into the padded buffer
-     (`place_core`, then NCCL point-to-point);
+     ghost-free interior box from the RAW shard: its width-1 stencil never
+     leaves the shard, so it reads no ghost;
+  3. the current stream runs the halo exchange (NCCL point-to-point): by
+     default into the padded buffer (`exchange_halo`: `place_core`, then
+     a batch per axis); with `faces=True` the face exchange
+     (`exchange_faces`: the 2·ndim faces in one batch, no padded block,
+     no copy of the shard), as the diffusion step asks;
   4. the boundary stream (high priority, `torch.cuda.Stream(priority=-1)`)
-     waits for the exchange and launches the slab boxes from the padded
-     buffer (offset 1);
-  5. the current stream waits for both.
+     waits for the exchange and launches the slab boxes, from the padded
+     buffer (offset 1) or from the shard and the received faces;
+  5. the current stream waits for both. The next step's exchange, on the
+     current stream, so never overwrites a face or a padded buffer that
+     the boundary stream still reads.
 
 Every box writes its own cells of one output buffer in place (the region
 form of ops/kernels.py), so there is no splice copy and, with the
@@ -55,7 +60,7 @@ from typing import Callable
 import torch
 
 from rocm_mpi_tpu_torch.parallel import wire
-from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
+from rocm_mpi_tpu_torch.parallel.halo import exchange_faces, exchange_halo
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 
 # Stream priorities: lower is more urgent. The boundary slabs gate the
@@ -110,13 +115,19 @@ def _leaves(x) -> tuple[torch.Tensor, ...]:
 
 
 def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
-                      mask_boundary: bool = False, wire_mode: str = "f32", device=None):
+                      mask_boundary: bool = False, wire_mode: str = "f32", device=None,
+                      faces: bool = False):
     """Build the shard-local overlap step (any ndim).
 
     `region_update(src, offset, box, C, out)` updates core box `box` of
     `out` in place from `src`, the state grown by `offset` cells per axis
     (a region-form kernel wrapper, e.g. kernels.fused_step_cm_region).
-    Returns `local_step(T, C, out=None, pad=None) -> out`.
+    With `faces=True` the step exchanges faces instead (halo.exchange_faces)
+    and calls `region_update(T, faces, box, C, out)`: `faces` the received
+    faces for a slab box, None for the interior box (a face-form wrapper,
+    e.g. kernels.fused_step_cm_faces). Returns
+    `local_step(T, C, out=None, pad=None) -> out`; `pad` is unused with
+    faces.
 
     `T`, the exchanged state, is a tensor or a tuple of same-shaped leaves
     (each exchanged; `src` and `out` then have the same structure, for a
@@ -152,9 +163,10 @@ def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
     def local_step(T, C, out=None, pad=None):
         tupled = isinstance(T, (tuple, list))
 
-        def run(boxes_, src, offset):
+        def run(boxes_, src, ghosts):
+            # ghosts: the padded route's source offset, or the faces (None: none)
             for box in boxes_:
-                region_update(src if tupled else src[0], offset, box, C,
+                region_update(src if tupled else src[0], ghosts, box, C,
                               outs if tupled else outs[0])
 
         Ts = _leaves(T)
@@ -169,14 +181,18 @@ def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
             current = None
             inner_ctx = bound_ctx = contextlib.nullcontext()
         with inner_ctx:  # (2) the interior, from the raw shard
-            run(interior, Ts, 0)
+            run(interior, Ts, None if faces else 0)
         # (3) the exchange, on the current stream
-        Tps = tuple(exchange_halo(t, grid, wire_mode=wire_mode, out=p)
-                    for t, p in zip(Ts, pads))
+        if faces:
+            src, ghosts = Ts, tuple(exchange_faces(t, grid, wire_mode=wire_mode) for t in Ts)
+            ghosts = ghosts if tupled else ghosts[0]
+        else:
+            src, ghosts = tuple(exchange_halo(t, grid, wire_mode=wire_mode, out=p)
+                                for t, p in zip(Ts, pads)), 1
         if current is not None:
             bound_s.wait_stream(current)
-        with bound_ctx:  # (4) the slabs, from the padded buffer
-            run(slabs, Tps, 1)
+        with bound_ctx:  # (4) the slabs, from the padded buffer or the faces
+            run(slabs, src, ghosts)
         if current is not None:  # (5) join
             current.wait_stream(inner_s)
             current.wait_stream(bound_s)

@@ -1,6 +1,6 @@
 """Time two checkouts of the PyTorch/CUDA port's masked_step, tb_sweep,
-kp_update, multi_step_cm, wave_multi_step and swe_multi_step side by side
-on one CUDA card.
+kp_update, multi_step_cm, wave_multi_step, swe_multi_step and
+fused_step_cm side by side on one CUDA card.
 
     python scripts/torch_kernel_ab.py --roots OLD NEW NEW OLD [--kernels K ...] [--json PATH]
 
@@ -9,7 +9,7 @@ checkout, or an unpacked `git archive` of one). Every root runs in a
 process of its own, in the order given, so the kernels of each are built
 from its own sources into its own `_build/`; list each root twice, in the
 order old, new, new, old, so that a drift of the card's clocks shows.
-`--kernels` picks what each process times (default: all six):
+`--kernels` picks what each process times (default: all seven):
 
 - `masked_step`: `kernels.masked_step` at 12288² in f32, f64 and bf16
   (the one-GPU perf step): the median of CUDA-event-timed launches, each
@@ -36,7 +36,22 @@ order old, new, new, old, so that a drift of the card's clocks shows.
   (the median of launches each between two CUDA events, as chip_smoke.py
   times kernels), device (the same, with the launches queued while the
   card is held behind torch.cuda._sleep, so none waits for the host),
-  and the wrapper's host µs a call (calls back to back, no sync).
+  and the wrapper's host µs a call (calls back to back, no sync);
+- `fused_step_cm`: the sharded main path's kernel at a 6144² shard (2×2
+  of 12288²) in f32, f64 and bf16 and at a 128³ shard in f32: the whole
+  core from the padded block (`fused_step_cm(Tp)`, every root), the five
+  (2D, b_width (32, 4)) or seven (3D, (8, 8, 8)) `hide` boxes from it
+  (`fused_step_cm_region`: the interior from the raw shard, the slabs
+  from the block), and, where the root has the face form
+  (`fused_step_cm_faces`), the same whole core and boxes from the shard
+  and contiguous faces, as the sharded steps call it; masked_step on the
+  same shard beside them (the one-GPU layout's figure at this size). Each
+  result is held bitwise against `fused_step_cm_plain(Tp)` first. Three
+  figures a case: per call and device as above, and a loop (200 calls
+  queued behind torch.cuda._sleep, between two CUDA events, over 200) —
+  the figure for the 3D shard, whose single launch is too short for a
+  pair of events; each with its share of the bytes bound (the core, the
+  2·ndim faces and Cm read once, out written once, at 3.35 TB/s).
 
 The card's name and power limit (nvidia-smi) head the output; one JSON
 object per process follows, and `--json` writes them all.
@@ -59,7 +74,11 @@ HOST_CALLS = 2000
 HOST_REPEATS = 7
 SEED = 1234
 KERNELS = ("masked_step", "tb_sweep", "kp_update", "multi_step_cm", "wave_multi_step",
-           "swe_multi_step")
+           "swe_multi_step", "fused_step_cm")
+# fused_step_cm's shards: (shape, hide b_width, dtypes).
+FUSED_CASES = (((6144, 6144), (32, 4), DTYPES), ((128, 128, 128), (8, 8, 8), ("f32",)))
+FUSED_LOOP = 200  # launches between the two events of a loop figure
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 MASKED_BIG, MASKED_SMALL = (12288, 12288), (252, 252)
 # (kernel, block, steps a launch, dtypes): the main paths' multi-step blocks.
 MULTI_CASES = (
@@ -121,6 +140,88 @@ def device_ms(torch, fn, reps: int, host: float) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def loop_ms(torch, fn, calls: int, host: float) -> float:
+    """Device ms a call of fn over `calls` calls queued behind
+    torch.cuda._sleep (long enough for the host to enqueue them at `host`
+    µs a call), between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * calls * (host + 20.0) * 1e-6 + 1e-3) * 2e9))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def time_fused(torch, root, result, dev, tdts):
+    """fused_step_cm at the sharded main paths' shards (module docstring)."""
+    from rocm_mpi_tpu_torch.ops import kernels as K
+    from rocm_mpi_tpu_torch.parallel import overlap
+
+    faces_form = hasattr(K, "fused_step_cm_faces")
+    for shape, bw, names in FUSED_CASES:
+        nd = len(shape)
+        spacing = (0.1, 0.07, 0.05)[:nd]
+        inv_d2 = K.inv_d2_of(spacing)
+        boxes = overlap.region_boxes(shape, overlap.effective_b_width(shape, bw))
+        for name in names:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            dt = tdts[name]
+            Tp = torch.rand(tuple(n + 2 for n in shape), generator=gen, device=dev,
+                            dtype=torch.float64).to(dt)
+            Cm = (torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+                  * 0.002).to(dt)
+            out = torch.empty(shape, dtype=dt, device=dev)
+            want = K.fused_step_cm_plain(Tp, Cm, inv_d2)
+            core = tuple(slice(1, -1) for _ in range(nd))
+            T = Tp[core].contiguous()
+            cases = {
+                "padded": lambda: K.fused_step_cm(Tp, Cm, spacing, out=out),
+                "padded boxes": lambda: [K.fused_step_cm_region(
+                    T if overlap.ghost_free(b, shape) else Tp,
+                    0 if overlap.ghost_free(b, shape) else 1, Cm, spacing, b, out)
+                    for b in boxes],
+                "masked_step": lambda: K.masked_step(T, Cm, spacing, out=out),
+            }
+            if faces_form:
+                # Fresh buffers, as the face exchange's: a view of a size-1
+                # axis counts as contiguous, and would sit off the 16-byte grid.
+                faces = tuple(f.clone(memory_format=torch.contiguous_format)
+                              for f in K.face_views(Tp)[1])
+                cases["faces"] = lambda: K.fused_step_cm_faces(T, faces, Cm, spacing, out=out)
+                none = (None,) * (2 * nd)
+                cases["faces boxes"] = lambda: [K.fused_step_cm_faces(
+                    T, none if overlap.ghost_free(b, shape) else faces, Cm, spacing, box=b,
+                    out=out) for b in boxes]
+            cells = 1
+            for n in shape:
+                cells *= n
+            faces_cells = sum(cells // n for n in shape) * 2
+            bound = (3 * cells + faces_cells) * torch.tensor([], dtype=dt).element_size() \
+                / HBM_BYTES_PER_S * 1e3
+            for label, run in cases.items():
+                out.fill_(float("nan"))
+                run()
+                torch.cuda.synchronize()
+                equal = (label == "masked_step" or bool(torch.equal(out, want)))
+                row = {"kernel": "fused_step_cm", "case": label, "shape": list(shape),
+                       "dtype": name, "bitwise": equal, "bound_ms": bound}
+                row["ms"] = time_ms(torch, run, 30)
+                row["host_us"] = host_us(torch, run, 200, 5)
+                row["device_ms"] = device_ms(torch, run, 30, row["host_us"])
+                row["loop_ms"] = loop_ms(torch, run, FUSED_LOOP, row["host_us"])
+                result["fused_step_cm"].append(row)
+                print(f"[ab] {root} fused_step_cm {'x'.join(map(str, shape))} {name} {label}: "
+                      f"per call {row['ms']:.4f} ms, device {row['device_ms']:.4f}, loop "
+                      f"{row['loop_ms']:.4f} ms (of bound {bound / row['loop_ms']:.2f}), host "
+                      f"{row['host_us']:.2f} µs a call, bitwise {equal}", flush=True)
+            del Tp, Cm, out, want, T, cases
+            torch.cuda.empty_cache()
 
 
 def multi_case(torch, name, shape, steps, dtype, dev):
@@ -240,9 +341,11 @@ def worker(root: str, kernels) -> dict:
     dev = torch.device("cuda", 0)
     tdts = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
     result = {"root": root, "masked_step": [], "tb_sweep": [], "kp_update_host_us": {},
-              "multi_step": []}
+              "multi_step": [], "fused_step_cm": []}
     if "masked_step" in kernels:
         time_masked(torch, root, result, dev, tdts)
+    if "fused_step_cm" in kernels:
+        time_fused(torch, root, result, dev, tdts)
     time_multi(torch, root, kernels, result, dev, tdts)
     inv_d2 = (1.0, 1.0)
     for shape, k in TB_CASES if "tb_sweep" in kernels else ():
@@ -312,7 +415,8 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump({"card": card, "runs": results}, f, indent=1)
     ok = all(r["bitwise"] for run in results
-             for r in run["masked_step"] + run["tb_sweep"] + run["multi_step"])
+             for r in run["masked_step"] + run["tb_sweep"] + run["multi_step"]
+             + run.get("fused_step_cm", []))
     print(f"[ab] every timed launch bitwise equal to its plain version: {ok}", flush=True)
     return 0 if ok else 1
 

@@ -13,7 +13,8 @@ from rocm_mpi_tpu_torch.utils.backend import resolve_device, use_kernel
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "rocm_mpi_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "chip_trace_hide.py"]
+    REPO / "chip_smoke.py", REPO / "chip_trace_hide.py"] + sorted(
+    (REPO / "scripts").glob("torch_*.py"))  # the port's benchmark harnesses
 FORBIDDEN = ("jax", "jaxlib", "rocm_mpi_tpu", "__graft_entry__")
 
 
@@ -53,6 +54,7 @@ def test_scan_sees_the_whole_port():
                               "apps/_common.py", "utils/checkpoint.py",
                               "apps/diffusion_3d_perf_hide.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
+    assert {"scripts/torch_kernel_ab.py", "scripts/torch_face_variants.py"} <= names
 
 
 def _counted_launches():
