@@ -2,7 +2,7 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-17 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-18 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
 the target). Phases, printed as they run (about six minutes on one H100
@@ -196,9 +196,31 @@ the target). Phases, printed as they run (about six minutes on one H100
    ms, bytes a save and restore ms printed. With `--gpus 4`: 2×2 of
    12288² `perf` over NCCL graphs, each rank saving its 6144² shard,
    every rank resumed bitwise. Checkpoints go to a temporary directory
-   that the phase removes.
+   that the phase removes;
+18. telemetry (after 17; the four-card form after 15) — the telemetry
+   plane (rocm_mpi_tpu_torch/telemetry/): diffusion `perf` at 12288²
+   (200 after 10) and 252² (1000 after 10) f32 under the scan and the
+   step driver with telemetry off, on, on, off: fields bitwise, LAUNCHES
+   identical, the step_window span's dur_s == the run's wtime, each
+   ms/step printed (telemetry's cost a step); the scan driver's captures
+   counted by telemetry.compiles (== the plan's graphs, steady_state 0
+   after a warmup; a warmup-0 run's in-window captures counted as
+   steady-state recompiles); the wave's 252² perf under scan emitting its
+   halo.exchange annotation once through its captures; --health
+   (SIGUSR2 owned by neither torch nor NCCL, the heartbeat's step == nt,
+   SIGUSR2 writing the traceback); the 12288² perf app with --profile
+   (its trace names rmt_masked_step) and --telemetry (read by the port's
+   `telemetry summarize`). With `--gpus 4`: the weak-scaling app (its
+   main() on 4 ranks, one a card) with --telemetry --health at 252² a
+   rank beside a telemetry-off ladder (merged summary of ranks 0-3 with
+   halo, interior and checkpoint time, every rank's halo.probe bytes its
+   face exchange's, the probes replaying captured calls as the scan
+   driver's steps do, trace pids 0-3, each rank's probe and heartbeat
+   times), then the profiling app under torchrun at 2×2 of 8192² as it
+   runs by default there, the step driver (prof.txt lists
+   rmt_fused_step_cm and NCCL's kernels).
 
-With `--gpus 4` phases 6-17 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-18 run one rank per GPU over NCCL (6 and 8 for
 500 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
 exchange (the face exchange and the padded one), the interiors and the
 slabs (the diffusion's from the faces and from the block) timed alone; 13
@@ -4087,14 +4109,365 @@ def phase_transport(torch, card, gpus: int):
     return out, launches
 
 
+# [telemetry]: the telemetry plane on the card (rocm_mpi_tpu_torch/telemetry/).
+TEL_CASES = ((BIG, 210, 10), (SMALL, 1010, 10))  # (shape, nt, warmup) of the off/on runs
+TEL_ORDER = (False, True, True, False)  # telemetry off, on, on, off, in turns
+TEL_WEAK_NT, TEL_WEAK_WARMUP = 2000, 200
+
+
+def _tel_reset(telemetry, compiles, directory=None):
+    """Telemetry off and empty, or on into `directory` with the compile
+    accounting armed; the accounting reset either way."""
+    telemetry.clear()
+    compiles.reset()
+    if directory is None:
+        telemetry.configure(enabled=False)
+    else:
+        telemetry.configure(directory=directory, enabled=True, rank=0)
+        compiles.install()
+
+
+def phase_telemetry(torch, card):
+    """[telemetry] the telemetry plane on one card. Diffusion `perf` at
+    12288² (200 steps after 10) and 252² (1000 after 10), f32, under the
+    scan and the step driver, telemetry off, on, on, off: every field
+    bitwise the first's, LAUNCHES identical, the `step_window` span's
+    dur_s equal to the run's wtime, ms/step of each run printed (the cost
+    of telemetry a step). Under the scan driver: the captures happen with
+    telemetry on, counted by telemetry.compiles as many as the plan's
+    graphs, steady_state 0 (captured in the warmup); a warmup-0 run's
+    in-window captures counted as steady-state recompiles; the wave's
+    252² perf under scan (its step pads through exchange_halo) emits its
+    halo.exchange annotation once. --health: neither torch nor NCCL owns
+    SIGUSR2, the heartbeat's step equals nt, SIGUSR2 writes the
+    traceback. The 12288² perf app with --profile names rmt_masked_step
+    in its trace and with --telemetry leaves a directory the port's CLI
+    `summarize` reads. Returns (record, the launches of the main-path
+    runs)."""
+    import faulthandler
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rocm_mpi_tpu_torch import telemetry
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
+    from rocm_mpi_tpu_torch.models.scan import graph_plan
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.telemetry import compiles, flight
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="rmt-telemetry-"))
+    totals = {name: 0 for name in kernels.LAUNCHES}
+    record = {"runs": []}
+    try:
+        for shape, nt, warmup in TEL_CASES:
+            cfg = DiffusionConfig(global_shape=shape, lengths=(10.0, 10.0), nt=nt,
+                                  warmup=warmup, dtype="f32", dims=(1, 1))
+            for driver in ("scan", "step"):
+                first, rows = None, []
+                for i, on in enumerate(TEL_ORDER):
+                    d = root / f"{shape[0]}-{driver}-{i}"
+                    _tel_reset(telemetry, compiles, d if on else None)
+                    kernels.reset_launches()
+                    res = HeatDiffusion(cfg, device="cuda").run("perf", driver=driver)
+                    torch.cuda.synchronize()
+                    launches = dict(kernels.LAUNCHES)
+                    for name, n in launches.items():
+                        totals[name] += n
+                    row = dict(on=on, ms_per_step=res.wtime_it * 1e3, launches=launches)
+                    if first is None:
+                        first = (res.T.clone(), launches)
+                    else:
+                        equal, err = _same(res.T, first[0])
+                        check(equal, f"[telemetry] perf {shape} {driver} run {i} (telemetry "
+                              f"{'on' if on else 'off'}) != run 0 (max |diff| {err})")
+                        check(launches == first[1], f"[telemetry] perf {shape} {driver} run "
+                              f"{i}: launches {launches} != {first[1]}")
+                    if on:
+                        (window,) = [r for r in telemetry.records("span")
+                                     if r["name"] == "step_window"]
+                        check(window["dur_s"] == res.wtime, f"[telemetry] step_window "
+                              f"dur_s {window['dur_s']} != wtime {res.wtime}")
+                        snap = compiles.snapshot()
+                        captures = sum(v["count"] for k, v in snap["programs"].items()
+                                       if k.startswith("graph:"))
+                        want = graph_plan(res.k, 2).graphs if driver == "scan" else 0
+                        check(captures == want, f"[telemetry] perf {shape} {driver}: "
+                              f"{captures} captures counted, the plan's graphs {want}")
+                        check(compiles.steady_state() == 0, f"[telemetry] perf {shape} "
+                              f"{driver}: steady_state {compiles.steady_state()} after a "
+                              f"warmup of {warmup}")
+                        row.update(captures=captures, records=len(telemetry.records()))
+                    rows.append(row)
+                ms = [r["ms_per_step"] for r in rows]
+                print(f"[telemetry] perf {shape[0]}x{shape[1]} f32 --driver {driver}, {nt - warmup} "
+                      f"steps after {warmup}, telemetry off/on/on/off: "
+                      + " / ".join(f"{m:.6f}" for m in ms) + " ms/step (on − off: "
+                      f"{(ms[1] + ms[2] - ms[0] - ms[3]) / 2 * 1e3:+.3f} µs a step); fields "
+                      f"bitwise equal, launches identical {first[1]['masked_step']} "
+                      f"masked_step; step_window dur_s == wtime"
+                      + (f"; {rows[1]['captures']} capture(s) counted == the plan's graphs, "
+                         "steady_state 0" if driver == "scan" else "")
+                      + f", on {card}", flush=True)
+                record["runs"].append(dict(shape=list(shape), driver=driver, rows=rows))
+
+        # A warmup-0 run captures inside its timed window: recompiles.
+        cfg0 = DiffusionConfig(global_shape=SMALL, lengths=(10.0, 10.0), nt=1000, warmup=0,
+                               dtype="f32", dims=(1, 1))
+        _tel_reset(telemetry, compiles, root / "warmup0")
+        model = HeatDiffusion(cfg0, device="cuda")
+        with watch_loops() as loops:
+            res = model.run("perf", driver="scan")
+        torch.cuda.synchronize()
+        graphs = len(loops[-1].graphs)
+        check(graphs >= 1 and compiles.steady_state() == graphs,
+              f"[telemetry] warmup-0 scan run: steady_state {compiles.steady_state()}, "
+              f"graphs captured {graphs}")
+        compiles.emit_gauges()
+        gauges = {r["name"]: r["value"] for r in telemetry.records("gauge")}
+        check(gauges.get("compiles.steady_state") == graphs,
+              f"[telemetry] warmup-0: gauges {gauges}")
+        print(f"[telemetry] perf 252x252 --driver scan, warmup 0 (q {res.k}): {graphs} "
+              f"graph(s) captured in the timed window, counted as compiles.steady_state "
+              f"{gauges['compiles.steady_state']} (compiles.total {gauges['compiles.total']}); "
+              f"{res.wtime_it * 1e3:.6f} ms/step with the captures in it", flush=True)
+        record["warmup0"] = dict(graphs=graphs, gauges=gauges, ms_per_step=res.wtime_it * 1e3)
+
+        # The wave's perf step pads through exchange_halo: its annotation
+        # fires in the warm-up step and in the captures, and is kept once.
+        wcfg = WaveConfig(global_shape=SMALL, lengths=(10.0, 10.0), nt=1010, warmup=10,
+                          dtype="f32", dims=(1, 1))
+        _tel_reset(telemetry, compiles, None)
+        kernels.reset_launches()
+        w_off = AcousticWave(wcfg, device="cuda").run("perf", driver="scan")
+        off_launches = dict(kernels.LAUNCHES)
+        _tel_reset(telemetry, compiles, root / "wave")
+        kernels.reset_launches()
+        w_on = AcousticWave(wcfg, device="cuda").run("perf", driver="scan")
+        torch.cuda.synchronize()
+        on_launches = dict(kernels.LAUNCHES)
+        for counts in (off_launches, on_launches):
+            for name, n in counts.items():
+                totals[name] += n
+        equal, err = _same(w_on.U, w_off.U)
+        check(equal and on_launches == off_launches,
+              f"[telemetry] wave perf scan: telemetry on != off ({err}; {on_launches} / "
+              f"{off_launches})")
+        traced = [r for r in telemetry.records("trace") if r["name"] == "halo.exchange"]
+        captures = compiles.snapshot()["programs"].get("graph:step", {}).get("count", 0)
+        check(len(traced) == 1 and captures >= 1,
+              f"[telemetry] wave perf scan: {len(traced)} halo.exchange annotation(s), "
+              f"{captures} capture(s)")
+        print(f"[telemetry] wave perf 252x252 f32 --driver scan: {captures} capture(s) with "
+              f"telemetry on, one halo.exchange annotation {traced[0]['attrs']}; field "
+              f"bitwise and launches equal to the telemetry-off run; "
+              f"{w_off.wtime_it * 1e3:.6f} / {w_on.wtime_it * 1e3:.6f} ms/step off / on",
+              flush=True)
+
+        # --health: SIGUSR2 is nobody's (torch, and NCCL once initialised),
+        # the heartbeat reaches nt, and SIGUSR2 dumps every thread.
+        check(signal.getsignal(signal.SIGUSR2) == signal.SIG_DFL,
+              f"[telemetry] SIGUSR2 already handled: {signal.getsignal(signal.SIGUSR2)}")
+        store = dist.TCPStore("localhost", 0, 1, is_master=True)  # a port the system picks
+        dist.init_process_group("nccl", store=store, world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        dist.barrier()
+        owned = signal.getsignal(signal.SIGUSR2)
+        dist.destroy_process_group()
+        check(owned == signal.SIG_DFL, f"[telemetry] NCCL's init took SIGUSR2: {owned}")
+        hdir = root / "health"
+        _tel_reset(telemetry, compiles, hdir)
+        flight.enable(directory=hdir, rank=0)
+        tb = pathlib.Path(flight.install_postmortem_handler())
+        try:
+            res = HeatDiffusion(cfg0, device="cuda").run("perf", driver="step")
+            beat = json.loads((hdir / "heartbeat-rank0.json").read_text())
+            check(beat["counters"].get("step") == cfg0.nt,
+                  f"[telemetry] heartbeat step {beat['counters'].get('step')} != nt {cfg0.nt}")
+            os.kill(os.getpid(), signal.SIGUSR2)
+            time.sleep(0.2)
+            dump = tb.read_text()
+            check("thread" in dump.lower() and "phase_telemetry" in dump,
+                  f"[telemetry] SIGUSR2 traceback: {dump[:400]!r}")
+        finally:
+            faulthandler.unregister(signal.SIGUSR2)
+            flight.disable()
+            flight.reset()
+        print(f"[telemetry] --health: SIGUSR2 unhandled by torch and NCCL; heartbeat step "
+              f"{beat['counters']['step']} == nt after 252x252 perf --driver step; SIGUSR2 wrote "
+              f"{len(dump.splitlines())} traceback lines", flush=True)
+        _tel_reset(telemetry, compiles, None)
+
+        # The app: --profile names the kernel; --telemetry is read by the CLI.
+        prof, tdir = root / "prof", root / "app"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "rocm_mpi_tpu_torch.apps.diffusion_2d_perf",
+                               "--nt", "60", "--warmup", "10", "--profile", str(prof),
+                               "--telemetry", str(tdir)],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        app_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[telemetry] the perf app with --profile failed:\n"
+              f"{proc.stdout}\n{proc.stderr[-4000:]}")
+        doc = json.loads((prof / "trace-rank0.json").read_text())
+        named = sorted({e["name"] for e in doc["traceEvents"] if "rmt_masked_step" in e["name"]})
+        check(named, "[telemetry] the --profile trace names no rmt_masked_step kernel")
+        cli = subprocess.run([sys.executable, "-m", "rocm_mpi_tpu_torch.telemetry", "summarize",
+                              str(tdir), "--json"], cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        check(cli.returncode == 0, f"[telemetry] CLI summarize failed:\n{cli.stderr}")
+        summary = json.loads(cli.stdout)
+        check(summary["ranks"] == [0] and summary["steps"]["count"] == 50,
+              f"[telemetry] CLI summary: ranks {summary['ranks']}, steps {summary['steps']}")
+        print(f"[telemetry] diffusion_2d_perf 12288² --nt 60 --warmup 10 --profile --telemetry "
+              f"in {app_s:.1f} s: the trace names {named[0][:70]}; `python -m "
+              f"rocm_mpi_tpu_torch.telemetry summarize` read {summary['records']} records, "
+              f"{summary['steps']['per_step_us']['mean']} µs a step, gauges "
+              f"{ {k: round(v, 4) for k, v in summary['gauges'].items()} }", flush=True)
+        record.update(profile_kernels=named, app_summary=summary, app_seconds=app_s)
+    finally:
+        _tel_reset(telemetry, compiles, None)
+        shutil.rmtree(root, ignore_errors=True)
+    return record, totals
+
+
+def weak_scaling_app_rank(rank, argv):
+    """One rank of the weak-scaling app's main(argv) on its own card, its
+    stdout captured and returned with the exit code."""
+    import io
+
+    import torch
+
+    from rocm_mpi_tpu_torch.apps import weak_scaling
+
+    torch.cuda.set_device(torch.device("cuda", rank))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = weak_scaling.main(argv)
+    return rc, out.getvalue()
+
+
+def _torchrun(args, timeout=900):
+    return subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", "4", *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def phase_telemetry_sharded(card, gpus: int):
+    """[telemetry] on four cards: the weak-scaling app (main() on 4 ranks,
+    one a card, NCCL) with --telemetry DIR --health at 252² a rank,
+    counts 1, 2, 4 (the app's 2000 steps after 200, hide under the scan
+    driver), beside a
+    telemetry-off ladder in the same call: the merged summary holds ranks
+    0–3, halo, interior and checkpoint wall time, every rank's halo.probe
+    bytes those of its face exchange; the Chrome trace's pids are 0–3;
+    each rank's probe and heartbeat times printed (the arrival skew), the
+    probes replaying their captured calls as the scan driver's steps do.
+    Then the profiling app under torchrun, 2×2 of 8192², as it runs by
+    default on more than one rank (the step driver; it refuses the scan
+    driver there): prof.txt lists rmt_fused_step_cm and NCCL's kernels
+    with their device ms."""
+    import tempfile
+
+    from rocm_mpi_tpu_torch.parallel.halo import faces_nbytes
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+    from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="rmt-telemetry4-"))
+    try:
+        # The app's main() on 4 ranks of one NCCL group (spawn_ranks, as
+        # [weak-scaling]): the card's torchrun reads `--local` as an
+        # ambiguous abbreviation of its own --local-* options.
+        common = ["--json", "--local", str(WEAK_LOCAL), "--counts", WEAK_COUNTS]
+        tdir = root / "tel"
+        runs = {}
+        for label, extra in (("off", []), ("on", ["--telemetry", str(tdir), "--health"])):
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(4, weak_scaling_app_rank, ([*common, *extra],),
+                                backend="nccl", timeout=900)
+            check([rc for rc, _ in ranks] == [0] * 4,
+                  f"[telemetry] weak_scaling telemetry {label}: rcs {[rc for rc, _ in ranks]}")
+            runs[label] = ([json.loads(ln) for ln in ranks[0][1].splitlines()
+                            if ln.startswith("{")], time.perf_counter() - t0)
+        summary = json.loads((tdir / "telemetry-summary.json").read_text())
+        check(summary["ranks"] == [0, 1, 2, 3], f"[telemetry] merged ranks {summary['ranks']}")
+        phases = summary["phases"]
+        for ph in ("halo", "interior", "checkpoint"):
+            check(phases[ph]["wall_s"] > 0, f"[telemetry] {ph} wall {phases[ph]['wall_s']}")
+        trace_doc = json.loads((tdir / "telemetry-trace.json").read_text())
+        pids = {e["pid"] for e in trace_doc["traceEvents"]}
+        check(pids == {0, 1, 2, 3}, f"[telemetry] trace pids {pids}")
+        streams = {rk: [json.loads(ln) for ln in
+                        (tdir / f"telemetry-rank{rk}.jsonl").read_text().splitlines()]
+                   for rk in range(4)}
+        per_rank = {}
+        for rk, recs in streams.items():
+            grid = init_global_grid(2 * WEAK_LOCAL, 2 * WEAK_LOCAL, dims=(2, 2), nprocs=4,
+                                    rank=rk)
+            (probe,) = [r for r in recs if r["name"] == "halo.probe"]
+            want = faces_nbytes(grid.local_shape, 4, grid) * probe["attrs"]["iters"]
+            check(probe["attrs"]["bytes"] == want, f"[telemetry] rank {rk} halo.probe bytes "
+                  f"{probe['attrs']['bytes']} != the face exchange's {want}")
+            (interior,) = [r for r in recs if r["name"] == "interior.probe"]
+            for r in (probe, interior):
+                check(r["attrs"]["route"] == "graph" and r["attrs"]["driver"] == "scan",
+                      f"[telemetry] rank {rk} {r['name']} ran {r['attrs']}, not as the "
+                      "scan driver's captured steps")
+            beats = [r["dur_s"] for r in recs if r["name"] == "halo.heartbeat"]
+            per_rank[rk] = dict(probe_ms=probe["dur_s"] * 1e3 / probe["attrs"]["iters"],
+                                interior_ms=interior["dur_s"] * 1e3 / probe["attrs"]["iters"],
+                                heartbeat_ms=[b * 1e3 for b in beats],
+                                ckpt_ms=sum(r["dur_s"] for r in recs
+                                            if r["name"].startswith("checkpoint.")) * 1e3)
+        for rk, r in per_rank.items():
+            hb = r["heartbeat_ms"]
+            print(f"[telemetry] rank {rk}: halo.probe {r['probe_ms']:.5f} ms an exchange "
+                  f"(captured, one replay, barriered), interior.probe "
+                  f"{r['interior_ms']:.5f} ms a launch (captured), "
+                  f"halo.heartbeat {len(hb)}: median {statistics.median(hb):.5f}, max "
+                  f"{max(hb):.5f} ms (unbarriered: the arrival skew), checkpoint spans "
+                  f"{r['ckpt_ms']:.3f} ms", flush=True)
+        for off, on in zip(runs["off"][0], runs["on"][0]):
+            check("windows" not in off and on.get("windows", 0) > 1,
+                  f"[telemetry] rows off {off} on {on}: only the windowed rows say windows")
+            print(f"[telemetry] weak-scaling hide scan n={off['devices']}: telemetry off "
+                  f"{off['gpts_per_device']} Gpts/s a device, efficiency {off['efficiency']}; "
+                  f"on ({on['windows']} windows, a sync and barrier each) "
+                  f"{on['gpts_per_device']}, {on['efficiency']}", flush=True)
+        print(f"[telemetry] merged summary: ranks {summary['ranks']}, halo "
+              f"{phases['halo']['wall_s']} s ({phases['halo']['bytes']} B), interior "
+              f"{phases['interior']['wall_s']} s, checkpoint {phases['checkpoint']['wall_s']} s, "
+              f"step p50 {summary['steps']['per_step_us']['p50']} µs, stragglers "
+              f"{summary['stragglers']}; trace pids {sorted(pids)}; off {runs['off'][1]:.1f} s, "
+              f"on {runs['on'][1]:.1f} s on 4 GPUs ({card} each)", flush=True)
+
+        report = root / "prof.txt"
+        # Its default on four CUDA ranks: the step driver (the app refuses
+        # the scan driver there; its docstring says why).
+        proc = _torchrun(["-m", "rocm_mpi_tpu_torch.apps.diffusion_2d_perf_hide_prof",
+                          "--report", str(report), "--profile", str(root / "prof_trace")],
+                         timeout=300)
+        check(proc.returncode == 0, f"[telemetry] the profiling app failed:\n{proc.stdout}\n"
+              f"{proc.stderr[-4000:]}")
+        text = report.read_text()
+        check("rmt_fused_step_cm" in text and "nccl" in text.lower()
+              and "4 rank(s), driver step)" in text,
+              f"[telemetry] prof.txt lists no rmt_fused_step_cm or NCCL kernel:\n{text}")
+        for line in text.splitlines():
+            if line.strip():
+                print(f"[telemetry] prof.txt | {line}", flush=True)
+        return dict(ranks=per_rank, summary_phases=phases, rows=runs, prof=text)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write every measurement to PATH")
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
                         help="4: run only the sharded phases (perf, sharded scan, deep, hide, "
-                        "wave and shallow-water deep, 3d, checkpoint, weak scaling, ring, "
-                        "host-staged, wire, dryrun), "
+                        "wave and shallow-water deep, 3d, checkpoint, weak scaling, telemetry, "
+                        "ring, host-staged, wire, dryrun), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -4141,6 +4514,7 @@ def main(argv=None) -> int:
         record["three_d"] = phase_3d_sharded(card, args.gpus)
         record["checkpoint_ranks"] = phase_checkpoint_sharded(card, args.gpus)
         record["weak_scaling_ranks"], _ = phase_weak_scaling(card, args.gpus)
+        record["telemetry"] = phase_telemetry_sharded(card, args.gpus)
         record["transport"], _ = phase_transport(torch, card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
@@ -4163,6 +4537,7 @@ def main(argv=None) -> int:
     scan_rows = phase_scan(torch, card)
     cube = phase_3d(torch, card, pk)
     ckpt_rec = phase_checkpoint(torch, card)
+    tel_rec, tel_launches = phase_telemetry(torch, card)
     ranks, fused_launches, kp_sharded_launches = phase_sharded(card, 1)
     deep_ranks, deep_launches = phase_sharded_deep(card, 1)
     hide_ranks, hide_launches = phase_hide(card, 1)
@@ -4198,7 +4573,7 @@ def main(argv=None) -> int:
     for counts in (cube["perf"]["launches"], cube["deep"]["launches"],
                    *(ckpt_rec[k][w] for k in ("perf", "deep", "swe")
                      for w in ("crashed_launches", "resumed_launches")),
-                   weak_launches, transport_launches):
+                   weak_launches, transport_launches, tel_launches):
         for name, count in counts.items():
             launches[name] += count
     line = []
@@ -4224,6 +4599,7 @@ def main(argv=None) -> int:
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
             wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks,
             weak_scaling_ranks=weak_ranks, three_d=cube, checkpoint=ckpt_rec, host=host,
+            telemetry=tel_rec,
             transport=transport, kernels=line, seconds=time.perf_counter() - t0,
         ), indent=1, default=str))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -7,11 +7,19 @@ Several GPUs run under torchrun, one rank per GPU:
 
 Every rate printed on a GPU carries the card's name and power limit;
 a CPU run says that it measured the plain versions on the host.
+
+Every app takes the JAX apps' observability flags: `--telemetry DIR`
+(the per-rank telemetry streams, merged into DIR/telemetry-summary.json
+and telemetry-trace.json at the end; RMT_TELEMETRY_DIR is the env
+spelling), `--health` (the flight recorder's heartbeat sidecars and the
+SIGUSR2 post-mortem hook; RMT_HEALTH) and `--profile DIR`
+(torch.profiler over the run, a Chrome trace per rank in DIR).
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -45,7 +53,167 @@ def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
                    help="on-wire halo slab precision (parallel/wire.py; default f32, the "
                    "exchange as it is; bf16 halves the wire; int8/int8_delta quantize "
                    "with error feedback and need --deep)")
+    add_telemetry_flag(p)
+    add_health_flag(p)
+    add_profile_flag(p)
     return p
+
+
+# ---------------------------------------------------------------------------
+# Observability: --telemetry, --health, --profile (the JAX apps' flags)
+# ---------------------------------------------------------------------------
+
+
+def add_telemetry_flag(p) -> None:
+    p.add_argument("--telemetry", default=None, metavar="DIR",
+                   help="collect structured telemetry (spans/counters/events) into DIR as "
+                   "telemetry-rank{k}.jsonl, merged at the end into telemetry-summary.json "
+                   "and telemetry-trace.json; inspect with `python -m "
+                   "rocm_mpi_tpu_torch.telemetry summarize DIR` (RMT_TELEMETRY_DIR is the "
+                   "env spelling the launcher forwards)")
+
+
+def add_profile_flag(p) -> None:
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the run with torch.profiler into DIR/trace-rank<r>.json "
+                   "(Chrome trace; on the card it fails when the profiler saw no CUDA "
+                   "activity)")
+
+
+def add_health_flag(p) -> None:
+    p.add_argument("--health", action="store_true",
+                   help="run the per-rank flight recorder: progress counters and a "
+                   "heartbeat-rank{k}.json sidecar, and a SIGUSR2 faulthandler "
+                   "post-mortem hook; needs a telemetry directory (--telemetry DIR or the "
+                   "launcher env) for the sidecars (RMT_HEALTH=1 is the env spelling)")
+
+
+def setup_observability(args, rank: int) -> None:
+    """The JAX apps' setup_telemetry and setup_health, after the
+    process group is up (the rank stamp is the real rank): --telemetry
+    DIR configures collection (env-configured ranks need no call), and
+    --health or RMT_HEALTH arms the flight recorder and the SIGUSR2
+    post-mortem hook. A run with telemetry on counts its compiles
+    (telemetry.compiles)."""
+    from rocm_mpi_tpu_torch import telemetry
+    from rocm_mpi_tpu_torch.telemetry import compiles, flight
+
+    if args.telemetry:
+        telemetry.configure(directory=args.telemetry, enabled=True, rank=rank)
+    try:
+        if args.health:
+            flight.enable(rank=rank)
+            armed = True
+        else:
+            armed = flight.enable_from_env()
+    except ValueError as e:
+        # Both spellings fail the same clean way without a sidecar directory.
+        raise SystemExit(f"--health / RMT_HEALTH: {e}") from None
+    if armed:
+        flight.install_postmortem_handler()
+    if telemetry.enabled():
+        compiles.install()
+
+
+def emit_run_gauges(result, variant: str, driver: str | None = None,
+                    wire: str | None = None) -> None:
+    """Bank the run's headline rates (`run.gpts`, `run.t_eff_gbs`),
+    stamped with the variant, the loop form and the wire mode, as the
+    JAX apps do; nothing when collection is off or no step was timed."""
+    from rocm_mpi_tpu_torch import telemetry
+
+    if not telemetry.enabled() or not result.nt or not result.wtime:
+        return
+    attrs = {"variant": variant}
+    if driver is not None:
+        attrs["driver"] = driver
+    if wire is not None:
+        attrs["wire"] = wire
+    telemetry.gauge("run.gpts", result.gpts, **attrs)
+    telemetry.gauge("run.t_eff_gbs", result.t_eff, **attrs)
+
+
+def finish_observability(log0) -> dict | None:
+    """End of an app: bank the compile gauges, flush the heartbeat, and
+    (rank 0, after every rank is past its last record) merge the
+    telemetry directory's streams into telemetry-summary.json and
+    telemetry-trace.json. Returns the summary on rank 0."""
+    from rocm_mpi_tpu_torch import telemetry
+    from rocm_mpi_tpu_torch.parallel import distributed
+    from rocm_mpi_tpu_torch.telemetry import compiles, events, flight
+
+    if not telemetry.enabled():
+        return None
+    compiles.emit_gauges()
+    flight.flush()
+    directory = events.directory()
+    if directory is None:
+        return None
+    distributed.barrier()
+    if distributed.rank() != 0:
+        return None
+    from rocm_mpi_tpu_torch.parallel.launcher import merge_telemetry
+
+    summary = merge_telemetry(directory)
+    log0(f"telemetry: merged ranks {summary['ranks']} ({summary['records']} records) into "
+         f"{directory}/telemetry-summary.json and telemetry-trace.json")
+    return summary
+
+
+class _Profile:
+    """torch.profiler over a window, exported as a Chrome trace to
+    DIR/trace-rank<r>.json. On a CUDA device the window must show CUDA
+    activity: a trace without it raises and is not written."""
+
+    def __init__(self, directory, device, rank: int):
+        self.path = pathlib.Path(directory) / f"trace-rank{rank}.json"
+        self.cuda = device.type == "cuda"
+        self.prof = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.cuda:
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        import torch
+
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.prof.__exit__(exc_type, exc, tb)
+        if exc_type is not None:
+            return False
+        if self.cuda and not device_events(self.prof):
+            raise RuntimeError(f"--profile: torch.profiler recorded no CUDA activity on the "
+                               f"card; no trace written to {self.path}")
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(str(self.path))
+        return False
+
+
+def device_events(prof) -> list:
+    """The device-side events of a finished torch.profiler run
+    (kernels, copies, NCCL) with their device time, from key_averages()."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and not e.is_user_annotation
+            and e.self_device_time_total > 0]
+
+
+def profile_context(args, device, rank: int):
+    """The one --profile idiom: torch.profiler over the run when
+    --profile DIR was given, a no-op otherwise."""
+    import contextlib
+
+    if args.profile:
+        return _Profile(args.profile, device, rank)
+    return contextlib.nullcontext()
 
 
 def positive_int(v):
@@ -331,6 +499,7 @@ def run_app(variant: str, args) -> int:
     distributed.maybe_initialize_distributed(args.device)
     device = distributed.local_device(args.device)
     me = distributed.rank()
+    setup_observability(args, me)
 
     def log0(msg):
         if me == 0:
@@ -383,17 +552,24 @@ def run_app(variant: str, args) -> int:
             lambda s, ran, wtime: RunResult(T=s[0], wtime=wtime, nt=ran, warmup=0,
                                             config=cfg),
             quantum=quantum, grid=grid)
-        result = runner()
+        with profile_context(args, device, me):
+            result = runner()
         report_checkpointed_line(result, args, log0, where)
+        emit_run_gauges(result, variant, wire=args.wire_mode)
     else:
+        driver = "deep" if args.deep else args.driver
+        with profile_context(args, device, me):
+            if args.deep:
+                result = model.run_deep(block_steps=args.deep)
+            else:
+                result = model.run(variant, driver=args.driver)
         if args.deep:
-            result = model.run_deep(block_steps=args.deep)
             log0(f"{variant}: local {schedule_note(result)}, one width-{result.k} exchange "
                  f"per {result.k} steps; T_eff counts 3 passes per step, so it is an "
                  "effective rate and may exceed the card's memory rate")
         else:
-            result = model.run(variant, driver=args.driver)
             note = f"; {driver_note(args, result)}"
+        emit_run_gauges(result, variant, driver=driver, wire=args.wire_mode)
         log0(
             f"Executed {result.nt} steps ({result.warmup} warmup) in = "
             f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
@@ -403,6 +579,7 @@ def run_app(variant: str, args) -> int:
     if args.save_field:
         save_field(args.save_field, result.T, grid)
         log0(f"wrote {args.save_field}")
+    finish_observability(log0)
     distributed.finalize()
     return 0
 

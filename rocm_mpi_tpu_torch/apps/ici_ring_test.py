@@ -6,7 +6,9 @@ round the ring (parallel/ring.py), device to device over NCCL on cards
 (the reference's ROCm-aware MPI proof, rocmaware_test_selectdevice.jl).
 Success: every rank holds its left neighbour's rank. Rank 0 prints each
 rank's sent and received buffers, then `ring exchange: PASS` or `FAIL`;
-a mismatch exits 1.
+a mismatch exits 1. `--telemetry DIR`, `--health` and `--profile DIR`
+are every app's (apps/_common.py); with telemetry on, the ring records
+its `ring.exchange` annotation.
 
   python -m rocm_mpi_tpu_torch.apps.ici_ring_test                 # one rank: the identity
   torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.ici_ring_test
@@ -16,12 +18,24 @@ a mismatch exits 1.
 import argparse
 import sys
 
+from rocm_mpi_tpu_torch.apps._common import (
+    add_health_flag,
+    add_profile_flag,
+    add_telemetry_flag,
+    finish_observability,
+    profile_context,
+    setup_observability,
+)
+
 
 def make_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--width", type=int, default=4, help="elements per rank's buffer (ref: 4)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda: NCCL between cards; cpu: gloo between host processes")
+    add_telemetry_flag(p)
+    add_health_flag(p)
+    add_profile_flag(p)
     return p
 
 
@@ -45,7 +59,9 @@ def main(argv=None) -> int:
     distributed.maybe_initialize_distributed(args.device)
     device = distributed.local_device(args.device)
     me, n = distributed.rank(), distributed.world_size()
-    sent, received = ring_exchange_demo(args.width, device=device)
+    setup_observability(args, me)
+    with profile_context(args, device, me):
+        sent, received = ring_exchange_demo(args.width, device=device)
     expect = (me - 1) % n
     good = bool((received == expect).all())
     name = torch_device_name(device)
@@ -64,6 +80,7 @@ def main(argv=None) -> int:
         for text, _ in lines:
             print(text, flush=True)
         print("ring exchange: " + ("PASS" if ok else "FAIL"), flush=True)
+    finish_observability(lambda msg: print(msg, flush=True) if me == 0 else None)
     distributed.finalize()
     return 0 if ok else 1
 

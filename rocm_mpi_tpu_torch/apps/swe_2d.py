@@ -33,16 +33,20 @@ from rocm_mpi_tpu_torch.apps._common import (
     base_parser,
     checkpoint_schedule,
     driver_note,
+    emit_run_gauges,
+    finish_observability,
     global_max,
     global_sum,
     grid_shape,
     make_checkpoint_runner,
     parse_ints,
     per_step_checkpoint_advance,
+    profile_context,
     refuse_unported_resilience,
     report_checkpointed_line,
     save_field,
     schedule_note,
+    setup_observability,
     where_line,
 )
 
@@ -75,6 +79,7 @@ def main(argv=None) -> int:
     distributed.maybe_initialize_distributed(args.device)
     device = distributed.local_device(args.device)
     me = distributed.rank()
+    setup_observability(args, me)
 
     def log0(msg):
         if me == 0:
@@ -113,12 +118,15 @@ def main(argv=None) -> int:
             seg.loop = getattr(advance, "loop", None)
             return seg, (h, us)
 
-        result = make_checkpoint_runner(
+        runner = make_checkpoint_runner(
             args, log0, advance_state,
             lambda s, ran, wtime: SWERunResult(h=s[0], us=tuple(s[1]), wtime=wtime, nt=ran,
                                                warmup=0, config=cfg),
-            quantum=quantum, grid=grid)()
+            quantum=quantum, grid=grid)
+        with profile_context(args, device, me):
+            result = runner()
         report_checkpointed_line(result, args, log0, where)
+        emit_run_gauges(result, args.variant, wire=args.wire_mode)
     else:
         if args.deep:
             k = model.effective_deep_depth(block_steps=args.deep, warn=False)
@@ -126,7 +134,9 @@ def main(argv=None) -> int:
             log0(f"--deep: running deep-halo sweeps (k={k}"
                  + (f", degraded from {args.deep}" if k != args.deep else "")
                  + ") instead of the per-step variant")
-            result = model.run_deep(block_steps=k)
+            with profile_context(args, device, me):
+                result = model.run_deep(block_steps=k)
+            driver = "deep"
         elif args.vmem:
             if grid.nprocs != 1:
                 log0(f"--vmem requires a one-rank grid (the loop is unsharded); the process "
@@ -134,11 +144,16 @@ def main(argv=None) -> int:
                 distributed.finalize()
                 return 2
             label = "vmem"
-            result = model.run_vmem_resident()
+            with profile_context(args, device, me):
+                result = model.run_vmem_resident()
+            driver = "vmem"
         else:
             label = args.variant
-            result = model.run(args.variant, driver=args.driver)
+            with profile_context(args, device, me):
+                result = model.run(args.variant, driver=args.driver)
+            driver = args.driver
             note = f"; {driver_note(args, result)}"
+        emit_run_gauges(result, label, driver=driver, wire=args.wire_mode)
         if result.route is not None and not note:
             log0(f"{label}: {schedule_note(result)}, {result.k} steps per launch or sweep; "
                  f"T_eff counts {passes} passes per step, so it is an effective rate")
@@ -152,6 +167,7 @@ def main(argv=None) -> int:
     if args.save_field:
         save_field(args.save_field, result.h, grid)
         log0(f"wrote {args.save_field}")
+    finish_observability(log0)
     distributed.finalize()
     return 0
 

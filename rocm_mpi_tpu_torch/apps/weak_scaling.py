@@ -19,12 +19,32 @@ included (`--driver scan`, the default); `--variant deep` runs the
 deep-halo sweeps, as CUDA graphs of sweeps on CUDA ranks (their rows
 record the loop route, `loop_route`).
 
+Telemetry, as in the JAX app: with `--telemetry DIR` (or the launcher's
+RMT_TELEMETRY_DIR) each diffusion rung's timed loop is split into
+`--telemetry-windows` spanned windows (per-step percentiles need more
+than one sample): the model's own run through metrics.timed_window's
+`windows`, each window between a sync and a barrier, which the rates
+then include, so a windowed ladder's rows compare with each other and
+not with an unwindowed ladder's (their lines and rows say how many
+windows). The rates are banked as
+`run.gpts`/`run.gpts_per_device`/`run.efficiency` gauges, the compile
+accounting follows the ladder, and then, unless `--no-probes`, the phase
+probes (telemetry/probes.py) time the last rung's halo, interior and
+checkpoint phases. `--health` adds the flight recorder, and a halo
+heartbeat (one face exchange) at every window boundary. `--autotune`
+needs the tuning plane, which the port does not have yet: refused.
+
   torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --json --local 252
   torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --device cpu --local 16 --json
+  torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --device cpu --local 16 --telemetry /tmp/tel --health
   python -m rocm_mpi_tpu_torch.apps.weak_scaling --local 252       # one GPU: the n = 1 row
 
 Under torchrun, put another flag before `--local`: torchrun reads a
-leading `--local` as an abbreviation of its own options and stops.
+leading `--local` as an abbreviation of its own options and stops. The
+torchrun of the GPU machine's PyTorch refuses `--local` anywhere on the
+line (ambiguous with its --local-addr and --local-ranks-filter); there
+run main() on spawned ranks (parallel/launcher.spawn_ranks), as
+chip_smoke.py does.
 """
 
 from __future__ import annotations
@@ -34,17 +54,23 @@ import dataclasses
 import json
 import sys
 
-from rocm_mpi_tpu_torch.apps._common import driver_note, where_line
+from rocm_mpi_tpu_torch.apps._common import (
+    add_health_flag,
+    add_profile_flag,
+    add_telemetry_flag,
+    driver_note,
+    finish_observability,
+    profile_context,
+    setup_observability,
+    where_line,
+)
 
 VARIANTS = ("ap", "fused", "shard", "perf", "kp", "hide", "deep")
 # The variants of the wave and the shallow water (the JAX app's refusal).
 WORKLOAD_VARIANTS = ("ap", "perf", "hide", "deep")
 # Flags the JAX app has whose planes are not ported yet: accepted, then
 # refused.
-NOT_PORTED = {
-    "telemetry": "--telemetry", "telemetry_windows": "--telemetry-windows",
-    "health": "--health", "no_probes": "--no-probes", "autotune": "--autotune",
-}
+NOT_PORTED = {"autotune": "--autotune"}
 
 
 def make_parser():
@@ -71,12 +97,19 @@ def make_parser():
                    "it: its sweeps always run as CUDA graphs on CUDA ranks")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda: one GPU a rank, NCCL; cpu: the plain versions, gloo")
-    # Not ported yet (ROADMAP Queue 1 items 7-9): accepted, then refused.
-    p.add_argument("--telemetry", default=None, metavar="DIR")
-    p.add_argument("--telemetry-windows", type=int, default=None, metavar="W")
-    p.add_argument("--health", action="store_true")
-    p.add_argument("--no-probes", action="store_true")
-    p.add_argument("--autotune", action="store_true")
+    add_telemetry_flag(p)
+    add_health_flag(p)
+    add_profile_flag(p)
+    p.add_argument("--telemetry-windows", type=int, default=8, metavar="W",
+                   help="with --telemetry: split each diffusion rung's timed loop into W "
+                   "spanned windows (per-step percentiles need more than one sample; "
+                   "default %(default)s)")
+    p.add_argument("--no-probes", dest="probes", action="store_false", default=True,
+                   help="with --telemetry: skip the halo/interior/checkpoint "
+                   "phase-attribution probes (telemetry/probes.py)")
+    # Not ported yet (ROADMAP Queue 1 item 8): accepted, then refused.
+    p.add_argument("--autotune", action="store_true",
+                   help="consult the tuning cache (not ported yet: refused)")
     return p
 
 
@@ -85,8 +118,7 @@ def refuse_unported(args) -> None:
     given = [flag for dest, flag in NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: telemetry, tuning and resilience are not ported yet "
-            "(ROADMAP Queue 1 items 7-9)")
+            f"{', '.join(given)}: the tuning plane is not ported yet (ROADMAP Queue 1 item 8)")
 
 
 def parse_counts(text: str | None, world: int) -> list[int]:
@@ -123,13 +155,26 @@ class Rung:
     result: object
 
 
+def rung_windows(args) -> int:
+    """The timed windows of a rung: --telemetry-windows for a diffusion
+    per-step rung with telemetry on, else 1."""
+    from rocm_mpi_tpu_torch import telemetry
+
+    windowed = (telemetry.enabled() and args.workload == "diffusion"
+                and args.variant != "deep")
+    return args.telemetry_windows if windowed else 1
+
+
 def run_rung(args, n: int, group, device) -> Rung | None:
     """The n-rank rung of `args` on this rank: None when this rank sits it
-    out, else the model and its run's result."""
+    out, else the model and its run's result: model.run, its timed steps
+    in `rung_windows(args)` windows, with the flight recorder on a halo
+    heartbeat at the start of each."""
     from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
     from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
     from rocm_mpi_tpu_torch.parallel import distributed
     from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid, suggest_dims
+    from rocm_mpi_tpu_torch.telemetry import flight, probes
 
     rank = distributed.rank()
     if rank >= n:
@@ -147,6 +192,10 @@ def run_rung(args, n: int, group, device) -> Rung | None:
     model = model_cls(cfg, grid=grid, device=device)
     if args.variant == "deep":
         result = model.run_deep(block_steps=args.deep_k)
+    elif (windows := rung_windows(args)) > 1:
+        beat = probes.make_halo_heartbeat(model) if flight.enabled() else None
+        result = model.run(args.variant, driver=args.driver, windows=windows,
+                           on_boundary=beat)
     else:
         result = model.run(args.variant, driver=args.driver)
     return Rung(n=n, dims=dims, shape=shape, model=model, result=result)
@@ -163,19 +212,29 @@ def mechanics_only(device) -> bool:
 def ladder(args, device, log=print) -> list[tuple[dict, Rung]]:
     """Every count of `args` on this rank: (the JSON row, the rung) of each
     rung this rank ran, the row with the JAX app's keys. `log` takes the
-    JAX app's line of each row, and with `--json` the row."""
+    JAX app's line of each row, and with `--json` the row. With telemetry
+    on, each row's rates are banked as the JAX app's gauges, stamped with
+    the rank count and the loop form."""
+    from rocm_mpi_tpu_torch import telemetry
     from rocm_mpi_tpu_torch.parallel import distributed
+    from rocm_mpi_tpu_torch.telemetry import flight
 
     world = distributed.world_size()
     counts = parse_counts(args.counts, world)
     groups = rung_groups(counts, world) if distributed.is_distributed() else {}
     base = None
     out = []
+    run_driver = "deep" if args.variant == "deep" else args.driver
+    windows = rung_windows(args)
     for n in counts:
         if n > world:
             log(f"n={n}: skipped (only {world} ranks)")
             continue
         rung = run_rung(args, n, groups.get(n), device)
+        if rung is None:
+            # The flight recorder's step counter is global: a rung sat out
+            # banks its nt too, so the ranks' counters stay comparable.
+            flight.progress(step_inc=args.nt)
         # The sitting-out ranks wait here, so no rank's next set-up shares
         # the host with a timed window.
         distributed.barrier()
@@ -186,8 +245,17 @@ def ladder(args, device, log=print) -> list[tuple[dict, Rung]]:
         if base is None:
             base = (per_dev, n)
         eff = per_dev / base[0]
+        if telemetry.enabled():
+            telemetry.gauge("run.gpts", round(r.gpts, 6), devices=n, variant=args.variant,
+                            workload=args.workload, driver=run_driver)
+            telemetry.gauge("run.gpts_per_device", round(per_dev, 6), devices=n,
+                            driver=run_driver)
+            telemetry.gauge("run.efficiency", round(eff, 6), devices=n, driver=run_driver)
         note = f"; {driver_note(args, r)}" if args.variant != "deep" else (
             f"; deep (route {r.route}, loop route {r.loop_route}, k {r.k})")
+        if windows > 1:
+            note += (f"; {windows} telemetry windows, a sync and barrier each: compare "
+                     "with windowed rows only")
         log(f"n={n:4d} mesh={rung.dims} global={rung.shape}: "
             f"{r.wtime_it * 1e6:9.3f} us/step  {r.gpts:9.4f} Gpts/s "
             f"({per_dev:7.4f}/dev)  efficiency={eff:6.1%} vs n={base[1]}{note}")
@@ -199,6 +267,10 @@ def ladder(args, device, log=print) -> list[tuple[dict, Rung]]:
             # Beside the JAX app's keys: the loop the sweeps ran in
             # ("scan-graph" on CUDA ranks, over NCCL too).
             row["loop_route"] = r.loop_route
+        if windows > 1:
+            # Beside the JAX app's keys: the rates carry a sync and a
+            # barrier a window.
+            row["windows"] = windows
         if mechanics_only(device):
             row["mechanics_only"] = True
         if args.json:
@@ -216,6 +288,7 @@ def main(argv=None) -> int:
     distributed.maybe_initialize_distributed(args.device)
     device = distributed.local_device(args.device)
     me = distributed.rank()
+    setup_observability(args, me)
 
     def log0(msg):
         if me == 0:
@@ -231,9 +304,39 @@ def main(argv=None) -> int:
     log0(f"on {where_line(device)}" + (
         "; mechanics only: the rates are not a multi-GPU measurement"
         if mechanics_only(device) else ""))
-    ladder(args, device, log=log0)
+    with profile_context(args, device, me):
+        rows = ladder(args, device, log=log0)
+    observe_ladder(args, rows, log0)
+    finish_observability(log0)
     distributed.finalize()
     return 0
+
+
+def observe_ladder(args, rows, log0) -> None:
+    """After the ladder, with telemetry on: bank the compile accounting
+    (before the probes, whose first calls are tooling, not recompiles),
+    then, for diffusion and unless --no-probes, the phase probes on this
+    rank's last rung, which every rank of that rung runs (the largest
+    count: the same rung on every rank that ran one), with one
+    checkpoint save/restore into the telemetry directory's ckpt-probe/."""
+    import pathlib
+
+    from rocm_mpi_tpu_torch import telemetry
+    from rocm_mpi_tpu_torch.telemetry import compiles, events, probes
+
+    if not telemetry.enabled():
+        return
+    compiles.emit_gauges()
+    if not (args.probes and rows and args.workload == "diffusion"):
+        return
+    model = rows[-1][1].model
+    tel_dir = events.directory()
+    ckpt_dir = pathlib.Path(tel_dir) / "ckpt-probe" if tel_dir else None
+    log0("telemetry: running halo/interior" + ("/checkpoint" if ckpt_dir else "")
+         + " phase probes")
+    probes.run_diffusion_phase_probes(
+        model, checkpoint_dir=ckpt_dir,
+        driver="deep" if args.variant == "deep" else args.driver)
 
 
 if __name__ == "__main__":

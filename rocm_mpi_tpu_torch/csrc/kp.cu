@@ -36,7 +36,7 @@
 // The flux launch covers (lx + 1, ly + 1) and each thread writes the face
 // of each output its cell has, so the extra row of qx and the extra column
 // of qy take no second launch. The update has no neighbours and moves 16
-// bytes of a row per thread (its design note is at update_kernel).
+// bytes of a row per thread (its design note is at rmt_kp_update_kernel).
 
 #include "stencil_common.cuh"
 
@@ -60,7 +60,7 @@ __device__ __forceinline__ bool cell(int64_t n0, int64_t n1, int64_t* i, int64_t
 
 template <typename S>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-flux_kernel(const S* __restrict__ Tp, S* __restrict__ qx, S* __restrict__ qy,
+rmt_kp_flux_kernel(const S* __restrict__ Tp, S* __restrict__ qx, S* __restrict__ qy,
             int64_t lx, int64_t ly, typename Compute<S>::type nlam,
             typename Compute<S>::type inv0, typename Compute<S>::type inv1) {
   using C = typename Compute<S>::type;
@@ -81,7 +81,7 @@ flux_kernel(const S* __restrict__ Tp, S* __restrict__ qx, S* __restrict__ qy,
 
 template <typename S>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-residual_kernel(const S* __restrict__ qx, const S* __restrict__ qy,
+rmt_kp_residual_kernel(const S* __restrict__ qx, const S* __restrict__ qy,
                 const S* __restrict__ Cp, S* __restrict__ dTdt, int64_t lx, int64_t ly,
                 typename Compute<S>::type inv0, typename Compute<S>::type inv1) {
   using C = typename Compute<S>::type;
@@ -121,7 +121,7 @@ struct alignas(kUpdBytes) Chunk {
 
 template <typename S>
 __global__ void __launch_bounds__(kUpdThreads)
-update_kernel(const S* __restrict__ Tp, const S* __restrict__ dTdt, S* __restrict__ out,
+rmt_kp_update_kernel(const S* __restrict__ Tp, const S* __restrict__ dTdt, S* __restrict__ out,
               int64_t lx, int64_t ly, bool vec, typename Compute<S>::type dt) {
   using Ch = Chunk<S>;
   constexpr int kN = Ch::kN;
@@ -167,7 +167,7 @@ int launch_flux(const void* Tp, void* qx, void* qy, int64_t lx, int64_t ly, doub
   using C = typename Compute<S>::type;
   dim3 grid;
   if (!grid_of(lx + 1, ly + 1, &grid)) return -2;
-  flux_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
+  rmt_kp_flux_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
       static_cast<const S*>(Tp), static_cast<S*>(qx), static_cast<S*>(qy), lx, ly, C(-lam),
       C(inv0), C(inv1));
   return static_cast<int>(cudaGetLastError());
@@ -179,7 +179,7 @@ int launch_residual(const void* qx, const void* qy, const void* Cp, void* dTdt, 
   using C = typename Compute<S>::type;
   dim3 grid;
   if (!grid_of(lx, ly, &grid)) return -2;
-  residual_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
+  rmt_kp_residual_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
       static_cast<const S*>(qx), static_cast<const S*>(qy), static_cast<const S*>(Cp),
       static_cast<S*>(dTdt), lx, ly, C(inv0), C(inv1));
   return static_cast<int>(cudaGetLastError());
@@ -197,7 +197,7 @@ int launch_update(const void* Tp, const void* dTdt, void* out, int64_t lx, int64
   if (gx > 2147483647LL) return -2;
   const bool vec = ly % kN == 0 && reinterpret_cast<uintptr_t>(dTdt) % kUpdBytes == 0 &&
                    reinterpret_cast<uintptr_t>(out) % kUpdBytes == 0;
-  update_kernel<S><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), 1),
+  rmt_kp_update_kernel<S><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), 1),
                      kUpdThreads, 0, stream>>>(
       static_cast<const S*>(Tp), static_cast<const S*>(dTdt), static_cast<S*>(out), lx, ly,
       vec, C(dt));

@@ -203,7 +203,7 @@ __device__ __forceinline__ C fetch(int step, const S* __restrict__ T,
 
 template <typename S, int NDIM, int FORM>
 __global__ void __launch_bounds__(kThreads)
-multi_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
+rmt_multi_step_cm_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
                   S* __restrict__ out, typename Compute<S>::type* buf0,
                   typename Compute<S>::type* buf1, int n_steps, int64_t n0,
                   int64_t n1, int64_t n2, typename Compute<S>::type inv0,
@@ -264,7 +264,7 @@ multi_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
 // stores and pushes to shared memory.
 template <typename S, int NDIM, int FORM, bool REG>
 __global__ void __launch_bounds__(rmt::kResidentThreads, 1)
-diffusion_resident_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
+rmt_multi_step_cm_resident_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
                           S* __restrict__ out, int n_steps, int n0, int n_mid, int n_last,
                           int stage, typename Compute<S>::type inv0,
                           typename Compute<S>::type inv1, typename Compute<S>::type inv2) {
@@ -479,7 +479,7 @@ rmt::CapsCache& caps_cache() {
 template <typename S, int NDIM, int FORM>
 int caps_of(int dev, int* out) {
   rmt::ClusterCaps caps;
-  const cudaError_t err = rmt::cluster_caps(diffusion_resident_kernel<S, NDIM, FORM, true>, dev,
+  const cudaError_t err = rmt::cluster_caps(rmt_multi_step_cm_resident_kernel<S, NDIM, FORM, true>, dev,
                                             &caps_cache<S, NDIM, FORM, true>(), &caps);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = caps.cluster;
@@ -492,7 +492,7 @@ int launch_resident(const S* t, const S* cm, S* o, int n_steps, int64_t n0, int6
                     int64_t n2, typename Compute<S>::type c0, typename Compute<S>::type c1,
                     typename Compute<S>::type c2, int cluster, int stage, int dev,
                     cudaStream_t stream) {
-  auto kernel = diffusion_resident_kernel<S, NDIM, FORM, REG>;
+  auto kernel = rmt_multi_step_cm_resident_kernel<S, NDIM, FORM, REG>;
   rmt::ClusterCaps caps;
   cudaError_t err = rmt::cluster_caps(kernel, dev, &caps_cache<S, NDIM, FORM, REG>(), &caps);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -530,7 +530,7 @@ int launch_multi(const void* T, const void* Cm, void* out, void* scratch, int n_
     return launch_resident<S, NDIM, FORM, false>(t, cm, o, n_steps, n0, n1, n2, c0, c1, c2,
                                                  cluster, cm_at == kCmShared, dev, stream);
   if (scratch == nullptr) return -1;
-  auto kernel = multi_step_kernel<S, NDIM, FORM>;
+  auto kernel = rmt_multi_step_cm_kernel<S, NDIM, FORM>;
   int fit = 0;
   cudaError_t err = rmt::coop_blocks(kernel, dev, kThreads, &caps_cache<S, NDIM, FORM, true>(),
                                      &fit);
@@ -686,7 +686,7 @@ __device__ __forceinline__ void tb2_row(
 // of Cm rows.
 template <typename S, int K>
 __global__ void __launch_bounds__(kTbWarpsPerBlock * 32)
-tb2_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ out,
+rmt_tb_sweep_2d_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ out,
            int64_t n0, int64_t n1, int64_t strips, int64_t tiles, int64_t seg_rows,
            typename Compute<S>::type inv0, typename Compute<S>::type inv1) {
   using C = typename Compute<S>::type;
@@ -767,7 +767,7 @@ int tb2_prepare(int dev) {
   if (got != cudaSuccess) return static_cast<int>(got);
   if (smem > optin) return -3;
   if (smem > 48 * 1024) {
-    auto kernel = tb2_kernel<S, K>;
+    auto kernel = rmt_tb_sweep_2d_kernel<S, K>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -788,7 +788,7 @@ int launch_tb2(const void* T, const void* Cm, void* out, int64_t n0, int64_t n1,
   const int64_t tiles = strips * ((n0 + seg_rows - 1) / seg_rows);
   const int64_t blocks = (tiles + kTbWarpsPerBlock - 1) / kTbWarpsPerBlock;
   if (blocks > 2147483647LL) return -2;
-  tb2_kernel<S, K><<<static_cast<unsigned>(blocks), kTbWarpsPerBlock * 32,
+  rmt_tb_sweep_2d_kernel<S, K><<<static_cast<unsigned>(blocks), kTbWarpsPerBlock * 32,
                      static_cast<size_t>(tb2_smem_bytes<C>(K)), stream>>>(
       static_cast<const S*>(T), static_cast<const S*>(Cm), static_cast<S*>(out), n0, n1,
       strips, tiles, seg_rows, C(inv0), C(inv1));
@@ -801,7 +801,7 @@ int tb2_warps_per_sm(int dev) {
   const int rc = tb2_prepare<S, K>(dev);
   if (rc != 0) return rc < 0 ? rc : -rc;  // every failure below 1
   int blocks = 0;
-  auto kernel = tb2_kernel<S, K>;
+  auto kernel = rmt_tb_sweep_2d_kernel<S, K>;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks, kernel, kTbWarpsPerBlock * 32,
       static_cast<size_t>(tb2_smem_bytes<C>(K)));
@@ -851,7 +851,7 @@ __device__ __forceinline__ void tile_coords(int j, int e1, int e2, int* j0,
 
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
-tb3_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ out, int k,
+rmt_tb_sweep_3d_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ out, int k,
            int64_t n0, int64_t n1, int64_t n2, int t0, int t1, int t2,
            typename Compute<S>::type inv0, typename Compute<S>::type inv1,
            typename Compute<S>::type inv2) {
@@ -950,7 +950,7 @@ int launch_tb3(int k, const void* T, const void* Cm, void* out, int64_t n0, int6
   const int64_t smem = tile_bytes<C>(k, t);
   if (smem > optin[dev]) return -3;  // the light cone does not fit shared memory
   if (smem > allowed[dev]) {
-    auto kernel = tb3_kernel<S>;
+    auto kernel = rmt_tb_sweep_3d_kernel<S>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -962,7 +962,7 @@ int launch_tb3(int k, const void* T, const void* Cm, void* out, int64_t n0, int6
   if (gx > 2147483647LL || gy > 65535 || gz > 65535) return -2;
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
                   static_cast<unsigned>(gz));
-  tb3_kernel<S><<<grid, kThreads, static_cast<size_t>(smem), stream>>>(
+  rmt_tb_sweep_3d_kernel<S><<<grid, kThreads, static_cast<size_t>(smem), stream>>>(
       static_cast<const S*>(T), static_cast<const S*>(Cm), static_cast<S*>(out), k, n0, n1,
       n2, t[0], t[1], t[2], C(inv0), C(inv1), C(inv2));
   return static_cast<int>(cudaGetLastError());

@@ -48,7 +48,7 @@
 // ratio of peak flops to bytes. The design keeps that to one pass each.
 // rmt_masked_step and rmt_fused_step_cm move 16 bytes of a row a lane and
 // walk runs of rows with the rows around it in registers (the design note
-// is at masked_step_kernel, the face form's at fused_step_cm_kernel):
+// is at rmt_masked_step_kernel, the face form's at rmt_fused_step_cm_kernel):
 // one-cell-a-thread loads of two bytes left bf16 at 0.45 of its bound on
 // an H100. rmt_fused_step_padded gives one thread to each core cell, laid
 // out along the last (contiguous) axis so a warp reads whole 128-byte
@@ -149,7 +149,7 @@ __device__ __forceinline__ MsRow<S> ms_load(const S* __restrict__ p, bool row_in
 
 template <typename S, int NDIM, bool VEC>
 __global__ void __launch_bounds__(kMsWarps * 32)
-masked_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
+rmt_masked_step_kernel(const S* __restrict__ T, const S* __restrict__ Cm,
                    S* __restrict__ out, int64_t n0, int64_t n_mid, int64_t n_last,
                    int64_t strips, int64_t items, int run_rows,
                    typename Compute<S>::type inv0,
@@ -390,7 +390,7 @@ struct FaceWalk {
 
 template <typename S, int NDIM, bool VEC>
 __global__ void __launch_bounds__(kMsWarps * 32, kFaceMinBlocks)
-fused_step_cm_kernel(const S* __restrict__ T, FaceSet<S> f, const S* __restrict__ Cm,
+rmt_fused_step_cm_kernel(const S* __restrict__ T, FaceSet<S> f, const S* __restrict__ Cm,
                      S* __restrict__ out, FaceGeom g, typename Compute<S>::type inv0,
                      typename Compute<S>::type inv1, typename Compute<S>::type inv2) {
   using C = typename Compute<S>::type;
@@ -602,7 +602,7 @@ fused_step_cm_kernel(const S* __restrict__ T, FaceSet<S> f, const S* __restrict_
 
 template <typename S, int NDIM>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-fused_step_padded_kernel(const S* __restrict__ Tp, const S* __restrict__ Cp,
+rmt_fused_step_padded_kernel(const S* __restrict__ Tp, const S* __restrict__ Cp,
                          S* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
                          typename Compute<S>::type dtlam,
                          typename Compute<S>::type inv0,
@@ -635,7 +635,7 @@ int launch_masked_nd(const S* t, const S* cm, S* o, int64_t n0, int64_t n_mid,
   const int64_t items = cols * ((n0 + run_rows - 1) / run_rows);
   const int64_t blocks = (items + kMsWarps - 1) / kMsWarps;
   if (blocks > 2147483647LL) return -2;
-  masked_step_kernel<S, NDIM, VEC><<<static_cast<unsigned>(blocks), kMsWarps * 32, 0, stream>>>(
+  rmt_masked_step_kernel<S, NDIM, VEC><<<static_cast<unsigned>(blocks), kMsWarps * 32, 0, stream>>>(
       t, cm, o, n0, n_mid, n_last, strips, items, static_cast<int>(run_rows), C(inv0),
       C(inv1), C(inv2));
   return static_cast<int>(cudaGetLastError());
@@ -686,7 +686,7 @@ int launch_fused_cm_nd(const S* t, const FaceSet<S>& f, const S* cm, S* o, FaceG
   g.items = cols * ((e0 + run_rows - 1) / run_rows);
   const int64_t blocks = (g.items + kMsWarps - 1) / kMsWarps;
   if (blocks > 2147483647LL) return -2;
-  fused_step_cm_kernel<S, NDIM, VEC><<<static_cast<unsigned>(blocks), kMsWarps * 32, 0, stream>>>(
+  rmt_fused_step_cm_kernel<S, NDIM, VEC><<<static_cast<unsigned>(blocks), kMsWarps * 32, 0, stream>>>(
       t, f, cm, o, g, C(inv0), C(inv1), C(inv2));
   return static_cast<int>(cudaGetLastError());
 }
@@ -755,10 +755,10 @@ int launch_fused_padded(int ndim, const void* Tp, const void* Cp, void* out, int
   const auto* cp = static_cast<const S*>(Cp);
   auto* o = static_cast<S*>(out);
   if (ndim == 2) {
-    fused_step_padded_kernel<S, 2><<<grid, block, 0, stream>>>(
+    rmt_fused_step_padded_kernel<S, 2><<<grid, block, 0, stream>>>(
         t, cp, o, n0, n1, 1, C(dtlam), C(inv0), C(inv1), C(0));
   } else {
-    fused_step_padded_kernel<S, 3><<<grid, block, 0, stream>>>(
+    rmt_fused_step_padded_kernel<S, 3><<<grid, block, 0, stream>>>(
         t, cp, o, n0, n1, n2, C(dtlam), C(inv0), C(inv1), C(inv2));
   }
   return static_cast<int>(cudaGetLastError());

@@ -131,7 +131,7 @@ __device__ __forceinline__ typename Compute<S>::type h_new(
 
 template <typename S, int NDIM>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-swe_step_kernel(StateIn<S> src, Masks<S> masks, StateOut<S> out, int64_t n1, int64_t n2,
+rmt_swe_step_kernel(StateIn<S> src, Masks<S> masks, StateOut<S> out, int64_t n1, int64_t n2,
                 Box box, int off, Coeffs<typename Compute<S>::type> k) {
   using C = typename Compute<S>::type;
   int64_t i0, i1, i2;
@@ -187,7 +187,7 @@ __device__ __forceinline__ typename Compute<S>::type h_new_at(
 
 template <typename S, int NDIM>
 __global__ void __launch_bounds__(kThreads)
-swe_multi_step_kernel(StateIn<S> in, Masks<S> masks, StateOut<S> out,
+rmt_swe_multi_step_kernel(StateIn<S> in, Masks<S> masks, StateOut<S> out,
                       typename Compute<S>::type* buf0, typename Compute<S>::type* buf1,
                       int n_steps, int64_t n0, int64_t n1, int64_t n2,
                       Coeffs<typename Compute<S>::type> k) {
@@ -245,7 +245,7 @@ swe_multi_step_kernel(StateIn<S> in, Masks<S> masks, StateOut<S> out,
 // `stage`, the band's face masks follow the buffers in the storage type.
 template <typename S, int NDIM>
 __global__ void __launch_bounds__(rmt::kResidentThreads, 1)
-swe_resident_kernel(StateIn<S> in, Masks<S> masks, StateOut<S> out, int n_steps, int n0,
+rmt_swe_multi_step_resident_kernel(StateIn<S> in, Masks<S> masks, StateOut<S> out, int n_steps, int n0,
                     int n_mid, int n_last, int stage, Coeffs<typename Compute<S>::type> k) {
   using C = typename Compute<S>::type;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -450,9 +450,9 @@ int launch_step(int ndim, const void* const* src, const void* const* m, void* co
   unpack<S>(src, m, o, &in, &masks, &out);
   const Coeffs<C> k = coeffs<C>(cH, cg);
   if (ndim == 2) {
-    swe_step_kernel<S, 2><<<grid, block, 0, stream>>>(in, masks, out, n1, 1, box, off, k);
+    rmt_swe_step_kernel<S, 2><<<grid, block, 0, stream>>>(in, masks, out, n1, 1, box, off, k);
   } else {
-    swe_step_kernel<S, 3><<<grid, block, 0, stream>>>(in, masks, out, n1, n2, box, off, k);
+    rmt_swe_step_kernel<S, 3><<<grid, block, 0, stream>>>(in, masks, out, n1, n2, box, off, k);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -481,7 +481,7 @@ template <typename S, int NDIM>
 int caps_of(int dev, int* out) {
   rmt::ClusterCaps caps;
   const cudaError_t err =
-      rmt::cluster_caps(swe_resident_kernel<S, NDIM>, dev, &caps_cache<S, NDIM>(), &caps);
+      rmt::cluster_caps(rmt_swe_multi_step_resident_kernel<S, NDIM>, dev, &caps_cache<S, NDIM>(), &caps);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = caps.cluster;
   out[1] = caps.smem_limit;
@@ -501,7 +501,7 @@ int launch_multi(const void* const* src, const void* const* m, void* const* o, v
   Coeffs<C> k = coeffs<C>(cH, cg);
   cudaError_t err;
   if (cluster > 0) {
-    auto kernel = swe_resident_kernel<S, NDIM>;
+    auto kernel = rmt_swe_multi_step_resident_kernel<S, NDIM>;
     rmt::ClusterCaps caps;
     err = rmt::cluster_caps(kernel, dev, &cache, &caps);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -517,7 +517,7 @@ int launch_multi(const void* const* src, const void* const* m, void* const* o, v
     return static_cast<int>(cudaGetLastError());
   }
   if (scratch == nullptr) return -1;
-  auto kernel = swe_multi_step_kernel<S, NDIM>;
+  auto kernel = rmt_swe_multi_step_kernel<S, NDIM>;
   int fit = 0;
   err = rmt::coop_blocks(kernel, dev, kThreads, &cache, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);

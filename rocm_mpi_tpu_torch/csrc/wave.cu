@@ -81,7 +81,7 @@ enum Form : int { kDirect = 0, kAForm = 1 };
 
 template <typename S, int NDIM>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-wave_step_kernel(const S* __restrict__ Up, const S* __restrict__ Uprev,
+rmt_wave_step_kernel(const S* __restrict__ Up, const S* __restrict__ Uprev,
                  const S* __restrict__ C2, S* __restrict__ out, int64_t n1,
                  int64_t n2, Box box, typename Compute<S>::type dt2,
                  typename Compute<S>::type inv0, typename Compute<S>::type inv1,
@@ -99,7 +99,7 @@ wave_step_kernel(const S* __restrict__ Up, const S* __restrict__ Uprev,
 
 template <typename S, int NDIM>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-wave_step_masked_kernel(const S* __restrict__ src, const S* __restrict__ Uprev,
+rmt_wave_step_masked_kernel(const S* __restrict__ src, const S* __restrict__ Uprev,
                         const S* __restrict__ M, const S* __restrict__ Cw,
                         S* __restrict__ out, int64_t n1, int64_t n2, Box box, int off,
                         typename Compute<S>::type inv0, typename Compute<S>::type inv1,
@@ -143,7 +143,7 @@ __device__ __forceinline__ C prev_at(int step, const S* __restrict__ U,
 
 template <typename S, int NDIM, int FORM>
 __global__ void __launch_bounds__(kThreads)
-wave_multi_step_kernel(const S* __restrict__ U, const S* __restrict__ Uprev,
+rmt_wave_multi_step_kernel(const S* __restrict__ U, const S* __restrict__ Uprev,
                        const S* __restrict__ M, const S* __restrict__ Cw,
                        S* __restrict__ oU, S* __restrict__ oUprev,
                        typename Compute<S>::type* buf0, typename Compute<S>::type* buf1,
@@ -217,7 +217,7 @@ wave_multi_step_kernel(const S* __restrict__ U, const S* __restrict__ Uprev,
 // stores and pushes to shared memory, so no step tests which one it is.
 template <typename S, int NDIM, int FORM, bool STAGE>
 __global__ void __launch_bounds__(rmt::kResidentThreads, 1)
-wave_resident_kernel(const S* __restrict__ U, const S* __restrict__ Uprev,
+rmt_wave_multi_step_resident_kernel(const S* __restrict__ U, const S* __restrict__ Uprev,
                      const S* __restrict__ M, const S* __restrict__ Cw, S* __restrict__ oU,
                      S* __restrict__ oUprev, int n_steps, int n0, int n_mid, int n_last,
                      typename Compute<S>::type inv0, typename Compute<S>::type inv1,
@@ -379,7 +379,7 @@ rmt::CapsCache& caps_cache() {
 template <typename S, int NDIM, int FORM>
 int caps_of(int dev, int* out) {
   rmt::ClusterCaps caps;
-  const cudaError_t err = rmt::cluster_caps(wave_resident_kernel<S, NDIM, FORM, true>, dev,
+  const cudaError_t err = rmt::cluster_caps(rmt_wave_multi_step_resident_kernel<S, NDIM, FORM, true>, dev,
                                             &caps_cache<S, NDIM, FORM, true>(), &caps);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = caps.cluster;
@@ -392,7 +392,7 @@ int launch_resident(const S* u, const S* up, const S* m, const S* cw, S* ou, S* 
                     int n_steps, int64_t n0, int64_t n1, int64_t n2,
                     typename Compute<S>::type c0, typename Compute<S>::type c1,
                     typename Compute<S>::type c2, int cluster, int dev, cudaStream_t stream) {
-  auto kernel = wave_resident_kernel<S, NDIM, FORM, STAGE>;
+  auto kernel = rmt_wave_multi_step_resident_kernel<S, NDIM, FORM, STAGE>;
   rmt::ClusterCaps caps;
   cudaError_t err = rmt::cluster_caps(kernel, dev, &caps_cache<S, NDIM, FORM, STAGE>(), &caps);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -427,7 +427,7 @@ int launch_multi(const void* U, const void* Uprev, const void* M, const void* Cw
     return launch_resident<S, NDIM, FORM, false>(u, up, m, cw, ou, oup, n_steps, n0, n1, n2,
                                                  c0, c1, c2, cluster, dev, stream);
   if (scratch == nullptr) return -1;
-  auto kernel = wave_multi_step_kernel<S, NDIM, FORM>;
+  auto kernel = rmt_wave_multi_step_kernel<S, NDIM, FORM>;
   int fit = 0;
   cudaError_t err = rmt::coop_blocks(kernel, dev, kThreads, &caps_cache<S, NDIM, FORM, true>(),
                                      &fit);
@@ -490,10 +490,10 @@ int launch_step(int ndim, const void* Up, const void* Uprev, const void* C2, voi
   const auto* c2 = static_cast<const S*>(C2);
   auto* o = static_cast<S*>(out);
   if (ndim == 2) {
-    wave_step_kernel<S, 2><<<grid, block, 0, stream>>>(up, uprev, c2, o, n1, 1, box, C(dt2),
+    rmt_wave_step_kernel<S, 2><<<grid, block, 0, stream>>>(up, uprev, c2, o, n1, 1, box, C(dt2),
                                                        C(inv0), C(inv1), C(0));
   } else {
-    wave_step_kernel<S, 3><<<grid, block, 0, stream>>>(up, uprev, c2, o, n1, n2, box, C(dt2),
+    rmt_wave_step_kernel<S, 3><<<grid, block, 0, stream>>>(up, uprev, c2, o, n1, n2, box, C(dt2),
                                                        C(inv0), C(inv1), C(inv2));
   }
   return static_cast<int>(cudaGetLastError());
@@ -513,10 +513,10 @@ int launch_masked(int ndim, const void* src, const void* Uprev, const void* M,
   const auto* cw = static_cast<const S*>(Cw);
   auto* o = static_cast<S*>(out);
   if (ndim == 2) {
-    wave_step_masked_kernel<S, 2><<<grid, block, 0, stream>>>(
+    rmt_wave_step_masked_kernel<S, 2><<<grid, block, 0, stream>>>(
         s, uprev, m, cw, o, n1, 1, box, off, C(inv0), C(inv1), C(0));
   } else {
-    wave_step_masked_kernel<S, 3><<<grid, block, 0, stream>>>(
+    rmt_wave_step_masked_kernel<S, 3><<<grid, block, 0, stream>>>(
         s, uprev, m, cw, o, n1, n2, box, off, C(inv0), C(inv1), C(inv2));
   }
   return static_cast<int>(cudaGetLastError());

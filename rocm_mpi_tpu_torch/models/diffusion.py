@@ -456,12 +456,16 @@ class HeatDiffusion:
 
     def run(self, variant: str = "ap", nt: int | None = None,
             warmup: int | None = None, driver: str = "step",
-            config: str | None = None) -> RunResult:
+            config: str | None = None, windows: int = 1,
+            on_boundary=None) -> RunResult:
         """Run `nt` steps from the initial condition; time all but the
         first `warmup`. `driver="scan"` runs scan_advance_fn's chunks, with
         the same steps in the same order as "step": the result is bitwise
         equal, and `route`/`k` report the scan route and q.
-        `config` reaches the scan driver only.
+        `config` reaches the scan driver only. `windows` and
+        `on_boundary` reach metrics.timed_window (the timed steps split
+        into windows, multiples of q under the scan driver, and a hook
+        at each window's start).
 
         With halo_transport="host", "shard" runs the host-staged oracle
         (`_run_host_staged`, whatever the driver) and every other variant
@@ -485,10 +489,14 @@ class HeatDiffusion:
         T, Cp = self.init_state()
         if driver == "step":
             advance = self.advance_fn(variant)
-            T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
+            T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup,
+                                   windows=windows, on_boundary=on_boundary,
+                                   variant=variant, driver=driver)
             return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=self.config)
         advance, k = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
-        T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
+        T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup,
+                               windows=windows, unit=k, on_boundary=on_boundary,
+                               variant=variant, driver=driver)
         return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=self.config,
                          route=advance.loop.route, k=k, **loop_record(advance.loop))
 
@@ -505,7 +513,8 @@ class HeatDiffusion:
         T_np, Cp_np = allgather_to_host(T, grid), allgather_to_host(Cp, grid)
         stepper = HostStagedStepper(grid, cfg.lam, cfg.dt, wire_mode=cfg.wire_mode)
         T_np, wtime = metrics.timed_window(lambda T_, n: stepper.run(T_, Cp_np, n), T_np,
-                                           nt, warmup)
+                                           nt, warmup, variant="shard-host",
+                                           workload="diffusion")
         shard = np.ascontiguousarray(T_np[grid.shard_slices()])
         T_out = torch.from_numpy(shard).to(device=self.device, dtype=cfg.torch_dtype)
         return RunResult(T=T_out, wtime=wtime, nt=nt, warmup=warmup, config=cfg,
@@ -513,10 +522,12 @@ class HeatDiffusion:
 
     # ---- multi-step schedules -------------------------------------------
 
-    def _timed(self, advance, T, nt, warmup):
-        """metrics.timed_window of `advance(T, n)` on this model's grid."""
+    def _timed(self, advance, T, nt, warmup, **kw):
+        """metrics.timed_window of `advance(T, n)` on this model's grid;
+        `kw` carries its windows, unit and on_boundary, and the stamps of
+        its step_window spans (variant, driver)."""
         return metrics.timed_window(advance, T, nt, warmup, sharded=self.grid.nprocs > 1,
-                                    group=self.grid.group)
+                                    group=self.grid.group, workload="diffusion", **kw)
 
     def _run_single_shard(self, nt, warmup, sweeps_fn, granularity: int,
                           granularity_kw: str, route: str, explicit: bool = False,
@@ -557,7 +568,7 @@ class HeatDiffusion:
             (Tb,) = loop((Tb,), (Cm,), sweeps)
             return parts.finish(Tb)
 
-        T, wtime = self._timed(advance, T, nt, warmup)
+        T, wtime = self._timed(advance, T, nt, warmup, variant=key)
         return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=cfg,
                          route=route, k=parts.k, **loop_record(loop))
 
@@ -691,6 +702,6 @@ class HeatDiffusion:
         advance, k = self.deep_advance_fn(block_steps=block_steps, nt=nt, warmup=warmup,
                                           config=config, wire_mode=wire_mode)
         T, Cp = self.init_state()
-        T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup)
+        T, wtime = self._timed(lambda T, n: advance(T, Cp, n), T, nt, warmup, variant="deep")
         return RunResult(T=T, wtime=wtime, nt=nt, warmup=warmup, config=cfg,
                          route=advance.schedule.route, k=k, **loop_record(advance.loop))

@@ -33,6 +33,10 @@ and replayed, so a step costs its kernels' device time:
   loop's step and the graph, and nothing falls back to the eager loop.
 * LAUNCHES counts kernel executions: the warm-up and the captures leave
   it as it was, and each replay adds the launches its graph recorded.
+* Each graph captured is a compile of telemetry.compiles (program
+  "graph:<label>", its capture's host seconds); a capture inside a
+  steady-state window (a warmup-0 run's timed window) is a recompile.
+  The record is made after `capture_end`, on the host alone.
 
 On more than one rank over NCCL the graphs hold each step's halo
 exchange too (parallel/halo.py: NCCL point-to-point, ordered on the
@@ -74,6 +78,7 @@ from typing import Callable
 import torch
 
 from rocm_mpi_tpu_torch.ops import kernels
+from rocm_mpi_tpu_torch.telemetry import compiles
 
 # The most steps one graph holds. With warmup = 0 the JAX chunk is the
 # whole run (q = nt), which would capture nt steps a graph. Capturing
@@ -278,6 +283,7 @@ class ScanLoop:
                         continue
                     graph = torch.cuda.CUDAGraph()
                     at = dict(launches)
+                    t_graph = time.perf_counter()
                     try:
                         graph.capture_begin(pool=self._pool,
                                             capture_error_mode="thread_local")
@@ -291,6 +297,7 @@ class ScanLoop:
                             f"{key[0]}) failed; the loop does not fall back to eager "
                             f"steps: {err}") from err
                     self.graphs[key] = graph
+                    compiles.record_capture(self.label, time.perf_counter() - t_graph)
                     self.recorded[key] = {k: launches[k] - at[k] for k in launches
                                           if launches[k] != at[k]}
         launches.update(before)

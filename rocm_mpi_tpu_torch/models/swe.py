@@ -237,15 +237,17 @@ class ShallowWater:
 
         return advance
 
-    def _run_timed(self, advance, nt, warmup) -> SWERunResult:
+    def _run_timed(self, advance, nt, warmup, **span_attrs) -> SWERunResult:
         """Run `advance(h, us, Mus, n) -> (h, us)` from the initial state
-        through metrics.timed_window."""
+        through metrics.timed_window, `span_attrs` stamping its
+        step_window span (variant, driver)."""
         nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
         h, us = self.init_state()
         Mus = self.face_masks()
         (h, us), wtime = metrics.timed_window(lambda s, n: advance(*s, Mus, n), (h, us),
                                               nt, warmup, sharded=self.grid.nprocs > 1,
-                                              group=self.grid.group)
+                                              group=self.grid.group, workload="swe",
+                                              **span_attrs)
         return SWERunResult(h=h, us=tuple(us), wtime=wtime, nt=nt, warmup=warmup,
                             config=self.config)
 
@@ -289,10 +291,11 @@ class ShallowWater:
         if driver not in ("step", "scan"):
             raise ValueError(f"driver must be 'step' or 'scan', got {driver!r}")
         if driver == "step":
-            return self._run_timed(self.advance_fn(variant), nt, warmup)
+            return self._run_timed(self.advance_fn(variant), nt, warmup,
+                                   variant=variant, driver=driver)
         nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
         advance, q = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
-        res = self._run_timed(advance, nt, warmup)
+        res = self._run_timed(advance, nt, warmup, variant=variant, driver=driver)
         res.route, res.k = advance.loop.route, q
         vars(res).update(loop_record(advance.loop))
         return res
@@ -333,7 +336,7 @@ class ShallowWater:
             ((h, *us),) = loop(((h, *us),), (tuple(Mus),), check_sweeps(n, parts.k))
             return h, tuple(us)
 
-        res = self._run_timed(advance, nt, warmup)
+        res = self._run_timed(advance, nt, warmup, variant="vmem")
         res.route, res.k = "vmem-loop", parts.k
         vars(res).update(loop_record(loop))
         return res
@@ -414,7 +417,7 @@ class ShallowWater:
         """Deep-halo sweeps on any process grid: one width-k exchange of the
         whole coupled state per k steps (parallel.deep_halo.make_swe_deep_sweep)."""
         advance, k = self.deep_advance_fn(block_steps, nt, warmup, wire_mode=wire_mode)
-        res = self._run_timed(advance, nt, warmup)
+        res = self._run_timed(advance, nt, warmup, variant="deep")
         res.route, res.k = advance.schedule.route, k
         vars(res).update(loop_record(advance.loop))
         return res

@@ -237,14 +237,16 @@ class AcousticWave:
 
         return advance
 
-    def _run_timed(self, advance, nt, warmup) -> WaveRunResult:
+    def _run_timed(self, advance, nt, warmup, **span_attrs) -> WaveRunResult:
         """Run `advance(U, U⁻, C2, n) -> (U, U⁻)` from the initial state
-        through metrics.timed_window."""
+        through metrics.timed_window, `span_attrs` stamping its
+        step_window span (variant, driver)."""
         nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
         U, Uprev, C2 = self.init_state()
         (U, _), wtime = metrics.timed_window(lambda s, n: advance(*s, C2, n), (U, Uprev),
                                              nt, warmup, sharded=self.grid.nprocs > 1,
-                                             group=self.grid.group)
+                                             group=self.grid.group, workload="wave",
+                                             **span_attrs)
         return WaveRunResult(U=U, wtime=wtime, nt=nt, warmup=warmup, config=self.config)
 
     def scan_advance_fn(self, variant: str = "perf", nt: int | None = None,
@@ -286,10 +288,11 @@ class AcousticWave:
         if driver not in ("step", "scan"):
             raise ValueError(f"driver must be 'step' or 'scan', got {driver!r}")
         if driver == "step":
-            return self._run_timed(self.advance_fn(variant), nt, warmup)
+            return self._run_timed(self.advance_fn(variant), nt, warmup,
+                                   variant=variant, driver=driver)
         nt, warmup = metrics.resolve_windows(self.config, nt, warmup)
         advance, q = self.scan_advance_fn(variant, nt=nt, warmup=warmup, config=config)
-        res = self._run_timed(advance, nt, warmup)
+        res = self._run_timed(advance, nt, warmup, variant=variant, driver=driver)
         res.route, res.k = advance.loop.route, q
         vars(res).update(loop_record(advance.loop))
         return res
@@ -331,7 +334,7 @@ class AcousticWave:
                                  check_sweeps(n, parts.k))
             return U, Uprev
 
-        res = self._run_timed(advance, nt, warmup)
+        res = self._run_timed(advance, nt, warmup, variant="vmem")
         res.route, res.k = "vmem-loop", parts.k
         vars(res).update(loop_record(loop))
         return res
@@ -405,7 +408,7 @@ class AcousticWave:
         """Deep-halo sweeps on any process grid: one width-k exchange of the
         leapfrog pair per k steps (parallel.deep_halo.make_wave_deep_sweep)."""
         advance, k = self.deep_advance_fn(block_steps, nt, warmup, wire_mode=wire_mode)
-        res = self._run_timed(advance, nt, warmup)
+        res = self._run_timed(advance, nt, warmup, variant="deep")
         res.route, res.k = advance.schedule.route, k
         vars(res).update(loop_record(advance.loop))
         return res

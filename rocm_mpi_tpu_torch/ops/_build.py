@@ -12,6 +12,9 @@ import time: the CPU tests import every module on a machine without nvcc.
 `-fmad=false` keeps each multiply and add rounded separately, as the
 plain PyTorch versions compute them, so f32/f64 kernel output can be held
 bitwise against them.
+
+Every nvcc build is a compile and a cache miss of telemetry.compiles,
+and every load of a library already on disk a cache hit.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import pathlib
 import shutil
 import subprocess
 import time
+
+from rocm_mpi_tpu_torch.telemetry import compiles
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -89,6 +94,7 @@ def build(names, verbose: bool = False) -> dict[str, dict]:
             failures.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, path)  # atomic: concurrent builders never see a partial file
+        compiles.record_build(name, seconds)
         results[name] = {"path": path, "seconds": seconds, "log": log}
     if failures:
         raise RuntimeError("\n".join(failures))
@@ -100,7 +106,8 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     `signatures` ({symbol: (restype, [argtypes])}) declared."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
+        if build([name])[name]["log"] == "cached":
+            compiles.record_load_hit()
         lib = ctypes.CDLL(str(library_path(name)))
         for symbol, (restype, argtypes) in signatures.items():
             fn = getattr(lib, symbol)

@@ -553,7 +553,7 @@ def fused_step_cm_faces(T, faces, Cm, spacing, box=None, out=None):
 
     Bound on the H100: memory — T, the faces and Cm read once, out written
     once, per box. Design: masked_step's (csrc/stencil.cu
-    fused_step_cm_kernel), in the layout of face_layout.
+    rmt_fused_step_cm_kernel), in the layout of face_layout.
     """
     if out is None:
         check_faces("fused_step_cm", T, faces, Cm, box, spacing, None)

@@ -53,6 +53,7 @@ from typing import Callable
 
 import torch
 
+from rocm_mpi_tpu_torch import telemetry
 from rocm_mpi_tpu_torch.ops import multistep, swe, wave
 from rocm_mpi_tpu_torch.ops.kernels import inv_d2_of
 from rocm_mpi_tpu_torch.parallel import wire
@@ -250,6 +251,12 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
     def step(Tp, Cm, out=None, *wire_state):
         Tp, ws = exchange(0, Tp, wire_state[0] if wire_state else ())
         route = sched.route = route_of(Tp.dtype)
+        if telemetry.enabled():
+            # The JAX package's deep.sweep annotation: the local route this
+            # sweep took (the halo.exchange annotation came from the exchange).
+            telemetry.annotate_once(("deep.sweep", k, route, wire_mode), "deep.sweep",
+                                    lambda: dict(k=k, route=route, steps_per_exchange=k,
+                                                 wire=wire_mode))
         if route == "vmem":
             out = multistep.multi_step_cm(Tp, Cm, spacing, k, out=out)
         elif route == "hbm-tb":

@@ -45,14 +45,24 @@ padded buffer and copy no shard.
 `HostStagedStepper` is the host-staged oracle (the reference's
 IGG_ROCMAWARE_MPI=0 path): a numpy diffusion stepper over every shard of
 the global field, its halos copied between shards in host memory.
+
+Telemetry, as in the JAX package: with collection on, each exchange
+geometry records one `halo.exchange` annotation (its on-wire bytes,
+width, block and wire mode; the face exchange adds `exchange="faces"`).
+The annotation's host code runs at every eager exchange, deduplicated by
+a set lookup on the exchange's buffer key (`telemetry.annotate_once`),
+and once per CUDA-graph capture, never at a replay.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from rocm_mpi_tpu_torch import telemetry
 from rocm_mpi_tpu_torch.parallel import distributed, wire
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 
@@ -123,6 +133,8 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
         _refuse_stateful(wire_mode)
     axes = tuple(range(grid.ndim) if axes is None else axes)
     width = int(width)
+    if telemetry.enabled():
+        _annotate_exchange(buf, width, axes, wire_mode)
     if stateful:
         return _exchange_stateful(buf, grid, width, axes, wire_mode, wire_state)
     key = (tuple(buf.shape), buf.dtype, width, axes, wire_mode, buf.device)
@@ -155,6 +167,33 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
             for ghost, recv in landings:
                 ghost.copy_(recv)
     return buf
+
+
+def _annotate_exchange(buf, width: int, axes, wire_mode: str) -> None:
+    """The `halo.exchange` annotation of a padded-buffer exchange: the
+    JAX package's attrs (bytes an interior rank sends at `wire_mode`'s
+    on-wire width, the ghost width, the unpadded block, the wire mode)."""
+    key = ("halo.exchange", tuple(buf.shape), buf.dtype, width, axes, wire_mode)
+
+    def attrs():
+        block = tuple(n - 2 * width if a in axes else n for a, n in enumerate(buf.shape))
+        return dict(bytes=exchange_nbytes(block, buf.element_size(), width, axes, wire_mode),
+                    width=width, block=block, wire=wire_mode)
+
+    telemetry.annotate_once(key, "halo.exchange", attrs)
+
+
+def faces_nbytes(local_shape, itemsize: int, grid: GlobalGrid, wire_mode: str = "f32") -> int:
+    """Bytes this rank SENDS per `exchange_faces` call: one face of the
+    shard toward each neighbour it has, at `wire_mode`'s on-wire width
+    (no corners: the faces span the shard's own extent only)."""
+    total = 0
+    for ax, n in enumerate(local_shape):
+        face = math.prod(local_shape) // n
+        for direction in (-1, +1):
+            if grid.neighbor(ax, direction) is not None:
+                total += wire.wire_slab_nbytes(face, int(itemsize), wire_mode)
+    return total
 
 
 def _axis_regions(buf: torch.Tensor, axes: tuple[int, ...], width: int):
@@ -265,6 +304,10 @@ def exchange_faces(u: torch.Tensor, grid: GlobalGrid, wire_mode: str = "f32"):
     if wire.is_stateful(wire_mode):
         _refuse_stateful(wire_mode)
     key = ("faces", tuple(u.shape), u.dtype, wire_mode, u.device)
+    if telemetry.enabled():
+        telemetry.annotate_once(("halo.exchange", key), "halo.exchange", lambda: dict(
+            bytes=faces_nbytes(u.shape, u.element_size(), grid, wire_mode), width=1,
+            block=tuple(u.shape), wire=wire_mode, exchange="faces"))
     bufs = grid.exchange_buffers.setdefault(key, {})
     wire_dtype = wire.payload_dtype(wire_mode, u.dtype)
     home = torch.device("cpu") if distributed.staged(u) else u.device
@@ -355,9 +398,11 @@ class HostStagedStepper:
     full-precision ghosts only, so any other wire mode runs the numpy
     steps.
 
-    The JAX stepper's telemetry spans and its fault and flight-recorder
-    hooks are left out: telemetry and resilience are not ported yet
-    (ROADMAP Queue 1 items 9 and 11).
+    As in the JAX package, the numpy step's two phases are real host
+    seams, timed as the `halo.host_staged` span (with the bytes its
+    ghosts carried on the wire) and the `interior.host_staged` span, and
+    `run` advances the flight recorder's step counter every step. The
+    JAX stepper's fault-injection point waits for the resilience plane.
     """
 
     def __init__(self, grid, lam: float, dt: float, use_native: bool | None = None,
@@ -390,15 +435,28 @@ class HostStagedStepper:
         return self.step_python(T, Cp)
 
     def step_python(self, T: np.ndarray, Cp: np.ndarray) -> np.ndarray:
-        grid = self.grid
-        ndim = grid.ndim
-        local = grid.local_shape
-        inner = tuple(slice(1, -1) for _ in range(ndim))
-
         # Phase 1 — the host-staged exchange: each shard's padded block is
         # assembled in host memory, its ghosts read from the neighbouring
         # shards (zero at the domain edge, as in exchange_halo).
         padded = {}
+        with telemetry.span("halo.host_staged", phase="halo") as hsp:
+            copied = self._exchange_host(T, padded)
+            hsp.set(bytes=copied)
+
+        # Phase 2 — every shard updated on its own, global boundary cells
+        # held. The reciprocal is multiplied (not divided by), so the
+        # result is bitwise the native engine's.
+        with telemetry.span("interior.host_staged", phase="interior"):
+            return self._update_shards(T, Cp, padded)
+
+    def _exchange_host(self, T: np.ndarray, padded: dict) -> int:
+        """Fill `padded` with each shard's ghost-ringed block; returns
+        the bytes its ghosts carried at the wire mode's width."""
+        grid = self.grid
+        ndim = grid.ndim
+        local = grid.local_shape
+        inner = tuple(slice(1, -1) for _ in range(ndim))
+        copied = 0
         for coords in np.ndindex(*grid.dims):
             block = np.zeros(tuple(ln + 2 for ln in local), dtype=T.dtype)
             block[inner] = T[self._shard_slices(coords)]
@@ -423,11 +481,16 @@ class HostStagedStepper:
                         # codec state persists across steps under this key.
                         ghost = self._codec.apply((coords, ax, side), ghost)
                     block[tuple(dst)] = ghost
+                    copied += wire.wire_slab_nbytes(ghost.size, T.dtype.itemsize,
+                                                    self.wire_mode)
             padded[coords] = block
+        return copied
 
-        # Phase 2 — every shard updated on its own, global boundary cells
-        # held. The reciprocal is multiplied (not divided by), so the
-        # result is bitwise the native engine's.
+    def _update_shards(self, T: np.ndarray, Cp: np.ndarray, padded: dict) -> np.ndarray:
+        grid = self.grid
+        ndim = grid.ndim
+        local = grid.local_shape
+        inner = tuple(slice(1, -1) for _ in range(ndim))
         inv_d2 = tuple(1.0 / (d * d) for d in grid.spacing)
         out = np.array(T, copy=True)
         for coords, block in padded.items():
@@ -449,6 +512,10 @@ class HostStagedStepper:
         return out
 
     def run(self, T: np.ndarray, Cp: np.ndarray, nt: int) -> np.ndarray:
+        from rocm_mpi_tpu_torch.telemetry import flight
+
         for _ in range(int(nt)):
+            # Additive: the recorder's step counter is process-global.
+            flight.progress(step_inc=1)
             T = self.step(T, Cp)
         return T

@@ -60,6 +60,7 @@ from typing import Callable
 import torch
 
 from rocm_mpi_tpu_torch.parallel import wire
+from rocm_mpi_tpu_torch import telemetry
 from rocm_mpi_tpu_torch.parallel.halo import exchange_faces, exchange_halo
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 
@@ -162,6 +163,14 @@ def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
 
     def local_step(T, C, out=None, pad=None):
         tupled = isinstance(T, (tuple, list))
+        if telemetry.enabled():
+            # The JAX package's overlap.step annotation: this step's slab
+            # geometry (the per-leaf halo.exchange annotations come from
+            # the exchanges below).
+            n_leaves = len(T) if tupled else 1
+            telemetry.annotate_once(("overlap.step", bw, n_leaves, wire_mode), "overlap.step",
+                                    lambda: dict(b_width=tuple(int(b) for b in bw),
+                                                 leaves=n_leaves, wire=wire_mode))
 
         def run(boxes_, src, ghosts):
             # ghosts: the padded route's source offset, or the faces (None: none)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from rocm_mpi_tpu_torch import telemetry
 from rocm_mpi_tpu_torch.parallel import distributed
 from rocm_mpi_tpu_torch.utils.backend import resolve_device
 
@@ -25,7 +26,10 @@ def ring_exchange(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     `shift`: the block of rank (rank − shift) mod n. Where the shift
     lands every block on its own rank (one rank, or a multiple of n) the
     ring is the identity, as a `ppermute` over one device is: nothing is
-    posted and a copy comes back."""
+    posted and a copy comes back. With telemetry on, the JAX package's
+    `ring.exchange` annotation records the whole block's bytes."""
+    if telemetry.enabled():
+        telemetry.annotate("ring.exchange", bytes=x.numel() * x.element_size(), shift=shift)
     n = distributed.world_size()
     if shift % n == 0:
         return x.clone()

@@ -46,12 +46,22 @@ bounded retry with exponential backoff on OSError, ENOSPC prunes every
 kept step but the newest valid one and retries, and a save slower than
 `slow_save_timeout_s` trips the watchdog. `save_state` stays loud
 (retries, then raises); `run_segmented` alone degrades: it skips the
-save and keeps computing, probing the storage at later boundaries. The
-JAX package's telemetry events go to a `log` callable as lines.
+save and keeps computing, probing the storage at later boundaries.
 
-Not here (ROADMAP Queue 1 items 7 and 9): telemetry spans and events,
-the fault-injection sites, preemption polling, and restoring onto a
-process grid other than the one saved (the reshard plane).
+Telemetry, as in the JAX package: every save, restore and validation is
+a `checkpoint.save` / `checkpoint.restore` / `checkpoint.validate` span
+(the checkpoint phase of the summary); each storage-policy decision is
+a `ckpt.retry`, `ckpt.degraded`, `ckpt.recovered` or
+`ckpt.enospc-prune` run event; the segmented loop publishes its step to
+the flight recorder before each save, and the degraded-storage counters
+(`ckpt_degraded`, `ckpt_skipped`, `ckpt_recovered`) the monitor reads.
+With telemetry on, the state's device work is waited out before a save
+span opens, so the span times the save and not the segment before it.
+A `log` callable still receives the policy's lines.
+
+Not here (ROADMAP Queue 1 item 9): the fault-injection sites, preemption
+polling, and restoring onto a process grid other than the one saved (the
+reshard plane).
 """
 
 from __future__ import annotations
@@ -68,6 +78,11 @@ import zlib
 
 import numpy as np
 import torch
+
+from rocm_mpi_tpu_torch.telemetry import enabled as _telemetry_enabled
+from rocm_mpi_tpu_torch.telemetry import flight as _flight
+from rocm_mpi_tpu_torch.telemetry import record_event as _record_event
+from rocm_mpi_tpu_torch.telemetry import span
 
 MANIFEST_VERSION = 2
 
@@ -146,6 +161,18 @@ class _StorageState:
 def _say(log, msg: str) -> None:
     if log is not None:
         log(msg)
+
+
+def _drain(state) -> None:
+    """Telemetry on only: wait out the device work that wrote `state`
+    before a checkpoint span opens, so the span times the save, not the
+    segment still running."""
+    if not _telemetry_enabled():
+        return
+    from rocm_mpi_tpu_torch.utils.metrics import force
+
+    for leaf in tree_leaves(state):
+        force(leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +470,7 @@ def _retrying_save(directory, step, state, policy: StoragePolicy, grid, keep: in
             if getattr(exc, "errno", None) == errno.ENOSPC and not pruned:
                 pruned = True
                 freed = _prune_for_space(directory, grid)
+                _record_event("ckpt.enospc-prune", step=int(step), pruned_steps=freed)
                 _say(log, f"checkpoint step {step}: ENOSPC — pruned kept step(s) {freed} "
                      "to make room, retrying")
                 if freed:
@@ -450,6 +478,8 @@ def _retrying_save(directory, step, state, policy: StoragePolicy, grid, keep: in
             if attempt >= policy.retries:
                 raise
             wait = policy.backoff_s * policy.backoff_factor**attempt
+            _record_event("ckpt.retry", step=int(step), attempt=attempt, wait_s=wait,
+                          error=err)
             _say(log, f"checkpoint step {step}: save attempt {attempt} failed ({err}); "
                  f"retrying in {wait:.2f}s")
             policy.sleep(wait)
@@ -467,6 +497,9 @@ def _guarded_save(directory, step, state, policy: StoragePolicy, st: _StorageSta
         st.boundaries_degraded += 1
         if policy.probe_every > 1 and st.boundaries_degraded % policy.probe_every:
             st.skipped += 1
+            _record_event("ckpt.degraded", step=int(step), reason="skip",
+                          skipped=st.skipped, last_valid_step=st.last_durable)
+            _flight.progress(ckpt_skipped=1)
             _say(log, f"checkpoint step {step}: storage degraded, save skipped (last valid "
                  f"step {st.last_durable})")
             return False
@@ -475,14 +508,25 @@ def _guarded_save(directory, step, state, policy: StoragePolicy, st: _StorageSta
         except OSError as exc:
             _clean_partial_save(directory, step, grid)
             st.skipped += 1
+            _record_event("ckpt.degraded", step=int(step), reason="probe-failed",
+                          error=f"{type(exc).__name__}: {exc}", skipped=st.skipped,
+                          last_valid_step=st.last_durable)
+            _flight.progress(ckpt_skipped=1)
             _say(log, f"checkpoint step {step}: storage still degraded ({exc}); continuing "
                  f"without a save (last valid step {st.last_durable})")
             return False
         st.last_durable = int(step)
         if policy.slow_save_timeout_s is not None and wall > policy.slow_save_timeout_s:
+            _record_event("ckpt.degraded", step=int(step), reason="io-slow", wall_s=wall,
+                          skipped=st.skipped, last_valid_step=st.last_durable)
             _say(log, f"checkpoint step {step}: save took {wall:.2f}s, storage still slow")
             return True  # durable, but the storage still crawls
         st.degraded = False
+        _record_event("ckpt.recovered", step=int(step), skipped=st.skipped)
+        # The monitor's degraded-storage badge compares the cumulative
+        # counters; the recovery bump clears it, flushed now.
+        _flight.progress(ckpt_recovered=1)
+        _flight.flush()
         _say(log, f"checkpoint step {step}: storage recovered after {st.skipped} skipped "
              "save(s)")
         st.skipped = 0
@@ -496,6 +540,11 @@ def _guarded_save(directory, step, state, policy: StoragePolicy, st: _StorageSta
             raise
         st.degraded = True
         st.skipped += 1
+        _record_event("ckpt.degraded", step=int(step), reason="io-error",
+                      error=f"{type(exc).__name__}: {exc}", skipped=st.skipped,
+                      last_valid_step=st.last_durable)
+        _flight.progress(ckpt_degraded=1, ckpt_skipped=1)
+        _flight.flush()
         _say(log, f"checkpoint step {step}: save failed after {policy.retries + 1} "
              f"attempt(s) ({exc}); entering DEGRADED mode — compute continues, loss "
              f"bounded by step {st.last_durable}")
@@ -503,6 +552,10 @@ def _guarded_save(directory, step, state, policy: StoragePolicy, st: _StorageSta
     st.last_durable = int(step)
     if policy.slow_save_timeout_s is not None and wall > policy.slow_save_timeout_s:
         st.degraded = True
+        _record_event("ckpt.degraded", step=int(step), reason="io-slow", wall_s=wall,
+                      timeout_s=policy.slow_save_timeout_s, last_valid_step=st.last_durable)
+        _flight.progress(ckpt_degraded=1)
+        _flight.flush()
         _say(log, f"checkpoint step {step}: save took {wall:.2f}s (> "
              f"{policy.slow_save_timeout_s:.2f}s watchdog); entering DEGRADED mode")
     return True
@@ -614,6 +667,11 @@ def verify_step(directory, step: int) -> tuple[bool, str]:
     restoring it: the step directory's files must match the manifest's
     inventory in names and sizes (every rank's shards). Returns (ok,
     reason); a step without a manifest reports (False, "no manifest")."""
+    with span("checkpoint.validate", step=int(step)):
+        return _verify_step(directory, step)
+
+
+def _verify_step(directory, step: int) -> tuple[bool, str]:
     step_dir = _step_dir(directory, step)
     if not step_dir.is_dir():
         return False, f"step dir {step_dir} missing"
@@ -685,7 +743,9 @@ def save_state(directory, step: int, state, keep: int = 3,
     exhausted retries raise."""
     grid = _check_grid(grid)
     policy = storage or StoragePolicy.from_env()
-    _retrying_save(directory, step, state, policy, grid, keep, log=log)
+    _drain(state)
+    with span("checkpoint.save", step=int(step)):
+        _retrying_save(directory, step, state, policy, grid, keep, log=log)
 
 
 # ---------------------------------------------------------------------------
@@ -748,6 +808,11 @@ def restore_state(directory, step: int, like=None, verify: bool = True, devices=
     verify=True re-hashes every shard against the manifest and raises
     CheckpointCorruptionError on a mismatch. Transient OSErrors while
     reading retry with backoff."""
+    with span("checkpoint.restore", step=int(step)):
+        return _restore_body(directory, step, like, verify, devices, grid, log)
+
+
+def _restore_body(directory, step, like, verify, devices, grid, log):
     from rocm_mpi_tpu_torch.utils.backend import resolve_device
 
     grid = _check_grid(grid)
@@ -858,5 +923,10 @@ def run_segmented(advance, state, nt: int, directory, every: int, start_step: in
         n = min(every, nt - step)
         state = advance(state, n)
         step += n
-        _guarded_save(directory, step, state, policy, st, grid, keep, log=log)
+        _drain(state)
+        # The step this rank reached goes to the flight recorder before the
+        # save's collectives: a rank wedged in them has published it.
+        _flight.progress(step=step)
+        with span("checkpoint.save", step=step):
+            _guarded_save(directory, step, state, policy, st, grid, keep, log=log)
     return state

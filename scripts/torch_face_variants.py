@@ -29,7 +29,10 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RUN = "constexpr int kFaceRunRows = 8;"
 CAP = "constexpr int kFaceMinBlocks = 6;"
-LAUNCH = "__global__ void __launch_bounds__(kMsWarps * 32, kFaceMinBlocks)\nfused_step_cm_kernel"
+LAUNCH = ("__global__ void __launch_bounds__(kMsWarps * 32, kFaceMinBlocks)\n"
+          "rmt_fused_step_cm_kernel")
+# What build() rewrites in csrc/stencil.cu (a test holds them there).
+MARKERS = (RUN, CAP, LAUNCH)
 CASES = (((6144, 6144), ("f32", "bf16", "f64")), ((128, 128, 128), ("f32",)))
 CALLS = 200
 
@@ -40,7 +43,7 @@ def build(variants):
     from rocm_mpi_tpu_torch.ops import _build, kernels
 
     src = (ROOT / "rocm_mpi_tpu_torch/csrc/stencil.cu").read_text()
-    for marker in (RUN, CAP, LAUNCH):
+    for marker in MARKERS:
         if marker not in src:
             raise SystemExit(f"csrc/stencil.cu no longer holds {marker!r}: update this script")
     out = ROOT / ".chip_scratch" / "face_variants"

@@ -194,3 +194,18 @@ def test_swe_app_module_runs_on_cpu_and_reports_mass_drift(extra):
     assert "mass drift" in proc.stdout and "not a GPU measurement" in proc.stdout
     drift = float(proc.stdout.split("mass drift = ")[1].split()[0])
     assert drift <= 1e-13
+
+
+def test_face_variants_script_finds_what_it_rewrites():
+    # scripts/torch_face_variants.py rewrites these lines of csrc/stencil.cu
+    # (the run length, the register cap, the kernel's launch bounds): a
+    # rename there must fail here, not on the card.
+    import importlib.util
+
+    path = REPO / "scripts" / "torch_face_variants.py"
+    spec = importlib.util.spec_from_file_location("torch_face_variants", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    src = (REPO / "rocm_mpi_tpu_torch" / "csrc" / "stencil.cu").read_text()
+    assert len(script.MARKERS) == 3
+    assert [m for m in script.MARKERS if m not in src] == []

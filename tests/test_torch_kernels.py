@@ -281,7 +281,7 @@ def test_check_operands_comparisons_agree_with_full_checks(case, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# masked_step's 16-byte lane tiling (csrc/stencil.cu masked_step_kernel)
+# masked_step's 16-byte lane tiling (csrc/stencil.cu rmt_masked_step_kernel)
 # ---------------------------------------------------------------------------
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}

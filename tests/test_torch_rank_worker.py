@@ -5,8 +5,10 @@ tests/test_torch_distributed.py (`run_rank`), tests/test_torch_overlap.py
 tests/test_torch_scan.py (`run_scan_rank`), tests/test_torch_sharded_scan.py
 (`run_sharded_scan_rank`), tests/test_torch_weak_scaling.py
 (`run_weak_scaling_rank`), tests/test_torch_checkpoint.py
-(`run_checkpoint_rank`) and tests/test_torch_diffusion_3d.py
-(`run_3d_rank`); it holds no tests itself. Imports torch and the port
+(`run_checkpoint_rank`), tests/test_torch_diffusion_3d.py
+(`run_3d_rank`), tests/test_torch_telemetry.py (`run_weak_scaling_app`,
+`run_telemetry_step_rank`) and tests/test_torch_health.py
+(`run_progress_rank`); it holds no tests itself. Imports torch and the port
 only, so a spawned rank starts fast; the parent holds the results against
 the JAX package."""
 
@@ -298,3 +300,68 @@ def run_3d_rank(rank, spec):
         out[variant] = gather_to_host0(T, model.grid)
     out["launches"] = dict(kernels.LAUNCHES)
     return out
+
+
+def run_weak_scaling_app(rank, argv):
+    """One rank of the port's weak-scaling app, as its command line runs
+    it (tests/test_torch_telemetry.py, under spawn_ranks(telemetry_dir=))."""
+    from rocm_mpi_tpu_torch.apps import weak_scaling
+
+    torch.set_num_threads(1)
+    return weak_scaling.main(argv)
+
+
+def run_telemetry_step_rank(rank, spec):
+    """One rank of tests/test_torch_telemetry.py on a 2×1 grid: the
+    diffusion `perf` and `hide` steps under the step driver, telemetry off
+    then on (into spec["dir"]), each from the same initial state. Returns
+    per variant: whether the fields are bitwise equal, the launch counts
+    of both runs, the trace annotations of the telemetry-on run, and its
+    step_window span's dur_s beside the run's wtime."""
+    from rocm_mpi_tpu_torch import telemetry
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+
+    torch.set_num_threads(1)
+    cfg = DiffusionConfig(global_shape=(32, 16), lengths=(10.0, 10.0), nt=10, warmup=2,
+                          dtype="f64", dims=(2, 1), b_width=(4, 4))
+    out = {}
+    for variant in ("perf", "hide"):
+        runs = []
+        for on in (False, True):
+            telemetry.clear()
+            if on:
+                telemetry.configure(directory=spec["dir"], enabled=True, rank=rank)
+            else:
+                telemetry.configure(enabled=False)
+            kernels.reset_launches()
+            res = HeatDiffusion(cfg, device="cpu").run(variant, driver="step")
+            runs.append((res, dict(kernels.LAUNCHES),
+                         [(r["name"], r.get("attrs")) for r in telemetry.records("trace")],
+                         [r for r in telemetry.records("span") if r["name"] == "step_window"]))
+        telemetry.configure(enabled=False)
+        (off, l_off, _, _), (on_, l_on, traced, windows) = runs
+        out[variant] = dict(same=torch.equal(off.T, on_.T), launches=(l_off, l_on),
+                            traced=traced, window=(windows[0]["dur_s"], on_.wtime),
+                            window_attrs=windows[0]["attrs"])
+    return out
+
+
+def run_progress_rank(rank, spec):
+    """One rank of tests/test_torch_health.py's stall drill: the flight
+    recorder on into spec["dir"]; at each of 4 window boundaries the rank
+    publishes its step and meets the other at a barrier, rank 1 sleeping
+    spec["sleep"] seconds before publishing boundary 2's step."""
+    import time
+
+    from rocm_mpi_tpu_torch.parallel import distributed
+    from rocm_mpi_tpu_torch.telemetry import flight
+
+    flight.enable(directory=spec["dir"], rank=rank)
+    for w in range(4):
+        if rank == 1 and w == 2:
+            time.sleep(spec["sleep"])
+        flight.progress(step=10 * w, windows=1)
+        distributed.barrier()
+    return flight.snapshot()["counters"]
