@@ -2,7 +2,7 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-18 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-19 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
 the target). Phases, printed as they run (about six minutes on one H100
@@ -217,10 +217,25 @@ the target). Phases, printed as they run (about six minutes on one H100
    face exchange's, the probes replaying captured calls as the scan
    driver's steps do, trace pids 0-3, each rank's probe and heartbeat
    times), then the profiling app under torchrun at 2×2 of 8192² as it
-   runs by default there, the step driver (prof.txt lists
-   rmt_fused_step_cm and NCCL's kernels).
+   runs by default, the scan driver (prof.txt lists rmt_fused_step_cm
+   and NCCL's kernels; every rank's trace names rmt_fused_step_cm);
+19. tune (after 18) — the tuning plane (rocm_mpi_tpu_torch/tuning/) with
+   a cache file in a temporary directory: the search of the three VMEM
+   loops and diffusion.deep at 252² f32 (each winner, its median µs a
+   step, every candidate's, the candidates gated out, the build and
+   capture seconds), the CLI's warm re-search (all hits: nothing built,
+   captured or launched, the file byte-identical, compiles.steady_state
+   0), `validate` (exit 0 on the file, 1 with a doctored pad entry, 140²
+   padded to 256²), every config="auto" run bitwise its explicit run
+   (the winners; a hand scan chunk of 16 for the three scan drivers) and
+   on a cold cache its default run, and masked_step at 12288² f32 with
+   run_rows 1, 2 and 4 (and from the cache) bitwise the default launch
+   and the plain version, each timed. With `--gpus 4`: weak_scaling
+   --autotune on 4 spawned ranks (hide, scan, 252² a rank) with the 2×2
+   rung's scan chunk in rank 0's cache file alone: every rank of that
+   rung runs the tuned q, the other rungs the default.
 
-With `--gpus 4` phases 6-18 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-19 run one rank per GPU over NCCL (6 and 8 for
 500 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
 exchange (the face exchange and the padded one), the interiors and the
 slabs (the diffusion's from the faces and from the block) timed alone; 13
@@ -337,6 +352,14 @@ WEAK_PADDED_RUNS = (("perf", "scan"), ("hide", "scan"))
 # (nt, warmup) by card count: the app's defaults on four cards; on one
 # card the gloo ranks stage every exchange through host memory, so fewer.
 WEAK_WINDOWS = {4: (2000, 200), 1: (120, 24)}
+# [tune]: the search's setting and the auto runs' windows (64 | 320 - 64;
+# a hand scan chunk of 16 gives q = 16 where the default is 64).
+TUNE_SHAPE = (252, 252)
+TUNE_OPS = ("diffusion.vmem_loop", "wave.vmem_loop", "swe.vmem_loop", "diffusion.deep")
+TUNE_SCAN_OPS = ("diffusion.scan", "wave.scan", "swe.scan")
+TUNE_REPEATS = 3
+TUNE_NT, TUNE_WARMUP, TUNE_SCAN_CHUNK = 320, 64, 16
+TUNE_RUN_ROWS = (1, 2, 4)  # masked_step's run lengths (csrc/stencil.cu kMsRunRows)
 KERNELS = {
     # name: (source line of the TPU kernel it replaces, CUDA source)
     "masked_step": ("rocm_mpi_tpu/ops/pallas_kernels.py:1191", "stencil.cu"),
@@ -4363,9 +4386,9 @@ def phase_telemetry_sharded(card, gpus: int):
     each rank's probe and heartbeat times printed (the arrival skew), the
     probes replaying their captured calls as the scan driver's steps do.
     Then the profiling app under torchrun, 2×2 of 8192², as it runs by
-    default on more than one rank (the step driver; it refuses the scan
-    driver there): prof.txt lists rmt_fused_step_cm and NCCL's kernels
-    with their device ms."""
+    default (the scan driver's graphs, the exchange inside): prof.txt
+    lists rmt_fused_step_cm and NCCL's kernels with their device ms, and
+    every rank's Chrome trace names rmt_fused_step_cm."""
     import tempfile
 
     from rocm_mpi_tpu_torch.parallel.halo import faces_nbytes
@@ -4441,8 +4464,8 @@ def phase_telemetry_sharded(card, gpus: int):
               f"on {runs['on'][1]:.1f} s on 4 GPUs ({card} each)", flush=True)
 
         report = root / "prof.txt"
-        # Its default on four CUDA ranks: the step driver (the app refuses
-        # the scan driver there; its docstring says why).
+        # Its default on four CUDA ranks: the scan driver, its graphs (the
+        # exchange captured inside) replayed in the profiled window.
         proc = _torchrun(["-m", "rocm_mpi_tpu_torch.apps.diffusion_2d_perf_hide_prof",
                           "--report", str(report), "--profile", str(root / "prof_trace")],
                          timeout=300)
@@ -4450,12 +4473,283 @@ def phase_telemetry_sharded(card, gpus: int):
               f"{proc.stderr[-4000:]}")
         text = report.read_text()
         check("rmt_fused_step_cm" in text and "nccl" in text.lower()
-              and "4 rank(s), driver step)" in text,
+              and "4 rank(s), driver scan)" in text,
               f"[telemetry] prof.txt lists no rmt_fused_step_cm or NCCL kernel:\n{text}")
+        for rk in range(gpus):
+            trace_file = root / "prof_trace" / f"trace-rank{rk}.json"
+            names = {e.get("name", "") for e in
+                     json.loads(trace_file.read_text()).get("traceEvents", [])}
+            check(any("rmt_fused_step_cm" in n for n in names),
+                  f"[telemetry] {trace_file.name} names no rmt_fused_step_cm kernel")
         for line in text.splitlines():
             if line.strip():
                 print(f"[telemetry] prof.txt | {line}", flush=True)
         return dict(ranks=per_rank, summary_phases=phases, rows=runs, prof=text)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tune_models(shape, nt, warmup, dims=(1, 1)):
+    """The three models at `shape` f32 on the card (the search's setting)."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+
+    common = dict(global_shape=shape, lengths=(10.0, 10.0), nt=nt, warmup=warmup,
+                  dtype="f32", dims=dims)
+    return {"diffusion": HeatDiffusion(DiffusionConfig(**common), device="cuda"),
+            "wave": AcousticWave(WaveConfig(**common), device="cuda"),
+            "swe": ShallowWater(SWEConfig(**common), device="cuda")}
+
+
+def _tune_entry(config, backend="cuda"):
+    """A cache entry written by hand for a knob the search does not
+    measure (the scan chunk, masked_step's run length): the consumer's
+    seam is what is checked, not a measurement."""
+    from rocm_mpi_tpu_torch.tuning import keys
+
+    return {"config": config, "median_us": 0.0, "compile_s": 0.0, "gate_ratio": 1.0,
+            "fingerprint": keys.fingerprint(backend)}
+
+
+def phase_tune(torch, card, pk):
+    """[tune] the tuning plane on one card (rocm_mpi_tpu_torch/tuning/), with
+    a cache file in a temporary directory, never the default file.
+
+    The search of diffusion.vmem_loop, wave.vmem_loop, swe.vmem_loop and
+    diffusion.deep at 252² f32 (three repeats a candidate): each winner,
+    its median µs a step, every measured candidate's, the candidates the
+    gate took out and the build and capture seconds. The CLI's search
+    again: all hits, nothing built, captured or launched, the file
+    byte-identical, compiles.steady_state 0. `validate` exits 0 on the
+    file and 1 with a doctored pad entry (140² padded to 256²). Every
+    config="auto" run bitwise equal to its explicit run (the winners of
+    the three VMEM loops and of run_deep's k and wire mode; a scan chunk
+    of 16 by hand for the three scan drivers, 320 steps after 64) and,
+    on a cold cache, to its default run. masked_step at 12288² f32 with
+    run_rows 1, 2 and 4 (and config="auto" from a hand entry): each
+    bitwise the default launch and the plain version, its device ms
+    beside the bytes bound. Returns the record."""
+    import tempfile
+
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.telemetry import compiles
+    from rocm_mpi_tpu_torch.tuning import cache, keys, resolve, search
+    from rocm_mpi_tpu_torch.tuning.__main__ import main as tuning_cli
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="rmt-tune-"))
+    record = {"search": {}, "auto": {}, "masked_step": {}}
+    try:
+        path = root / "cache_torch.json"
+        for op in TUNE_OPS:
+            t0 = time.perf_counter()
+            r = search.search_op(op, TUNE_SHAPE, "f32", repeats=TUNE_REPEATS,
+                                 cache_path=path)
+            check(r["status"] == "tuned", f"[tune] search {op}: {r['status']}")
+            e = r["entry"]
+            rows = [(c, round(m * 1e6, 4), round(cs, 3)) for c, m, cs in r["measured"]]
+            record["search"][op] = dict(winner=e["config"], median_us=e["median_us"],
+                                        compile_s=e["compile_s"], gate_ratio=e["gate_ratio"],
+                                        gated_out=[c for c, _ in r["rejected"]],
+                                        measured=rows, seconds=time.perf_counter() - t0)
+            print(f"[tune] {op} {TUNE_SHAPE[0]}² f32: winner {json.dumps(e['config'])} "
+                  f"{e['median_us']} µs/step (median of {TUNE_REPEATS}), gate "
+                  f"{e['gate_ratio']}x, {len(r['rejected'])} of {len(rows) + len(r['rejected'])} "
+                  f"candidates gated out, builds and captures {e['compile_s']} s, search "
+                  f"{time.perf_counter() - t0:.1f} s, on {card}", flush=True)
+            for c, us, cs in rows:
+                print(f"[tune]   {json.dumps(c)}: {us} µs/step, captures {cs} s", flush=True)
+        blob = path.read_bytes()
+
+        # The warm re-search: all hits, nothing built, captured or launched.
+        compiles.reset()
+        before = dict(kernels.LAUNCHES)
+        rc = tuning_cli(["search", "--ops", ",".join(TUNE_OPS), "--shape", "252x252",
+                         "--cache", str(path)])
+        snap = compiles.snapshot()
+        check(rc == 0 and path.read_bytes() == blob and compiles.steady_state() == 0
+              and snap["totals"]["backend_compiles"] == 0 and dict(kernels.LAUNCHES) == before,
+              f"[tune] warm re-search: rc {rc}, identical {path.read_bytes() == blob}, "
+              f"compiles {snap['totals']}, steady {compiles.steady_state()}")
+        print("[tune] warm re-search: every op a hit, nothing built, captured or launched, "
+              "file byte-identical, compiles.steady_state=0", flush=True)
+        check(tuning_cli(["validate", str(path)]) == 0, "[tune] validate of the search's file")
+        doc = json.loads(blob)
+        doc["entries"][keys.key_str(keys.tuning_key("diffusion.vmem_loop", (140, 140), "f32",
+                                                    backend="cuda"))] = _tune_entry(
+            {"body_form": "eqc", "pad_pow2": True, "chunk": 16})
+        doctored = root / "doctored.json"
+        doctored.write_text(json.dumps(doc))
+        check(tuning_cli(["validate", str(doctored)]) == 1,
+              "[tune] validate passed a doctored pad entry (140² -> 256²)")
+        print("[tune] validate: exit 0 on the search's file, 1 on the doctored pad entry",
+              flush=True)
+
+        # config="auto", warm: bitwise the explicit knobs.
+        def knobs(op):
+            return record["search"][op]["winner"]
+
+        for op in TUNE_SCAN_OPS:
+            cache.store(path, keys.tuning_key(op, TUNE_SHAPE, "f32", backend="cuda"),
+                        _tune_entry({"chunk": TUNE_SCAN_CHUNK}))
+        resolve.configure(path)
+        resolve.reset_stats()
+        models = _tune_models(TUNE_SHAPE, TUNE_NT, TUNE_WARMUP)
+        d, w, s = models["diffusion"], models["wave"], models["swe"]
+        kd, kw, ks = knobs("diffusion.vmem_loop"), knobs("wave.vmem_loop"), knobs(
+            "swe.vmem_loop")
+        kdeep = knobs("diffusion.deep")
+        pairs = {
+            "diffusion.vmem_loop": (lambda: d.run_vmem_resident(config="auto").T,
+                                    lambda: d.run_vmem_resident(**kd).T),
+            "wave.vmem_loop": (lambda: w.run_vmem_resident(config="auto").U,
+                               lambda: w.run_vmem_resident(**kw).U),
+            "swe.vmem_loop": (lambda: s.run_vmem_resident(config="auto").h,
+                              lambda: s.run_vmem_resident(**ks).h),
+            "diffusion.deep": (lambda: d.run_deep(config="auto").T,
+                               lambda: d.run_deep(block_steps=kdeep["k"],
+                                                  wire_mode=kdeep["wire_mode"]).T),
+        }
+        for name, model, leaf in (("diffusion", d, "T"), ("wave", w, "U"), ("swe", s, "h")):
+            advance, q = model.scan_advance_fn("perf", chunk=TUNE_SCAN_CHUNK)
+            auto_q = model.scan_advance_fn("perf", config="auto")[1]
+            check(auto_q == q != model.scan_advance_fn("perf")[1],
+                  f"[tune] {name}.scan: auto q {auto_q}, explicit {q}")
+            pairs[f"{name}.scan"] = (
+                lambda m=model, lf=leaf: getattr(m.run("perf", driver="scan", config="auto"),
+                                                 lf),
+                lambda m=model, lf=leaf: getattr(m.run("perf", driver="scan"), lf))
+        for op, (auto, explicit) in pairs.items():
+            got, want = auto(), explicit()
+            check(torch.equal(got, want), f"[tune] {op}: config='auto' != its explicit run")
+            record["auto"][op] = "bitwise"
+        stats = resolve.stats()
+        check(stats["misses"] == 0 and stats["hits"] >= len(pairs),
+              f"[tune] auto runs resolved {stats}")
+        # Cold: bitwise the defaults.
+        resolve.configure(root / "cold.json")
+        for op, auto, default in (
+                ("diffusion.vmem_loop", lambda: d.run_vmem_resident(config="auto").T,
+                 lambda: d.run_vmem_resident().T),
+                ("wave.vmem_loop", lambda: w.run_vmem_resident(config="auto").U,
+                 lambda: w.run_vmem_resident().U),
+                ("swe.vmem_loop", lambda: s.run_vmem_resident(config="auto").h,
+                 lambda: s.run_vmem_resident().h),
+                ("diffusion.deep", lambda: d.run_deep(config="auto").T,
+                 lambda: d.run_deep().T)):
+            check(torch.equal(auto(), default()), f"[tune] cold {op}: auto != default")
+        print(f"[tune] config='auto' bitwise its explicit run with the cache warm "
+              f"({', '.join(pairs)}; scan chunk {TUNE_SCAN_CHUNK} by hand, {TUNE_NT} steps "
+              f"after {TUNE_WARMUP}) and its default run with the cache cold; resolves "
+              f"{stats}", flush=True)
+
+        # masked_step's run length at the main path's 12288².
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        T = torch.rand(BIG, generator=gen, device="cuda", dtype=torch.float32)
+        Cm = torch.rand(BIG, generator=gen, device="cuda", dtype=torch.float32) * 1e-4
+        sp = (10.0 / BIG[0], 10.0 / BIG[1])
+        want = kernels.masked_step(T, Cm, sp)
+        plain = kernels.masked_step_plain(T, Cm, kernels.inv_d2_of(sp))
+        check(torch.equal(want, plain), "[tune] masked_step default != plain version")
+        nbytes = 3 * T.numel() * T.element_size()
+        bound, by, _ = bound_ms(pk, "f32", nbytes, T.numel(), 1,
+                                FLOPS_PER_CELL_STEP[("masked_step", "direct")](2))
+        out = torch.empty_like(T)
+        for r in (0, *TUNE_RUN_ROWS):
+            got = kernels.masked_step(T, Cm, sp, run_rows=r or None)
+            check(torch.equal(got, want), f"[tune] masked_step run_rows {r} != default launch")
+            ms = time_ms(lambda r=r: kernels.masked_step(T, Cm, sp, out=out, run_rows=r or None),
+                         reps=50)
+            record["masked_step"][r or "default"] = ms
+            print(f"[tune] masked_step {BIG[0]}² f32 run_rows {r or 'default (4)'}: {ms:.4f} ms "
+                  f"(bound {bound:.4f} ms by {by}, {bound / ms:.2f} of it), bitwise the "
+                  f"default launch and the plain version, on {card}", flush=True)
+        cache.store(path, keys.tuning_key("diffusion.masked_step", BIG, "f32", backend="cuda"),
+                    _tune_entry({"run_rows": 2}))
+        resolve.configure(path)
+        check(kernels.masked_run_rows(T, config="auto") == 2
+              and torch.equal(kernels.masked_step(T, Cm, sp, config="auto"), want),
+              "[tune] masked_step config='auto' did not take run_rows 2 or differs")
+        return record
+    finally:
+        from rocm_mpi_tpu_torch.tuning import resolve
+
+        resolve.configure(None)
+        resolve.reset_stats()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def tune_weak_scaling_rank(rank, spec):
+    """One rank of the weak-scaling app's main(argv) with --autotune on its
+    own card, its tuning plane pointed at its own cache file
+    (spec["paths"][rank]: rank 0's holds the entry, the others' are
+    empty). Returns the exit code, stdout and (count, q, route) of each
+    rung this rank ran."""
+    import io
+
+    import torch
+
+    from rocm_mpi_tpu_torch.apps import weak_scaling
+    from rocm_mpi_tpu_torch.tuning import resolve
+
+    torch.cuda.set_device(torch.device("cuda", rank))
+    resolve.configure(spec["paths"][rank])
+    ran = []
+    run_rung = weak_scaling.run_rung
+
+    def watched(args, n, group, device):
+        rung = run_rung(args, n, group, device)
+        if rung is not None:
+            ran.append((n, rung.result.k, rung.result.route))
+        return rung
+
+    weak_scaling.run_rung = watched
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = weak_scaling.main(spec["argv"])
+    return rc, out.getvalue(), ran, resolve.stats()
+
+
+def phase_tune_sharded(card, gpus: int):
+    """[tune] on four cards: weak_scaling --autotune (main() on 4 ranks, one
+    a card, NCCL, hide under the scan driver at 252² a rank, the app's
+    2000 steps after 200) with a cache entry for the 2×2 rung's scan
+    chunk in rank 0's file only: every rank of that rung runs the tuned q
+    (rank 0 decides for all), the 1- and 2-rank rungs (misses) the
+    default q, and every rank's result is exit 0."""
+    import tempfile
+
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+    from rocm_mpi_tpu_torch.tuning import cache, keys
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="rmt-tune4-"))
+    try:
+        paths = [str(root / f"rank{r}.json") for r in range(gpus)]
+        doc = cache.empty_doc()
+        key = keys.tuning_key("diffusion.scan", (WEAK_LOCAL, WEAK_LOCAL), "f32", (2, 2),
+                              backend="cuda")
+        doc["entries"][keys.key_str(key)] = _tune_entry({"chunk": TUNE_SCAN_CHUNK})
+        cache.write_doc(paths[0], doc)
+        for p in paths[1:]:
+            cache.write_doc(p, cache.empty_doc())
+        nt, warmup = WEAK_WINDOWS[4]
+        argv = ["--autotune", "--json", "--local", str(WEAK_LOCAL), "--counts", WEAK_COUNTS]
+        ranks = spawn_ranks(gpus, tune_weak_scaling_rank, ({"paths": paths, "argv": argv},),
+                            backend="nccl", timeout=900)
+        default_q = math.gcd(warmup, nt - warmup)
+        tuned_q = math.gcd(default_q, TUNE_SCAN_CHUNK)
+        for rk, (rc, _out, ran, stats) in enumerate(ranks):
+            want = [(n, tuned_q if n == 4 else default_q, "scan-graph")
+                    for n in (1, 2, 4) if rk < n]
+            check(rc == 0 and ran == want, f"[tune] rank {rk}: rc {rc}, rungs {ran} != {want}")
+            print(f"[tune] weak_scaling --autotune rank {rk}: rungs (count, q, route) {ran}, "
+                  f"resolves {stats}", flush=True)
+        rows = [json.loads(ln) for ln in ranks[0][1].splitlines() if ln.startswith("{")]
+        for r in rows:
+            print(f"[tune] weak-scaling hide scan --autotune n={r['devices']}: "
+                  f"{r['gpts_per_device']} Gpts/s a device, efficiency {r['efficiency']} on "
+                  f"{gpus} GPUs ({card} each)", flush=True)
+        return dict(ranks=[r[2] for r in ranks], rows=rows, tuned_q=tuned_q,
+                    default_q=default_q)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4467,7 +4761,7 @@ def main(argv=None) -> int:
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
                         help="4: run only the sharded phases (perf, sharded scan, deep, hide, "
                         "wave and shallow-water deep, 3d, checkpoint, weak scaling, telemetry, "
-                        "ring, host-staged, wire, dryrun), "
+                        "tune, ring, host-staged, wire, dryrun), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -4515,6 +4809,7 @@ def main(argv=None) -> int:
         record["checkpoint_ranks"] = phase_checkpoint_sharded(card, args.gpus)
         record["weak_scaling_ranks"], _ = phase_weak_scaling(card, args.gpus)
         record["telemetry"] = phase_telemetry_sharded(card, args.gpus)
+        record["tune"] = phase_tune_sharded(card, args.gpus)
         record["transport"], _ = phase_transport(torch, card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
@@ -4538,6 +4833,7 @@ def main(argv=None) -> int:
     cube = phase_3d(torch, card, pk)
     ckpt_rec = phase_checkpoint(torch, card)
     tel_rec, tel_launches = phase_telemetry(torch, card)
+    tune_rec = phase_tune(torch, card, pk)
     ranks, fused_launches, kp_sharded_launches = phase_sharded(card, 1)
     deep_ranks, deep_launches = phase_sharded_deep(card, 1)
     hide_ranks, hide_launches = phase_hide(card, 1)
@@ -4588,6 +4884,9 @@ def main(argv=None) -> int:
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
         ))
+        if name == "masked_step":
+            # The tuning plane's knob: the run lengths tried in [tune], ms each.
+            line[-1]["run_rows_ms"] = {str(k): v for k, v in tune_rec["masked_step"].items()}
     if args.json:
         path = pathlib.Path(args.json)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -4599,7 +4898,7 @@ def main(argv=None) -> int:
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
             wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks,
             weak_scaling_ranks=weak_ranks, three_d=cube, checkpoint=ckpt_rec, host=host,
-            telemetry=tel_rec,
+            telemetry=tel_rec, tune=tune_rec,
             transport=transport, kernels=line, seconds=time.perf_counter() - t0,
         ), indent=1, default=str))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

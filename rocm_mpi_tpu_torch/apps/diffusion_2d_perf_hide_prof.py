@@ -16,16 +16,19 @@ field written once, over the card's memory rate: PERF.md §6's formula).
 On the card, a window without CUDA activity fails. Reference defaults:
 8192², nt = 300, 12 warmup steps, b_width (32, 8), f32.
 
-The loop is the scan driver's on one rank and the step driver's on more
-than one CUDA rank, where `--driver scan` is refused (exit 2): under
-torch.profiler's CUDA activity, four H100 ranks (2×2 of 8192²) replaying
-the scan driver's CUDA graphs, which hold NCCL kernels, did not finish
-within 900 s, while sharded hide graphs over NCCL without the profiler
-(chip_smoke.py's [hide] and [3d]) and one rank's graphs under it run
-(PERF.md §7: the cause is not found).
+The loop is the scan driver's by default, on one rank and on several:
+the profiled window replays the CUDA graphs the run captured in its
+warmup (over NCCL with the halo exchange inside), as the JAX twin
+profiles the compiled program its run executes; `--driver step` profiles
+the eager loop. The graphs end (profiled_run returns) before the process
+group is destroyed: destroy_process_group waits for ever while graphs
+holding NCCL work on its communicator are alive (four H100 ranks,
+scripts/torch_twin_scan.py's `-keepalive` cases, with or without the
+profiler), which is also why parallel/distributed.finalize releases
+every loop's graphs first.
 
   python -m rocm_mpi_tpu_torch.apps.diffusion_2d_perf_hide_prof                    # one GPU
-  torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.diffusion_2d_perf_hide_prof   # 2×2, step driver
+  torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.diffusion_2d_perf_hide_prof   # 2×2, scan driver
   python -m rocm_mpi_tpu_torch.apps.diffusion_2d_perf_hide_prof --device cpu --nx 64 --ny 64
 """
 
@@ -56,19 +59,9 @@ def memory_rate(name: str) -> float:
 
 
 def pick_driver(requested: str | None, ranks: int, device_type: str) -> str:
-    """The loop form: `requested`, by default scan on one rank and step
-    on more than one CUDA rank, where the scan driver is refused
-    (ValueError; the module docstring says why)."""
-    nccl_graphs = ranks > 1 and device_type == "cuda"
-    if requested is None:
-        return "step" if nccl_graphs else "scan"
-    if requested == "scan" and nccl_graphs:
-        raise ValueError(
-            f"--driver scan on {ranks} CUDA ranks is refused: under torch.profiler, ranks "
-            "replaying CUDA graphs that hold NCCL kernels did not finish (PERF.md §7); "
-            "profile the step driver (the default on more than one rank), or run the "
-            "hide app without the profiler")
-    return requested
+    """The loop form: `requested`, by default scan, whatever the ranks and
+    the device (the module docstring)."""
+    return "scan" if requested is None else requested
 
 
 def main(argv=None) -> int:
@@ -88,7 +81,6 @@ def main(argv=None) -> int:
 
     import torch
 
-    from rocm_mpi_tpu_torch.apps._common import _Profile
     from rocm_mpi_tpu_torch.config import DiffusionConfig
     from rocm_mpi_tpu_torch.models import HeatDiffusion
     from rocm_mpi_tpu_torch.parallel import distributed
@@ -97,13 +89,7 @@ def main(argv=None) -> int:
     distributed.maybe_initialize_distributed(args.device)
     device = distributed.local_device(args.device)
     me = distributed.rank()
-    try:
-        args.driver = pick_driver(args.driver, distributed.world_size(), device.type)
-    except ValueError as e:
-        if me == 0:
-            print(e, flush=True)
-        distributed.finalize()
-        return 2
+    args.driver = pick_driver(args.driver, distributed.world_size(), device.type)
     setup_observability(args, me)
     shape = (args.fact * 1024,) * 2 if args.fact else (args.nx, args.ny)
     cfg = DiffusionConfig(global_shape=shape, lengths=(10.0, 10.0), nt=args.nt,
@@ -111,27 +97,8 @@ def main(argv=None) -> int:
                           b_width=parse_ints(args.b_width), wire_mode=args.wire_mode)
     model = HeatDiffusion(cfg, device=device)
     grid = model.grid
-    T, Cp = model.init_state()
     timed = cfg.nt - cfg.warmup
-    if args.driver == "scan":
-        advance, _ = model.scan_advance_fn("hide", nt=cfg.nt, warmup=cfg.warmup)
-    else:
-        advance = model.advance_fn("hide")
-
-    sharded = grid.nprocs > 1
-    warm = metrics.Timer()
-    warm.tic(T)
-    if cfg.warmup:
-        T = advance(T, Cp, cfg.warmup)  # outside the profiler window
-    metrics.settle(T, sharded, grid.group)
-    warm_s = warm.toc()
-    window = _Profile(args.profile, device, me)
-    timer = metrics.Timer()
-    with window:
-        timer.tic()
-        T = advance(T, Cp, timed)
-        metrics.settle(T, sharded, grid.group)
-        wtime = timer.toc()
+    T, warm_s, wtime, window = profiled_run(args, model, device, me)
     wtime_it = metrics.wtime_per_it(wtime, cfg.nt, cfg.warmup)
     t_eff = metrics.t_eff_gbs(cfg.global_shape, T.element_size(), wtime_it)
     gpts = metrics.gpts_per_s(cfg.global_shape, wtime_it)
@@ -149,6 +116,38 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     distributed.finalize()
     return 0
+
+
+def profiled_run(args, model, device, rank: int):
+    """The warmup outside the profiler window, then the timed steps inside
+    it: (T, warmup s, timed s, the window). The advance, and with it the
+    scan driver's CUDA graphs, ends with this call, before the caller
+    destroys the process group: the graphs replay NCCL work on its
+    communicator."""
+    from rocm_mpi_tpu_torch.apps._common import _Profile
+    from rocm_mpi_tpu_torch.utils import metrics
+
+    cfg, grid = model.config, model.grid
+    T, Cp = model.init_state()
+    if args.driver == "scan":
+        advance, _ = model.scan_advance_fn("hide", nt=cfg.nt, warmup=cfg.warmup)
+    else:
+        advance = model.advance_fn("hide")
+    sharded = grid.nprocs > 1
+    warm = metrics.Timer()
+    warm.tic(T)
+    if cfg.warmup:
+        T = advance(T, Cp, cfg.warmup)  # outside the profiler window
+    metrics.settle(T, sharded, grid.group)
+    warm_s = warm.toc()
+    window = _Profile(args.profile, device, rank)
+    timer = metrics.Timer()
+    with window:
+        timer.tic()
+        T = advance(T, Cp, cfg.nt - cfg.warmup)
+        metrics.settle(T, sharded, grid.group)
+        wtime = timer.toc()
+    return T, warm_s, wtime, window
 
 
 def report_lines(args, cfg, grid, device, T, warm_s, wtime, wtime_it, t_eff, gpts, window,

@@ -32,7 +32,11 @@ accounting follows the ladder, and then, unless `--no-probes`, the phase
 probes (telemetry/probes.py) time the last rung's halo, interior and
 checkpoint phases. `--health` adds the flight recorder, and a halo
 heartbeat (one face exchange) at every window boundary. `--autotune`
-needs the tuning plane, which the port does not have yet: refused.
+runs every rung with config="auto", as the JAX app does: the scan chunk
+of every workload, and for diffusion run_deep's depth and wire mode, come
+from the tuning cache (rocm_mpi_tpu_torch/tuning; rank 0 of each rung
+decides for its ranks), and with telemetry on the resolve outcomes are
+banked as `tune.hits`/`tune.misses` after the compile gauges.
 
   torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --json --local 252
   torchrun --nproc-per-node 4 -m rocm_mpi_tpu_torch.apps.weak_scaling --device cpu --local 16 --json
@@ -68,9 +72,6 @@ from rocm_mpi_tpu_torch.apps._common import (
 VARIANTS = ("ap", "fused", "shard", "perf", "kp", "hide", "deep")
 # The variants of the wave and the shallow water (the JAX app's refusal).
 WORKLOAD_VARIANTS = ("ap", "perf", "hide", "deep")
-# Flags the JAX app has whose planes are not ported yet: accepted, then
-# refused.
-NOT_PORTED = {"autotune": "--autotune"}
 
 
 def make_parser():
@@ -107,18 +108,10 @@ def make_parser():
     p.add_argument("--no-probes", dest="probes", action="store_false", default=True,
                    help="with --telemetry: skip the halo/interior/checkpoint "
                    "phase-attribution probes (telemetry/probes.py)")
-    # Not ported yet (ROADMAP Queue 1 item 8): accepted, then refused.
     p.add_argument("--autotune", action="store_true",
-                   help="consult the tuning cache (not ported yet: refused)")
+                   help="config='auto': the scan chunk (every workload) and run_deep's "
+                   "depth and wire mode (diffusion) from the tuning cache")
     return p
-
-
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for any flag whose plane is not ported."""
-    given = [flag for dest, flag in NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the tuning plane is not ported yet (ROADMAP Queue 1 item 8)")
 
 
 def parse_counts(text: str | None, world: int) -> list[int]:
@@ -190,14 +183,18 @@ def run_rung(args, n: int, group, device) -> Rung | None:
     grid = init_global_grid(*shape, lengths=lengths, dims=dims, nprocs=n, rank=rank,
                             group=group)
     model = model_cls(cfg, grid=grid, device=device)
+    run_config = "auto" if args.autotune else None
     if args.variant == "deep":
-        result = model.run_deep(block_steps=args.deep_k)
+        # Only diffusion's depth is tunable (the JAX app's rule); the wave
+        # and the shallow water keep their own depth policies.
+        extra = {"config": run_config} if args.workload == "diffusion" else {}
+        result = model.run_deep(block_steps=args.deep_k, **extra)
     elif (windows := rung_windows(args)) > 1:
         beat = probes.make_halo_heartbeat(model) if flight.enabled() else None
         result = model.run(args.variant, driver=args.driver, windows=windows,
-                           on_boundary=beat)
+                           on_boundary=beat, config=run_config)
     else:
-        result = model.run(args.variant, driver=args.driver)
+        result = model.run(args.variant, driver=args.driver, config=run_config)
     return Rung(n=n, dims=dims, shape=shape, model=model, result=result)
 
 
@@ -281,7 +278,6 @@ def ladder(args, device, log=print) -> list[tuple[dict, Rung]]:
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    refuse_unported(args)
 
     from rocm_mpi_tpu_torch.parallel import distributed
 
@@ -314,8 +310,10 @@ def main(argv=None) -> int:
 
 def observe_ladder(args, rows, log0) -> None:
     """After the ladder, with telemetry on: bank the compile accounting
-    (before the probes, whose first calls are tooling, not recompiles),
-    then, for diffusion and unless --no-probes, the phase probes on this
+    (before the probes, whose first calls are tooling, not recompiles) and
+    the tuning resolves (`tune.hits`/`tune.misses`: a tuned ladder and a
+    default one are different measurements), then, for diffusion and
+    unless --no-probes, the phase probes on this
     rank's last rung, which every rank of that rung runs (the largest
     count: the same rung on every rank that ran one), with one
     checkpoint save/restore into the telemetry directory's ckpt-probe/."""
@@ -323,10 +321,12 @@ def observe_ladder(args, rows, log0) -> None:
 
     from rocm_mpi_tpu_torch import telemetry
     from rocm_mpi_tpu_torch.telemetry import compiles, events, probes
+    from rocm_mpi_tpu_torch.tuning import resolve as tuning_resolve
 
     if not telemetry.enabled():
         return
     compiles.emit_gauges()
+    tuning_resolve.emit_gauges()
     if not (args.probes and rows and args.workload == "diffusion"):
         return
     model = rows[-1][1].model

@@ -621,17 +621,20 @@ rmt_fused_step_padded_kernel(const S* __restrict__ Tp, const S* __restrict__ Cp,
 
 template <typename S, int NDIM, bool VEC>
 int launch_masked_nd(const S* t, const S* cm, S* o, int64_t n0, int64_t n_mid,
-                     int64_t n_last, double inv0, double inv1, double inv2,
+                     int64_t n_last, double inv0, double inv1, double inv2, int run_cap,
                      cudaStream_t stream) {
   using C = typename Compute<S>::type;
   constexpr int kN = MsRow<S>::kN;
   if (n0 < 1 || n_mid < 1 || n_last < 1) return -2;
   const int64_t strips = (n_last + 32 * kN - 1) / (32 * kN);
-  // Runs of kMsRunRows rows, cut shorter where the field gives fewer than
-  // kMsFillWarps warps of them (a small field: more, shorter walks).
+  // Runs of kMsRunRows rows (at most `run_cap` where it is > 0: the tuning
+  // plane's run_rows), cut shorter where the field gives fewer than
+  // kMsFillWarps warps of them (a small field: more, shorter walks). A
+  // cell's arithmetic does not depend on its run.
   const int64_t cols = strips * n_mid;
+  const int64_t longest = run_cap > 0 && run_cap < kMsRunRows ? run_cap : kMsRunRows;
   int64_t run_rows = cols * n0 / kMsFillWarps;
-  run_rows = run_rows < 1 ? 1 : run_rows > kMsRunRows ? kMsRunRows : run_rows;
+  run_rows = run_rows < 1 ? 1 : run_rows > longest ? longest : run_rows;
   const int64_t items = cols * ((n0 + run_rows - 1) / run_rows);
   const int64_t blocks = (items + kMsWarps - 1) / kMsWarps;
   if (blocks > 2147483647LL) return -2;
@@ -646,7 +649,7 @@ int launch_masked_nd(const S* t, const S* cm, S* o, int64_t n0, int64_t n_mid,
 template <typename S>
 int launch_masked(int ndim, const void* T, const void* Cm, void* out,
                   int64_t n0, int64_t n1, int64_t n2, double inv0,
-                  double inv1, double inv2, int vec, cudaStream_t stream) {
+                  double inv1, double inv2, int vec, int run_cap, cudaStream_t stream) {
   constexpr int kN = MsRow<S>::kN;
   const auto* t = static_cast<const S*>(T);
   const auto* cm = static_cast<const S*>(Cm);
@@ -658,13 +661,17 @@ int launch_masked(int ndim, const void* T, const void* Cm, void* out,
     return -1;
   if constexpr (kVecLayout<S>) {
     if (vec && ndim == 2)
-      return launch_masked_nd<S, 2, true>(t, cm, o, n0, 1, n1, inv0, inv1, 0.0, stream);
+      return launch_masked_nd<S, 2, true>(t, cm, o, n0, 1, n1, inv0, inv1, 0.0, run_cap,
+                                          stream);
     if (vec)
-      return launch_masked_nd<S, 3, true>(t, cm, o, n0, n1, n2, inv0, inv1, inv2, stream);
+      return launch_masked_nd<S, 3, true>(t, cm, o, n0, n1, n2, inv0, inv1, inv2, run_cap,
+                                          stream);
   }
   if (ndim == 2)
-    return launch_masked_nd<S, 2, false>(t, cm, o, n0, 1, n1, inv0, inv1, 0.0, stream);
-  return launch_masked_nd<S, 3, false>(t, cm, o, n0, n1, n2, inv0, inv1, inv2, stream);
+    return launch_masked_nd<S, 2, false>(t, cm, o, n0, 1, n1, inv0, inv1, 0.0, run_cap,
+                                         stream);
+  return launch_masked_nd<S, 3, false>(t, cm, o, n0, n1, n2, inv0, inv1, inv2, run_cap,
+                                       stream);
 }
 
 template <typename S, int NDIM, bool VEC>
@@ -773,23 +780,28 @@ int launch_fused_padded(int ndim, const void* Tp, const void* Cp, void* out, int
 // that overflows a launch dimension. The launch is asynchronous on `stream`;
 // nothing here synchronises or allocates.
 
-// `vec` 1 takes the 16-byte layout (f32 and bf16 only, the last axis a
-// multiple of 16 bytes, T, Cm and out on the 16-byte grid; -1 otherwise),
-// 0 the scalar one.
+// `run_cap` > 0 caps the rows a warp walks (the tuning plane's run_rows);
+// 0 keeps the rule of launch_masked_nd. `vec` 1 takes the 16-byte layout
+// (f32 and bf16 only, the last axis a multiple of 16 bytes, T, Cm and out
+// on the 16-byte grid; -1 otherwise), 0 the scalar one.
 extern "C" int rmt_masked_step(int dtype, int ndim, const void* T,
                                const void* Cm, void* out, int64_t n0,
                                int64_t n1, int64_t n2, double inv0,
-                               double inv1, double inv2, int vec, void* stream) {
+                               double inv1, double inv2, int run_cap, int vec,
+                               void* stream) {
   if (ndim != 2 && ndim != 3) return -1;
+  if (run_cap < 0) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_masked<float>(ndim, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, vec, s);
+      return launch_masked<float>(ndim, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, vec, run_cap,
+                                  s);
     case kF64:
-      return launch_masked<double>(ndim, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, vec, s);
+      return launch_masked<double>(ndim, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, vec, run_cap,
+                                   s);
     case kBF16:
       return launch_masked<__nv_bfloat16>(ndim, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, vec,
-                                          s);
+                                          run_cap, s);
     default:
       return -1;
   }

@@ -84,6 +84,7 @@ from rocm_mpi_tpu_torch.ops.diffusion import (
 )
 from rocm_mpi_tpu_torch.models.scan import (
     ScanLoop,
+    auto_scan_chunk,
     check_sweeps,
     graph_plan,
     loop_record,
@@ -422,8 +423,10 @@ class HeatDiffusion:
         exchange captured too), as replays of captured CUDA graphs; on one
         CPU rank as the same schedule of eager steps; over gloo as a plain
         loop. The coefficient is prepared once per call, outside the
-        chunks. `config="auto"` needs the tuning cache and raises
-        NotImplementedError. The passed-in T becomes a buffer of the
+        chunks. `config="auto"` takes an unset chunk from the tuning cache
+        (op "diffusion.scan" at this shard and process grid; rank 0
+        decides for every rank), gcd'd against the windows; a miss keeps
+        the default. The passed-in T becomes a buffer of the
         driver: like a donated JAX argument, the caller must rebind T from
         the result. `advance.loop` is the ScanLoop (route, plan, graphs).
 
@@ -434,8 +437,10 @@ class HeatDiffusion:
         """
         cfg = self.config
         step, prep = self._get_step(variant), self.prepare_fn(variant)
+        tuned = None if chunk is not None else auto_scan_chunk(
+            "diffusion.scan", self.grid, cfg.torch_dtype, config, self.device)
         q = scan_chunk(cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
-                       chunk, "scan driver chunk", config)
+                       chunk, "scan driver chunk", tuned)
         pad = None
         if self._pads(variant):
             pad = torch.zeros(self._padded_shape(), dtype=cfg.torch_dtype, device=self.device)
@@ -581,11 +586,24 @@ class HeatDiffusion:
         fused_multi_step through a sweep loop); the field must fit the
         VMEM budget the JAX package routes by. `chunk` defaults to
         DEFAULT_STEP_CHUNK, gcd'd against both windows; `body_form` and
-        `pad_pow2` select the kernel form. `config="auto"` needs the
-        tuning cache and raises NotImplementedError. `program_cache` is
-        accepted so callers written for the JAX package run unchanged;
-        eager PyTorch has no compiled program to cache, and it is unused."""
-        multistep._check_config(config)
+        `pad_pow2` select the kernel form. `config="auto"` fills the knobs
+        left None from the tuning cache (op "diffusion.vmem_loop"; a tuned
+        chunk only where adoptable_vmem_chunk allows, gcd'd against the
+        windows without a warning; a miss keeps the defaults).
+        `program_cache` is accepted so callers written for the JAX package
+        run unchanged; eager PyTorch has no compiled program to cache, and
+        it is unused."""
+        explicit = chunk is not None
+        if multistep.auto_config(config):
+            cfg = self.config
+            tuned = multistep.tuned_knobs("diffusion.vmem_loop", cfg.global_shape,
+                                          cfg.torch_dtype, self.device)
+            if chunk is None:
+                chunk = tuned.get("chunk")
+            if body_form is None:
+                body_form = tuned.get("body_form")
+            if pad_pow2 is None:
+                pad_pow2 = tuned.get("pad_pow2")
         if body_form is None:
             body_form = multistep.EQC_BODY_FORM
         if pad_pow2 is None:
@@ -593,7 +611,7 @@ class HeatDiffusion:
         return self._run_single_shard(
             nt, warmup, multistep.vmem_sweeps,
             multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk, "chunk", "vmem-loop",
-            explicit=chunk is not None,
+            explicit=explicit,
             extra_kw={"body_form": body_form, "pad_pow2": pad_pow2},
         )
 
@@ -615,11 +633,13 @@ class HeatDiffusion:
                              block_steps: int | None = None, warn: bool = True,
                              config: str | None = None) -> int:
         """The sweep depth run_deep executes for these arguments: an
-        explicit `block_steps`, else default_deep_depth for this shard at
-        the compute width, then gcd'd against both windows."""
+        explicit `block_steps`, else with `config="auto"` the tuned depth
+        (op "diffusion.deep"; dropped where it exceeds a shard edge), else
+        default_deep_depth for this shard at the compute width, then
+        gcd'd against both windows."""
         cfg = self.config
         if block_steps is None:
-            k = deep_halo.resolve_deep_k(self.grid, cfg.torch_dtype, config)
+            k = deep_halo.resolve_deep_k(self.grid, cfg.torch_dtype, config, self.device)
             if k is None:
                 k = default_deep_depth(self.grid.local_shape,
                                        multistep._compute_itemsize(cfg.torch_dtype))
@@ -633,12 +653,12 @@ class HeatDiffusion:
     def effective_wire_mode(self, wire_mode: str | None = None,
                             config: str | None = None) -> str:
         """The state exchange's on-wire precision of a deep run: an explicit
-        `wire_mode`, else the config's. `config="auto"` needs the tuning
-        cache and raises NotImplementedError."""
+        `wire_mode`, else the tuned one with `config="auto"` (op
+        "diffusion.deep"), else the config's."""
         if wire_mode is not None:
             return wire.validate_mode(wire_mode)
         tuned = deep_halo.resolve_deep_config(self.grid, self.config.torch_dtype,
-                                              config)["wire_mode"]
+                                              config, self.device)["wire_mode"]
         return tuned if tuned is not None else self.config.wire_mode
 
     def deep_advance_fn(self, block_steps: int | None = None, nt: int | None = None,

@@ -73,6 +73,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import weakref
 from typing import Callable
 
 import torch
@@ -90,23 +91,51 @@ from rocm_mpi_tpu_torch.telemetry import compiles
 # 0.0027–0.010 ms/step at c = 10 and 0.008–0.058 at c = 250.
 GRAPH_STEP_CAP = 16
 
+# The loops that hold captured graphs. Over NCCL a graph holds work on the
+# process group's communicator, and destroy_process_group waits for ever
+# while one is alive (four H100 ranks, scripts/torch_twin_scan.py):
+# parallel/distributed.finalize releases these first.
+_CAPTURED: weakref.WeakSet = weakref.WeakSet()
 
-def scan_chunk(nt: int, warmup: int, chunk: int | None, label: str, config=None) -> int:
-    """q of a scan driver: effective_block_steps(nt, warmup, nt − warmup or
-    the explicit chunk), warning when an explicit chunk degrades — the JAX
-    package's rule and message. With an unset chunk, `config` is None or
-    "default"; "auto" needs the tuning cache and raises
-    NotImplementedError, anything else ValueError (JAX's auto_scan_chunk
-    seam)."""
+
+def release_graphs() -> None:
+    """Free the graphs of every live loop (ScanLoop.release)."""
+    for loop in list(_CAPTURED):
+        loop.release()
+
+
+def auto_scan_chunk(op: str, grid, dtype, config, device) -> int | None:
+    """The scan drivers' `config="auto"` seam, shared by the three models
+    (JAX's models/diffusion.py:99-125 auto_scan_chunk): the tuning
+    cache's chunk for `op` at this shard and process grid, or None (the
+    default whole-window policy) on a miss or a config that is not
+    "auto". On a grid of several ranks, rank 0 decides for all
+    (tuning/resolve.py), before any capture."""
+    from rocm_mpi_tpu_torch.ops.multistep import auto_config
+
+    if not auto_config(config):
+        return None
+    from rocm_mpi_tpu_torch.tuning import resolve as tuning_resolve
+
+    tuned = tuning_resolve.resolve(op, grid.local_shape, dtype, topology=grid.dims,
+                                   grid=grid, device=device)
+    if tuned and tuned.get("chunk"):
+        return int(tuned["chunk"])
+    return None
+
+
+def scan_chunk(nt: int, warmup: int, chunk: int | None, label: str,
+               tuned: int | None = None) -> int:
+    """q of a scan driver: effective_block_steps(nt, warmup, the explicit
+    chunk, else the tuned one, else nt − warmup), warning when an
+    explicit chunk degrades — the JAX package's rule and message. A tuned
+    chunk (auto_scan_chunk) is a preference: gcd'd against the windows
+    like any chunk, and silent."""
     from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
-    from rocm_mpi_tpu_torch.ops.multistep import _check_config
 
     explicit = chunk is not None
-    if not explicit:
-        # As in JAX, the config is read only for an unset chunk.
-        _check_config(config)
-    return effective_block_steps(nt, warmup, (nt - warmup) if chunk is None else chunk,
-                                 label=label, warn=explicit, stacklevel=4)
+    want = chunk if explicit else (nt - warmup) if tuned is None else tuned
+    return effective_block_steps(nt, warmup, want, label=label, warn=explicit, stacklevel=4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,11 +326,20 @@ class ScanLoop:
                             f"{key[0]}) failed; the loop does not fall back to eager "
                             f"steps: {err}") from err
                     self.graphs[key] = graph
+                    _CAPTURED.add(self)
                     compiles.record_capture(self.label, time.perf_counter() - t_graph)
                     self.recorded[key] = {k: launches[k] - at[k] for k in launches
                                           if launches[k] != at[k]}
         launches.update(before)
         self.capture_s += time.perf_counter() - t0
+
+    def release(self) -> None:
+        """Free the captured graphs and their pool; a later call captures
+        anew."""
+        self.graphs.clear()
+        self.recorded.clear()
+        self._pool = None
+        _CAPTURED.discard(self)
 
     def __call__(self, state: tuple, consts: tuple, n: int) -> tuple:
         """Advance `state` (the p − 1 slots a step reads, in role order) by

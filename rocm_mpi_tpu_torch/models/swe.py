@@ -47,6 +47,7 @@ from rocm_mpi_tpu_torch.config import SWEConfig
 from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
 from rocm_mpi_tpu_torch.models.scan import (
     ScanLoop,
+    auto_scan_chunk,
     check_sweeps,
     graph_plan,
     loop_record,
@@ -261,8 +262,10 @@ class ShallowWater:
         `exact=True`); the caller must rebind the state from the result."""
         cfg = self.config
         step = self._step(variant)
+        tuned = None if chunk is not None else auto_scan_chunk(
+            "swe.scan", self.grid, cfg.torch_dtype, config, self.device)
         q = scan_chunk(cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
-                       chunk, "SWE scan driver chunk", config)
+                       chunk, "SWE scan driver chunk", tuned)
         pads = tuple(torch.zeros(tuple(n + 2 for n in self.grid.local_shape),
                                  dtype=cfg.torch_dtype, device=self.device)
                      for _ in range(cfg.ndim + 1))
@@ -309,14 +312,18 @@ class ShallowWater:
         a sweep loop: CUDA graphs of launches on a CUDA device); the state
         must pass the JAX admission. `chunk` defaults to
         DEFAULT_STEP_CHUNK, gcd'd against both windows (a warning when an
-        explicit chunk degrades); `config="auto"` needs the tuning cache
-        and raises NotImplementedError."""
+        explicit chunk degrades); `config="auto"` fills an unset chunk
+        from the tuning cache (op "swe.vmem_loop", where
+        adoptable_vmem_chunk allows; gcd'd without a warning; a miss
+        keeps the default)."""
         if self.grid.nprocs != 1:
             raise ValueError("the VMEM-resident path requires an unsharded grid")
-        multistep._check_config(config)
         cfg = self.config
-        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
         explicit = chunk is not None
+        if multistep.auto_config(config) and chunk is None:
+            chunk = multistep.tuned_knobs("swe.vmem_loop", cfg.global_shape, cfg.torch_dtype,
+                                          self.device).get("chunk")
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
         chunk = effective_block_steps(
             nt, warmup, multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk,
             warn=explicit, label="SWE VMEM chunk")

@@ -46,6 +46,7 @@ from rocm_mpi_tpu_torch.config import WaveConfig
 from rocm_mpi_tpu_torch.models.diffusion import effective_block_steps
 from rocm_mpi_tpu_torch.models.scan import (
     ScanLoop,
+    auto_scan_chunk,
     check_sweeps,
     graph_plan,
     loop_record,
@@ -261,8 +262,10 @@ class AcousticWave:
         cfg = self.config
         step, _ = self._step(variant)
         prep = self.prepare_fn(variant)
+        tuned = None if chunk is not None else auto_scan_chunk(
+            "wave.scan", self.grid, cfg.torch_dtype, config, self.device)
         q = scan_chunk(cfg.nt if nt is None else nt, cfg.warmup if warmup is None else warmup,
-                       chunk, "wave scan driver chunk", config)
+                       chunk, "wave scan driver chunk", tuned)
         pad = torch.zeros(tuple(n + 2 for n in self.grid.local_shape), dtype=cfg.torch_dtype,
                           device=self.device)
 
@@ -307,14 +310,18 @@ class AcousticWave:
         and Cw formed once per call); the field must fit half the VMEM
         budget the JAX package routes by. `chunk` defaults to
         DEFAULT_STEP_CHUNK, gcd'd against both windows (a warning when an
-        explicit chunk degrades); `config="auto"` needs the tuning cache
-        and raises NotImplementedError."""
+        explicit chunk degrades); `config="auto"` fills an unset chunk
+        from the tuning cache (op "wave.vmem_loop", where
+        adoptable_vmem_chunk allows; gcd'd without a warning; a miss
+        keeps the default)."""
         if self.grid.nprocs != 1:
             raise ValueError("the VMEM-resident path requires an unsharded grid")
-        multistep._check_config(config)
         cfg = self.config
-        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
         explicit = chunk is not None
+        if multistep.auto_config(config) and chunk is None:
+            chunk = multistep.tuned_knobs("wave.vmem_loop", cfg.global_shape, cfg.torch_dtype,
+                                          self.device).get("chunk")
+        nt, warmup = metrics.resolve_windows(cfg, nt, warmup)
         chunk = effective_block_steps(
             nt, warmup, multistep.DEFAULT_STEP_CHUNK if chunk is None else chunk,
             warn=explicit, label="wave VMEM chunk")

@@ -67,8 +67,8 @@ BOX_CELLS = [C_I64] * 6               # lo0..lo2, e0..e2
 BOX = BOX_CELLS + [C_INT]              # and the source offset
 INV_D2 = [C_DBL] * 3
 _SIGNATURES = {
-    "rmt_masked_step": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *INV_D2, C_INT,
-                                C_PTR]),
+    "rmt_masked_step": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, *INV_D2,
+                                C_INT, C_INT, C_PTR]),  # run_cap, vec, stream
     "rmt_fused_step_cm": (C_INT, [C_INT, C_INT, C_PTR, C_I64P, C_I64P, C_I64P, C_PTR, C_PTR,
                                   *EXTENTS, *BOX_CELLS, *INV_D2, C_INT, C_PTR]),
     "rmt_fused_step_padded": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, C_DBL,
@@ -314,7 +314,31 @@ def masked_layout(n_last: int, dtype: torch.dtype, t: int, cm: int, o: int) -> b
             and not (t | cm | o) & 15)
 
 
-def masked_step(T, Cm, spacing, out=None):
+def masked_run_rows(T, run_rows=None, config=None) -> int:
+    """The run-length cap of a masked_step launch on `T` (0: the kernel's
+    own rule, runs of up to 4 rows). An explicit `run_rows` must be a
+    positive int; `config="auto"` fills an unset one from the tuning cache
+    (op "diffusion.masked_step") at fields the VMEM loop would not serve,
+    as pallas_kernels.py:1225-1245 fills `tm`; a miss keeps 0."""
+    from rocm_mpi_tpu_torch.ops import multistep
+
+    if run_rows is not None:
+        if not (isinstance(run_rows, int) and not isinstance(run_rows, bool)
+                and run_rows >= 1):
+            raise ValueError(f"run_rows must be a positive int, got {run_rows!r}")
+        return run_rows
+    if (multistep.auto_config(config) and multistep._compute_nbytes(T.shape, T.dtype)
+            > multistep._VMEM_BLOCK_BUDGET_BYTES):
+        from rocm_mpi_tpu_torch.tuning import resolve as tuning_resolve
+
+        tuned = tuning_resolve.resolve("diffusion.masked_step", T.shape, T.dtype,
+                                       device=T.device)
+        if tuned and tuned.get("run_rows"):
+            return int(tuned["run_rows"])
+    return 0
+
+
+def masked_step(T, Cm, spacing, out=None, run_rows=None, config=None):
     """One explicit step with the Dirichlet mask folded into `Cm`.
 
     Replaces pallas_kernels.masked_step (file:1191: its ghost-block striped
@@ -329,8 +353,15 @@ def masked_step(T, Cm, spacing, out=None):
     neighbours along the last axis by shuffle (csrc/stencil.cu); the
     layout, vectors or scalar cells, is masked_layout's. At 252² the step
     is launch-bound instead (762 KB in f32).
+
+    `run_rows` caps the rows a warp walks (the tuning plane's knob, the
+    counterpart of the TPU kernel's stripe height `tm`), and
+    `config="auto"` takes it from the tuning cache (masked_run_rows); a
+    cell's arithmetic does not depend on its run, so every run length
+    gives the same bits. The plain version has no runs.
     """
     check_operands("masked_step", T, {"Cm": Cm}, T.shape, spacing, out)
+    cap = masked_run_rows(T, run_rows, config)
     inv_d2 = inv_d2_of(spacing)
     operands = (T, Cm) if out is None else (T, Cm, out)
     if not use_kernel(*operands):
@@ -339,7 +370,7 @@ def masked_step(T, Cm, spacing, out=None):
         out = torch.empty_like(T)
     t, cm, o = T.data_ptr(), Cm.data_ptr(), out.data_ptr()
     launch("stencil", _SIGNATURES, "rmt_masked_step", T.device, _DTYPE_CODE[T.dtype], T.ndim,
-           t, cm, o, *extents(T.shape), *inv3(inv_d2),
+           t, cm, o, *extents(T.shape), *inv3(inv_d2), cap,
            masked_layout(T.shape[-1], T.dtype, t, cm, o))
     LAUNCHES["masked_step"] += 1
     return out

@@ -130,21 +130,48 @@ def adoptable_vmem_chunk(v) -> bool:
     )
 
 
-def _check_config(config) -> None:
+def auto_config(config) -> bool:
+    """True for config="auto" (the tuning cache fills the knobs a caller
+    left unset); False for None and "default" (the defaults); anything
+    else raises."""
     if config == "auto":
-        raise NotImplementedError(
-            "config='auto' needs the tuning cache, which is not ported yet"
-        )
+        return True
     if config not in (None, "default"):
         raise ValueError(f"config must be None, 'default' or 'auto', got {config!r}")
+    return False
+
+
+def tuned_knobs(op: str, shape, dtype, device) -> dict:
+    """The knobs the tuning cache holds for VMEM loop `op` at `shape` on
+    `device` ({} on a miss), its chunk only where adoptable_vmem_chunk
+    allows it: the config="auto" seam of the three VMEM loops."""
+    from rocm_mpi_tpu_torch.tuning import resolve as tuning_resolve
+
+    tuned = dict(tuning_resolve.resolve(op, shape, dtype, device=device) or {})
+    if not adoptable_vmem_chunk(tuned.get("chunk")):
+        tuned.pop("chunk", None)
+    return tuned
 
 
 def plan_vmem_loop(shape, dtype, n_steps, chunk=None, body_form=None,
-                   pad_pow2=None, config=None, warn_on_cap=False) -> KernelChoice:
+                   pad_pow2=None, config=None, warn_on_cap=False, device=None) -> KernelChoice:
     """The VMEM loop's decisions as a pure function of its inputs: body
-    form, pow2 pad, and the chunk that resolve_step_chunk allows."""
+    form, pow2 pad, and the chunk that resolve_step_chunk allows.
+
+    `config="auto"` fills the knobs left None from the tuning cache (op
+    "diffusion.vmem_loop" at `shape` on `device`, the device the loop
+    runs on); a tuned chunk is a preference, gcd'd against `n_steps` and
+    taken only where adoptable_vmem_chunk allows; a miss keeps the
+    defaults (pallas_kernels.py:500-535)."""
     shape = tuple(int(d) for d in shape)
-    _check_config(config)
+    if auto_config(config):
+        tuned = tuned_knobs("diffusion.vmem_loop", shape, dtype, device)
+        if chunk is None and "chunk" in tuned:
+            chunk = math.gcd(int(n_steps), tuned["chunk"]) or None
+        if body_form is None:
+            body_form = tuned.get("body_form")
+        if pad_pow2 is None:
+            pad_pow2 = tuned.get("pad_pow2")
     if body_form is None:
         body_form = EQC_BODY_FORM
     if body_form not in ("eqc", "conly"):
@@ -559,7 +586,8 @@ def vmem_sweeps(T, lam, dt, spacing, n_steps: int, chunk=None, warn_on_cap=True,
     inv_d2 = inv_d2_of(spacing)
     orig_shape = tuple(T.shape)
     choice = plan_vmem_loop(orig_shape, T.dtype, n_steps, chunk=chunk, body_form=body_form,
-                            pad_pow2=pad_pow2, config=config, warn_on_cap=warn_on_cap)
+                            pad_pow2=pad_pow2, config=config, warn_on_cap=warn_on_cap,
+                            device=T.device)
     widths = []
     if choice.pad_applied:
         for p, d in reversed(list(zip(choice.padded_shape, orig_shape))):

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -412,7 +413,10 @@ def swe_sweeps(h, dt, spacing, H, g, n_steps: int, chunk=None, warn_on_cap=True,
     multistep.resolve_step_chunk for `n_steps`; `sweep(h, us, Mus,
     out=None) -> (h, us)` one launch of the swe_multi_step kernel (no
     per-call work: the masks are the caller's)."""
-    multistep._check_config(config)
+    if multistep.auto_config(config) and chunk is None:
+        tuned = multistep.tuned_knobs("swe.vmem_loop", h.shape, h.dtype, h.device)
+        if "chunk" in tuned:
+            chunk = math.gcd(int(n_steps), tuned["chunk"]) or None
     _check_swe_vmem(h, "; use the per-step path")
     chunk = multistep.resolve_step_chunk(
         n_steps, chunk, multistep._compute_nbytes(h.shape, h.dtype), warn_on_cap)
@@ -433,8 +437,9 @@ def swe_multi_step(h, us, Mus, dt, spacing, H, g, n_steps: int, chunk=None,
     Replaces swe_kernels.swe_multi_step (file:242): the chunk policy is
     multistep.resolve_step_chunk's (default gcd(n_steps, 256), capped past
     256 KB a field), a chunk that does not divide `n_steps` raises, the
-    admission is the JAX one, and `config="auto"` needs the tuning cache
-    (NotImplementedError). Returns (h, us); the inputs are not written.
+    admission is the JAX one, and `config="auto"` fills an unset chunk
+    from the tuning cache (op "swe.vmem_loop", gcd'd against `n_steps`; a
+    miss keeps the default). Returns (h, us); the inputs are not written.
     """
     plan = swe_sweeps(h, dt, spacing, H, g, n_steps, chunk, warn_on_cap, config)
     state, spare = (h, tuple(us)), None

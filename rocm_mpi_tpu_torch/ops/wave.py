@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -388,7 +389,10 @@ def wave_sweeps(U, dt, spacing, n_steps: int, chunk=None, warn_on_cap=True,
     interior_mask, Cw = dt²·C2·M with dt² the double product, as the JAX
     package forms it); `sweep(U, Uprev, M, Cw, out=None) -> (U, U⁻)` one
     launch of the wave_multi_step kernel."""
-    multistep._check_config(config)
+    if multistep.auto_config(config) and chunk is None:
+        tuned = multistep.tuned_knobs("wave.vmem_loop", U.shape, U.dtype, U.device)
+        if "chunk" in tuned:
+            chunk = math.gcd(int(n_steps), tuned["chunk"]) or None
     nbytes = _check_wave_vmem(U, "field", "; use the per-step path")
     chunk = multistep.resolve_step_chunk(n_steps, chunk, nbytes, warn_on_cap)
     dt2 = float(dt) * float(dt)
@@ -413,8 +417,9 @@ def wave_multi_step(U, Uprev, C2, dt, spacing, n_steps: int, chunk=None, warn_on
     Replaces wave_kernels.wave_multi_step (file:283): the chunk policy is
     multistep.resolve_step_chunk's (default gcd(n_steps, 256), capped past
     256 KB), a chunk that does not divide `n_steps` raises, and
-    `config="auto"` needs the tuning cache (NotImplementedError). Returns
-    the pair (U, U⁻); the inputs are not written.
+    `config="auto"` fills an unset chunk from the tuning cache (op
+    "wave.vmem_loop", gcd'd against `n_steps`; a miss keeps the default).
+    Returns the pair (U, U⁻); the inputs are not written.
     """
     plan = wave_sweeps(U, dt, spacing, n_steps, chunk, warn_on_cap, config)
     M, Cw = plan.prepare(U, C2)

@@ -171,16 +171,37 @@ def padded_update_coefficient(Cp_padded, grid: GlobalGrid, width: int, lam, dt):
     return torch.where(mask, torch.zeros_like(Cp_padded), (dt * lam) / safe)
 
 
-def resolve_deep_config(grid: GlobalGrid, dtype, config: str | None) -> dict:
+def resolve_deep_config(grid: GlobalGrid, dtype, config: str | None, device=None) -> dict:
     """The tuned deep configuration ({"k", "wire_mode"}, None = default
-    policy). Only the default policy is ported: config="auto" needs the
-    tuning cache and raises NotImplementedError."""
-    multistep._check_config(config)
-    return {"k": None, "wire_mode": None}
+    policy) — deep_halo.py:125-172's seam. `config="auto"` consults the
+    tuning cache (op "diffusion.deep", keyed by the LOCAL shard shape and
+    the process grid, on `device`); rank 0 decides for every rank of the
+    grid (tuning/resolve.py), so the ranks never disagree on k or the
+    wire mode. A cached depth deeper than a shard edge (an entry that
+    outlived a reshard) falls back to the default silently; the gate and
+    the validate CLI are the loud half."""
+    nothing = {"k": None, "wire_mode": None}
+    if not multistep.auto_config(config):
+        return nothing
+    from rocm_mpi_tpu_torch.tuning import resolve as tuning_resolve
+
+    tuned = tuning_resolve.resolve("diffusion.deep", grid.local_shape, dtype,
+                                   topology=grid.dims, grid=grid, device=device)
+    if not tuned:
+        return nothing
+    out = dict(nothing)
+    if tuned.get("k"):
+        k = int(tuned["k"])
+        if k >= 1 and all(k <= ln for ln in grid.local_shape):
+            out["k"] = k
+    if tuned.get("wire_mode"):
+        out["wire_mode"] = str(tuned["wire_mode"])
+    return out
 
 
-def resolve_deep_k(grid: GlobalGrid, dtype, config: str | None) -> int | None:
-    return resolve_deep_config(grid, dtype, config)["k"]
+def resolve_deep_k(grid: GlobalGrid, dtype, config: str | None, device=None) -> int | None:
+    """The tuned sweep depth alone (resolve_deep_config's k field)."""
+    return resolve_deep_config(grid, dtype, config, device)["k"]
 
 
 def local_route(padded_shape, dtype, k: int, local_form: str = "auto") -> str:

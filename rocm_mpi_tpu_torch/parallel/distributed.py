@@ -91,5 +91,14 @@ def barrier(group=None) -> None:
 
 
 def finalize() -> None:
+    """Destroy the default process group, after the scan and sweep loops'
+    captured graphs (models/scan.release_graphs): over NCCL they hold work
+    on its communicator, and destroy_process_group waits for ever while
+    one is alive."""
     if is_distributed():
+        from rocm_mpi_tpu_torch.models import scan
+
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        scan.release_graphs()
         dist.destroy_process_group()

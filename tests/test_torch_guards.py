@@ -52,7 +52,10 @@ def test_scan_sees_the_whole_port():
                               "parallel/mesh.py", "parallel/distributed.py",
                               "utils/metrics.py", "ops/resident.py",
                               "apps/_common.py", "utils/checkpoint.py",
-                              "apps/diffusion_3d_perf_hide.py")} <= names
+                              "apps/diffusion_3d_perf_hide.py", "tuning/keys.py",
+                              "tuning/cache.py", "tuning/space.py", "tuning/gate.py",
+                              "tuning/resolve.py", "tuning/search.py", "tuning/__main__.py",
+                              "tuning/__init__.py", "perf/traffic.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
     assert {"scripts/torch_kernel_ab.py", "scripts/torch_face_variants.py"} <= names
 

@@ -189,16 +189,23 @@ def test_effective_deep_depth_matches_jax(shape, dtype, nt, warmup, block):
                 == ref.effective_deep_depth(block_steps=block))
 
 
-def test_config_auto_is_not_ported():
-    ours, _ = _pair((32, 24), "f64", 16, 8)
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        ours.run_vmem_resident(config="auto")
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        ours.effective_deep_depth(config="auto")
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        M.plan_vmem_loop((16, 16), torch.float32, 16, config="auto")
-    with pytest.raises(ValueError, match="config must be"):
-        M.plan_vmem_loop((16, 16), torch.float32, 16, config="fast")
+def test_config_auto_is_not_ported(tmp_path):
+    # The tuning plane is ported now (tests/test_torch_tuning.py): with a
+    # cold cache, config="auto" is the default policy, bitwise.
+    from rocm_mpi_tpu_torch.tuning import resolve
+
+    resolve.configure(tmp_path / "cold.json")
+    try:
+        ours, _ = _pair((32, 24), "f64", 16, 8)
+        assert torch.equal(ours.run_vmem_resident(config="auto").T,
+                           ours.run_vmem_resident().T)
+        assert ours.effective_deep_depth(config="auto") == ours.effective_deep_depth()
+        assert (M.plan_vmem_loop((16, 16), torch.float32, 16, config="auto", device="cpu")
+                == M.plan_vmem_loop((16, 16), torch.float32, 16))
+        with pytest.raises(ValueError, match="config must be"):
+            M.plan_vmem_loop((16, 16), torch.float32, 16, config="fast")
+    finally:
+        resolve.configure(None)
 
 
 # ---------------------------------------------------------------------------

@@ -354,6 +354,29 @@ def test_graph_route_replays_the_eager_schedule(fake_cuda, period, q, cap):
         assert torch.equal(x, y)
 
 
+def test_finalize_releases_the_graphs_before_the_process_group(fake_cuda, monkeypatch):
+    # Over NCCL a captured graph holds work on the group's communicator,
+    # and destroy_process_group waits for ever while one is alive: the
+    # loops' graphs go first, and a loop captures anew when called again.
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    T = torch.rand(12, 8, dtype=torch.float64)
+    C = torch.full((12, 8), 0.1, dtype=torch.float64)
+    loop = scan.ScanLoop(_toy_step, scan.graph_plan(4, 2), "scan-graph")
+    eager = scan.ScanLoop(_toy_step, scan.graph_plan(4, 2), "scan-eager")
+    a, b = (T.clone(),), (T.clone(),)
+    a, b = loop(a, (C,), 8), eager(b, (C,), 8)
+    assert loop.graphs and loop in scan._CAPTURED and eager not in scan._CAPTURED
+    seen = []
+    monkeypatch.setattr(distributed, "is_distributed", lambda: True)
+    monkeypatch.setattr(distributed.dist, "destroy_process_group",
+                        lambda: seen.append(dict(loop.graphs)))
+    distributed.finalize()
+    assert seen == [{}] and not loop.recorded and loop not in scan._CAPTURED
+    a, b = loop(a, (C,), 8), eager(b, (C,), 8)
+    assert loop.graphs and torch.equal(a[0], b[0])
+
+
 def test_graph_route_never_steps_the_state_outside_a_replay(fake_cuda):
     T = torch.rand(12, 8, dtype=torch.float64)
     T0 = T.clone()
@@ -371,14 +394,20 @@ def test_graph_route_never_steps_the_state_outside_a_replay(fake_cuda):
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
-def test_config_seam(name):
+def test_config_seam(name, tmp_path):
+    from rocm_mpi_tpu_torch.tuning import resolve
+
     model = _ours(name)
     for config in (None, "default"):
         assert model.scan_advance_fn("perf", config=config)[1] == 8
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        model.scan_advance_fn("perf", config="auto")
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        model.run("perf", driver="scan", config="auto")
+    # With a cold cache, "auto" is the default chunk (the tuning plane's
+    # warm cases: tests/test_torch_tuning.py).
+    resolve.configure(tmp_path / "cold.json")
+    try:
+        assert model.scan_advance_fn("perf", config="auto")[1] == 8
+        assert model.run("perf", driver="scan", config="auto").k == 8
+    finally:
+        resolve.configure(None)
     with pytest.raises(ValueError, match="config must be"):
         model.scan_advance_fn("perf", config="x")
     with pytest.raises(ValueError, match="driver"):

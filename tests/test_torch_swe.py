@@ -315,8 +315,8 @@ def test_multi_step_wrappers_validate_like_jax():
         S.swe_multi_step(big, (big, big), (big, big), 0.01, SPACING[2], H, G, 8)
     with pytest.raises(ValueError, match="must divide"):
         S.swe_multi_step(ht, ust, Mt, 0.01, SPACING[2], H, G, 10, chunk=4)
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        S.swe_multi_step(ht, ust, Mt, 0.01, SPACING[2], H, G, 8, config="auto")
+    with pytest.raises(ValueError, match="config must be"):
+        S.swe_multi_step(ht, ust, Mt, 0.01, SPACING[2], H, G, 8, config="fast")
     with pytest.raises(ValueError, match="alias"):
         S.fb_multi_step(ht, ust, Mt, cH, cg, 4, out=(ust[0], torch.empty_like(ht),
                                                       torch.empty_like(ht)))
@@ -508,8 +508,8 @@ def test_run_vmem_resident_chunk_and_validation():
         warnings.simplefilter("ignore")
         want = ref.run_vmem_resident(chunk=8)
     _close((got.h, got.us), (want.h, want.us), "f64")
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        ours.run_vmem_resident(config="auto")
+    with pytest.raises(ValueError, match="config must be"):
+        ours.run_vmem_resident(config="fast")
     sharded = ShallowWater(SWEConfig(**_cfg(dims=(2, 1))), grid=_grid((24, 20), (2, 1)),
                            device="cpu")
     with pytest.raises(ValueError, match="unsharded"):

@@ -253,8 +253,8 @@ def test_multi_step_wrappers_validate_like_jax():
         W.wave_multi_step(big, big, big, 0.01, EQUAL[2], 8)
     with pytest.raises(ValueError, match="must divide"):
         W.wave_multi_step(U, U, U, 0.01, EQUAL[2], 10, chunk=4)
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        W.wave_multi_step(U, U, U, 0.01, EQUAL[2], 8, config="auto")
+    with pytest.raises(ValueError, match="config must be"):
+        W.wave_multi_step(U, U, U, 0.01, EQUAL[2], 8, config="fast")
     out = torch.empty_like(U)
     with pytest.raises(ValueError, match="alias"):
         W.leapfrog_multi_step(U, U.clone(), M, M, K.inv_d2_of(EQUAL[2]), 4, "aform",
@@ -393,8 +393,8 @@ def test_run_vmem_resident_chunk_and_validation():
         warnings.simplefilter("ignore")
         want = np.asarray(ref.run_vmem_resident(chunk=8).U)
     np.testing.assert_allclose(got.U.numpy(), want, **TOL["f64"])
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        ours.run_vmem_resident(config="auto")
+    with pytest.raises(ValueError, match="config must be"):
+        ours.run_vmem_resident(config="fast")
     sharded = AcousticWave(WaveConfig(**_cfg(dims=(2, 1))), grid=_grid((24, 20), (2, 1)),
                            device="cpu")
     with pytest.raises(ValueError, match="unsharded"):
@@ -496,7 +496,8 @@ def test_run_reports_metrics_and_refuses_what_is_not_ported():
         WaveConfig(wire_mode="f16")
 
 
-def test_both_models_share_one_timed_window():
+def test_both_models_share_one_timed_window(tmp_path):
+    from rocm_mpi_tpu_torch.tuning import resolve
     from rocm_mpi_tpu_torch.utils import metrics
 
     calls = []
@@ -515,11 +516,15 @@ def test_both_models_share_one_timed_window():
         assert metrics.resolve_windows(model.config, 12, 0) == (12, 0)
         with pytest.raises(ValueError, match="warmup"):
             model.run("perf", nt=4, warmup=4)
-    # `config` reaches the scan driver only, as in JAX; its "auto" needs
-    # the tuning cache, which is not ported.
-    assert torch.equal(wave_model.run("perf", config="auto").U, wave_model.run("perf").U)
-    with pytest.raises(NotImplementedError, match="tuning cache"):
-        wave_model.run("perf", driver="scan", config="auto")
+    # `config` reaches the scan driver only, as in JAX; with a cold tuning
+    # cache its "auto" is the default chunk, bitwise.
+    resolve.configure(tmp_path / "cold.json")
+    try:
+        assert torch.equal(wave_model.run("perf", config="auto").U, wave_model.run("perf").U)
+        auto = wave_model.run("perf", driver="scan", config="auto")
+        assert torch.equal(auto.U, wave_model.run("perf", driver="scan").U) and auto.k == 8
+    finally:
+        resolve.configure(None)
 
 
 def test_entry_point_defaults_to_the_gpu(monkeypatch):

@@ -10,8 +10,9 @@ against the JAX package's apps/weak_scaling.py on the CPU:
   package's HeatDiffusion(...).run("hide") on the same global grid
   within 1e-12, both started from JAX's initial state (the packages'
   Gaussian differs in the last place);
-* `--autotune`, whose plane is not ported, raises NotImplementedError, and
-  a variant the wave or the shallow water lacks exits 2, as in JAX.
+* `--autotune` runs the ladder with config="auto" (with a cold cache, the
+  default chunk), and a variant the wave or the shallow water lacks exits
+  2, as in JAX.
 """
 
 import json
@@ -102,11 +103,25 @@ def test_hide_rung_f64_matches_jax():
 
 
 @pytest.mark.parametrize("flag", [["--autotune"]], ids=lambda f: f[0])
-def test_unported_flags_raise(flag):
+def test_unported_flags_raise(flag, tmp_path, capsys):
+    from rocm_mpi_tpu_torch.tuning import resolve
+
     # --telemetry, --telemetry-windows, --health and --no-probes are real
-    # now (tests/test_torch_telemetry.py); the tuning plane is not ported.
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        weak_scaling.main(["--device", "cpu", "--local", "8", *flag])
+    # (tests/test_torch_telemetry.py), and so is --autotune now: with a
+    # cold tuning cache its one-rank ladder is the default ladder (the
+    # warm four-rank case: tests/test_torch_tuning.py).
+    resolve.configure(tmp_path / "cold.json")
+    argv = ["--device", "cpu", "--local", "8", "--nt", "24", "--warmup", "8", "--json"]
+    try:
+        assert weak_scaling.main([*argv, *flag]) == 0
+    finally:
+        resolve.configure(None)
+    tuned = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert weak_scaling.main(argv) == 0
+    plain = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert [r["devices"] for r in tuned] == [r["devices"] for r in plain] == [1]
 
 
 def test_a_variant_the_workload_lacks_exits_2(capsys):
