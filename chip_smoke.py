@@ -2,10 +2,10 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-19 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-20 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
-the target). Phases, printed as they run (about six minutes on one H100
+the target). Phases, printed as they run (about nine minutes on one H100
 80GB HBM3, the build included):
 
 1. environment — torch, CUDA and nvcc versions, the card's name and power
@@ -233,9 +233,42 @@ the target). Phases, printed as they run (about six minutes on one H100
    and the plain version, each timed. With `--gpus 4`: weak_scaling
    --autotune on 4 spawned ranks (hide, scan, 252² a rank) with the 2×2
    rung's scan chunk in rank 0's cache file alone: every rank of that
-   rung runs the tuned q, the other rungs the default.
+   rung runs the tuned q, the other rungs the default;
+20. resilience (after 19) — the resilience plane
+   (rocm_mpi_tpu_torch/resilience/) on diffusion `perf` at 12288² f32
+   under the scan driver with exact segments (masked_step), each drill
+   bitwise against the straight run of the same length: (a) the app's
+   `--checkpoint --retries 2 --inject-fault crash@step=32` path (48 steps
+   saved every 16) under run_supervised: the events attempt-failed,
+   backoff, restored and recovered, no graph captured by the retry, the
+   launches counted; (b) truncate-latest and a crash at step 32: the
+   supervisor skips the torn step and restores 16; (c) real preemption:
+   SIGTERM to the app as a child (4000 steps saved every 1000) with
+   RMT_PREEMPT_GRACE_S 30 (above the p90 save wall: the emergency save,
+   exit 75, a --resume run bitwise) and 0.2 (below it: preempt.skip-save,
+   exit 75, no torn step directory); (d) a storage outage
+   (io-error@step=16,times=3): degraded, then recovered, the result
+   unchanged. The recovery walls, the save-wall p90 and the bytes a save
+   printed. With `--gpus 4`: [elastic] — the app on 2×2 of 12288²
+   (fused_step_cm's face form under the graphs, NCCL) through the argv
+   launcher (parallel/launcher.spawn_app_ranks) and run_elastic: (a)
+   die@step=32,rank=3: the vanish detected, the grid shrunk to
+   plan_dims's (3, 1), the run resumed from step 32 through the reshard
+   restore, then (device_budget 4) preempted at a boundary and grown back
+   to 2×2; each grid's saves bitwise (per-shard crc32) those of a
+   continuation twin of the same checkpoint on the same grid; (b)
+   stall@step=32,rank=1,at=segment-pre: the watchdog names rank 1 by
+   progress, writes the post-mortem bundle, and the run shrinks and
+   completes; (c) crash@step=32,rank=3 with no retries, its peers
+   waiting on it in NCCL: the crashing rank exits non-zero on its own,
+   first (apps/_common.finalized: no teardown there), the peers are
+   reaped after the peer grace, the run shrinks to (3, 1), resumes from
+   step 32 and ends bitwise a continuation twin's. Each launch's dims,
+   the resume steps, the time from the fault to the next launch's first
+   step and the elastic.jsonl record count printed; no rank outlives its
+   launch.
 
-With `--gpus 4` phases 6-19 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-20 run one rank per GPU over NCCL (6 and 8 for
 500 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
 exchange (the face exchange and the padded one), the interiors and the
 slabs (the diffusion's from the faces and from the block) timed alone; 13
@@ -326,6 +359,13 @@ HIDE_B_WIDTH_3D = (8, 8, 8)  # a shell that leaves an interior to hide
 # [checkpoint]: a run of CKPT_NT steps saved every CKPT_EVERY, "crashed"
 # after CKPT_CRASH and resumed.
 CKPT_NT, CKPT_EVERY, CKPT_CRASH = 48, 16, 32
+# [resilience]: the supervised drills reuse the checkpoint phase's run;
+# the preemption drills run the app as a child, long enough segments
+# (1000 steps, ~0.6 s at 12288²) that the SIGTERM lands inside one.
+PREEMPT_NT, PREEMPT_EVERY = 4000, 1000
+PREEMPT_GRACES = (30.0, 0.2)  # above and below the p90 save wall (under a second here)
+# [elastic], four cards: the app on 2×2 of 12288², saves every 16 steps.
+ELASTIC_NT, ELASTIC_EVERY, ELASTIC_FAULT = 320, 16, 32
 # [sharded-scan]: (label, model, variant, wire mode) on the 2×2 grid of
 # 12288², each under three drivers, in 500 timed steps (q = 10).
 SHARDED_SCAN_NT, SHARDED_SCAN_WARMUP = 510, 10
@@ -3627,6 +3667,519 @@ def phase_checkpoint_sharded(card, gpus: int):
 
 
 # ---------------------------------------------------------------------------
+# The resilience plane: supervised restarts, preemption, storage, elastic
+# ---------------------------------------------------------------------------
+
+
+def _res_model(torch, nt: int, every: int):
+    """(advance(state, n) -> state, (T,)): diffusion perf at 12288² f32 on
+    one card, the scan driver with exact segments of `every` steps — the
+    advance the app's checkpoint mode builds. Each call is a fresh model."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+
+    model = HeatDiffusion(DiffusionConfig(global_shape=BIG, nt=nt, warmup=0, dtype="f32",
+                                          dims=(1, 1)), device="cuda")
+    T, Cp = model.init_state()
+    advance, _ = model.scan_advance_fn("perf", nt=every, warmup=0, exact=True)
+
+    def seg(s, n):
+        return (advance(s[0], Cp, n),)
+
+    seg.loop = advance.loop
+    return seg, (T,)
+
+
+def _supervised_drill(torch, spec: str, directory) -> dict:
+    """One drill of [resilience] (a)/(b): the app's checkpoint mode with
+    --retries 2 --inject-fault `spec` (apps/_common.checkpointed_run, so
+    resilience.run_supervised), CKPT_NT steps saved every CKPT_EVERY, on
+    a fresh model; the launches counted from 0, the graph captures
+    counted, the supervisor's lines timed."""
+    from rocm_mpi_tpu_torch import telemetry
+    from rocm_mpi_tpu_torch.apps import _common
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.resilience import faults
+    from rocm_mpi_tpu_torch.telemetry import compiles
+
+    args = _common.make_parser("perf", nx=BIG[0], ny=BIG[1], nt=CKPT_NT, dtype="f32").parse_args(
+        ["--nt", str(CKPT_NT), "--warmup", "0", "--checkpoint", str(directory),
+         "--ckpt-every", str(CKPT_EVERY), "--retries", "2", "--inject-fault", spec])
+    _common.setup_resilience(args)
+    seg, init = _res_model(torch, CKPT_NT, CKPT_EVERY)
+    lines, ends = [], []
+
+    def log(msg):
+        lines.append((time.perf_counter(), msg))
+
+    def timed(s, n):
+        out = seg(s, n)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+
+    captured = []
+    real_capture = compiles.record_capture
+    compiles.record_capture = lambda label, s: (captured.append(label), real_capture(label, s))
+    telemetry.clear_events()
+    kernels.reset_launches()
+    try:
+        state, ran, _ = _common.checkpointed_run(args, timed, init, log)
+        torch.cuda.synchronize()
+    finally:
+        compiles.record_capture = real_capture
+        faults.install(None)
+    launched = dict(kernels.LAUNCHES)
+    failed_t = next(t for t, msg in lines if "failed" in msg)
+    restored = next(msg for _, msg in lines if "restored step" in msg)
+    return dict(state=state, ran=ran, launches=launched, captures=len(captured),
+                graphs=len(seg.loop.graphs), restored=int(restored.split("restored step ")[1]
+                                                          .split()[0]),
+                events=[r["name"] for r in telemetry.records(kind="event")],
+                recovery_s=next(t for t in ends if t > failed_t) - failed_t)
+
+
+def _preempt_child(d, tel, nt: int, grace: float | None, resume: bool = False):
+    """The diffusion perf app at 12288² f32 as a child process,
+    checkpointing into `d` every PREEMPT_EVERY steps with its telemetry in
+    `tel`; `grace` sets RMT_PREEMPT_GRACE_S. Started, not waited for."""
+    env = dict(os.environ)
+    env.pop("RMT_PREEMPT_GRACE_S", None)
+    if grace is not None:
+        env["RMT_PREEMPT_GRACE_S"] = str(grace)
+    cmd = [sys.executable, "-m", "rocm_mpi_tpu_torch.apps.diffusion_2d_perf", "--nt", str(nt),
+           "--warmup", "0", "--checkpoint", str(d), "--ckpt-every", str(PREEMPT_EVERY),
+           "--telemetry", str(tel)] + (["--resume"] if resume else [])
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _child_events(tel) -> list[dict]:
+    path = pathlib.Path(tel) / "telemetry-rank0.jsonl"
+    recs = [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+    return [r for r in recs if r.get("kind") == "event"]
+
+
+def _preempt_drill(torch, root, grace: float) -> dict:
+    """[resilience] (c): SIGTERM to the app child once its first save is
+    on disk (the next boundary is ~0.6 s away), with a grace of `grace`
+    seconds; returns its exit code, the steps on disk and its events."""
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    d, tel = pathlib.Path(root) / f"pre-{grace}", pathlib.Path(root) / f"tel-{grace}"
+    child = _preempt_child(d, tel, PREEMPT_NT, grace)
+    try:
+        first = d / f"manifest-{PREEMPT_EVERY}.json"
+        deadline = time.monotonic() + 300
+        while not first.exists() and child.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.02)
+        time.sleep(0.1)  # out of the save, into the next segment
+        t_signal = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        out, err = child.communicate(timeout=300)
+        exit_s = time.perf_counter() - t_signal
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    events = _child_events(tel)
+    return dict(rc=child.returncode, steps=ckpt.all_steps(d), dir=d,
+                partial=sorted(p.name for p in d.glob(".*.partial")),
+                events=[e["name"] for e in events], exit_s=exit_s,
+                detail={e["name"]: e for e in events}, stderr=err[-2000:], stdout=out[-2000:])
+
+
+def phase_resilience(torch, card):
+    """[resilience], one card: drills (a)-(d) (module docstring), each
+    bitwise against the straight run of its length. Returns the record,
+    with the drills' masked_step launches."""
+    import tempfile
+
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.resilience import faults
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    out = {"launches": {name: 0 for name in kernels.LAUNCHES}}
+    root = tempfile.mkdtemp(prefix="rmt-res-")
+    try:
+        seg, init = _res_model(torch, CKPT_NT, CKPT_EVERY)
+        straight = seg((init[0].clone(),), CKPT_NT)[0].clone()
+        torch.cuda.synchronize()
+        del seg, init
+        ckpt._SAVE_WALLS.clear()
+        for name, spec, restored, launched in (
+                ("crash", f"crash@step={CKPT_CRASH}", CKPT_CRASH, CKPT_NT),
+                ("truncate", f"truncate-latest@step={CKPT_CRASH};crash@step={CKPT_CRASH}",
+                 CKPT_CRASH - CKPT_EVERY, CKPT_NT + CKPT_EVERY)):
+            f = _supervised_drill(torch, spec, f"{root}/{name}")
+            check(torch.equal(f.pop("state")[0], straight),
+                  f"[resilience] {name}: the supervised run != the straight run")
+            for ev in ("attempt-failed", "backoff", "restored", "recovered"):
+                check(ev in f["events"], f"[resilience] {name}: no {ev} event ({f['events']})")
+            check(f["restored"] == restored, f"[resilience] {name}: restored {f['restored']}")
+            check(f["captures"] == f["graphs"] and f["graphs"] >= 1,
+                  f"[resilience] {name}: {f['captures']} captures for {f['graphs']} graph(s)")
+            check(f["launches"] == only("masked_step", launched),
+                  f"[resilience] {name}: launches {f['launches']}")
+            out["launches"]["masked_step"] += f["launches"]["masked_step"]
+            out[name] = f
+            print(f"[resilience] ({'a' if name == 'crash' else 'b'}) perf 12288x12288 f32, "
+                  f"--checkpoint --ckpt-every {CKPT_EVERY} --retries 2 --inject-fault '{spec}' "
+                  f"({CKPT_NT} steps): restored step {restored}, bitwise == the straight run; "
+                  f"events {' '.join(f['events'])}; {f['captures']} graph capture(s) for "
+                  f"{f['graphs']} graph(s) (the retry captured none); masked_step launches "
+                  f"{f['launches']['masked_step']}; recovery wall {f['recovery_s']:.3f} s "
+                  f"(the failure to the first segment after the restore, the 0.5 s backoff "
+                  f"included) on {card}", flush=True)
+            shutil.rmtree(f"{root}/{name}", ignore_errors=True)
+
+        # (c) preemption: the emergency save, then the skip.
+        seg, init = _res_model(torch, PREEMPT_NT, PREEMPT_EVERY)
+        straight_long = seg((init[0].clone(),), PREEMPT_NT)[0].clone()
+        torch.cuda.synchronize()
+        del seg, init
+        saved, skipped = (_preempt_drill(torch, root, g) for g in PREEMPT_GRACES)
+        pre = 2 * PREEMPT_EVERY
+        check(saved["rc"] == 75, f"[resilience] preempted child (grace 30 s) exited "
+              f"{saved['rc']}:\n{saved['stderr']}")
+        check(saved["steps"] == [PREEMPT_EVERY, pre] and not saved["partial"],
+              f"[resilience] grace 30 s: steps on disk {saved['steps']} {saved['partial']}")
+        check("preempt.noticed" in saved["events"] and "preempt.save" in saved["events"],
+              f"[resilience] grace 30 s: events {saved['events']}")
+        p90 = saved["detail"]["preempt.save"]["save_wall_p90_s"]
+        res_dir = saved["dir"]
+        resumed = _preempt_child(res_dir, pathlib.Path(root) / "tel-resume", PREEMPT_NT, None,
+                                 resume=True)
+        rout, rerr = resumed.communicate(timeout=600)
+        check(resumed.returncode == 0, f"[resilience] the --resume child exited "
+              f"{resumed.returncode}:\n{rerr[-2000:]}")
+        (final,) = ckpt.restore_state(res_dir, PREEMPT_NT, None, devices="cuda")
+        check(torch.equal(final, straight_long),
+              "[resilience] preempted and resumed != straight")
+        manifest_bytes = sum(ckpt.read_manifest(res_dir, PREEMPT_NT)["files"].values())
+        del final, straight_long
+        check(skipped["rc"] == 75, f"[resilience] preempted child (grace 0.2 s) exited "
+              f"{skipped['rc']}:\n{skipped['stderr']}")
+        check(skipped["steps"] == [PREEMPT_EVERY] and not skipped["partial"],
+              f"[resilience] grace 0.2 s: steps on disk {skipped['steps']} "
+              f"{skipped['partial']} (a torn or extra step)")
+        check("preempt.skip-save" in skipped["events"] and "preempt.save" not in
+              skipped["events"], f"[resilience] grace 0.2 s: events {skipped['events']}")
+        skip = skipped["detail"]["preempt.skip-save"]
+        out["preempt"] = dict(saved={k: v for k, v in saved.items() if k != "dir"},
+                              skipped={k: v for k, v in skipped.items() if k != "dir"})
+        print(f"[resilience] (c) SIGTERM to the perf app (12288x12288 f32, {PREEMPT_NT} steps "
+              f"saved every {PREEMPT_EVERY}) after its first save: RMT_PREEMPT_GRACE_S 30 -> "
+              f"the emergency save at step {pre} (p90 save wall {p90:.3f} s), exit 75 "
+              f"{saved['exit_s']:.2f} s after the signal, --resume to {PREEMPT_NT} bitwise == "
+              f"the straight run; RMT_PREEMPT_GRACE_S 0.2 -> preempt.skip-save (grace left "
+              f"{skip['remaining_grace_s']:.3f} s < 1.5 x p90 {skip['save_wall_p90_s']:.3f} s), "
+              f"exit 75 after {skipped['exit_s']:.2f} s, steps on disk {skipped['steps']}, no "
+              f"torn step directory; on {card}", flush=True)
+
+        # (d) a storage outage: the fault plan's storage kind at the save site.
+        from rocm_mpi_tpu_torch import telemetry
+
+        seg, init = _res_model(torch, CKPT_NT, CKPT_EVERY)
+        telemetry.clear_events()
+        faults.install(f"io-error@step={CKPT_EVERY},times=3")
+        kernels.reset_launches()
+        try:
+            got = ckpt.run_segmented(seg, init, CKPT_NT, f"{root}/outage", CKPT_EVERY)
+            torch.cuda.synchronize()
+        finally:
+            faults.install(None)
+        check(kernels.LAUNCHES == only("masked_step", CKPT_NT),
+              f"[resilience] (d) launches {kernels.LAUNCHES}")
+        out["launches"]["masked_step"] += kernels.LAUNCHES["masked_step"]
+        names = [r["name"] for r in telemetry.records(kind="event")]
+        check(torch.equal(got[0], straight),
+              "[resilience] (d) the run through the outage != straight")
+        check(names.count("ckpt.retry") == 2 and "ckpt.degraded" in names
+              and "ckpt.recovered" in names, f"[resilience] (d) events {names}")
+        steps = ckpt.all_steps(f"{root}/outage")
+        check(steps == [2 * CKPT_EVERY, CKPT_NT], f"[resilience] (d) steps on disk {steps}")
+        out["outage"] = dict(events=names, steps=steps)
+        walls = sorted(ckpt._SAVE_WALLS)
+        out["save_wall_p90_s"] = ckpt.save_wall_p90()
+        out["bytes_per_save"] = manifest_bytes
+        print(f"[resilience] (d) io-error@step={CKPT_EVERY},times=3 over a {CKPT_NT}-step run: "
+              f"2 retries, degraded at step {CKPT_EVERY}, recovered at {2 * CKPT_EVERY}; steps "
+              f"on disk {steps}; the result bitwise unchanged. This process's save walls: p90 "
+              f"{out['save_wall_p90_s']:.3f} s over {len(walls)} saves of "
+              f"{manifest_bytes / 1e6:.1f} MB; on {card}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _elastic_app_argv(directory, nt: int) -> list[str]:
+    """The perf app at 12288² f32, checkpointed and resumable: each
+    launch of an elastic run resumes from the latest valid step on its
+    own grid."""
+    return ["-m", "rocm_mpi_tpu_torch.apps.diffusion_2d_perf", "--nt", str(nt), "--warmup",
+            "0", "--checkpoint", str(directory), "--ckpt-every", str(ELASTIC_EVERY), "--resume"]
+
+
+def _snapshot(directory, dest) -> int | None:
+    """Copy `directory`'s latest valid step (and its manifest) into
+    `dest`: the checkpoint a continuation twin starts from."""
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    step = ckpt.latest_valid_step(directory)
+    if step is not None:
+        dest = pathlib.Path(dest)
+        dest.mkdir(parents=True, exist_ok=True)
+        shutil.copytree(pathlib.Path(directory) / str(step), dest / str(step))
+        shutil.copy2(pathlib.Path(directory) / f"manifest-{step}.json", dest)
+    return step
+
+
+def _twin_crcs(start_dir, nprocs: int, nt: int) -> list:
+    """Continue the checkpoint in `start_dir` to `nt` on `nprocs` ranks
+    (the same app, the same launcher), and return the shard crc32s of its
+    step-`nt` save, in rank order."""
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_app_ranks
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    res = spawn_app_ranks(_elastic_app_argv(start_dir, nt), nprocs=nprocs, timeout=600,
+                          peer_grace_s=10.0)
+    for rank, (p, (out, err)) in enumerate(res):
+        check(p.returncode == 0, f"[elastic] twin rank {rank} exited {p.returncode}:\n"
+              f"{err[-2000:]}")
+    return [s["crc32"] for s in ckpt.read_manifest(start_dir, nt)["shards"]]
+
+
+def _elastic_drill(root, name, spec, budget=None, timeout=900) -> dict:
+    """One run_elastic drill on four cards (each launch cut at `timeout`
+    s); every launch's results, start time and the snapshot of the
+    checkpoint it left are kept, and each launch's first step after its
+    resume point is timed from the health sidecars."""
+    import threading
+
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_app_ranks
+    from rocm_mpi_tpu_torch.resilience import ElasticPolicy, run_elastic
+    from rocm_mpi_tpu_torch.telemetry import health
+
+    ck, hdir = pathlib.Path(root) / name, pathlib.Path(root) / f"{name}-health"
+    launches = []
+
+    def launch(argv, nprocs, **kw):
+        rec = dict(nprocs=nprocs, start=time.monotonic(), first_step=None)
+        from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+        resume = ckpt.latest_valid_step(ck) or 0
+        stop = threading.Event()
+
+        def first_step():
+            while not stop.is_set():
+                beats, _ = health.load_heartbeats(hdir)
+                steps = [b.get("counters", {}).get("step", 0) for b in beats.values()]
+                if any(s > resume for s in steps):
+                    rec["first_step"] = time.monotonic()
+                    return
+                stop.wait(0.05)
+
+        watcher = threading.Thread(target=first_step, daemon=True)
+        chained = kw.get("on_spawn")
+
+        def on_spawn(procs):
+            # After the launcher cleared the last launch's sidecars.
+            watcher.start()
+            if chained is not None:
+                chained(procs)
+
+        kw["on_spawn"] = on_spawn
+        try:
+            rec["results"] = spawn_app_ranks(argv, nprocs=nprocs, **kw)
+        finally:
+            stop.set()
+            if watcher.is_alive():
+                watcher.join(timeout=5)
+        rec["end"] = time.monotonic()
+        rec["resume"] = resume
+        rec["snapshot_step"] = _snapshot(ck, pathlib.Path(root) / f"{name}-snap{len(launches)}")
+        launches.append(rec)
+        return rec["results"]
+
+    kwargs = dict(device_budget=budget, policy=ElasticPolicy(grow_poll_s=0.2)) if budget else {}
+    report = run_elastic(_elastic_app_argv(ck, ELASTIC_NT), 4, checkpoint_dir=ck,
+                         global_shape=BIG, health_dir=hdir, inject_fault=spec, launch=launch,
+                         timeout=timeout, heartbeat_s=5.0, peer_grace_s=5.0, stall_grace_s=8.0,
+                         postmortem_grace_s=1.0, vanish_grace_s=6.0, **kwargs)
+    # No rank outlives its launch.
+    for rec in launches:
+        for p, _ in rec["results"]:
+            check(p.poll() is not None and p.pid not in children(),
+                  f"[elastic] {name}: rank pid {p.pid} outlived its launch")
+    events, skipped = health.load_elastic_events(hdir)
+    return dict(report=report, launches=launches, ck=ck, events=events, skipped=skipped)
+
+
+def _fault_to_first_step(drill) -> float:
+    """Seconds from the fault (the first launch's first failure, or its
+    watchdog kill) to the next launch's first step past its resume point."""
+    first, second = drill["launches"][:2]
+    report = first["results"].report
+    t_fault = first["start"] + report.first_failure[2]
+    if report.watchdog_verdicts:  # the stall began that long before the kill
+        t_fault -= report.watchdog_verdicts[0]["stalled_for_s"]
+    check(second["first_step"] is not None, "[elastic] the relaunch never stepped")
+    return second["first_step"] - t_fault
+
+
+def phase_elastic(card, gpus: int):
+    """[elastic], four cards: drills (a)-(c) (module docstring)."""
+    import tempfile
+
+    check(gpus == 4, "[elastic] needs 4 GPUs")
+    out = {}
+    # The ranks' host threads: a save's host copy and crc32 is their only
+    # CPU work, and four ranks of the host's default thread count would
+    # contend for its cores while the watchdog times their progress.
+    threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = str(max((os.cpu_count() or 4) // gpus, 1))
+    try:
+        with tempfile.TemporaryDirectory(prefix="rmt-elastic-") as root:
+            _elastic_drills(root, card, out)
+    finally:
+        if threads is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = threads
+    return out
+
+
+def _elastic_drills(root, card, out) -> None:
+    """[elastic]'s drills (a)-(c) in `root`, their records into `out`."""
+    for drill in (_elastic_die, _elastic_stall, _elastic_crash):
+        drill(root, card, out)
+
+
+def _elastic_die(root, card, out) -> None:
+    """(a) die, shrink to plan_dims's sub-grid, grow back to 2x2."""
+    from rocm_mpi_tpu_torch.parallel.mesh import plan_dims
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    sub = list(plan_dims(BIG, 3))
+    t0 = time.perf_counter()
+    d = _elastic_drill(root, "die", f"die@step={ELASTIC_FAULT},rank=3", budget=4)
+    rep = d["report"]
+    dims = [launch["mesh"] for launch in rep.launches]
+    check([launch["nprocs"] for launch in rep.launches] == [4, 3, 4]
+          and dims == [[2, 2], sub, [2, 2]] and rep.shrinks == 1 and rep.grows == 1,
+          f"[elastic] die: launches {rep.launches}")
+    _, shrunk, grown = d["launches"]
+    check("vanished" in rep.launches[0]["reason"] and rep.launches[0]["dead_ranks"] == [3],
+          f"[elastic] die: {rep.launches[0]}")
+    check(shrunk["resume"] == ELASTIC_FAULT, f"[elastic] die: resumed {shrunk['resume']}")
+    grow_step = grown["resume"]
+    check(rep.launches[1]["status"] == "preempted" and grow_step > ELASTIC_FAULT
+          and grow_step % ELASTIC_EVERY == 0, f"[elastic] die: grew at {grow_step}")
+    # Each grid's saves == a continuation twin's on the same grid.
+    sub_crcs = _twin_crcs(pathlib.Path(root) / "die-snap0", 3, grow_step)
+    got = [s["crc32"] for s in ckpt.read_manifest(pathlib.Path(root) / "die-snap1",
+                                                  grow_step)["shards"]]
+    check(got == sub_crcs, f"[elastic] die: the {sub} run's step-{grow_step} shards != "
+          "the continuation twin's")
+    full_crcs = _twin_crcs(pathlib.Path(root) / "die-snap1", 4, ELASTIC_NT)
+    got = [s["crc32"] for s in ckpt.read_manifest(d["ck"], ELASTIC_NT)["shards"]]
+    check(got == full_crcs, f"[elastic] die: the grown run's step-{ELASTIC_NT} shards != "
+          "the 2x2 continuation twin's")
+    fault_s = _fault_to_first_step(d)
+    out["die"] = dict(launches=rep.launches, grow_step=grow_step, fault_to_step_s=fault_s,
+                      records=len(d["events"]), seconds=time.perf_counter() - t0)
+    print(f"[elastic] (a) perf 2x2 of 12288x12288 f32, 4 GPUs, NCCL ({card} each), the app "
+          f"through spawn_app_ranks and run_elastic (device_budget 4), "
+          f"die@step={ELASTIC_FAULT},rank=3: launches dims {dims} (resume steps "
+          f"{[launch['resume'] for launch in d['launches']]}); the vanish judged "
+          f"'{rep.launches[0]['reason']}', shrunk to plan_dims's {sub}, resumed from step "
+          f"{ELASTIC_FAULT} through the reshard restore, bitwise == the {sub} continuation "
+          f"twin at step {grow_step}; grown back to 2x2 at step {grow_step} (rc "
+          f"{rep.launches[1]['returncodes']}), bitwise == the 2x2 twin at step "
+          f"{ELASTIC_NT}; the fault to the next first step {fault_s:.2f} s; elastic.jsonl "
+          f"{len(d['events'])} records; {out['die']['seconds']:.1f} s", flush=True)
+
+
+def _elastic_stall(root, card, out) -> None:
+    """(b) stall at the pre-save site: the watchdog names rank 1 by
+    progress."""
+    t0 = time.perf_counter()
+    d = _elastic_drill(root, "stall", f"stall@step={ELASTIC_FAULT},rank=1,at=segment-pre")
+    rep = d["report"]
+    first = d["launches"][0]["results"].report
+    verdict = first.watchdog_verdicts[0] if first.watchdog_verdicts else {}
+    check(rep.launches[0]["reason"] == "watchdog-stall" and verdict.get("rank") == 1
+          and verdict["step"] < verdict["median_step"],
+          f"[elastic] stall: {rep.launches[0]} {first.watchdog_verdicts}")
+    check(any("bundled post-mortem for rank(s) [1]" in e for e in first.events),
+          f"[elastic] stall: no post-mortem bundle ({first.events})")
+    check([launch["nprocs"] for launch in rep.launches] == [4, 3] and rep.shrinks == 1
+          and rep.launches[-1]["ok"], f"[elastic] stall: launches {rep.launches}")
+    check(d["launches"][1]["resume"] == ELASTIC_FAULT - ELASTIC_EVERY,
+          f"[elastic] stall: resumed {d['launches'][1]['resume']}")
+    fault_s = _fault_to_first_step(d)
+    out["stall"] = dict(launches=rep.launches, verdict=verdict, fault_to_step_s=fault_s,
+                        records=len(d["events"]), seconds=time.perf_counter() - t0)
+    print(f"[elastic] (b) stall@step={ELASTIC_FAULT},rank=1,at=segment-pre: the watchdog "
+          f"named rank {verdict['rank']} (step {verdict['step']} against the median "
+          f"{verdict['median_step']}, no progress for {verdict['stalled_for_s']} s), wrote "
+          f"the post-mortem bundle; shrunk to {rep.launches[1]['mesh']}, resumed from step "
+          f"{d['launches'][1]['resume']} and completed; the fault to the next first step "
+          f"{fault_s:.2f} s; elastic.jsonl {len(d['events'])} records; "
+          f"{out['stall']['seconds']:.1f} s; no rank outlived its launch", flush=True)
+
+
+def _elastic_crash(root, card, out) -> None:
+    """(c) crash on one rank, no retries, while its peers wait on it over
+    NCCL: it must exit first, on its own (apps/_common.finalized). A
+    teardown that waited for the peers would hold the launch to its cut
+    (short here) with no first failure."""
+    from rocm_mpi_tpu_torch.parallel.mesh import plan_dims
+    from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
+
+    sub = list(plan_dims(BIG, 3))
+    t0 = time.perf_counter()
+    d = _elastic_drill(root, "crash", f"crash@step={ELASTIC_FAULT},rank=3", timeout=150)
+    rep = d["report"]
+    first = d["launches"][0]
+    res = first["results"]
+    failure = res.report.first_failure
+    rcs = [p.returncode for p, _ in res]
+    check(failure is not None and failure[0] == 3 and failure[1] > 0 and rcs[3] == failure[1],
+          f"[elastic] crash: first failure {failure}, returncodes {rcs}, rank 3's "
+          f"stderr:\n{res[3][1][1][-2000:]}")
+    check("InjectedCrash" in res[3][1][1], "[elastic] crash: rank 3 did not crash by the "
+          f"injected fault:\n{res[3][1][1][-2000:]}")
+    launch_s = first["end"] - first["start"]
+    check(launch_s - failure[2] <= 5.0 + 10.0,
+          f"[elastic] crash: the launch ended {launch_s - failure[2]:.2f} s after rank 3's "
+          "exit, past the 5 s peer grace")
+    check([launch["nprocs"] for launch in rep.launches] == [4, 3]
+          and rep.launches[1]["mesh"] == sub and rep.shrinks == 1
+          and rep.launches[0]["dead_ranks"] == [3] and rep.launches[-1]["ok"],
+          f"[elastic] crash: launches {rep.launches}")
+    check(d["launches"][1]["resume"] == ELASTIC_FAULT,
+          f"[elastic] crash: resumed {d['launches'][1]['resume']}")
+    crcs = _twin_crcs(pathlib.Path(root) / "crash-snap0", 3, ELASTIC_NT)
+    got = [s["crc32"] for s in ckpt.read_manifest(d["ck"], ELASTIC_NT)["shards"]]
+    check(got == crcs, f"[elastic] crash: the {sub} run's step-{ELASTIC_NT} shards != the "
+          "continuation twin's")
+    fault_s = _fault_to_first_step(d)
+    out["crash"] = dict(launches=rep.launches, first_failure=list(failure), returncodes=rcs,
+                        reaped_after_s=launch_s - failure[2], fault_to_step_s=fault_s,
+                        records=len(d["events"]), seconds=time.perf_counter() - t0)
+    print(f"[elastic] (c) crash@step={ELASTIC_FAULT},rank=3, no retries ({card} each): rank 3 "
+          f"printed its traceback and exited rc {failure[1]} first, "
+          f"{failure[2]:.2f} s into its launch; returncodes {rcs}, the launch over "
+          f"{launch_s - failure[2]:.2f} s after (peer grace 5 s); judged "
+          f"'{rep.launches[0]['reason']}', shrunk to {rep.launches[1]['mesh']}, resumed from "
+          f"step {d['launches'][1]['resume']}, bitwise == the {sub} continuation twin at step "
+          f"{ELASTIC_NT}; the fault to the next first step {fault_s:.2f} s; elastic.jsonl "
+          f"{len(d['events'])} records; {out['crash']['seconds']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # The transport plane: ring, host-staged oracle, wire modes, dry run
 # ---------------------------------------------------------------------------
 
@@ -4761,7 +5314,7 @@ def main(argv=None) -> int:
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
                         help="4: run only the sharded phases (perf, sharded scan, deep, hide, "
                         "wave and shallow-water deep, 3d, checkpoint, weak scaling, telemetry, "
-                        "tune, ring, host-staged, wire, dryrun), "
+                        "tune, elastic, ring, host-staged, wire, dryrun), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -4810,6 +5363,7 @@ def main(argv=None) -> int:
         record["weak_scaling_ranks"], _ = phase_weak_scaling(card, args.gpus)
         record["telemetry"] = phase_telemetry_sharded(card, args.gpus)
         record["tune"] = phase_tune_sharded(card, args.gpus)
+        record["elastic"] = phase_elastic(card, args.gpus)
         record["transport"], _ = phase_transport(torch, card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
@@ -4834,6 +5388,7 @@ def main(argv=None) -> int:
     ckpt_rec = phase_checkpoint(torch, card)
     tel_rec, tel_launches = phase_telemetry(torch, card)
     tune_rec = phase_tune(torch, card, pk)
+    res_rec = phase_resilience(torch, card)
     ranks, fused_launches, kp_sharded_launches = phase_sharded(card, 1)
     deep_ranks, deep_launches = phase_sharded_deep(card, 1)
     hide_ranks, hide_launches = phase_hide(card, 1)
@@ -4869,7 +5424,7 @@ def main(argv=None) -> int:
     for counts in (cube["perf"]["launches"], cube["deep"]["launches"],
                    *(ckpt_rec[k][w] for k in ("perf", "deep", "swe")
                      for w in ("crashed_launches", "resumed_launches")),
-                   weak_launches, transport_launches, tel_launches):
+                   weak_launches, transport_launches, tel_launches, res_rec["launches"]):
         for name, count in counts.items():
             launches[name] += count
     line = []
@@ -4898,7 +5453,7 @@ def main(argv=None) -> int:
             sharded_deep_ranks=deep_ranks, hide_ranks=hide_ranks,
             wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks,
             weak_scaling_ranks=weak_ranks, three_d=cube, checkpoint=ckpt_rec, host=host,
-            telemetry=tel_rec, tune=tune_rec,
+            telemetry=tel_rec, tune=tune_rec, resilience=res_rec,
             transport=transport, kernels=line, seconds=time.perf_counter() - t0,
         ), indent=1, default=str))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

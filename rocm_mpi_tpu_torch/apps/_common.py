@@ -14,15 +14,26 @@ and telemetry-trace.json at the end; RMT_TELEMETRY_DIR is the env
 spelling), `--health` (the flight recorder's heartbeat sidecars and the
 SIGUSR2 post-mortem hook; RMT_HEALTH) and `--profile DIR`
 (torch.profiler over the run, a Chrome trace per rank in DIR).
+
+Every app that takes `--checkpoint` takes the JAX apps' resilience flags:
+`--retries N` (the checkpointed run under resilience.run_supervised) and
+`--inject-fault SPEC` (resilience/faults.py; RMT_INJECT_FAULT is the env
+spelling). Setup installs the fault plan before the process group forms
+and arms the SIGTERM grace handler when RMT_PREEMPT_GRACE_S is set; an
+app leaves through distributed.finalize however it ends, a preemption's
+exit 75 included.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import pathlib
 import shutil
 import subprocess
 import sys
+import traceback
 
 from rocm_mpi_tpu_torch.parallel.wire import WIRE_MODES
 
@@ -284,17 +295,13 @@ def add_save_field_flag(p) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Checkpoint mode (counterpart of apps/_common.py:215-386)
+# Checkpoint mode and the resilience plane (counterpart of apps/_common.py)
 # ---------------------------------------------------------------------------
-
-# The resilience plane's flags: parsed, then refused (ROADMAP Queue 1 item 9).
-RESILIENCE_FLAGS = {"retries": "--retries", "inject_fault": "--inject-fault"}
 
 
 def add_checkpoint_flags(p) -> None:
-    """The shared --checkpoint/--ckpt-every/--resume block
-    (utils/checkpoint.py), and the resilience plane's --retries and
-    --inject-fault, which the port refuses."""
+    """The shared --checkpoint/--ckpt-every/--resume/--retries/
+    --inject-fault block (utils/checkpoint.py and resilience/)."""
     p.add_argument("--checkpoint", default=None, metavar="DIR",
                    help="checkpoint the run state into DIR every --ckpt-every steps "
                    "(each rank saves its shards; utils/checkpoint.py)")
@@ -306,19 +313,60 @@ def add_checkpoint_flags(p) -> None:
                    "DIR (corrupt or truncated checkpoints are skipped) instead of the "
                    "initial condition")
     p.add_argument("--retries", type=nonneg_int, default=0, metavar="N",
-                   help="supervised restarts (not ported yet: refused)")
+                   help="with --checkpoint: supervise the run — on a crash or a CUDA or "
+                   "storage error, restore the latest valid checkpoint and retry with "
+                   "exponential backoff, up to N restarts (resilience.run_supervised)")
     p.add_argument("--inject-fault", default=None, metavar="SPEC",
-                   help="fault injection drills (not ported yet: refused)")
+                   help="deterministic fault injection for drills and tests, e.g. "
+                   "'crash@step=12' or 'truncate-latest@segment=2' "
+                   "(rocm_mpi_tpu_torch/resilience/faults.py has the grammar; "
+                   "RMT_INJECT_FAULT is the env spelling the launcher forwards)")
 
 
-def refuse_unported_resilience(args) -> None:
-    """Exit 2, naming the flags, when the resilience plane's flags are set."""
-    given = [flag for dest, flag in RESILIENCE_FLAGS.items() if getattr(args, dest, None)]
-    if given:
-        print(f"{', '.join(given)}: the resilience plane (supervised restarts, fault "
-              "injection; rocm_mpi_tpu/resilience/) is not ported yet (ROADMAP Queue 1 "
-              "item 9); run without it", file=sys.stderr, flush=True)
-        raise SystemExit(2)
+def setup_resilience(args) -> None:
+    """Before the process group forms: install --inject-fault's plan (the
+    "init" site fires while the group forms), and arm the SIGTERM
+    grace-deadline handler when the launcher says so
+    (RMT_PREEMPT_GRACE_S; resilience/preempt.py)."""
+    from rocm_mpi_tpu_torch.resilience import faults, preempt
+
+    if getattr(args, "inject_fault", None):
+        faults.install(args.inject_fault)
+    preempt.install_from_env()
+
+
+@contextlib.contextmanager
+def finalized():
+    """Run an app's body so that a SystemExit out of it (a preemption's
+    code 75, which every rank of the grid takes at the same boundary)
+    leaves through distributed.finalize, which releases the captured
+    graphs before the process group (a group destroyed under live graphs
+    that hold NCCL work waits for ever).
+
+    Any other exception (a crash after the retries ran out) may strike
+    one rank while its peers wait on it in NCCL, and there finalize
+    never returns: a crash drill on four H100s held the crashed rank in
+    it until its launch was cut, with no first failure for the launcher
+    to act on. A rank of several over NCCL therefore prints the
+    traceback and exits 1 at once, without tearing anything down, as a
+    killed rank would; the launcher's first failure and peer-grace kill
+    take it from there. Elsewhere (one rank, gloo) the exception leaves
+    through finalize too."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    try:
+        yield
+    except SystemExit:
+        distributed.finalize()
+        raise
+    except BaseException:
+        if distributed.world_size() > 1 and distributed.backend() == "nccl":
+            traceback.print_exc()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
+        distributed.finalize()
+        raise
 
 
 def checkpoint_interval(args, quantum: int = 1, log0=None) -> int:
@@ -364,20 +412,28 @@ def checkpointed_run(args, advance, init_state, log0, quantum: int = 1, grid=Non
     latest valid step first. `advance(state, n) -> state` runs exactly
     n steps; its `loop` attribute, when set, is the loop whose graphs the
     run captured. Returns (final state, steps run here, wall seconds of
-    the segmented loop, saves included)."""
+    the segmented loop, saves included).
+
+    `--retries N` > 0 runs the segmented loop under
+    resilience.run_supervised: it owns the restore (a checkpoint saved on
+    another process grid included), the nothing-to-run case and the
+    restarts; the app resolves the start step only for the quantum check
+    and the count of steps run."""
     from rocm_mpi_tpu_torch.utils import checkpoint as ckpt
     from rocm_mpi_tpu_torch.utils.metrics import Timer
 
     every = checkpoint_interval(args, quantum, log0)
+    supervised = getattr(args, "retries", 0) > 0
     start = 0
     state = init_state
     if args.resume:
         latest = ckpt.latest_valid_step(args.checkpoint, log=log0, grid=grid)
         if latest is not None:
             start = latest
-            log0(f"--resume: restoring step {latest} from {args.checkpoint}")
-            state = ckpt.restore_state(args.checkpoint, latest, init_state, grid=grid,
-                                       log=log0)
+            if not supervised:
+                log0(f"--resume: restoring step {latest} from {args.checkpoint}")
+                state = ckpt.restore_state(args.checkpoint, latest, init_state, grid=grid,
+                                           log=log0)
         else:
             log0(f"--resume: no checkpoint under {args.checkpoint}; starting from the "
                  "initial condition")
@@ -387,15 +443,27 @@ def checkpointed_run(args, advance, init_state, log0, quantum: int = 1, grid=Non
              "written by a different schedule or nt?); resume with the schedule that "
              "wrote it or adjust --nt")
         raise SystemExit(2)
-    if start >= args.nt:
+    if start >= args.nt and not supervised:
         log0(f"--resume: checkpoint already at step {start} >= nt={args.nt}; nothing to run")
         return state, 0, 0.0
     lead = ckpt.tree_leaves(state)[0]
     timer = Timer()
     timer.tic(lead)
-    state = ckpt.run_segmented(advance, state, args.nt, args.checkpoint, every,
-                               start_step=start, grid=grid, log=log0)
+    if supervised:
+        from rocm_mpi_tpu_torch.resilience import run_supervised
+
+        log0(f"supervised run: up to {args.retries} restart(s), "
+             f"resume={'on' if args.resume else 'off'}")
+        state = run_supervised(advance, init_state, args.nt, args.checkpoint, every,
+                               max_retries=args.retries, resume=args.resume, log=log0,
+                               grid=grid)
+    else:
+        state = ckpt.run_segmented(advance, state, args.nt, args.checkpoint, every,
+                                   start_step=start, grid=grid, log=log0)
     wtime = timer.toc(ckpt.tree_leaves(state)[0])
+    if start >= args.nt:
+        log0(f"--resume: checkpoint already at step {start} >= nt={args.nt}; nothing to run")
+        return state, 0, 0.0
     log0(f"checkpointed {start}→{args.nt} every {every} steps into {args.checkpoint}")
     loop = getattr(advance, "loop", None)
     if loop is not None:
@@ -490,12 +558,19 @@ def card_line() -> str | None:
 
 
 def run_app(variant: str, args) -> int:
+    """The diffusion apps' main: the resilience plane set up first, then
+    the run, which leaves through distributed.finalize however it ends."""
+    setup_resilience(args)
+    with finalized():
+        return _run_app(variant, args)
+
+
+def _run_app(variant: str, args) -> int:
     from rocm_mpi_tpu_torch.config import DiffusionConfig
     from rocm_mpi_tpu_torch.models import HeatDiffusion
     from rocm_mpi_tpu_torch.models.diffusion import RunResult
     from rocm_mpi_tpu_torch.parallel import distributed
 
-    refuse_unported_resilience(args)
     distributed.maybe_initialize_distributed(args.device)
     device = distributed.local_device(args.device)
     me = distributed.rank()

@@ -34,6 +34,7 @@ from rocm_mpi_tpu_torch.apps._common import (
     checkpoint_schedule,
     driver_note,
     emit_run_gauges,
+    finalized,
     finish_observability,
     global_max,
     global_sum,
@@ -42,11 +43,11 @@ from rocm_mpi_tpu_torch.apps._common import (
     parse_ints,
     per_step_checkpoint_advance,
     profile_context,
-    refuse_unported_resilience,
     report_checkpointed_line,
     save_field,
     schedule_note,
     setup_observability,
+    setup_resilience,
     where_line,
 )
 
@@ -70,8 +71,12 @@ def make_parser():
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    refuse_unported_resilience(args)
+    setup_resilience(args)
+    with finalized():
+        return _main(args)
 
+
+def _main(args) -> int:
     from rocm_mpi_tpu_torch.config import SWEConfig
     from rocm_mpi_tpu_torch.models import ShallowWater
     from rocm_mpi_tpu_torch.parallel import distributed

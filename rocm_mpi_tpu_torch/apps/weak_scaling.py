@@ -31,8 +31,10 @@ windows). The rates are banked as
 accounting follows the ladder, and then, unless `--no-probes`, the phase
 probes (telemetry/probes.py) time the last rung's halo, interior and
 checkpoint phases. `--health` adds the flight recorder, and a halo
-heartbeat (one face exchange) at every window boundary. `--autotune`
-runs every rung with config="auto", as the JAX app does: the scan chunk
+heartbeat (one face exchange) at every window boundary. Each window
+boundary is also the "window" fault site (RMT_INJECT_FAULT, e.g.
+`crash@step=K,at=window`; step: the steps run before the window).
+`--autotune` runs every rung with config="auto", as the JAX app does: the scan chunk
 of every workload, and for diffusion run_deep's depth and wire mode, come
 from the tuning cache (rocm_mpi_tpu_torch/tuning; rank 0 of each rung
 decides for its ranks), and with telemetry on the resolve outcomes are
@@ -150,24 +152,45 @@ class Rung:
 
 def rung_windows(args) -> int:
     """The timed windows of a rung: --telemetry-windows for a diffusion
-    per-step rung with telemetry on, else 1."""
+    per-step rung with telemetry on (a windowed rung, as in the JAX app),
+    else 0 (the model's run, unwindowed)."""
     from rocm_mpi_tpu_torch import telemetry
 
     windowed = (telemetry.enabled() and args.workload == "diffusion"
                 and args.variant != "deep")
-    return args.telemetry_windows if windowed else 1
+    return args.telemetry_windows if windowed else 0
+
+
+def window_boundary(model):
+    """A windowed rung's hook at its window boundaries (metrics.timed_window's
+    `on_boundary(T, step)`), in the JAX app's order: the halo heartbeat
+    when the flight recorder is on, then, at each window (`step`: the
+    steps run before it), the "window" fault site; both come before the
+    window's progress bump, so a rank held there lags its peers' step."""
+    from rocm_mpi_tpu_torch.resilience import faults
+    from rocm_mpi_tpu_torch.telemetry import flight, probes
+
+    beat = probes.make_halo_heartbeat(model) if flight.enabled() else None
+
+    def boundary(T, step):
+        if beat is not None:
+            T = beat(T)
+        if step is not None:
+            faults.fault_point("window", step=step)
+        return T
+
+    return boundary
 
 
 def run_rung(args, n: int, group, device) -> Rung | None:
     """The n-rank rung of `args` on this rank: None when this rank sits it
     out, else the model and its run's result: model.run, its timed steps
-    in `rung_windows(args)` windows, with the flight recorder on a halo
-    heartbeat at the start of each."""
+    in `rung_windows(args)` windows (`window_boundary` at the start of
+    each)."""
     from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
     from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
     from rocm_mpi_tpu_torch.parallel import distributed
     from rocm_mpi_tpu_torch.parallel.mesh import init_global_grid, suggest_dims
-    from rocm_mpi_tpu_torch.telemetry import flight, probes
 
     rank = distributed.rank()
     if rank >= n:
@@ -189,10 +212,9 @@ def run_rung(args, n: int, group, device) -> Rung | None:
         # and the shallow water keep their own depth policies.
         extra = {"config": run_config} if args.workload == "diffusion" else {}
         result = model.run_deep(block_steps=args.deep_k, **extra)
-    elif (windows := rung_windows(args)) > 1:
-        beat = probes.make_halo_heartbeat(model) if flight.enabled() else None
+    elif windows := rung_windows(args):
         result = model.run(args.variant, driver=args.driver, windows=windows,
-                           on_boundary=beat, config=run_config)
+                           on_boundary=window_boundary(model), config=run_config)
     else:
         result = model.run(args.variant, driver=args.driver, config=run_config)
     return Rung(n=n, dims=dims, shape=shape, model=model, result=result)

@@ -87,7 +87,9 @@ class DeepSchedule:
     alone, `route_of(dtype)`). `init_wire(dtype, device)` is None for the
     stateless wire modes; for the stateful ones it builds the zero wire
     state the sweep threads (`sweep(..., ws) -> (..., ws)`, and `step`
-    alike)."""
+    alike). `rebuild(new_grid)` builds the same schedule (constants,
+    depth, local form, wire mode) for another process grid of the same
+    domain (`rebuild_for_mesh`)."""
 
     prepare: Callable
     sweep: Callable
@@ -97,6 +99,7 @@ class DeepSchedule:
     init_wire: Callable | None = None
     route_of: Callable | None = None
     step: Callable | None = None
+    rebuild: Callable | None = None
 
 
 def _wire_exchange(grid: GlobalGrid, k: int, wire_mode: str, fields: int):
@@ -204,6 +207,27 @@ def resolve_deep_k(grid: GlobalGrid, dtype, config: str | None, device=None) -> 
     return resolve_deep_config(grid, dtype, config, device)["k"]
 
 
+def rebuild_for_mesh(sched: DeepSchedule, new_grid: GlobalGrid, dims=None,
+                     nprocs=None) -> DeepSchedule:
+    """Re-derive `sched` for a new decomposition of the same global
+    domain — the JAX package's deep_halo.rebuild_for_mesh. `new_grid` is
+    the rebuilt GlobalGrid (mesh.rebuild_for_mesh), or the old grid with
+    `dims`/`nprocs` to rebuild here. The ghost width, the padded block
+    and the local route depend on the shard's shape, so nothing built for
+    the old grid is reused; make_*_deep_sweep's own depth check fails loudly
+    where k exceeds a shard of the new grid, as a fresh build does. A
+    schedule without its `rebuild` (built by hand) raises."""
+    if sched.rebuild is None:
+        raise ValueError("this DeepSchedule has no rebuild (built by hand?): reconstruct it "
+                         "with its make_*_deep_sweep function")
+    if dims is not None or nprocs is not None:
+        from rocm_mpi_tpu_torch.parallel import mesh
+
+        new_grid = mesh.rebuild_for_mesh(new_grid, dims=dims, nprocs=nprocs,
+                                         rank=new_grid.rank)
+    return sched.rebuild(new_grid)
+
+
 def local_route(padded_shape, dtype, k: int, local_form: str = "auto") -> str:
     """The local route of a k-step sweep on a block of `padded_shape`:
     deep_halo.py:315-326's rule, a function of the shape alone."""
@@ -291,7 +315,10 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
         return (got[0][core], got[1]) if init_wire else got[core]
 
     sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire,
-                         route_of=route_of, step=step)
+                         route_of=route_of, step=step,
+                         rebuild=lambda g: make_deep_sweep(g, k, lam, dt, spacing,
+                                                           local_form=local_form,
+                                                           wire_mode=wire_mode))
     return sched
 
 
@@ -364,7 +391,9 @@ def make_wave_deep_sweep(grid: GlobalGrid, k: int, dt, spacing,
         return (got[0][core], got[1][core], *got[2:])
 
     sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire,
-                         route_of=route_of, step=step)
+                         route_of=route_of, step=step,
+                         rebuild=lambda g: make_wave_deep_sweep(g, k, dt, spacing,
+                                                                wire_mode=wire_mode))
     return sched
 
 
@@ -447,5 +476,7 @@ def make_swe_deep_sweep(grid: GlobalGrid, k: int, dt, spacing, H, g,
         return (got[0][core], tuple(u[core] for u in got[1]), *got[2:])
 
     sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, init_wire=init_wire,
-                         route_of=route_of, step=step)
+                         route_of=route_of, step=step,
+                         rebuild=lambda ng: make_swe_deep_sweep(ng, k, dt, spacing, H, g,
+                                                                wire_mode=wire_mode))
     return sched

@@ -9,11 +9,14 @@ memory (parallel/halo.py); that is how several ranks share one card.
 Ranks come either from `torchrun` (RANK, WORLD_SIZE, MASTER_ADDR,
 MASTER_PORT, LOCAL_RANK in the environment; `maybe_initialize_distributed`)
 or from a store port, world size and rank (`init_distributed`, used by
-parallel/launcher.spawn_ranks, which serves the store on localhost).
+parallel/launcher.spawn_ranks, which serves the store on localhost). The
+argv launcher (parallel/launcher.spawn_app_ranks) gives its ranks
+torchrun's variables, so they join through `maybe_initialize_distributed`.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -42,9 +45,21 @@ def maybe_initialize_distributed(device_type: str = "cuda") -> bool:
         return True
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         return False
+    # The resilience plane's "init" site: a delay@… clause here is the slow
+    # joiner, before the group forms.
+    from rocm_mpi_tpu_torch.resilience import faults
+
+    faults.fault_point("init")
     if device_type == "cuda":
         torch.cuda.set_device(local_device("cuda"))
-    dist.init_process_group(default_backend(device_type), init_method="env://")
+    kwargs = {}
+    if os.environ.get("RMT_INIT_TIMEOUT_S"):
+        # The argv launcher's init_timeout_s: how long the rendezvous, and
+        # then each collective, may wait for a peer (torch's default when
+        # unset: NCCL's watchdog would otherwise abort a rank whose peer
+        # builds its kernels for minutes).
+        kwargs["timeout"] = datetime.timedelta(seconds=float(os.environ["RMT_INIT_TIMEOUT_S"]))
+    dist.init_process_group(default_backend(device_type), init_method="env://", **kwargs)
     # One collective over every rank first: NCCL then sets up its
     # communicator before the halo exchange's point-to-point batches, in
     # which ranks at the domain edge post fewer operations.

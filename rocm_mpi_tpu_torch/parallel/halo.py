@@ -42,6 +42,11 @@ of the shard in one batch and returns the receive buffers, which the
 face form of `fused_step_cm` reads in place, so those steps build no
 padded buffer and copy no shard.
 
+`HaloProgram` (`build_for_mesh`, `rebuild_for_mesh`) binds the exchanges
+to one decomposition, as in the JAX package: an elastic resume on another
+process grid rebuilds it, and the new grid's exchanges make buffers of
+the new geometry.
+
 `HostStagedStepper` is the host-staged oracle (the reference's
 IGG_ROCMAWARE_MPI=0 path): a numpy diffusion stepper over every shard of
 the global field, its halos copied between shards in host memory.
@@ -56,6 +61,7 @@ and once per CUDA-graph capture, never at a replay.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -377,6 +383,70 @@ def global_boundary_mask(grid: GlobalGrid, dtype=torch.bool, device=None) -> tor
     return mask if dtype == torch.bool else mask.to(dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class HaloProgram:
+    """The halo exchanges bound to one decomposition — the JAX package's
+    HaloProgram: the grid they were derived for, the ghost width and wire
+    mode, `exchange(u, axes=None)` (exchange_halo on the grid),
+    `faces(u)` (exchange_faces, the sharded diffusion steps' form),
+    `nbytes(itemsize, axes=None)` the bytes one exchange sends from an
+    interior rank (exchange_nbytes) and `faces_nbytes(itemsize)` those of
+    one face exchange of this rank. The send and receive buffers live on
+    the grid (`GlobalGrid.exchange_buffers`), so a rebuilt program's
+    first exchange makes buffers of the new geometry."""
+
+    grid: GlobalGrid
+    width: int
+    wire_mode: str = "f32"
+
+    def exchange(self, u: torch.Tensor, axes=None, wire_state=None):
+        return exchange_halo(u, self.grid, self.width, axes, wire_mode=self.wire_mode,
+                             wire_state=wire_state)
+
+    def faces(self, u: torch.Tensor):
+        return exchange_faces(u, self.grid, self.wire_mode)
+
+    def nbytes(self, itemsize: int, axes=None) -> int:
+        return exchange_nbytes(self.grid.local_shape, itemsize, self.width, axes,
+                               self.wire_mode)
+
+    def faces_nbytes(self, itemsize: int) -> int:
+        return faces_nbytes(self.grid.local_shape, itemsize, self.grid, self.wire_mode)
+
+
+def build_for_mesh(grid: GlobalGrid, width: int = 1, wire_mode: str = "f32") -> HaloProgram:
+    """Bind the halo exchanges to `grid` — the derivation
+    `rebuild_for_mesh` re-runs when the decomposition changes."""
+    wire.validate_mode(wire_mode)
+    return HaloProgram(grid=grid, width=int(width), wire_mode=wire_mode)
+
+
+def rebuild_for_mesh(program_or_grid, dims=None, nprocs=None, width: int | None = None,
+                     rank: int | None = None) -> HaloProgram:
+    """Re-derive the halo exchanges for a new decomposition of the same
+    global domain — the JAX package's halo.rebuild_for_mesh: neighbours,
+    ghost and face shapes, wire bytes and buffers all come from the new
+    dims. Takes a HaloProgram (its width and wire mode kept) or a
+    GlobalGrid; `dims`, `nprocs` and `rank` as mesh.rebuild_for_mesh.
+    A width wider than a shard of the new grid raises."""
+    from rocm_mpi_tpu_torch.parallel import mesh
+
+    if isinstance(program_or_grid, HaloProgram):
+        old_grid = program_or_grid.grid
+        width = program_or_grid.width if width is None else width
+        wire_mode = program_or_grid.wire_mode
+    else:
+        old_grid = program_or_grid
+        width = 1 if width is None else width
+        wire_mode = "f32"
+    new_grid = mesh.rebuild_for_mesh(old_grid, dims=dims, nprocs=nprocs,
+                                     rank=old_grid.rank if rank is None else rank)
+    if any(width > ln for ln in new_grid.local_shape):
+        raise ValueError(f"halo width {width} exceeds a local shard extent "
+                         f"{new_grid.local_shape} on the rebuilt grid {new_grid.dims}")
+    return build_for_mesh(new_grid, width, wire_mode=wire_mode)
+
+
 class HostStagedStepper:
     """Numpy diffusion stepper with explicitly host-staged halos — the
     JAX package's HostStagedStepper (rocm_mpi_tpu/parallel/halo.py).
@@ -401,8 +471,8 @@ class HostStagedStepper:
     As in the JAX package, the numpy step's two phases are real host
     seams, timed as the `halo.host_staged` span (with the bytes its
     ghosts carried on the wire) and the `interior.host_staged` span, and
-    `run` advances the flight recorder's step counter every step. The
-    JAX stepper's fault-injection point waits for the resilience plane.
+    `run` advances the flight recorder's step counter every step, after
+    the "step" fault point (resilience/faults.py) of that step.
     """
 
     def __init__(self, grid, lam: float, dt: float, use_native: bool | None = None,
@@ -512,9 +582,11 @@ class HostStagedStepper:
         return out
 
     def run(self, T: np.ndarray, Cp: np.ndarray, nt: int) -> np.ndarray:
+        from rocm_mpi_tpu_torch.resilience import faults
         from rocm_mpi_tpu_torch.telemetry import flight
 
-        for _ in range(int(nt)):
+        for i in range(int(nt)):
+            faults.fault_point("step", step=i + 1)
             # Additive: the recorder's step counter is process-global.
             flight.progress(step_inc=1)
             T = self.step(T, Cp)

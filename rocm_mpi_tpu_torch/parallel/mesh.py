@@ -229,3 +229,35 @@ def init_global_grid(
     if math.prod(dims) > nprocs:
         raise ValueError(f"dims {dims} need {math.prod(dims)} ranks, have {nprocs}")
     return GlobalGrid(global_shape=shape, lengths=lengths, dims=dims, rank=rank, group=group)
+
+
+def rebuild_for_mesh(grid: GlobalGrid, dims: Sequence[int] | None = None,
+                     nprocs: int | None = None, rank: int | None = None,
+                     group=None) -> GlobalGrid:
+    """Re-derive `grid` for a new process grid over the same global
+    domain — the JAX package's mesh.rebuild_for_mesh.
+
+    A run checkpointed on one process grid resumes on another, and what
+    derives from the decomposition (local shapes, neighbours, the halo
+    exchange's buffers, deep-halo schedules) comes from the new dims while
+    the global problem (global_shape, lengths) stays. The rebuilt grid is
+    a new GlobalGrid with empty `exchange_buffers`, so its exchanges make
+    buffers of the new geometry. `dims` defaults to the plan_dims
+    sub-grid over `nprocs` ranks (default: the process group's size);
+    `rank` defaults to this process's rank. GlobalGrid checks that the
+    dims divide the domain, so an invalid explicit dims fails here."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    if nprocs is None:
+        nprocs = distributed.world_size()
+    if dims is None:
+        dims = plan_dims(grid.global_shape, nprocs)
+    dims = tuple(int(d) for d in dims)
+    if len(dims) != grid.ndim:
+        raise ValueError(f"dims {dims} rank != grid rank {grid.ndim}")
+    if math.prod(dims) > nprocs:
+        raise ValueError(f"dims {dims} need {math.prod(dims)} ranks, have {nprocs}")
+    if rank is None:
+        rank = distributed.rank()
+    return GlobalGrid(global_shape=grid.global_shape, lengths=grid.lengths, dims=dims,
+                      rank=rank, group=group)

@@ -59,9 +59,29 @@ With telemetry on, the state's device work is waited out before a save
 span opens, so the span times the save and not the segment before it.
 A `log` callable still receives the policy's lines.
 
-Not here (ROADMAP Queue 1 item 9): the fault-injection sites, preemption
-polling, and restoring onto a process grid other than the one saved (the
-reshard plane).
+The resilience plane (rocm_mpi_tpu_torch/resilience/), as in the JAX
+package:
+
+* fault sites (resilience/faults.py): "save" inside every save attempt
+  before any shard is written (an injected OSError is agreed over the grid
+  like a real one), "restore" before every restore attempt, and in
+  `run_segmented` "segment-pre" after each segment's advance (before the
+  flight-recorder bump and the save) and "segment" after each save;
+* preemption (resilience/preempt.py): every boundary of `run_segmented`
+  polls the SIGTERM notice, agreed over the grid when the ranks armed
+  the handler (RMT_PREEMPT_GRACE_S; unarmed ranks of a grid skip the
+  gather). When the grace left
+  fits the p90 save wall (`save_wall_p90`, the walls this process
+  measured) the boundary's save runs as the emergency save and
+  `Preempted(step, saved=True)` is raised; otherwise the save is skipped
+  outright (`preempt.skip-save`: a save killed mid-write would be a torn
+  step) and `Preempted(last durable step, saved=False)` is raised. The
+  events: `preempt.noticed`, `preempt.save`, `preempt.save-failed`,
+  `preempt.skip-save`, `preempt.stop`;
+* restores onto another process grid of the same domain (a run resumed
+  on fewer or more ranks, resilience/elastic.py): each rank reads only
+  the saved shards that overlap its block of the new grid
+  (resilience/reshard.read_block), bit for bit the saved field.
 """
 
 from __future__ import annotations
@@ -93,8 +113,8 @@ class CheckpointCorruptionError(RuntimeError):
 
 class TopologyMismatch(ValueError):
     """The restore template contradicts the checkpoint manifest (leaf
-    count, global shape, dtype), or the restore asks for another process
-    grid than the one saved. A ValueError on purpose: a configuration
+    count, global shape, dtype): the process grid may change on resume,
+    the global domain may not. A ValueError on purpose: a configuration
     error that reproduces identically, never to be retried."""
 
 
@@ -110,8 +130,23 @@ DEFAULT_BACKOFF_FACTOR = 2.0
 DEFAULT_RESTORE_RETRIES = 2
 
 # The walls (monotonic seconds, the slowest rank's) of this process's
-# recent saves: what a save costs, which chip_smoke.py [checkpoint] reports.
+# recent completed saves: what a save costs, the preemption budget's input.
 _SAVE_WALLS: collections.deque = collections.deque(maxlen=32)
+
+
+def save_wall_p90() -> float | None:
+    """Interpolating p90 of the recent save walls this process measured
+    (None with no history) — the preemption emergency-save budget."""
+    if not _SAVE_WALLS:
+        return None
+    vals = sorted(_SAVE_WALLS)
+    if len(vals) == 1:
+        return vals[0]
+    pos = 0.9 * (len(vals) - 1)
+    lo = int(pos)
+    frac = pos - lo
+    hi = min(lo + 1, len(vals) - 1)
+    return vals[lo] * (1 - frac) + vals[hi] * frac
 
 
 @dataclasses.dataclass
@@ -419,7 +454,10 @@ def _save_once(directory, step, state, grid, keep: int) -> float:
     """One save attempt on every rank: the shards to host, each rank's
     files under the partial directory, then (rank 0) the rename, the
     manifest and the keep-list. Returns the slowest rank's wall; raises
-    OSError on every rank when any rank's write failed."""
+    OSError on every rank when any rank's write failed, an injected
+    storage fault at the "save" site included."""
+    from rocm_mpi_tpu_torch.resilience import faults
+
     t0 = time.monotonic()
     leaves = tree_leaves(state)
     hosts = _to_host(leaves)
@@ -427,6 +465,7 @@ def _save_once(directory, step, state, grid, keep: int) -> float:
     partial = _partial_dir(directory, step)
     err = None
     try:
+        faults.fault_point("save", step=step, directory=directory)
         for i, a in enumerate(hosts):
             path = partial / _leaf_file(rank, i)
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -753,14 +792,6 @@ def save_state(directory, step: int, state, keep: int = 3,
 # ---------------------------------------------------------------------------
 
 
-def _reshard_refusal(step, saved, here) -> TopologyMismatch:
-    return TopologyMismatch(
-        f"step {step}: saved on process grid {tuple(saved)}, restoring on "
-        f"{tuple(here)}; restoring onto another process grid needs the reshard plane "
-        "(resilience/reshard.py), which the port does not have yet (ROADMAP Queue 1 "
-        "item 9)")
-
-
 def _check_like_against_manifest(like, manifest, step, grid) -> None:
     """TopologyMismatch when `like` contradicts the manifest's global
     facts: leaf count, global shape, dtype."""
@@ -800,19 +831,21 @@ def restore_state(directory, step: int, like=None, verify: bool = True, devices=
     `like` (the freshly initialised state) gives the structure, and must
     agree with the manifest's leaf count, global shapes and dtypes, else
     TopologyMismatch. With `like=None` the manifest alone rebuilds the
-    state, returned as a tuple of leaves in tree order. Either way the
-    checkpoint restores only onto the process grid it was saved on: any
-    other grid raises TopologyMismatch naming the reshard plane the port
-    lacks.
+    state (resilience/reshard.template_from_meta), returned as a tuple of
+    leaves in tree order. The process grid may differ from the one saved:
+    each rank then reads only the saved shards that overlap its block
+    (resilience/reshard.read_block); the global domain may not change.
 
-    verify=True re-hashes every shard against the manifest and raises
+    verify=True re-hashes every shard read against the manifest and raises
     CheckpointCorruptionError on a mismatch. Transient OSErrors while
-    reading retry with backoff."""
+    reading (the "restore" fault site fires before each attempt) retry
+    with backoff."""
     with span("checkpoint.restore", step=int(step)):
         return _restore_body(directory, step, like, verify, devices, grid, log)
 
 
 def _restore_body(directory, step, like, verify, devices, grid, log):
+    from rocm_mpi_tpu_torch.resilience import faults, reshard
     from rocm_mpi_tpu_torch.utils.backend import resolve_device
 
     grid = _check_grid(grid)
@@ -821,6 +854,7 @@ def _restore_body(directory, step, like, verify, devices, grid, log):
         raise TopologyMismatch(
             f"step {step}: template-less restore needs a manifest with topology "
             "metadata (v2) — pass `like` (the freshly-initialized state)")
+    moved = False  # restoring onto another process grid than the one saved
     if manifest is not None:
         problems = validate_manifest_meta(manifest)
         if problems:
@@ -833,30 +867,45 @@ def _restore_body(directory, step, like, verify, devices, grid, log):
             here = here or _layout(tree_leaves(like), None)[0]
         elif here is None:
             here = [1] * len(saved_dims)
-        if saved_dims is not None and list(saved_dims) != list(here):
-            raise _reshard_refusal(step, saved_dims, here)
+        moved = saved_dims is not None and list(saved_dims) != list(here)
     if like is not None:
         leaves_like = tree_leaves(like)
         device = leaves_like[0].device
         dtypes = [_dtype_name(t) for t in leaves_like]
     else:
         device = resolve_device(devices)
-        dtypes = [rec["dtype"] for rec in manifest["leaves"]]
+        try:
+            template = reshard.template_from_meta(manifest, grid)
+        except ValueError as exc:
+            raise TopologyMismatch(f"step {step}: {exc}") from None
+        dtypes = [_dtype_name(t) for t in template]
     rank = _rank(grid)
     step_dir = _step_dir(directory, step)
     attempt = 0
     while True:
         try:
-            hosts = [_read_array(step_dir / _leaf_file(rank, i)) for i in range(len(dtypes))]
+            faults.fault_point("restore", step=int(step), directory=directory)
+            if moved:
+                hosts = reshard.read_block(directory, step, manifest, grid, verify=verify)
+            else:
+                hosts = [_read_array(step_dir / _leaf_file(rank, i))
+                         for i in range(len(dtypes))]
             break
         except OSError as exc:
             if attempt >= DEFAULT_RESTORE_RETRIES:
                 raise
             wait = DEFAULT_SAVE_BACKOFF_S * DEFAULT_BACKOFF_FACTOR**attempt
+            _record_event("ckpt.retry", step=int(step), attempt=attempt, wait_s=wait,
+                          op="restore", error=f"{type(exc).__name__}: {exc}")
             _say(log, f"checkpoint step {step}: restore attempt {attempt} failed "
                  f"({type(exc).__name__}: {exc}); retrying in {wait:.2f}s")
             time.sleep(wait)
             attempt += 1
+    if moved:
+        # read_block checked each shard it read against its crc32, and cut
+        # this rank's block of the new grid.
+        tensors = [_tensor(a, name, device) for a, name in zip(hosts, dtypes)]
+        return tuple(tensors) if like is None else _unflatten(like, tensors)
     if manifest is not None:
         recs = manifest.get("leaves", [])
         if len(recs) != len(hosts):
@@ -902,6 +951,13 @@ def run_segmented(advance, state, nt: int, directory, every: int, start_step: in
     outage costs checkpoints, never the run (degraded mode). `log`
     receives the policy's lines.
 
+    Each boundary, in order: the "segment-pre" fault site, the flight
+    recorder's step (before any collective of the boundary: a rank wedged
+    in one has published it), the preemption poll (module docstring;
+    raises `resilience.preempt.Preempted`, a SystemExit with code 75),
+    the save, the "segment" fault site, and the poll again (a notice that
+    landed during the save stops the run at the step just saved).
+
     Resume idiom (what the apps' --resume does):
 
         start = latest_valid_step(dir, grid=grid) or 0
@@ -912,6 +968,8 @@ def run_segmented(advance, state, nt: int, directory, every: int, start_step: in
         raise ValueError(f"checkpoint interval must be >= 1, got {every}")
     if not 0 <= start_step <= nt:
         raise ValueError(f"need 0 <= start_step <= nt, got {start_step}, {nt}")
+    from rocm_mpi_tpu_torch.resilience import faults
+
     grid = _check_grid(grid)
     policy = storage or StoragePolicy.from_env()
     st = _StorageState(last_durable=start_step if start_step else None)
@@ -924,9 +982,81 @@ def run_segmented(advance, state, nt: int, directory, every: int, start_step: in
         state = advance(state, n)
         step += n
         _drain(state)
+        # Opt-in site: after the segment, before the progress bump and the
+        # save's collectives — a rank stalled here lags the step its peers
+        # are about to publish, which is how the watchdog names it.
+        faults.fault_point("segment-pre", step=step, directory=directory)
         # The step this rank reached goes to the flight recorder before the
-        # save's collectives: a rank wedged in them has published it.
+        # boundary's collectives: a rank wedged in them has published it.
         _flight.progress(step=step)
+        notice = _preempt_notice(grid)
+        if notice is not None:
+            _preempted_boundary(directory, step, state, grid, keep, st, notice)
         with span("checkpoint.save", step=step):
-            _guarded_save(directory, step, state, policy, st, grid, keep, log=log)
+            durable = _guarded_save(directory, step, state, policy, st, grid, keep, log=log)
+        faults.fault_point("segment", step=step, directory=directory)
+        notice = _preempt_notice(grid)
+        if notice is not None:
+            # The notice landed during the save or the post-save site: the
+            # boundary just published is the resume point.
+            from rocm_mpi_tpu_torch.resilience import preempt
+
+            _note_notice(step, notice)
+            _record_event("preempt.stop", step=step, saved=bool(durable),
+                          last_valid_step=st.last_durable)
+            raise preempt.Preempted(step if durable else st.last_durable, saved=bool(durable))
     return state
+
+
+def _preempt_notice(grid) -> tuple[float | None, float | None] | None:
+    """The grid's preemption notice at a boundary: None when no rank holds
+    one, else (the least grace left of the ranks that hold one, the
+    largest p90 save wall of any rank). One gather over the grid, so every
+    rank stops at the same boundary and makes the same save decision;
+    none on a grid whose ranks armed no SIGTERM handler (every rank has
+    the launcher's environment, so all armed or none did)."""
+    from rocm_mpi_tpu_torch.resilience import preempt
+
+    if not preempt.armed() and grid is not None and grid.nprocs > 1 and _distributed():
+        return None
+    mine = (preempt.requested(), preempt.remaining_grace_s(), save_wall_p90())
+    seen = _gather(mine, grid)
+    if not any(r for r, _, _ in seen):
+        return None
+    graces = [g for r, g, _ in seen if r and g is not None]
+    walls = [w for _, _, w in seen if w is not None]
+    return (min(graces) if graces else None, max(walls) if walls else None)
+
+
+def _note_notice(step: int, notice) -> None:
+    from rocm_mpi_tpu_torch.resilience import preempt
+
+    if preempt.note_noticed() or not preempt.requested():
+        # The first boundary to see the notice (a rank without a notice of
+        # its own learns of it here, from the grid).
+        _record_event("preempt.noticed", step=step, remaining_grace_s=notice[0])
+
+
+def _preempted_boundary(directory, step, state, grid, keep, st, notice) -> None:
+    """A boundary with a preemption notice: the emergency save when the
+    grace fits the p90 save wall, else no save; raises Preempted."""
+    from rocm_mpi_tpu_torch.resilience import preempt
+
+    _note_notice(step, notice)
+    remaining, p90 = notice
+    if not preempt.budget_allows_save(p90, remaining_s=remaining):
+        _record_event("preempt.skip-save", step=step, remaining_grace_s=remaining,
+                      save_wall_p90_s=p90, last_valid_step=st.last_durable)
+        raise preempt.Preempted(st.last_durable, saved=False)
+    # The emergency save is the boundary's save, deadline-shaped: one
+    # attempt, no backoff.
+    _record_event("preempt.save", step=step, remaining_grace_s=remaining, save_wall_p90_s=p90)
+    try:
+        with span("checkpoint.save", step=step):
+            _save_once(directory, step, state, grid, keep)
+    except OSError as exc:
+        _clean_partial_save(directory, step, grid)
+        _record_event("preempt.save-failed", step=step, error=f"{type(exc).__name__}: {exc}",
+                      last_valid_step=st.last_durable)
+        raise preempt.Preempted(st.last_durable, saved=False) from None
+    raise preempt.Preempted(step, saved=True)

@@ -142,9 +142,10 @@ def timed_window(advance, state, nt: int, warmup: int, sharded: bool = False,
     (`window_sizes`: multiples of `unit`), each between its own sync and
     barrier; the seconds returned are their sum, so they carry a sync
     and a barrier a window and read slower than one window's.
-    `on_boundary(state) -> state`, when given, runs once after the
-    warmup, before the steady-state window opens (its first call may
-    build or load), then before every window, outside the clock.
+    `on_boundary(state, step) -> state`, when given, runs once after the
+    warmup with step None, before the steady-state window opens (its
+    first call may build or load), then before every window with the
+    steps run so far, outside the clock.
 
     With telemetry on, the warmup is a `warmup` span and every timed
     window a `step_window` span (phase "step", `steps`, `window` when
@@ -153,8 +154,11 @@ def timed_window(advance, state, nt: int, warmup: int, sharded: bool = False,
     the returned seconds, and the windows lie in one steady-state window
     of telemetry.compiles (unless one is open already): a build or
     capture inside it is a recompile. The flight recorder's step counter
-    advances by the warmup and by each window's steps, and its window
-    counter by one at the start of each of several windows."""
+    advances by the steps run so far at the start of each window, after
+    `on_boundary` (the JAX weak-scaling app's order: a rank held at a
+    boundary has not published the steps its peers publish there), and
+    by the last window's at the end; its window counter by one at the
+    start of each of several windows."""
     from rocm_mpi_tpu_torch.telemetry import compiles, flight
     from rocm_mpi_tpu_torch.telemetry.spans import span
 
@@ -165,9 +169,8 @@ def timed_window(advance, state, nt: int, warmup: int, sharded: bool = False,
         if warmup:
             state = advance(state, warmup)
         sp.sync(lead(state))
-    flight.progress(step_inc=warmup)
     if on_boundary is not None:
-        state = on_boundary(state)
+        state = on_boundary(state, None)
     label = "step_window" if _tel.enabled() else None
     sizes = window_sizes(nt - warmup, windows, unit)
     several = len(sizes) > 1
@@ -175,12 +178,12 @@ def timed_window(advance, state, nt: int, warmup: int, sharded: bool = False,
     if steady:
         compiles.mark_steady()
     wtime = 0.0
+    done = unpublished = warmup
     try:
         for i, steps in enumerate(sizes):
             if on_boundary is not None:
-                state = on_boundary(state)
-            if several:
-                flight.progress(windows=1)
+                state = on_boundary(state, done)
+            flight.progress(step_inc=unpublished, **({"windows": 1} if several else {}))
             timer = Timer(label, phase="step", steps=steps,
                           **({"window": i} if several else {}), **span_attrs)
             settle(lead(state), sharded, group)
@@ -188,10 +191,12 @@ def timed_window(advance, state, nt: int, warmup: int, sharded: bool = False,
             state = advance(state, steps)
             settle(lead(state), sharded, group)
             wtime += timer.toc()
-            flight.progress(step_inc=steps)
+            done += steps
+            unpublished = steps
     finally:
         if steady:
             compiles.unmark_steady()
+    flight.progress(step_inc=unpublished)
     return state, wtime
 
 

@@ -194,9 +194,12 @@ def test_topology_mismatch(tmp_path):
         ckpt.restore_state(tmp_path, 8, (h[:16], us))
     with pytest.raises(ckpt.TopologyMismatch, match="dtype"):
         ckpt.restore_state(tmp_path, 8, (h.float(), us))
-    other = init_global_grid(32, 32, dims=(2, 1), nprocs=2, rank=0)
-    with pytest.raises(ckpt.TopologyMismatch, match="reshard"):
-        ckpt.restore_state(tmp_path, 8, None, grid=other, devices="cpu")
+    # Onto another process grid: each rank's block, bit for bit.
+    for rank in range(2):
+        other = init_global_grid(32, 32, dims=(2, 1), nprocs=2, rank=rank)
+        block = ckpt.restore_state(tmp_path, 8, None, grid=other, devices="cpu")
+        rows = slice(16 * rank, 16 * (rank + 1))
+        assert _equal(block, (h[rows], *(u[rows] for u in us)))
     flat = ckpt.restore_state(tmp_path, 8, None, devices="cpu")
     assert isinstance(flat, tuple) and _equal(flat, state)
 
@@ -490,9 +493,22 @@ def test_app_resume_refuses_quantum_misaligned_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--retries", "1"], ["--inject-fault", "crash@step=4"]])
 def test_app_refuses_the_unported_resilience_flags(tmp_path, flag):
-    proc = _app("swe_2d", "--nx", "24", "--ny", "24", "--nt", "8", "--checkpoint",
-                str(tmp_path / "ck"), *flag, rc=2)
-    assert "not ported yet" in proc.stderr and "Traceback" not in proc.stderr
+    """The two flags the port once refused now work: --retries supervises
+    the checkpointed run; --inject-fault crashes it at step 4, after the
+    step-4 save, and --resume then ends on the straight run's field."""
+    d, straight, got = tmp_path / "ck", tmp_path / "straight.npy", tmp_path / "got.npy"
+    common = ["--nx", "24", "--ny", "24", "--nt", "8", "--warmup", "0"]
+    _app("swe_2d", *common, "--save-field", str(straight))
+    ckpt_args = [*common, "--checkpoint", str(d), "--ckpt-every", "4"]
+    if flag[0] == "--retries":
+        out = _app("swe_2d", *ckpt_args, *flag, "--save-field", str(got)).stdout
+        assert "supervised run: up to 1 restart(s)" in out
+    else:
+        proc = _app("swe_2d", *ckpt_args, *flag, rc=1)
+        assert "InjectedCrash" in proc.stderr and "not ported" not in proc.stderr
+        assert ckpt.latest_valid_step(d) == 4
+        _app("swe_2d", *ckpt_args, "--resume", "--save-field", str(got))
+    np.testing.assert_array_equal(np.load(got), np.load(straight))
 
 
 def test_app_vmem_with_checkpoint_is_refused(tmp_path):

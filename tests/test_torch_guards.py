@@ -55,7 +55,11 @@ def test_scan_sees_the_whole_port():
                               "apps/diffusion_3d_perf_hide.py", "tuning/keys.py",
                               "tuning/cache.py", "tuning/space.py", "tuning/gate.py",
                               "tuning/resolve.py", "tuning/search.py", "tuning/__main__.py",
-                              "tuning/__init__.py", "perf/traffic.py")} <= names
+                              "tuning/__init__.py", "perf/traffic.py",
+                              "resilience/__init__.py", "resilience/faults.py",
+                              "resilience/preempt.py", "resilience/policy.py",
+                              "resilience/supervisor.py", "resilience/reshard.py",
+                              "resilience/elastic.py", "parallel/launcher.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
     assert {"scripts/torch_kernel_ab.py", "scripts/torch_face_variants.py"} <= names
 

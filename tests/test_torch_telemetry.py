@@ -501,13 +501,14 @@ def test_timed_window_splits_into_windows_with_a_boundary_hook(tmp_path):
     def advance(x, n):
         return x + n
 
-    def boundary(x):
-        calls.append(int(x))
+    def boundary(x, step):
+        calls.append((int(x), step))
         return x
 
     x, wtime = metrics.timed_window(advance, torch.zeros(()), 24, 4, windows=3, unit=4,
                                     on_boundary=boundary, variant="perf", driver="scan")
-    assert int(x) == 24 and calls == [4, 4, 12, 20]  # after the warmup, then each window
+    # After the warmup, then at each window with the steps run so far.
+    assert int(x) == 24 and calls == [(4, None), (4, 4), (12, 12), (20, 20)]
     recs = telemetry.records("span")
     (warm,) = [r for r in recs if r["name"] == "warmup"]
     assert warm["attrs"] == {"steps": 4, "variant": "perf", "driver": "scan"}
