@@ -2,7 +2,7 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-20 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-21 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
 the target). Phases, printed as they run (about nine minutes on one H100
@@ -266,9 +266,28 @@ the target). Phases, printed as they run (about nine minutes on one H100
    step 32 and ends bitwise a continuation twin's. Each launch's dims,
    the resume steps, the time from the fault to the next launch's first
    step and the elastic.jsonl record count printed; no rank outlives its
-   launch.
+   launch;
+21. serve (after 20) — the serving core (rocm_mpi_tpu_torch/serving/): a
+   trace of ~50 requests (diffusion, wave and SWE at 256², 1024² and
+   4096², 1000² on its 1024² ladder rung, mostly f32 with f64 and bf16,
+   nt 32-512, diffusion `hide` requests whose lanes launch fused_step_cm
+   once a lane, box and step (exactly 5 × their steps), two session
+   requests) through SimulationService with the ladder on at width 8; the
+   hide lanes' kernel at the shapes serving gives it (1024² f32 and 256²
+   f64 lane blocks, faces None) bitwise its plain version step by step;
+   every lane bitwise equal to its standalone run on the card, the
+   sessions resumed bitwise, a repeat
+   trace building and capturing nothing with no growth of
+   torch.cuda.memory_allocated, the trace without the ladder at pipeline
+   depth 1 and 2 bitwise equal (and equal to the ladder's lanes), the
+   manifest valid, and the serve app (a child process) serving the trace
+   file with the same program keys; requests/s, lane-Gpts/s, occupancy,
+   device_bubble and the peak memory printed. With `--gpus 4`: the trace
+   without sessions on 4 ranks over NCCL at batch_dims 2 and 1, every
+   rank's shard of every lane bitwise (by digest) the one-card service's
+   lane.
 
-With `--gpus 4` phases 6-20 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-21 run one rank per GPU over NCCL (6 and 8 for
 500 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
 exchange (the face exchange and the padded one), the interiors and the
 slabs (the diffusion's from the faces and from the block) timed alone; 13
@@ -291,6 +310,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -5307,6 +5327,477 @@ def phase_tune_sharded(card, gpus: int):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# [serve] the serving core: batched lanes behind SimulationService
+# ---------------------------------------------------------------------------
+
+SERVE_MAX_WIDTH = 8
+SERVE_DEVICE = "cuda"
+
+
+def serve_trace(multi: bool = False):
+    """The [serve] trace: ~50 requests over the three workloads at 256²,
+    1024² and 4096² (plus 1000², an off-rung shape its 1024² ladder rung
+    serves), mostly f32 with some f64 and bf16, nt 32…512, some diffusion
+    `hide` requests and two session requests. `multi`: the four-rank
+    trace, without sessions (single-controller only)."""
+    from rocm_mpi_tpu_torch.serving.queue import Request
+
+    rows = []
+
+    def add(wl, n, dtype, nts, variant="shard", session=False):
+        for nt in nts:
+            i = len(rows)
+            rows.append(Request(request_id=f"serve-{i:03d}", workload=wl, global_shape=(n, n),
+                                dtype=dtype, nt=nt, variant=variant,
+                                ic_scale=1.0 + 0.01 * (i % 17),
+                                session=f"sess-{i:03d}" if session else None))
+
+    # Each class's steps share a steps bucket (the bin key's power of two
+    # at or above nt), so a class fills a batch of heterogeneous lengths.
+    add("diffusion", 256, "f32", (40, 48, 56, 64, 64, 60))
+    add("diffusion", 1024, "f32", (300, 340, 400, 450, 512, 480))
+    add("diffusion", 1000, "f32", (320, 400, 500))
+    add("diffusion", 4096, "f32", (40, 50, 60, 64))
+    add("diffusion", 256, "f64", (100, 128))
+    add("diffusion", 256, "bf16", (100, 120))
+    add("diffusion", 1024, "f32", (130, 160, 200, 256), variant="hide")
+    add("diffusion", 256, "f64", (33, 64), variant="hide")
+    if not multi:
+        add("diffusion", 256, "f32", (40, 64), session=True)
+    add("wave", 256, "f32", (200, 256, 230, 250))
+    add("wave", 1024, "f32", (100, 128, 120))
+    add("wave", 4096, "f32", (32, 32))
+    add("swe", 256, "f32", (300, 400, 512))
+    add("swe", 1024, "f32", (64, 50, 40))
+    add("swe", 4096, "f32", (32, 32))
+    add("swe", 256, "f64", (64,))
+    add("swe", 256, "bf16", (64,))
+    return rows
+
+
+def serve_standalone(torch, req, device):
+    """The port's standalone single-lane run of a request on `device`:
+    its final state leaves (lane_advance_fn / advance_fn of its variant,
+    from ic_scale × its model's initial state)."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+
+    kw = dict(global_shape=tuple(req.global_shape), dtype=req.dtype,
+              lengths=(10.0,) * len(req.global_shape))
+    if req.workload == "diffusion":
+        m = HeatDiffusion(DiffusionConfig(**kw), device=device)
+        T0, Cp = m.init_state()
+        return (m.lane_advance_fn(req.variant)(T0 * req.ic_scale, Cp, req.nt),)
+    if req.workload == "wave":
+        w = AcousticWave(WaveConfig(**kw), device=device)
+        U0, _, C2 = w.init_state()
+        return tuple(w.advance_fn(req.variant)(U0 * req.ic_scale, U0 * req.ic_scale, C2,
+                                               req.nt))
+    sw = ShallowWater(SWEConfig(**kw), device=device)
+    h0, us0 = sw.init_state()
+    h, us = sw.advance_fn(req.variant)(h0 * req.ic_scale,
+                                        tuple(torch.zeros_like(h0) for _ in us0),
+                                        sw.face_masks(), req.nt)
+    return (h, *us)
+
+
+def _host_bits(torch, t):
+    """A result leaf as numpy, bf16 widened to float32 exactly (the
+    service's own host form)."""
+    t = t.detach().to("cpu")
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _serve(torch, reqs, **cfg):
+    """Serve `reqs` through a fresh SimulationService on the card:
+    (service, tickets, report, wall s)."""
+    from rocm_mpi_tpu_torch.serving.service import ServeConfig, SimulationService
+
+    svc = SimulationService(config=ServeConfig(max_width=SERVE_MAX_WIDTH, device=SERVE_DEVICE,
+                                               **cfg))
+    tickets = [svc.queue.submit(r) for r in reqs]
+    t0 = time.perf_counter()
+    report = svc._drain_all()
+    torch.cuda.synchronize()
+    return svc, tickets, report, time.perf_counter() - t0
+
+
+def _lane_gpts(reqs) -> float:
+    return sum(math.prod(r.global_shape) * r.nt for r in reqs) / 1e9
+
+
+def serve_advance_costs(torch, card, n: int = 64, width: int = SERVE_MAX_WIDTH,
+                        side: int = 1024):
+    """The eager batched advances' cost at `side`² f32, `width` lanes,
+    all lanes running every step: ms per batch-step (host clock around
+    `n` steps ending in a device sync), the host ms to issue them (the
+    call's return, before the sync), the device ms per step between two
+    CUDA events, and the CUDA kernels a step launches (torch.profiler
+    over 4 steps): the diffusion shard, hide and ladder forms, the wave
+    and the SWE shard forms."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig, SWEConfig, WaveConfig
+    from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion, ShallowWater
+
+    kw = dict(global_shape=(side, side), dtype="f32", lengths=(10.0, 10.0))
+    dev = SERVE_DEVICE
+    m = HeatDiffusion(DiffusionConfig(**kw), device=dev)
+    T0, Cp = m.init_state()
+    w = AcousticWave(WaveConfig(**kw), device=dev)
+    U0, _, C2 = w.init_state()
+    sw = ShallowWater(SWEConfig(**kw), device=dev)
+    h0, _ = sw.init_state()
+    lanes = torch.stack([T0] * width)
+    forms = {}
+    for variant in ("shard", "hide"):
+        adv, _ = m.batched_advance_fn(batch=width, variant=variant)
+        forms[f"diffusion-{variant}"] = (lambda k, adv=adv: adv(lanes.clone(), Cp, [k] * width,
+                                                                k))
+    lad, _ = m.batched_ladder_advance_fn(batch=width)
+    hold = torch.ones_like(lanes, dtype=torch.bool)
+    hold[(slice(None),) + (slice(1, side - 1),) * 2] = False
+    geom = [(m.dt, tuple(m.config.spacing))] * width
+    forms["diffusion-ladder"] = lambda k: lad(lanes.clone(), Cp, hold, geom, [k] * width, k)
+    wadv, _ = w.batched_advance_fn(batch=width)
+    ub = torch.stack([U0] * width)
+    forms["wave-shard"] = lambda k: wadv(ub.clone(), ub.clone(), C2, [k] * width, k)
+    sadv, _ = sw.batched_advance_fn(batch=width)
+    hb = torch.stack([h0] * width)
+    forms["swe-shard"] = lambda k: sadv(hb.clone(), (torch.zeros_like(hb),
+                                                     torch.zeros_like(hb)),
+                                        sw.face_masks(), [k] * width, k)
+    rows = {}
+    for name, run in forms.items():
+        run(4)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run(n)
+        t_host = time.perf_counter() - t0
+        stop.record()
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t0
+        kernels_step = None
+        if dev == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(4)
+                torch.cuda.synchronize()
+            cuda_events = [e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and not e.name.startswith(("Memcpy", "Memset"))]
+            kernels_step = len(cuda_events) / 4
+        rows[name] = dict(ms_per_step=t_wall / n * 1e3, host_ms_per_step=t_host / n * 1e3,
+                          device_ms_per_step=start.elapsed_time(stop) / n,
+                          kernels_per_step=kernels_step)
+        print(f"[serve] eager advance {name}, {width} lanes of {side}² f32: "
+              f"{rows[name]['ms_per_step']:.4f} ms a batch-step (host issue "
+              f"{rows[name]['host_ms_per_step']:.4f}, device "
+              f"{rows[name]['device_ms_per_step']:.4f}), {kernels_step} kernels a step, "
+              f"on {card}", flush=True)
+    return rows
+
+
+def serve_hide_vs_plain(torch, card, steps: int = 4) -> float:
+    """The hide lanes' kernel at the shapes serving gives it — one-rank
+    lane blocks of 1024² f32 and 256² f64, every face None — held bitwise
+    against its plain version: `steps` batched hide steps of two lanes
+    (batched_step_fn with batched_prepare_fn's coefficient), each beside
+    fused_step_cm_faces_plain over the same boxes from the same input.
+    Returns the largest |difference| (0.0)."""
+    from rocm_mpi_tpu_torch.config import DiffusionConfig
+    from rocm_mpi_tpu_torch.models import HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.parallel.overlap import effective_b_width, region_boxes
+
+    worst = 0.0
+    for side, dtype in ((1024, "f32"), (256, "f64")):
+        m = HeatDiffusion(DiffusionConfig(global_shape=(side, side), dtype=dtype,
+                                          lengths=(10.0, 10.0)), device=SERVE_DEVICE)
+        T0, Cp = m.init_state()
+        bgrid = m.make_batched_grid(2, 1)
+        step = m.batched_step_fn(bgrid, "hide")
+        C = m.batched_prepare_fn(bgrid, "hide")(Cp)
+        local = bgrid.space.local_shape
+        boxes = region_boxes(local, effective_b_width(local, m.config.b_width))
+        inv_d2 = kernels.inv_d2_of(m.config.spacing)
+        none = (None,) * (2 * len(local))
+        Tb = torch.stack([T0, T0 * 1.1])
+        for i in range(steps):
+            before = kernels.LAUNCHES["fused_step_cm"]
+            got = step(Tb, C)
+            check(kernels.LAUNCHES["fused_step_cm"] - before == 2 * len(boxes),
+                  f"[serve] hide step {side}² {dtype}: "
+                  f"{kernels.LAUNCHES['fused_step_cm'] - before} launches, not "
+                  f"{2 * len(boxes)}")
+            want = torch.empty_like(Tb)
+            for j in range(Tb.shape[0]):
+                for box in boxes:
+                    kernels.fused_step_cm_faces_plain(Tb[j], none, C, inv_d2, box=box,
+                                                      out=want[j])
+            equal, err = _same(got, want)
+            check(equal, f"[serve] hide lanes {side}² {dtype}, step {i}: kernel != plain "
+                  f"version (max |diff| {err})")
+            worst = max(worst, err)
+            Tb = got
+        print(f"[serve] hide lanes of {side}² {dtype} ({len(boxes)} boxes, faces None): "
+              f"{steps} batched steps of 2 lanes bitwise equal to fused_step_cm_faces_plain "
+              f"on {card}", flush=True)
+    return worst
+
+
+def phase_serve(torch, card):
+    """[serve] the serving core on one card (module docstring, phase 21)."""
+    import hashlib
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.serving import bins
+    from rocm_mpi_tpu_torch.serving.queue import Request, request_to_record
+    from rocm_mpi_tpu_torch.telemetry import compiles, regress
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="rmt-serve-"))
+    try:
+        # The compile accounting is process-wide: drop the earlier phases'
+        # windows and recompiles, so that steady_state is this service's.
+        compiles.reset()
+        compiles.install()
+        trace = serve_trace()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        svc, tickets, report, wall = _serve(torch, trace, ladder=True,
+                                            sessions_dir=str(root / "sessions"))
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(report.served == len(trace) and report.failed == 0,
+              f"[serve] served {report.served}/{len(trace)}, {report.failed} failed")
+        check(report.compiles["steady_state"] == 0, f"[serve] steady {report.compiles}")
+        check(any(p.endswith("|ladder") for p in report.programs)
+              and any("|hide|" in p for p in report.programs), f"[serve] {report.programs}")
+        # One launch a hide lane, box (the interior and four slabs) and step.
+        n_hide = sum(r.nt for r in trace if r.variant == "hide")
+        check(launches["fused_step_cm"] == 5 * n_hide and launches["masked_step"] == 0,
+              f"[serve] hide lanes launched {launches}, not 5 x {n_hide} fused_step_cm")
+        pipe = report.pipeline
+        occ = report.continuous.get("occupancy")
+        print(f"[serve] {len(trace)} requests, {report.n_bins} bins, {report.n_programs} "
+              f"programs, {wall:.3f} s: {len(trace) / wall:.3f} requests/s, "
+              f"{_lane_gpts(trace) / wall:.4f} lane-Gpts/s, occupancy "
+              f"{min(st.occupancy for st in report.bins.values()):.3f} (classic bins min), "
+              f"continuous occupancy {occ}, device_bubble {pipe['bubble']}, "
+              f"peak memory {peak / 2**30:.3f} GiB on {card}", flush=True)
+        print(f"[serve] pipeline depth {pipe['depth']}: {pipe['batches']} batches, assemble "
+              f"{pipe['assemble_s']} s, dispatch {pipe['dispatch_s']} s, fetch "
+              f"{pipe['fetch_s']} s, resolve {pipe['resolve_s']} s; hide lanes: "
+              f"{launches['fused_step_cm']} fused_step_cm launches over {n_hide} lane-steps "
+              f"(one a lane, box and step)", flush=True)
+
+        hide_err = serve_hide_vs_plain(torch, card)
+
+        # every lane bitwise to its standalone run on the card
+        digests = {}
+        for t in tickets:
+            got = t.result(timeout=5)
+            want = serve_standalone(torch, t.request, SERVE_DEVICE)
+            for g, w in zip(got, want):
+                check(np.array_equal(g, _host_bits(torch, w)),
+                      f"[serve] {t.request.request_id} {t.request.workload} "
+                      f"{t.request.global_shape} {t.request.variant}: lane != standalone")
+            digests[t.request.request_id] = hashlib.sha256(
+                b"".join(np.ascontiguousarray(g).tobytes() for g in got)).hexdigest()
+            del want
+        torch.cuda.empty_cache()
+        print(f"[serve] all {len(tickets)} lanes bitwise equal to their standalone runs "
+              f"on the card", flush=True)
+
+        # sessions: resume each session to twice its steps, bitwise
+        legs = [Request(request_id=f"{r.request_id}-resume", workload=r.workload,
+                        global_shape=r.global_shape, dtype=r.dtype, nt=2 * r.nt,
+                        ic_scale=r.ic_scale, session=r.session, resume=True)
+                for r in trace if r.session]
+        leg_t = [svc.queue.submit(r) for r in legs]
+        svc._drain_all()
+        for t in leg_t:
+            want = serve_standalone(torch, dataclasses.replace(
+                t.request, session=None, resume=False), SERVE_DEVICE)
+            check(t.start_step == t.request.nt // 2
+                  and np.array_equal(t.result(timeout=5)[0], _host_bits(torch, want[0])),
+                  f"[serve] resumed {t.request.request_id} != its straight run")
+        print(f"[serve] {len(legs)} sessions resumed at their saved step, bitwise equal "
+              "to straight runs", flush=True)
+
+        # the repeat trace: nothing built, nothing captured, no memory growth
+        before = compiles.snapshot()["totals"]["backend_compiles"]
+        mem0 = torch.cuda.memory_allocated()
+        again = [dataclasses.replace(r, request_id=r.request_id + "-again",
+                                     session=r.session and r.session + "-again")
+                 for r in trace]
+        t_again = [svc.queue.submit(r) for r in again]
+        t0 = time.perf_counter()
+        rep2 = svc._drain_all()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        mem1 = torch.cuda.memory_allocated()
+        built = compiles.snapshot()["totals"]["backend_compiles"] - before
+        check(built == 0 and rep2.compiles["steady_state"] == 0,
+              f"[serve] repeat trace built/captured {built}")
+        check(mem1 <= mem0, f"[serve] memory_allocated grew {mem0} -> {mem1}")
+        for t in t_again:
+            rid = t.request.request_id[:-len("-again")]
+            got = t.result(timeout=5)
+            check(hashlib.sha256(b"".join(np.ascontiguousarray(g).tobytes() for g in got))
+                  .hexdigest() == digests[rid], f"[serve] repeat {rid} differs")
+        print(f"[serve] repeat trace: 0 programs built, 0 graphs captured, "
+              f"memory_allocated {mem0} -> {mem1} B, {wall2:.3f} s "
+              f"({len(again) / wall2:.3f} requests/s) on {card}", flush=True)
+
+        # depth 1 against depth 2, bitwise
+        nolad = [dataclasses.replace(r, session=None) for r in trace]
+        d1 = _serve(torch, nolad, pipeline_depth=1)
+        d2 = _serve(torch, nolad, pipeline_depth=2)
+        for a, b in zip(d1[1], d2[1]):
+            for x, y in zip(a.result(timeout=5), b.result(timeout=5)):
+                check(np.array_equal(x, y), f"[serve] depth 1 != depth 2 "
+                      f"({a.request.request_id})")
+        for a in d2[1]:
+            check(hashlib.sha256(b"".join(np.ascontiguousarray(g).tobytes()
+                                          for g in a.result(timeout=5))).hexdigest()
+                  == digests[a.request.request_id], f"[serve] {a.request.request_id}: "
+                  "classic drain != ladder drain")
+        print(f"[serve] pipeline depth 1 {d1[3]:.3f} s (bubble {d1[2].pipeline['bubble']}) "
+              f"and depth 2 {d2[3]:.3f} s (bubble {d2[2].pipeline['bubble']}) without the "
+              f"ladder: bitwise equal, and equal to the ladder drain's lanes, on {card}",
+              flush=True)
+        del d1, d2
+
+        # the manifest, through both the service and the serve app
+        man = svc.write_manifest(root / "serve-manifest.json")
+        check(bins.validate_manifest_doc(man) == [], "[serve] manifest invalid")
+        trace_path = root / "trace.jsonl"
+        trace_path.write_text("".join(json.dumps(request_to_record(r)) + "\n" for r in trace))
+        out = root / "app"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rocm_mpi_tpu_torch.apps.serve", "--device", SERVE_DEVICE,
+             "--trace", str(trace_path), "--max-width", str(SERVE_MAX_WIDTH), "--ladder", "--sessions",
+             str(root / "app-sessions"), "--out", str(out)],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        app_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[serve] app rc {proc.returncode}: {proc.stderr[-2000:]}")
+        doc = json.loads((out / "serve-manifest.json").read_text())
+        check(doc["served"] == len(trace) and doc["programs"] == report.programs
+              and doc["compiles"]["steady_state"] == 0, f"[serve] app manifest {doc}")
+        check(regress.check_schema([out / "serve-manifest.json",
+                                    out / "serve-requests.jsonl"]) == [],
+              "[serve] the app's sidecars fail the schema check")
+        print(f"[serve] the serve app (child process) served the trace in {app_s:.3f} s: "
+              f"{doc['served']} served, {len(doc['programs'])} programs, the service's "
+              f"program keys; manifests valid", flush=True)
+        costs = serve_advance_costs(torch, card)
+        return dict(requests=len(trace), wall_s=wall, requests_per_s=len(trace) / wall,
+                    lane_gpts_per_s=_lane_gpts(trace) / wall, peak_bytes=peak,
+                    pipeline=pipe, continuous=report.continuous,
+                    programs=report.programs, launches=launches, repeat_wall_s=wall2,
+                    mem=(mem0, mem1), app_s=app_s, card=card, digests=digests,
+                    advance_costs=costs, hide_max_abs_err=hide_err)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _shard_digest(arrays, slices) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(b"".join(np.ascontiguousarray(a[tuple(slices)]).tobytes()
+                                   for a in arrays)).hexdigest()
+
+
+def serve_rank(rank, spec):
+    """One rank of [serve] on four cards: the multi trace through
+    SimulationService over NCCL at spec["batch_dims"] rows, results
+    fetched as each rank's shards; returns the digests of its lanes'
+    shards, the programs, the counts and the walls."""
+    from rocm_mpi_tpu_torch.serving.service import ServeConfig, SimulationService
+    from rocm_mpi_tpu_torch.telemetry import compiles
+
+    import torch as torch_
+
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    torch_.cuda.set_device(distributed.local_device("cuda"))
+    compiles.install()
+    svc = SimulationService(config=ServeConfig(max_width=SERVE_MAX_WIDTH, device="cuda",
+                                               fetch_results=True,
+                                               batch_dims=spec["batch_dims"]))
+    trace = serve_trace(multi=True)
+    tickets = [svc.queue.submit(r) for r in trace]
+    t0 = time.perf_counter()
+    report = svc._drain_all()
+    torch_.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from rocm_mpi_tpu_torch.serving.bins import bin_key
+
+    out = {}
+    for t in tickets:
+        got = t.result(timeout=5)
+        if got is None:
+            continue
+        space = svc._model_for(bin_key(t.request)).grid
+        out[t.request.request_id] = (space.shard_slices(),
+                                     _shard_digest(got, [slice(None)] * len(got[0].shape)))
+    return dict(shards=out, programs=report.programs, served=report.served,
+                failed=report.failed, steady=report.compiles["steady_state"], wall_s=wall,
+                wall_slo=svc.queue.wall_slo, space=[list(svc._model_for(bin_key(r)).grid.dims)
+                                                   for r in trace[:1]])
+
+
+def phase_serve_sharded(card, gpus: int):
+    """[serve] on four cards: the trace (no sessions) served on 4 ranks
+    over NCCL at batch_dims 2 (two rows of a two-rank space grid) and 1
+    (one row of 2×2); each rank's shard of every lane bitwise equal (by
+    digest) to the one-card service's lane, computed first on card 0."""
+    import torch as torch_
+
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_ranks
+
+    trace = serve_trace(multi=True)
+    svc, tickets, report, wall = _serve(torch_, trace)
+    check(report.served == len(trace), f"[serve] one card served {report.served}")
+    full = {t.request.request_id: t.result(timeout=5) for t in tickets}
+    del svc, tickets
+    torch_.cuda.empty_cache()
+    print(f"[serve] one-card reference: {len(trace)} requests in {wall:.3f} s "
+          f"({len(trace) / wall:.3f} requests/s) on {card}", flush=True)
+    out = {}
+    for bd in (2, 1):
+        ranks = spawn_ranks(gpus, serve_rank, ({"batch_dims": bd},), backend="nccl",
+                            timeout=900)
+        seen = set()
+        for rk, r in enumerate(ranks):
+            check(r["served"] == len(trace) and r["failed"] == 0 and r["steady"] == 0
+                  and r["wall_slo"] is False, f"[serve] rank {rk} at bd {bd}: {r}")
+            check(r["programs"] == [p.replace("|bd1", f"|bd{bd}") for p in report.programs],
+                  f"[serve] rank {rk} programs {r['programs']}")
+            for rid, (slices, digest) in r["shards"].items():
+                check(_shard_digest(full[rid], slices) == digest,
+                      f"[serve] rank {rk} bd {bd}: {rid} shard {slices} != the one-card lane")
+                seen.add(rid)
+        check(seen == set(full), f"[serve] bd {bd}: lanes seen {len(seen)}/{len(full)}")
+        walls = [r["wall_s"] for r in ranks]
+        print(f"[serve] {gpus} ranks over NCCL, batch_dims {bd} (space {ranks[0]['space']}): "
+              f"{len(trace)} requests in {max(walls):.3f} s "
+              f"({len(trace) / max(walls):.3f} requests/s), every lane's shards bitwise "
+              f"the one-card lanes, on {gpus} GPUs ({card} each)", flush=True)
+        out[bd] = dict(wall_s=max(walls), space=ranks[0]["space"])
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, metavar="PATH",
@@ -5314,7 +5805,7 @@ def main(argv=None) -> int:
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
                         help="4: run only the sharded phases (perf, sharded scan, deep, hide, "
                         "wave and shallow-water deep, 3d, checkpoint, weak scaling, telemetry, "
-                        "tune, elastic, ring, host-staged, wire, dryrun), "
+                        "tune, elastic, ring, host-staged, wire, dryrun, serve), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -5365,6 +5856,7 @@ def main(argv=None) -> int:
         record["tune"] = phase_tune_sharded(card, args.gpus)
         record["elastic"] = phase_elastic(card, args.gpus)
         record["transport"], _ = phase_transport(torch, card, args.gpus)
+        record["serve"] = phase_serve_sharded(card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -5396,6 +5888,7 @@ def main(argv=None) -> int:
     swe_deep_ranks, swe_deep_launches = phase_swe_deep(card, 1)
     weak_ranks, weak_launches = phase_weak_scaling(card, 1)
     transport, transport_launches = phase_transport(torch, card, 1)
+    serve_rec = phase_serve(torch, card)
 
     # Launches on the main paths: each path ran with the counts set to 0
     # just before it and read just after.
@@ -5424,7 +5917,8 @@ def main(argv=None) -> int:
     for counts in (cube["perf"]["launches"], cube["deep"]["launches"],
                    *(ckpt_rec[k][w] for k in ("perf", "deep", "swe")
                      for w in ("crashed_launches", "resumed_launches")),
-                   weak_launches, transport_launches, tel_launches, res_rec["launches"]):
+                   weak_launches, transport_launches, tel_launches, res_rec["launches"],
+                   serve_rec["launches"]):
         for name, count in counts.items():
             launches[name] += count
     line = []
@@ -5435,7 +5929,9 @@ def main(argv=None) -> int:
         line.append(dict(
             name=name, route="cuda", source=f"rocm_mpi_tpu_torch/csrc/{source}",
             replaces=replaces, launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            max_abs_err=max([r["max_abs_err"] for r in rows if r["kernel"] == name]
+                            + ([serve_rec["hide_max_abs_err"]]
+                               if name == "fused_step_cm" else [])),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
         ))
@@ -5454,7 +5950,8 @@ def main(argv=None) -> int:
             wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks,
             weak_scaling_ranks=weak_ranks, three_d=cube, checkpoint=ckpt_rec, host=host,
             telemetry=tel_rec, tune=tune_rec, resilience=res_rec,
-            transport=transport, kernels=line, seconds=time.perf_counter() - t0,
+            transport=transport, serve=serve_rec, kernels=line,
+            seconds=time.perf_counter() - t0,
         ), indent=1, default=str))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)

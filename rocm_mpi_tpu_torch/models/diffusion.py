@@ -29,6 +29,12 @@ two drivers of the per-step variants, chosen by `run(driver=...)`:
   "scan" — scan_advance_fn, JAX's q-step chunks as CUDA graphs
            (models/scan.py), bitwise equal to "step";
 
+the batched advances of the serving layer (docs/SERVING.md): `batch`
+lanes of one problem, each its own simulation, stepped together on a
+BatchedGrid (`batched_advance_fn` for "shard", "hide", "ap" and "fused",
+`batched_ladder_advance_fn`, `batched_deep_advance_fn`), every lane
+bitwise equal to the standalone run of its own length;
+
 and three multi-step schedules beside the per-step variants:
 
   run_vmem_resident — one rank: `chunk` steps per launch of the
@@ -101,11 +107,13 @@ from rocm_mpi_tpu_torch.parallel.halo import (
     HostStagedStepper,
     exchange_faces,
     exchange_halo,
+    exchange_halo_batched,
     global_boundary_mask,
     place_core,
 )
-from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
-from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
+from rocm_mpi_tpu_torch.models import lanes as _lanes
+from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_batched_grid, init_global_grid
+from rocm_mpi_tpu_torch.parallel.overlap import make_batched_overlap_step, make_overlap_step
 from rocm_mpi_tpu_torch.utils import metrics
 from rocm_mpi_tpu_torch.utils.backend import resolve_device
 
@@ -340,14 +348,14 @@ class HeatDiffusion:
 
         return step, prepare
 
-    def _make_hide_step(self):
+    def _make_hide_step(self, overlap_on_one_rank: bool = False):
         """hide rung: the Cm contract on the overlap decomposition, every
         region one fused_step_cm launch in every dtype (the JAX package's
         f64 jnp strips exist only because Mosaic has no f64), the slabs
         read from the shard and the exchanged faces. One rank routes to
         the perf step, bitwise. Returns (step, prepare)."""
         cfg, grid = self.config, self.grid
-        if grid.nprocs == 1:
+        if grid.nprocs == 1 and not overlap_on_one_rank:
             return self._make_masked_step()
 
         def region_update(T, faces, box, Cm, out):
@@ -363,6 +371,27 @@ class HeatDiffusion:
         return step, self._cm_prepare()
 
     # ---- drivers --------------------------------------------------------
+
+    def lane_advance_fn(self, variant: str):
+        """The standalone single-lane advance a batched lane of `variant`
+        equals bit for bit: advance_fn(variant), except that on a one-rank
+        grid "hide" keeps the overlap decomposition (fused_step_cm over
+        the boxes, the faces at the domain edge zeros) where the
+        single-lane "hide" takes the perf step (masked_step, another
+        operation order): the batched hide lanes run the overlap form on
+        every grid."""
+        if variant != "hide" or self.grid.nprocs != 1:
+            return self.advance_fn(variant)
+        step, prep = self._make_hide_step(overlap_on_one_rank=True)
+
+        def advance(T, Cp, n):
+            C = prep(Cp)
+            spare = torch.empty_like(T)
+            for _ in range(int(n)):
+                T, spare = step(T, C, out=spare), T
+            return T
+
+        return advance
 
     def prepare_fn(self, variant: str):
         """Cp -> the coefficient `variant`'s steps receive (Cp itself when
@@ -458,6 +487,214 @@ class HeatDiffusion:
 
         advance.loop = loop
         return advance, q
+
+    # ---- multi-tenant batching (docs/SERVING.md) ------------------------
+
+    def make_batched_grid(self, batch: int, batch_dims: int = 1, nprocs: int | None = None,
+                          rank: int | None = None):
+        """The space×batch grid for `batch` lanes of this model's problem
+        (mesh.init_batched_grid), the space decomposition pinned to the
+        model's own grid dims, so a lane's shards match its standalone
+        twin's."""
+        cfg = self.config
+        return init_batched_grid(batch, *cfg.global_shape, lengths=cfg.lengths,
+                                 space_dims=self.grid.dims, batch_dims=batch_dims,
+                                 nprocs=nprocs, rank=rank)
+
+    def _make_batched_step(self, bgrid, variant: str):
+        """(step, prepare-or-None) over a rank's lane block — the JAX
+        package's _make_batched_step. `step(Tb, C, out, active) -> out`
+        writes the next state of every lane into `out` (never Tb); lanes
+        not in `active` (lanes.Active; None = all) keep their cells. C is
+        the lane-shared coefficient, prepared by `prepare(Cp)` once per
+        advance where the variant prepares one (hide).
+
+        "shard" runs one exchange of every lane (exchange_halo_batched)
+        and the padded step over the whole block; "hide" the lane-batched
+        overlap on the Cm contract (make_batched_overlap_step: every
+        lane's boxes one fused_step_cm launch each, fed by one face
+        exchange of the block); "ap" and "fused" exchange the block and
+        run the global-array step lane by lane. Each gives every lane
+        the arithmetic of its standalone step (lane_advance_fn)."""
+        cfg = self.config
+        space = bgrid.space
+        mask = global_boundary_mask(space, device=self.device)
+        pads: dict = {}
+
+        def padded(Tb, wire_mode):
+            key = (tuple(Tb.shape), Tb.dtype, Tb.device)
+            pads[key] = exchange_halo_batched(Tb, bgrid, wire_mode=wire_mode,
+                                              out=pads.get(key))
+            return pads[key]
+
+        if variant in ("ap", "fused"):
+            raw = step_flux_form if variant == "ap" else step_fused
+            core = tuple(slice(1, -1) for _ in range(space.ndim))
+
+            def step(Tb, Cpp, out, active=None):
+                Tp = padded(Tb, "f32")
+                live = range(Tb.shape[0]) if active is None else active.lanes
+                for j in range(Tb.shape[0]):
+                    if j not in live:
+                        out[j].copy_(Tb[j])
+                        continue
+                    new = raw(Tp[j], Cpp, cfg.lam, self.dt, cfg.spacing)[core]
+                    torch.where(mask, Tb[j], new, out=out[j])
+                return out
+
+            return step, place_core
+
+        if variant == "hide":
+            def region_update(T, faces, box, Cm, out):
+                kernels.fused_step_cm_faces(T, faces or (None,) * (2 * T.ndim), Cm,
+                                            cfg.spacing, box=box, out=out)
+
+            local = make_batched_overlap_step(bgrid, region_update, cfg.b_width,
+                                              wire_mode=cfg.wire_mode, device=self.device)
+
+            def step(Tb, Cm, out, active=None):
+                return local(Tb, Cm, out, None if active is None else active.lanes)
+
+            def prepare(Cp):
+                return torch.where(mask, torch.zeros_like(Cp), (self.dt * cfg.lam) / Cp)
+
+            return step, prepare
+
+        if variant != "shard":
+            raise ValueError(
+                f"batched advance supports variants 'shard', 'hide', 'ap', 'fused'; got "
+                f"{variant!r} (the Pallas rungs are single-lane)")
+
+        def step(Tb, Cp, out, active=None):
+            new = step_fused_padded(padded(Tb, cfg.wire_mode), Cp, cfg.lam, self.dt, cfg.spacing)
+            return torch.where(_lanes.hold_mask(mask, active), Tb, new, out=out)
+
+        return step, None
+
+    def batched_step_fn(self, bgrid, variant: str = "shard"):
+        """`step(Tb, C) -> Tb'`: one batched step of every lane, C the
+        prepared coefficient (batched_prepare_fn) — the JAX package's
+        audit surface of one batched step."""
+        step, _ = self._make_batched_step(bgrid, variant)
+        return lambda Tb, C: step(Tb, C, torch.empty_like(Tb))
+
+    def batched_prepare_fn(self, bgrid, variant: str = "shard"):
+        """`prepare(Cp) -> C` of the batched variant (the identity for
+        the variants that prepare nothing but ap/fused's padding)."""
+        _, prep = self._make_batched_step(bgrid, variant)
+        return prep if prep is not None else (lambda C: C)
+
+    def batched_advance_fn(self, batch: int | None = None, variant: str = "shard", bgrid=None,
+                           batch_dims: int = 1):
+        """(advance(Tb, Cp, lane_steps, n) -> Tb, bgrid) — the batched
+        advance of the serving layer (docs/SERVING.md). `Tb` is this
+        rank's `(local lanes, *shard)` block (bgrid.local_block of the
+        full batch), `Cp` the space shard every lane shares, `lane_steps`
+        the host step counts of the local lanes, `n` the batch's steps
+        (the longest lane's). Lane j freezes bitwise after its own
+        lane_steps[j] (models/lanes.py), so every lane equals a standalone
+        run of its own length (lane_advance_fn). The steps ping-pong
+        between Tb and a spare kept by the advance (`advance.slots`): the
+        caller must rebind from the result, as from a donated JAX
+        argument. One advance serves any lane_steps and n."""
+        if bgrid is None:
+            if batch is None:
+                raise ValueError("pass batch= or a prebuilt bgrid=")
+            bgrid = self.make_batched_grid(batch, batch_dims)
+        step, prep = self._make_batched_step(bgrid, variant)
+        slots = _lanes.LaneSlots()
+        ndim = bgrid.space.ndim
+
+        def advance(Tb, Cp, lane_steps, n):
+            C = Cp if prep is None else prep(Cp)
+            spare = slots.spare(Tb, avoid=(Tb,))
+            for active in _lanes.schedule(lane_steps, n, ndim, Tb.device):
+                Tb, spare = step(Tb, C, spare, active), Tb
+            return Tb
+
+        advance.slots = slots
+        return advance, bgrid
+
+    def ladder_step(self, spacing, dt):
+        """The shard step's arithmetic at another geometry: `(Tp, Cp,
+        hold, out) -> out` with `dt` (a 0-dim tensor in the field dtype)
+        and `spacing` a lane's own — the ladder lane's step."""
+        lam = self.config.lam
+
+        def step(Tp, Cp, hold, out):
+            return torch.where(hold, Tp[tuple(slice(1, -1) for _ in spacing)],
+                               step_fused_padded(Tp, Cp, lam, dt, spacing), out=out)
+
+        return step
+
+    def batched_ladder_advance_fn(self, batch: int | None = None, bgrid=None,
+                                  batch_dims: int = 1):
+        """(advance(Tb, Cp, hold, geom, lane_steps, n) -> Tb, bgrid) — the
+        ladder edition of the batched advance (the JAX package's
+        batched_ladder_advance_fn): this model's shape is the ladder rung,
+        and lane j embeds a smaller original domain at the origin corner.
+        `hold` is `(lanes, *shard)` bool, True on a lane's held cells (its
+        original domain's Dirichlet ring and everything outside it);
+        `geom[j]` is lane j's `(dt, spacing)`, its original config's
+        (serving adapters' ladder_geom). Each lane runs the shard step's
+        operations with its own Python-scalar spacing and dt on its view of
+        the block, after one exchange of every lane, so its interior cells
+        get the bits of its standalone run. Single-controller, as in the
+        JAX package; the 'f32' wire only."""
+        if bgrid is None:
+            if batch is None:
+                raise ValueError("pass batch= or a prebuilt bgrid=")
+            bgrid = self.make_batched_grid(batch, batch_dims)
+        slots = _lanes.LaneSlots()
+        pads: dict = {}
+        ndim = bgrid.space.ndim
+
+        def advance(Tb, Cp, hold, geom, lane_steps, n):
+            steps = [self.ladder_step(sp, dt) for dt, sp in geom]
+            spare = slots.spare(Tb, avoid=(Tb,))
+            key = (tuple(Tb.shape), Tb.dtype, Tb.device)
+            for active in _lanes.schedule(lane_steps, n, ndim, Tb.device):
+                Tp = pads[key] = exchange_halo_batched(Tb, bgrid, out=pads.get(key))
+                live = range(Tb.shape[0]) if active is None else active.lanes
+                for j, st in enumerate(steps):
+                    if j in live:
+                        st(Tp[j], Cp, hold[j], spare[j])
+                    else:
+                        spare[j].copy_(Tb[j])
+                Tb, spare = spare, Tb
+            return Tb
+
+        advance.slots = slots
+        return advance, bgrid
+
+    def batched_deep_advance_fn(self, batch: int | None = None, block_steps: int | None = None,
+                                bgrid=None, batch_dims: int = 1, wire_mode: str | None = None):
+        """(advance(Tb, Cp, n) -> Tb, bgrid, k) — the deep-halo schedule
+        on a BatchedGrid (parallel.deep_halo.make_deep_sweep): one width-k
+        exchange of every lane per k steps, the local k steps in the
+        "jnp" form over the block. Uniform steps only: `n` a multiple of
+        k for every lane."""
+        cfg = self.config
+        if bgrid is None:
+            if batch is None:
+                raise ValueError("pass batch= or a prebuilt bgrid=")
+            bgrid = self.make_batched_grid(batch, batch_dims)
+        k = block_steps
+        if k is None:
+            k = default_deep_depth(bgrid.space.local_shape,
+                                   multistep._compute_itemsize(cfg.torch_dtype))
+        wm = cfg.wire_mode if wire_mode is None else wire_mode
+        sched = deep_halo.make_deep_sweep(bgrid, k, cfg.lam, self.dt, cfg.spacing,
+                                          wire_mode=wm)
+
+        def advance(Tb, Cp, n):
+            sweeps = check_sweeps(n, sched.k)
+            Cm = sched.prepare(Cp)
+            for _ in range(sweeps):
+                Tb = sched.sweep(Tb, Cm)
+            return Tb
+
+        return advance, bgrid, sched.k
 
     def run(self, variant: str = "ap", nt: int | None = None,
             warmup: int | None = None, driver: str = "step",

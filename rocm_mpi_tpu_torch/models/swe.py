@@ -60,8 +60,9 @@ from rocm_mpi_tpu_torch.models.scan import (
 from rocm_mpi_tpu_torch.ops import multistep, swe
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
 from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
-from rocm_mpi_tpu_torch.parallel.halo import exchange_halo
-from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
+from rocm_mpi_tpu_torch.models import lanes as _lanes
+from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, exchange_halo_batched
+from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_batched_grid, init_global_grid
 from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
 from rocm_mpi_tpu_torch.utils import metrics
 from rocm_mpi_tpu_torch.utils.backend import resolve_device
@@ -237,6 +238,70 @@ class ShallowWater:
             return h, us
 
         return advance
+
+    # ---- multi-tenant batching (docs/SERVING.md) ------------------------
+
+    def make_batched_grid(self, batch: int, batch_dims: int = 1, nprocs: int | None = None,
+                          rank: int | None = None):
+        """Space×batch grid for `batch` lanes of this model's problem (see
+        HeatDiffusion.make_batched_grid)."""
+        cfg = self.config
+        return init_batched_grid(batch, *cfg.global_shape, lengths=cfg.lengths,
+                                 space_dims=self.grid.dims, batch_dims=batch_dims,
+                                 nprocs=nprocs, rank=rank)
+
+    def batched_advance_fn(self, batch: int | None = None, variant: str = "shard", bgrid=None,
+                           batch_dims: int = 1):
+        """(advance(hb, usb, Mus, lane_steps, n) -> (hb, usb), bgrid) — the
+        SWE edition of the batched advance (HeatDiffusion's has the
+        contract; every state field freezes together at a lane's count).
+        The face masks `Mus` are space-shaped, shared by every lane.
+        "shard" exchanges every field of every lane once a step
+        (exchange_halo_batched per field) and steps the whole block; "ap"
+        runs the roll-form step lane by lane on one rank."""
+        if bgrid is None:
+            if batch is None:
+                raise ValueError("pass batch= or a prebuilt bgrid=")
+            bgrid = self.make_batched_grid(batch, batch_dims)
+        cfg = self.config
+        cH, cg = self.coeffs
+        ndim = bgrid.space.ndim
+        if variant == "shard":
+            pads: dict = {}
+
+            def step(leaves, Mus):
+                Sp = []
+                for i, t in enumerate(leaves):
+                    key = (i, tuple(t.shape), t.dtype, t.device)
+                    Sp.append(exchange_halo_batched(t, bgrid, wire_mode=cfg.wire_mode,
+                                                    out=pads.get(key)))
+                    pads[key] = Sp[-1]
+                return swe.swe_step_padded(tuple(Sp), Mus, (cfg.H0, cfg.g), cfg.dt,
+                                           cfg.spacing)
+        elif variant == "ap":
+            if bgrid.space.nprocs != 1:
+                raise ValueError("the batched SWE 'ap' advance runs on one-rank space grids; "
+                                 "use 'shard'")
+
+            def step(leaves, Mus):
+                outs = [swe.masked_swe_step(leaves[0][j], tuple(u[j] for u in leaves[1:]),
+                                            Mus, cH, cg) for j in range(leaves[0].shape[0])]
+                return (torch.stack([h for h, _ in outs]),) + tuple(
+                    torch.stack([us[a] for _, us in outs]) for a in range(ndim))
+        else:
+            raise ValueError(f"batched SWE advance supports variants 'shard', 'ap'; got "
+                             f"{variant!r} (the Pallas/overlap rungs are single-lane)")
+
+        def advance(hb, usb, Mus, lane_steps, n):
+            leaves = (hb, *usb)
+            for active in _lanes.schedule(lane_steps, n, ndim, hb.device):
+                new = step(leaves, Mus)
+                if active is not None:
+                    new = tuple(torch.where(active.mask, a, b) for a, b in zip(new, leaves))
+                leaves = new
+            return leaves[0], tuple(leaves[1:])
+
+        return advance, bgrid
 
     def _run_timed(self, advance, nt, warmup, **span_attrs) -> SWERunResult:
         """Run `advance(h, us, Mus, n) -> (h, us)` from the initial state

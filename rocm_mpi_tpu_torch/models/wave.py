@@ -59,8 +59,14 @@ from rocm_mpi_tpu_torch.models.scan import (
 from rocm_mpi_tpu_torch.ops import multistep, wave
 from rocm_mpi_tpu_torch.ops.diffusion import gaussian_ic
 from rocm_mpi_tpu_torch.parallel import deep_halo, distributed, wire
-from rocm_mpi_tpu_torch.parallel.halo import exchange_halo, global_boundary_mask, place_core
-from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_global_grid
+from rocm_mpi_tpu_torch.models import lanes as _lanes
+from rocm_mpi_tpu_torch.parallel.halo import (
+    exchange_halo,
+    exchange_halo_batched,
+    global_boundary_mask,
+    place_core,
+)
+from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_batched_grid, init_global_grid
 from rocm_mpi_tpu_torch.parallel.overlap import make_overlap_step
 from rocm_mpi_tpu_torch.utils import metrics
 from rocm_mpi_tpu_torch.utils.backend import resolve_device
@@ -237,6 +243,127 @@ class AcousticWave:
             return U, Uprev
 
         return advance
+
+    # ---- multi-tenant batching (docs/SERVING.md) ------------------------
+
+    def make_batched_grid(self, batch: int, batch_dims: int = 1, nprocs: int | None = None,
+                          rank: int | None = None):
+        """Space×batch grid for `batch` lanes of this model's problem (see
+        HeatDiffusion.make_batched_grid)."""
+        cfg = self.config
+        return init_batched_grid(batch, *cfg.global_shape, lengths=cfg.lengths,
+                                 space_dims=self.grid.dims, batch_dims=batch_dims,
+                                 nprocs=nprocs, rank=rank)
+
+    def _batched_pair(self, bgrid, lane_step):
+        """advance(Ub, Upb, C2, lane_steps, n, wire_mode, extra) -> (Ub,
+        Upb) over a rank's lane block: each step exchanges every lane
+        once, `lane_step(Tp, Ub, Upb, C2, hold, out, active, extra)` writes
+        U⁺ (held cells and frozen lanes keep U), and the pair rotates as
+        advance_fn's does; a lane past its count keeps both carries."""
+        mask = global_boundary_mask(bgrid.space, device=self.device)
+        slots = _lanes.LaneSlots()
+        pads: dict = {}
+        ndim = bgrid.space.ndim
+
+        def advance(Ub, Upb, C2, lane_steps, n, wire_mode=self.config.wire_mode, extra=None):
+            spare = slots.spare(Ub, avoid=(Ub, Upb))
+            key = (tuple(Ub.shape), Ub.dtype, Ub.device)
+            for active in _lanes.schedule(lane_steps, n, ndim, Ub.device):
+                Tp = pads[key] = exchange_halo_batched(Ub, bgrid, wire_mode=wire_mode,
+                                                       out=pads.get(key))
+                lane_step(Tp, Ub, Upb, C2, _lanes.hold_mask(mask, active), spare, active, extra)
+                if active is None:
+                    Ub, Upb, spare = spare, Ub, Upb
+                else:
+                    torch.where(active.mask, Ub, Upb, out=Upb)
+                    Ub, spare = spare, Ub
+            return Ub, Upb
+
+        advance.slots = slots
+        return advance
+
+    def batched_advance_fn(self, batch: int | None = None, variant: str = "shard", bgrid=None,
+                           batch_dims: int = 1):
+        """(advance(Ub, Upb, C2, lane_steps, n) -> (Ub, Upb), bgrid) — the
+        wave edition of the batched advance (HeatDiffusion's has the
+        contract; both leapfrog carries freeze together at a lane's count).
+        "shard" steps the whole lane block at once after one exchange of
+        every lane; "ap" runs the global-array step lane by lane."""
+        if bgrid is None:
+            if batch is None:
+                raise ValueError("pass batch= or a prebuilt bgrid=")
+            bgrid = self.make_batched_grid(batch, batch_dims)
+        cfg = self.config
+        if variant == "shard":
+            def lane_step(Tp, Ub, Upb, C2, hold, out, active, extra):
+                new = wave.wave_step_padded(Tp, Upb, C2, self.dt, cfg.spacing)
+                torch.where(hold, Ub, new, out=out)
+
+            adv = self._batched_pair(bgrid, lane_step)
+            return adv, bgrid
+        if variant == "ap":
+            core = tuple(slice(1, -1) for _ in range(bgrid.space.ndim))
+
+            def lane_step(Tp, Ub, Upb, C2p, hold, out, active, extra):
+                live = range(Ub.shape[0]) if active is None else active.lanes
+                for j in range(Ub.shape[0]):
+                    if j not in live:
+                        out[j].copy_(Ub[j])
+                        continue
+                    new = wave.wave_step_fused(Tp[j], place_core(Upb[j]), C2p, self.dt,
+                                               cfg.spacing)[core]
+                    torch.where(hold if hold.ndim == len(core) else hold[j], Ub[j], new,
+                                out=out[j])
+
+            inner = self._batched_pair(bgrid, lane_step)
+
+            def adv(Ub, Upb, C2, lane_steps, n):
+                return inner(Ub, Upb, place_core(C2), lane_steps, n, wire_mode="f32")
+
+            adv.slots = inner.slots
+            return adv, bgrid
+        raise ValueError(f"batched wave advance supports variants 'shard', 'ap'; got "
+                         f"{variant!r} (the Pallas/overlap rungs are single-lane)")
+
+    def ladder_step(self, spacing, dt):
+        """The shard step's arithmetic at a lane's own geometry (`dt` a
+        0-dim tensor in the field dtype): `(Tp, Uprev, C2, hold, U, out)`
+        writes U⁺ into `out`, held cells keeping U."""
+        def step(Tp, Uprev, C2, hold, U, out):
+            return torch.where(hold, U, wave.wave_step_padded(Tp, Uprev, C2, dt, spacing),
+                               out=out)
+
+        return step
+
+    def batched_ladder_advance_fn(self, batch: int | None = None, bgrid=None,
+                                  batch_dims: int = 1):
+        """(advance(Ub, Upb, C2, hold, geom, lane_steps, n) -> (Ub, Upb),
+        bgrid) — the wave edition of the ladder advance
+        (HeatDiffusion.batched_ladder_advance_fn): per-lane `hold` masks
+        and `geom[j] = (dt, spacing)` of lane j's original config; lane j
+        steps its own view with its own scalars."""
+        if bgrid is None:
+            if batch is None:
+                raise ValueError("pass batch= or a prebuilt bgrid=")
+            bgrid = self.make_batched_grid(batch, batch_dims)
+        def lane_step(Tp, Ub, Upb, C2, held, out, active, extra):
+            hold, steps = extra
+            live = range(Ub.shape[0]) if active is None else active.lanes
+            for j, st in enumerate(steps):
+                if j in live:
+                    st(Tp[j], Upb[j], C2, hold[j], Ub[j], out[j])
+                else:
+                    out[j].copy_(Ub[j])
+
+        inner = self._batched_pair(bgrid, lane_step)
+
+        def advance(Ub, Upb, C2, hold, geom, lane_steps, n):
+            steps = [self.ladder_step(sp, dt) for dt, sp in geom]
+            return inner(Ub, Upb, C2, lane_steps, n, wire_mode="f32", extra=(hold, steps))
+
+        advance.slots = inner.slots
+        return advance, bgrid
 
     def _run_timed(self, advance, nt, warmup, **span_attrs) -> WaveRunResult:
         """Run `advance(U, U⁻, C2, n) -> (U, U⁻)` from the initial state

@@ -14,13 +14,15 @@ import torch
 from rocm_mpi_tpu_torch.ops.stencil import d_a, d_i, inn
 
 
-def _core(ndim: int) -> tuple[slice, ...]:
-    return tuple(slice(1, -1) for _ in range(ndim))
+def _core(ndim: int) -> tuple:
+    """The core of the trailing `ndim` axes (any lane axes before them
+    kept whole, so a lane-batched block steps every lane at once)."""
+    return (Ellipsis,) + tuple(slice(1, -1) for _ in range(ndim))
 
 
 def _hi_lo(ndim: int, ax: int):
-    hi = tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
-    lo = tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
+    hi = (Ellipsis,) + tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
+    lo = (Ellipsis,) + tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
     return hi, lo
 
 
@@ -52,7 +54,9 @@ def step_fused(T, Cp, lam, dt, spacing):
 def step_fused_padded(Tp, Cp, lam, dt, spacing):
     """Candidate update for every cell of a block given its width-1-padded
     neighbourhood `Tp` (shape = Cp.shape + 2 per axis); the caller masks
-    the global-boundary cells."""
+    the global-boundary cells. `Tp` may lead with lane axes
+    (`(lanes, *padded)`), which `Cp`, shared by every lane, broadcasts
+    over: each lane gets the arithmetic of its own unbatched call."""
     ndim = Cp.ndim
     core = _core(ndim)
     lap = torch.zeros_like(Cp)
@@ -61,6 +65,20 @@ def step_fused_padded(Tp, Cp, lam, dt, spacing):
         hi, lo = _hi_lo(ndim, ax)
         lap = lap + (Tp[hi] - 2.0 * Tp[core] + Tp[lo]) / d2
     return Tp[core] + dt * lam / Cp * lap
+
+
+def step_fused_padded_geom(Tp, Cp, dt_lam, inv_d2):
+    """`step_fused_padded` with the geometry given as operands — the JAX
+    package's ladder lane step: `dt_lam` = dt·λ and `inv_d2` the per-axis
+    reciprocals 1/spacing² (scalars, or per-lane tensors broadcasting over
+    the lane axis), each Laplacian term multiplied by its reciprocal."""
+    ndim = Cp.ndim
+    core = _core(ndim)
+    lap = torch.zeros_like(Cp)
+    for ax in range(ndim):
+        hi, lo = _hi_lo(ndim, ax)
+        lap = lap + (Tp[hi] - 2.0 * Tp[core] + Tp[lo]) * inv_d2[ax]
+    return Tp[core] + dt_lam / Cp * lap
 
 
 def step_cm_padded(Tp, Cm, spacing):

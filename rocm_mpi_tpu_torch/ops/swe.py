@@ -133,19 +133,20 @@ def _swe_padded_math(hp, ups, Mus, cH, cg):
     leaves — swe_kernels._swe_padded_math, its slices and operation order:
     h' on the core plus the high pad, then each u_a' from the forward
     difference of h'. Returns the core tuple (h', u0', …)."""
-    ndim = hp.ndim
-    ext = tuple(slice(1, None) for _ in range(ndim))
+    ndim = len(ups)  # the space axes are the last ndim; any before are lanes
+    E = (Ellipsis,)
+    ext = E + tuple(slice(1, None) for _ in range(ndim))
     div = None
     for a, up in enumerate(ups):
-        lo = tuple(slice(0, -1) if ax == a else slice(1, None) for ax in range(ndim))
+        lo = E + tuple(slice(0, -1) if ax == a else slice(1, None) for ax in range(ndim))
         d = cH[a] * (up[ext] - up[lo])
         div = d if div is None else div + d
     h_ext = hp[ext] - div
-    h_core = h_ext[tuple(slice(0, -1) for _ in range(ndim))]
-    core = tuple(slice(1, -1) for _ in range(ndim))
+    h_core = h_ext[E + tuple(slice(0, -1) for _ in range(ndim))]
+    core = E + tuple(slice(1, -1) for _ in range(ndim))
     outs = [h_core]
     for a, up in enumerate(ups):
-        sh = tuple(slice(1, None) if ax == a else slice(0, -1) for ax in range(ndim))
+        sh = E + tuple(slice(1, None) if ax == a else slice(0, -1) for ax in range(ndim))
         dh = h_ext[sh] - h_core
         outs.append(Mus[a] * (up[core] - cg[a] * dh))
     return tuple(outs)

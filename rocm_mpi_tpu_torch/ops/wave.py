@@ -79,19 +79,24 @@ _SIGNATURES = {
 }
 
 
-def _core(ndim: int) -> tuple[slice, ...]:
-    return tuple(slice(1, -1) for _ in range(ndim))
+def _core(ndim: int) -> tuple:
+    """The core of the trailing `ndim` axes; lane axes before them stay
+    whole."""
+    return (Ellipsis,) + tuple(slice(1, -1) for _ in range(ndim))
 
 
 def lap_from_padded(Up, inv_d2):
     """Σ_ax ((hi − 2c) + lo)·inv_d2[ax] of every core cell of a width-1
-    padded block — pallas_kernels._lap_from_padded's order."""
-    ndim = Up.ndim
+    padded block — pallas_kernels._lap_from_padded's order. The block's
+    space axes are its last len(inv_d2); any axes before them are lanes."""
+    ndim = len(inv_d2)
     core = _core(ndim)
     lap = None
     for ax in range(ndim):
-        hi = tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
-        lo = tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
+        hi = (Ellipsis,) + tuple(slice(2, None) if a == ax else slice(1, -1)
+                                 for a in range(ndim))
+        lo = (Ellipsis,) + tuple(slice(None, -2) if a == ax else slice(1, -1)
+                                 for a in range(ndim))
         term = (Up[hi] - 2.0 * Up[core] + Up[lo]) * inv_d2[ax]
         lap = term if lap is None else lap + term
     return lap
@@ -100,7 +105,7 @@ def lap_from_padded(Up, inv_d2):
 def _candidate(Up, Uprev, W, inv_d2):
     """(2c − U⁻) + W·lap, c = Up[core]: the leapfrog candidate with the
     coefficient W (dt²·C2, or the masked Cw) already formed."""
-    return (2.0 * Up[_core(Up.ndim)] - Uprev) + W * lap_from_padded(Up, inv_d2)
+    return (2.0 * Up[_core(len(inv_d2))] - Uprev) + W * lap_from_padded(Up, inv_d2)
 
 
 # ---------------------------------------------------------------------------

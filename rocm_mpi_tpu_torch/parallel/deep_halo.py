@@ -251,14 +251,15 @@ def jnp_k_steps(Tp, Cm, inv_d2, k: int):
     """k steps of the padded-slice stencil on the inner box (the outermost
     ghost layer is held) — deep_halo.py's any-shape XLA route, in plain
     PyTorch and its operation order: ((hi - 2c) + lo)·inv per axis."""
-    ndim = Tp.ndim
-    inner = tuple(slice(1, -1) for _ in range(ndim))
+    ndim = len(inv_d2)  # the space axes are the last ndim; any before are lanes
+    E = (Ellipsis,)
+    inner = E + tuple(slice(1, -1) for _ in range(ndim))
     Tp = Tp.clone()
     for _ in range(k):
         lap = None
         for ax in range(ndim):
-            hi = tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
-            lo = tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
+            hi = E + tuple(slice(2, None) if a == ax else slice(1, -1) for a in range(ndim))
+            lo = E + tuple(slice(None, -2) if a == ax else slice(1, -1) for a in range(ndim))
             term = (Tp[hi] - 2.0 * Tp[inner] + Tp[lo]) * inv_d2[ax]
             lap = term if lap is None else lap + term
         Tp[inner] = Tp[inner] + Cm[inner] * lap
@@ -277,7 +278,18 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
     float or a 0-dim tensor in the field dtype, as the model passes it.
     A stateful `wire_mode` makes it `sweep(T, Cm, wire_state) -> (T,
     wire_state)`.
+
+    `grid` may be a BatchedGrid (docs/SERVING.md): the sweep then
+    advances a rank's `(lanes, *space shard)` block with ONE width-k
+    exchange of every lane (halo.exchange_halo_batched), `prepare` takes
+    the space-shaped Cp every lane shares, and the local k steps take the
+    "jnp" form over the whole block, as the JAX package pins its batched
+    sweeps. Batched sweeps serve the stateless wire modes only.
     """
+    from rocm_mpi_tpu_torch.parallel.mesh import BatchedGrid
+
+    if isinstance(grid, BatchedGrid):
+        return _make_batched_deep_sweep(grid, k, lam, dt, spacing, wire_mode)
     _validate_depth(grid, k, "sweep depth")
     exchange, init_wire = _wire_exchange(grid, k, wire_mode, 1)
     if local_form not in ("auto", "jnp"):
@@ -319,6 +331,37 @@ def make_deep_sweep(grid: GlobalGrid, k: int, lam, dt, spacing,
                          rebuild=lambda g: make_deep_sweep(g, k, lam, dt, spacing,
                                                            local_form=local_form,
                                                            wire_mode=wire_mode))
+    return sched
+
+
+def _make_batched_deep_sweep(bgrid, k: int, lam, dt, spacing, wire_mode: str) -> DeepSchedule:
+    """make_deep_sweep on a BatchedGrid (its docstring)."""
+    from rocm_mpi_tpu_torch.parallel.halo import exchange_halo_batched
+
+    space = bgrid.space
+    _validate_depth(space, k, "sweep depth")
+    if wire.is_stateful(wire.validate_mode(wire_mode)):
+        raise ValueError(f"wire_mode {wire_mode!r} is stateful; batched deep sweeps support "
+                         "the stateless modes (f32/bf16) only")
+    core = (Ellipsis,) + tuple(slice(k, -k) for _ in range(space.ndim))
+    inv_d2 = inv_d2_of(spacing)
+    bufs: dict = {}
+
+    def prepare(Cp):
+        return padded_update_coefficient(exchange_halo(Cp, space, width=k), space, k, lam, dt)
+
+    def sweep(Tb, Cm):
+        key = (tuple(Tb.shape), Tb.dtype, Tb.device)
+        Tp = exchange_halo_batched(Tb, bgrid, width=k, wire_mode=wire_mode, out=bufs.get(key))
+        bufs[key] = Tp
+        sched.route = "jnp"
+        if telemetry.enabled():
+            telemetry.annotate_once(("deep.sweep.batched", k, wire_mode), "deep.sweep",
+                                    lambda: dict(k=k, route="jnp", steps_per_exchange=k,
+                                                 wire=wire_mode, lanes=int(Tb.shape[0])))
+        return jnp_k_steps(Tp, Cm, inv_d2, k)[core]
+
+    sched = DeepSchedule(prepare, sweep, k, wire_mode=wire_mode, route_of=lambda dtype: "jnp")
     return sched
 
 

@@ -143,6 +143,14 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
         _annotate_exchange(buf, width, axes, wire_mode)
     if stateful:
         return _exchange_stateful(buf, grid, width, axes, wire_mode, wire_state)
+    return _exchange_slabs(buf, grid, width, axes, wire_mode)
+
+
+def _exchange_slabs(buf: torch.Tensor, grid: GlobalGrid, width: int, axes, wire_mode: str,
+                    lead: int = 0):
+    """The stateless exchange of exchange_into: `axes` index `buf`, whose
+    first `lead` axes are lane axes (exchange_halo_batched), so buffer
+    axis `ax` is space axis `ax - lead`; each slab spans every lane."""
     key = (tuple(buf.shape), buf.dtype, width, axes, wire_mode, buf.device)
     slabs = grid.exchange_buffers.setdefault(key, {})
     wire_dtype = wire.payload_dtype(wire_mode, buf.dtype)
@@ -151,7 +159,7 @@ def exchange_into(buf: torch.Tensor, grid: GlobalGrid, width: int = 1,
         ops, landings = [], []
         for direction, send_at, recv_at in ((+1, n, n + width), (-1, width, 0)):
             ghost = buf[region(recv_at)]
-            peer = grid.neighbor(ax, direction)
+            peer = grid.neighbor(ax - lead, direction)
             if peer is None:
                 # Domain edge: nothing posted. The f32 ghost keeps the zeros
                 # `place_core` made it with; a codec's ghost decodes zeros.
@@ -314,15 +322,23 @@ def exchange_faces(u: torch.Tensor, grid: GlobalGrid, wire_mode: str = "f32"):
         telemetry.annotate_once(("halo.exchange", key), "halo.exchange", lambda: dict(
             bytes=faces_nbytes(u.shape, u.element_size(), grid, wire_mode), width=1,
             block=tuple(u.shape), wire=wire_mode, exchange="faces"))
+    return _exchange_face_set(u, grid, wire_mode, key)
+
+
+def _exchange_face_set(u, grid, wire_mode, key, lead: int = 0):
+    """exchange_faces' batch of messages: the faces of `u` along each of
+    its axes past the first `lead` (lane axes, exchange_faces_batched),
+    buffer axis `ax` being space axis `ax - lead`."""
     bufs = grid.exchange_buffers.setdefault(key, {})
     wire_dtype = wire.payload_dtype(wire_mode, u.dtype)
     home = torch.device("cpu") if distributed.staged(u) else u.device
     ops, landings, faces = [], [], []
-    for ax in range(u.ndim):
+    for ax in range(lead, u.ndim):
         n = u.shape[ax]
         # (side, toward, the face of u sent that way): below first.
         for side, direction, at in ((0, -1, 0), (1, +1, n - 1)):
-            peer = grid.neighbor(ax, direction)
+            sax = ax - lead
+            peer = grid.neighbor(sax, direction)
             if peer is None:
                 faces.append(None)
                 continue
@@ -333,8 +349,8 @@ def exchange_faces(u: torch.Tensor, grid: GlobalGrid, wire_mode: str = "f32"):
             send.copy_(u.narrow(ax, at, 1))
             # A message's tag: its axis and the way it travels, the same at
             # both ends (what this rank sends down, its peer receives from up).
-            ops.append(dist.P2POp(dist.isend, send, peer, tag=2 * ax + side))
-            ops.append(dist.P2POp(dist.irecv, recv, peer, tag=2 * ax + 1 - side))
+            ops.append(dist.P2POp(dist.isend, send, peer, tag=2 * sax + side))
+            ops.append(dist.P2POp(dist.irecv, recv, peer, tag=2 * sax + 1 - side))
             if face is not recv:
                 landings.append((face, recv))
             faces.append(face)
@@ -367,6 +383,66 @@ def exchange_halo(u: torch.Tensor, grid: GlobalGrid, width: int = 1, axes=None,
     `wire_state` and return `(padded, new_state)` (see `exchange_into`)."""
     return exchange_into(place_core(u, width, axes, out=out), grid, width, axes,
                          wire_mode=wire_mode, wire_state=wire_state)
+
+
+def _space_of(bgrid) -> GlobalGrid:
+    return bgrid.space if hasattr(bgrid, "space") else bgrid
+
+
+def exchange_halo_batched(ub: torch.Tensor, bgrid, width: int = 1, axes=None,
+                          wire_mode: str = "f32", out=None) -> torch.Tensor:
+    """The halo exchange of a rank's whole lane block — the JAX package's
+    exchange_halo_batched: `ub` is `(lanes, *space shard)` (a BatchedGrid's
+    local block, or any lane-leading block of `bgrid`'s space grid), and
+    the result is `(lanes, *padded shard)`, every lane's ghosts from that
+    lane's space neighbours. One exchange carries every lane: each slab
+    message spans the lane axis, so an axis posts one send and one receive
+    per neighbour however many lanes there are, and nothing crosses the
+    lane axis. `axes` are space axes; `out` reuses a padded buffer
+    (place_core). The stateful wire modes are refused: their error
+    feedback is per logical wire, and no lane-batched state plane carries
+    it. With collection on, the exchange records one
+    `halo.exchange.batched` annotation per geometry: the lane count and
+    the lane-aggregate bytes an interior rank sends."""
+    if wire.is_stateful(wire_mode):
+        raise ValueError(f"wire_mode {wire_mode!r} is stateful; batched exchanges support "
+                         "the stateless modes (f32/bf16) only")
+    space = _space_of(bgrid)
+    axes = tuple(range(space.ndim) if axes is None else axes)
+    width = int(width)
+    if telemetry.enabled():
+        key = ("halo.exchange.batched", tuple(ub.shape), ub.dtype, width, axes, wire_mode)
+        telemetry.annotate_once(key, "halo.exchange.batched", lambda: dict(
+            lanes=int(ub.shape[0]),
+            bytes=int(ub.shape[0]) * exchange_nbytes(ub.shape[1:], ub.element_size(), width,
+                                                     axes, wire_mode),
+            width=width, block=tuple(int(n) for n in ub.shape[1:]), wire=wire_mode))
+    baxes = tuple(a + 1 for a in axes)
+    return _exchange_slabs(place_core(ub, width, baxes, out=out), space, width, baxes,
+                           wire_mode, lead=1)
+
+
+def exchange_faces_batched(ub: torch.Tensor, bgrid, wire_mode: str = "f32"):
+    """exchange_faces of a rank's whole lane block `(lanes, *space shard)`:
+    the 2·ndim faces, each `(lanes, *face)`, in ONE batch of messages that
+    each span the lane axis (None at a domain edge). Lane j's faces are
+    `face[j]`, views the face form of fused_step_cm reads in place. The
+    stateful wire modes are refused; the `halo.exchange.batched`
+    annotation carries the lanes and their aggregate bytes."""
+    if wire.is_stateful(wire_mode):
+        raise ValueError(f"wire_mode {wire_mode!r} is stateful; batched exchanges support "
+                         "the stateless modes (f32/bf16) only")
+    space = _space_of(bgrid)
+    key = ("faces-batched", tuple(ub.shape), ub.dtype, wire_mode, ub.device)
+    if telemetry.enabled():
+        telemetry.annotate_once(("halo.exchange.batched", key), "halo.exchange.batched",
+                                lambda: dict(
+            lanes=int(ub.shape[0]),
+            bytes=int(ub.shape[0]) * faces_nbytes(ub.shape[1:], ub.element_size(), space,
+                                                  wire_mode),
+            width=1, block=tuple(int(n) for n in ub.shape[1:]), wire=wire_mode,
+            exchange="faces"))
+    return _exchange_face_set(ub, space, wire_mode, key, lead=1)
 
 
 def global_boundary_mask(grid: GlobalGrid, dtype=torch.bool, device=None) -> torch.Tensor:

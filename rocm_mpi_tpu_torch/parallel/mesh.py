@@ -9,6 +9,12 @@ and shard bounds agree rank for rank. Shards do not overlap; ghost cells
 live only in the padded buffer of each exchange (parallel/halo.py).
 Cell i along an axis of n cells and length l has its centre at
 (i + 0.5)·l/n.
+
+`BatchedGrid` is the space×batch layout of the serving layer
+(docs/SERVING.md): `batch` independent lanes of one space grid over
+`batch_dims` rows of ranks, each row one space grid. Rank r is in row
+r // prod(space_dims) and holds that row's lanes at the space
+coordinates of r % prod(space_dims); nothing ever crosses the lane axis.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 AXIS_NAMES = ("gx", "gy", "gz")
+BATCH_AXIS = "batch"
 
 
 def suggest_dims(nprocs: int, ndim: int) -> tuple[int, ...]:
@@ -79,6 +86,7 @@ class GlobalGrid:
     dims: tuple[int, ...]
     rank: int = 0
     group: object = dataclasses.field(default=None, compare=False, repr=False)
+    base: int = 0
     exchange_buffers: dict = dataclasses.field(default_factory=dict, init=False,
                                                compare=False, repr=False)
 
@@ -126,11 +134,12 @@ class GlobalGrid:
         return self.rank_coords(self.rank)
 
     def neighbor(self, axis: int, direction: int) -> int | None:
-        """Rank one step along `axis` (direction ±1), None at the domain
-        edge (non-periodic)."""
+        """Default-group rank one step along `axis` (direction ±1), None
+        at the domain edge (non-periodic)."""
         c = list(self.coords)
         c[axis] += direction
-        return self.coords_rank(c)
+        r = self.coords_rank(c)
+        return None if r is None else self.base + r
 
     # ---- shards ---------------------------------------------------------
 
@@ -261,3 +270,180 @@ def rebuild_for_mesh(grid: GlobalGrid, dims: Sequence[int] | None = None,
         rank = distributed.rank()
     return GlobalGrid(global_shape=grid.global_shape, lengths=grid.lengths, dims=dims,
                       rank=rank, group=group)
+
+
+_ROW_GROUPS: dict = {}
+
+
+def row_group(ranks: tuple[int, ...]):
+    """The process group of one batch row's ranks: None when the row is
+    the whole default group, else a subgroup made once per set of ranks
+    (`dist.new_group`, which every rank of the default group must call in
+    the same order: BatchedGrid makes every row's group on every rank)."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    if not distributed.is_distributed() or len(ranks) == distributed.world_size():
+        return None
+    import torch.distributed as dist
+
+    key = (id(dist.group.WORLD), tuple(ranks))
+    if key not in _ROW_GROUPS:
+        _ROW_GROUPS[key] = dist.new_group(list(ranks))
+    return _ROW_GROUPS[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedGrid:
+    """A space×batch process grid, seen from one rank — the JAX package's
+    BatchedGrid: `batch` lanes of one space problem over `batch_dims` rows
+    of `space_nprocs` ranks each (docs/SERVING.md).
+
+    Batched state is `(lanes, *space shard)`: rank r holds the lanes of
+    its row, r // space_nprocs, at the space coordinates of
+    r % space_nprocs. `space` is this rank's row's GlobalGrid (its `base`
+    the row's first rank, its `group` the row's subgroup), so the halo
+    machinery runs on it unchanged and its messages stay inside the row:
+    nothing ever crosses the lane axis. A rank beyond the rows
+    (`active` False) holds no lane; its `space` is row 0's descriptor.
+    """
+
+    batch: int
+    space: GlobalGrid
+    batch_dims: int
+    rank: int = 0
+
+    def __post_init__(self):
+        if self.batch < 1:
+            raise ValueError(f"batch must be >= 1, got {self.batch}")
+        if self.batch % self.batch_dims != 0:
+            raise ValueError(
+                f"batch {self.batch} not divisible by the {self.batch_dims} "
+                f"device rows along {BATCH_AXIS!r}")
+
+    # ---- topology -------------------------------------------------------
+
+    @property
+    def space_nprocs(self) -> int:
+        return self.space.nprocs
+
+    @property
+    def nprocs(self) -> int:
+        """Ranks the grid spans: batch_dims · space_nprocs."""
+        return self.batch_dims * self.space_nprocs
+
+    @property
+    def active(self) -> bool:
+        """Whether this rank holds lanes (ranks past the rows do not)."""
+        return self.rank < self.nprocs
+
+    @property
+    def row(self) -> int | None:
+        """This rank's batch row, None past the rows."""
+        return self.rank // self.space_nprocs if self.active else None
+
+    def row_ranks(self, row: int) -> tuple[int, ...]:
+        p = self.space_nprocs
+        return tuple(range(row * p, (row + 1) * p))
+
+    @property
+    def local_batch(self) -> int:
+        """Lanes per batch row."""
+        return self.batch // self.batch_dims
+
+    def lane_range(self, row: int | None = None) -> range:
+        """The global lanes of `row` (default this rank's; empty past the
+        rows)."""
+        row = self.row if row is None else row
+        if row is None:
+            return range(0)
+        return range(row * self.local_batch, (row + 1) * self.local_batch)
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return (self.batch_dims,) + self.space.dims
+
+    @property
+    def ndim(self) -> int:
+        """Rank of the BATCHED state (1 + space rank)."""
+        return 1 + self.space.ndim
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return (BATCH_AXIS,) + self.space.axis_names
+
+    @property
+    def global_shape(self) -> tuple[int, ...]:
+        """Batched state shape: (batch, *space global shape)."""
+        return (self.batch,) + self.space.global_shape
+
+    @property
+    def local_shape(self) -> tuple[int, ...]:
+        return (self.local_batch,) + self.space.local_shape
+
+    def local_block(self, full, row: int | None = None):
+        """This rank's block `(local lanes, *space shard)` of a full
+        batched array (any object indexable by slices: a numpy array or
+        a tensor)."""
+        lanes = self.lane_range(row)
+        return full[(slice(lanes.start, lanes.stop),) + self.space.shard_slices()]
+
+
+def init_batched_grid(batch: int, *global_shape: int, lengths: Sequence[float] | None = None,
+                      space_dims: Sequence[int] | None = None, batch_dims: int = 1,
+                      nprocs: int | None = None, rank: int | None = None) -> BatchedGrid:
+    """Build this rank's view of a BatchedGrid: `batch` lanes of a
+    `global_shape` space grid over `batch_dims` × `space_dims` ranks.
+
+    `nprocs` and `rank` default to the process group's; `space_dims`
+    defaults to the largest valid sub-grid over the ranks left after the
+    batch rows take theirs (plan_dims). Every rank makes every row's
+    subgroup (mesh.row_group), so every rank of the default group must
+    build the same grids in the same order."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if batch_dims < 1:
+        raise ValueError(f"batch_dims must be >= 1, got {batch_dims}")
+    if batch % batch_dims != 0:
+        raise ValueError(f"batch {batch} not divisible by batch_dims {batch_dims}")
+    shape = tuple(int(n) for n in global_shape)
+    ndim = len(shape)
+    lengths = (10.0,) * ndim if lengths is None else tuple(float(l) for l in lengths)
+    if nprocs is None:
+        nprocs = distributed.world_size()
+    if rank is None:
+        rank = distributed.rank()
+    if batch_dims > nprocs:
+        raise ValueError(f"batch_dims {batch_dims} needs {batch_dims} devices, have {nprocs}")
+    if space_dims is None:
+        space_dims = plan_dims(shape, nprocs // batch_dims)
+    space_dims = tuple(int(d) for d in space_dims)
+    p = math.prod(space_dims)
+    need = batch_dims * p
+    if need > nprocs:
+        raise ValueError(f"batched mesh ({batch_dims}, {space_dims}) needs {need} devices, "
+                         f"have {nprocs}")
+    groups = [row_group(tuple(range(r * p, (r + 1) * p))) for r in range(batch_dims)]
+    row = rank // p if rank < need else 0
+    space = GlobalGrid(global_shape=shape, lengths=lengths, dims=space_dims,
+                       rank=rank % p if rank < need else 0, group=groups[row], base=row * p)
+    return BatchedGrid(batch=int(batch), space=space, batch_dims=int(batch_dims), rank=rank)
+
+
+def rebuild_batched_for_mesh(bgrid: BatchedGrid, batch: int | None = None,
+                             batch_dims: int | None = None, nprocs: int | None = None,
+                             rank: int | None = None) -> BatchedGrid:
+    """Re-derive a BatchedGrid for a new rank budget or lane width — the
+    serving layer's elastic resize. The space problem stays; the space
+    dims are plan_dims over the ranks a row gets."""
+    from rocm_mpi_tpu_torch.parallel import distributed
+
+    if nprocs is None:
+        nprocs = distributed.world_size()
+    batch_dims = bgrid.batch_dims if batch_dims is None else batch_dims
+    batch = bgrid.batch if batch is None else batch
+    space_dims = plan_dims(bgrid.space.global_shape, max(nprocs // batch_dims, 1))
+    return init_batched_grid(batch, *bgrid.space.global_shape, lengths=bgrid.space.lengths,
+                             space_dims=space_dims, batch_dims=batch_dims, nprocs=nprocs,
+                             rank=bgrid.rank if rank is None else rank)

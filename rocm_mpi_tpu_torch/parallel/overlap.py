@@ -61,7 +61,11 @@ import torch
 
 from rocm_mpi_tpu_torch.parallel import wire
 from rocm_mpi_tpu_torch import telemetry
-from rocm_mpi_tpu_torch.parallel.halo import exchange_faces, exchange_halo
+from rocm_mpi_tpu_torch.parallel.halo import (
+    exchange_faces,
+    exchange_faces_batched,
+    exchange_halo,
+)
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid
 
 # Stream priorities: lower is more urgent. The boundary slabs gate the
@@ -210,3 +214,81 @@ def make_overlap_step(grid: GlobalGrid, region_update: Callable, b_width,
     local_step.b_width = bw
     local_step.boxes = boxes
     return local_step
+
+
+def make_batched_overlap_step(bgrid, region_update: Callable, b_width,
+                              wire_mode: str = "f32", device=None):
+    """The lane-batched overlap step — the JAX package's
+    make_batched_overlap_step, on the face route: `make_overlap_step`'s
+    schedule over a rank's whole lane block.
+
+    `bgrid` is a BatchedGrid (or the space GlobalGrid of its row).
+    Returns `batched_step(Tb, C, out, lanes=None) -> out`: `Tb` and `out`
+    are `(lanes, *space shard)`, `C` the lane-shared coefficient. The
+    interior stream launches every lane's ghost-free interior box from
+    the raw lane; the current stream runs ONE face exchange of the whole
+    lane block (halo.exchange_faces_batched, each message spanning the
+    lane axis); the boundary stream then launches every lane's slab boxes
+    from the lane and its faces. `region_update(T, faces, box, C, out)`
+    is called per lane and box, exactly as the single-lane step calls it,
+    so each lane's cells get the arithmetic of its standalone step. A
+    lane not in `lanes` (a frozen lane, an iterable of lane indices) is
+    not updated: its cells are copied into `out`. Only the stateless wire
+    modes are served (the exchange refuses the others)."""
+    wire.validate_mode(wire_mode)
+    space = bgrid.space if hasattr(bgrid, "space") else bgrid
+    local = space.local_shape
+    bw = effective_b_width(local, b_width)
+    boxes = region_boxes(local, bw)
+    interior = [b for b in boxes if ghost_free(b, local)]
+    slabs = [b for b in boxes if not ghost_free(b, local)]
+    streams: dict = {}
+
+    def side_streams(device):
+        if device not in streams:
+            streams[device] = (torch.cuda.Stream(device, priority=INTERIOR_PRIORITY),
+                               torch.cuda.Stream(device, priority=BOUNDARY_PRIORITY))
+        return streams[device]
+
+    if device is not None and torch.device(device).type == "cuda":
+        side_streams(torch.device(device))
+
+    def batched_step(Tb, C, out, lanes=None):
+        n = Tb.shape[0]
+        active = range(n) if lanes is None else sorted(lanes)
+        frozen = [j for j in range(n) if j not in set(active)]
+        if telemetry.enabled():
+            telemetry.annotate_once(("overlap.step.batched", bw, n, wire_mode),
+                                    "overlap.step.batched",
+                                    lambda: dict(b_width=tuple(int(b) for b in bw), lanes=n,
+                                                 leaves=1, wire=wire_mode))
+        if Tb.is_cuda:
+            current = torch.cuda.current_stream(Tb.device)
+            inner_s, bound_s = side_streams(Tb.device)
+            inner_ctx, bound_ctx = torch.cuda.stream(inner_s), torch.cuda.stream(bound_s)
+            inner_s.wait_stream(current)
+        else:
+            current = None
+            inner_ctx = bound_ctx = contextlib.nullcontext()
+        with inner_ctx:
+            for j in active:
+                for box in interior:
+                    region_update(Tb[j], None, box, C, out[j])
+        faces = exchange_faces_batched(Tb, space, wire_mode=wire_mode)
+        for j in frozen:
+            out[j].copy_(Tb[j])
+        if current is not None:
+            bound_s.wait_stream(current)
+        with bound_ctx:
+            for j in active:
+                lane_faces = tuple(None if f is None else f[j] for f in faces)
+                for box in slabs:
+                    region_update(Tb[j], lane_faces, box, C, out[j])
+        if current is not None:
+            current.wait_stream(inner_s)
+            current.wait_stream(bound_s)
+        return out
+
+    batched_step.b_width = bw
+    batched_step.boxes = boxes
+    return batched_step

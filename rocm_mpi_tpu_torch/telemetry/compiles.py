@@ -10,7 +10,10 @@ that cost compile-like wall time, each recorded at its one choke point:
 * a load of a library already built on disk (ops/_build.py `load`
   finding the `.so`): a cache hit, no compile;
 * a CUDA-graph capture (models/scan.py `ScanLoop._capture`, one record
-  per graph): a compile, program "graph:<loop label>".
+  per graph): a compile, program "graph:<loop label>";
+* the build of a serving program class (serving/service.py
+  `_program_for`: the batched advance of one (bin key, width)): a
+  compile, program "serve:<program key>".
 
 Every compile lands in the per-program table and, when telemetry is on,
 as a `compile.backend` span (phase "compile"), as in the JAX package;
@@ -91,6 +94,11 @@ def record_load_hit() -> None:
 def record_capture(label: str, seconds: float) -> None:
     """One CUDA graph captured by a loop labelled `label`: a compile."""
     _record_compile(f"graph:{label}", seconds)
+
+
+def record_program(label: str, seconds: float) -> None:
+    """The build of a serving program class `label`: a compile."""
+    _record_compile(label, seconds)
 
 
 def mark_steady() -> None:

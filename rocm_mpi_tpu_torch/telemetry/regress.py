@@ -177,8 +177,11 @@ def load_json(path) -> dict | None:
 # Schema markers of the families the JAX package's analysis and serving
 # planes write, spelled here so the port classifies every family the JAX
 # read side classifies (tests/test_torch_telemetry.py pins them equal to
-# the JAX package's constants). The port has neither plane: those
-# families are recognized but not deep-checked (DEEP_CHECKED_ELSEWHERE).
+# the JAX package's constants). The serving bin manifest and the soak
+# report are deep-checked by the port's serving validators
+# (serving/bins.py, serving/slo.py); graftlint and the fleet journal are
+# not ported: those families are recognized but not deep-checked
+# (DEEP_CHECKED_ELSEWHERE).
 _FINDINGS_SCHEMA = "rmt-lint-findings"
 _LINT_BASELINE_SCHEMA = "rmt-lint-baseline"
 _BIN_MANIFEST_SCHEMA = "rmt-bin-manifest"
@@ -186,11 +189,10 @@ _SOAK_SCHEMA = "rmt-soak-report"
 _FLEET_REPORT_SCHEMA = "rmt-fleet-report"
 
 # Families whose deep validators live in planes the port has not ported
-# (graftlint, serving): check_schema names them in its notes instead of
-# passing them in silence.
+# (graftlint, the fleet journal): check_schema names them in its notes
+# instead of passing them in silence.
 DEEP_CHECKED_ELSEWHERE = (
-    "graftlint findings artifact", "graftlint baseline", "serving bin manifest",
-    "soak report", "fleet report",
+    "graftlint findings artifact", "graftlint baseline", "fleet report",
 )
 
 
@@ -246,6 +248,14 @@ def _validate_classified(doc: dict, kind: str) -> list[str]:
         return [f"manifest {p}" for p in validate_manifest_meta(doc)]
     if kind == "perf budgets":
         return _validate_perf_budgets(doc)
+    if kind == "serving bin manifest":
+        from rocm_mpi_tpu_torch.serving.bins import validate_manifest_doc
+
+        return validate_manifest_doc(doc)
+    if kind == "soak report":
+        from rocm_mpi_tpu_torch.serving.slo import validate_soak_report
+
+        return validate_soak_report(doc)
     if kind == "trace report":
         from rocm_mpi_tpu_torch.telemetry.tracing import validate_trace_report
 
@@ -259,9 +269,9 @@ def _validate_classified(doc: dict, kind: str) -> list[str]:
 # parallel.wire.WIRE_MODES — drift fails loudly.
 _WIRE_MODES = ("f32", "bf16", "int8", "int8_delta")
 
-# Serving sidecar record markers (the JAX package's serving.queue and
-# serving.journal): recognized, not deep-checked (the port has no
-# serving plane).
+# Serving sidecar record markers: the request and quarantine records are
+# deep-checked by serving/queue.py's validators; the fleet journal's
+# (serving.journal, not ported) is recognized, not deep-checked.
 _SERVE_REQUEST_SCHEMA = "rmt-serve-request"
 _QUARANTINE_SCHEMA = "rmt-serve-quarantine"
 _FLEET_JOURNAL_SCHEMA = "rmt-fleet-journal"
@@ -443,6 +453,16 @@ def check_schema(paths, notes: list | None = None) -> list[str]:
                     continue
                 if doc.get("schema") == ELASTIC_SCHEMA:
                     for p in _validate_elastic_record(doc):
+                        problems.append(f"{raw}:{i}: {p}")
+                elif doc.get("schema") == _SERVE_REQUEST_SCHEMA:
+                    from rocm_mpi_tpu_torch.serving.queue import validate_request_record
+
+                    for p in validate_request_record(doc):
+                        problems.append(f"{raw}:{i}: {p}")
+                elif doc.get("schema") == _QUARANTINE_SCHEMA:
+                    from rocm_mpi_tpu_torch.serving.queue import validate_quarantine_record
+
+                    for p in validate_quarantine_record(doc):
                         problems.append(f"{raw}:{i}: {p}")
                 elif doc.get("schema") in _SERVING_RECORDS:
                     shallow.add(f"{raw}: {_SERVING_RECORDS[doc['schema']]}")

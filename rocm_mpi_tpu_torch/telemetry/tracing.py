@@ -1,10 +1,10 @@
 """Request-scoped distributed tracing — counterpart of
 rocm_mpi_tpu/telemetry/tracing.py (docs/TELEMETRY.md "Request tracing"):
-causal timelines for a request's whole life across the fleet. The port
-has no serving layer yet, so only the read side and the validators are
-here, and they read both packages' streams; the write side
-(`TraceContext`, `mint`, `emit_tspan`) comes with serving (ROADMAP
-Queue 1 item 10).
+causal timelines for a request's whole life across the fleet. The
+read side and the validators read both packages' streams; the write
+side (`TraceContext`, `mint`, `child`, `next_hop`, `to_wire`,
+`from_wire`, `emit_tspan`) serves the port's serving layer and writes
+the JAX package's records.
 
 A request's path in the fleet era is router -> replica queue -> bin ->
 batched drain -> (segment swaps) -> terminal, and may re-route to a
@@ -50,6 +50,7 @@ CLI verb must run on a box with no torch at all.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import pathlib
@@ -76,6 +77,88 @@ DECOMP_STAGES = (
     "resolve",     # per-lane resolution (finiteness, saving the lane state)
 )
 
+_SPAN_COUNTER = itertools.count(1)
+
+
+class TraceContext:
+    """One request's position in its trace (module docstring). Treated
+    as immutable — transitions mint new contexts (`child`, `next_hop`)
+    so a journaled wire dict never mutates under its reader."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "hop")
+
+    def __init__(self, trace_id: str, span_id: str,
+                 parent_id: str | None = None, hop: int = 0):
+        self.trace_id = str(trace_id)
+        self.span_id = str(span_id)
+        self.parent_id = parent_id if parent_id is None else str(parent_id)
+        self.hop = int(hop)
+
+    def __repr__(self):
+        return (f"TraceContext({self.trace_id!r}, {self.span_id!r}, "
+                f"parent={self.parent_id!r}, hop={self.hop})")
+
+    def __eq__(self, other):
+        return (isinstance(other, TraceContext)
+                and to_wire(self) == to_wire(other))
+
+
+def _next_span_id() -> str:
+    """Process-unique span id: rank-prefixed so two replicas' spans of
+    one trace never collide even when minted at the same count."""
+    from rocm_mpi_tpu_torch.telemetry import events
+
+    return f"s{events.rank()}.{next(_SPAN_COUNTER)}"
+
+
+def mint(trace_id: str) -> TraceContext:
+    """Root context for a request entering the system (hop 0)."""
+    return TraceContext(trace_id, _next_span_id())
+
+
+def child(ctx: TraceContext) -> TraceContext:
+    """A new span under `ctx`, same hop (a stage within one replica)."""
+    return TraceContext(ctx.trace_id, _next_span_id(),
+                        parent_id=ctx.span_id, hop=ctx.hop)
+
+
+def next_hop(ctx: TraceContext) -> TraceContext:
+    """The failover transition: a re-route after a replica kill is a
+    new hop — new span, parent = the dead hop's span, hop + 1."""
+    return TraceContext(ctx.trace_id, _next_span_id(),
+                        parent_id=ctx.span_id, hop=ctx.hop + 1)
+
+
+def to_wire(ctx: TraceContext | None) -> dict | None:
+    """The context as the plain dict that rides Request.trace (v3)."""
+    if ctx is None:
+        return None
+    doc = {"trace_id": ctx.trace_id, "span_id": ctx.span_id,
+           "hop": ctx.hop}
+    if ctx.parent_id is not None:
+        doc["parent_id"] = ctx.parent_id
+    return doc
+
+
+def from_wire(doc) -> TraceContext | None:
+    """Parse a wire dict back into a context; None on anything that is
+    not one (tolerant: a legacy v2 request simply has no trace)."""
+    if not isinstance(doc, dict):
+        return None
+    tid = doc.get("trace_id")
+    sid = doc.get("span_id")
+    if not isinstance(tid, str) or not isinstance(sid, str):
+        return None
+    pid = doc.get("parent_id")
+    hop = doc.get("hop", 0)
+    return TraceContext(
+        tid, sid,
+        parent_id=pid if isinstance(pid, str) else None,
+        hop=hop if isinstance(hop, int) and not isinstance(hop, bool)
+        else 0,
+    )
+
+
 def validate_wire(doc) -> list[str]:
     """Problem strings for a Request.trace wire dict (the v3 request
     record validator defers here)."""
@@ -97,6 +180,21 @@ def validate_wire(doc) -> list[str]:
 # ---------------------------------------------------------------------------
 # read side: anchors, timelines, the trace report
 # ---------------------------------------------------------------------------
+
+
+def emit_tspan(name: str, ctx: TraceContext | None, **fields):
+    """One tspan record under `ctx` on this rank's stream. The hot-path
+    guard is the same one every span pays (`events.enabled()`); with no
+    context (tracing disabled at the serving layer) it is a no-op."""
+    from rocm_mpi_tpu_torch.telemetry import events
+
+    if ctx is None or not events.enabled():
+        return None
+    return events.emit(
+        TRACE_KIND, name,
+        trace_id=ctx.trace_id, span_id=ctx.span_id,
+        parent_id=ctx.parent_id, hop=ctx.hop, **fields,
+    )
 
 
 def anchor_of(records) -> tuple[float, float] | None:

@@ -59,7 +59,10 @@ def test_scan_sees_the_whole_port():
                               "resilience/__init__.py", "resilience/faults.py",
                               "resilience/preempt.py", "resilience/policy.py",
                               "resilience/supervisor.py", "resilience/reshard.py",
-                              "resilience/elastic.py", "parallel/launcher.py")} <= names
+                              "resilience/elastic.py", "parallel/launcher.py",
+                              "models/lanes.py", "serving/__init__.py", "serving/queue.py",
+                              "serving/bins.py", "serving/slo.py", "serving/service.py",
+                              "apps/serve.py", "telemetry/tracing.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
     assert {"scripts/torch_kernel_ab.py", "scripts/torch_face_variants.py"} <= names
 
