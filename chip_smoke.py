@@ -2,7 +2,7 @@
 """On-card check of the PyTorch/CUDA port (rocm_mpi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--json PATH]
-    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-21 only, over NCCL
+    python3 chip_smoke.py --gpus 4     # phases 1, 2 and 6-22 only, over NCCL
 
 Run from the repository root on a machine with one CUDA GPU (an H100 is
 the target). Phases, printed as they run (about nine minutes on one H100
@@ -285,9 +285,32 @@ the target). Phases, printed as they run (about nine minutes on one H100
    device_bubble and the peak memory printed. With `--gpus 4`: the trace
    without sessions on 4 ranks over NCCL at batch_dims 2 and 1, every
    rank's shard of every lane bitwise (by digest) the one-card service's
-   lane.
+   lane;
+22. fleet (after 21) — the fleet half of serving (serving/router.py,
+   serving/journal.py, apps/fleet.py, apps/soak.py): (a) three
+   SimulationService replicas behind a FleetRouter serve phase 21's trace
+   (no ladder, width 8), paced in the fleet app's four waves under
+   replica-kill@step=2,rank=1: replica 1 dies at tick 2 and lets its
+   programs go, its open tickets are re-routed from the journal (replay
+   idempotent), every ticket ends done exactly once, every lane bitwise
+   equal to the same trace through one standalone service, fused_step_cm
+   launched exactly 5 × the hide lane-steps, the two sessions resumed
+   through the fleet bitwise, the fleet report valid with steady_state 0
+   in every row, and torch.cuda.memory_allocated back to its level before
+   the fleet once the router is dropped (the fleet's and the standalone
+   service's walls, requests/s, each replica's served count, the
+   re-routed count, the time from the kill tick to the last re-routed
+   ticket's terminal state and the peak memory printed); (b) the fleet app
+   as a child under the same fault: exit 0, both sidecars valid; (c) the
+   bounded soak (apps/soak.py --bounded --device cuda) as a child: exit 0,
+   its nine episodes ok, its report valid, no rank left behind. With
+   `--gpus 4`: the fleet app on 4 ranks over NCCL (every rank the same
+   replica map and journal digest, the books balanced), then the soak's
+   full schedule with its four rank episodes on 4 ranks over NCCL (kill
+   names rank 1 with rc 43, die is a vanish, stall a watchdog verdict on
+   rank 1).
 
-With `--gpus 4` phases 6-21 run one rank per GPU over NCCL (6 and 8 for
+With `--gpus 4` phases 6-22 run one rank per GPU over NCCL (6 and 8 for
 500 steps after 10 warmup, 7 for 1000 after 16; 8 also with the
 exchange (the face exchange and the padded one), the interiors and the
 slabs (the diffusion's from the faces and from the block) timed alone; 13
@@ -5798,6 +5821,303 @@ def phase_serve_sharded(card, gpus: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [fleet] the fleet half of serving: the router, the journal, the apps
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 3
+FLEET_FAULT = "replica-kill@step=2,rank=1"
+
+
+def _fleet_paced(router, reqs) -> list:
+    """Submit `reqs` in the fleet app's waves (a quarter of the trace, one
+    drive tick between), so the tick-keyed kill fires mid-traffic; then
+    drain. Returns the fleet tickets."""
+    tickets = []
+    wave = max(1, len(reqs) // 4)
+    for i in range(0, len(reqs), wave):
+        tickets += [router.submit(r) for r in reqs[i:i + wave]]
+        if i + wave < len(reqs):
+            router.drive_once()
+    router.drive()
+    return tickets
+
+
+def _digest(arrays) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(b"".join(np.ascontiguousarray(a).tobytes() for a in arrays)
+                          ).hexdigest()
+
+
+def phase_fleet(torch, card):
+    """[fleet] the fleet half of serving on one card (module docstring,
+    phase 22): (a) three replicas serve the [serve] trace under a replica
+    kill, held against one standalone service; (b) the fleet app and (c)
+    the bounded soak as child processes."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from rocm_mpi_tpu_torch.ops import kernels
+    from rocm_mpi_tpu_torch.resilience import faults
+    from rocm_mpi_tpu_torch.serving import journal as fleet_journal
+    from rocm_mpi_tpu_torch.serving.queue import Request
+    from rocm_mpi_tpu_torch.serving.router import FleetRouter
+    from rocm_mpi_tpu_torch.serving.service import ServeConfig, SimulationService
+    from rocm_mpi_tpu_torch.telemetry import compiles, regress
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="rmt-fleet-"))
+    rec = dict(card=card)
+    try:
+        # (a) the in-process kill drill at full width
+        t_part = time.perf_counter()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        compiles.reset()
+        compiles.install()
+        trace = serve_trace()
+        journal = fleet_journal.TicketJournal(root / "fleet-journal.jsonl")
+
+        def replica(rid):
+            return SimulationService(config=ServeConfig(
+                max_width=SERVE_MAX_WIDTH, device=SERVE_DEVICE,
+                sessions_dir=str(root / "sessions" / f"replica-{rid}")))
+
+        router = FleetRouter(replica, FLEET_REPLICAS, journal=journal)
+        marks = {}
+        kill, record_terminal = router.kill_replica, journal.record_terminal
+
+        def timed_kill(rid, verdict="killed"):
+            marks["kill"] = time.perf_counter()
+            kill(rid, verdict)
+
+        def timed_terminal(request_id, state, replica=None):
+            marks[request_id] = time.perf_counter()
+            return record_terminal(request_id, state, replica=replica)
+
+        router.kill_replica, journal.record_terminal = timed_kill, timed_terminal
+        faults.install(FLEET_FAULT)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            tickets = _fleet_paced(router, trace)
+            torch.cuda.synchronize()
+        finally:
+            faults.install(None)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        dead = [r.id for r in router.replicas if not r.alive]
+        check(dead == [1] and router.replica(1).verdict == "injected-kill",
+              f"[fleet] {FLEET_FAULT} killed {dead}")
+        check(router.replica(1).svc._programs == {} and router.replica(1).svc._models == {},
+              "[fleet] the dead replica kept its programs")
+        state = router.journal_state()
+        counts = state.counts()
+        problems = router.check_accounting()
+        check(counts["rerouted"] >= 1 and counts["open"] == 0 and problems == [],
+              f"[fleet] journal {counts}, accounting {problems}")
+        check(fleet_journal.replay(journal.segments()).counts() == counts,
+              "[fleet] replaying the journal changed its counts")
+        check(all(t.state == "done" for t in tickets),
+              f"[fleet] not done: {[(t.request.request_id, t.state) for t in tickets if t.state != 'done']}")
+        n_hide = sum(r.nt for r in trace if r.variant == "hide")
+        check(launches["fused_step_cm"] == 5 * n_hide and launches["masked_step"] == 0,
+              f"[fleet] hide lanes launched {launches}, not 5 x {n_hide} fused_step_cm")
+        rerouted = sorted(rid for rid, t in state.tickets.items() if t["reroutes"])
+        failover = max(marks[rid] for rid in rerouted) - marks["kill"]
+        served = {r.id: r.svc.queue.counters()["completed"] for r in router.replicas}
+        print(f"[fleet] {FLEET_REPLICAS} replicas, {len(trace)} requests paced in 4 waves under "
+              f"{FLEET_FAULT}: replica 1 killed at tick 2, {counts['rerouted']} re-routed "
+              f"({', '.join(rerouted)}), every ticket done once (journal {counts['tickets']} "
+              f"tickets, 0 open, replay idempotent), served by replica {served}; fleet "
+              f"{wall:.3f} s ({len(trace) / wall:.3f} requests/s), kill tick to the last "
+              f"re-routed ticket's terminal {failover:.3f} s, peak memory "
+              f"{peak / 2**30:.3f} GiB on {card}", flush=True)
+        print(f"[fleet] hide lanes: {launches['fused_step_cm']} fused_step_cm launches over "
+              f"{n_hide} lane-steps (5 a lane-step), masked_step 0", flush=True)
+
+        # the same trace through one standalone service: every lane bitwise
+        compiles.reset()
+        compiles.install()
+        solo = SimulationService(config=ServeConfig(
+            max_width=SERVE_MAX_WIDTH, device=SERVE_DEVICE,
+            sessions_dir=str(root / "solo-sessions")))
+        solo_t = [solo.queue.submit(r) for r in trace]
+        t0 = time.perf_counter()
+        solo._drain_all()
+        torch.cuda.synchronize()
+        solo_wall = time.perf_counter() - t0
+        for t, s in zip(tickets, solo_t):
+            got, want = t.result(timeout=5), s.result(timeout=5)
+            check(len(got) == len(want) and all(np.array_equal(g, w)
+                                                 for g, w in zip(got, want)),
+                  f"[fleet] {t.request.request_id}: fleet lane != standalone service lane")
+        print(f"[fleet] all {len(tickets)} lanes bitwise equal to one standalone service's "
+              f"({solo_wall:.3f} s, {len(trace) / solo_wall:.3f} requests/s) on {card}",
+              flush=True)
+        del solo, solo_t
+
+        # sessions: resume each to twice its steps through the fleet, bitwise
+        legs = [Request(request_id=f"{r.request_id}-resume", workload=r.workload,
+                        global_shape=r.global_shape, dtype=r.dtype, nt=2 * r.nt,
+                        ic_scale=r.ic_scale, session=r.session, resume=True)
+                for r in trace if r.session]
+        leg_t = [router.submit(r) for r in legs]
+        router.drive()
+        for t in leg_t:
+            want = serve_standalone(torch, dataclasses.replace(
+                t.request, session=None, resume=False), SERVE_DEVICE)
+            check(t.state == "done" and t.start_step == t.request.nt // 2
+                  and np.array_equal(t.result(timeout=5)[0], _host_bits(torch, want[0])),
+                  f"[fleet] resumed {t.request.request_id} != its straight run")
+            del want
+        check(router.check_accounting() == [], "[fleet] accounting after the sessions")
+
+        # the merged report: valid, steady_state 0 in every row
+        doc = router.report_doc()
+        fleet_journal.write_fleet_report(root / "fleet-report.json", doc)
+        check(regress.check_schema([root / "fleet-report.json",
+                                    root / "fleet-journal.jsonl"]) == [],
+              "[fleet] the fleet sidecars fail the schema check")
+        check(doc["accounting_ok"] and all(r["steady_state"] == 0 for r in doc["replicas"]),
+              f"[fleet] report rows {doc['replicas']}")
+        journal.close()
+        del router, tickets, leg_t, journal, kill, record_terminal
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check(mem1 <= mem0, f"[fleet] memory_allocated {mem0} -> {mem1} B after the fleet")
+        part_a = time.perf_counter() - t_part
+        print(f"[fleet] {len(legs)} sessions resumed on their replica bitwise; report valid, "
+              f"steady_state 0 in every row; memory_allocated {mem0} -> {mem1} B once the "
+              f"router is dropped; part (a) {part_a:.1f} s", flush=True)
+        rec.update(requests=len(trace), wall_s=wall, requests_per_s=len(trace) / wall,
+                   solo_wall_s=solo_wall, served=served, rerouted=counts["rerouted"],
+                   failover_s=failover, peak_bytes=peak, mem=(mem0, mem1),
+                   launches=launches, part_a_s=part_a)
+
+        # (b) the fleet app as a child
+        t0 = time.perf_counter()
+        out = root / "app"
+        proc = subprocess.run(
+            [sys.executable, "-m", "rocm_mpi_tpu_torch.apps.fleet", "--device", SERVE_DEVICE,
+             "--inject-fault", FLEET_FAULT, "--out", str(out)],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        app_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[fleet] app rc {proc.returncode}: {proc.stdout[-1500:]}"
+              f"{proc.stderr[-2000:]}")
+        sidecars = [out / "fleet-journal.jsonl", out / "fleet-report.json"]
+        check(regress.check_schema(sidecars) == [], "[fleet] the app's sidecars fail the schema")
+        app_doc = json.loads(sidecars[1].read_text())
+        check(app_doc["accounting_ok"] and [r["alive"] for r in app_doc["replicas"]]
+              == [True, False, True], f"[fleet] app report {app_doc['replicas']}")
+        print(f"[fleet] the fleet app (child process) under {FLEET_FAULT}: exit 0, "
+              f"{app_doc['journal']['tickets']} tickets, {app_doc['journal']['rerouted']} "
+              f"re-routed, sidecars valid; {app_s:.1f} s", flush=True)
+        rec["app_s"] = app_s
+
+        # (c) the bounded soak as a child (its evict episode signals itself)
+        rec["soak"] = _soak_child(root / "soak", ["--bounded"], 9)
+        return rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _cmdline(pid: int) -> bytes:
+    try:
+        return pathlib.Path(f"/proc/{pid}/cmdline").read_bytes()
+    except OSError:
+        return b""
+
+
+def _soak_child(out, extra, n_episodes: int, timeout: float = 900) -> dict:
+    """apps/soak.py on the card as a child process: exit 0, its report
+    valid, every episode ok, no rank of its launches left behind."""
+    from rocm_mpi_tpu_torch.telemetry import regress
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rocm_mpi_tpu_torch.apps.soak", "--device", "cuda", "--out",
+         str(out), *extra], capture_output=True, text=True, cwd=ROOT, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[fleet] soak {extra} rc {proc.returncode}: "
+          f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    report = out / "soak-report.json"
+    check(regress.check_schema([report, out / "quarantine.jsonl"]) == [],
+          "[fleet] the soak report fails the schema check")
+    doc = json.loads(report.read_text())
+    eps = doc["episodes"]
+    check(len(eps) == n_episodes and all(ep["ok"] for ep in eps) and doc["accounting_ok"],
+          f"[fleet] soak episodes {[(ep['name'], ep['ok'], ep.get('error')) for ep in eps]}")
+    left = [pid for pid in children() if b"rocm_mpi_tpu_torch.apps" in _cmdline(pid)]
+    check(not left, f"[fleet] the soak left app ranks behind: {left}")
+    walls = {ep["name"]: ep["wall_s"] for ep in eps}
+    print(f"[fleet] soak {' '.join(extra) or 'full'} --device cuda (child process): exit 0, "
+          f"{len(eps)} episodes ok, report valid; {wall:.1f} s; episode walls {walls}; "
+          f"slo p50 {doc['slo']['latency_s']['p50']} p99 {doc['slo']['latency_s']['p99']}",
+          flush=True)
+    return dict(wall_s=wall, episodes=walls, modes={ep["name"]: ep["mode"] for ep in eps},
+                details={ep["name"]: {k: v for k, v in ep.items()
+                                      if k in ("first_failure", "vanished", "watchdog_rank",
+                                               "killed", "rerouted")} for ep in eps})
+
+
+def phase_fleet_sharded(card, gpus: int):
+    """[fleet] on four cards: the fleet app on 4 ranks over NCCL (every
+    rank's replica map and journal the same, rank 0's report balanced),
+    then the soak's full schedule with its multi-rank episodes on 4 ranks,
+    one a card, over NCCL."""
+    import re
+    import tempfile
+
+    from rocm_mpi_tpu_torch.parallel.launcher import spawn_app_ranks
+    from rocm_mpi_tpu_torch.telemetry import regress
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="rmt-fleet4-"))
+    try:
+        t0 = time.perf_counter()
+        out = root / "app"
+        res = spawn_app_ranks(["-m", "rocm_mpi_tpu_torch.apps.fleet", "--device", "cuda",
+                               "--inject-fault", FLEET_FAULT, "--out", str(out)],
+                              nprocs=gpus, timeout=600, peer_grace_s=20.0)
+        app_s = time.perf_counter() - t0
+        lines = []
+        for rank, (p, (stdout, err)) in enumerate(res):
+            check(p.returncode == 0, f"[fleet] app rank {rank} exited {p.returncode}:\n"
+                  f"{stdout[-1500:]}{err[-2000:]}")
+            found = re.findall(rf"rank {rank}: replica map (.*)", stdout)
+            check(len(found) == 1, f"[fleet] app rank {rank} printed no map:\n{stdout[-1500:]}")
+            lines.append(found[0])
+        check(len(set(lines)) == 1, f"[fleet] the ranks' maps or journals differ: {lines}")
+        sidecars = [out / "fleet-journal.jsonl", out / "fleet-report.json"]
+        check(regress.check_schema(sidecars) == [], "[fleet] the app's sidecars fail the schema")
+        doc = json.loads(sidecars[1].read_text())
+        check(doc["accounting_ok"] and doc["journal"]["open"] == 0
+              and doc["journal"]["rerouted"] >= 1, f"[fleet] app report {doc['journal']}")
+        print(f"[fleet] the fleet app on {gpus} ranks over NCCL under {FLEET_FAULT}: every "
+              f"rank exit 0 with the same replica map and journal digest "
+              f"({lines[0].split('journal sha256 ')[-1]}), {doc['journal']['tickets']} tickets, "
+              f"{doc['journal']['rerouted']} re-routed, the books balanced; {app_s:.1f} s on "
+              f"{gpus} GPUs ({card} each)", flush=True)
+        soak = _soak_child(root / "soak", ["--ranks", str(gpus)], 11, timeout=1500)
+        check(set(soak["modes"][n] for n in ("gloo-serve", "gloo-kill", "gloo-die",
+                                             "gloo-stall")) == {"nccl"},
+              f"[fleet] the soak's rank episodes did not run over NCCL: {soak['modes']}")
+        d = soak["details"]
+        check(d["gloo-kill"]["first_failure"] == [1, 43] and d["gloo-die"]["vanished"] == 1
+              and d["gloo-stall"]["watchdog_rank"] == 1, f"[fleet] soak details {d}")
+        return dict(app_s=app_s, soak=soak)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, metavar="PATH",
@@ -5805,7 +6125,7 @@ def main(argv=None) -> int:
     parser.add_argument("--gpus", type=int, default=1, choices=[1, 4],
                         help="4: run only the sharded phases (perf, sharded scan, deep, hide, "
                         "wave and shallow-water deep, 3d, checkpoint, weak scaling, telemetry, "
-                        "tune, elastic, ring, host-staged, wire, dryrun, serve), "
+                        "tune, elastic, ring, host-staged, wire, dryrun, serve, fleet), "
                         "one rank per GPU over NCCL, on a host with 4 GPUs")
     args = parser.parse_args(argv)
 
@@ -5857,6 +6177,7 @@ def main(argv=None) -> int:
         record["elastic"] = phase_elastic(card, args.gpus)
         record["transport"], _ = phase_transport(torch, card, args.gpus)
         record["serve"] = phase_serve_sharded(card, args.gpus)
+        record["fleet"] = phase_fleet_sharded(card, args.gpus)
         if args.json:
             path = pathlib.Path(args.json)
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -5889,6 +6210,7 @@ def main(argv=None) -> int:
     weak_ranks, weak_launches = phase_weak_scaling(card, 1)
     transport, transport_launches = phase_transport(torch, card, 1)
     serve_rec = phase_serve(torch, card)
+    fleet_rec = phase_fleet(torch, card)
 
     # Launches on the main paths: each path ran with the counts set to 0
     # just before it and read just after.
@@ -5918,7 +6240,7 @@ def main(argv=None) -> int:
                    *(ckpt_rec[k][w] for k in ("perf", "deep", "swe")
                      for w in ("crashed_launches", "resumed_launches")),
                    weak_launches, transport_launches, tel_launches, res_rec["launches"],
-                   serve_rec["launches"]):
+                   serve_rec["launches"], fleet_rec["launches"]):
         for name, count in counts.items():
             launches[name] += count
     line = []
@@ -5950,7 +6272,7 @@ def main(argv=None) -> int:
             wave_deep_ranks=wave_deep_ranks, swe_deep_ranks=swe_deep_ranks,
             weak_scaling_ranks=weak_ranks, three_d=cube, checkpoint=ckpt_rec, host=host,
             telemetry=tel_rec, tune=tune_rec, resilience=res_rec,
-            transport=transport, serve=serve_rec, kernels=line,
+            transport=transport, serve=serve_rec, fleet=fleet_rec, kernels=line,
             seconds=time.perf_counter() - t0,
         ), indent=1, default=str))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -37,10 +37,15 @@ import traceback
 
 from rocm_mpi_tpu_torch.parallel.wire import WIRE_MODES
 
+# The apps' pictures land here, as the JAX apps' do (--vis).
+OUTPUT_DIR = pathlib.Path(__file__).resolve().parents[2] / "output"
 
-def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
+
+def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str,
+                vis: bool = False):
     """The options every app of the port shares: grid, steps, dtype,
-    process grid, device and the per-step variants' driver."""
+    process grid, device, the per-step variants' driver and the picture
+    (--vis/--no-vis, default `vis`; --vis-shards)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--nx", type=int, default=nx, help="global grid points, x")
     p.add_argument("--ny", type=int, default=ny, help="global grid points, y")
@@ -64,10 +69,69 @@ def base_parser(description: str, *, nx: int, ny: int, nt: int, dtype: str):
                    help="on-wire halo slab precision (parallel/wire.py; default f32, the "
                    "exchange as it is; bf16 halves the wire; int8/int8_delta quantize "
                    "with error feedback and need --deep)")
+    add_vis_flags(p, vis)
     add_telemetry_flag(p)
     add_health_flag(p)
     add_profile_flag(p)
     return p
+
+
+# ---------------------------------------------------------------------------
+# The picture: --vis, --no-vis, --vis-shards (the JAX apps' flags)
+# ---------------------------------------------------------------------------
+
+
+def add_vis_flags(p, default: bool) -> None:
+    vis = p.add_mutually_exclusive_group()
+    vis.add_argument("--vis", dest="do_vis", action="store_true", default=default,
+                     help="render the gathered final field as a heatmap PNG into output/ "
+                     "(Temp_<variant>_<nprocs>_<nx>_<ny>.png; 3D: its mid-z slice; needs "
+                     f"matplotlib; default {'on' if default else 'off'})")
+    vis.add_argument("--no-vis", dest="do_vis", action="store_false",
+                     help="no heatmap (what a machine without matplotlib needs)")
+    p.add_argument("--vis-shards", action="store_true",
+                   help="also render one panel per rank's shard (the reference's "
+                   "poc_rocmaware.png-style halo-exchange proof; 2D + --vis only)")
+
+
+def check_vis(args) -> None:
+    """Before the run: an app whose picture is on refuses (exit 2) where
+    matplotlib is missing, rather than skip the picture in silence."""
+    from rocm_mpi_tpu_torch.utils import viz
+
+    if getattr(args, "do_vis", False) and not viz.available():
+        print("--vis needs matplotlib, which this Python lacks: pass --no-vis to run "
+              "without the picture", file=sys.stderr, flush=True)
+        raise SystemExit(2)
+
+
+def finish_field(args, field, grid, label: str, log0, signed: bool = False) -> None:
+    """The end of a run's field: gather it to rank 0 once (every rank takes
+    part) when --save-field or --vis wants it, np.save it there, and render
+    its heatmap (and with --vis-shards the per-shard panels; `signed` for
+    fields that oscillate about 0) into OUTPUT_DIR."""
+    if not (args.save_field or args.do_vis):
+        return
+    import numpy as np
+
+    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
+
+    full = gather_to_host0(field, grid)
+    if full is None:
+        return
+    if args.save_field:
+        out = pathlib.Path(args.save_field)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        np.save(out, full)
+        log0(f"wrote {args.save_field}")
+    if args.do_vis:
+        from rocm_mpi_tpu_torch.utils import viz
+
+        path = OUTPUT_DIR / viz.artifact_name(label, grid.nprocs, grid.global_shape)
+        viz.save_heatmap(full, path, title=f"{label} nt={args.nt} mesh={grid.dims}")
+        log0(f"wrote {path}")
+        if args.vis_shards and grid.ndim == 2:
+            log0(f"wrote {viz.save_shard_panels_artifact(full, grid, label, OUTPUT_DIR, signed)}")
 
 
 # ---------------------------------------------------------------------------
@@ -266,9 +330,10 @@ def driver_note(args, result) -> str:
     return f"driver scan (route {result.route}, q {result.k})"
 
 
-def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str, nz: int = 0):
+def make_parser(variant: str, *, nx: int, ny: int, nt: int, dtype: str, nz: int = 0,
+                vis: bool = False):
     p = base_parser(f"{'3D' if nz else '2D'} heat diffusion — {variant} variant", nx=nx,
-                    ny=ny, nt=nt, dtype=dtype)
+                    ny=ny, nt=nt, dtype=dtype, vis=vis)
     p.add_argument("--nz", type=int, default=nz, help="global grid points, z (0 = 2D)")
     p.add_argument("--deep", type=int, default=0, metavar="K",
                    help="use deep-halo sweeps: exchange width-K ghosts every K steps "
@@ -560,6 +625,7 @@ def card_line() -> str | None:
 def run_app(variant: str, args) -> int:
     """The diffusion apps' main: the resilience plane set up first, then
     the run, which leaves through distributed.finalize however it ends."""
+    check_vis(args)
     setup_resilience(args)
     with finalized():
         return _run_app(variant, args)
@@ -651,9 +717,7 @@ def _run_app(variant: str, args) -> int:
             f"{result.gpts:.4f} Gpts/s) on {where}{note}"
         )
     log0(f"maximum(T) = {global_max(result.T)}")
-    if args.save_field:
-        save_field(args.save_field, result.T, grid)
-        log0(f"wrote {args.save_field}")
+    finish_field(args, result.T, grid, variant, log0)
     finish_observability(log0)
     distributed.finalize()
     return 0
@@ -672,19 +736,3 @@ def hide_note(grid, b_width) -> str:
     one = "; one rank has nothing to hide and runs the perf step" if grid.nprocs == 1 else ""
     return (f"hide: b_width {tuple(b_width)} clamped to {bw} on the {local} shard: "
             f"{inner} interior box(es), {len(boxes) - inner} slab box(es){one}")
-
-
-def save_field(path, T, grid) -> None:
-    """Gather the field to rank 0 (every rank takes part) and np.save it
-    there."""
-    import pathlib
-
-    import numpy as np
-
-    from rocm_mpi_tpu_torch.parallel.gather import gather_to_host0
-
-    full = gather_to_host0(T, grid)
-    if full is not None:
-        out = pathlib.Path(path)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        np.save(out, full)

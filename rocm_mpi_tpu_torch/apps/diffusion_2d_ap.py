@@ -18,7 +18,7 @@ from rocm_mpi_tpu_torch.apps._common import make_parser, run_app
 
 
 def main(argv=None) -> int:
-    parser = make_parser("ap", nx=128, ny=128, nt=1000, dtype="f64")
+    parser = make_parser("ap", nx=128, ny=128, nt=1000, dtype="f64", vis=True)
     return run_app("ap", parser.parse_args(argv))
 
 

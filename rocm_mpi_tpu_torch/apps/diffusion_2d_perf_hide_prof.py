@@ -38,7 +38,9 @@ import sys
 
 from rocm_mpi_tpu_torch.apps._common import (
     card_line,
+    check_vis,
     device_events,
+    finish_field,
     make_parser,
     parse_ints,
     setup_observability,
@@ -75,6 +77,7 @@ def main(argv=None) -> int:
         print("--checkpoint/--resume are not supported by the profiling app; use the "
               "perf/hide apps for durable runs")
         return 2
+    check_vis(args)
     if not 0 <= args.warmup < args.nt:
         parser.error(f"need 0 <= warmup < nt, got warmup={args.warmup} nt={args.nt} "
                      "(the default warmup is 12 — raise --nt or lower --warmup)")
@@ -112,6 +115,7 @@ def main(argv=None) -> int:
               f"{wtime:.3e} sec (@ T_eff = {t_eff:.2f} GB/s aggregate, {gpts:.4f} Gpts/s) "
               f"on {where_line(device)}", flush=True)
         print(f"wrote {report} and {window.path.parent}/", flush=True)
+    finish_field(args, T, grid, "hide", lambda msg: print(msg, flush=True))
     if device.type == "cuda":
         torch.cuda.synchronize()
     distributed.finalize()

@@ -31,10 +31,12 @@ from rocm_mpi_tpu_torch.apps._common import (
     add_checkpoint_flags,
     add_save_field_flag,
     base_parser,
+    check_vis,
     checkpoint_schedule,
     driver_note,
     emit_run_gauges,
     finalized,
+    finish_field,
     finish_observability,
     global_max,
     global_sum,
@@ -44,7 +46,6 @@ from rocm_mpi_tpu_torch.apps._common import (
     per_step_checkpoint_advance,
     profile_context,
     report_checkpointed_line,
-    save_field,
     schedule_note,
     setup_observability,
     setup_resilience,
@@ -71,6 +72,7 @@ def make_parser():
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    check_vis(args)
     setup_resilience(args)
     with finalized():
         return _main(args)
@@ -102,6 +104,7 @@ def _main(args) -> int:
     mass0 = global_sum(model.init_state()[0])
     note = ""
     passes = 2 * (cfg.ndim + 1)
+    label = args.variant
     if args.checkpoint:
         if args.vmem:
             log0("--checkpoint supports the per-step and deep schedules; drop --vmem")
@@ -169,9 +172,10 @@ def _main(args) -> int:
     log0(f"mass drift = {abs(mass - mass0) / abs(mass0):.3e} (closed basin: conserved up to "
          "storage-dtype rounding)")
     log0(f"maximum(|h|) = {global_max(result.h.abs())}")
-    if args.save_field:
-        save_field(args.save_field, result.h, grid)
-        log0(f"wrote {args.save_field}")
+    if args.do_vis and len(grid.global_shape) != 2:
+        log0("--vis is 2D-only (heatmap); skipping the artifact")
+        args.do_vis = False
+    finish_field(args, result.h, grid, f"swe_{label}", log0, signed=True)
     finish_observability(log0)
     distributed.finalize()
     return 0

@@ -28,10 +28,12 @@ from rocm_mpi_tpu_torch.apps._common import (
     add_checkpoint_flags,
     add_save_field_flag,
     base_parser,
+    check_vis,
     checkpoint_schedule,
     driver_note,
     emit_run_gauges,
     finalized,
+    finish_field,
     finish_observability,
     global_max,
     grid_shape,
@@ -40,7 +42,6 @@ from rocm_mpi_tpu_torch.apps._common import (
     per_step_checkpoint_advance,
     profile_context,
     report_checkpointed_line,
-    save_field,
     schedule_note,
     setup_observability,
     setup_resilience,
@@ -66,6 +67,7 @@ def make_parser():
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    check_vis(args)
     setup_resilience(args)
     with finalized():
         return _main(args)
@@ -95,6 +97,7 @@ def _main(args) -> int:
     log0(f"wave grid {grid.global_shape} {cfg.dtype} over process grid {grid.dims} "
          f"({grid.nprocs} rank(s)) on {where}")
     note = ""
+    label = args.variant
     if args.checkpoint:
         if args.vmem:
             log0("--checkpoint supports the per-step and deep schedules; drop --vmem")
@@ -158,9 +161,10 @@ def _main(args) -> int:
              f"{result.wtime:.3e} sec (@ T_eff = {result.t_eff:.2f} GB/s aggregate, "
              f"{result.gpts:.4f} Gpts/s) on {where}{note}")
     log0(f"maximum(|U|) = {global_max(result.U.abs())}")
-    if args.save_field:
-        save_field(args.save_field, result.U, grid)
-        log0(f"wrote {args.save_field}")
+    if args.do_vis and len(grid.global_shape) != 2:
+        log0("--vis is 2D-only (heatmap); skipping the artifact")
+        args.do_vis = False
+    finish_field(args, result.U, grid, f"wave_{label}", log0)
     finish_observability(log0)
     distributed.finalize()
     return 0

@@ -4,7 +4,9 @@ One process per GPU, as the reference runs one MPI rank per GPU. The
 halo exchange rides the default process group: NCCL for CUDA tensors
 (device to device, the CUDA-aware-MPI path) and gloo for CPU tensors.
 A gloo group that is handed CUDA tensors stages each slab through host
-memory (parallel/halo.py); that is how several ranks share one card.
+memory (parallel/halo.py); that is how several ranks share one card, and
+`maybe_initialize_distributed` takes gloo when a host's ranks outnumber
+its cards.
 
 Ranks come either from `torchrun` (RANK, WORLD_SIZE, MASTER_ADDR,
 MASTER_PORT, LOCAL_RANK in the environment; `maybe_initialize_distributed`)
@@ -25,8 +27,13 @@ import torch.distributed as dist
 from rocm_mpi_tpu_torch.utils.backend import resolve_device
 
 
-def default_backend(device_type: str) -> str:
-    return "nccl" if device_type == "cuda" else "gloo"
+def default_backend(device_type: str, local_ranks: int = 1) -> str:
+    """NCCL for CUDA ranks, one a card; gloo for CPU ranks and for CUDA
+    ranks that share a card (more local ranks than visible cards: NCCL
+    refuses two ranks on one device, gloo stages through host memory)."""
+    if device_type != "cuda" or local_ranks > torch.cuda.device_count():
+        return "gloo"
+    return "nccl"
 
 
 def init_distributed(rank: int, world_size: int, store_port: int,
@@ -59,7 +66,9 @@ def maybe_initialize_distributed(device_type: str = "cuda") -> bool:
         # unset: NCCL's watchdog would otherwise abort a rank whose peer
         # builds its kernels for minutes).
         kwargs["timeout"] = datetime.timedelta(seconds=float(os.environ["RMT_INIT_TIMEOUT_S"]))
-    dist.init_process_group(default_backend(device_type), init_method="env://", **kwargs)
+    local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    dist.init_process_group(default_backend(device_type, local_ranks), init_method="env://",
+                            **kwargs)
     # One collective over every rank first: NCCL then sets up its
     # communicator before the halo exchange's point-to-point batches, in
     # which ranks at the domain edge post fewer operations.

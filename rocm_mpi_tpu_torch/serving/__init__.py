@@ -9,8 +9,13 @@ pipelined drain, bitwise equal to the serial drain at any depth, with
 session checkpoints, preemption, retries, quarantine, a circuit breaker
 and queue-driven elasticity.
 
-`queue`, `bins` and `slo` are stdlib at import (the telemetry read side
-validates their formats without torch); `service` imports torch.
+The fleet fronts several services: `router.FleetRouter` routes requests
+to `SimulationService` replicas and re-routes a dead replica's open
+tickets from the durable ticket journal (`journal.py`).
+
+`queue`, `bins`, `slo`, `journal` and `router` are stdlib at import (the
+telemetry read side validates their formats without torch); `service`
+imports torch.
 """
 
 from rocm_mpi_tpu_torch.serving.bins import (  # noqa: F401

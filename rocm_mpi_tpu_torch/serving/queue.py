@@ -696,23 +696,41 @@ class RequestQueue:
             out, self._expired_log = self._expired_log, []
         return out
 
-    def expire_overdue(self, now: float | None = None) -> list[Ticket]:
+    def overdue_ids(self, now: float) -> list[str]:
+        """Request ids of the pending tickets past their deadline at
+        `now`, in queue order (read only: the verdict `expire_overdue`
+        acts on)."""
+        with self._lock:
+            return [t.request.request_id for lst in (self._front, self._pending) for t in lst
+                    if t.request.deadline_s is not None
+                    and now - t.submitted_mono >= t.request.deadline_s]
+
+    def has_deadlines(self) -> bool:
+        """Does any pending ticket carry a deadline? (A function of the
+        submitted requests alone, the same on every rank.)"""
+        with self._lock:
+            return any(t.request.deadline_s is not None
+                       for lst in (self._front, self._pending) for t in lst)
+
+    def expire_overdue(self, now: float | None = None, ids=None) -> list[Ticket]:
         """Expire pending tickets past their deadline with the
         CALLER'S clock — the fleet router's single-writer wall-clock
         authority (docs/SERVING.md "The fleet"): replica queues run
         with `wall_slo` off, so no replica-local clock ever makes an
         SLO decision; the router makes every one of them through this
-        hook before draining a replica. Returns the tickets after
-        terminally failing them; `take_expired` still feeds their
-        telemetry as usual."""
+        hook before draining a replica. `ids` (several ranks) expires
+        exactly those pending tickets, the verdict rank 0's clock
+        reached (`overdue_ids`), whatever this rank's clock says.
+        Returns the tickets after terminally failing them;
+        `take_expired` still feeds their telemetry as usual."""
         now = time.monotonic() if now is None else now
+        verdict = set(self.overdue_ids(now) if ids is None else ids)
         expired: list[Ticket] = []
         with self._lock:
             for lst in (self._front, self._pending):
                 keep: list[Ticket] = []
                 for t in lst:
-                    d = t.request.deadline_s
-                    if d is not None and now - t.submitted_mono >= d:
+                    if t.request.request_id in verdict:
                         expired.append(t)
                     else:
                         keep.append(t)

@@ -1566,6 +1566,15 @@ class SimulationService:
         self._assert_accounting()
         return report
 
+    def release(self) -> None:
+        """Let every program and model go: their lane blocks, spares, the
+        grids' slab buffers and the initial-state leaves return to the
+        caching allocator once nothing else holds them. No device sync: at
+        a drain boundary nothing is in flight (serving/router.py calls
+        this on a dead replica). The queue and the accounting stay."""
+        self._programs.clear()
+        self._models.clear()
+
     def _assert_accounting(self) -> None:
         """The drain-time terminal-accounting invariant: at a drain
         boundary nothing is in flight, so every submitted ticket is

@@ -177,10 +177,10 @@ def load_json(path) -> dict | None:
 # Schema markers of the families the JAX package's analysis and serving
 # planes write, spelled here so the port classifies every family the JAX
 # read side classifies (tests/test_torch_telemetry.py pins them equal to
-# the JAX package's constants). The serving bin manifest and the soak
-# report are deep-checked by the port's serving validators
-# (serving/bins.py, serving/slo.py); graftlint and the fleet journal are
-# not ported: those families are recognized but not deep-checked
+# the JAX package's constants). The serving bin manifest, the soak report
+# and the fleet report are deep-checked by the port's serving validators
+# (serving/bins.py, serving/slo.py, serving/journal.py); graftlint is not
+# ported: its families are recognized but not deep-checked
 # (DEEP_CHECKED_ELSEWHERE).
 _FINDINGS_SCHEMA = "rmt-lint-findings"
 _LINT_BASELINE_SCHEMA = "rmt-lint-baseline"
@@ -188,12 +188,10 @@ _BIN_MANIFEST_SCHEMA = "rmt-bin-manifest"
 _SOAK_SCHEMA = "rmt-soak-report"
 _FLEET_REPORT_SCHEMA = "rmt-fleet-report"
 
-# Families whose deep validators live in planes the port has not ported
-# (graftlint, the fleet journal): check_schema names them in its notes
-# instead of passing them in silence.
-DEEP_CHECKED_ELSEWHERE = (
-    "graftlint findings artifact", "graftlint baseline", "fleet report",
-)
+# Families whose deep validators live in a plane the port has not ported
+# (graftlint): check_schema names them in its notes instead of passing
+# them in silence.
+DEEP_CHECKED_ELSEWHERE = ("graftlint findings artifact", "graftlint baseline")
 
 
 def _classify_json(doc: dict) -> str | None:
@@ -256,6 +254,10 @@ def _validate_classified(doc: dict, kind: str) -> list[str]:
         from rocm_mpi_tpu_torch.serving.slo import validate_soak_report
 
         return validate_soak_report(doc)
+    if kind == "fleet report":
+        from rocm_mpi_tpu_torch.serving.journal import validate_fleet_report
+
+        return validate_fleet_report(doc)
     if kind == "trace report":
         from rocm_mpi_tpu_torch.telemetry.tracing import validate_trace_report
 
@@ -270,16 +272,11 @@ def _validate_classified(doc: dict, kind: str) -> list[str]:
 _WIRE_MODES = ("f32", "bf16", "int8", "int8_delta")
 
 # Serving sidecar record markers: the request and quarantine records are
-# deep-checked by serving/queue.py's validators; the fleet journal's
-# (serving.journal, not ported) is recognized, not deep-checked.
+# deep-checked by serving/queue.py's validators, the fleet journal's by
+# serving/journal.py's (tests/test_torch_fleet.py pins this spelling).
 _SERVE_REQUEST_SCHEMA = "rmt-serve-request"
 _QUARANTINE_SCHEMA = "rmt-serve-quarantine"
 _FLEET_JOURNAL_SCHEMA = "rmt-fleet-journal"
-_SERVING_RECORDS = {
-    _SERVE_REQUEST_SCHEMA: "serve request record",
-    _QUARANTINE_SCHEMA: "serve quarantine record",
-    _FLEET_JOURNAL_SCHEMA: "fleet journal record",
-}
 
 
 def _validate_perf_budgets(doc: dict) -> list[str]:
@@ -417,7 +414,7 @@ def check_schema(paths, notes: list | None = None) -> list[str]:
     """Validate committed measurement artifacts. Returns problem strings
     (empty = all recognized). `.jsonl` files are checked line-by-line;
     `.json` files as one document. The families whose deep validators
-    live in planes the port lacks (graftlint, serving) pass on their
+    live in a plane the port lacks (graftlint) pass on their
     schema marker alone; each such file is named once in `notes` (a list
     the caller passes, which the CLI prints), never passed in silence."""
     from rocm_mpi_tpu_torch.telemetry.health import ELASTIC_SCHEMA
@@ -464,8 +461,11 @@ def check_schema(paths, notes: list | None = None) -> list[str]:
 
                     for p in validate_quarantine_record(doc):
                         problems.append(f"{raw}:{i}: {p}")
-                elif doc.get("schema") in _SERVING_RECORDS:
-                    shallow.add(f"{raw}: {_SERVING_RECORDS[doc['schema']]}")
+                elif doc.get("schema") == _FLEET_JOURNAL_SCHEMA:
+                    from rocm_mpi_tpu_torch.serving.journal import validate_journal_record
+
+                    for p in validate_journal_record(doc):
+                        problems.append(f"{raw}:{i}: {p}")
                 elif doc.get("kind") == "event":
                     for p in _validate_event_record(doc):
                         problems.append(f"{raw}:{i}: {p}")

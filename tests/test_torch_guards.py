@@ -62,9 +62,39 @@ def test_scan_sees_the_whole_port():
                               "resilience/elastic.py", "parallel/launcher.py",
                               "models/lanes.py", "serving/__init__.py", "serving/queue.py",
                               "serving/bins.py", "serving/slo.py", "serving/service.py",
-                              "apps/serve.py", "telemetry/tracing.py")} <= names
+                              "apps/serve.py", "telemetry/tracing.py",
+                              "serving/journal.py", "serving/router.py", "apps/fleet.py",
+                              "apps/soak.py", "utils/viz.py")} <= names
     assert {"chip_smoke.py", "chip_trace_hide.py"} <= names
     assert {"scripts/torch_kernel_ab.py", "scripts/torch_face_variants.py"} <= names
+
+
+def test_fleet_modules_import_without_torch():
+    # The journal and the router are stdlib at import, as the JAX ones are
+    # (the telemetry read side validates fleet sidecars without torch);
+    # viz imports matplotlib only when it draws.
+    import subprocess
+    import sys
+
+    code = ("import sys; import rocm_mpi_tpu_torch.serving.journal, "
+            "rocm_mpi_tpu_torch.serving.router, rocm_mpi_tpu_torch.telemetry.regress, "
+            "rocm_mpi_tpu_torch.utils.viz; "
+            "print(sorted(m for m in ('torch', 'matplotlib') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_fleet_and_soak_default_to_the_gpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from rocm_mpi_tpu_torch.apps import fleet, soak
+
+    assert fleet.make_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        fleet.main(["--synthetic", "2", "--out", str(tmp_path / "f")])
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        soak.main(["--bounded", "--out", str(tmp_path / "s")])
+    assert not (tmp_path / "s" / "soak-report.json").exists()
 
 
 def _counted_launches():

@@ -1,7 +1,7 @@
-"""Ranks of tests/test_torch_batched.py and tests/test_torch_serving.py
-(gloo), started by rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks; it
-holds no tests itself. Imports torch and the port only, so a spawned rank
-starts fast."""
+"""Ranks of tests/test_torch_batched.py, tests/test_torch_serving.py and
+tests/test_torch_fleet.py (gloo), started by
+rocm_mpi_tpu_torch.parallel.launcher.spawn_ranks; it holds no tests
+itself. Imports torch and the port only, so a spawned rank starts fast."""
 
 from __future__ import annotations
 
@@ -174,3 +174,44 @@ def run_nan_rank(rank):
                for i in range(16)]
     svc._drain_all()
     return {t.request.request_id: (t.state, t.retries) for t in tickets}
+
+
+def run_fleet_rank(rank, spec):
+    """One rank of the two-rank fleet smoke: every rank runs the SAME
+    two-replica router over the SAME trace (routing is a pure fold, so the
+    replicas' batched collectives line up on every rank). `spec["fault"]`
+    installs a fault plan, `spec["deadline"]` stamps request 0 with an
+    already-hopeless TTL (expired by rank 0's clock on every rank). Returns
+    the replica map, the journal's records, each ticket's state and the
+    dead replicas."""
+    import json
+    import tempfile
+
+    from rocm_mpi_tpu_torch.resilience import faults
+    from rocm_mpi_tpu_torch.serving import journal as fleet_journal
+    from rocm_mpi_tpu_torch.serving.router import FleetRouter
+    from rocm_mpi_tpu_torch.serving.service import ServeConfig, SimulationService
+
+    torch.set_num_threads(1)
+    faults.install(spec.get("fault"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/fleet-journal.jsonl"
+        journal = fleet_journal.TicketJournal(path)
+        router = FleetRouter(
+            lambda rid: SimulationService(config=ServeConfig(max_width=4, device="cpu")), 2,
+            journal=journal)
+        trace = serve_trace("fleet")
+        if spec.get("deadline"):
+            import dataclasses
+
+            trace[0] = dataclasses.replace(trace[0], deadline_s=1e-9)
+        tickets = [router.submit(r) for r in trace]
+        router.drive()
+        out = {"map": router.replica_map(),
+               "states": {t.request.request_id: t.state for t in tickets},
+               "accounting": router.check_accounting(), "merged": router.merged_counters(),
+               "dead": [r.id for r in router.replicas if not r.alive]}
+        journal.close()
+        out["records"] = [json.loads(line) for line in open(path, encoding="utf-8")]
+    faults.install(None)
+    return out

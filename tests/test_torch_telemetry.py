@@ -225,22 +225,28 @@ def test_check_schema_classifies_every_jax_family_and_names_the_unchecked(tmp_pa
         (tmp_path / name).write_text(json.dumps(doc))
     (tmp_path / "serve.jsonl").write_text(
         json.dumps({"schema": "rmt-serve-request", "kind": "req", "v": 3}) + "\n")
+    (tmp_path / "fleet-journal.jsonl").write_text(json.dumps(
+        {"schema": "rmt-fleet-journal", "v": 1, "kind": "terminal", "seq": 0,
+         "request_id": "r", "state": "vaporized"}) + "\n")
     paths = sorted(str(p) for p in tmp_path.iterdir())
     for path in paths:
         doc = json.loads(pathlib.Path(path).read_text().splitlines()[0])
         if path.endswith(".json"):
             assert regress._classify_json(doc) == jax_regress._classify_json(doc)
     notes: list = []
-    # The serving bin manifest, the soak report and the serve request
-    # record are deep-checked by the port's serving validators, with the
-    # JAX package's verdicts on the same (stub) documents.
-    served = [str(tmp_path / n) for n in ("bins.json", "serve.jsonl", "soak.json")]
+    # The serving bin manifest, the soak report, the fleet report and the
+    # serve request and fleet journal records are deep-checked by the
+    # port's serving validators, with the JAX package's verdicts on the
+    # same (stub or doctored) documents.
+    served = [str(tmp_path / n) for n in ("bins.json", "fleet-journal.jsonl", "fleet.json",
+                                          "serve.jsonl", "soak.json")]
     problems = regress.check_schema(paths, notes=notes)
     assert problems == regress.check_schema(served) == jax_regress.check_schema(served)
     assert {p.split(": ")[0].split(":")[0] for p in problems} == set(served)
+    assert any("fleet.json: replicas" in p or "fleet.json: missing" in p for p in problems)
+    assert any("fleet-journal.jsonl:1: terminal state 'vaporized'" in p for p in problems)
     unchecked = {n.split(": ")[1] for n in notes}
-    assert unchecked == {"graftlint findings artifact", "graftlint baseline",
-                         "fleet report"}
+    assert unchecked == {"graftlint findings artifact", "graftlint baseline"}
     assert all("not deep-checked" in n for n in notes)
 
 
