@@ -22,10 +22,15 @@ the target). Phases, printed as they run (about nine minutes on one H100
    128², and kp_update at odd row lengths (12288×12287, 128×127) with
    its wrapper's host time per call; tb_sweep also at k = 16 on 12320²
    and ragged (1000×777, k = 5), with its strip/segment plan;
-   fused_step_padded at 12288², 6144², 252² and on the 3D block;
-   masked_step also at 12288×12287 and on a 12288² view with storage
-   offset 1, each printed with its layout (16-byte vectors or scalar
-   cells), and at 252² with its wrapper's host µs a call; fused_step_cm
+   fused_step_padded and kp_flux at 12288², the 6144² block of a 2×2
+   rank and smaller (252² and the 3D block; 128²);
+   masked_step, kp_flux and fused_step_padded also at 12288×12287 and on
+   a 12288² view with storage offset 1 (kp_flux: Tp and qx; the padded
+   step: Tp and Cp), each printed with the layout its launch takes
+   (16-byte vectors, scalar cells, or for kp_flux and fused_step_padded
+   one cell a thread, as their launchers report it; the cases must reach
+   all three), and
+   masked_step at 252² with its wrapper's host µs a call; fused_step_cm
    in both of its callers' forms: from a padded block (its views, the
    scalar layout) and in the face form the sharded steps launch (the
    shard and contiguous faces: all present, none below on any axis as at
@@ -516,7 +521,17 @@ KERNEL_CASES = [
     ("kp_update", KP_SMALL, 1, "direct", ALL_DTYPES),
     ("kp_update", KP_ODD, 1, "direct", ALL_DTYPES),
     ("kp_update", KP_SMALL_ODD, 1, "direct", ALL_DTYPES),
+    # kp_flux and fused_step_padded on both lane-tiled layouts: 12288² and
+    # a rank's 6144² block take the vectors (f32, bf16), a ragged last axis
+    # and views at storage offset 1 (Tp and qx, Tp and Cp) the scalar cells
+    # (kp_flux's f64 always); fused_step_padded's f64 and every small case
+    # below the fill take one cell a thread.
+    ("kp_flux", KP_ODD, 1, "direct", ALL_DTYPES),
+    ("kp_flux", BIG, 1, "offset", ALL_DTYPES),
+    ("kp_flux", BLOCK, 1, "direct", ALL_DTYPES),
     ("fused_step_padded", BIG, 1, "direct", ALL_DTYPES),
+    ("fused_step_padded", KP_ODD, 1, "direct", ALL_DTYPES),
+    ("fused_step_padded", BIG, 1, "offset", ALL_DTYPES),
     ("fused_step_padded", BLOCK, 1, "direct", ALL_DTYPES),
     ("fused_step_padded", SMALL, 1, "direct", ALL_DTYPES),
     # 3D, at small sizes: every kernel takes 3D blocks, which no main path
@@ -586,9 +601,11 @@ FLOPS_PER_CELL_STEP = {
     # two faces; the residual two differences, two products, a sum, a
     # negation and a division; the update a product and a sum.
     ("kp_flux", "direct"): lambda nd: 6,
+    ("kp_flux", "offset"): lambda nd: 6,
     ("kp_residual", "direct"): lambda nd: 7,
     ("kp_update", "direct"): lambda nd: 2,
     ("fused_step_padded", "direct"): lambda nd: 5 * nd + 2,
+    ("fused_step_padded", "offset"): lambda nd: 5 * nd + 2,
 }
 MAIN_NT, MAIN_WARMUP = 1000, 10
 # The 12288² runs of the per-step paths and their plain-version
@@ -866,7 +883,7 @@ def _kernel_case(torch, name, core, steps, form, dtype, device):
     if name.startswith("swe_"):
         return _swe_kernel_case(torch, name, core, steps, form, dtype, device)
     if name in KP or name == "fused_step_padded":
-        return _kp_kernel_case(torch, name, core, dtype, device)
+        return _kp_kernel_case(torch, name, core, form, dtype, device)
     domain = (SMALL if core in (SMALL, DEEP_SMALL, WAVE_DEEP_SMALL)
               else core if len(core) == 3 else BIG)
     lengths = (10.0,) * len(domain)
@@ -1107,16 +1124,20 @@ def _swe_kernel_case(torch, name, core, steps, form, dtype, device):
             lambda: swe.swe_step_plain(Sp, Mus, cH, cg), nbytes)
 
 
-def _kp_kernel_case(torch, name, core, dtype, device):
+def _kp_kernel_case(torch, name, core, form, dtype, device):
     """_kernel_case for the kp kernels and fused_step_padded: Tp in [0, 1),
     Cp in [1, 2), the residual's fluxes those the plain flux makes of Tp,
     the update's dTdt in [-0.5, 0.5), λ and the field-dtype dt of the
     domain's config (the 6144² block's domain is 12288²). The update also
-    returns its one-call PyTorch form, `torch.add(core, dTdt, alpha=dt)`."""
+    returns its one-call PyTorch form, `torch.add(core, dTdt, alpha=dt)`.
+    Form "offset" puts Tp and qx (kp_flux) or Tp and Cp
+    (fused_step_padded) one element past an allocation's start, off the
+    16-byte grid; kp_flux's and fused_step_padded's launches carry their
+    layout (`run.layout`)."""
     from rocm_mpi_tpu_torch.config import DiffusionConfig
     from rocm_mpi_tpu_torch.ops import kernels, kp
 
-    domain = BIG if core == BLOCK else core
+    domain = BIG if core in (BLOCK, KP_ODD) else core
     cfg = DiffusionConfig(global_shape=domain, lengths=(10.0,) * len(core), dtype=dtype)
     tdt = cfg.torch_dtype
     lam, dt, spacing = cfg.lam, float(torch.tensor(cfg.dt, dtype=tdt)), cfg.spacing
@@ -1126,25 +1147,42 @@ def _kp_kernel_case(torch, name, core, dtype, device):
         return (torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
                 + lo).to(tdt)
 
+    def shifted(t):  # the same values one element past an allocation's start
+        return torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+
     item = torch.empty((), dtype=tdt).element_size()
     cells = 1
     for n in core:
         cells *= n
     Tp = rand(tuple(n + 2 for n in core))
+    if form == "offset":
+        Tp = shifted(Tp)
     out = torch.empty(core, dtype=tdt, device=device)
     if name == "fused_step_padded":
         Cp = rand(core, 1.0)
-        return (lambda: kernels.fused_step_padded(Tp, Cp, lam, dt, spacing, out=out),
-                lambda: kernels.fused_step_padded_plain(Tp, Cp, lam, dt,
-                                                        kernels.inv_d2_of(spacing)),
+        if form == "offset":
+            Cp = shifted(Cp)
+
+        def run():
+            return kernels.fused_step_padded(Tp, Cp, lam, dt, spacing, out=out)
+
+        run.layout = kernels.padded_layout(Tp, Cp, out)
+        return (run, lambda: kernels.fused_step_padded_plain(Tp, Cp, lam, dt,
+                                                             kernels.inv_d2_of(spacing)),
                 (Tp.numel() + 2 * cells) * item)
     inv_d = kp.inv_d_of(spacing)
     lx, ly = core
     if name == "kp_flux":
         outs = (torch.empty((lx + 1, ly), dtype=tdt, device=device),
                 torch.empty((lx, ly + 1), dtype=tdt, device=device))
-        return (lambda: kp.kp_flux(Tp, lam, spacing, out=outs),
-                lambda: kp.kp_flux_plain(Tp, lam, inv_d),
+        if form == "offset":
+            outs = (shifted(outs[0]), outs[1])
+
+        def run():
+            return kp.kp_flux(Tp, lam, spacing, out=outs)
+
+        run.layout = kp.flux_layout(Tp, outs[0])
+        return (run, lambda: kp.kp_flux_plain(Tp, lam, inv_d),
                 (Tp.numel() + outs[0].numel() + outs[1].numel()) * item)
     if name == "kp_residual":
         qx, qy = kp.kp_flux_plain(Tp, lam, inv_d)
@@ -1220,9 +1258,14 @@ def resident_edge_cases(torch):
 def phase_kernels(torch, card, pk):
     """Every kernel case: bitwise against its plain version on the card,
     then timed beside it and its bound."""
+    from rocm_mpi_tpu_torch.ops.kernels import LAYOUT_NAMES
+
     device = torch.device("cuda", 0)
     rows = []
     edges, edge_routes = resident_edge_cases(torch)
+    # The layouts that kp_flux's and fused_step_padded's launches reported:
+    # the cases must reach every one.
+    layouts_seen = {"kp_flux": set(), "fused_step_padded": set()}
     for name, core, steps, form, dtypes in KERNEL_CASES + edges:
         for dtype in dtypes:
             run, plain, nbytes, *library = _kernel_case(torch, name, core, steps, form, dtype,
@@ -1266,9 +1309,11 @@ def phase_kernels(torch, card, pk):
             if name == "kp_update" or (name == "masked_step" and core == SMALL):
                 row["host_us_per_call"] = host_us(run)
                 extra = f"; wrapper host time {row['host_us_per_call']:.2f} µs a call"
-            if name in ("masked_step", "fused_step_cm"):
+            if name in ("masked_step", "fused_step_cm", "kp_flux", "fused_step_padded"):
                 row["layout"] = run.layout
                 extra = f"; layout {run.layout}" + extra
+            if name in layouts_seen:
+                layouts_seen[name].add(run.layout)
             if name == "fused_step_cm":
                 # Many launches: the device time of one queued behind the
                 # card's sleep, and of FUSED_LOOP of them between two events
@@ -1316,6 +1361,9 @@ def phase_kernels(torch, card, pk):
                   flush=True)
             del run, plain, got, want, library
         torch.cuda.empty_cache()
+    for name, seen in layouts_seen.items():
+        check(seen == set(LAYOUT_NAMES), f"{name}: the cases reached the layouts {seen}, "
+              f"not every one of {LAYOUT_NAMES}")
     return rows
 
 

@@ -30,13 +30,13 @@
 // device memory, so they stay three kernels. Each is memory-bound (a few
 // flops a cell against 3-4 field passes: flux reads Tp and writes qx, qy;
 // the residual reads qx, qy, Cp and writes dTdt; the update reads Tp and
-// dTdt and writes out). Flux and residual, as stencil.cu: one thread per
-// output cell in 32x8 blocks along the last (contiguous) axis, the
-// neighbour reads served from lines the block already pulled into L1/L2.
-// The flux launch covers (lx + 1, ly + 1) and each thread writes the face
-// of each output its cell has, so the extra row of qx and the extra column
-// of qy take no second launch. The update has no neighbours and moves 16
-// bytes of a row per thread (its design note is at rmt_kp_update_kernel).
+// dTdt and writes out). The residual gives one thread to each output cell
+// in 32x8 blocks along the last (contiguous) axis, the neighbour reads
+// served from lines the block already pulled into L1/L2. The flux and the
+// update move 16 bytes of a row a lane (their design notes are at
+// rmt_kp_flux_kernel and rmt_kp_update_kernel): at one cell a thread the
+// flux read 0.46 of its bound in bf16 on an H100, as masked_step did
+// before it took 16 bytes a lane.
 
 #include "stencil_common.cuh"
 
@@ -56,27 +56,6 @@ __device__ __forceinline__ bool cell(int64_t n0, int64_t n1, int64_t* i, int64_t
   *j = static_cast<int64_t>(blockIdx.x) * kBlockX + threadIdx.x;
   *i = static_cast<int64_t>(blockIdx.y) * kBlockY + threadIdx.y;
   return *i < n0 && *j < n1;
-}
-
-template <typename S>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-rmt_kp_flux_kernel(const S* __restrict__ Tp, S* __restrict__ qx, S* __restrict__ qy,
-            int64_t lx, int64_t ly, typename Compute<S>::type nlam,
-            typename Compute<S>::type inv0, typename Compute<S>::type inv1) {
-  using C = typename Compute<S>::type;
-  int64_t i, j;
-  if (!cell(lx + 1, ly + 1, &i, &j)) return;
-  const int64_t ps = ly + 2;  // row stride of Tp
-  if (j < ly) {
-    const C hi = widen(Tp[(i + 1) * ps + j + 1]);
-    const C lo = widen(Tp[i * ps + j + 1]);
-    qx[i * ly + j] = narrow<S>((nlam * (hi - lo)) * inv0);
-  }
-  if (i < lx) {
-    const C hi = widen(Tp[(i + 1) * ps + j + 1]);
-    const C lo = widen(Tp[(i + 1) * ps + j]);
-    qy[i * (ly + 1) + j] = narrow<S>((nlam * (hi - lo)) * inv1);
-  }
 }
 
 template <typename S>
@@ -152,6 +131,199 @@ rmt_kp_update_kernel(const S* __restrict__ Tp, const S* __restrict__ dTdt, S* __
   }
 }
 
+// kp_flux: 16 bytes of a row a lane (kN cells: 4 f32, 2 f64, 8 bf16), a
+// warp a strip of 32·kN consecutive columns walked down a run of qx rows.
+// With R_r the core columns of Tp's row r (R_r[j] = Tp[r, j + 1], j = -1 ..
+// ly), qx row i is R_{i+1} - R_i and qy row i is R_{i+1}[j] - R_{i+1}[j - 1]:
+// each Tp row comes from memory once a run, loaded one row ahead, and is
+// kept in registers as the next row's lo row. The left neighbour of qy
+// comes from the lane beside by shuffle; lane 0 loads the strip's outer
+// cell R[first - 1], which always lies in the row. qy's extra column j = ly
+// lies in the last strip, or, when the strips end at ly, is lane 31's: it
+// loads R[ly] as its outer cell. So one launch writes both outputs, the
+// extra row and column included. Layouts (flux_layout below):
+// - VEC (the wrapper allows it: ly a multiple of kN, qx on the 16-byte
+//   grid, not f64, whose vectors measured slower than its scalar cells:
+//   1.3260 ms against 1.2464-1.2468 at 12288²): kN consecutive
+//   cells; qx stored as one 16-byte vector with the streaming hint; qy's
+//   rows (stride ly + 1) are off the grid on every other row, so a warp
+//   stages its qy row in shared memory and stores it as coalesced scalar
+//   cells (cell first + 32e + lane);
+// - scalar cells (a ragged row, qx off the grid, f64): kN cells lane + 32e
+//   of the strip, every access scalar and coalesced;
+// - and, for a field that gives fewer than kFluxFillWarps warps of 16-byte
+//   lanes (the kp app's 128²), one cell a thread (rmt_kp_flux_cell_kernel
+//   below).
+// Tp's rows (stride ly + 2, core at offset 1) are never all on the 16-byte
+// grid: in VEC a lane reads its kN cells element by element and the L1
+// merges a warp's requests, as kp_update reads Tp. The alternative, a lane
+// reading the aligned 16-byte chunk under its cells and realigning it with
+// its neighbour's by shuffle and funnel shift, measured slower: 12288² f32
+// 0.8101 ms against 0.6350, bf16 0.3567 against 0.3359-0.3360.
+// Runs of up to kFluxRunRows qx rows (kFluxRunRowsBf16 in bf16), cut
+// shorter until the launch has kFluxFillWarps warps, as masked_step cuts
+// its runs: at 12288² runs of 4 took f32 0.6524 ms, f64 1.2819, bf16 0.3368
+// against 0.6350, 1.2464-1.2468 and 0.3359-0.3360 for these (runs of one
+// row, and three in bf16: a warp's second row saves a Tp row's read but
+// costs warps).
+// All figures: one call of scripts/torch_kernel_ab.py, device ms a launch,
+// NVIDIA H100 80GB HBM3 at 700.00 W, the alternatives variant trees of
+// this package timed beside it (--roots). At 12288², old against new: f32
+// 0.7263-0.7264 → 0.6350 ms (0.74 → 0.85 of the bytes bound; an earlier
+// call read 0.6362-0.6364), f64 1.2625-1.2636 → 1.2464-1.2468 (0.86 →
+// 0.87), bf16 0.5919-0.5920 → 0.3359-0.3360 (0.46 → 0.81). Why f32 stays
+// under masked_step's 0.91 is not measured apart; a guess is that qy's
+// scalar stores off the 16-byte grid cost more than its third of the bytes.
+constexpr int kFluxWarps = 4;         // warps a block: independent strips
+constexpr int kFluxRunRows = 1;       // the longest run of qx rows a warp walks
+constexpr int kFluxRunRowsBf16 = 3;   // the same in bf16
+constexpr int kFluxFillWarps = 8192;  // fewer warps than this: shorter runs, then one cell a thread
+
+template <typename S, bool VEC>
+__global__ void __launch_bounds__(kFluxWarps * 32)
+rmt_kp_flux_kernel(const S* __restrict__ Tp, S* __restrict__ qx, S* __restrict__ qy,
+                   int64_t lx, int64_t ly, int64_t strips, int64_t items, int run_rows,
+                   typename Compute<S>::type nlam, typename Compute<S>::type inv0,
+                   typename Compute<S>::type inv1) {
+  using C = typename Compute<S>::type;
+  using Ch = Chunk<S>;
+  constexpr int kN = Ch::kN;
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ int4 stage[VEC ? kFluxWarps : 1][32];  // VEC: a warp's qy row, restaged
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kFluxWarps + warp;
+  if (item >= items) return;  // the whole warp: nothing below synchronises the block
+  // item = run · strips + strip, in 32 bits where the launch fits them
+  int64_t strip, run;
+  if (items <= 0xffffffffLL) {
+    const uint32_t it = static_cast<uint32_t>(item), st = static_cast<uint32_t>(strips);
+    run = it / st;
+    strip = it - static_cast<uint32_t>(run) * st;
+  } else {
+    run = item / strips;
+    strip = item - run * strips;
+  }
+  const int64_t r0 = run * run_rows;
+  const int64_t r1 = r0 + run_rows < lx + 1 ? r0 + run_rows : lx + 1;
+  const int64_t ps = ly + 2;             // Tp's row stride
+  const int64_t first = strip * 32 * kN;  // the strip's first column
+  const int64_t col = first + (VEC ? lane * kN : lane);  // this lane's first cell
+  const S* t = Tp + 1;                   // R_r[j] at t[r · ps + j]
+  const S zero = narrow<S>(C(0));
+  // This lane's cells of R_r (when `on`), 0 past column ly.
+  auto row_of = [&](int64_t r, bool on) -> Ch {
+    Ch v;
+    const S* p = t + r * ps;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int64_t j = col + (VEC ? e : 32 * e);
+      v.v[e] = on && j <= ly ? p[j] : zero;
+    }
+    return v;
+  };
+  // The strip's outer cells: lane 0's R[first - 1], and lane 31's R[ly]
+  // where the strips end at ly (qy's extra column).
+  const int64_t outer = lane == 0 ? first - 1 : first + 32 * kN;
+  const bool outer_in = lane == 0 || (lane == 31 && outer == ly);
+  auto edge_of = [&](int64_t r, bool on) -> S {
+    return on && outer_in ? t[r * ps + outer] : zero;
+  };
+  Ch lo = row_of(r0, true);
+  Ch hi = row_of(r0 + 1, true);
+  S edge = edge_of(r0 + 1, true);
+  for (int64_t i = r0; i < r1; ++i) {
+    // The next row's loads, in flight while this one is computed.
+    const bool more = i + 1 < r1;
+    const Ch nx = row_of(i + 2, more);
+    const S edge_nx = edge_of(i + 2, more);
+    C h[kN];
+    Ch ox;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      h[e] = widen(hi.v[e]);
+      ox.v[e] = narrow<S>((nlam * (h[e] - widen(lo.v[e]))) * inv0);
+    }
+    S* wx = qx + i * ly;
+    if constexpr (VEC) {
+      if (col < ly) __stcs(reinterpret_cast<int4*>(wx + col), *reinterpret_cast<const int4*>(&ox));
+    } else {
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        if (col + 32 * e < ly) wx[col + 32 * e] = ox.v[e];
+    }
+    if (i < lx) {  // qy row i, from R_{i+1} (the whole warp takes this branch)
+      const C outer_v = widen(edge);
+      C left[kN];  // R_{i+1} at cell - 1
+      if constexpr (VEC) {
+        const C from_l = __shfl_up_sync(kAll, h[kN - 1], 1);
+#pragma unroll
+        for (int e = 0; e < kN; ++e) left[e] = e > 0 ? h[e - 1] : (lane == 0 ? outer_v : from_l);
+      } else {
+        C rot_l[kN];  // cell e of the lane before (cyclic)
+#pragma unroll
+        for (int e = 0; e < kN; ++e) rot_l[e] = __shfl_sync(kAll, h[e], (lane + 31) & 31);
+#pragma unroll
+        for (int e = 0; e < kN; ++e)
+          left[e] = lane > 0 ? rot_l[e] : (e > 0 ? rot_l[e - 1] : outer_v);
+      }
+      Ch oy;
+#pragma unroll
+      for (int e = 0; e < kN; ++e) oy.v[e] = narrow<S>((nlam * (h[e] - left[e])) * inv1);
+      S* wy = qy + i * (ly + 1);
+      if constexpr (VEC) {
+        stage[warp][lane] = *reinterpret_cast<const int4*>(&oy);
+        __syncwarp();
+        const S* cells = reinterpret_cast<const S*>(stage[warp]);
+#pragma unroll
+        for (int e = 0; e < kN; ++e) {
+          const int64_t j = first + 32 * e + lane;
+          if (j <= ly) wy[j] = cells[32 * e + lane];
+        }
+        __syncwarp();
+      } else {
+#pragma unroll
+        for (int e = 0; e < kN; ++e)
+          if (col + 32 * e <= ly) wy[col + 32 * e] = oy.v[e];
+      }
+      if (lane == 31 && outer == ly)
+        wy[ly] = narrow<S>((nlam * (outer_v - h[kN - 1])) * inv1);
+    }
+    lo = hi;
+    hi = nx;
+    edge = edge_nx;
+  }
+}
+
+// kp_flux, one cell a thread: (lx + 1, ly + 1) threads in 32x8 blocks
+// along the last axis, each writing the faces its cell has, the neighbour
+// reads from lines the block pulled into L1/L2: the kernel before the lane
+// tiling. Below the fill the tiling's few warps each walk a longer chain
+// with more registers (48-80 a thread against 16-18); at the kp app's 128²
+// f64 the tiling took 0.0059 ms a launch against this form's 0.0055-0.0057
+// (device ms, the same script and call), so the launcher keeps this form
+// there.
+template <typename S>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+rmt_kp_flux_cell_kernel(const S* __restrict__ Tp, S* __restrict__ qx, S* __restrict__ qy,
+                        int64_t lx, int64_t ly, typename Compute<S>::type nlam,
+                        typename Compute<S>::type inv0, typename Compute<S>::type inv1) {
+  using C = typename Compute<S>::type;
+  int64_t i, j;
+  if (!cell(lx + 1, ly + 1, &i, &j)) return;
+  const int64_t ps = ly + 2;  // row stride of Tp
+  if (j < ly) {
+    const C hi = widen(Tp[(i + 1) * ps + j + 1]);
+    const C lo = widen(Tp[i * ps + j + 1]);
+    qx[i * ly + j] = narrow<S>((nlam * (hi - lo)) * inv0);
+  }
+  if (i < lx) {
+    const C hi = widen(Tp[(i + 1) * ps + j + 1]);
+    const C lo = widen(Tp[(i + 1) * ps + j]);
+    qy[i * (ly + 1) + j] = narrow<S>((nlam * (hi - lo)) * inv1);
+  }
+}
+
 // Grid of an (n0, n1) launch; false if empty or a dimension overflows.
 bool grid_of(int64_t n0, int64_t n1, dim3* grid) {
   const int64_t gx = (n1 + kBlockX - 1) / kBlockX;
@@ -161,16 +333,68 @@ bool grid_of(int64_t n0, int64_t n1, dim3* grid) {
   return true;
 }
 
+template <typename S, bool VEC>
+int launch_flux_nd(const S* Tp, S* qx, S* qy, int64_t lx, int64_t ly, double lam, double inv0,
+                   double inv1, cudaStream_t stream) {
+  using C = typename Compute<S>::type;
+  constexpr int kN = Chunk<S>::kN;
+  const int64_t strips = (ly + 32 * kN - 1) / (32 * kN);
+  // Runs of kFluxRunRows qx rows (kFluxRunRowsBf16 in bf16), cut shorter
+  // where the field gives fewer than kFluxFillWarps warps of them. A
+  // cell's arithmetic does not depend on its run.
+  const int64_t longest = sizeof(S) == 2 ? kFluxRunRowsBf16 : kFluxRunRows;
+  int64_t run_rows = strips * (lx + 1) / kFluxFillWarps;
+  run_rows = run_rows < 1 ? 1 : run_rows > longest ? longest : run_rows;
+  const int64_t items = strips * ((lx + 1 + run_rows - 1) / run_rows);
+  const int64_t blocks = (items + kFluxWarps - 1) / kFluxWarps;
+  if (blocks > 2147483647LL) return -2;
+  rmt_kp_flux_kernel<S, VEC><<<static_cast<unsigned>(blocks), kFluxWarps * 32, 0, stream>>>(
+      Tp, qx, qy, lx, ly, strips, items, static_cast<int>(run_rows), C(-lam), C(inv0), C(inv1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The layout of a launch (0 scalar cells, 1 the 16-byte vectors, 2 one cell
+// a thread): one cell a thread where the field gives fewer than
+// kFluxFillWarps warps of 16-byte lanes (one qx row each), else the vectors
+// where the wrapper allows them (`vectors`), else scalar cells.
+template <typename S>
+int flux_layout(int64_t lx, int64_t ly, bool vectors) {
+  constexpr int kN = Chunk<S>::kN;
+  const int64_t strips = (ly + 32 * kN - 1) / (32 * kN);
+  if (strips * (lx + 1) < kFluxFillWarps) return 2;
+  return vectors ? 1 : 0;
+}
+
+// A launch that allows the vectors where they do not fit (f64, ly no
+// multiple of kN, qx off the 16-byte grid) is refused (-1) rather than
+// misread.
 template <typename S>
 int launch_flux(const void* Tp, void* qx, void* qy, int64_t lx, int64_t ly, double lam,
-                double inv0, double inv1, cudaStream_t stream) {
+                double inv0, double inv1, bool vectors, cudaStream_t stream) {
   using C = typename Compute<S>::type;
-  dim3 grid;
-  if (!grid_of(lx + 1, ly + 1, &grid)) return -2;
-  rmt_kp_flux_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
-      static_cast<const S*>(Tp), static_cast<S*>(qx), static_cast<S*>(qy), lx, ly, C(-lam),
-      C(inv0), C(inv1));
-  return static_cast<int>(cudaGetLastError());
+  constexpr int kN = Chunk<S>::kN;
+  if (lx < 1 || ly < 1) return -2;
+  if (vectors && (sizeof(S) == 8 || ly % kN != 0 ||
+                  reinterpret_cast<uintptr_t>(qx) % kUpdBytes != 0))
+    return -1;
+  const auto* t = static_cast<const S*>(Tp);
+  auto* x = static_cast<S*>(qx);
+  auto* y = static_cast<S*>(qy);
+  switch (flux_layout<S>(lx, ly, vectors)) {
+    case 0:
+      return launch_flux_nd<S, false>(t, x, y, lx, ly, lam, inv0, inv1, stream);
+    case 1:
+      if constexpr (sizeof(S) < 8)
+        return launch_flux_nd<S, true>(t, x, y, lx, ly, lam, inv0, inv1, stream);
+      return -1;
+    default: {
+      dim3 grid;
+      if (!grid_of(lx + 1, ly + 1, &grid)) return -2;
+      rmt_kp_flux_cell_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
+          t, x, y, lx, ly, C(-lam), C(inv0), C(inv1));
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
 }
 
 template <typename S>
@@ -212,13 +436,30 @@ int launch_update(const void* Tp, const void* dTdt, void* out, int64_t lx, int64
 // -2 for an empty core or a grid that overflows a launch dimension. The
 // launch is asynchronous on `stream`; nothing here synchronises or
 // allocates.
+// kp_flux: `vectors` allows the 16-byte vectors (f32 and bf16, ly a
+// multiple of 16 bytes, qx on the 16-byte grid; -1 otherwise); the launch
+// takes them unless the field is too small to fill the card that way.
 extern "C" int rmt_kp_flux(int dtype, const void* Tp, void* qx, void* qy, int64_t lx,
-                           int64_t ly, double lam, double inv0, double inv1, void* stream) {
+                           int64_t ly, double lam, double inv0, double inv1, int vectors,
+                           void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const bool v = vectors != 0;
   switch (dtype) {
-    case kF32: return launch_flux<float>(Tp, qx, qy, lx, ly, lam, inv0, inv1, s);
-    case kF64: return launch_flux<double>(Tp, qx, qy, lx, ly, lam, inv0, inv1, s);
-    case kBF16: return launch_flux<__nv_bfloat16>(Tp, qx, qy, lx, ly, lam, inv0, inv1, s);
+    case kF32: return launch_flux<float>(Tp, qx, qy, lx, ly, lam, inv0, inv1, v, s);
+    case kF64: return launch_flux<double>(Tp, qx, qy, lx, ly, lam, inv0, inv1, v, s);
+    case kBF16:
+      return launch_flux<__nv_bfloat16>(Tp, qx, qy, lx, ly, lam, inv0, inv1, v, s);
+    default: return -1;
+  }
+}
+
+// The layout a kp_flux launch of these arguments takes: 0 scalar cells, 1
+// the 16-byte vectors, 2 one cell a thread; -1 for an unsupported dtype.
+extern "C" int rmt_kp_flux_layout(int dtype, int64_t lx, int64_t ly, int vectors) {
+  switch (dtype) {
+    case kF32: return flux_layout<float>(lx, ly, vectors != 0);
+    case kF64: return flux_layout<double>(lx, ly, vectors != 0);
+    case kBF16: return flux_layout<__nv_bfloat16>(lx, ly, vectors != 0);
     default: return -1;
   }
 }

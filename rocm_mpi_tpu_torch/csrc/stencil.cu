@@ -46,16 +46,17 @@
 // Bound on the card: memory. Per cell the step reads T (or Tp) and Cm (or
 // Cp) and writes out — 12 bytes in f32 against ~11 flops, far below the H100's
 // ratio of peak flops to bytes. The design keeps that to one pass each.
-// rmt_masked_step and rmt_fused_step_cm move 16 bytes of a row a lane and
-// walk runs of rows with the rows around it in registers (the design note
-// is at rmt_masked_step_kernel, the face form's at rmt_fused_step_cm_kernel):
-// one-cell-a-thread loads of two bytes left bf16 at 0.45 of its bound on
-// an H100. rmt_fused_step_padded gives one thread to each core cell, laid
-// out along the last (contiguous) axis so a warp reads whole 128-byte
-// lines, and the 2·ndim neighbour reads of a cell hit the lines its
-// block's other threads already pulled into L1/L2: a plain 2D grid of 32x8
-// blocks (plus the leading axis on grid.z in 3D), ragged edges masked,
-// 64-bit offsets. No TPU stripes or 3-slot blocks in any.
+// All three move 16 bytes of a row a lane and walk runs of rows with the
+// rows around it in registers (the design notes are at
+// rmt_masked_step_kernel, rmt_fused_step_cm_kernel and
+// rmt_fused_step_padded_kernel): one-cell-a-thread loads of two bytes left
+// bf16 at 0.45-0.46 of its bound on an H100. rmt_fused_step_padded took the
+// layout last; at 12288² on an H100 80GB HBM3 at 700.00 W
+// (scripts/torch_kernel_ab.py, old against new in one call, device ms a
+// launch) it went f32 0.7120-0.7121 → 0.5915-0.5917 ms (0.76 → 0.91 of
+// the bytes bound), bf16 0.5886-0.5890 → 0.3291-0.3292 (0.46 → 0.82); f64
+// keeps the one-cell-a-thread form (1.1712-1.1715, 1.1729-1.1730 in the
+// new tree). No TPU stripes or 3-slot blocks in any.
 //
 // bf16 is storage-only: loads are widened to f32, the step is computed in
 // f32 and rounded to bf16 once on store (pallas_kernels._upcast_for_compute).
@@ -67,12 +68,9 @@ namespace {
 using rmt::Box;
 using rmt::Compute;
 using rmt::kBF16;
-using rmt::kBlockX;
-using rmt::kBlockY;
 using rmt::kF32;
 using rmt::kF64;
 using rmt::narrow;
-using rmt::Region;
 using rmt::widen;
 
 // masked_step: 16 bytes of a row a lane (4 f32, 2 f64, 8 bf16: kN cells),
@@ -600,18 +598,236 @@ rmt_fused_step_cm_kernel(const S* __restrict__ T, FaceSet<S> f, const S* __restr
   }
 }
 
-template <typename S, int NDIM>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+// fused_step_padded: masked_step's lane tiling (16 bytes of a row a lane,
+// runs of rows with the rows above and below carried in registers, widened
+// once, the next row's loads in flight, last-axis neighbours by shuffle),
+// read from the width-1-padded source Tp instead of an unpadded field.
+// Tp's core rows start one cell into a row of stride n_last + 2, never all
+// on the 16-byte grid, so a lane reads its cells of a Tp row element by
+// element (the L1 merges a warp's requests, as kp_update and kp_flux read
+// Tp); a row's cells are read up to column n_last, the ghost column, so
+// the lane that holds it hands it to its neighbour by shuffle. The strip's
+// two outer neighbours are loaded from the padded ring by lanes 0 and 31
+// (real ghosts, not zeros); the rows above the first and below the last
+// core row, and in 3D the rows at axis-1 indices ± 1, are Tp's ghost rows,
+// read as rows. Layouts (padded_layout below):
+// - VEC (the wrapper allows it: f32 and bf16, the last axis a multiple of
+//   kN = 16 / itemsize cells, Cp and out on the 16-byte grid): kN
+//   consecutive cells, Cp loaded and out stored as one 16-byte vector each
+//   with the streaming hints;
+// - scalar cells (a ragged last axis, Cp or out off the grid): kN cells
+//   lane + 32e of the strip, every access scalar and coalesced;
+// - and, in f64 and for a field that gives fewer than kMsFillWarps warps
+//   of 16-byte lanes (252², a 96×64×48 block), one cell a thread
+//   (rmt_fused_step_padded_cell_kernel below).
+// The sum is lap_at's, ((hi - 2c) + lo) · inv per axis, axis 0, then 1,
+// then 2, and the coefficient the division dtlam / Cp, as the plain
+// version forms it (masked_step sums ((dn + up) - 2c): not this order).
+// Runs of up to kPadRunRows rows (kPadRunRowsBf16 in bf16), cut shorter
+// until the launch has kMsFillWarps warps, as masked_step cuts its runs:
+// in bf16, with twice f32's cells a lane, runs of 4 took 0.3416 ms at
+// 12288² against 0.3291-0.3292 for 8 (scripts/torch_kernel_ab.py, a
+// variant tree of this package timed beside it, one call, H100 80GB HBM3
+// at 700.00 W).
+constexpr int kPadRunRows = 4;
+constexpr int kPadRunRowsBf16 = 8;
+
+template <typename S, int NDIM, bool VEC>
+__global__ void __launch_bounds__(kMsWarps * 32)
 rmt_fused_step_padded_kernel(const S* __restrict__ Tp, const S* __restrict__ Cp,
-                         S* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
+                         S* __restrict__ out, int64_t n0, int64_t n_mid, int64_t n_last,
+                         int64_t strips, int64_t items, int run_rows,
                          typename Compute<S>::type dtlam,
                          typename Compute<S>::type inv0,
                          typename Compute<S>::type inv1,
                          typename Compute<S>::type inv2) {
   using C = typename Compute<S>::type;
+  using Row = MsRow<S>;
+  constexpr int kN = Row::kN;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kMsWarps + (threadIdx.x >> 5);
+  if (item >= items) return;  // the whole warp: nothing below synchronises the block
+  // item = (run · n_mid + mid) · strips + strip, in 32 bits where the
+  // launch fits them, as the face form divides
+  int64_t strip, mid, run;
+  if (items <= 0xffffffffLL) {
+    const uint32_t it = static_cast<uint32_t>(item), st = static_cast<uint32_t>(strips);
+    const uint32_t rs = it / st, nm = static_cast<uint32_t>(n_mid);
+    strip = it - rs * st;
+    mid = rs % nm;
+    run = rs / nm;
+  } else {
+    const int64_t rs = item / strips;
+    strip = item - rs * strips;
+    mid = rs % n_mid;
+    run = rs / n_mid;
+  }
+  const int64_t r0 = run * run_rows;
+  const int64_t r1 = r0 + run_rows < n0 ? r0 + run_rows : n0;
+  const int64_t pl = n_last + 2;                           // Tp's last-axis extent
+  const int64_t ps0 = NDIM == 3 ? (n_mid + 2) * pl : pl;   // Tp's axis-0 stride
+  const int64_t plane = n_mid * n_last;                    // Cp's and out's axis-0 stride
+  const int64_t first = strip * 32 * kN;                    // the strip's first cell
+  const int64_t col = first + (VEC ? lane * kN : lane);     // this lane's first cell
+  // Core row g (-1 .. n0: the ghost rows included) at this warp's axis-1
+  // index: cell j (-1 .. n_last) at t_at[(g + 1) · ps0 + j].
+  const S* t_at = Tp + (NDIM == 3 ? (mid + 1) * pl : 0) + 1;
+  const S* c_at = Cp + mid * n_last;
+  S* o_at = out + mid * n_last;
+  const S zero = ms_zero<S>();
+  // This lane's cells of the Tp row at `base` (up to the ghost column n_last).
+  auto row_of = [&](const S* base, int64_t g, bool on) -> Row {
+    Row r;
+    const S* p = base + (g + 1) * ps0;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int64_t j = col + (VEC ? e : 32 * e);
+      r.v[e] = on && j <= n_last ? p[j] : zero;
+    }
+    return r;
+  };
+  // This lane's cells of Cp's row g (in the core only).
+  auto cp_of = [&](int64_t g, bool on) -> Row {
+    Row r;
+    const S* p = c_at + g * plane;
+    if constexpr (VEC) {
+      if (on && col < n_last) {
+        *reinterpret_cast<int4*>(&r) = __ldcs(reinterpret_cast<const int4*>(p + col));
+        return r;
+      }
+#pragma unroll
+      for (int e = 0; e < kN; ++e) r.v[e] = zero;
+    } else {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) r.v[e] = on && col + 32 * e < n_last ? p[col + 32 * e] : zero;
+    }
+    return r;
+  };
+  // The strip's outer neighbours of a row: lane 0's left (always in the
+  // row: the ghost column -1 at the first strip), lane 31's right.
+  const int64_t outer = lane == 0 ? first - 1 : first + 32 * kN;
+  const bool outer_in = lane == 0 || (lane == 31 && outer <= n_last);
+  auto edge_of = [&](int64_t g, bool on) -> S {
+    return on && outer_in ? t_at[(g + 1) * ps0 + outer] : zero;
+  };
+  // The carried rows, widened once each as they arrive.
+  struct Wide {
+    C v[kN];
+  };
+  auto wide = [](const Row& r) -> Wide {
+    Wide w;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) w.v[e] = widen(r.v[e]);
+    return w;
+  };
+  Wide up = wide(row_of(t_at, r0 - 1, true));
+  Wide cen = wide(row_of(t_at, r0, true));
+  Wide dn = wide(row_of(t_at, r0 + 1, true));
+  S edge = edge_of(r0, true);
+  Row cp = cp_of(r0, true);
+  Row mhi, mlo;
+  if constexpr (NDIM == 3) {
+    mhi = row_of(t_at + pl, r0, true);
+    mlo = row_of(t_at - pl, r0, true);
+  }
+  const C two = C(2);
+  for (int64_t g = r0; g < r1; ++g) {
+    // The next row's loads, in flight while this one is computed.
+    const bool more = g + 1 < r1;
+    const Row nx = row_of(t_at, g + 2, more);
+    const S edge_nx = edge_of(g + 1, more);
+    const Row cp_nx = cp_of(g + 1, more);
+    Row mhi_nx, mlo_nx;
+    if constexpr (NDIM == 3) {
+      mhi_nx = row_of(t_at + pl, g + 1, more);
+      mlo_nx = row_of(t_at - pl, g + 1, more);
+    }
+    const C* c = cen.v;
+    // The neighbours along the last axis: lo[e] at cell - 1, hi[e] at +1.
+    C lo[kN], hi[kN];
+    const C outer_v = widen(edge);
+    if constexpr (VEC) {
+      const C from_l = __shfl_up_sync(kAll, c[kN - 1], 1);
+      const C from_r = __shfl_down_sync(kAll, c[0], 1);
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        lo[e] = e > 0 ? c[e - 1] : (lane == 0 ? outer_v : from_l);
+        hi[e] = e + 1 < kN ? c[e + 1] : (lane == 31 ? outer_v : from_r);
+      }
+    } else {
+      C rot_l[kN], rot_r[kN];  // cell e of the lane before, and after (cyclic)
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        rot_l[e] = __shfl_sync(kAll, c[e], (lane + 31) & 31);
+        rot_r[e] = __shfl_sync(kAll, c[e], (lane + 1) & 31);
+      }
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        lo[e] = lane > 0 ? rot_l[e] : (e > 0 ? rot_l[e - 1] : outer_v);
+        hi[e] = lane < 31 ? rot_r[e] : (e + 1 < kN ? rot_r[e + 1] : outer_v);
+      }
+    }
+    Row o;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      // ((hi - 2c) + lo) · inv, axis 0, then 1, then 2, as lap_at sums.
+      C lap = ((dn.v[e] - two * c[e]) + up.v[e]) * inv0;
+      if constexpr (NDIM == 3) {
+        lap = lap + ((widen(mhi.v[e]) - two * c[e]) + widen(mlo.v[e])) * inv1;
+        lap = lap + ((hi[e] - two * c[e]) + lo[e]) * inv2;
+      } else {
+        lap = lap + ((hi[e] - two * c[e]) + lo[e]) * inv1;
+      }
+      o.v[e] = narrow<S>(c[e] + (dtlam / widen(cp.v[e])) * lap);
+    }
+    S* w = o_at + g * plane;
+    if constexpr (VEC) {
+      if (col < n_last)
+        __stcs(reinterpret_cast<int4*>(w + col), *reinterpret_cast<const int4*>(&o));
+    } else {
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        if (col + 32 * e < n_last) w[col + 32 * e] = o.v[e];
+    }
+    up = cen;
+    cen = dn;
+    dn = wide(nx);
+    edge = edge_nx;
+    cp = cp_nx;
+    if constexpr (NDIM == 3) {
+      mhi = mhi_nx;
+      mlo = mlo_nx;
+    }
+  }
+}
+
+// fused_step_padded, one cell a thread: 32x8 blocks along the last axis
+// (the leading axis on grid.z in 3D), the 2·ndim neighbour reads from the
+// lines the block pulled into L1/L2, lap_at's sum: the kernel before the
+// lane tiling. Below the fill the tiling's few warps each walk a longer
+// chain with more registers (60-160 a thread against 20-32) and lose to
+// this form: 252² f32 0.0066 ms against 0.0058, the 96×64×48 block
+// 0.0111 against 0.0070-0.0071 in f32, 0.0099 against 0.0074-0.0075 in
+// f64, 0.0159 against 0.0072 in bf16. In f64 the tiling's scalar cells
+// read 1.1712 ms at 12288² and 0.2998 at 6144² against this form's
+// 1.1729-1.1730 and 0.2972-0.2973 (an earlier call: 1.1836-1.1858 against
+// 1.1793), no gain, so f64 keeps this form at every size and builds no
+// tiling (device ms, scripts/torch_kernel_ab.py, a variant tree whose rule
+// takes the tiling timed beside this one, one call, H100 80GB HBM3 at
+// 700.00 W).
+template <typename S, int NDIM>
+__global__ void __launch_bounds__(rmt::kBlockX * rmt::kBlockY)
+rmt_fused_step_padded_cell_kernel(const S* __restrict__ Tp, const S* __restrict__ Cp,
+                              S* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
+                              typename Compute<S>::type dtlam,
+                              typename Compute<S>::type inv0,
+                              typename Compute<S>::type inv1,
+                              typename Compute<S>::type inv2) {
+  using C = typename Compute<S>::type;
   int64_t i0, i1, i2;
   if (!rmt::box_cell<NDIM>(Box{0, 0, 0, n0, n1, n2}, &i0, &i1, &i2)) return;
-  const Region<NDIM> r(n1, n2, 1);
+  const rmt::Region<NDIM> r(n1, n2, 1);
   const int64_t p = r.src(i0, i1, i2);
   const int64_t idx = r.core(i0, i1, i2);
   const C c = widen(Tp[p]);
@@ -750,25 +966,101 @@ int launch_fused_cm(int ndim, const void* T, const int64_t* t_strides, const int
   return launch_fused_cm_nd<S, 3, false>(t, f, cm, o, g, inv0, inv1, inv2, stream);
 }
 
+template <typename S, int NDIM, bool VEC>
+int launch_fused_padded_nd(const S* t, const S* cp, S* o, int64_t n0, int64_t n_mid,
+                           int64_t n_last, double dtlam, double inv0, double inv1, double inv2,
+                           cudaStream_t stream) {
+  using C = typename Compute<S>::type;
+  constexpr int kN = MsRow<S>::kN;
+  const int64_t strips = (n_last + 32 * kN - 1) / (32 * kN);
+  // Runs of kPadRunRows rows (kPadRunRowsBf16 in bf16), cut shorter where
+  // the field gives fewer than kMsFillWarps warps of them.
+  const int64_t longest = sizeof(S) == 2 ? kPadRunRowsBf16 : kPadRunRows;
+  const int64_t cols = strips * n_mid;
+  int64_t run_rows = cols * n0 / kMsFillWarps;
+  run_rows = run_rows < 1 ? 1 : run_rows > longest ? longest : run_rows;
+  const int64_t items = cols * ((n0 + run_rows - 1) / run_rows);
+  const int64_t blocks = (items + kMsWarps - 1) / kMsWarps;
+  if (blocks > 2147483647LL) return -2;
+  rmt_fused_step_padded_kernel<S, NDIM, VEC>
+      <<<static_cast<unsigned>(blocks), kMsWarps * 32, 0, stream>>>(
+          t, cp, o, n0, n_mid, n_last, strips, items, static_cast<int>(run_rows), C(dtlam),
+          C(inv0), C(inv1), C(inv2));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename S>
-int launch_fused_padded(int ndim, const void* Tp, const void* Cp, void* out, int64_t n0,
-                        int64_t n1, int64_t n2, double dtlam, double inv0, double inv1,
-                        double inv2, cudaStream_t stream) {
+int launch_fused_padded_cell(int ndim, const S* t, const S* cp, S* o, int64_t n0, int64_t n1,
+                             int64_t n2, double dtlam, double inv0, double inv1, double inv2,
+                             cudaStream_t stream) {
   using C = typename Compute<S>::type;
   dim3 grid;
   if (!rmt::box_grid(ndim, Box{0, 0, 0, n0, n1, ndim == 2 ? 1 : n2}, &grid)) return -2;
-  const dim3 block(kBlockX, kBlockY);
-  const auto* t = static_cast<const S*>(Tp);
-  const auto* cp = static_cast<const S*>(Cp);
-  auto* o = static_cast<S*>(out);
+  const dim3 block(rmt::kBlockX, rmt::kBlockY);
   if (ndim == 2) {
-    rmt_fused_step_padded_kernel<S, 2><<<grid, block, 0, stream>>>(
+    rmt_fused_step_padded_cell_kernel<S, 2><<<grid, block, 0, stream>>>(
         t, cp, o, n0, n1, 1, C(dtlam), C(inv0), C(inv1), C(0));
   } else {
-    rmt_fused_step_padded_kernel<S, 3><<<grid, block, 0, stream>>>(
+    rmt_fused_step_padded_cell_kernel<S, 3><<<grid, block, 0, stream>>>(
         t, cp, o, n0, n1, n2, C(dtlam), C(inv0), C(inv1), C(inv2));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The layout of a launch over the core (n0, n1, n2) (0 scalar cells, 1 the
+// 16-byte vectors, 2 one cell a thread): one cell a thread in f64 and
+// where the field gives fewer than kMsFillWarps warps of 16-byte lanes
+// (one row each), else the vectors where the wrapper allows them
+// (`vectors`), else scalar cells.
+template <typename S>
+int padded_layout(int ndim, int64_t n0, int64_t n1, int64_t n2, bool vectors) {
+  if constexpr (!kVecLayout<S>) {
+    return 2;
+  } else {
+    constexpr int kN = MsRow<S>::kN;
+    const int64_t n_last = ndim == 2 ? n1 : n2;
+    const int64_t n_mid = ndim == 2 ? 1 : n1;
+    const int64_t strips = (n_last + 32 * kN - 1) / (32 * kN);
+    if (strips * n_mid * n0 < kMsFillWarps) return 2;
+    return vectors ? 1 : 0;
+  }
+}
+
+// A launch that allows the vectors where they do not fit (f64, a last axis
+// no multiple of kN, Cp or out off the 16-byte grid) is refused (-1)
+// rather than misread.
+template <typename S>
+int launch_fused_padded(int ndim, const void* Tp, const void* Cp, void* out, int64_t n0,
+                        int64_t n1, int64_t n2, double dtlam, double inv0, double inv1,
+                        double inv2, bool vectors, cudaStream_t stream) {
+  constexpr int kN = MsRow<S>::kN;
+  if (n0 < 1 || n1 < 1 || n2 < 1) return -2;
+  const auto* t = static_cast<const S*>(Tp);
+  const auto* cp = static_cast<const S*>(Cp);
+  auto* o = static_cast<S*>(out);
+  const bool two = ndim == 2;
+  const int64_t n_last = two ? n1 : n2;
+  if (vectors && (!kVecLayout<S> || n_last % kN != 0 ||
+                  ((reinterpret_cast<uintptr_t>(Cp) | reinterpret_cast<uintptr_t>(out)) %
+                   kMsBytes) != 0))
+    return -1;
+  const int layout = padded_layout<S>(ndim, n0, n1, n2, vectors);
+  if constexpr (kVecLayout<S>) {
+    if (layout == 1 && two)
+      return launch_fused_padded_nd<S, 2, true>(t, cp, o, n0, 1, n1, dtlam, inv0, inv1, 0.0,
+                                                stream);
+    if (layout == 1)
+      return launch_fused_padded_nd<S, 3, true>(t, cp, o, n0, n1, n2, dtlam, inv0, inv1, inv2,
+                                                stream);
+    if (layout == 0 && two)
+      return launch_fused_padded_nd<S, 2, false>(t, cp, o, n0, 1, n1, dtlam, inv0, inv1, 0.0,
+                                                 stream);
+    if (layout == 0)
+      return launch_fused_padded_nd<S, 3, false>(t, cp, o, n0, n1, n2, dtlam, inv0, inv1,
+                                                 inv2, stream);
+  }
+  return launch_fused_padded_cell<S>(ndim, t, cp, o, n0, n1, n2, dtlam, inv0, inv1, inv2,
+                                     stream);
 }
 
 }  // namespace
@@ -838,24 +1130,44 @@ extern "C" int rmt_fused_step_cm(int dtype, int ndim, const void* T, const int64
 }
 
 // `Tp` is the core (n0, n1, n2) grown by one cell on every axis; Cp and out
-// have the core's extents. `dtlam` is the double dt·λ.
+// have the core's extents. `dtlam` is the double dt·λ. `vectors` allows
+// the 16-byte vectors (f32 and bf16, the last axis a multiple of 16 bytes,
+// Cp and out on the 16-byte grid; -1 otherwise); the launch takes them
+// unless the field is too small to fill the card that way. Tp is read cell
+// by cell in every layout.
 extern "C" int rmt_fused_step_padded(int dtype, int ndim, const void* Tp, const void* Cp,
                                      void* out, int64_t n0, int64_t n1, int64_t n2,
                                      double dtlam, double inv0, double inv1, double inv2,
-                                     void* stream) {
+                                     int vectors, void* stream) {
   if (ndim != 2 && ndim != 3) return -1;
   auto s = static_cast<cudaStream_t>(stream);
+  const bool v = vectors != 0;
   switch (dtype) {
     case kF32:
       return launch_fused_padded<float>(ndim, Tp, Cp, out, n0, n1, n2, dtlam, inv0, inv1,
-                                        inv2, s);
+                                        inv2, v, s);
     case kF64:
       return launch_fused_padded<double>(ndim, Tp, Cp, out, n0, n1, n2, dtlam, inv0, inv1,
-                                         inv2, s);
+                                         inv2, v, s);
     case kBF16:
       return launch_fused_padded<__nv_bfloat16>(ndim, Tp, Cp, out, n0, n1, n2, dtlam, inv0,
-                                                inv1, inv2, s);
+                                                inv1, inv2, v, s);
     default:
       return -1;
+  }
+}
+
+// The layout a fused_step_padded launch of these arguments takes: 0 scalar
+// cells, 1 the 16-byte vectors, 2 one cell a thread; -1 for an unsupported
+// dtype or rank.
+extern "C" int rmt_fused_step_padded_layout(int dtype, int ndim, int64_t n0, int64_t n1,
+                                            int64_t n2, int vectors) {
+  if (ndim != 2 && ndim != 3) return -1;
+  const bool v = vectors != 0;
+  switch (dtype) {
+    case kF32: return padded_layout<float>(ndim, n0, n1, n2, v);
+    case kF64: return padded_layout<double>(ndim, n0, n1, n2, v);
+    case kBF16: return padded_layout<__nv_bfloat16>(ndim, n0, n1, n2, v);
+    default: return -1;
   }
 }

@@ -72,7 +72,8 @@ _SIGNATURES = {
     "rmt_fused_step_cm": (C_INT, [C_INT, C_INT, C_PTR, C_I64P, C_I64P, C_I64P, C_PTR, C_PTR,
                                   *EXTENTS, *BOX_CELLS, *INV_D2, C_INT, C_PTR]),
     "rmt_fused_step_padded": (C_INT, [C_INT, C_INT, C_PTR, C_PTR, C_PTR, *EXTENTS, C_DBL,
-                                      *INV_D2, C_PTR]),
+                                      *INV_D2, C_INT, C_PTR]),  # vectors, stream
+    "rmt_fused_step_padded_layout": (C_INT, [C_INT, C_INT, *EXTENTS, C_INT]),
 }
 
 
@@ -250,6 +251,13 @@ def _raw_stream(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
+def _function(lib_name: str, signatures: dict, symbol: str):
+    fn = _FUNCS.get(symbol)
+    if fn is None:
+        fn = _FUNCS[symbol] = getattr(_build.load(lib_name, signatures), symbol)
+    return fn
+
+
 def launch(lib_name: str, signatures: dict, symbol: str, device, *args,
            route: str | None = None) -> None:
     """Call `symbol` of library `lib_name` (built at first use) with `args`
@@ -257,9 +265,7 @@ def launch(lib_name: str, signatures: dict, symbol: str, device, *args,
     naming `route` (the multi-step kernels' cluster or cooperative launch)
     where given. The device's context is entered only when it is not the
     current one."""
-    fn = _FUNCS.get(symbol)
-    if fn is None:
-        fn = _FUNCS[symbol] = getattr(_build.load(lib_name, signatures), symbol)
+    fn = _function(lib_name, signatures, symbol)
     index = device.index
     if index == torch.cuda.current_device():
         rc = fn(*args, _raw_stream(index))
@@ -272,6 +278,20 @@ def launch(lib_name: str, signatures: dict, symbol: str, device, *args,
             f"{symbol} launch{on} failed with code {rc} (-1: bad dtype/rank/form/steps/box/plan, "
             "-2: grid overflow, -3: does not fit the card, >0: CUDA error)"
         )
+
+
+# The layouts a launch of kp_flux or fused_step_padded takes, by the code
+# their C layout queries return.
+LAYOUT_NAMES = ("scalar cells", "16-byte vectors", "one cell a thread")
+
+
+def launch_layout(lib_name: str, signatures: dict, symbol: str, *args) -> str:
+    """The layout (LAYOUT_NAMES) that a launch takes, asked of the built
+    kernel's host query `symbol` (library `lib_name`) with `args`."""
+    code = _function(lib_name, signatures, symbol)(*args)
+    if not 0 <= code < len(LAYOUT_NAMES):
+        raise RuntimeError(f"{symbol} refused its arguments (code {code})")
+    return LAYOUT_NAMES[code]
 
 
 # ---------------------------------------------------------------------------
@@ -303,15 +323,21 @@ def masked_step_plain(T, Cm, inv_d2, out=None):
 LANE_CELLS = {torch.float32: 4, torch.float64: 2, torch.bfloat16: 8}
 
 
-def masked_layout(n_last: int, dtype: torch.dtype, t: int, cm: int, o: int) -> bool:
-    """masked_step's layout: True (16-byte vectors) when the last axis's
-    `n_last` cells are a whole number of 16-byte lanes and T, Cm and out
-    (addresses t, cm, o) all lie on the 16-byte grid; False (scalar cells)
-    for a ragged last axis or a view off the grid, and always for f64,
-    whose two-cell vectors measured slower on an H100 than its scalar
-    cells (12288²: 1.27 ms against 1.185, scripts/torch_kernel_ab.py)."""
+def masked_layout(n_last: int, dtype: torch.dtype, *addresses: int) -> bool:
+    """Whether a 16-byte-lane kernel may move vectors (masked_step, kp_flux,
+    fused_step_padded): True when the last axis's `n_last` cells are a
+    whole number of 16-byte lanes and the operands it moves as vectors
+    (masked_step: T, Cm and out; kp_flux: qx; fused_step_padded: Cp and
+    out; their `addresses`) all lie on the 16-byte grid; False (scalar
+    cells) for a ragged last axis or a view off the grid, and always for
+    f64, whose two-cell vectors measured slower on an H100 than its scalar
+    cells (masked_step at 12288²: 1.27 ms against 1.185, kp_flux 1.3260
+    against 1.2466, scripts/torch_kernel_ab.py)."""
+    bits = 0
+    for a in addresses:
+        bits |= a
     return (dtype is not torch.float64 and n_last % LANE_CELLS[dtype] == 0
-            and not (t | cm | o) & 15)
+            and not bits & 15)
 
 
 def masked_run_rows(T, run_rows=None, config=None) -> int:
@@ -666,6 +692,19 @@ def fused_step_padded_plain(Tp, Cp, lam, dt, inv_d2, out=None):
     return _store(c + coef * lap, Tp.dtype, out)
 
 
+def padded_layout(Tp, Cp, out) -> str:
+    """The layout (LAYOUT_NAMES) of fused_step_padded's launch on these
+    CUDA operands, asked of the built kernel (csrc/stencil.cu
+    padded_layout): one cell a thread in f64 and for a field too small to
+    fill the card with 16-byte lanes (252², a 96×64×48 block), else the
+    vectors where masked_layout allows them over Cp and out, else scalar
+    cells. Tp is read cell by cell in every layout."""
+    core = tuple(n - 2 for n in Tp.shape)
+    return launch_layout("stencil", _SIGNATURES, "rmt_fused_step_padded_layout",
+                         _DTYPE_CODE[Tp.dtype], Tp.ndim, *extents(core),
+                         masked_layout(core[-1], Tp.dtype, Cp.data_ptr(), out.data_ptr()))
+
+
 def fused_step_padded(Tp, Cp, lam, dt, spacing, out=None):
     """Candidate update of every core cell from the padded block:
     new = Tp[core] + (dt·λ)/Cp · ∇²(Tp).
@@ -673,8 +712,11 @@ def fused_step_padded(Tp, Cp, lam, dt, spacing, out=None):
     Replaces pallas_kernels.fused_step_padded (file:136: whole-block
     `_fused_kernel_whole` :128, and above the 2 MiB VMEM budget the
     row-striped `_fused_kernel_striped` :180). The whole/striped split is a
-    limit of the TPU's VMEM, not of the arithmetic: on the card one grid of
-    one thread per core cell covers every size, 2D and 3D, f32/f64/bf16.
+    limit of the TPU's VMEM, not of the arithmetic: on the card one launch
+    of masked_step's lane tiling covers every size, 2D and 3D,
+    f32/f64/bf16, with Tp read cell by cell (csrc/stencil.cu); the launch
+    takes the vectors where masked_layout allows them over Cp and out and
+    the field fills the card (padded_layout).
     The caller supplies ghosts (halo.exchange_halo) and masks the global
     boundary. Unlike fused_step_cm the coefficient is formed per cell in
     the kernel from Cp and the double dt·λ (`dt` a float or the
@@ -693,9 +735,10 @@ def fused_step_padded(Tp, Cp, lam, dt, spacing, out=None):
         return fused_step_padded_plain(Tp, Cp, lam, dt, inv_d2, out=out)
     if out is None:
         out = torch.empty(core_shape, dtype=Tp.dtype, device=Tp.device)
+    cp, o = Cp.data_ptr(), out.data_ptr()
     launch("stencil", _SIGNATURES, "rmt_fused_step_padded", Tp.device, _DTYPE_CODE[Tp.dtype],
-           Tp.ndim, Tp.data_ptr(), Cp.data_ptr(), out.data_ptr(), *extents(core_shape),
-           float(dt) * float(lam), *inv3(inv_d2))
+           Tp.ndim, Tp.data_ptr(), cp, o, *extents(core_shape), float(dt) * float(lam),
+           *inv3(inv_d2), masked_layout(core_shape[-1], Tp.dtype, cp, o))
     LAUNCHES["fused_step_padded"] += 1
     return out
 

@@ -45,12 +45,15 @@ from rocm_mpi_tpu_torch.ops.kernels import (
     _store,
     check_operands,
     launch,
+    launch_layout,
+    masked_layout,
 )
 from rocm_mpi_tpu_torch.utils.backend import use_kernel
 
 _SIGNATURES = {
     "rmt_kp_flux": (C_INT, [C_INT, C_PTR, C_PTR, C_PTR, C_I64, C_I64, C_DBL, C_DBL, C_DBL,
-                            C_PTR]),
+                            C_INT, C_PTR]),  # vectors, stream
+    "rmt_kp_flux_layout": (C_INT, [C_INT, C_I64, C_I64, C_INT]),
     "rmt_kp_residual": (C_INT, [C_INT, C_PTR, C_PTR, C_PTR, C_PTR, C_I64, C_I64, C_DBL,
                                 C_DBL, C_PTR]),
     "rmt_kp_update": (C_INT, [C_INT, C_PTR, C_PTR, C_PTR, C_I64, C_I64, C_DBL, C_PTR]),
@@ -110,13 +113,28 @@ def kp_update_plain(Tp, dTdt, dt, out=None):
 # ---------------------------------------------------------------------------
 
 
+def flux_layout(Tp, qx) -> str:
+    """The layout (kernels.LAYOUT_NAMES) of kp_flux's launch on these CUDA
+    operands, asked of the built kernel (csrc/kp.cu flux_layout): one cell
+    a thread for a field too small to fill the card with 16-byte lanes (the
+    kp app's 128²), else the vectors where masked_layout allows them over
+    qx (never in f64), else scalar cells. Tp and qy are read and written
+    cell by cell in every layout."""
+    lx, ly = _core_shape(Tp)
+    return launch_layout("kp", _SIGNATURES, "rmt_kp_flux_layout", _DTYPE_CODE[Tp.dtype], lx, ly,
+                         masked_layout(ly, Tp.dtype, qx.data_ptr()))
+
+
 def kp_flux(Tp, lam, spacing, out=None):
     """Fourier's law on the staggered faces of a padded 2D block: returns
     (qx (lx+1, ly), qy (lx, ly+1)), into the pair `out` when given.
 
     Replaces pallas_kernels._flux_kernel (file:339; its pallas_call :387).
     Bound on the H100: memory — read Tp, write qx and qy (three passes).
-    One launch covers (lx+1, ly+1) cells; each writes the faces it has.
+    Design: a lane moves 16 bytes of a row and walks a run of rows, each
+    Tp row read once, or, for a field too small to fill the card that way,
+    one cell a thread (csrc/kp.cu, flux_layout). One launch
+    writes both outputs, qx's extra row and qy's extra column included.
     """
     _check_2d("kp_flux", Tp)
     lx, ly = _core_shape(Tp)
@@ -132,8 +150,9 @@ def kp_flux(Tp, lam, spacing, out=None):
         return kp_flux_plain(Tp, float(lam), inv_d, out=out)
     if out is None:
         out = tuple(torch.empty(shape, dtype=Tp.dtype, device=Tp.device) for shape in shapes)
+    x = out[0].data_ptr()
     launch("kp", _SIGNATURES, "rmt_kp_flux", Tp.device, _DTYPE_CODE[Tp.dtype], Tp.data_ptr(),
-           out[0].data_ptr(), out[1].data_ptr(), lx, ly, float(lam), *inv_d)
+           x, out[1].data_ptr(), lx, ly, float(lam), *inv_d, masked_layout(ly, Tp.dtype, x))
     LAUNCHES["kp_flux"] += 1
     return tuple(out)
 

@@ -1,6 +1,6 @@
 """Time two checkouts of the PyTorch/CUDA port's masked_step, tb_sweep,
-kp_update, multi_step_cm, wave_multi_step, swe_multi_step and
-fused_step_cm side by side on one CUDA card.
+kp_update, multi_step_cm, wave_multi_step, swe_multi_step, fused_step_cm,
+kp_flux and fused_step_padded side by side on one CUDA card.
 
     python scripts/torch_kernel_ab.py --roots OLD NEW NEW OLD [--kernels K ...] [--json PATH]
 
@@ -9,7 +9,7 @@ checkout, or an unpacked `git archive` of one). Every root runs in a
 process of its own, in the order given, so the kernels of each are built
 from its own sources into its own `_build/`; list each root twice, in the
 order old, new, new, old, so that a drift of the card's clocks shows.
-`--kernels` picks what each process times (default: all seven):
+`--kernels` picks what each process times (default: all nine):
 
 - `masked_step`: `kernels.masked_step` at 12288² in f32, f64 and bf16
   (the one-GPU perf step): the median of CUDA-event-timed launches, each
@@ -52,6 +52,18 @@ order old, new, new, old, so that a drift of the card's clocks shows.
   the figure for the 3D shard, whose single launch is too short for a
   pair of events; each with its share of the bytes bound (the core, the
   2·ndim faces and Cm read once, out written once, at 3.35 TB/s).
+- `kp_flux`: `kp.kp_flux` at 12288² in f32, f64 and bf16 and at the kp
+  app's 128² in f64;
+- `fused_step_padded`: `kernels.fused_step_padded` at 12288² and 6144²
+  in f32, f64 and bf16, at 252² f32 (with the wrapper's host µs a call)
+  and on the 96×64×48 block in the three dtypes. Each launch of these two is held bitwise against its plain version
+  first; two figures a case: per call (as above) and device (queued
+  behind torch.cuda._sleep), each with its share of the bytes bound
+  (Tp read once, the outputs written once; Cp too for the padded step).
+
+To time a design beside the checkout's (another run length, another way
+to read a row), list as a root a copy of the package with its source
+changed.
 
 The card's name and power limit (nvidia-smi) head the output; one JSON
 object per process follows, and `--json` writes them all.
@@ -74,7 +86,16 @@ HOST_CALLS = 2000
 HOST_REPEATS = 7
 SEED = 1234
 KERNELS = ("masked_step", "tb_sweep", "kp_update", "multi_step_cm", "wave_multi_step",
-           "swe_multi_step", "fused_step_cm")
+           "swe_multi_step", "fused_step_cm", "kp_flux", "fused_step_padded")
+# (kernel, core, dtypes) of the kp_flux and fused_step_padded figures.
+PADDED_CASES = (
+    ("kp_flux", (12288, 12288), DTYPES),
+    ("kp_flux", (128, 128), ("f64",)),
+    ("fused_step_padded", (12288, 12288), DTYPES),
+    ("fused_step_padded", (6144, 6144), DTYPES),
+    ("fused_step_padded", (252, 252), ("f32",)),
+    ("fused_step_padded", (96, 64, 48), DTYPES),
+)
 # fused_step_cm's shards: (shape, hide b_width, dtypes).
 FUSED_CASES = (((6144, 6144), (32, 4), DTYPES), ((128, 128, 128), (8, 8, 8), ("f32",)))
 FUSED_LOOP = 200  # launches between the two events of a loop figure
@@ -330,6 +351,65 @@ def time_masked(torch, root, result, dev, tdts):
             torch.cuda.empty_cache()
 
 
+def padded_case(torch, name, core, tdt, dev):
+    """(launch, plain version, bytes moved) of a kp_flux or fused_step_padded
+    case: Tp in [0, 1), Cp in [1, 2), the kp app's λ and a small dt."""
+    from rocm_mpi_tpu_torch.ops import kernels, kp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(shape, lo=0.0):
+        return (torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+                + lo).to(tdt)
+
+    spacing = (0.1, 0.07, 0.05)[:len(core)]
+    item = torch.empty((), dtype=tdt).element_size()
+    cells = 1
+    for n in core:
+        cells *= n
+    Tp = rand(tuple(n + 2 for n in core))
+    if name == "kp_flux":
+        lx, ly = core
+        outs = (torch.empty((lx + 1, ly), dtype=tdt, device=dev),
+                torch.empty((lx, ly + 1), dtype=tdt, device=dev))
+        return (lambda: kp.kp_flux(Tp, 1.0, spacing, out=outs),
+                lambda: kp.kp_flux_plain(Tp, 1.0, kp.inv_d_of(spacing)),
+                (Tp.numel() + outs[0].numel() + outs[1].numel()) * item)
+    Cp = rand(core, 1.0)
+    out = torch.empty(core, dtype=tdt, device=dev)
+    return (lambda: kernels.fused_step_padded(Tp, Cp, 1.0, 1e-4, spacing, out=out),
+            lambda: kernels.fused_step_padded_plain(Tp, Cp, 1.0, 1e-4,
+                                                    kernels.inv_d2_of(spacing)),
+            (Tp.numel() + 2 * cells) * item)
+
+
+def time_padded(torch, root, kernels, result, dev, tdts):
+    """kp_flux and fused_step_padded (module docstring)."""
+    cases = [(name, core, dtype) for name, core, names in PADDED_CASES
+             if name in kernels for dtype in names]
+    for name, core, dtype in cases:
+        run, plain, nbytes = padded_case(torch, name, core, tdts[dtype], dev)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        del got, want
+        small = core[0] <= 252
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"kernel": name, "shape": list(core), "dtype": dtype,
+               "bitwise": equal, "bound_ms": bound, "ms": time_ms(torch, run, 200 if small else 30)}
+        row["host_us"] = host_us(torch, run, 200, 5)
+        row["device_ms"] = device_ms(torch, run, 200 if small else 30, row["host_us"])
+        result["padded"].append(row)
+        print(f"[ab] {root} {name} {'x'.join(map(str, core))} {dtype}: "
+              f"per call {row['ms']:.4f} ms (of bound {bound / row['ms']:.2f}), device "
+              f"{row['device_ms']:.4f} ms (of bound {bound / row['device_ms']:.2f}), host "
+              f"{row['host_us']:.2f} µs a call, bitwise {equal}", flush=True)
+        del run, plain
+        torch.cuda.empty_cache()
+
+
 def worker(root: str, kernels) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -341,7 +421,8 @@ def worker(root: str, kernels) -> dict:
     dev = torch.device("cuda", 0)
     tdts = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
     result = {"root": root, "masked_step": [], "tb_sweep": [], "kp_update_host_us": {},
-              "multi_step": [], "fused_step_cm": []}
+              "multi_step": [], "fused_step_cm": [], "padded": []}
+    time_padded(torch, root, kernels, result, dev, tdts)
     if "masked_step" in kernels:
         time_masked(torch, root, result, dev, tdts)
     if "fused_step_cm" in kernels:
@@ -416,7 +497,7 @@ def main() -> int:
             json.dump({"card": card, "runs": results}, f, indent=1)
     ok = all(r["bitwise"] for run in results
              for r in run["masked_step"] + run["tb_sweep"] + run["multi_step"]
-             + run.get("fused_step_cm", []))
+             + run.get("fused_step_cm", []) + run.get("padded", []))
     print(f"[ab] every timed launch bitwise equal to its plain version: {ok}", flush=True)
     return 0 if ok else 1
 

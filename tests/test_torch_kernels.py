@@ -446,3 +446,176 @@ def test_the_lane_tiling_needs_the_outer_loads(vec):
     inv_d2 = K.inv_d2_of(SPACING[2])
     got = _lane_tiled_step(T, Cm, inv_d2, vec, outer=False)
     assert not torch.equal(got, K.masked_step_plain(T, Cm, inv_d2))
+
+
+# ---------------------------------------------------------------------------
+# fused_step_padded's lane tiling (csrc/stencil.cu rmt_fused_step_padded_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _lane_tiled_padded_step(Tp, Cp, lam, dt, inv_d2, vec, run_rows=None, outer=True):
+    """fused_step_padded's lane tiling in plain PyTorch: masked_step's
+    strips of 32·W cells walked down runs of rows (the launcher's run
+    length, read from stencil.cu, unless `run_rows`), read from the padded
+    block: lane l's cells l·W + e (`vec`, the 16-byte vectors) or l + 32·e
+    (scalar cells) of a Tp row up to the ghost column n_last, the rows
+    above and below and (3D) at axis-1 indices ± 1 the block's own rows,
+    the last-axis neighbours from the lane's cells and the lanes beside
+    (shift or rotation), the strip's two outer cells from the padded ring
+    by lanes 0 and 31 (0 when not `outer`), cells past the ghost column 0.
+    In the kernel's operation order (lap_at's, and the division dt·λ /
+    Cp), rounded once."""
+    cdt = K._compute_dtype(Tp.dtype)
+    w = K.LANE_CELLS[Tp.dtype]
+    core = tuple(n - 2 for n in Tp.shape)
+    n0, n_last = core[0], core[-1]
+    n_mid = core[1] if len(core) == 3 else 1
+    assert not vec or n_last % w == 0
+    strips = -(-n_last // (32 * w))
+    width = strips * 32 * w
+    if run_rows is None:
+        longest = "kPadRunRowsBf16" if Tp.dtype == torch.bfloat16 else "kPadRunRows"
+        run_rows = strips * n_mid * n0 // _stencil_constant("kMsFillWarps")
+        run_rows = min(max(run_rows, 1), _stencil_constant(longest))
+    # Tz[g + 1, m + 1, j + 1] = Tp's cell j of core row g at axis-1 index m,
+    # ghosts included, 0 past the ghost column.
+    T3 = Tp.to(cdt) if len(core) == 3 else Tp.to(cdt)[:, None, :].expand(n0 + 2, 3, n_last + 2)
+    Tz = torch.zeros(n0 + 2, n_mid + 2, width + 2, dtype=cdt)
+    Tz[:, :, :n_last + 2] = T3
+    Cz = torch.zeros(n0, n_mid, width, dtype=cdt)
+    Cz[:, :, :n_last] = Cp.to(cdt).reshape(n0, n_mid, n_last)
+    coef_num = torch.tensor(float(dt) * float(lam), dtype=cdt)
+    lane = torch.arange(32)[:, None]
+    e = torch.arange(w)[None, :]
+    idx = lane * w + e if vec else lane + 32 * e
+    out = torch.zeros(n0, n_mid, width, dtype=cdt)
+    for mid in range(n_mid):
+        for s in range(strips):
+            first = s * 32 * w
+            cols = first + idx
+
+            def row(g, m=mid):  # past the last ghost row: the load a run never makes
+                return Tz[g + 1, m + 1][cols + 1] if g <= n0 else torch.zeros(32, w, dtype=cdt)
+
+            for r0 in range(0, n0, run_rows):
+                up, cen, dn = row(r0 - 1), row(r0), row(r0 + 1)
+                for g in range(r0, min(r0 + run_rows, n0)):
+                    c = cen
+                    outer_lo = Tz[g + 1, mid + 1, first]
+                    outer_hi = (Tz[g + 1, mid + 1, first + 32 * w + 1]
+                                if first + 32 * w <= n_last else torch.zeros((), dtype=cdt))
+                    if vec:
+                        lo = torch.cat([torch.roll(c[:, -1], 1)[:, None], c[:, :-1]], 1)
+                        hi = torch.cat([c[:, 1:], torch.roll(c[:, 0], -1)[:, None]], 1)
+                    else:
+                        rot_l, rot_r = torch.roll(c, 1, dims=0), torch.roll(c, -1, dims=0)
+                        lo, hi = rot_l.clone(), rot_r.clone()
+                        lo[0, 1:] = rot_l[0, :-1]
+                        hi[31, :-1] = rot_r[31, 1:]
+                    lo[0, 0] = outer_lo if outer else 0.0
+                    hi[31, w - 1] = outer_hi if outer else 0.0
+                    lap = ((dn - 2.0 * c) + up) * inv_d2[0]
+                    if len(core) == 3:
+                        lap = lap + ((row(g, mid + 1) - 2.0 * c) + row(g, mid - 1)) * inv_d2[1]
+                        lap = lap + ((hi - 2.0 * c) + lo) * inv_d2[2]
+                    else:
+                        lap = lap + ((hi - 2.0 * c) + lo) * inv_d2[1]
+                    out[g, mid, cols] = c + (coef_num / Cz[g, mid][cols]) * lap
+                    up, cen, dn = cen, dn, row(g + 2)
+    return out[:, :, :n_last].reshape(core).to(Tp.dtype)
+
+
+# As LANE_CASES, plus last axes that the strips end at exactly (256: two
+# strips in f32, one in bf16), where lane 31's outer cell is the ghost
+# column; both tiled layouts, in the dtypes the kernel builds them for (f32
+# and bf16: f64 takes one cell a thread, the per-cell arithmetic of the
+# plain version).
+PADDED_CASES = [(shape, dtype, vec) for shape in [(37, 53), (9, 300), (11, 256), (7, 5, 45),
+                                                  (6, 4, 40), (5, 3, 256)]
+                for dtype in ("f32", "bf16") for vec in (False, True)
+                if not vec or shape[-1] % K.LANE_CELLS[DTYPES[dtype]] == 0]
+
+
+def _padded_step_inputs(core, tdt, seed):
+    rng = np.random.default_rng(seed)
+    Tp = torch.from_numpy(rng.random(tuple(n + 2 for n in core))).to(tdt)
+    Cp = torch.from_numpy(1.0 + rng.random(core)).to(tdt)
+    return Tp, Cp
+
+
+@pytest.mark.parametrize("run_rows", [None, 4])
+@pytest.mark.parametrize("shape,dtype,vec", PADDED_CASES)
+def test_padded_lane_tiling_equals_the_plain_step_bitwise(shape, dtype, vec, run_rows):
+    Tp, Cp = _padded_step_inputs(shape, DTYPES[dtype], 9)
+    inv_d2 = K.inv_d2_of(SPACING[len(shape)])
+    got = _lane_tiled_padded_step(Tp, Cp, 1.3, 1e-4, inv_d2, vec, run_rows)
+    assert torch.equal(got, K.fused_step_padded_plain(Tp, Cp, 1.3, 1e-4, inv_d2))
+
+
+@pytest.mark.parametrize("vec", [False, True])
+def test_the_padded_lane_tiling_needs_the_outer_loads(vec):
+    # Without lanes 0 and 31's loads of the strip's outer cells from the
+    # padded ring the strips do not give the step (the ghosts are not 0).
+    Tp, Cp = _padded_step_inputs((5, 256), torch.float32, 10)
+    inv_d2 = K.inv_d2_of(SPACING[2])
+    got = _lane_tiled_padded_step(Tp, Cp, 1.3, 1e-4, inv_d2, vec, outer=False)
+    assert not torch.equal(got, K.fused_step_padded_plain(Tp, Cp, 1.3, 1e-4, inv_d2))
+
+
+def test_padded_step_vectors_only_on_the_16_byte_grid():
+    # The wrapper allows the vectors (masked_layout over Cp and out) for a
+    # last axis of whole 16-byte lanes with both on the 16-byte grid, never
+    # in f64; Tp plays no part. The launcher takes one cell a thread in f64
+    # and below the fill whatever it allows.
+    base = 1 << 20
+    for dtype, tdt in DTYPES.items():
+        w = K.LANE_CELLS[tdt]
+        item = 16 // w
+        vec = dtype != "f64"
+        assert K.masked_layout(12288, tdt, base, base + 4096) == vec
+        assert not K.masked_layout(12287, tdt, base, base)
+        assert not K.masked_layout(4096 + 1, tdt, base, base)
+        assert not K.masked_layout(12288, tdt, base + item, base)
+        assert not K.masked_layout(12288, tdt, base, base + item)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fused_step_padded_wrapper_passes_its_verdict_to_the_kernel(dtype, monkeypatch):
+    # With the dispatch forced to the kernel path on CPU tensors, the
+    # launch receives masked_layout's verdict over Cp and out as its last
+    # argument, and padded_layout asks the launcher's query with the same
+    # verdict.
+    tdt = DTYPES[dtype]
+    w = K.LANE_CELLS[tdt]
+    calls, asked = [], []
+    monkeypatch.setattr(K, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(K, "launch", lambda *args: calls.append(args))
+    monkeypatch.setattr(K, "launch_layout", lambda *args: asked.append(args))
+    K.reset_launches()
+
+    def run(Tp, Cp, out):
+        K.fused_step_padded(Tp, Cp, 1.3, 1e-4, SPACING[Tp.ndim], out=out)
+        K.padded_layout(Tp, Cp, out)
+        assert asked[-1][3:] == (K._DTYPE_CODE[tdt], Tp.ndim, *K.extents(out.shape),
+                                 calls[-1][-1])
+        return calls[-1][-1]
+
+    core = (12, 4 * w)
+    vec = dtype != "f64"
+    Tp = torch.zeros(tuple(n + 2 for n in core), dtype=tdt)
+    Cp, out = torch.ones(core, dtype=tdt), torch.zeros(core, dtype=tdt)
+    assert run(Tp, Cp, out) == vec
+    ragged = (12, 4 * w + 1)
+    assert run(torch.zeros(14, 4 * w + 3, dtype=tdt), torch.ones(ragged, dtype=tdt),
+               torch.zeros(ragged, dtype=tdt)) is False
+    shifted = torch.ones(12 * 4 * w + 1, dtype=tdt)[1:].view(core)  # storage offset 1
+    assert run(Tp, shifted, out) is False
+    assert run(Tp, Cp, torch.zeros(12 * 4 * w + 1, dtype=tdt)[1:].view(core)) is False
+    # Tp off the 16-byte grid keeps the vectors: it is read cell by cell
+    Tp_shifted = torch.zeros(Tp.numel() + 1, dtype=tdt)[1:].view(Tp.shape)
+    assert run(Tp_shifted, Cp, out) == vec
+    core3 = (3, 2, 4 * w)  # 3D: the last axis decides
+    assert run(torch.zeros(5, 4, 4 * w + 2, dtype=tdt), torch.ones(core3, dtype=tdt),
+               torch.zeros(core3, dtype=tdt)) == vec
+    assert K.LAUNCHES["fused_step_padded"] == 6
+    K.reset_launches()

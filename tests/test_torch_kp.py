@@ -330,3 +330,183 @@ def test_app_saves_the_runs_field(variant, tmp_path):
                           dtype="f64")
     want = HeatDiffusion(cfg, device="cpu").run(variant).T.numpy()
     np.testing.assert_array_equal(np.load(path), want)
+
+
+# ---------------------------------------------------------------------------
+# kp_flux's lane tiling (csrc/kp.cu rmt_kp_flux_kernel)
+# ---------------------------------------------------------------------------
+
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+
+
+def _kp_constant(name):
+    from rocm_mpi_tpu_torch.ops import resident
+
+    return resident._constant("kp.cu", name)
+
+
+def _lane_tiled_flux(Tp, lam, inv_d, vec, run_rows=None, outer=True):
+    """kp_flux's lane tiling in plain PyTorch: a warp's strip of 32·W
+    columns walked down runs of qx rows (the launcher's run length, read
+    from kp.cu, unless `run_rows`), with R_r[j] = Tp[r, j + 1]: lane l's
+    cells l·W + e (`vec`, the 16-byte vectors) or l + 32·e (scalar
+    cells), cells past column
+    ly 0; qx row i = R_{i+1} - R_i; qy row i =
+    R_{i+1}[j] - R_{i+1}[j - 1], the left neighbour from the lane's own
+    cells or the lane before (a shift across lanes for vectors, a rotation
+    for scalar cells) and, for the strip's first cell, lane 0's outer load
+    R[first - 1]; where the strips end at ly, qy's extra column from lane
+    31's outer load R[ly] (both outer cells 0 when not `outer`). With
+    vectors, qy goes through the warp's staging row: lane-major in, cell
+    first + 32·e + lane out. In the kernel's operation order, rounded once
+    a store."""
+    cdt = K._compute_dtype(Tp.dtype)
+    w = K.LANE_CELLS[Tp.dtype]
+    lx, ly = Tp.shape[0] - 2, Tp.shape[1] - 2
+    assert not vec or ly % w == 0
+    strips = -(-ly // (32 * w))
+    width = strips * 32 * w
+    if run_rows is None:
+        longest = "kFluxRunRowsBf16" if Tp.dtype == torch.bfloat16 else "kFluxRunRows"
+        run_rows = strips * (lx + 1) // _kp_constant("kFluxFillWarps")
+        run_rows = min(max(run_rows, 1), _kp_constant(longest))
+    # Rz[r, j + 1] = R_r[j] for j = -1 .. ly, 0 past it (to width + 1)
+    Rz = torch.zeros(lx + 2, width + 2, dtype=cdt)
+    Rz[:, :ly + 2] = Tp.to(cdt)
+    lane = torch.arange(32)[:, None]
+    e = torch.arange(w)[None, :]
+    idx = lane * w + e if vec else lane + 32 * e
+    qx = torch.zeros(lx + 1, width, dtype=cdt)
+    qy = torch.zeros(lx, width + 1, dtype=cdt)
+    zero = torch.zeros((), dtype=cdt)
+    for s in range(strips):
+        first = s * 32 * w
+        cols = first + idx
+        ends = first + 32 * w == ly  # lane 31's outer cell is R[ly]
+
+        def row(r):  # past the last row: the load a run never makes
+            return Rz[r][cols + 1] if r <= lx + 1 else torch.zeros(32, w, dtype=cdt)
+
+        for r0 in range(0, lx + 1, run_rows):
+            lo, hi = row(r0), row(r0 + 1)
+            for i in range(r0, min(r0 + run_rows, lx + 1)):
+                qx[i, cols] = ((-lam) * (hi - lo)) * inv_d[0]
+                if i < lx:
+                    h = hi
+                    if vec:
+                        left = torch.cat([torch.roll(h[:, -1], 1)[:, None], h[:, :-1]], 1)
+                    else:
+                        rot_l = torch.roll(h, 1, dims=0)
+                        left = rot_l.clone()
+                        left[0, 1:] = rot_l[0, :-1]
+                    left[0, 0] = Rz[i + 1, first] if outer else zero
+                    oy = ((-lam) * (h - left)) * inv_d[1]
+                    if vec:
+                        staged = oy.reshape(-1)  # lane-major: cell l·W + e
+                        for k in range(w):
+                            qy[i, first + 32 * k + torch.arange(32)] = staged[32 * k:32 * k + 32]
+                    else:
+                        qy[i, cols] = oy
+                    if ends:
+                        right = Rz[i + 1, ly + 1] if outer else zero
+                        qy[i, ly] = ((-lam) * (right - h[31, w - 1])) * inv_d[1]
+                lo, hi = hi, row(i + 2)
+    return qx[:, :ly].to(Tp.dtype), qy[:, :ly + 1].to(Tp.dtype)
+
+
+# Padded blocks: ragged rows (53, 45 fit no lane width; 300 fits f32's and
+# f64's but not bf16's), whole ones (40), and rows the strips end at (256:
+# two strips in f32, four in f64, one in bf16; 128: one in f32), where
+# lane 31 writes qy's extra column. Both tiled layouts the kernel builds:
+# scalar cells in every dtype, the vectors outside f64. One cell a thread
+# is the per-cell arithmetic of the plain version.
+FLUX_CASES = [(core, dtype, vec) for core in [(37, 53), (9, 300), (11, 256), (7, 45),
+                                              (6, 40), (4, 128)]
+              for dtype in DTYPES for vec in (False, True)
+              if not vec or (dtype != "f64" and core[1] % K.LANE_CELLS[DTYPES[dtype]] == 0)]
+
+
+def _flux_input(core, tdt, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random(tuple(n + 2 for n in core))).to(tdt)
+
+
+@pytest.mark.parametrize("run_rows", [None, 4])
+@pytest.mark.parametrize("core,dtype,vec", FLUX_CASES)
+def test_flux_lane_tiling_equals_the_plain_flux_bitwise(core, dtype, vec, run_rows):
+    Tp = _flux_input(core, DTYPES[dtype], 11)
+    inv_d = kp.inv_d_of(SPACING[2])
+    got = _lane_tiled_flux(Tp, LAM, inv_d, vec, run_rows)
+    want = kp.kp_flux_plain(Tp, LAM, inv_d)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("core", [(5, 300), (5, 256)])
+@pytest.mark.parametrize("vec", [False, True])
+def test_the_flux_lane_tiling_needs_the_outer_loads(core, vec):
+    # Without lane 0's load of R[first - 1] (and, where the strips end at
+    # ly, lane 31's of R[ly]) qy is not the flux: the test above can fail.
+    Tp = _flux_input(core, torch.float32, 12)
+    inv_d = kp.inv_d_of(SPACING[2])
+    qx, qy = _lane_tiled_flux(Tp, LAM, inv_d, vec, outer=False)
+    want_x, want_y = kp.kp_flux_plain(Tp, LAM, inv_d)
+    assert torch.equal(qx, want_x) and not torch.equal(qy, want_y)
+    if core[1] == 256:  # the extra column alone differs at the strips' end
+        assert not torch.equal(qy[:, -1], want_y[:, -1])
+
+
+def test_flux_vectors_only_on_the_16_byte_grid():
+    # The wrapper allows the vectors (masked_layout over qx alone) for rows
+    # of whole 16-byte lanes with qx on the 16-byte grid, never in f64; the
+    # launcher takes one cell a thread below the fill whatever it allows.
+    base = 1 << 20
+    for dtype, tdt in DTYPES.items():
+        w = K.LANE_CELLS[tdt]
+        item = 16 // w
+        vec = dtype != "f64"
+        assert K.masked_layout(12288, tdt, base) == vec
+        assert K.masked_layout(3 * w, tdt, base + 4096) == vec
+        for ragged in (12287, w + 1, 1):
+            assert not K.masked_layout(ragged, tdt, base)
+        assert not K.masked_layout(12288, tdt, base + item)  # qx off the grid
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kp_flux_wrapper_passes_its_verdict_to_the_kernel(dtype, monkeypatch):
+    # With the dispatch forced to the kernel path on CPU tensors, the
+    # launch receives masked_layout's verdict over qx as its last argument
+    # (Tp and qy, read and written cell by cell, play no part), and
+    # flux_layout asks the launcher's query with the same verdict.
+    tdt = DTYPES[dtype]
+    w = K.LANE_CELLS[tdt]
+    calls, asked = [], []
+    monkeypatch.setattr(kp, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(kp, "launch", lambda *args: calls.append(args))
+    monkeypatch.setattr(kp, "launch_layout", lambda *args: asked.append(args))
+    K.reset_launches()
+    sp = SPACING[2]
+
+    def run(Tp, out=None):
+        kp.kp_flux(Tp, LAM, sp, out=out)
+        qx = out[0] if out is not None else torch.zeros(Tp.shape[0] - 1, Tp.shape[1] - 2,
+                                                        dtype=tdt)
+        kp.flux_layout(Tp, qx)
+        assert asked[-1][3:] == (K._DTYPE_CODE[tdt], Tp.shape[0] - 2, Tp.shape[1] - 2,
+                                 calls[-1][-1])
+        return calls[-1][-1]
+
+    lx, ly = 12, 4 * w
+    vec = dtype != "f64"
+    Tp = torch.zeros(lx + 2, ly + 2, dtype=tdt)
+    assert run(Tp) == vec
+    assert run(torch.zeros(lx + 2, ly + 3, dtype=tdt)) is False  # ragged
+    qx_off = torch.zeros((lx + 1) * ly + 1, dtype=tdt)[1:].view(lx + 1, ly)
+    qy = torch.zeros(lx, ly + 1, dtype=tdt)
+    assert run(Tp, (qx_off, qy)) is False
+    qy_off = torch.zeros(lx * (ly + 1) + 1, dtype=tdt)[1:].view(lx, ly + 1)
+    assert run(Tp, (torch.zeros(lx + 1, ly, dtype=tdt), qy_off)) == vec
+    Tp_off = torch.zeros(Tp.numel() + 1, dtype=tdt)[1:].view(Tp.shape)
+    assert run(Tp_off) == vec
+    assert K.LAUNCHES["kp_flux"] == 5
+    K.reset_launches()
