@@ -21,7 +21,11 @@ the target). Phases, printed as they run (about nine minutes on one H100
    decomposition of a 6144² shard; the three kp kernels at 12288² and
    128², and kp_update at odd row lengths (12288×12287, 128×127) with
    its wrapper's host time per call; tb_sweep also at k = 16 on 12320²
-   and ragged (1000×777, k = 5), with its strip/segment plan;
+   and ragged (1000×777, k = 5), with its strip/segment plan, and in 3D
+   at 128³ and 144³ (k = 8), 64×96×96 (k = 16) and 96×64×48 (k = 1, 5,
+   8, 13), with its tile/segment/thread plan and the cell updates a
+   launch computes; kp_residual also at 12288×12287 and on a 12288² view
+   with storage offset 1 (qx and Cp), printed with its layout;
    fused_step_padded and kp_flux at 12288², the 6144² block of a 2×2
    rank and smaller (252² and the 3D block; 128²);
    masked_step, kp_flux and fused_step_padded also at 12288×12287 and on
@@ -181,9 +185,11 @@ the target). Phases, printed as they run (about nine minutes on one H100
    sweeps; the JAX rule routes its 144³ block to plain steps, "jnp": no
    kernel), each bitwise against its plain-version run with its launches
    counted (run_deep also against its eager sweep loop), ms/step, Gpts/s
-   and the bytes bound printed; tb_sweep at k = 16 on a 3D block must
-   raise (its light cone exceeds shared memory); then the 3D app at its
-   defaults as a subprocess. With `--gpus 4`: the 2×2×1
+   and the bytes bound printed; run_hbm_blocked k = 8 (112 after 16,
+   graphs of sweeps: route hbm-tb, one tb_sweep launch a sweep, bitwise
+   its plain-version run and its eager sweep loop, ms/step beside
+   perf's); tb_sweep at k = 16 on 160³ (128³ with its ghosts) bitwise
+   its plain version; then the 3D app at its defaults as a subprocess. With `--gpus 4`: the 2×2×1
    grid of 256×256×128 (128³ a rank) over NCCL under the graphs — `perf`,
    `hide` at the app's shell (8, 8, 128), clamped to (8, 8, 64) with no
    interior box, and at (8, 8, 8), and run_deep k = 8 — every rank bitwise
@@ -373,6 +379,7 @@ TB_K16 = (12320, 12320)  # 12288² grown by k = 16 ghosts, tb_geometry's other c
 TB_RAGGED = (1000, 777)  # no dimension a multiple of a strip or a segment
 KP_ODD, KP_SMALL_ODD = (12288, 12287), (128, 127)  # rows off the 16-byte grid
 SMALL_3D = (96, 64, 48)
+TB3_K16 = (64, 96, 96)  # a 3D block whose 64-plane k = 16 slab JAX admits: two stripes
 KP_SMALL = (128, 128)  # the kp app's default grid
 KP = ("kp_flux", "kp_residual", "kp_update")
 SWE_DEEP_SMALL = (240, 240)  # run_deep's k = 8 sweep: 256² padded, the admission's edge
@@ -521,13 +528,16 @@ KERNEL_CASES = [
     ("kp_update", KP_SMALL, 1, "direct", ALL_DTYPES),
     ("kp_update", KP_ODD, 1, "direct", ALL_DTYPES),
     ("kp_update", KP_SMALL_ODD, 1, "direct", ALL_DTYPES),
-    # kp_flux and fused_step_padded on both lane-tiled layouts: 12288² and
-    # a rank's 6144² block take the vectors (f32, bf16), a ragged last axis
-    # and views at storage offset 1 (Tp and qx, Tp and Cp) the scalar cells
-    # (kp_flux's f64 always); fused_step_padded's f64 and every small case
-    # below the fill take one cell a thread.
+    # kp_flux, kp_residual and fused_step_padded on both lane-tiled
+    # layouts: 12288² and a rank's 6144² block take the vectors (f32,
+    # bf16), a ragged last axis and views at storage offset 1 (Tp and qx,
+    # qx and Cp, Tp and Cp) the scalar cells (kp_flux's and kp_residual's
+    # f64 always); fused_step_padded's f64 and every small case below the
+    # fill take one cell a thread.
     ("kp_flux", KP_ODD, 1, "direct", ALL_DTYPES),
     ("kp_flux", BIG, 1, "offset", ALL_DTYPES),
+    ("kp_residual", KP_ODD, 1, "direct", ALL_DTYPES),
+    ("kp_residual", BIG, 1, "offset", ALL_DTYPES),
     ("kp_flux", BLOCK, 1, "direct", ALL_DTYPES),
     ("fused_step_padded", BIG, 1, "direct", ALL_DTYPES),
     ("fused_step_padded", KP_ODD, 1, "direct", ALL_DTYPES),
@@ -546,6 +556,10 @@ KERNEL_CASES = [
     ("multi_step_cm", SMALL_3D, 8, "direct", ("f32",)),
     ("multi_step_cm", SMALL_3D, 8, "conly", ("f32",)),
     ("tb_sweep", SMALL_3D, 8, "direct", ALL_DTYPES),
+    ("tb_sweep", SMALL_3D, 1, "direct", ALL_DTYPES),
+    ("tb_sweep", SMALL_3D, 5, "direct", ALL_DTYPES),
+    ("tb_sweep", SMALL_3D, 13, "direct", ALL_DTYPES),
+    ("tb_sweep", TB3_K16, 16, "direct", ALL_DTYPES),
     ("wave_step", SMALL_3D, 1, "direct", ALL_DTYPES),
     ("wave_step_masked", SMALL_3D, 1, "regions", ALL_DTYPES),
     ("wave_multi_step", SMALL_3D, 8, "direct", ALL_DTYPES),  # unequal spacing
@@ -554,13 +568,14 @@ KERNEL_CASES = [
     ("fused_step_padded", SMALL_3D, 1, "direct", ALL_DTYPES),
     # The 3D main paths' blocks at 128³ a device ([3d]): masked_step on one
     # card, fused_step_cm and its hide boxes (HIDE_B_WIDTH_3D) a rank,
-    # tb_sweep on run_deep's k = 8 padded block.
+    # tb_sweep on run_hbm_blocked's 128³ and run_deep's k = 8 padded block.
     ("masked_step", CUBE, 1, "direct", ("f32",)),
     ("fused_step_cm", CUBE, 1, "direct", ("f32",)),
     ("fused_step_cm", CUBE, 1, "regions", ("f32",)),
     ("fused_step_cm", CUBE, 1, "faces", ALL_DTYPES),
     ("fused_step_cm", CUBE, 1, "face-regions", ALL_DTYPES),
-    ("tb_sweep", CUBE_DEEP, 8, "direct", ("f32",)),
+    ("tb_sweep", CUBE, 8, "direct", ALL_DTYPES),
+    ("tb_sweep", CUBE_DEEP, 8, "direct", ALL_DTYPES),
 ]
 # The f32 case whose times stand for each kernel in the JSON line: the
 # launch its main path makes most.
@@ -603,6 +618,7 @@ FLOPS_PER_CELL_STEP = {
     ("kp_flux", "direct"): lambda nd: 6,
     ("kp_flux", "offset"): lambda nd: 6,
     ("kp_residual", "direct"): lambda nd: 7,
+    ("kp_residual", "offset"): lambda nd: 7,
     ("kp_update", "direct"): lambda nd: 2,
     ("fused_step_padded", "direct"): lambda nd: 5 * nd + 2,
     ("fused_step_padded", "offset"): lambda nd: 5 * nd + 2,
@@ -1130,10 +1146,10 @@ def _kp_kernel_case(torch, name, core, form, dtype, device):
     the update's dTdt in [-0.5, 0.5), λ and the field-dtype dt of the
     domain's config (the 6144² block's domain is 12288²). The update also
     returns its one-call PyTorch form, `torch.add(core, dTdt, alpha=dt)`.
-    Form "offset" puts Tp and qx (kp_flux) or Tp and Cp
-    (fused_step_padded) one element past an allocation's start, off the
-    16-byte grid; kp_flux's and fused_step_padded's launches carry their
-    layout (`run.layout`)."""
+    Form "offset" puts Tp and qx (kp_flux), qx and Cp (kp_residual) or Tp
+    and Cp (fused_step_padded) one element past an allocation's start, off
+    the 16-byte grid; kp_flux's, kp_residual's and fused_step_padded's
+    launches carry their layout (`run.layout`)."""
     from rocm_mpi_tpu_torch.config import DiffusionConfig
     from rocm_mpi_tpu_torch.ops import kernels, kp
 
@@ -1187,8 +1203,14 @@ def _kp_kernel_case(torch, name, core, form, dtype, device):
     if name == "kp_residual":
         qx, qy = kp.kp_flux_plain(Tp, lam, inv_d)
         Cp = rand(core, 1.0)
-        return (lambda: kp.kp_residual(qx, qy, Cp, spacing, out=out),
-                lambda: kp.kp_residual_plain(qx, qy, Cp, inv_d),
+        if form == "offset":
+            qx, Cp = shifted(qx), shifted(Cp)
+
+        def run():
+            return kp.kp_residual(qx, qy, Cp, spacing, out=out)
+
+        run.layout = kp.residual_layout(qx, Cp, out)
+        return (run, lambda: kp.kp_residual_plain(qx, qy, Cp, inv_d),
                 (qx.numel() + qy.numel() + 2 * cells) * item)
     dTdt = rand(core, -0.5)
     core_view = Tp[1:-1, 1:-1]
@@ -1263,9 +1285,9 @@ def phase_kernels(torch, card, pk):
     device = torch.device("cuda", 0)
     rows = []
     edges, edge_routes = resident_edge_cases(torch)
-    # The layouts that kp_flux's and fused_step_padded's launches reported:
-    # the cases must reach every one.
-    layouts_seen = {"kp_flux": set(), "fused_step_padded": set()}
+    # The layouts that kp_flux's, kp_residual's and fused_step_padded's
+    # launches reported: the cases must reach every one.
+    layouts_seen = {"kp_flux": set(), "kp_residual": set(), "fused_step_padded": set()}
     for name, core, steps, form, dtypes in KERNEL_CASES + edges:
         for dtype in dtypes:
             run, plain, nbytes, *library = _kernel_case(torch, name, core, steps, form, dtype,
@@ -1309,7 +1331,8 @@ def phase_kernels(torch, card, pk):
             if name == "kp_update" or (name == "masked_step" and core == SMALL):
                 row["host_us_per_call"] = host_us(run)
                 extra = f"; wrapper host time {row['host_us_per_call']:.2f} µs a call"
-            if name in ("masked_step", "fused_step_cm", "kp_flux", "fused_step_padded"):
+            if name in ("masked_step", "fused_step_cm", "kp_flux", "kp_residual",
+                        "fused_step_padded"):
                 row["layout"] = run.layout
                 extra = f"; layout {run.layout}" + extra
             if name in layouts_seen:
@@ -1354,6 +1377,21 @@ def phase_kernels(torch, card, pk):
                 row["plan"] = plan._asdict()
                 extra = (f"; plan {plan.strips} strips × {plan.segments} segments of "
                          f"{plan.seg_rows} rows, {plan.waves} wave(s)")
+            if name == "tb_sweep" and len(core) == 3:
+                from rocm_mpi_tpu_torch.ops import multistep
+
+                plan = multistep._device_plan3(0, tuple(core), steps, _tdt(torch, dtype))
+                updates = multistep.tb3_updates(plan, core)
+                row.update(plan=plan._asdict(), cell_updates=updates,
+                           updates_per_core_update=updates / (cells * steps),
+                           updates_per_s=updates / (ms * 1e-3))
+                extra = (f"; plan tile {plan.e1}x{plan.e2} ({plan.e1 - 2 * steps}x"
+                         f"{plan.e2 - 2 * steps} core) × {plan.tiles1 * plan.tiles2} tiles × "
+                         f"{plan.segments} segments of {plan.seg} planes, {plan.threads} threads, "
+                         f"{plan.smem} B shared, {plan.blocks_per_sm} block(s) an SM, "
+                         f"{plan.waves} wave(s); {updates} cell updates a launch "
+                         f"({row['updates_per_core_update']:.2f} per core cell and step, "
+                         f"{row['updates_per_s'] / 1e9:.1f} G a second)")
             rows.append(row)
             print(f"[kernel] {label}: bitwise == plain; kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
@@ -3299,10 +3337,11 @@ def _cube_rates(pk, res, cells_per_device: int, passes: int = 3) -> dict:
 def phase_3d(torch, card, pk):
     """[3d], one card: BASELINE.json's diffusion_3D_perf_hide at 128³ f32 —
     `perf` under the scan driver's graphs (masked_step in 3D), run_deep
-    k = 8 as graphs of sweeps (the jnp route), both bitwise against their
-    plain-version runs with their launches counted; the 3D tb_sweep at
-    k = 16 must raise (its light cone does not fit shared memory); then
-    the 3D app itself."""
+    k = 8 as graphs of sweeps (the jnp route) and run_hbm_blocked k = 8
+    as graphs of sweeps (the 3D tb_sweep, one launch a sweep), each
+    bitwise against its plain-version run with its launches counted, the
+    schedules also against their eager sweep loops; the 3D tb_sweep at
+    k = 16 on 160³ bitwise its plain version; then the 3D app itself."""
     from rocm_mpi_tpu_torch.ops import kernels
 
     cells = math.prod(CUBE)
@@ -3355,22 +3394,54 @@ def phase_3d(torch, card, pk):
           f"{_loop_line(deep)}; {res.gpts:.3f} Gpts/s on {card}", flush=True)
     del res, T, ref, loops
 
-    # k = 16 in 3D: the tb_sweep kernel's light cone does not fit shared
-    # memory; the launch raises, never falls back.
+    # run_hbm_blocked k = 8: 128³'s 32-plane slab (2.1 MB) is within the
+    # slab budget, so each sweep is one launch of the 3D tb_sweep.
+    model = _cube_model(CUBE, CUBE_DEEP_NT, CUBE_DEEP_WARMUP)
+    kernels.reset_launches()
+    with watch_loops() as loops:
+        res = model.run_hbm_blocked(block_steps=8)
+    torch.cuda.synchronize()
+    hlaunches = dict(kernels.LAUNCHES)
+    check((res.route, res.k, res.loop_route) == ("hbm-tb", 8, "scan-graph"),
+          f"3D run_hbm_blocked 128³: route {res.route} k {res.k} loop {res.loop_route}")
+    check(hlaunches == only("tb_sweep", CUBE_DEEP_NT // 8),
+          f"3D run_hbm_blocked 128³: launches {hlaunches}, expected {CUBE_DEEP_NT // 8} tb_sweep")
+    ref = plain_schedule(model, "run_hbm_blocked", res.route, 8, CUBE_DEEP_NT)
+    check(torch.equal(res.T, ref), "3D run_hbm_blocked 128³: graph run != plain-version run")
+    hbm = {"launches": hlaunches, "route": res.route, **_cube_rates(pk, res, cells),
+           **graph_against_eager(torch, model, "run_hbm_blocked", res, (res.T,), 8,
+                                 "3D run_hbm_blocked 128³", loops)}
+    hbm["per_step_over_perf"] = hbm["ms_per_step"] / perf["ms_per_step"]
+    print(f"[3d] run_hbm_blocked 128x128x128 f32 k 8: route {res.route}, "
+          f"{CUBE_DEEP_NT - CUBE_DEEP_WARMUP} steps after {CUBE_DEEP_WARMUP}, graphs of sweeps: "
+          f"tb_sweep launches {hlaunches['tb_sweep']} (one a sweep); bitwise == plain-version "
+          f"run and == the eager sweep loop; {_loop_line(hbm)}; {hbm['ms_per_step']:.5f} "
+          f"ms/step against perf's {perf['ms_per_step']:.5f} ({hbm['per_step_over_perf']:.3f} "
+          f"of it), {res.gpts:.3f} Gpts/s on {card}", flush=True)
+    del res, ref, loops
+
+    # k = 16 in 3D on 128³ grown by its k = 16 ghosts: one launch, bitwise.
     from rocm_mpi_tpu_torch.ops import multistep
 
-    T16 = torch.rand(tuple(n + 32 for n in CUBE), device="cuda")
-    try:
-        multistep.tb_sweep(T16, torch.zeros_like(T16), kernels.inv_d2_of((0.1,) * 3), 16)
-        torch.cuda.synchronize()
-    except RuntimeError as err:
-        check("code -3" in str(err), f"3D tb_sweep k 16 raised {err!r}, not -3 (does not fit)")
-        raised = str(err)
-    else:
-        raise PhaseError("3D tb_sweep k 16 on 160³ ran: its light cone exceeds shared memory")
-    del T16
-    print(f"[3d] tb_sweep k 16 on 160³ (128³ with its ghosts) raises as it must: "
-          f"{raised.splitlines()[0][:110]}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    T16 = torch.rand(tuple(n + 32 for n in CUBE), generator=gen, device="cuda")
+    Cm16 = torch.rand(T16.shape, generator=gen, device="cuda") * 1e-4
+    inv16 = kernels.inv_d2_of((0.1,) * 3)
+    kernels.reset_launches()
+    got = multistep.tb_sweep(T16, Cm16, inv16, 16)
+    want = multistep.tb_sweep_plain(T16, Cm16, inv16, 16)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["tb_sweep"] == 1 and torch.equal(got, want),
+          "3D tb_sweep k 16 on 160³: kernel != plain version")
+    plan16 = multistep._device_plan3(0, tuple(T16.shape), 16, torch.float32)
+    k16 = dict(ms=time_ms(lambda: multistep.tb_sweep(T16, Cm16, inv16, 16), 10),
+               plain_ms=time_ms(lambda: multistep.tb_sweep_plain(T16, Cm16, inv16, 16), 3),
+               plan=plan16._asdict())
+    print(f"[3d] tb_sweep k 16 on 160³ (128³ with its ghosts) f32: bitwise == plain version; "
+          f"{k16['ms']:.4f} ms, plain {k16['plain_ms']:.4f} ms; tile {plan16.e1}x{plan16.e2}, "
+          f"{plan16.threads} threads, {plan16.segments} segments of {plan16.seg} on {card}",
+          flush=True)
+    del T16, Cm16, got, want
 
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "rocm_mpi_tpu_torch.apps.diffusion_3d_perf_hide"],
@@ -3386,7 +3457,7 @@ def phase_3d(torch, card, pk):
           f"128³ f32, 100 steps with 10 warmup, b_width (8, 8, 128)) in {app_s:.1f} s: "
           + next(ln for ln in lines if "clamped to" in ln), flush=True)
     print(f"[3d]   {executed}", flush=True)
-    return dict(perf=perf, deep=deep, k16_raises=raised, app_line=executed,
+    return dict(perf=perf, deep=deep, hbm=hbm, k16=k16, app_line=executed,
                 app_seconds=app_s)
 
 
@@ -6284,7 +6355,7 @@ def main(argv=None) -> int:
     # The weak-scaling rungs, then the transport phases: the host-staged
     # comparison's perf runs, the wire runs and every leg of the dry run.
     # [3d] and [checkpoint]: each run's counts, set to 0 just before it.
-    for counts in (cube["perf"]["launches"], cube["deep"]["launches"],
+    for counts in (cube["perf"]["launches"], cube["deep"]["launches"], cube["hbm"]["launches"],
                    *(ckpt_rec[k][w] for k in ("perf", "deep", "swe")
                      for w in ("crashed_launches", "resumed_launches")),
                    weak_launches, transport_launches, tel_launches, res_rec["launches"],

@@ -30,12 +30,10 @@
 // device memory, so they stay three kernels. Each is memory-bound (a few
 // flops a cell against 3-4 field passes: flux reads Tp and writes qx, qy;
 // the residual reads qx, qy, Cp and writes dTdt; the update reads Tp and
-// dTdt and writes out). The residual gives one thread to each output cell
-// in 32x8 blocks along the last (contiguous) axis, the neighbour reads
-// served from lines the block already pulled into L1/L2. The flux and the
-// update move 16 bytes of a row a lane (their design notes are at
-// rmt_kp_flux_kernel and rmt_kp_update_kernel): at one cell a thread the
-// flux read 0.46 of its bound in bf16 on an H100, as masked_step did
+// dTdt and writes out). All three move 16 bytes of a row a lane (their
+// design notes are at rmt_kp_flux_kernel, rmt_kp_residual_kernel and
+// rmt_kp_update_kernel): at one cell a thread the flux read 0.46 of its
+// bound in bf16 on an H100 and the residual 0.62, as masked_step did
 // before it took 16 bytes a lane.
 
 #include "stencil_common.cuh"
@@ -56,21 +54,6 @@ __device__ __forceinline__ bool cell(int64_t n0, int64_t n1, int64_t* i, int64_t
   *j = static_cast<int64_t>(blockIdx.x) * kBlockX + threadIdx.x;
   *i = static_cast<int64_t>(blockIdx.y) * kBlockY + threadIdx.y;
   return *i < n0 && *j < n1;
-}
-
-template <typename S>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-rmt_kp_residual_kernel(const S* __restrict__ qx, const S* __restrict__ qy,
-                const S* __restrict__ Cp, S* __restrict__ dTdt, int64_t lx, int64_t ly,
-                typename Compute<S>::type inv0, typename Compute<S>::type inv1) {
-  using C = typename Compute<S>::type;
-  int64_t i, j;
-  if (!cell(lx, ly, &i, &j)) return;
-  const int64_t idx = i * ly + j;
-  const int64_t qy_idx = i * (ly + 1) + j;
-  const C div = (widen(qx[idx + ly]) - widen(qx[idx])) * inv0 +
-                (widen(qy[qy_idx + 1]) - widen(qy[qy_idx])) * inv1;
-  dTdt[idx] = narrow<S>((-div) / widen(Cp[idx]));
 }
 
 // kp_update: 16 bytes of a row a thread (4 f32, 2 f64, 8 bf16), one block
@@ -324,6 +307,196 @@ rmt_kp_flux_cell_kernel(const S* __restrict__ Tp, S* __restrict__ qx, S* __restr
   }
 }
 
+// kp_residual: the flux's walk (rmt_kp_flux_kernel above). A warp takes a
+// strip of 32·kN consecutive columns (kN = 16 / itemsize cells a lane) down
+// a run of core rows. Core row i reads qx rows i and i + 1: qx row i + 1 is
+// loaded one row ahead and kept in registers as the next row's row i, so
+// each qx row comes from memory once a run, not twice a cell as at one cell
+// a thread. qy's rows (stride ly + 1) are off the 16-byte grid every other
+// row: a lane reads its cells of qy row i element by element and the L1
+// merges a warp's requests (realigning by shuffle measured 6-28 % slower
+// for the flux's Tp, which sits the same way); the j + 1 neighbour comes
+// from the lane beside by shuffle, and lane 31 loads the strip's extra cell
+// qy[i, first + 32·kN] where it lies in the row. Layouts (residual_layout
+// below), as the flux's:
+// - VEC (the wrapper allows it: ly a multiple of kN, qx, Cp and dTdt on the
+//   16-byte grid, not f64, whose vectors measured slower than its scalar
+//   cells, below): kN consecutive cells; qx and
+//   Cp loaded as 16-byte vectors, dTdt stored as one, Cp and dTdt with the
+//   streaming hints (each is touched once);
+// - scalar cells (a ragged row, an operand off the grid, f64): kN cells
+//   lane + 32e of the strip, every access scalar and coalesced;
+// - and, for a field that gives fewer than kResFillWarps warps of 16-byte
+//   lanes (the kp app's 128²), one cell a thread
+//   (rmt_kp_residual_cell_kernel below).
+// Runs of up to kResRunRows core rows, cut shorter until the launch has
+// kResFillWarps warps. Measured at 12288² (scripts/torch_kernel_ab.py
+// --kernels kp_residual, device ms a launch, NVIDIA H100 80GB HBM3 at
+// 700.00 W, the alternatives as variant trees of this package, one call):
+// one cell a thread (the old kernel) f32 0.8319, f64 1.5368, bf16 0.5848;
+// these layouts with runs of 4 rows f32 0.7726, f64 1.5367, bf16 0.4003,
+// runs of one row (three in bf16) 0.7728, 1.5574, 0.4042; f64 as 16-byte
+// vectors 1.6669. In a second call runs of 2 read 0.7809 / 1.5538 /
+// 0.4184 and runs of 8 0.8070 / 1.6065 / 0.4098 against these 0.7838 /
+// 1.5559 / 0.4077 (the old kernel there 0.8417 / 1.5574 / 0.5881). At the
+// kp app's 128² every layout is at the launch floor: one cell a thread
+// 0.0052-0.0054 ms device time in every dtype, an empty kernel's
+// 0.0049-0.0050, so the launcher keeps it there.
+constexpr int kResWarps = 4;          // warps a block: independent strips
+constexpr int kResRunRows = 4;        // the longest run of core rows a warp walks
+constexpr int kResRunRowsBf16 = 4;    // the same in bf16
+constexpr int kResFillWarps = 8192;   // fewer warps than this: shorter runs, then one cell a thread
+
+template <typename S, bool VEC>
+__global__ void __launch_bounds__(kResWarps * 32)
+rmt_kp_residual_kernel(const S* __restrict__ qx, const S* __restrict__ qy,
+                       const S* __restrict__ Cp, S* __restrict__ dTdt, int64_t lx, int64_t ly,
+                       int64_t strips, int64_t items, int run_rows,
+                       typename Compute<S>::type inv0, typename Compute<S>::type inv1) {
+  using C = typename Compute<S>::type;
+  using Ch = Chunk<S>;
+  constexpr int kN = Ch::kN;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kResWarps + (threadIdx.x >> 5);
+  if (item >= items) return;  // the whole warp: nothing below synchronises the block
+  int64_t strip, run;
+  if (items <= 0xffffffffLL) {
+    const uint32_t it = static_cast<uint32_t>(item), st = static_cast<uint32_t>(strips);
+    run = it / st;
+    strip = it - static_cast<uint32_t>(run) * st;
+  } else {
+    run = item / strips;
+    strip = item - run * strips;
+  }
+  const int64_t r0 = run * run_rows;
+  const int64_t r1 = r0 + run_rows < lx ? r0 + run_rows : lx;
+  const int64_t first = strip * 32 * kN;                 // the strip's first column
+  const int64_t col = first + (VEC ? lane * kN : lane);  // this lane's first cell
+  const int64_t extra = first + 32 * kN;                 // qy's cell past the strip
+  const S zero = narrow<S>(C(0));
+  // This lane's cells of a row of `n` cells at p (0 past n).
+  auto cells_of = [&](const S* p, int64_t n) -> Ch {
+    Ch v;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int64_t j = col + (VEC ? e : 32 * e);
+      v.v[e] = j < n ? p[j] : zero;
+    }
+    return v;
+  };
+  auto qx_of = [&](int64_t r) -> Ch {
+    if constexpr (VEC) {
+      Ch v;
+      if (col < ly) {
+        *reinterpret_cast<int4*>(&v) = *reinterpret_cast<const int4*>(qx + r * ly + col);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kN; ++e) v.v[e] = zero;
+      }
+      return v;
+    } else {
+      return cells_of(qx + r * ly, ly);
+    }
+  };
+  auto cp_of = [&](int64_t r) -> Ch {
+    if constexpr (VEC) {
+      Ch v;
+      if (col < ly) {
+        *reinterpret_cast<int4*>(&v) = __ldcs(reinterpret_cast<const int4*>(Cp + r * ly + col));
+      } else {
+#pragma unroll
+        for (int e = 0; e < kN; ++e) v.v[e] = zero;
+      }
+      return v;
+    } else {
+      return cells_of(Cp + r * ly, ly);
+    }
+  };
+  // qy row r: this lane's cells j <= ly (the cell j = ly is a left lane's
+  // j + 1), and lane 31's extra cell.
+  auto qy_of = [&](int64_t r) -> Ch { return cells_of(qy + r * (ly + 1), ly + 1); };
+  auto extra_of = [&](int64_t r) -> S {
+    return lane == 31 && extra <= ly ? qy[r * (ly + 1) + extra] : zero;
+  };
+  Ch lo = qx_of(r0);
+  Ch hi = qx_of(r0 + 1);
+  Ch y = qy_of(r0);
+  S y_extra = extra_of(r0);
+  Ch cp = cp_of(r0);
+  for (int64_t i = r0; i < r1; ++i) {
+    // The next row's loads, in flight while this one is computed.
+    const bool more = i + 1 < r1;
+    Ch hi_nx, y_nx, cp_nx;
+    S y_extra_nx = zero;
+    if (more) {
+      hi_nx = qx_of(i + 2);
+      y_nx = qy_of(i + 1);
+      y_extra_nx = extra_of(i + 1);
+      cp_nx = cp_of(i + 1);
+    }
+    C yc[kN];
+#pragma unroll
+    for (int e = 0; e < kN; ++e) yc[e] = widen(y.v[e]);
+    const C outer = widen(y_extra);
+    C right[kN];  // qy at cell + 1
+    if constexpr (VEC) {
+      const C from_r = __shfl_down_sync(kAll, yc[0], 1);
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        right[e] = e + 1 < kN ? yc[e + 1] : (lane < 31 ? from_r : outer);
+    } else {
+      C rot_r[kN];  // cell e of the lane after (cyclic)
+#pragma unroll
+      for (int e = 0; e < kN; ++e) rot_r[e] = __shfl_sync(kAll, yc[e], (lane + 1) & 31);
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        right[e] = lane < 31 ? rot_r[e] : (e + 1 < kN ? rot_r[e + 1] : outer);
+    }
+    Ch o;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const C div = (widen(hi.v[e]) - widen(lo.v[e])) * inv0 + (right[e] - yc[e]) * inv1;
+      o.v[e] = narrow<S>((-div) / widen(cp.v[e]));
+    }
+    S* w = dTdt + i * ly;
+    if constexpr (VEC) {
+      if (col < ly) __stcs(reinterpret_cast<int4*>(w + col), *reinterpret_cast<const int4*>(&o));
+    } else {
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        if (col + 32 * e < ly) w[col + 32 * e] = o.v[e];
+    }
+    if (more) {
+      lo = hi;
+      hi = hi_nx;
+      y = y_nx;
+      y_extra = y_extra_nx;
+      cp = cp_nx;
+    }
+  }
+}
+
+// kp_residual, one cell a thread: (lx, ly) threads in 32x8 blocks along the
+// last axis, the neighbour reads served from lines the block already pulled
+// into L1/L2 — the kernel before the lane tiling, kept for a field too small
+// to fill the card with 16-byte lanes.
+template <typename S>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+rmt_kp_residual_cell_kernel(const S* __restrict__ qx, const S* __restrict__ qy,
+                            const S* __restrict__ Cp, S* __restrict__ dTdt, int64_t lx,
+                            int64_t ly, typename Compute<S>::type inv0,
+                            typename Compute<S>::type inv1) {
+  using C = typename Compute<S>::type;
+  int64_t i, j;
+  if (!cell(lx, ly, &i, &j)) return;
+  const int64_t idx = i * ly + j;
+  const int64_t qy_idx = i * (ly + 1) + j;
+  const C div = (widen(qx[idx + ly]) - widen(qx[idx])) * inv0 +
+                (widen(qy[qy_idx + 1]) - widen(qy[qy_idx])) * inv1;
+  dTdt[idx] = narrow<S>((-div) / widen(Cp[idx]));
+}
+
 // Grid of an (n0, n1) launch; false if empty or a dimension overflows.
 bool grid_of(int64_t n0, int64_t n1, dim3* grid) {
   const int64_t gx = (n1 + kBlockX - 1) / kBlockX;
@@ -397,16 +570,69 @@ int launch_flux(const void* Tp, void* qx, void* qy, int64_t lx, int64_t ly, doub
   }
 }
 
+template <typename S, bool VEC>
+int launch_residual_nd(const S* qx, const S* qy, const S* Cp, S* dTdt, int64_t lx, int64_t ly,
+                       double inv0, double inv1, cudaStream_t stream) {
+  using C = typename Compute<S>::type;
+  constexpr int kN = Chunk<S>::kN;
+  const int64_t strips = (ly + 32 * kN - 1) / (32 * kN);
+  // Runs of kResRunRows core rows (kResRunRowsBf16 in bf16), cut shorter
+  // where the field gives fewer than kResFillWarps warps of them. A cell's
+  // arithmetic does not depend on its run.
+  const int64_t longest = sizeof(S) == 2 ? kResRunRowsBf16 : kResRunRows;
+  int64_t run_rows = strips * lx / kResFillWarps;
+  run_rows = run_rows < 1 ? 1 : run_rows > longest ? longest : run_rows;
+  const int64_t items = strips * ((lx + run_rows - 1) / run_rows);
+  const int64_t blocks = (items + kResWarps - 1) / kResWarps;
+  if (blocks > 2147483647LL) return -2;
+  rmt_kp_residual_kernel<S, VEC><<<static_cast<unsigned>(blocks), kResWarps * 32, 0, stream>>>(
+      qx, qy, Cp, dTdt, lx, ly, strips, items, static_cast<int>(run_rows), C(inv0), C(inv1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The layout of a residual launch (0 scalar cells, 1 the 16-byte vectors, 2
+// one cell a thread): one cell a thread where the field gives fewer than
+// kResFillWarps warps of 16-byte lanes (one core row each), else the
+// vectors where the wrapper allows them (`vectors`), else scalar cells.
+template <typename S>
+int residual_layout(int64_t lx, int64_t ly, bool vectors) {
+  constexpr int kN = Chunk<S>::kN;
+  const int64_t strips = (ly + 32 * kN - 1) / (32 * kN);
+  if (strips * lx < kResFillWarps) return 2;
+  return vectors ? 1 : 0;
+}
+
+// A launch that allows the vectors where they do not fit (f64, ly no
+// multiple of kN, qx, Cp or dTdt off the 16-byte grid) is refused (-1)
+// rather than misread.
 template <typename S>
 int launch_residual(const void* qx, const void* qy, const void* Cp, void* dTdt, int64_t lx,
-                    int64_t ly, double inv0, double inv1, cudaStream_t stream) {
+                    int64_t ly, double inv0, double inv1, bool vectors, cudaStream_t stream) {
   using C = typename Compute<S>::type;
-  dim3 grid;
-  if (!grid_of(lx, ly, &grid)) return -2;
-  rmt_kp_residual_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
-      static_cast<const S*>(qx), static_cast<const S*>(qy), static_cast<const S*>(Cp),
-      static_cast<S*>(dTdt), lx, ly, C(inv0), C(inv1));
-  return static_cast<int>(cudaGetLastError());
+  constexpr int kN = Chunk<S>::kN;
+  if (lx < 1 || ly < 1) return -2;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(qx) | reinterpret_cast<uintptr_t>(Cp) |
+                         reinterpret_cast<uintptr_t>(dTdt);
+  if (vectors && (sizeof(S) == 8 || ly % kN != 0 || bits % kUpdBytes != 0)) return -1;
+  const auto* x = static_cast<const S*>(qx);
+  const auto* y = static_cast<const S*>(qy);
+  const auto* c = static_cast<const S*>(Cp);
+  auto* o = static_cast<S*>(dTdt);
+  switch (residual_layout<S>(lx, ly, vectors)) {
+    case 0:
+      return launch_residual_nd<S, false>(x, y, c, o, lx, ly, inv0, inv1, stream);
+    case 1:
+      if constexpr (sizeof(S) < 8)
+        return launch_residual_nd<S, true>(x, y, c, o, lx, ly, inv0, inv1, stream);
+      return -1;
+    default: {
+      dim3 grid;
+      if (!grid_of(lx, ly, &grid)) return -2;
+      rmt_kp_residual_cell_kernel<S><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
+          x, y, c, o, lx, ly, C(inv0), C(inv1));
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
 }
 
 template <typename S>
@@ -464,15 +690,31 @@ extern "C" int rmt_kp_flux_layout(int dtype, int64_t lx, int64_t ly, int vectors
   }
 }
 
+// kp_residual: `vectors` allows the 16-byte vectors (f32 and bf16, ly a
+// multiple of 16 bytes, qx, Cp and dTdt on the 16-byte grid; -1
+// otherwise); the launch takes them unless the field is too small to fill
+// the card that way.
 extern "C" int rmt_kp_residual(int dtype, const void* qx, const void* qy, const void* Cp,
                                void* dTdt, int64_t lx, int64_t ly, double inv0, double inv1,
-                               void* stream) {
+                               int vectors, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const bool v = vectors != 0;
   switch (dtype) {
-    case kF32: return launch_residual<float>(qx, qy, Cp, dTdt, lx, ly, inv0, inv1, s);
-    case kF64: return launch_residual<double>(qx, qy, Cp, dTdt, lx, ly, inv0, inv1, s);
+    case kF32: return launch_residual<float>(qx, qy, Cp, dTdt, lx, ly, inv0, inv1, v, s);
+    case kF64: return launch_residual<double>(qx, qy, Cp, dTdt, lx, ly, inv0, inv1, v, s);
     case kBF16:
-      return launch_residual<__nv_bfloat16>(qx, qy, Cp, dTdt, lx, ly, inv0, inv1, s);
+      return launch_residual<__nv_bfloat16>(qx, qy, Cp, dTdt, lx, ly, inv0, inv1, v, s);
+    default: return -1;
+  }
+}
+
+// The layout a kp_residual launch of these arguments takes, coded as
+// rmt_kp_flux_layout's.
+extern "C" int rmt_kp_residual_layout(int dtype, int64_t lx, int64_t ly, int vectors) {
+  switch (dtype) {
+    case kF32: return residual_layout<float>(lx, ly, vectors != 0);
+    case kF64: return residual_layout<double>(lx, ly, vectors != 0);
+    case kBF16: return residual_layout<__nv_bfloat16>(lx, ly, vectors != 0);
     default: return -1;
   }
 }

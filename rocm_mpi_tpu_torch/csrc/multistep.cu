@@ -84,13 +84,45 @@
 // plan (ops/multistep.tb_plan), sized so the strips × segments fill the
 // card's resident warps in whole waves.
 //
-// 3D keeps light-cone tiles in shared memory: each block loads a core
-// tile plus k halo cells a side — T and Cm — runs k steps there
-// ping-ponging two T buffers and writes its core. The tile starts at 16³
-// of core and halves its largest axis until it fits a block's shared
-// memory (at k = 8, 8x8x16 in f32): the halo dominates, and a 3D sweep
-// does far more redundant work than a 2D one. No model runs it on the
-// card yet.
+// 3D lifts the same wavefront one dimension (a 2.5D stream along axis 0).
+// A block owns a tile of the (axis 1, axis 2) cross-section — its core plus
+// k halo cells a side on both axes — over a segment of planes, and walks it
+// once: each plane step loads one plane of T and Cm (the next one's loads
+// in flight), and level s computes one plane over its cone, the inner
+// (e - 2s)² of the tile, one plane behind level s - 1. A thread owns the
+// same cells at every level, so the axis-0 neighbour just computed is a
+// register; the other neighbours come from each level's ring of three
+// planes in shared memory, sized to its cone, with one barrier a plane
+// step (design notes at rmt_tb_sweep_3d_kernel). Tile, segment, threads
+// and where Cm is kept come from the Python plan (ops/multistep.tb3_plan),
+// which fills the card in whole waves and keeps the rings within shared
+// memory for every k in 1..16 and every dtype. The light-cone tiles this
+// replaced recomputed the whole tile every step (about 18 cells for each
+// core cell at k = 8) and took k <= 12 only. HeatDiffusion.run_hbm_blocked
+// runs it at the 3D app's 128³ (a 32-plane slab of 2.1 MB is within the
+// JAX package's slab budget), and run_deep's hbm-tb route on blocks whose
+// slab fits.
+//
+// Measured on an H100 (scripts/torch_kernel_ab.py and per-call CUDA
+// events, NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md §6 row 4): at 128³
+// k = 8 f32 a sweep takes 0.2205 ms against the old tiles' 1.9393, at
+// 144³ 0.2400 against 2.8282. It computes 2.3-2.6 cell updates for each
+// core update and is bound by neither bytes nor flops but by the
+// instructions around each update: with the update's arithmetic and four
+// in-plane reads left out (timing-only variants of an earlier form, 0.2312
+// ms) a 128³ sweep still took 0.1685 ms; without the loads of T and Cm
+// 0.2075, without the barrier 0.2245, without reading Cm 0.2254 (that
+// form's f32 k = 8 kernel is 2232 SASS instructions, 385 IMAD and 218
+// IADD3 against 336 FADD/FMUL).
+// Plans tried with earlier forms at 128³ and 144³ k = 8 (tile e1 × e2,
+// threads, planes a segment): 32×32 with 256 / 512 / 1024 threads, 24×32,
+// 40×32, 32×64, 36×64, 40×64, 48×48, 48×64, 64×64, segments of 8 to 72
+// planes, Cm through the shared ring or from device memory (the ring 2-6 %
+// faster at a given plan): the best within 10 % of each other, the best
+// 32×64, 1024 threads, 24 planes; the plan's pick read 9 % above the best
+// in f32, the best in f64, 21 % above it in bf16. Earlier forms (a level's
+// slot and cone reckoned per cell, k a runtime value: 0.2627 ms at best;
+// levels outer without k unrolled: 0.43) were slower.
 
 #include <cooperative_groups.h>
 
@@ -837,144 +869,351 @@ int tb2_occupancy(int k, int dev) {
 }
 
 // ---------------------------------------------------------------------------
-// rmt_tb_sweep, 3D: light-cone tiles in shared memory
+// rmt_tb_sweep, 3D: cross-section tiles streamed along axis 0
 // ---------------------------------------------------------------------------
 
-// Tile coordinates (j0, j1, j2) of tile cell j over extents (e0, e1, e2).
-__device__ __forceinline__ void tile_coords(int j, int e1, int e2, int* j0,
-                                            int* j1, int* j2) {
-  *j0 = j / (e1 * e2);
-  const int r = j - *j0 * (e1 * e2);
-  *j1 = r / e2;
-  *j2 = r - *j1 * e2;
+// Cells of the tile's cross-section a thread owns (the plan keeps e1 ·
+// tb3_pitch(e2) within kTb3MaxCells · threads), and the most threads a
+// block. ops/multistep.py reads these two lines (tb3_limits) rather than
+// restating them.
+constexpr int kTb3MaxCells = 3;
+constexpr int kTb3MaxThreads = 1024;
+// Every ring holds three planes, a cell's three side by side: level s's
+// plane g - s is written in step g while level s + 1 reads planes
+// g - s - 1 (the centre) and g - s - 2 (up). Level 0's ring is the tile of T
+// in the storage type.
+constexpr int kTb3Slots = 3;
+
+// A row of the tile takes whole warps: its lanes along axis 2.
+__host__ __device__ inline int tb3_pitch(int e2) { return (e2 + 31) / 32 * 32; }
+
+// Bytes of `planes` planes of the e1 × e2 tile in the storage type,
+// rounded up to 16 so that what lies behind them is aligned.
+template <typename S>
+__host__ __device__ inline int64_t tb3_tile_bytes(int planes, int e1, int e2) {
+  return (static_cast<int64_t>(planes) * e1 * e2 * static_cast<int64_t>(sizeof(S)) + 15) /
+         16 * 16;
 }
+
+// Shared bytes of a 3D block (ops/multistep.tb3_smem_bytes mirrors it):
+// level 0's ring (three planes of the tile of T), with `cm_ring` the ring
+// of Cm (k + 1 planes of the tile, each cell's own), then the ring of each
+// level L = 1 .. k - 1 over its cone (e1 - 2L) × (e2 - 2L) in the compute
+// type. Level k goes straight out.
+template <typename S>
+__host__ __device__ inline int64_t tb3_smem_bytes(int k, int e1, int e2, bool cm_ring) {
+  using C = typename Compute<S>::type;
+  int64_t cone = 0;
+  for (int L = 1; L < k; ++L) cone += static_cast<int64_t>(e1 - 2 * L) * (e2 - 2 * L);
+  return tb3_tile_bytes<S>(kTb3Slots, e1, e2) + (cm_ring ? tb3_tile_bytes<S>(k + 1, e1, e2) : 0) +
+         kTb3Slots * cone * static_cast<int64_t>(sizeof(C));
+}
+
+// A block owns a tile of the (axis 1, axis 2) cross-section — e1 × e2
+// loaded cells, a core of (e1 - 2K) × (e2 - 2K) and K halo cells a side —
+// over a segment of `seg` core planes plus K halo planes a side, and walks
+// it once along axis 0. Plane step g stores plane g of T (loaded into
+// registers in step g - 1, its loads in flight while that step computed)
+// into level 0's ring and advances each level s = 1..K by one plane: level
+// s computes plane g - s over its cone [s, e - s) on both axes from level
+// s - 1's planes g - s - 1 (up), g - s (centre and its four in-plane
+// neighbours) and g - s + 1 (down). A thread owns the same cells at every
+// level, so the down value is the one it computed for level s - 1 just
+// before (for level 1, its own T of plane g), in a register; up and centre
+// come from level s - 1's ring in shared memory, whose plane written this
+// step is one no one reads, so a plane step needs one barrier. Level K
+// writes a finished core plane straight out. K is a template argument: the
+// levels are unrolled, each level's slots and cone offset reckoned once a
+// step for all of a thread's cells, and a cell costs one index a level (its
+// place in level s's cone is its place in the tile less
+// s·(2·j1 + e2 + 1) - 2s²); a ring keeps a cell's three planes side by
+// side, so a level's centre, up and written plane are one address apart
+// (stored plane by plane instead, a 128³ sweep measured 0.2555 ms against
+// 0.2205). A thread advances all its cells a level at a time (independent
+// chains in flight). Cells and
+// planes outside the block stay 0, as the plain version reads them,
+// without arithmetic: their ring cells are never written (the rings start
+// at 0), and a level's plane outside the block is written as 0. Cm of
+// plane g is loaded with T's and, with `cm_ring`, stored into a ring of
+// K + 1 planes where level s reads its plane g - s, each thread its own
+// cells (no barrier); where that ring does not fit shared memory (the
+// plan's choice), level s reads Cm of plane g - s from device memory
+// (__ldg).
+template <typename S, int K>
+__global__ void __launch_bounds__(kTb3MaxThreads)
+rmt_tb_sweep_3d_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ out,
+                       int64_t n0, int64_t n1, int64_t n2, int e1, int e2, int tiles2,
+                       int64_t seg, bool cm_ring, typename Compute<S>::type inv0,
+                       typename Compute<S>::type inv1, typename Compute<S>::type inv2) {
+  using C = typename Compute<S>::type;
+  constexpr int kQ = kTb3MaxCells;
+  constexpr int kR = K + 1;  // planes of the Cm ring
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int plane = e1 * e2;
+  S* l0 = reinterpret_cast<S*>(smem_raw);
+  S* cmr = reinterpret_cast<S*>(smem_raw + tb3_tile_bytes<S>(kTb3Slots, e1, e2));
+  C* lv = reinterpret_cast<C*>(reinterpret_cast<unsigned char*>(cmr) +
+                               (cm_ring ? tb3_tile_bytes<S>(kR, e1, e2) : 0));
+  const int pitch = tb3_pitch(e2);
+  const int64_t s0 = n1 * n2;  // stride of axis 0
+  // Block coordinates of tile cell (0, 0), and the segment's core planes.
+  const int t1 = static_cast<int>(blockIdx.x) / tiles2;
+  const int t2 = static_cast<int>(blockIdx.x) - t1 * tiles2;
+  const int64_t o1 = static_cast<int64_t>(t1) * (e1 - 2 * K) - K;
+  const int64_t o2 = static_cast<int64_t>(t2) * (e2 - 2 * K) - K;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * seg;
+  const int64_t r1 = r0 + seg < n0 ? r0 + seg : n0;
+  // This thread's cells c = threadIdx.x + q · blockDim.x (q < nq) of the
+  // e1 × pitch lanes: `i0` its place in the tile (j1 · e2 + j2), `d`
+  // 2·j1 + e2 + 1; `reach` the levels it computes (its cone; 0 outside the
+  // block, -1 for a lane past the tile), so level K writes the cells that
+  // reach K; `at` its offset in a plane of the block (-1 outside it).
+  const int nq = (e1 * pitch + static_cast<int>(blockDim.x) - 1) / static_cast<int>(blockDim.x);
+  int i0[kQ], d[kQ], reach[kQ], at[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int c = static_cast<int>(threadIdx.x) + q * static_cast<int>(blockDim.x);
+    const int j1 = c / pitch;
+    const int j2 = c - j1 * pitch;
+    int r = j1 < j2 ? j1 : j2;
+    r = r < e1 - 1 - j1 ? r : e1 - 1 - j1;
+    r = r < e2 - 1 - j2 ? r : e2 - 1 - j2;
+    const int64_t g1 = o1 + j1, g2 = o2 + j2;
+    const bool inside = g1 >= 0 && g1 < n1 && g2 >= 0 && g2 < n2;
+    reach[q] = j1 >= e1 || j2 >= e2 ? -1 : inside ? (r < K ? r : K) : 0;
+    at[q] = inside ? static_cast<int>(g1 * n2 + g2) : -1;
+    i0[q] = j1 * e2 + j2;
+    d[q] = 2 * j1 + e2 + 1;
+  }
+  // Every ring starts at 0: the planes before the first one loaded.
+  {
+    const int64_t words = tb3_smem_bytes<S>(K, e1, e2, cm_ring) / 4;
+    uint32_t* w = reinterpret_cast<uint32_t*>(smem_raw);
+    for (int64_t i = threadIdx.x; i < words; i += blockDim.x) w[i] = 0u;
+  }
+  // Planes before the block are 0 in truth as in the zeroed rings, so the
+  // first segment starts at plane 0; every segment ends K planes past its
+  // core, where level K finishes the core's last plane. Plane x sits in
+  // slot (x - g_begin) mod 3 of a level's ring, mod K + 1 of the Cm ring.
+  const int64_t g_begin = r0 - K > 0 ? r0 - K : 0;
+  const int64_t g_end = r1 + K;
+  const C zero = C(0);
+  // This thread's T and Cm of plane g, and of g + 1 in flight (Cm only
+  // for the ring).
+  S tg[kQ], tn[kQ], cg[kQ], cn[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const bool on = q < nq && at[q] >= 0 && g_begin < n0;
+    tg[q] = on ? T[g_begin * s0 + at[q]] : narrow<S>(zero);
+    cg[q] = on && cm_ring ? Cm[g_begin * s0 + at[q]] : narrow<S>(zero);
+  }
+  __syncthreads();  // the zeroed rings, before level 0's first plane lands
+  int r3 = 0;       // plane g's slot in the levels' rings
+  int rr = 0;       // and in the Cm ring
+  for (int64_t g = g_begin; g < g_end; ++g) {
+    // Plane g into level 0's ring, where no one reads in this step, and
+    // its Cm into the Cm ring's slot no level reads in this step.
+    {
+      S* c_at = cmr + rr * plane;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        if (q >= nq) break;
+        if (reach[q] < 0) continue;
+        l0[3 * i0[q] + r3] = tg[q];
+        if (cm_ring) c_at[i0[q]] = cg[q];
+      }
+    }
+    if (g + 1 < g_end) {
+      const int64_t at_next = (g + 1) * s0;
+      const bool in_next = g + 1 < n0;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const bool on = q < nq && at[q] >= 0 && in_next;
+        tn[q] = on ? T[at_next + at[q]] : narrow<S>(zero);
+        cn[q] = on && cm_ring ? Cm[at_next + at[q]] : narrow<S>(zero);
+      }
+    }
+    int rc = rr == 0 ? K : rr - 1;  // plane g - 1's slot in the Cm ring
+    // Cm of plane p for cell q: its place in the Cm ring's plane `ring`,
+    // or device memory.
+    auto cm_of = [&](int q, const S* ring, int64_t p) -> C {
+      return widen(cm_ring ? ring[i0[q]] : __ldg(Cm + p * s0 + at[q]));
+    };
+    C v[kQ];  // level s at plane g - s, cell by cell
+    {  // level 1 at plane g - 1, from level 0's ring
+      const int r3c = r3 == 0 ? 2 : r3 - 1;  // plane g - 1
+      const int r3u = r3c == 0 ? 2 : r3c - 1;  // plane g - 2
+      const int64_t p = g - 1;
+      if (p >= 0 && p < n0) {
+        const S* cmp = cmr + rc * plane;
+        const int w3 = 3 * e2;
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          if (q >= nq) break;
+          if (reach[q] < 1) continue;
+          const S* cell = l0 + 3 * i0[q];
+          const S* cen = cell + r3c;
+          v[q] = update<C, 3, kDirect>(widen(cen[0]), cm_of(q, cmp, p),
+                                       widen(tg[q]) + widen(cell[r3u]),
+                                       widen(cen[w3]) + widen(cen[-w3]),
+                                       widen(cen[3]) + widen(cen[-3]), inv0, inv1, inv2);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) v[q] = zero;
+      }
+    }
+    // Levels 2..K. Ring s starts at `off` in lv, its cone `size` cells in
+    // rows of w, a cell's three planes side by side; this step writes its
+    // plane g - s (slot `ws`) and reads g - s - 1 (slot (ws + 2) mod 3, the
+    // centre) and g - s - 2 (slot (ws + 1) mod 3, up).
+    int off = 0;
+    int ws = r3 == 0 ? 2 : r3 - 1;  // level 1's plane g - 1
+#pragma unroll
+    for (int s = 1; s < K; ++s) {
+      const int w = e2 - 2 * s;
+      const int size = (e1 - 2 * s) * w;
+      const int cs = ws == 0 ? 2 : ws - 1;
+      const int us = cs == 0 ? 2 : cs - 1;
+      C* ring = lv + off;
+      const int w3 = 3 * w;
+      const int64_t p = g - s - 1;  // level s + 1's plane
+      const bool in = p >= 0 && p < n0;
+      rc = rc == 0 ? K : rc - 1;
+      const S* cmp = cmr + rc * plane;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        if (q >= nq) break;
+        if (reach[q] < s) continue;
+        C* cell = ring + 3 * (i0[q] - s * d[q] + 2 * s * s);
+        cell[ws] = v[q];
+        if (reach[q] == s) continue;
+        const C* cen = cell + cs;
+        v[q] = in ? update<C, 3, kDirect>(cen[0], cm_of(q, cmp, p), v[q] + cell[us],
+                                          cen[w3] + cen[-w3], cen[3] + cen[-3], inv0,
+                                          inv1, inv2)
+                  : zero;
+      }
+      off += kTb3Slots * size;
+      ws = cs;
+    }
+    const int64_t p = g - K;  // level K's plane
+    if (p >= r0 && p < r1) {
+      S* dst = out + p * s0;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        if (q >= nq) break;
+        if (reach[q] == K) dst[at[q]] = narrow<S>(v[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      tg[q] = tn[q];
+      cg[q] = cn[q];
+    }
+    r3 = r3 == 2 ? 0 : r3 + 1;
+    rr = rr == K ? 0 : rr + 1;
+    __syncthreads();
+  }
+}
+
+// The 3D kernel's depth K is a template argument: one instantiation per K
+// in 1..16 (as the 2D kernel's, RMT_TB2_K_CASES).
+template <typename S>
+using Tb3Kernel = void (*)(const S*, const S*, S*, int64_t, int64_t, int64_t, int, int, int,
+                           int64_t, bool, typename Compute<S>::type, typename Compute<S>::type,
+                           typename Compute<S>::type);
 
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
-rmt_tb_sweep_3d_kernel(const S* __restrict__ T, const S* __restrict__ Cm, S* __restrict__ out, int k,
-           int64_t n0, int64_t n1, int64_t n2, int t0, int t1, int t2,
-           typename Compute<S>::type inv0, typename Compute<S>::type inv1,
-           typename Compute<S>::type inv2) {
-  using C = typename Compute<S>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // Tile = core (t0, t1, t2) plus k halo cells per side on each axis.
-  const int e0 = t0 + 2 * k;
-  const int e1 = t1 + 2 * k;
-  const int e2 = t2 + 2 * k;
-  const int tile = e0 * e1 * e2;
-  C* a = reinterpret_cast<C*>(smem_raw);
-  C* b = a + tile;
-  C* cm = b + tile;
-  // Block coordinates of tile cell (0, 0, 0).
-  const int64_t o0 = static_cast<int64_t>(blockIdx.z) * t0 - k;
-  const int64_t o1 = static_cast<int64_t>(blockIdx.y) * t1 - k;
-  const int64_t o2 = static_cast<int64_t>(blockIdx.x) * t2 - k;
-  const int64_t s1 = n2;
-  const int64_t s0 = n1 * n2;
-  const C zero = C(0);
-  for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-    int j0, j1, j2;
-    tile_coords(j, e1, e2, &j0, &j1, &j2);
-    const int64_t g0 = o0 + j0, g1 = o1 + j1, g2 = o2 + j2;
-    const bool inside = g0 >= 0 && g0 < n0 && g1 >= 0 && g1 < n1 && g2 >= 0 && g2 < n2;
-    const int64_t g = g0 * s0 + g1 * s1 + g2;
-    a[j] = inside ? widen(T[g]) : zero;
-    cm[j] = inside ? widen(Cm[g]) : zero;
-  }
-  __syncthreads();
-
-  const int st0 = e1 * e2;  // tile strides
-  const int st1 = e2;
-  for (int step = 0; step < k; ++step) {
-    for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-      int j0, j1, j2;
-      tile_coords(j, e1, e2, &j0, &j1, &j2);
-      const C p0 = (j0 + 1 < e0 ? a[j + st0] : zero) + (j0 > 0 ? a[j - st0] : zero);
-      const C p1 = (j1 + 1 < e1 ? a[j + st1] : zero) + (j1 > 0 ? a[j - st1] : zero);
-      const C p2 = (j2 + 1 < e2 ? a[j + 1] : zero) + (j2 > 0 ? a[j - 1] : zero);
-      b[j] = update<C, 3, kDirect>(a[j], cm[j], p0, p1, p2, inv0, inv1, inv2);
-    }
-    __syncthreads();
-    C* swap = a;
-    a = b;
-    b = swap;
-  }
-
-  const int core = t0 * t1 * t2;
-  for (int j = threadIdx.x; j < core; j += blockDim.x) {
-    int j0, j1, j2;
-    tile_coords(j, t1, t2, &j0, &j1, &j2);
-    const int64_t g0 = o0 + k + j0, g1 = o1 + k + j1, g2 = o2 + k + j2;
-    if (g0 < n0 && g1 < n1 && g2 < n2) {
-      const int tj = (j0 + k) * st0 + (j1 + k) * st1 + j2 + k;
-      out[g0 * s0 + g1 * s1 + g2] = narrow<S>(a[tj]);
-    }
+Tb3Kernel<S> tb3_kernel(int k) {
+  switch (k) {
+#define RMT_CASE(K) case K: return rmt_tb_sweep_3d_kernel<S, K>;
+    RMT_TB2_K_CASES(RMT_CASE)
+#undef RMT_CASE
+    default: return nullptr;
   }
 }
 
-// Shared bytes of a 3D tile: two T buffers and Cm, each (core + 2k)
-// cells per axis of the compute type.
-template <typename C>
-int64_t tile_bytes(int k, const int* t) {
-  int64_t cells = 1;
-  for (int ax = 0; ax < 3; ++ax) cells *= t[ax] + 2 * k;
-  return 3 * cells * static_cast<int64_t>(sizeof(C));
+// Per device and instantiation, once: the kernel may take the device's
+// opt-in shared memory a block. Returns 0, -1 for a device index or k out
+// of range, or a CUDA error.
+template <typename S>
+int tb3_prepare(int k, int dev, int* optin) {
+  static int limit[17][kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices || k < 1 || k > 16) return -1;
+  if (limit[k][dev] == 0) {
+    int got = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&got, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(tb3_kernel<S>(k), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               got);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit[k][dev] = got;
+  }
+  *optin = limit[k][dev];
+  return 0;
+}
+
+// A plan the kernel takes: 1 <= k <= 16, a core on both axes, whole warps
+// up to kTb3MaxThreads, at most kTb3MaxCells cells a thread, shared bytes
+// within the device's limit. Returns the shared bytes, or -1.
+template <typename S>
+int64_t tb3_check(int k, int e1, int e2, int threads, bool cm_ring, int optin) {
+  if (k < 1 || k > 16 || e1 - 2 * k < 1 || e2 - 2 * k < 1 || threads < 32 ||
+      threads > kTb3MaxThreads || threads % 32 != 0 ||
+      static_cast<int64_t>(e1) * tb3_pitch(e2) > static_cast<int64_t>(kTb3MaxCells) * threads)
+    return -1;
+  const int64_t smem = tb3_smem_bytes<S>(k, e1, e2, cm_ring);
+  return smem <= optin ? smem : -1;
 }
 
 template <typename S>
 int launch_tb3(int k, const void* T, const void* Cm, void* out, int64_t n0, int64_t n1,
-               int64_t n2, double inv0, double inv1, double inv2, int dev,
-               cudaStream_t stream) {
+               int64_t n2, int64_t seg, int e1, int e2, int threads, bool cm_ring, double inv0,
+               double inv1, double inv2, int dev, cudaStream_t stream) {
   using C = typename Compute<S>::type;
-  // Per device, read once: the block's shared-memory limit, and the
-  // largest dynamic size set on the kernel so far.
-  static int optin[kMaxDevices] = {};
-  static int64_t allowed[kMaxDevices] = {};
-  if (dev < 0 || dev >= kMaxDevices) return -1;
-  if (optin[dev] == 0) {
-    const cudaError_t err =
-        cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  // The halo is most of a 3D tile, so take the largest tile shared memory
-  // holds (one block per SM): start at 16³ of core and halve the largest
-  // axis until it fits.
-  int t[3] = {16, 16, 16};
-  while (tile_bytes<C>(k, t) > optin[dev]) {
-    int big = 0;
-    for (int ax = 1; ax < 3; ++ax)
-      if (t[ax] > t[big]) big = ax;
-    if (t[big] == 1) break;
-    t[big] /= 2;
-  }
-  const int64_t smem = tile_bytes<C>(k, t);
-  if (smem > optin[dev]) return -3;  // the light cone does not fit shared memory
-  if (smem > allowed[dev]) {
-    auto kernel = rmt_tb_sweep_3d_kernel<S>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed[dev] = smem;
-  }
-  const int64_t gx = (n2 + t[2] - 1) / t[2];
-  const int64_t gy = (n1 + t[1] - 1) / t[1];
-  const int64_t gz = (n0 + t[0] - 1) / t[0];
-  if (gx > 2147483647LL || gy > 65535 || gz > 65535) return -2;
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
-                  static_cast<unsigned>(gz));
-  rmt_tb_sweep_3d_kernel<S><<<grid, kThreads, static_cast<size_t>(smem), stream>>>(
-      static_cast<const S*>(T), static_cast<const S*>(Cm), static_cast<S*>(out), k, n0, n1,
-      n2, t[0], t[1], t[2], C(inv0), C(inv1), C(inv2));
+  int optin = 0;
+  const int rc = tb3_prepare<S>(k, dev, &optin);
+  if (rc != 0) return rc;
+  const int64_t smem = tb3_check<S>(k, e1, e2, threads, cm_ring, optin);
+  if (smem < 0 || seg < 1 || n0 < 1 || n1 < 1 || n2 < 1) return -1;
+  if (n1 * n2 > 2147483647LL) return -2;  // a cell's offset in a plane is an int
+  const int64_t tiles2 = (n2 + e2 - 2 * k - 1) / (e2 - 2 * k);
+  const int64_t tiles = (n1 + e1 - 2 * k - 1) / (e1 - 2 * k) * tiles2;
+  const int64_t segments = (n0 + seg - 1) / seg;
+  if (tiles > 2147483647LL || segments > 65535) return -2;
+  tb3_kernel<S>(k)<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(segments)),
+                     threads, static_cast<size_t>(smem), stream>>>(
+      static_cast<const S*>(T), static_cast<const S*>(Cm), static_cast<S*>(out), n0, n1, n2,
+      e1, e2, static_cast<int>(tiles2), seg, cm_ring, C(inv0), C(inv1), C(inv2));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of a 3D plan that one SM of device `dev` holds at once (> 0), or
+// a failure below 1 (-1 for a plan the kernel does not take, minus a CUDA
+// error).
+template <typename S>
+int tb3_blocks_per_sm(int k, int e1, int e2, int threads, bool cm_ring, int dev) {
+  int optin = 0;
+  const int rc = tb3_prepare<S>(k, dev, &optin);
+  if (rc != 0) return rc < 0 ? rc : -rc;
+  const int64_t smem = tb3_check<S>(k, e1, e2, threads, cm_ring, optin);
+  if (smem < 0) return -1;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, tb3_kernel<S>(k), threads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return blocks;
 }
 
 template <typename S>
 int tb_ndim(int ndim, int k, const void* T, const void* Cm, void* out, int64_t n0,
-            int64_t n1, int64_t n2, int64_t seg_rows, double inv0, double inv1,
-            double inv2, int dev, cudaStream_t s) {
+            int64_t n1, int64_t n2, int64_t seg_rows, int e1, int e2, int threads,
+            int cm_ring, double inv0, double inv1, double inv2, int dev, cudaStream_t s) {
   if (ndim == 2)
     return tb2_dispatch<S>(k, T, Cm, out, n0, n1, seg_rows, inv0, inv1, dev, s);
-  return launch_tb3<S>(k, T, Cm, out, n0, n1, n2, inv0, inv1, inv2, dev, s);
+  return launch_tb3<S>(k, T, Cm, out, n0, n1, n2, seg_rows, e1, e2, threads, cm_ring != 0,
+                       inv0, inv1, inv2, dev, s);
 }
 
 }  // namespace
@@ -984,8 +1223,8 @@ int tb_ndim(int ndim, int k, const void* T, const void* Cm, void* out, int64_t n
 // Return codes: 0 on success, >0 a CUDA error (the launch's, or
 // cudaGetLastError() after it), -1 an unsupported dtype, rank, form, step
 // count or plan, -2 a grid that overflows a launch dimension, -3 a launch
-// that cannot fit (no co-resident block; a light cone larger than shared
-// memory). Launches are asynchronous on `stream`; nothing here allocates.
+// that cannot fit (no co-resident block). Launches are asynchronous on
+// `stream`; nothing here allocates.
 
 // `form`: 0 direct, 1 A/c, 2 eqc, 3 conly. The route is the caller's plan
 // (ops/resident.py), made before the launch: `cluster` > 0 launches one
@@ -1036,24 +1275,58 @@ extern "C" int rmt_multi_step_cm_caps(int dtype, int ndim, int form, int dev, in
   }
 }
 
-// `k` direct-form steps, 1 <= k <= 16. `out` must not alias `T`. 2D takes
-// `seg_rows` core rows a segment from the plan of ops/multistep.tb_plan;
-// 3D ignores it. `dev` is the current device's index.
+// `k` direct-form steps, 1 <= k <= 16. `out` must not alias `T`. The plan
+// is the caller's: 2D takes `seg_rows` core rows a segment from
+// ops/multistep.tb_plan and ignores the rest; 3D takes `seg_rows` core
+// planes a segment, the e1 × e2 tile, `threads` a block and whether Cm
+// goes through a ring in shared memory (`cm_ring`) from
+// ops/multistep.tb3_plan (-1 for a plan the kernel does not take). `dev`
+// is the current device's index.
 extern "C" int rmt_tb_sweep(int dtype, int ndim, int k, const void* T,
                             const void* Cm, void* out, int64_t n0, int64_t n1,
-                            int64_t n2, int64_t seg_rows, double inv0, double inv1,
-                            double inv2, int dev, void* stream) {
+                            int64_t n2, int64_t seg_rows, int e1, int e2, int threads,
+                            int cm_ring, double inv0, double inv1, double inv2, int dev,
+                            void* stream) {
   if ((ndim != 2 && ndim != 3) || k < 1 || k > 16) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return tb_ndim<float>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, inv0, inv1, inv2, dev, s);
+      return tb_ndim<float>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, e1, e2, threads,
+                            cm_ring, inv0, inv1, inv2, dev, s);
     case kF64:
-      return tb_ndim<double>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, inv0, inv1, inv2, dev, s);
+      return tb_ndim<double>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, e1, e2, threads,
+                             cm_ring, inv0, inv1, inv2, dev, s);
     case kBF16:
-      return tb_ndim<__nv_bfloat16>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, inv0, inv1, inv2, dev, s);
+      return tb_ndim<__nv_bfloat16>(ndim, k, T, Cm, out, n0, n1, n2, seg_rows, e1, e2, threads,
+                                    cm_ring, inv0, inv1, inv2, dev, s);
     default:
       return -1;
+  }
+}
+
+// Blocks of a 3D tb_sweep plan (k, e1 × e2 tile, threads, cm_ring) that
+// one SM of device `dev` holds at once (> 0), or a failure below 1; the
+// plan weighs its candidates by it.
+extern "C" int rmt_tb3_blocks_per_sm(int dtype, int k, int e1, int e2, int threads, int cm_ring,
+                                     int dev) {
+  const bool ring = cm_ring != 0;
+  switch (dtype) {
+    case kF32: return tb3_blocks_per_sm<float>(k, e1, e2, threads, ring, dev);
+    case kF64: return tb3_blocks_per_sm<double>(k, e1, e2, threads, ring, dev);
+    case kBF16: return tb3_blocks_per_sm<__nv_bfloat16>(k, e1, e2, threads, ring, dev);
+    default: return -1;
+  }
+}
+
+// Shared bytes a block of a 3D plan takes (-1 for an unsupported dtype):
+// what ops/multistep.tb3_smem_bytes computes, asked of the kernel.
+extern "C" int64_t rmt_tb3_smem_bytes(int dtype, int k, int e1, int e2, int cm_ring) {
+  const bool ring = cm_ring != 0;
+  switch (dtype) {
+    case kF32: return tb3_smem_bytes<float>(k, e1, e2, ring);
+    case kF64: return tb3_smem_bytes<double>(k, e1, e2, ring);
+    case kBF16: return tb3_smem_bytes<__nv_bfloat16>(k, e1, e2, ring);
+    default: return -1;
   }
 }
 

@@ -55,7 +55,8 @@ _SIGNATURES = {
                             C_INT, C_PTR]),  # vectors, stream
     "rmt_kp_flux_layout": (C_INT, [C_INT, C_I64, C_I64, C_INT]),
     "rmt_kp_residual": (C_INT, [C_INT, C_PTR, C_PTR, C_PTR, C_PTR, C_I64, C_I64, C_DBL,
-                                C_DBL, C_PTR]),
+                                C_DBL, C_INT, C_PTR]),  # vectors, stream
+    "rmt_kp_residual_layout": (C_INT, [C_INT, C_I64, C_I64, C_INT]),
     "rmt_kp_update": (C_INT, [C_INT, C_PTR, C_PTR, C_PTR, C_I64, C_I64, C_DBL, C_PTR]),
 }
 
@@ -157,12 +158,32 @@ def kp_flux(Tp, lam, spacing, out=None):
     return tuple(out)
 
 
+def residual_layout(qx, Cp, out) -> str:
+    """The layout (kernels.LAYOUT_NAMES) of kp_residual's launch on these
+    CUDA operands, asked of the built kernel (csrc/kp.cu residual_layout):
+    one cell a thread for a field too small to fill the card with 16-byte
+    lanes (the kp app's 128²), else the vectors where masked_layout allows
+    them over qx, Cp and out (never in f64), else scalar cells. qy is read
+    cell by cell in every layout."""
+    lx, ly = (int(n) for n in Cp.shape)
+    return launch_layout("kp", _SIGNATURES, "rmt_kp_residual_layout", _DTYPE_CODE[Cp.dtype],
+                         lx, ly, _residual_vectors(qx, Cp, out))
+
+
+def _residual_vectors(qx, Cp, out) -> bool:
+    return masked_layout(int(Cp.shape[-1]), Cp.dtype, qx.data_ptr(), Cp.data_ptr(),
+                         out.data_ptr())
+
+
 def kp_residual(qx, qy, Cp, spacing, out=None):
     """Conservation of energy: dTdt = -∇·q / Cp on the core (lx, ly).
 
     Replaces pallas_kernels._residual_kernel (file:350; its pallas_call
     :397). Bound on the H100: memory — read qx, qy and Cp, write dTdt
-    (four passes).
+    (four passes). Design: the flux's walk — a lane moves 16 bytes of a
+    row down a run of rows, each qx row read once, or, for a field too
+    small to fill the card that way, one cell a thread (csrc/kp.cu,
+    residual_layout).
     """
     _check_2d("kp_residual", Cp)
     lx, ly = (int(n) for n in Cp.shape)
@@ -181,7 +202,8 @@ def kp_residual(qx, qy, Cp, spacing, out=None):
     if out is None:
         out = torch.empty((lx, ly), dtype=Cp.dtype, device=Cp.device)
     launch("kp", _SIGNATURES, "rmt_kp_residual", Cp.device, _DTYPE_CODE[Cp.dtype],
-           qx.data_ptr(), qy.data_ptr(), Cp.data_ptr(), out.data_ptr(), lx, ly, *inv_d)
+           qx.data_ptr(), qy.data_ptr(), Cp.data_ptr(), out.data_ptr(), lx, ly, *inv_d,
+           _residual_vectors(qx, Cp, out))
     LAUNCHES["kp_residual"] += 1
     return out
 

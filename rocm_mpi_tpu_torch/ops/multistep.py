@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 import re
 import warnings
@@ -80,11 +81,15 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,        # T, Cm, out
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,           # extents
         ctypes.c_int64,                                           # seg_rows
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,   # 3D: e1, e2, threads, cm_ring
         ctypes.c_double, ctypes.c_double, ctypes.c_double,        # inv_d2
         ctypes.c_int,                                             # device index
         ctypes.c_void_p,                                          # cudaStream_t
     ]),
     "rmt_tb_warps_per_sm": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    # dtype, k, e1, e2, threads, cm_ring, dev; dtype, k, e1, e2, cm_ring
+    "rmt_tb3_blocks_per_sm": (ctypes.c_int, [ctypes.c_int] * 7),
+    "rmt_tb3_smem_bytes": (ctypes.c_int64, [ctypes.c_int] * 5),
 }
 
 
@@ -353,6 +358,220 @@ def tb_tiles(plan: TbPlan, shape):
                    (strip * plan.core_cols, min((strip + 1) * plan.core_cols, n1)))
 
 
+class Tb3Limits(NamedTuple):
+    """The 3D tb_sweep kernel's limits: cells of the tile a thread owns
+    and threads a block (csrc/multistep.cu's kTb3MaxCells,
+    kTb3MaxThreads)."""
+
+    max_cells: int
+    max_threads: int
+
+
+@functools.lru_cache(maxsize=None)
+def tb3_limits() -> Tb3Limits:
+    """The limits as the kernel's source states them, read from it."""
+    return Tb3Limits(*(resident._constant("multistep.cu", name)
+                       for name in ("kTb3MaxCells", "kTb3MaxThreads")))
+
+
+def tb3_pitch(e2: int) -> int:
+    """Lanes of a tile row: whole warps (multistep.cu tb3_pitch)."""
+    return -(-e2 // 32) * 32
+
+
+def tb3_smem_bytes(k: int, e1: int, e2: int, dtype: torch.dtype, cm_ring: bool) -> int:
+    """Shared bytes of a 3D block (multistep.cu tb3_smem_bytes): level 0's
+    ring of three planes of the e1 × e2 tile of T and, with `cm_ring`, the
+    ring of k + 1 planes of Cm, both in the storage type (each rounded up
+    to 16 bytes), then a ring of three planes of each level L = 1..k-1
+    over its cone (e1 - 2L) × (e2 - 2L) in the compute type."""
+    item = torch.empty((), dtype=dtype).element_size()
+
+    def tile(planes):
+        return -(-planes * e1 * e2 * item // 16) * 16
+
+    cone = sum((e1 - 2 * L) * (e2 - 2 * L) for L in range(1, k))
+    return tile(3) + (tile(k + 1) if cm_ring else 0) + 3 * cone * _compute_itemsize(dtype)
+
+
+# An H100's shared memory a block may opt into, and the resident blocks the
+# plan assumes where it is not given the card's answer (the CPU tests).
+H100_SMEM_OPTIN = 232_448
+_SM_SMEM = 233_472  # an SM's shared memory; each block also takes 1 KB of it
+
+
+def tb3_resident_estimate(threads: int, smem: int) -> int:
+    """Blocks an H100 SM holds of a 3D plan, from threads (at most 64
+    registers a thread, the kernel's launch bound) and shared bytes: what
+    rmt_tb3_blocks_per_sm answers on the card, for plans made without
+    one."""
+    return max(0, min(65536 // (64 * threads), _SM_SMEM // (smem + 1024), 32))
+
+
+class Tb3Plan(NamedTuple):
+    """How the 3D tb_sweep kernel cuts an (n0, n1, n2) block: tiles of the
+    (axis 1, axis 2) cross-section of e1 × e2 loaded cells (a core of
+    (e1 - 2k) × (e2 - 2k) and k halo cells a side), `tiles1` × `tiles2` of
+    them, over `segments` segments of `seg` core planes (loaded with k
+    halo planes a side); one block of `threads` a (tile, segment), in
+    `waves` rounds of the card's `blocks_per_sm` resident blocks an SM.
+    `cm_ring`: Cm goes through a ring in shared memory (where it fits),
+    else each level reads it from device memory. The kernel takes k, e1,
+    e2, threads, seg and cm_ring and derives the rest."""
+
+    k: int
+    e1: int
+    e2: int
+    threads: int
+    seg: int
+    cm_ring: bool
+    tiles1: int
+    tiles2: int
+    segments: int
+    blocks_per_sm: int
+    waves: int
+    smem: int
+
+
+# The 3D plan's cost model, in SM cycles: the issue cycles of one warp's
+# pass over one level of its row (a cell's ~30 instructions: six shared
+# reads, a read of Cm, the update, a store), and the latency of one
+# thread's dependent chain through a level (a shared read, the update's
+# operations in a row, the store). A level that reads Cm from device
+# memory is weighed double, so the plan takes the ring wherever it fits
+# (measured 2-6 % faster at a given plan on an H100).
+_TB3_PASS_CYCLES = 30 / 4  # four schedulers an SM
+_TB3_LATENCY = 100
+_TB3_DEVICE_CM = 2.0
+
+
+@functools.lru_cache(maxsize=None)
+def _tb3_row_levels(k: int, e1: int, e2: int) -> int:
+    """Warp passes a plane step costs a block: for each tile row and warp
+    of it, one pass for level 0 and one for each level its lanes reach
+    (the farthest lane's: the one nearest the row's middle)."""
+    passes = 0
+    for first in range(0, e2, 32):
+        j2 = min(max((e2 - 1) // 2, first), min(first + 32, e2) - 1)
+        cols = min(j2, e2 - 1 - j2)
+        passes += sum(1 + min(j1, e1 - 1 - j1, k, cols) for j1 in range(e1))
+    return passes
+
+
+def _tb3_candidates(shape, k: int):
+    """(e1, e2, threads) of the plans considered: cores of a few sizes up to
+    the block's extent (e2 also at the warp widths 32..128), 32 to 1024
+    threads, at most max_cells cells a thread and no thread without one."""
+    _, n1, n2 = shape
+    limits = tb3_limits()
+    cores1 = {c for c in (1, 2, 4, 8, 12, 16, 24, 32, 48, 64, n1) if c <= n1}
+    e2s = {2 * k + c for c in (1, 2, 4, 8, n2) if c <= n2}
+    e2s |= {w for w in (32, 64, 96, 128) if 2 * k < w <= n2 + 2 * k}
+    for e1 in sorted(2 * k + c for c in cores1):
+        for e2 in sorted(e2s):
+            lanes = e1 * tb3_pitch(e2)
+            for threads in (32, 64, 128, 256, 512, 1024):
+                if (threads <= min(lanes, limits.max_threads)
+                        and lanes <= limits.max_cells * threads):
+                    yield e1, e2, threads
+
+
+def tb3_plan(shape, k: int, dtype: torch.dtype, sms: int, blocks_per_sm=None,
+             smem_limit: int = H100_SMEM_OPTIN) -> Tb3Plan:
+    """The 3D tb_sweep plan of a k-step sweep over `shape` in `dtype` on a
+    card of `sms` SMs. `blocks_per_sm(e1, e2, threads, cm_ring)` is the
+    card's answer for a candidate (tb3_resident_estimate where None). Each
+    candidate tile, thread count and Cm route is sized in segments to
+    minimise the estimated time, waves × the slower of a wave's issue
+    cycles (the blocks of an SM share its schedulers) and one block's
+    latency chain; ties go to the smaller tile."""
+    n0, n1, n2 = (int(n) for n in shape)
+    if not 1 <= k <= _TB_MAX_STEPS:
+        raise ValueError(f"tb_sweep supports 1 <= k <= {_TB_MAX_STEPS}, got {k}")
+    if min(n0, n1, n2) < 1 or sms < 1:
+        raise ValueError(f"tb3_plan: empty block {tuple(shape)} or no SMs")
+    best = None
+    for (e1, e2, threads), cm_ring in itertools.product(_tb3_candidates((n0, n1, n2), k),
+                                                        (True, False)):
+        smem = tb3_smem_bytes(k, e1, e2, dtype, cm_ring)
+        if smem > smem_limit:
+            continue
+        resident = (tb3_resident_estimate(threads, smem) if blocks_per_sm is None
+                    else blocks_per_sm(e1, e2, threads, cm_ring))
+        if resident < 1:
+            continue
+        tiles1, tiles2 = -(-n1 // (e1 - 2 * k)), -(-n2 // (e2 - 2 * k))
+        slow = 1.0 if cm_ring else _TB3_DEVICE_CM
+        passes = _tb3_row_levels(k, e1, e2) * slow
+        chain = -(-e1 * tb3_pitch(e2) // threads) * (k + 1) * _TB3_LATENCY * slow
+        last = None
+        for segments in range(1, n0 + 1):
+            seg = -(-n0 // segments)
+            if seg == last:
+                continue
+            last = seg
+            segments = -(-n0 // seg)
+            blocks = tiles1 * tiles2 * segments
+            waves = -(-blocks // (sms * resident))
+            per_sm = min(resident, -(-blocks // sms))
+            steps = seg + (k if segments == 1 else 2 * k)
+            cost = waves * steps * max(per_sm * passes * _TB3_PASS_CYCLES, chain)
+            key = (cost, e1 * e2, threads)
+            if best is None or key < best[0]:
+                best = (key, Tb3Plan(k, e1, e2, threads, seg, cm_ring, tiles1, tiles2,
+                                     segments, resident, waves, smem))
+            if seg <= 2 * k:
+                break  # shorter segments are mostly halo
+    if best is None:
+        raise ValueError(f"tb_sweep: no 3D plan of k={k} {dtype} fits {smem_limit} B of "
+                         f"shared memory for {tuple(shape)}")
+    return best[1]
+
+
+def tb3_tiles(plan: Tb3Plan, shape):
+    """The core boxes ((r0, r1), (a0, a1), (b0, b1)) of the plan's blocks
+    over `shape`, clipped to the block."""
+    n0, n1, n2 = (int(n) for n in shape)
+    c1, c2 = plan.e1 - 2 * plan.k, plan.e2 - 2 * plan.k
+    for seg in range(plan.segments):
+        for t1 in range(plan.tiles1):
+            for t2 in range(plan.tiles2):
+                yield ((seg * plan.seg, min((seg + 1) * plan.seg, n0)),
+                       (t1 * c1, min((t1 + 1) * c1, n1)), (t2 * c2, min((t2 + 1) * c2, n2)))
+
+
+def tb3_updates(plan: Tb3Plan, shape) -> int:
+    """Cell updates a launch of the plan computes: each block's plane
+    steps times the cones of its levels (halo and cells past the block's
+    edge included) — against math.prod(shape) · k that the sweep needs."""
+    n0 = int(shape[0])
+    k, e1, e2 = plan.k, plan.e1, plan.e2
+    cone = sum((e1 - 2 * s) * (e2 - 2 * s) for s in range(1, k + 1))
+    steps = 0
+    for seg in range(plan.segments):
+        r0, r1 = seg * plan.seg, min((seg + 1) * plan.seg, n0)
+        steps += r1 + k - max(r0 - k, 0)
+    return steps * plan.tiles1 * plan.tiles2 * cone
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan3(index: int, shape: tuple, k: int, dtype) -> Tb3Plan:
+    """tb3_plan for CUDA device `index`: its SMs, shared memory a block and
+    resident blocks of each candidate asked of the card and the built
+    kernel once per (device, shape, k, dtype)."""
+    lib = _build.load("multistep", _SIGNATURES)
+    props = torch.cuda.get_device_properties(index)
+    code = _DTYPE_CODE[dtype]
+
+    def blocks_per_sm(e1, e2, threads, cm_ring):
+        with torch.cuda.device(index):
+            return max(0, lib.rmt_tb3_blocks_per_sm(code, k, e1, e2, threads, int(cm_ring),
+                                                    index))
+
+    return tb3_plan(shape, k, dtype, props.multi_processor_count, blocks_per_sm,
+                    getattr(props, "shared_memory_per_block_optin", H100_SMEM_OPTIN))
+
+
 @functools.lru_cache(maxsize=None)
 def _device_plan(index: int, shape: tuple, k: int, dtype) -> TbPlan:
     """tb_plan for CUDA device `index`, its resident warps read from the
@@ -512,22 +731,29 @@ def device_plan(index: int, shape: tuple, dtype: torch.dtype,
 
 
 def tb_sweep(T, Cm, inv_d2, k: int, out=None):
-    """The tb_sweep kernel's wrapper: `k` direct-form steps by temporal
-    blocking in one launch for CUDA tensors, tb_sweep_plain for CPU ones.
-    A 2D launch follows tb_plan for its device, shape, k and dtype."""
+    """The tb_sweep kernel's wrapper: `k` (1..16) direct-form steps by
+    temporal blocking in one launch for CUDA tensors, tb_sweep_plain for
+    CPU ones. Each launch follows its plan for the device, shape, k and
+    dtype: a 2D launch tb_plan's column strips and row segments, a 3D one
+    tb3_plan's cross-section tiles, segments, threads and Cm route."""
     _check_operands("tb_sweep", T, Cm, out)
+    k = int(k)
+    if not 1 <= k <= _TB_MAX_STEPS:
+        raise ValueError(f"tb_sweep supports 1 <= k <= {_TB_MAX_STEPS}, got k={k}")
     operands = (T, Cm) if out is None else (T, Cm, out)
     if not use_kernel(*operands):
         return tb_sweep_plain(T, Cm, inv_d2, k, out=out)
-    k = int(k)
     if out is None:
         out = torch.empty_like(T)
-    seg_rows = 0
+    index = T.device.index
     if T.ndim == 2:
-        seg_rows = _device_plan(T.device.index, tuple(T.shape), k, T.dtype).seg_rows
+        cut = (_device_plan(index, tuple(T.shape), k, T.dtype).seg_rows, 0, 0, 0, 0)
+    else:
+        p = _device_plan3(index, tuple(T.shape), k, T.dtype)
+        cut = (p.seg, p.e1, p.e2, p.threads, int(p.cm_ring))
     launch("multistep", _SIGNATURES, "rmt_tb_sweep", T.device, _DTYPE_CODE[T.dtype], T.ndim,
-           k, T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(T.shape), seg_rows,
-           *inv3(inv_d2), T.device.index)
+           k, T.data_ptr(), Cm.data_ptr(), out.data_ptr(), *extents(T.shape), *cut,
+           *inv3(inv_d2), index)
     LAUNCHES["tb_sweep"] += 1
     return out
 

@@ -1,6 +1,6 @@
 """Time two checkouts of the PyTorch/CUDA port's masked_step, tb_sweep,
 kp_update, multi_step_cm, wave_multi_step, swe_multi_step, fused_step_cm,
-kp_flux and fused_step_padded side by side on one CUDA card.
+kp_flux, fused_step_padded and kp_residual side by side on one CUDA card.
 
     python scripts/torch_kernel_ab.py --roots OLD NEW NEW OLD [--kernels K ...] [--json PATH]
 
@@ -9,7 +9,7 @@ checkout, or an unpacked `git archive` of one). Every root runs in a
 process of its own, in the order given, so the kernels of each are built
 from its own sources into its own `_build/`; list each root twice, in the
 order old, new, new, old, so that a drift of the card's clocks shows.
-`--kernels` picks what each process times (default: all nine):
+`--kernels` picks what each process times (default: all eleven):
 
 - `masked_step`: `kernels.masked_step` at 12288² in f32, f64 and bf16
   (the one-GPU perf step): the median of CUDA-event-timed launches, each
@@ -18,6 +18,10 @@ order old, new, new, old, so that a drift of the card's clocks shows.
 - `tb_sweep`: `multistep.tb_sweep` (2D, f32/f64/bf16) at 12304² and
   6160², k = 8, and at 12320², k = 16: the median of CUDA-event-timed
   launches, each launch held bitwise against `tb_sweep_plain` first;
+- `tb_sweep_3d`: the same in 3D, f32/f64/bf16, at the 3D app's 128³ and
+  run_deep's 144³ block (k = 8) and at 64×96×96 (k = 16; a root whose
+  kernel refuses it is recorded as refusing), each beside
+  `tb_sweep_plain`'s time, with the plan where the root has one;
 - `kp_update`: the host path of `kp.kp_update` at 128² f32: calls back
   to back, no sync between them, µs a call (median of repeats). Where the
   root has plain comparisons in front of the checks that name a fault
@@ -54,6 +58,10 @@ order old, new, new, old, so that a drift of the card's clocks shows.
   2·ndim faces and Cm read once, out written once, at 3.35 TB/s).
 - `kp_flux`: `kp.kp_flux` at 12288² in f32, f64 and bf16 and at the kp
   app's 128² in f64;
+- `kp_residual`: `kp.kp_residual` at 12288² and 128² in f32, f64 and
+  bf16, and at 128² the device time of each of the three kp kernels
+  beside an empty kernel's (`torch.cuda._sleep(0)`, queued and timed the
+  same way): the launch floor;
 - `fused_step_padded`: `kernels.fused_step_padded` at 12288² and 6144²
   in f32, f64 and bf16, at 252² f32 (with the wrapper's host µs a call)
   and on the 96×64×48 block in the three dtypes. Each launch of these two is held bitwise against its plain version
@@ -85,12 +93,17 @@ KP_SHAPE = (128, 128)
 HOST_CALLS = 2000
 HOST_REPEATS = 7
 SEED = 1234
+TB3_CASES = (((128, 128, 128), 8), ((144, 144, 144), 8), ((64, 96, 96), 16))
 KERNELS = ("masked_step", "tb_sweep", "kp_update", "multi_step_cm", "wave_multi_step",
-           "swe_multi_step", "fused_step_cm", "kp_flux", "fused_step_padded")
-# (kernel, core, dtypes) of the kp_flux and fused_step_padded figures.
+           "swe_multi_step", "fused_step_cm", "kp_flux", "fused_step_padded", "kp_residual",
+           "tb_sweep_3d")
+# (kernel, core, dtypes) of the kp_flux, kp_residual and fused_step_padded
+# figures.
 PADDED_CASES = (
     ("kp_flux", (12288, 12288), DTYPES),
     ("kp_flux", (128, 128), ("f64",)),
+    ("kp_residual", (12288, 12288), DTYPES),
+    ("kp_residual", (128, 128), DTYPES),
     ("fused_step_padded", (12288, 12288), DTYPES),
     ("fused_step_padded", (6144, 6144), DTYPES),
     ("fused_step_padded", (252, 252), ("f32",)),
@@ -352,8 +365,9 @@ def time_masked(torch, root, result, dev, tdts):
 
 
 def padded_case(torch, name, core, tdt, dev):
-    """(launch, plain version, bytes moved) of a kp_flux or fused_step_padded
-    case: Tp in [0, 1), Cp in [1, 2), the kp app's λ and a small dt."""
+    """(launch, plain version, bytes moved) of a kp_flux, kp_residual or
+    fused_step_padded case: Tp in [0, 1), Cp in [1, 2), the kp app's λ and
+    a small dt; the residual's fluxes those the plain flux makes of Tp."""
     from rocm_mpi_tpu_torch.ops import kernels, kp
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -377,6 +391,11 @@ def padded_case(torch, name, core, tdt, dev):
                 (Tp.numel() + outs[0].numel() + outs[1].numel()) * item)
     Cp = rand(core, 1.0)
     out = torch.empty(core, dtype=tdt, device=dev)
+    if name == "kp_residual":
+        qx, qy = kp.kp_flux_plain(Tp, 1.0, kp.inv_d_of(spacing))
+        return (lambda: kp.kp_residual(qx, qy, Cp, spacing, out=out),
+                lambda: kp.kp_residual_plain(qx, qy, Cp, kp.inv_d_of(spacing)),
+                (qx.numel() + qy.numel() + 2 * cells) * item)
     return (lambda: kernels.fused_step_padded(Tp, Cp, 1.0, 1e-4, spacing, out=out),
             lambda: kernels.fused_step_padded_plain(Tp, Cp, 1.0, 1e-4,
                                                     kernels.inv_d2_of(spacing)),
@@ -384,7 +403,7 @@ def padded_case(torch, name, core, tdt, dev):
 
 
 def time_padded(torch, root, kernels, result, dev, tdts):
-    """kp_flux and fused_step_padded (module docstring)."""
+    """kp_flux, kp_residual and fused_step_padded (module docstring)."""
     cases = [(name, core, dtype) for name, core, names in PADDED_CASES
              if name in kernels for dtype in names]
     for name, core, dtype in cases:
@@ -410,6 +429,81 @@ def time_padded(torch, root, kernels, result, dev, tdts):
         torch.cuda.empty_cache()
 
 
+def time_kp_small(torch, root, result, dev, tdts):
+    """The three kp kernels' device ms at the kp app's 128², each dtype,
+    beside an empty kernel's (the launch floor), all queued behind
+    torch.cuda._sleep and timed launch by launch."""
+    from rocm_mpi_tpu_torch.ops import kp
+
+    def empty():
+        torch.cuda._sleep(0)
+
+    floor = device_ms(torch, empty, 200, host_us(torch, empty, 200, 5))
+    result["kp_small"] = {"empty_kernel_device_ms": floor}
+    spacing = (0.1, 0.07)
+    lx, ly = KP_SHAPE
+    for name, tdt in tdts.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        Tp = torch.rand((lx + 2, ly + 2), generator=gen, device=dev, dtype=torch.float64).to(tdt)
+        Cp = (torch.rand((lx, ly), generator=gen, device=dev, dtype=torch.float64) + 1).to(tdt)
+        qx, qy = kp.kp_flux(Tp, 1.0, spacing)
+        dTdt = kp.kp_residual(qx, qy, Cp, spacing)
+        out = torch.empty_like(dTdt)
+        row = {}
+        for label, fn in (("kp_flux", lambda: kp.kp_flux(Tp, 1.0, spacing, out=(qx, qy))),
+                          ("kp_residual", lambda: kp.kp_residual(qx, qy, Cp, spacing,
+                                                                 out=dTdt)),
+                          ("kp_update", lambda: kp.kp_update(Tp, dTdt, 1e-4, out=out))):
+            row[label] = device_ms(torch, fn, 200, host_us(torch, fn, 200, 5))
+        result["kp_small"][name] = row
+        print(f"[ab] {root} kp 128² {name} device ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + f"; empty kernel {floor:.4f}", flush=True)
+
+
+def time_tb3(torch, root, result, dev, tdts):
+    """tb_sweep in 3D (module docstring)."""
+    from rocm_mpi_tpu_torch.ops import multistep
+
+    inv_d2 = (100.0, 156.25, 204.08163265306123)
+    for shape, k in TB3_CASES:
+        for name, tdt in tdts.items():
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            T = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64).to(tdt)
+            Cm = (torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+                  * 1e-4).to(tdt)
+            out = torch.empty_like(T)
+            row = {"shape": list(shape), "k": k, "dtype": name}
+            want = multistep.tb_sweep_plain(T, Cm, inv_d2, k)
+            try:
+                got = multistep.tb_sweep(T, Cm, inv_d2, k, out=out)
+                torch.cuda.synchronize()
+            except RuntimeError as err:
+                row.update(bitwise=True, refused=str(err).splitlines()[0])
+                print(f"[ab] {root} tb_sweep {'x'.join(map(str, shape))} k={k} {name}: "
+                      f"refused ({row['refused'][:80]})", flush=True)
+                result["tb_sweep_3d"].append(row)
+                continue
+            row["bitwise"] = bool(torch.equal(got, want))
+            row["ms"] = time_ms(torch, lambda: multistep.tb_sweep(T, Cm, inv_d2, k, out=out), 20)
+            row["plain_ms"] = time_ms(torch, lambda: multistep.tb_sweep_plain(T, Cm, inv_d2, k),
+                                      5)
+            plan = ""
+            if hasattr(multistep, "_device_plan3"):
+                p = multistep._device_plan3(dev.index or 0, shape, k, tdt)
+                row["plan"] = p._asdict()
+                row["cell_updates"] = multistep.tb3_updates(p, shape)
+                plan = (f"; tile {p.e1}x{p.e2}, {p.threads} threads, {p.segments} segments "
+                        f"of {p.seg}, {row['cell_updates'] / (k * T.numel()):.2f} updates "
+                        "per core update")
+            result["tb_sweep_3d"].append(row)
+            print(f"[ab] {root} tb_sweep {'x'.join(map(str, shape))} k={k} {name}: "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bitwise "
+                  f"{row['bitwise']}{plan}", flush=True)
+            del T, Cm, out, got, want
+            torch.cuda.empty_cache()
+
+
 def worker(root: str, kernels) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -421,8 +515,12 @@ def worker(root: str, kernels) -> dict:
     dev = torch.device("cuda", 0)
     tdts = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
     result = {"root": root, "masked_step": [], "tb_sweep": [], "kp_update_host_us": {},
-              "multi_step": [], "fused_step_cm": [], "padded": []}
+              "multi_step": [], "fused_step_cm": [], "padded": [], "tb_sweep_3d": []}
     time_padded(torch, root, kernels, result, dev, tdts)
+    if "kp_residual" in kernels:
+        time_kp_small(torch, root, result, dev, tdts)
+    if "tb_sweep_3d" in kernels:
+        time_tb3(torch, root, result, dev, tdts)
     if "masked_step" in kernels:
         time_masked(torch, root, result, dev, tdts)
     if "fused_step_cm" in kernels:
@@ -497,7 +595,8 @@ def main() -> int:
             json.dump({"card": card, "runs": results}, f, indent=1)
     ok = all(r["bitwise"] for run in results
              for r in run["masked_step"] + run["tb_sweep"] + run["multi_step"]
-             + run.get("fused_step_cm", []) + run.get("padded", []))
+             + run.get("fused_step_cm", []) + run.get("padded", [])
+             + run.get("tb_sweep_3d", []))
     print(f"[ab] every timed launch bitwise equal to its plain version: {ok}", flush=True)
     return 0 if ok else 1
 

@@ -510,3 +510,146 @@ def test_kp_flux_wrapper_passes_its_verdict_to_the_kernel(dtype, monkeypatch):
     assert run(Tp_off) == vec
     assert K.LAUNCHES["kp_flux"] == 5
     K.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# kp_residual's lane tiling (csrc/kp.cu rmt_kp_residual_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _lane_tiled_residual(qx, qy, Cp, inv_d, vec, run_rows=None, extra=True):
+    """kp_residual's lane tiling in plain PyTorch: a warp's strip of 32·W
+    columns walked down runs of core rows (the launcher's run length, read
+    from kp.cu, unless `run_rows`), qx row i + 1 loaded one row ahead and
+    kept as the next row's row i. Lane l's cells l·W + e (`vec`) or
+    l + 32·e (scalar cells); qy's j + 1 neighbour from the lane's own next
+    cell or the lane after (a shift across lanes for vectors, a rotation
+    for scalar cells) and, for the strip's last cell, lane 31's load of
+    qy[i, first + 32·W] where it lies in the row (0 when not `extra`). In
+    the kernel's operation order, rounded once a store."""
+    cdt = K._compute_dtype(Cp.dtype)
+    w = K.LANE_CELLS[Cp.dtype]
+    lx, ly = Cp.shape
+    assert not vec or ly % w == 0
+    if run_rows is None:
+        strips = -(-ly // (32 * w))
+        longest = "kResRunRowsBf16" if Cp.dtype == torch.bfloat16 else "kResRunRows"
+        run_rows = strips * lx // _kp_constant("kResFillWarps")
+        run_rows = min(max(run_rows, 1), _kp_constant(longest))
+    strips = -(-ly // (32 * w))
+    width = strips * 32 * w
+    # Zero past the row: qx and Cp past ly, qy past its ly + 1 cells.
+    X = torch.zeros(lx + 1, width, dtype=cdt)
+    X[:, :ly] = qx.to(cdt)
+    Y = torch.zeros(lx, width + 1, dtype=cdt)
+    Y[:, :ly + 1] = qy.to(cdt)
+    P = torch.ones(lx, width, dtype=cdt)
+    P[:, :ly] = Cp.to(cdt)
+    lane = torch.arange(32)[:, None]
+    e = torch.arange(w)[None, :]
+    idx = lane * w + e if vec else lane + 32 * e
+    out = torch.zeros(lx, width, dtype=cdt)
+    zero = torch.zeros((), dtype=cdt)
+    for s in range(strips):
+        first = s * 32 * w
+        cols = first + idx
+        for r0 in range(0, lx, run_rows):
+            lo, hi = X[r0][cols], X[r0 + 1][cols]
+            for i in range(r0, min(r0 + run_rows, lx)):
+                y = Y[i][cols]
+                outer = Y[i, first + 32 * w] if extra and first + 32 * w <= ly else zero
+                if vec:
+                    right = torch.cat([y[:, 1:], torch.roll(y[:, 0], -1)[:, None]], 1)
+                else:
+                    rot_r = torch.roll(y, -1, dims=0)
+                    right = rot_r.clone()
+                    right[31, :-1] = rot_r[31, 1:]
+                right[31, w - 1] = outer
+                div = (hi - lo) * inv_d[0] + (right - y) * inv_d[1]
+                out[i, cols] = (-div) / P[i][cols]
+                if i + 1 < min(r0 + run_rows, lx):
+                    lo, hi = hi, X[i + 2][cols]
+    return out[:, :ly].to(Cp.dtype)
+
+
+# Cores: ragged rows (53, 45 fit no lane width; 300 fits f32's and f64's
+# but not bf16's), whole ones (40, 128), and rows the strips end at (256:
+# two strips in f32, four in f64, one in bf16), where qy's last cell is the
+# extra load of the row's last strip. Both tiled layouts the kernel builds.
+RES_CASES = [(core, dtype, vec) for core in [(37, 53), (9, 300), (11, 256), (7, 45),
+                                             (6, 40), (4, 128)]
+             for dtype in DTYPES for vec in (False, True)
+             if not vec or (dtype != "f64" and core[1] % K.LANE_CELLS[DTYPES[dtype]] == 0)]
+
+
+def _residual_input(core, tdt, seed):
+    lx, ly = core
+    rng = np.random.default_rng(seed)
+    qx = torch.from_numpy(rng.random((lx + 1, ly)) - 0.5).to(tdt)
+    qy = torch.from_numpy(rng.random((lx, ly + 1)) - 0.5).to(tdt)
+    Cp = torch.from_numpy(1.0 + rng.random(core)).to(tdt)
+    return qx, qy, Cp
+
+
+@pytest.mark.parametrize("run_rows", [None, 4])
+@pytest.mark.parametrize("core,dtype,vec", RES_CASES)
+def test_residual_lane_tiling_equals_the_plain_residual_bitwise(core, dtype, vec, run_rows):
+    qx, qy, Cp = _residual_input(core, DTYPES[dtype], 13)
+    inv_d = kp.inv_d_of(SPACING[2])
+    got = _lane_tiled_residual(qx, qy, Cp, inv_d, vec, run_rows)
+    assert torch.equal(got, kp.kp_residual_plain(qx, qy, Cp, inv_d))
+
+
+@pytest.mark.parametrize("core", [(5, 300), (5, 256)])
+@pytest.mark.parametrize("vec", [False, True])
+def test_the_residual_lane_tiling_needs_the_extra_load(core, vec):
+    # Without lane 31's load of qy's cell past each strip the strips' last
+    # columns are not the residual: the test above can fail.
+    qx, qy, Cp = _residual_input(core, torch.float32, 14)
+    inv_d = kp.inv_d_of(SPACING[2])
+    got = _lane_tiled_residual(qx, qy, Cp, inv_d, vec, extra=False)
+    want = kp.kp_residual_plain(qx, qy, Cp, inv_d)
+    assert not torch.equal(got, want)
+    strip = 32 * K.LANE_CELLS[torch.float32]
+    ends = torch.zeros(core[1], dtype=torch.bool)
+    ends[strip - 1::strip] = True
+    ends[-1] = True
+    assert torch.equal(got[:, ~ends], want[:, ~ends])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kp_residual_wrapper_passes_its_verdict_to_the_kernel(dtype, monkeypatch):
+    # With the dispatch forced to the kernel path on CPU tensors, the
+    # launch receives masked_layout's verdict over qx, Cp and out as its
+    # last argument (qy, read cell by cell, plays no part), and
+    # residual_layout asks the launcher's query with the same verdict.
+    tdt = DTYPES[dtype]
+    w = K.LANE_CELLS[tdt]
+    calls, asked = [], []
+    monkeypatch.setattr(kp, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(kp, "launch", lambda *args: calls.append(args))
+    monkeypatch.setattr(kp, "launch_layout", lambda *args: asked.append(args))
+    sp = SPACING[2]
+
+    def shifted(shape):  # a view one element past an allocation's start
+        n = shape[0] * shape[1]
+        return torch.zeros(n + 1, dtype=tdt)[1:].view(shape)
+
+    def run(lx, ly, qx=None, qy=None, Cp=None, out=None):
+        qx = torch.zeros(lx + 1, ly, dtype=tdt) if qx is None else qx
+        qy = torch.zeros(lx, ly + 1, dtype=tdt) if qy is None else qy
+        Cp = torch.ones(lx, ly, dtype=tdt) if Cp is None else Cp
+        out = torch.empty(lx, ly, dtype=tdt) if out is None else out
+        kp.kp_residual(qx, qy, Cp, sp, out=out)
+        kp.residual_layout(qx, Cp, out)
+        assert asked[-1][3:] == (K._DTYPE_CODE[tdt], lx, ly, calls[-1][-1])
+        return calls[-1][-1]
+
+    lx, ly = 12, 4 * w
+    vec = dtype != "f64"
+    assert run(lx, ly) == vec
+    assert run(lx, ly + 1) is False  # ragged
+    assert run(lx, ly, qx=shifted((lx + 1, ly))) is False
+    assert run(lx, ly, Cp=shifted((lx, ly))) is False
+    assert run(lx, ly, out=shifted((lx, ly))) is False
+    assert run(lx, ly, qy=shifted((lx, ly + 1))) == vec

@@ -507,6 +507,177 @@ def test_tb_sweep_plans_once_per_device_shape_k_and_dtype(monkeypatch):
         M._device_plan.cache_clear()
 
 
+
+# ---------------------------------------------------------------------------
+# The 3D tb_sweep kernel's stream (cross-section tiles × axis-0 segments)
+# ---------------------------------------------------------------------------
+
+TB3_PLAN_SHAPES = [(128, 128, 128), (144, 144, 144), (64, 96, 96), (96, 64, 48), (17, 9, 40),
+                   (32, 12, 10), (5, 3, 2)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
+@pytest.mark.parametrize("k", [1, 5, 8, 13, 16])
+@pytest.mark.parametrize("shape", TB3_PLAN_SHAPES)
+def test_tb3_plan_covers_every_core_cell_once(shape, k, dtype):
+    plan = M.tb3_plan(shape, k, TD[dtype], 132)
+    assert plan.k == k and plan.seg >= 1 and plan.waves >= 1
+    assert plan.waves == -(-(plan.tiles1 * plan.tiles2 * plan.segments)
+                           // (132 * plan.blocks_per_sm))
+    tiles = list(M.tb3_tiles(plan, shape))
+    assert len(tiles) == plan.tiles1 * plan.tiles2 * plan.segments
+    # Each axis is cut into consecutive non-empty intervals that end at the
+    # block's edge, so the boxes' product covers every cell once.
+    for ax, n in enumerate(shape):
+        cuts = sorted({t[ax] for t in tiles})
+        assert cuts[0][0] == 0 and cuts[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+        assert all(lo < hi for lo, hi in cuts)
+    count = np.zeros(shape, dtype=np.int32)
+    for (r0, r1), (a0, a1), (b0, b1) in tiles:
+        count[r0:r1, a0:a1, b0:b1] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
+@pytest.mark.parametrize("k", list(range(1, 17)))
+def test_tb3_plan_shared_memory_fits_a_block(k, dtype):
+    # Every depth in every dtype has a plan whose rings fit an H100's
+    # opt-in shared memory a block, at most max_cells cells a thread of at
+    # most max_threads: the kernel takes every k that JAX's _tb_kernel does.
+    limits = M.tb3_limits()
+    assert limits == (3, 1024)
+    for shape in ((128, 128, 128), (64, 96, 96), (5, 3, 2)):
+        plan = M.tb3_plan(shape, k, TD[dtype], 132)
+        assert plan.smem == M.tb3_smem_bytes(k, plan.e1, plan.e2, TD[dtype], plan.cm_ring)
+        assert plan.smem <= M.H100_SMEM_OPTIN
+        assert plan.e1 - 2 * k >= 1 and plan.e2 - 2 * k >= 1
+        assert plan.threads % 32 == 0 and plan.threads <= limits.max_threads
+        assert plan.e1 * M.tb3_pitch(plan.e2) <= limits.max_cells * plan.threads
+        assert 1 <= plan.blocks_per_sm == M.tb3_resident_estimate(plan.threads, plan.smem)
+
+
+def test_tb3_plan_fills_the_card_and_rejects_bad_input():
+    # The 3D app's 128³ in f32 at k = 8 fills the card's SMs in one wave;
+    # the plan asks the card's answer for each candidate it weighs.
+    plan = M.tb3_plan((128, 128, 128), 8, torch.float32, 132)
+    blocks = plan.tiles1 * plan.tiles2 * plan.segments
+    assert plan.waves == 1 and blocks > 66
+    asked = []
+
+    def resident(e1, e2, threads, cm_ring):
+        asked.append((e1, e2, threads))
+        return 0 if threads == 1024 else 1
+
+    other = M.tb3_plan((128, 128, 128), 8, torch.float32, 132, resident)
+    assert other.threads < 1024 and (other.e1, other.e2, other.threads) in asked
+    assert M.tb3_updates(plan, (128, 128, 128)) >= 8 * 128 ** 3
+    for bad in (dict(k=0), dict(k=17), dict(shape=(0, 8, 8)), dict(sms=0)):
+        args = dict(shape=(64, 64, 64), k=8, sms=132) | bad
+        with pytest.raises(ValueError):
+            M.tb3_plan(args["shape"], args["k"], torch.float32, args["sms"])
+    with pytest.raises(ValueError, match="no 3D plan"):
+        M.tb3_plan((64, 64, 64), 16, torch.float64, 132, smem_limit=48 * 1024)
+
+
+def _tb3_streamed(T, Cm, inv_d2, k, plan):
+    """The 3D kernel's stream in plain PyTorch, block by block: a ring of
+    three planes for level 0 (the tile of T, the storage type) and for each
+    level L < k (its cone, e - 2L on both axes, the compute type), plane x
+    in slot (x - g_begin) mod 3. Plane step g stores plane g into level 0's
+    ring (its own cells' values, loaded the step before, also level 1's
+    down) and advances level s over its cone at plane g - s from level
+    s - 1's planes g - s - 1 (up, from the ring), g - s (the centre and its
+    neighbours, from the ring) and g - s + 1 (down: the value the thread
+    computed for level s - 1 this step); Cm of plane g - s; a level's plane
+    outside the block is 0; level k writes its core plane where it lies in
+    the segment. Neighbours outside the block read as 0. In the kernel's
+    operation order (update<C, 3, kDirect>), rounded once a store."""
+    cdt = K._compute_dtype(T.dtype)
+    n0, n1, n2 = T.shape
+    k, e1, e2 = plan.k, plan.e1, plan.e2
+    c1, c2 = e1 - 2 * k, e2 - 2 * k
+    out = torch.full_like(T, float("nan"))
+    inv0, inv1, inv2 = (torch.tensor(v, dtype=cdt) for v in inv_d2)
+
+    def window(src, g, o1, o2):
+        """Plane g of src over the tile at block coordinates (o1, o2), 0
+        outside the block."""
+        tile = torch.zeros(e1, e2, dtype=src.dtype)
+        if 0 <= g < n0:
+            a0, a1 = max(o1, 0), min(o1 + e1, n1)
+            b0, b1 = max(o2, 0), min(o2 + e2, n2)
+            if a0 < a1 and b0 < b1:
+                tile[a0 - o1:a1 - o1, b0 - o2:b1 - o2] = src[g, a0:a1, b0:b1]
+        return tile
+
+    for blk in range(plan.tiles1 * plan.tiles2):
+        t1, t2 = divmod(blk, plan.tiles2)
+        o1, o2 = t1 * c1 - k, t2 * c2 - k
+        for seg in range(plan.segments):
+            r0, r1 = seg * plan.seg, min((seg + 1) * plan.seg, n0)
+            g_begin, g_end = max(r0 - k, 0), r1 + k
+            rings = [torch.zeros(3, e1 - 2 * L, e2 - 2 * L, dtype=cdt if L else T.dtype)
+                     for L in range(k)]
+            tg = window(T, g_begin, o1, o2)
+            for g in range(g_begin, g_end):
+                slot = g - g_begin
+                rings[0][slot % 3] = tg
+                down = tg.to(cdt)[1:-1, 1:-1]
+                for s in range(1, k + 1):
+                    p = g - s
+                    src = rings[s - 1].to(cdt)
+                    cen = src[(slot - s) % 3]   # plane g - s of level s - 1
+                    up = src[(slot - s - 1) % 3][1:-1, 1:-1]
+                    if 0 <= p < n0:
+                        t = cen[1:-1, 1:-1]
+                        cm = window(Cm, p, o1 + s, o2 + s)[:e1 - 2 * s, :e2 - 2 * s].to(cdt)
+                        p1 = cen[2:, 1:-1] + cen[:-2, 1:-1]
+                        p2 = cen[1:-1, 2:] + cen[1:-1, :-2]
+                        lap = ((down + up) - 2 * t) * inv0
+                        lap = lap + (p1 - 2 * t) * inv1
+                        lap = lap + (p2 - 2 * t) * inv2
+                        new = t + cm * lap
+                    else:
+                        new = torch.zeros(e1 - 2 * s, e2 - 2 * s, dtype=cdt)
+                    if s < k:
+                        rings[s][(slot - s) % 3] = new
+                        down = new[1:-1, 1:-1]
+                    elif r0 <= p < r1:
+                        a1, b1 = min(c1, n1 - (o1 + k)), min(c2, n2 - (o2 + k))
+                        out[p, o1 + k:o1 + k + a1, o2 + k:o2 + k + b1] = new[:a1, :b1].to(T.dtype)
+                tg = window(T, g + 1, o1, o2)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
+@pytest.mark.parametrize("shape,k,sms", [((20, 13, 11), 1, 8), ((20, 13, 11), 3, 8),
+                                         ((21, 9, 14), 4, 132), ((12, 30, 8), 2, 4)])
+def test_tb3_stream_equals_the_whole_block_bitwise(shape, k, sms, dtype):
+    rng = np.random.default_rng(k)
+    T = torch.from_numpy(rng.random(shape)).to(TD[dtype])
+    Cm = torch.from_numpy(rng.random(shape) * 0.1).to(TD[dtype])
+    inv_d2 = K.inv_d2_of(UNEQUAL[3])
+    plan = M.tb3_plan(shape, k, TD[dtype], sms)
+    assert plan.tiles1 * plan.tiles2 * plan.segments > 1  # the block really is cut
+    want = M.tb_sweep_plain(T, Cm, inv_d2, k)
+    assert torch.equal(_tb3_streamed(T, Cm, inv_d2, k, plan), want)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_fused_multi_step_hbm_3d_at_k16_matches_pallas(dtype):
+    # k = 16 on a 3D field whose 64-plane slab JAX admits: the port's sweep
+    # takes it (the light-cone tiles it replaced refused k > 12).
+    shape = (64, 12, 10)
+    assert M.tb_slab_fits(16, shape, TD[dtype])
+    T, Cp = _field(shape, NP[dtype], 7)
+    sp = UNEQUAL[3]
+    got = M.fused_multi_step_hbm(_t(T), _t(Cp), LAM, DT, sp, 32, block_steps=16).numpy()
+    ref = np.asarray(pk.fused_multi_step_hbm(jnp.asarray(T), jnp.asarray(Cp), LAM, DT, sp, 32,
+                                             block_steps=16))
+    np.testing.assert_allclose(got, ref, **TOL[dtype])
+
+
 def test_cpu_calls_count_no_launches():
     K.reset_launches()
     T, Cp = (_t(a) for a in _field((32, 16), np.float64))
