@@ -114,6 +114,7 @@ from rocm_mpi_tpu_torch.parallel.halo import (
 from rocm_mpi_tpu_torch.models import lanes as _lanes
 from rocm_mpi_tpu_torch.parallel.mesh import GlobalGrid, init_batched_grid, init_global_grid
 from rocm_mpi_tpu_torch.parallel.overlap import make_batched_overlap_step, make_overlap_step
+from rocm_mpi_tpu_torch.telemetry.spans import span
 from rocm_mpi_tpu_torch.utils import metrics
 from rocm_mpi_tpu_torch.utils.backend import resolve_device
 
@@ -463,6 +464,12 @@ class HeatDiffusion:
         sweep loops do: n // c graphs of c steps, then one-step graphs
         (checkpoint mode's segments, whose lengths need not be multiples
         of q; the graphs are captured once and serve every segment).
+
+        A call opens four telemetry spans, once each: `diffusion.advance`
+        over the call, and inside it `diffusion.prepare` over the
+        coefficient and the loop's `scan.bind` and `scan.replay`; each
+        with a phase of its own, so that a summary counts no span's time
+        twice. Under torch.profiler they are ranges on the trace's clock.
         """
         cfg = self.config
         step, prep = self._get_step(variant), self.prepare_fn(variant)
@@ -482,7 +489,10 @@ class HeatDiffusion:
         loop = ScanLoop(one_step, graph_plan(q, 2), route, exact=exact)
 
         def advance(T, Cp, n):
-            (T,) = loop((T,), (prep(Cp),), n)
+            with span("diffusion.advance", phase="advance"):
+                with span("diffusion.prepare", phase="prepare"):
+                    C = prep(Cp)
+                (T,) = loop((T,), (C,), n)
             return T
 
         advance.loop = loop

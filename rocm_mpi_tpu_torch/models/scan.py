@@ -33,6 +33,12 @@ and replayed, so a step costs its kernels' device time:
   loop's step and the graph, and nothing falls back to the eager loop.
 * LAUNCHES counts kernel executions: the warm-up and the captures leave
   it as it was, and each replay adds the launches its graph recorded.
+* A call opens two telemetry spans (telemetry/spans.py), once each:
+  `scan.bind` over the binding of the state and constants, and
+  `scan.replay` over the replays (or the eager steps of the other
+  routes), never one a step or a replay. Under torch.profiler they are
+  ranges on the trace's clock; a capture lies between them, timed by
+  `capture_s` and telemetry.compiles alone.
 * Each graph captured is a compile of telemetry.compiles (program
   "graph:<label>", its capture's host seconds); a capture inside a
   steady-state window (a warmup-0 run's timed window) is a recompile.
@@ -80,6 +86,7 @@ import torch
 
 from rocm_mpi_tpu_torch.ops import kernels
 from rocm_mpi_tpu_torch.telemetry import compiles
+from rocm_mpi_tpu_torch.telemetry.spans import span
 
 # The most steps one graph holds. With warmup = 0 the JAX chunk is the
 # whole run (q = nt), which would capture nt steps a graph. Capturing
@@ -345,19 +352,21 @@ class ScanLoop:
         """Advance `state` (the p − 1 slots a step reads, in role order) by
         (n // q)·q steps, or n for an exact loop; returns the new state in
         the same form."""
-        self._bind(tuple(state), tuple(consts))
+        with span("scan.bind", phase="bind"):
+            self._bind(tuple(state), tuple(consts))
         schedule = self.schedule(n)
         graphs = self.route == "scan-graph"
         if graphs and any(key not in self.graphs for key in schedule):
             self._capture(schedule)
         launches = kernels.LAUNCHES
-        for key in schedule:
-            if graphs:
-                self.graphs[key].replay()
-                for name, k in self.recorded[key].items():
-                    launches[name] += k
-            else:
-                self._steps(self.slots, *key)
+        with span("scan.replay", phase="replay", replays=len(schedule)):
+            for key in schedule:
+                if graphs:
+                    self.graphs[key].replay()
+                    for name, k in self.recorded[key].items():
+                        launches[name] += k
+                else:
+                    self._steps(self.slots, *key)
         if schedule:
             last, count = schedule[-1]
             self.phase = (last + count) % self.plan.period
