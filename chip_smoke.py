@@ -40,7 +40,10 @@ the target). Phases, printed as they run (about nine minutes on one H100
    shard and contiguous faces: all present, none below on any axis as at
    a domain corner, or none), whole and as the hide boxes, at 252², a
    6144² shard, ragged 253×251, the small 3D block and a 128³ shard,
-   three dtypes, each printed with its layout and, beside the per-call
+   three dtypes, and in f64 as the hide boxes of a 12288² rank (the
+   benchmark's hide cell), each printed with its layout, the launches a
+   call that took the f64 route (kernels.F64_ROUTE_LAUNCHES: every f64
+   launch, no f32 or bf16 one) and, beside the per-call
    median, its device time queued behind torch.cuda._sleep and the time
    a launch of 200 queued between two CUDA events (the figure for the
    128³ shard, whose one launch is too short for a pair of events); the multi-step
@@ -493,6 +496,7 @@ KERNEL_CASES = [
     ("fused_step_cm", BLOCK, 1, "faces-null", ALL_DTYPES),
     ("fused_step_cm", BLOCK, 1, "face-regions", ALL_DTYPES),
     ("fused_step_cm", RAGGED, 1, "faces", ALL_DTYPES),  # a ragged last axis: scalar cells
+    ("fused_step_cm", BIG, 1, "face-regions", ("f64",)),  # the hide cell's rank
     ("multi_step_cm", DEEP_SMALL, 32, "eqc", ALL_DTYPES),
     ("multi_step_cm", SMALL, 256, "eqc", ALL_DTYPES),
     ("multi_step_cm", DEEP_SMALL, 32, "direct", ("f32",)),
@@ -1280,6 +1284,7 @@ def resident_edge_cases(torch):
 def phase_kernels(torch, card, pk):
     """Every kernel case: bitwise against its plain version on the card,
     then timed beside it and its bound."""
+    from rocm_mpi_tpu_torch.ops import kernels
     from rocm_mpi_tpu_torch.ops.kernels import LAYOUT_NAMES
 
     device = torch.device("cuda", 0)
@@ -1338,6 +1343,16 @@ def phase_kernels(torch, card, pk):
             if name in layouts_seen:
                 layouts_seen[name].add(run.layout)
             if name == "fused_step_cm":
+                # The launches a call makes, and those of them that took the
+                # f64 route: every one in f64, none in f32 or bf16.
+                made, routed = kernels.LAUNCHES[name], kernels.F64_ROUTE_LAUNCHES
+                run()
+                made = kernels.LAUNCHES[name] - made
+                routed = kernels.F64_ROUTE_LAUNCHES - routed
+                check(routed == (made if dtype == "f64" else 0),
+                      f"{label}: {routed} of {made} launches a call took the f64 route")
+                row["f64_route_launches"] = routed
+                extra += f"; f64 route {routed} of {made} launches a call"
                 # Many launches: the device time of one queued behind the
                 # card's sleep, and of FUSED_LOOP of them between two events
                 # (a 3D shard's launch is too short for one pair of events).

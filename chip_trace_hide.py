@@ -5,9 +5,11 @@ torch.profiler, one rank per GPU over NCCL.
     python3 chip_trace_hide.py [--shape 12288 12288] [--steps 30] [--driver scan]
     python3 chip_trace_hide.py --shape 256 256 128 --dims 2 2 1 --driver scan   # 3D, 128³ a rank
     python3 chip_trace_hide.py --device cpu --shape 64 48   # a rehearsal over gloo
+    python3 chip_trace_hide.py --shape 24576 24576 --dtype f64 --driver scan   # the hide cell's ranks
 
-The same configuration as `chip_smoke.py --gpus 4` phase 8 (f32, b_width
-(32, 4); (8, 8, 8) in 3D, diffusion only); it asserts nothing. Beside the
+The same configuration as `chip_smoke.py --gpus 4` phase 8 (f32 unless
+`--dtype` says otherwise, b_width (32, 4); (8, 8, 8) in 3D, diffusion
+only); it asserts nothing. Beside the
 diffusion `perf` and `hide` steps (the face exchange and fused_step_cm
 from the shard and its faces) it traces the same steps over the padded
 route they replaced ("perf-padded", "hide-padded": chip_smoke.py
@@ -20,7 +22,11 @@ ms per step and the device ms per step summed over device-side events
 only (kernels, NCCL, copies; a host op's device time is its kernels',
 and NCCL's `nccl:coalesced` annotation spans its kernel, so counting
 either would count a kernel twice) from the same window (their
-ratio is the device's busy share, above 1 where streams overlap), and
+ratio is the device's busy share, above 1 where streams overlap), the
+fused_step_cm launches the first call of a variant ran (LAUNCHES) and
+the launches the wrapper made on the f64 route in it
+(kernels.F64_ROUTE_LAUNCHES: under `--driver scan` the scratch step's and
+the captured steps', the graphs' replays not counted), and
 the kernels that take most device time, and the device time split into
 fused_step_cm, copies (memcpy and elementwise copy kernels), NCCL and the
 rest; it writes Chrome traces to
@@ -66,6 +72,7 @@ def trace_rank(rank, spec):
     from chip_smoke import register_padded_variants
     from rocm_mpi_tpu_torch.config import DiffusionConfig, WaveConfig
     from rocm_mpi_tpu_torch.models import AcousticWave, HeatDiffusion
+    from rocm_mpi_tpu_torch.ops import kernels
     from rocm_mpi_tpu_torch.parallel import distributed
 
     cuda = spec["device"] == "cuda"
@@ -80,7 +87,8 @@ def trace_rank(rank, spec):
     steps = spec["steps"]
     ndim = len(spec["shape"])
     kw = dict(global_shape=tuple(spec["shape"]), lengths=(10.0,) * ndim, nt=steps + 1,
-              warmup=1, dtype="f32", dims=tuple(spec["dims"]), b_width=HIDE_B_WIDTH[ndim])
+              warmup=1, dtype=spec["dtype"], dims=tuple(spec["dims"]),
+              b_width=HIDE_B_WIDTH[ndim])
     diffusion = HeatDiffusion(DiffusionConfig(**kw), device=device)
     register_padded_variants(diffusion)
     models = [("diffusion", diffusion, ("perf", "hide", "perf-padded", "hide-padded"))]
@@ -110,8 +118,11 @@ def trace_rank(rank, spec):
             else:
                 def run(n, U=state[0], Uprev=state[1], C2=state[2]):
                     advance(U.clone(), Uprev.clone(), C2, n)
+            launched, routed = kernels.LAUNCHES["fused_step_cm"], kernels.F64_ROUTE_LAUNCHES
             run(steps if scan else 5)
             sync()
+            launched = kernels.LAUNCHES["fused_step_cm"] - launched
+            routed = kernels.F64_ROUTE_LAUNCHES - routed
             with profile(activities=activities):
                 run(steps)
                 sync()
@@ -131,7 +142,7 @@ def trace_rank(rank, spec):
                       and e.self_device_time_total > 0]
             top = sorted(events, key=lambda e: -e.self_device_time_total)[:TOP]
             rows[f"{label} {variant}"] = dict(
-                wall_ms=wall, split=split_of(events, steps),
+                wall_ms=wall, split=split_of(events, steps), launched=launched, routed=routed,
                 device_ms=sum(e.self_device_time_total for e in events) / steps / 1e3,
                 top=[(e.key[:60], e.self_device_time_total / steps / 1e3, e.count // steps)
                      for e in top])
@@ -146,6 +157,7 @@ def main(argv=None) -> int:
                         help="the process grid of 4 ranks (default 2 2, or 2 2 1 in 3D)")
     parser.add_argument("--steps", type=int, default=30, help="steps in each traced window")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    parser.add_argument("--dtype", choices=["f32", "f64", "bf16"], default="f32")
     parser.add_argument("--driver", choices=["step", "scan"], default="step",
                         help="step: the eager steps; scan: the scan driver's graphs")
     args = parser.parse_args(argv)
@@ -167,16 +179,18 @@ def main(argv=None) -> int:
               "ranks", file=sys.stderr)
         return 2
     spec = dict(shape=list(args.shape), dims=list(dims), steps=args.steps, device=args.device,
-                driver=args.driver)
+                driver=args.driver, dtype=args.dtype)
     backend = "nccl" if args.device == "cuda" else "gloo"
     ranks = spawn_ranks(4, trace_rank, (spec,), backend=backend, timeout=600)
     card = card_line() if args.device == "cuda" else "the CPU: not a GPU measurement"
     grid = "x".join(map(str, args.shape))
     over = "x".join(map(str, dims))
     for key, row in ranks[0].items():
-        print(f"[hide-trace] rank 0 {key} {grid} f32 {over}, driver {args.driver}, "
+        print(f"[hide-trace] rank 0 {key} {grid} {args.dtype} {over}, driver {args.driver}, "
               f"{args.steps} steps under "
               f"torch.profiler: {row['wall_ms']:.4f} ms/step on the host clock, "
+              f"first call: {row['launched']} fused_step_cm launches run, {row['routed']} made "
+              f"on the f64 route; "
               f"{row['device_ms']:.4f} ms/step of device time ("
               + ", ".join(f"{k} {v:.4f}" for k, v in row["split"].items())
               + "); most: "

@@ -25,7 +25,9 @@
 //                       a padded buffer; the `hide` variant launches one
 //                       box per region of the overlap decomposition
 //                       (parallel/overlap.py), writing each into the
-//                       shared output in place.
+//                       shared output in place. f64 launches take a
+//                       kernel of their own (rmt_fused_step_cm_f64_kernel:
+//                       the same reads and sum, cut for f64's stream).
 //   rmt_fused_step_padded — out = c + ((dt·λ)/Cp) * lap over the whole
 //                       core of the width-1-padded block, the same lap as
 //                       rmt_fused_step_cm, with the coefficient formed per
@@ -46,10 +48,11 @@
 // Bound on the card: memory. Per cell the step reads T (or Tp) and Cm (or
 // Cp) and writes out — 12 bytes in f32 against ~11 flops, far below the H100's
 // ratio of peak flops to bytes. The design keeps that to one pass each.
-// All three move 16 bytes of a row a lane and walk runs of rows with the
-// rows around it in registers (the design notes are at
-// rmt_masked_step_kernel, rmt_fused_step_cm_kernel and
-// rmt_fused_step_padded_kernel): one-cell-a-thread loads of two bytes left
+// All three move 16 bytes of a row a lane (fused_step_cm's f64 route 32 in
+// 2D) and walk runs of rows with the rows around it in registers (the
+// design notes are at rmt_masked_step_kernel, rmt_fused_step_cm_kernel,
+// rmt_fused_step_cm_f64_kernel and rmt_fused_step_padded_kernel):
+// one-cell-a-thread loads of two bytes left
 // bf16 at 0.45-0.46 of its bound on an H100. rmt_fused_step_padded took the
 // layout last; at 12288² on an H100 80GB HBM3 at 700.00 W
 // (scripts/torch_kernel_ab.py, old against new in one call, device ms a
@@ -60,6 +63,8 @@
 //
 // bf16 is storage-only: loads are widened to f32, the step is computed in
 // f32 and rounded to bf16 once on store (pallas_kernels._upcast_for_compute).
+
+#include <type_traits>
 
 #include "stencil_common.cuh"
 
@@ -598,6 +603,256 @@ rmt_fused_step_cm_kernel(const S* __restrict__ T, FaceSet<S> f, const S* __restr
   }
 }
 
+// fused_step_cm's f64 route: the face form cut for f64's stream on an H100,
+// taken by every f64 launch (launch_fused_cm picks it by the storage type;
+// f32 and bf16 keep rmt_fused_step_cm_kernel above). The same reads, the
+// same last-axis neighbours by shuffle and the same sum as that kernel;
+// what differs is the cut. Bound: memory. The shared kernel read 0.85 of
+// the bytes bound in f64 on the hide cell's interior box (12288² rank,
+// [32, 12256) × [4, 12284)), where masked_step reads 0.915 over the shard;
+// this route reads 0.915 there, and 0.900 over the five hide boxes.
+// - A lane holds kF64Cells2 cells of a row in 2D (kF64Cells3 in 3D), lane
+//   + seg·e of its strip: the f64 stream wanted more bytes in flight a
+//   warp. Interior box, 2 cells a lane 1.2379 ms (64 registers; caps for
+//   more blocks an SM were no faster) against 4 cells' 1.1875 (96); 3D,
+//   which carries the rows at m ± 1 too, takes 2 (128³: 0.0232 ms against
+//   4 cells' 0.0311).
+// - Runs of up to kF64RunRows rows, no register cap: runs of 2 / 3 / 4
+//   took the interior box in 1.1915 / 1.1636 / 1.1744 ms (8: 1.2467
+//   against 4's 1.1876 in another call).
+// - The strips start on their own grid (seg · cells), so a box that
+//   starts off it (the hide interior at column 4) reads whole lines, its
+//   first strip's stores masked to the box.
+// - A warp is split into segments of `seg` lanes (4, 8, 16 or 32: the
+//   narrowest whose strip holds the box's last axis), each walking its own
+//   run of rows, so a narrow box (a hide column slab, 4 cells wide) packs
+//   32 / seg runs into a warp instead of leaving most of its lanes idle
+//   (0.0112 → 0.0038 ms a slab); the shuffles stay inside a segment
+//   (their width), and every segment of a warp loops the launch's run
+//   length, its own rows predicated.
+// - out is stored with the streaming hint (interior box 1.1825 → 1.1746
+//   ms, 128³ 0.0263 → 0.0233), Cm read plainly in 2D and with the
+//   streaming hint in 3D (each the faster there), T non-coherent.
+// (device ms a launch, scripts/torch_face_variants.py, each comparison
+// timed side by side in one call, H100 80GB HBM3 at 700.00 W.)
+constexpr int kF64Cells2 = 4;  // a lane's cells of a row in 2D
+constexpr int kF64Cells3 = 2;  // and in 3D, which also carries the rows at m ± 1
+constexpr int kF64RunRows = 3;
+constexpr int kF64MinSeg = 4;
+
+template <int NDIM>
+__global__ void __launch_bounds__(kMsWarps * 32)
+rmt_fused_step_cm_f64_kernel(const double* __restrict__ T, FaceSet<double> f,
+                             const double* __restrict__ Cm, double* __restrict__ out, FaceGeom g,
+                             int seg, double inv0, double inv1, double inv2) {
+  constexpr int kN = NDIM == 2 ? kF64Cells2 : kF64Cells3;
+  constexpr int kLast = 2 * (NDIM - 1);  // the last axis's first face
+  constexpr unsigned kAll = 0xffffffffu;
+  struct Row {
+    double v[kN];
+  };
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int sl = lane & (seg - 1);  // this lane within its segment
+  const int segs = 32 / seg;
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kMsWarps + (threadIdx.x >> 5);
+  if (warp * segs >= g.items) return;  // the whole warp: nothing below synchronises the block
+  // item = (run · e_mid + mid) · strips + strip, one a segment; a segment
+  // past the last item walks the last item's rows and reads and writes
+  // nothing (it only takes part in its warp's shuffles).
+  int64_t item = warp * segs + lane / seg;
+  const bool live = item < g.items;
+  if (!live) item = g.items - 1;
+  int64_t strip, mid = 0, run;
+  if (g.items <= 0xffffffffLL) {
+    const uint32_t it = static_cast<uint32_t>(item), st = static_cast<uint32_t>(g.strips);
+    const uint32_t rs = it / st;
+    strip = it - rs * st;
+    if constexpr (NDIM == 3) {
+      const uint32_t em = static_cast<uint32_t>(g.hi_mid - g.lo_mid);
+      mid = rs % em;
+      run = rs / em;
+    } else {
+      run = rs;
+    }
+  } else {
+    const int64_t rs = item / g.strips;
+    strip = item - rs * g.strips;
+    if constexpr (NDIM == 3) {
+      mid = rs % (g.hi_mid - g.lo_mid);
+      run = rs / (g.hi_mid - g.lo_mid);
+    } else {
+      run = rs;
+    }
+  }
+  // Rows and columns in 32 bits (the launcher refuses a larger core).
+  const int n0 = static_cast<int>(g.n0);
+  const int n_last = static_cast<int>(g.n_last);
+  const int r0 = static_cast<int>(g.lo0 + run * g.run_rows);
+  const int r1 = r0 + g.run_rows < g.hi0 ? r0 + g.run_rows : static_cast<int>(g.hi0);
+  const int first = static_cast<int>(g.a0 + strip * seg * kN);  // the strip's first cell
+  const int col = first + sl;                                    // this lane's first cell
+  const int64_t m = NDIM == 3 ? g.lo_mid + mid : 0;
+  const int64_t plane = g.n_mid * g.n_last;  // Cm's and out's axis-0 stride
+  const int64_t ts0 = g.ts0;
+  // Every pointer below is at this lane's first cell of row 0.
+  const double* c_at = Cm + m * g.n_last + col;
+  double* o_at = out + m * g.n_last + col;
+  const double* t_at = T + m * g.ts1 + col;
+  const double* f0_lo = f.p[0] == nullptr ? nullptr : f.p[0] + m * f.s[0][0] + col;
+  const double* f0_hi = f.p[1] == nullptr ? nullptr : f.p[1] + m * f.s[1][0] + col;
+  // The cells this lane reads of a row (the box and one neighbour a side):
+  // `need` inside the core, `past` the one just past it, read from the
+  // last-axis face above; and those it writes (the box's), `keep`.
+  const int need_lo = static_cast<int>(g.lo_last) - 1;
+  const int need_hi = static_cast<int>(g.hi_last);
+  unsigned need = 0, past = 0, keep = 0;
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    const int x = col + seg * e;
+    const bool read = live && x >= need_lo && x <= need_hi;
+    need |= (read && x < n_last ? 1u : 0u) << e;
+    past |= (read && x == n_last ? 1u : 0u) << e;
+    keep |= (live && x > need_lo && x < need_hi ? 1u : 0u) << e;
+  }
+  const double* fl_hi = f.p[kLast + 1];
+  const int64_t fl_hi_s = f.s[kLast + 1][0];
+  if (fl_hi != nullptr && NDIM == 3) fl_hi += m * f.s[kLast + 1][1];
+  if (past == 0u) fl_hi = nullptr;
+  // In 3D, the rows at m ± 1: row i at base + i · stride, from T inside
+  // the core, from the axis-1 faces just outside it (null: zeros).
+  const double* mh_base = nullptr;
+  const double* ml_base = nullptr;
+  int64_t mh_s = ts0, ml_s = ts0;
+  if constexpr (NDIM == 3) {
+    if (m + 1 < g.n_mid) {
+      mh_base = t_at + g.ts1;
+    } else if (f.p[3] != nullptr) {
+      mh_base = f.p[3] + col;
+      mh_s = f.s[3][0];
+    }
+    if (m > 0) {
+      ml_base = t_at - g.ts1;
+    } else if (f.p[2] != nullptr) {
+      ml_base = f.p[2] + col;
+      ml_s = f.s[2][0];
+    }
+  }
+  // The strip's outer neighbours: the segment's first lane's left, its
+  // last lane's right, from T, or from a last-axis face at the core's
+  // edge; row i at edge_base[i · edge_s].
+  const int outer = sl == 0 ? first - 1 : first + seg * kN;
+  const double* edge_base = nullptr;
+  int64_t edge_s = ts0;
+  if (live && (sl == 0 || sl == seg - 1) && outer >= need_lo && outer <= need_hi) {
+    if (outer < 0) {
+      edge_base = f.p[kLast];
+      edge_s = f.s[kLast][0];
+      if (edge_base != nullptr && NDIM == 3) edge_base += m * f.s[kLast][1];
+    } else if (outer >= n_last) {
+      edge_base = f.p[kLast + 1];
+      edge_s = fl_hi_s;
+      if (edge_base != nullptr && NDIM == 3) edge_base += m * f.s[kLast + 1][1];
+    } else {
+      edge_base = t_at + (outer - col);
+    }
+  }
+  // This lane's cells of row i of axis 0 (when `on`; else zeros): T in the
+  // core (the cell past it from the last-axis face), the axis-0 faces at
+  // i = -1 and n0; each load straight into its register.
+  auto row = [&](int i, bool on) -> Row {
+    Row r;
+    const bool core = i >= 0 && i < n0;
+    const double* base = core ? t_at + i * ts0 : (i < 0 ? f0_lo : f0_hi);
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      r.v[e] = 0.0;
+      if (on && base != nullptr && ((need >> e) & 1u)) r.v[e] = __ldg(base + seg * e);
+      if (on && core && fl_hi != nullptr && ((past >> e) & 1u)) r.v[e] = __ldg(fl_hi + i * fl_hi_s);
+    }
+    return r;
+  };
+  // The same cells of a row at `base` (null: zeros), inside the core.
+  auto load = [&](const double* base, bool stream) -> Row {
+    Row r;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      r.v[e] = 0.0;
+      if (base != nullptr && ((need >> e) & 1u)) {
+        const double* at = base + seg * e;
+        r.v[e] = !stream ? __ldg(at) : NDIM == 3 ? __ldcs(at) : *at;
+      }
+    }
+    return r;
+  };
+  auto edge_of = [&](int i, bool on) -> double {
+    return on && edge_base != nullptr && i >= 0 && i < n0 ? __ldg(edge_base + i * edge_s) : 0.0;
+  };
+  Row up = row(r0 - 1, true);
+  Row cen = row(r0, true);
+  Row dn = row(r0 + 1, true);
+  double edge = edge_of(r0, true);
+  Row cm = load(c_at + r0 * plane, true);
+  Row mhi, mlo;
+  if constexpr (NDIM == 3) {
+    mhi = load(mh_base == nullptr ? nullptr : mh_base + r0 * mh_s, false);
+    mlo = load(ml_base == nullptr ? nullptr : ml_base + r0 * ml_s, false);
+  }
+  const int up_lane = (sl + seg - 1) & (seg - 1);
+  const int dn_lane = (sl + 1) & (seg - 1);
+  // Every segment loops the launch's run length (the shuffles need the
+  // whole warp); rows past its own run are neither read nor written.
+  for (int k = 0; k < g.run_rows; ++k) {
+    const int i = r0 + k;
+    // The next row's loads, in flight while this one is computed.
+    const bool more = i + 1 < r1;
+    const Row nx = row(i + 2, more);
+    const double edge_nx = edge_of(i + 1, more);
+    const Row cm_nx = load(more ? c_at + (i + 1) * plane : nullptr, true);
+    Row mhi_nx, mlo_nx;
+    if constexpr (NDIM == 3) {
+      mhi_nx = load(more && mh_base != nullptr ? mh_base + (i + 1) * mh_s : nullptr, false);
+      mlo_nx = load(more && ml_base != nullptr ? ml_base + (i + 1) * ml_s : nullptr, false);
+    }
+    const double* c = cen.v;
+    // The neighbours along the last axis: lo[e] at cell - 1, hi[e] at +1;
+    // cell e of the segment's lane before, and after (cyclic).
+    double lo[kN], hi[kN], rot_l[kN], rot_r[kN];
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      rot_l[e] = __shfl_sync(kAll, c[e], up_lane, seg);
+      rot_r[e] = __shfl_sync(kAll, c[e], dn_lane, seg);
+    }
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      lo[e] = sl > 0 ? rot_l[e] : (e > 0 ? rot_l[e - 1] : edge);
+      hi[e] = sl < seg - 1 ? rot_r[e] : (e + 1 < kN ? rot_r[e + 1] : edge);
+    }
+    const bool on = i < r1;
+    double* dst = o_at + i * plane;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      // ((hi - 2c) + lo) · inv, axis 0, then 1, then 2, as lap_at sums.
+      double lap = ((dn.v[e] - 2.0 * c[e]) + up.v[e]) * inv0;
+      if constexpr (NDIM == 3) {
+        lap = lap + ((mhi.v[e] - 2.0 * c[e]) + mlo.v[e]) * inv1;
+        lap = lap + ((hi[e] - 2.0 * c[e]) + lo[e]) * inv2;
+      } else {
+        lap = lap + ((hi[e] - 2.0 * c[e]) + lo[e]) * inv1;
+      }
+      if (on && ((keep >> e) & 1u)) __stcs(dst + seg * e, c[e] + cm.v[e] * lap);
+    }
+    up = cen;
+    cen = dn;
+    dn = nx;
+    edge = edge_nx;
+    cm = cm_nx;
+    if constexpr (NDIM == 3) {
+      mhi = mhi_nx;
+      mlo = mlo_nx;
+    }
+  }
+}
+
 // fused_step_padded: masked_step's lane tiling (16 bytes of a row a lane,
 // runs of rows with the rows above and below carried in registers, widened
 // once, the next row's loads in flight, last-axis neighbours by shuffle),
@@ -914,6 +1169,41 @@ int launch_fused_cm_nd(const S* t, const FaceSet<S>& f, const S* cm, S* o, FaceG
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f64 route's cut (rmt_fused_step_cm_f64_kernel): the narrowest
+// segment whose strip, on its own grid, holds the box's last axis (32
+// lanes where none does), strips on that grid, and runs of kF64RunRows
+// rows, cut shorter where the box gives fewer than kMsFillWarps warps of
+// them.
+template <int NDIM>
+int launch_fused_cm_f64(const double* t, const FaceSet<double>& f, const double* cm, double* o,
+                        FaceGeom g, double inv0, double inv1, double inv2, cudaStream_t stream) {
+  constexpr int kN = NDIM == 2 ? kF64Cells2 : kF64Cells3;
+  if (g.n0 > INT32_MAX || g.n_last > INT32_MAX - 32 * kN) return -2;  // rows, columns in 32 bits
+  int seg = 32;
+  for (int s = kF64MinSeg; s < 32; s *= 2) {
+    const int64_t w = static_cast<int64_t>(s) * kN;
+    if (g.hi_last - (g.lo_last - g.lo_last % w) <= w) {
+      seg = s;
+      break;
+    }
+  }
+  const int64_t width = static_cast<int64_t>(seg) * kN;
+  const int64_t segs = 32 / seg;
+  g.a0 = g.lo_last - g.lo_last % width;
+  g.strips = (g.hi_last - g.a0 + width - 1) / width;
+  const int64_t e0 = g.hi0 - g.lo0;
+  const int64_t cols = g.strips * (g.hi_mid - g.lo_mid);
+  int64_t run_rows = cols * e0 / (static_cast<int64_t>(kMsFillWarps) * segs);
+  run_rows = run_rows < 1 ? 1 : run_rows > kF64RunRows ? kF64RunRows : run_rows;
+  g.run_rows = static_cast<int>(run_rows);
+  g.items = cols * ((e0 + run_rows - 1) / run_rows);
+  const int64_t blocks = ((g.items + segs - 1) / segs + kMsWarps - 1) / kMsWarps;
+  if (blocks > 2147483647LL) return -2;
+  rmt_fused_step_cm_f64_kernel<NDIM><<<static_cast<unsigned>(blocks), kMsWarps * 32, 0, stream>>>(
+      t, f, cm, o, g, seg, inv0, inv1, inv2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // `vec`: the wrapper's layout choice (ops/kernels.face_layout); a launch
 // that asks for the 16-byte layout where a row read as vectors is off the
 // 16-byte grid is refused (-1) rather than misread, as is a row face whose
@@ -958,12 +1248,18 @@ int launch_fused_cm(int ndim, const void* T, const int64_t* t_strides, const int
   const auto* t = static_cast<const S*>(T);
   const auto* cm = static_cast<const S*>(Cm);
   auto* o = static_cast<S*>(out);
-  if constexpr (kVecLayout<S>) {
-    if (vec && !three) return launch_fused_cm_nd<S, 2, true>(t, f, cm, o, g, inv0, inv1, 0.0, stream);
-    if (vec) return launch_fused_cm_nd<S, 3, true>(t, f, cm, o, g, inv0, inv1, inv2, stream);
+  if constexpr (std::is_same_v<S, double>) {  // f64: its own route
+    if (!three) return launch_fused_cm_f64<2>(t, f, cm, o, g, inv0, inv1, 0.0, stream);
+    return launch_fused_cm_f64<3>(t, f, cm, o, g, inv0, inv1, inv2, stream);
+  } else {
+    if constexpr (kVecLayout<S>) {
+      if (vec && !three)
+        return launch_fused_cm_nd<S, 2, true>(t, f, cm, o, g, inv0, inv1, 0.0, stream);
+      if (vec) return launch_fused_cm_nd<S, 3, true>(t, f, cm, o, g, inv0, inv1, inv2, stream);
+    }
+    if (!three) return launch_fused_cm_nd<S, 2, false>(t, f, cm, o, g, inv0, inv1, 0.0, stream);
+    return launch_fused_cm_nd<S, 3, false>(t, f, cm, o, g, inv0, inv1, inv2, stream);
   }
-  if (!three) return launch_fused_cm_nd<S, 2, false>(t, f, cm, o, g, inv0, inv1, 0.0, stream);
-  return launch_fused_cm_nd<S, 3, false>(t, f, cm, o, g, inv0, inv1, inv2, stream);
 }
 
 template <typename S, int NDIM, bool VEC>

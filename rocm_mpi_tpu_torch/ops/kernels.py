@@ -77,9 +77,21 @@ _SIGNATURES = {
 }
 
 
+# Launches of fused_step_cm that took its f64 route (csrc/stencil.cu
+# rmt_fused_step_cm_f64_kernel, which launch_fused_cm picks for every f64
+# launch by the storage type alone) since the last reset_launches(): the
+# wrapper's own launches, eager or recorded into a CUDA graph while it is
+# captured (so a hide run's capture shows five a step), where
+# LAUNCHES["fused_step_cm"] counts what runs (models/scan.py sets the
+# captures aside and adds each replay's recorded launches).
+F64_ROUTE_LAUNCHES = 0
+
+
 def reset_launches() -> None:
+    global F64_ROUTE_LAUNCHES
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    F64_ROUTE_LAUNCHES = 0
 
 
 def inv_d2_of(spacing) -> tuple[float, ...]:
@@ -610,8 +622,11 @@ def fused_step_cm_faces(T, faces, Cm, spacing, box=None, out=None):
 
     Bound on the H100: memory — T, the faces and Cm read once, out written
     once, per box. Design: masked_step's (csrc/stencil.cu
-    rmt_fused_step_cm_kernel), in the layout of face_layout.
+    rmt_fused_step_cm_kernel), in the layout of face_layout; f64 takes a
+    route of its own (rmt_fused_step_cm_f64_kernel, its warps cut by the
+    box's shape), counted in F64_ROUTE_LAUNCHES.
     """
+    global F64_ROUTE_LAUNCHES
     if out is None:
         check_faces("fused_step_cm", T, faces, Cm, box, spacing, None)
         out = torch.empty(T.shape, dtype=T.dtype, device=T.device)
@@ -624,6 +639,8 @@ def fused_step_cm_faces(T, faces, Cm, spacing, box=None, out=None):
            T.ndim, T.data_ptr(), strides, ptrs, fstr, Cm.data_ptr(), out.data_ptr(),
            *extents(T.shape), *box_args(box), *inv3(inv_d2_of(spacing)), vec)
     LAUNCHES["fused_step_cm"] += 1
+    if T.dtype is torch.float64:
+        F64_ROUTE_LAUNCHES += 1
     return out
 
 

@@ -42,7 +42,11 @@ order old, new, new, old, so that a drift of the card's clocks shows.
   card is held behind torch.cuda._sleep, so none waits for the host),
   and the wrapper's host µs a call (calls back to back, no sync);
 - `fused_step_cm`: the sharded main path's kernel at a 6144² shard (2×2
-  of 12288²) in f32, f64 and bf16 and at a 128³ shard in f32: the whole
+  of 12288²) in f32, f64 and bf16, at a 128³ shard in f32 and f64, and at
+  the benchmark's hide rank (diff2d-hide-f64-2x2-12288: 12288² in f64,
+  where each of the five boxes is also timed alone, against its own bytes,
+  and the f64 route's launches a call are counted where the root has the
+  route): the whole
   core from the padded block (`fused_step_cm(Tp)`, every root), the five
   (2D, b_width (32, 4)) or seven (3D, (8, 8, 8)) `hide` boxes from it
   (`fused_step_cm_region`: the interior from the raw shard, the slabs
@@ -80,6 +84,7 @@ object per process follows, and `--json` writes them all.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -109,8 +114,13 @@ PADDED_CASES = (
     ("fused_step_padded", (252, 252), ("f32",)),
     ("fused_step_padded", (96, 64, 48), DTYPES),
 )
-# fused_step_cm's shards: (shape, hide b_width, dtypes).
-FUSED_CASES = (((6144, 6144), (32, 4), DTYPES), ((128, 128, 128), (8, 8, 8), ("f32",)))
+# fused_step_cm's shards: (shape, hide b_width, dtypes); the 128³ shard in
+# f64 too, where the f64 route also takes 3D launches.
+FUSED_CASES = (((6144, 6144), (32, 4), DTYPES), ((128, 128, 128), (8, 8, 8), ("f32", "f64")),
+               ((12288, 12288), (32, 4), ("f64",)))
+# The shard whose hide boxes are also timed one by one: the benchmark's
+# diff2d-hide-f64-2x2-12288 rank.
+FUSED_BOXES_ALONE = (12288, 12288)
 FUSED_LOOP = 200  # launches between the two events of a loop figure
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 MASKED_BIG, MASKED_SMALL = (12288, 12288), (252, 252)
@@ -192,6 +202,32 @@ def loop_ms(torch, fn, calls: int, host: float) -> float:
     return start.elapsed_time(end) / calls
 
 
+def box_bound_ms(box, shape, dt) -> float:
+    """The bytes bound of one box's launch, ms: its cells' T and Cm read and
+    out written once, and the ghost cells beside it on the shard's edges
+    (the faces it reads), at HBM_BYTES_PER_S."""
+    import torch
+
+    cells, ghosts = 1, 0
+    for lo, hi in box:
+        cells *= hi - lo
+    for ax, (lo, hi) in enumerate(box):
+        side = cells // (hi - lo)
+        ghosts += side * ((lo == 0) + (hi == shape[ax]))
+    return (3 * cells + ghosts) * torch.tensor([], dtype=dt).element_size() \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def f64_route_launches(K, run):
+    """Launches of the f64 route (kernels.F64_ROUTE_LAUNCHES) a call of
+    `run`; None where the root has no such route."""
+    if not hasattr(K, "F64_ROUTE_LAUNCHES"):
+        return None
+    before = K.F64_ROUTE_LAUNCHES
+    run()
+    return K.F64_ROUTE_LAUNCHES - before
+
+
 def time_fused(torch, root, result, dev, tdts):
     """fused_step_cm at the sharded main paths' shards (module docstring)."""
     from rocm_mpi_tpu_torch.ops import kernels as K
@@ -232,6 +268,11 @@ def time_fused(torch, root, result, dev, tdts):
                 cases["faces boxes"] = lambda: [K.fused_step_cm_faces(
                     T, none if overlap.ghost_free(b, shape) else faces, Cm, spacing, box=b,
                     out=out) for b in boxes]
+                if shape == FUSED_BOXES_ALONE:
+                    for b in boxes:
+                        cases[f"faces box {b}"] = functools.partial(
+                            K.fused_step_cm_faces, T, none if overlap.ghost_free(b, shape)
+                            else faces, Cm, spacing, box=b, out=out)
             cells = 1
             for n in shape:
                 cells *= n
@@ -242,17 +283,25 @@ def time_fused(torch, root, result, dev, tdts):
                 out.fill_(float("nan"))
                 run()
                 torch.cuda.synchronize()
-                equal = (label == "masked_step" or bool(torch.equal(out, want)))
+                # A single box is held over its own cells, with its own bytes
+                # (its cells' T, Cm and out, and its ghosts on a face).
+                region = run.keywords["box"] if isinstance(run, functools.partial) else None
+                sl = tuple(slice(lo, hi) for lo, hi in region) if region else ()
+                equal = (label == "masked_step" or bool(torch.equal(out[sl], want[sl])))
                 row = {"kernel": "fused_step_cm", "case": label, "shape": list(shape),
-                       "dtype": name, "bitwise": equal, "bound_ms": bound}
+                       "dtype": name, "bitwise": equal,
+                       "bound_ms": box_bound_ms(region, shape, dt) if region else bound}
                 row["ms"] = time_ms(torch, run, 30)
                 row["host_us"] = host_us(torch, run, 200, 5)
                 row["device_ms"] = device_ms(torch, run, 30, row["host_us"])
                 row["loop_ms"] = loop_ms(torch, run, FUSED_LOOP, row["host_us"])
                 result["fused_step_cm"].append(row)
+                if label in ("faces", "faces boxes") and dt == torch.float64:
+                    row["f64_route_launches"] = f64_route_launches(K, run)
                 print(f"[ab] {root} fused_step_cm {'x'.join(map(str, shape))} {name} {label}: "
                       f"per call {row['ms']:.4f} ms, device {row['device_ms']:.4f}, loop "
-                      f"{row['loop_ms']:.4f} ms (of bound {bound / row['loop_ms']:.2f}), host "
+                      f"{row['loop_ms']:.4f} ms (of bound {row['bound_ms'] / row['loop_ms']:.2f})"
+                      f", f64 route launches a call {row.get('f64_route_launches', '-')}, host "
                       f"{row['host_us']:.2f} µs a call, bitwise {equal}", flush=True)
             del Tp, Cm, out, want, T, cases
             torch.cuda.empty_cache()

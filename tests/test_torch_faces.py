@@ -10,6 +10,10 @@ package on the CPU:
   face is None (a domain edge): whole and per `hide` box, 2D and 3D;
 * the wrapper's contract: the views it takes of a padded block, its
   checks, its layout rule, and no launch counted on the CPU;
+* the f64 route (csrc/stencil.cu rmt_fused_step_cm_f64_kernel): every
+  f64 launch and no f32 or bf16 one counted in F64_ROUTE_LAUNCHES, and
+  its cut (segments as narrow as the box, strips on their own grid) in
+  plain PyTorch, bitwise the plain version whole and box by box;
 * on 4 gloo ranks (tests/test_torch_faces_worker.py): every face of
   `exchange_faces` equal to the matching ghost of `exchange_halo`'s
   padded buffer (2×2 and 2×2×1, f32 and bf16 wire), one batch a call,
@@ -251,6 +255,165 @@ def test_cpu_face_calls_do_not_count_launches():
     T, faces, Cm = _inputs((16, 12), np.float64, "all")
     _torch_faces(T, faces, Cm, SPACING[2])
     assert set(K.LAUNCHES.values()) == {0}
+    assert K.F64_ROUTE_LAUNCHES == 0
+
+
+# (shard, hide b_width): the hide cell's cut at a small size (a 32-row
+# frame, 4-column slabs), a ragged last axis, and 3D's seven boxes.
+ROUTE_CASES = [((80, 72), (32, 4)), ((37, 29), (8, 4)), ((12, 10, 8), (2, 2, 2))]
+
+
+@pytest.mark.parametrize("case", range(len(ROUTE_CASES)))
+@pytest.mark.parametrize("dtype", ["f64", "f32", "bf16"])
+def test_f64_route_is_chosen_by_dtype_alone(dtype, case, monkeypatch):
+    # With the dispatch forced to the kernel path on CPU tensors, every f64
+    # launch (the whole shard and each hide box) counts as taking the f64
+    # route, and no f32 or bf16 launch does; the launch hands the kernel the
+    # dtype code its C switch routes on.
+    shape, bw = ROUTE_CASES[case]
+    tdt = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    calls = []
+    monkeypatch.setattr(K, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(K, "launch", lambda *args: calls.append(args))
+    T, faces, Cm = (torch.zeros(shape, dtype=tdt), tuple(
+        torch.zeros(tuple(1 if a == k // 2 else n for a, n in enumerate(shape)), dtype=tdt)
+        for k in range(2 * len(shape))), torch.zeros(shape, dtype=tdt))
+    out = torch.empty(shape, dtype=tdt)
+    boxes = overlap.region_boxes(shape, overlap.effective_b_width(shape, bw))
+    K.reset_launches()
+    K.fused_step_cm_faces(T, faces, Cm, SPACING[len(shape)], out=out)
+    for box in boxes:
+        free = overlap.ghost_free(box, shape)
+        K.fused_step_cm_faces(T, (None,) * len(faces) if free else faces, Cm,
+                              SPACING[len(shape)], box=box, out=out)
+    assert len(boxes) == 2 * len(shape) + 1
+    assert K.LAUNCHES["fused_step_cm"] == 1 + len(boxes)
+    assert K.F64_ROUTE_LAUNCHES == (1 + len(boxes) if dtype == "f64" else 0)
+    assert {args[4] for args in calls} == {K._DTYPE_CODE[tdt]}
+    K.reset_launches()
+    assert K.F64_ROUTE_LAUNCHES == 0
+
+
+def _stencil_constant(name):
+    from rocm_mpi_tpu_torch.ops import resident
+
+    return resident._constant("stencil.cu", name)
+
+
+def _f64_cut(shape, box):
+    """The f64 route's cut of a launch over `box` (csrc/stencil.cu
+    launch_fused_cm_f64): (cells a lane, lanes a segment, the strips'
+    first cell, strips, rows a run)."""
+    cells = _stencil_constant("kF64Cells2" if len(shape) == 2 else "kF64Cells3")
+    (lo, hi), seg = box[-1], 32
+    s = _stencil_constant("kF64MinSeg")
+    while s < 32:
+        if hi - (lo - lo % (s * cells)) <= s * cells:
+            seg = s
+            break
+        s *= 2
+    a0 = lo - lo % (seg * cells)
+    strips = -(-(hi - a0) // (seg * cells))
+    e_mid = box[1][1] - box[1][0] if len(shape) == 3 else 1
+    run = strips * e_mid * (box[0][1] - box[0][0]) // (
+        _stencil_constant("kMsFillWarps") * (32 // seg))
+    return cells, seg, a0, strips, min(max(run, 1), _stencil_constant("kF64RunRows"))
+
+
+def _f64_route_step(T, faces, Cm, inv_d2, box, out, outer=True):
+    """The f64 route in plain PyTorch, one segment at a time: a segment of
+    `seg` lanes walks a strip of seg · cells cells of the last axis (lane
+    l's cells l + seg·e) down a run of rows; a cell's last-axis neighbours
+    from the segment's lanes (a rotation) or, for the strip's two outer
+    cells, the loads of its first and last lane (0 when not `outer`); a
+    row read only at the box's cells and one neighbour a side, from T, the
+    axis-0 faces above and below the core, the cell just past the core
+    from the last-axis face; writes the box's cells of `out`."""
+    nd = T.ndim
+    cells, seg, a0, strips, run_rows = _f64_cut(T.shape, box)
+    n0, n_last = T.shape[0], T.shape[-1]
+    (lo0, hi0), (lo_last, hi_last) = box[0], box[-1]
+    mids = range(*box[1]) if nd == 3 else [None]
+    Tp = K.assemble_padded(T, faces)  # cell (i, [m,] x) at Tp[i + 1, [m + 1,] x + 1]
+    cols = torch.arange(seg)[:, None] + seg * torch.arange(cells)[None, :]
+
+    def cell(i, m, x, reads):
+        """The values at row i, axis-1 index m, columns x (0 where not read:
+        outside the box's reach, or a corner of the padded block)."""
+        x = torch.as_tensor(x)
+        ok = reads & (x >= lo_last - 1) & (x <= hi_last) & (x <= n_last)
+        ok &= (0 <= i < n0) | (x < n_last)
+        at = (i + 1, *(() if m is None else (m + 1,)))
+        return torch.where(ok, Tp[at][x.clamp(-1, n_last) + 1], torch.zeros((), dtype=T.dtype))
+
+    for m in mids:
+        for s in range(strips):
+            first = a0 + s * seg * cells
+            x = first + cols
+            for r0 in range(lo0, hi0, run_rows):
+                for i in range(r0, min(r0 + run_rows, hi0)):
+                    c = cell(i, m, x, True)
+                    rot_l, rot_r = torch.roll(c, 1, dims=0), torch.roll(c, -1, dims=0)
+                    lo, hi = rot_l.clone(), rot_r.clone()
+                    lo[0, 1:], hi[-1, :-1] = rot_l[0, :-1], rot_r[-1, 1:]
+                    lo[0, 0] = cell(i, m, first - 1, outer)
+                    hi[-1, -1] = cell(i, m, first + seg * cells, outer)
+                    lap = ((cell(i + 1, m, x, True) - 2.0 * c) + cell(i - 1, m, x, True)) * inv_d2[0]
+                    if nd == 3:
+                        mh = cell(i, m + 1, x, True)
+                        ml = cell(i, m - 1, x, True)
+                        lap = lap + ((mh - 2.0 * c) + ml) * inv_d2[1]
+                    lap = lap + ((hi - 2.0 * c) + lo) * inv_d2[-1]
+                    at = (i, *(() if m is None else (m,)))
+                    keep = (x >= lo_last) & (x < hi_last)
+                    out[at][x[keep]] = (c + Cm[at][x.clamp(max=n_last - 1)] * lap)[keep]
+    return out
+
+
+# (shard, hide b_width, face set): the hide cell's cut at a small size
+# (4-column slabs: segments of 4 lanes), a ragged last axis (the cell past
+# the core inside a strip), 3D boxes 2 cells wide, and narrow boxes
+# beside a domain edge.
+F64_CUT_CASES = [((80, 72), (32, 4), "all"), ((37, 29), (8, 4), "all"),
+                 ((37, 29), (8, 4), "low-edges"), ((21, 45), (4, 5), "none"),
+                 ((12, 10, 20), (2, 2, 2), "all"), ((9, 7, 3), (2, 2, 1), "low-edges")]
+
+
+@pytest.mark.parametrize("case", range(len(F64_CUT_CASES)))
+def test_f64_route_cut_equals_the_plain_step_bitwise(case):
+    # The f64 route's cut adapts to each box's shape (segments as narrow
+    # as the box, strips on their own grid) and still reads every cell its
+    # box needs, whole and box by box.
+    shape, bw, faces_set = F64_CUT_CASES[case]
+    T, faces, Cm = _inputs(shape, np.float64, faces_set, seed=3)
+    T, Cm = torch.from_numpy(T), torch.from_numpy(Cm)
+    faces = tuple(None if f is None else torch.from_numpy(f) for f in faces)
+    inv_d2 = K.inv_d2_of(SPACING[len(shape)])
+    boxes = overlap.region_boxes(shape, overlap.effective_b_width(shape, bw))
+    segs = {_f64_cut(shape, b)[1] for b in boxes}
+    assert min(segs) < 32  # a narrow box packs several runs into a warp
+    for group in ([K.core_box(shape)], boxes):
+        got = torch.full(shape, float("nan"), dtype=torch.float64)
+        want = torch.full(shape, float("nan"), dtype=torch.float64)
+        for b in group:
+            _f64_route_step(T, faces, Cm, inv_d2, b, got)
+            K.fused_step_cm_faces_plain(T, faces, Cm, inv_d2, box=b, out=want)
+        assert torch.equal(got, want)
+
+
+def test_the_f64_route_needs_the_outer_loads():
+    # Without its first and last lanes' loads of the strip's outer
+    # neighbours a segment does not give the step.
+    T, faces, Cm = _inputs((80, 72), np.float64, "all", seed=4)
+    T, Cm = torch.from_numpy(T), torch.from_numpy(Cm)
+    faces = tuple(torch.from_numpy(f) for f in faces)
+    inv_d2 = K.inv_d2_of(SPACING[2])
+    box = ((32, 48), (0, 4))
+    got = _f64_route_step(T, faces, Cm, inv_d2, box, torch.zeros(80, 72, dtype=torch.float64),
+                          outer=False)
+    want = K.fused_step_cm_faces_plain(T, faces, Cm, inv_d2, box=box,
+                                       out=torch.zeros(80, 72, dtype=torch.float64))
+    assert not torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -238,8 +238,9 @@ def test_swe_app_module_runs_on_cpu_and_reports_mass_drift(extra):
 
 def test_face_variants_script_finds_what_it_rewrites():
     # scripts/torch_face_variants.py rewrites these lines of csrc/stencil.cu
-    # (the run length, the register cap, the kernel's launch bounds): a
-    # rename there must fail here, not on the card.
+    # (the shared kernel's run length, register cap and launch bounds; the
+    # f64 route's cells a lane, run length, launch bounds and its switch):
+    # a rename there must fail here, not on the card.
     import importlib.util
 
     path = REPO / "scripts" / "torch_face_variants.py"
@@ -247,5 +248,12 @@ def test_face_variants_script_finds_what_it_rewrites():
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     src = (REPO / "rocm_mpi_tpu_torch" / "csrc" / "stencil.cu").read_text()
-    assert len(script.MARKERS) == 3
+    assert len(script.MARKERS) == 8
     assert [m for m in script.MARKERS if m not in src] == []
+    # Each variant rewrites what it names, and only its own route's lines.
+    assert script.variant_source(src, "shared:8:6").count("if constexpr (false) {") == 1
+    f64 = script.variant_source(src, "f64:2:1:8:6")
+    assert "constexpr int kF64Cells2 = 2;" in f64 and "constexpr int kF64Cells3 = 1;" in f64
+    assert "constexpr int kF64RunRows = 8;" in f64
+    assert script.F64_LAUNCH.replace("32)", "32, 6)") in f64 and script.RUN in f64
+    assert script.variant_source(src, "f64:4:2:3:0") == src  # the checkout's route
